@@ -1,0 +1,92 @@
+"""Convert the reference's parameter and cache pytrees to the port, and
+caches back, through numpy.
+
+The caller turns the reference's JAX arrays into numpy first (for
+example ``jax.tree.map(np.asarray, params)``), so this module never sees
+JAX.  Leaves are named by the key paths of the reference's
+``train/checkpoint.py::_flatten``: dict keys and tuple indices joined by
+``/`` (``groups/0/0/attn/wq``).  Block-group leaves are stacked
+``(reps, ...)``; they are unstacked into ``Transformer.groups[gi][j]``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Key-path flattening of nested dicts/tuples/lists of arrays."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    flat = {}
+    for k, v in items:
+        flat.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return flat
+
+
+@torch.no_grad()
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
+                      dtype=torch.float32) -> Transformer:
+    """The port's :class:`Transformer` holding the reference's weights."""
+    model = Transformer(cfg, dtype, device)
+    flat = flatten(tree)
+    filled = set()
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "groups":
+            gi, j, rest = int(parts[1]), int(parts[2]), ".".join(parts[3:])
+            slot = model.groups[gi][j]
+            if arr.shape[0] != len(slot):
+                raise ValueError(f"{key}: {arr.shape[0]} reps, model has "
+                                 f"{len(slot)}")
+            for rep, blk in enumerate(slot):
+                _copy(blk.get_parameter(rest), arr[rep], key)
+                filled.add(f"groups.{gi}.{j}.{rep}.{rest}")
+        else:
+            name = ".".join(parts)
+            _copy(model.get_parameter(name), arr, key)
+            filled.add(name)
+    missing = {n for n, _ in model.named_parameters()} - filled
+    if missing:
+        raise ValueError(f"parameters not in the tree: {sorted(missing)}")
+    return model
+
+
+def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
+    if tuple(param.shape) != arr.shape:
+        raise ValueError(f"{key}: shape {arr.shape}, port expects "
+                         f"{tuple(param.shape)}")
+    param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
+def cache_from_numpy(tree, device="cuda", dtype=None):
+    """A reference cache pytree (numpy leaves) as torch tensors with the
+    same structure; float leaves take ``dtype`` when it is given."""
+    if isinstance(tree, dict):
+        return {k: cache_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(cache_from_numpy(v, device, dtype) for v in tree)
+    t = torch.from_numpy(np.array(tree)).to(device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+def cache_to_numpy(tree):
+    """Inverse of :func:`cache_from_numpy` (f32 for float leaves)."""
+    if isinstance(tree, dict):
+        return {k: cache_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(cache_to_numpy(v) for v in tree)
+    if tree.is_floating_point():
+        tree = tree.float()
+    return tree.detach().cpu().numpy()

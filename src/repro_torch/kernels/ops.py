@@ -1,0 +1,38 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a
+tensor on the card goes to the hand-written kernel, whose wrapper raises
+on what it cannot take.  There is no switch and no fallback: the device
+of the operands decides.
+"""
+from __future__ import annotations
+
+from . import decode_attn, flash_prefill as _prefill, paged_decode_attn, ref
+
+
+def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
+                  window: int = 0, q_offset: int = 0):
+    """GQA flash attention of (B,Tq,H,Dh) queries at positions
+    ``q_offset + i`` over (B,Tk,Hkv,Dh) keys."""
+    if q.device.type == "cpu":
+        return ref.flash_prefill_ref(q, k, v, lengths, causal=causal,
+                                     window=window, q_offset=q_offset)
+    return _prefill.flash_prefill(q, k, v, lengths, causal=causal,
+                                  window=window, q_offset=q_offset)
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
+    """One-token decode attention over a contiguous cache."""
+    if q.device.type == "cpu":
+        return ref.flash_decode_ref(q, k_cache, v_cache, pos, ring=ring)
+    return decode_attn.flash_decode(q, k_cache, v_cache, pos, ring=ring)
+
+
+def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
+                       ring: bool = False):
+    """One-token decode attention over a paged pool."""
+    if q.device.type == "cpu":
+        return ref.paged_flash_decode_ref(q, k_pool, v_pool, block_tables,
+                                          pos, s_len=s_len, ring=ring)
+    return paged_decode_attn.paged_flash_decode(
+        q, k_pool, v_pool, block_tables, pos, s_len=s_len, ring=ring)

@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the three attention kernels.
+
+Each function computes exactly what its CUDA kernel computes, with the
+reference's jnp math (``repro/models/attention.py``): f32 scores and
+softmax, masking by adding ``NEG_INF`` rather than ``-inf``.  The CPU
+path of the model runs these; ``chip_smoke.py`` and the card tests hold
+each kernel against them.  Rows whose keys are all masked are garbage
+here and in the kernels alike (finite, but not comparable).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _gqa_scores(q, k):
+    """q: (B,Tq,H,Dh), k: (B,Tk,Hkv,Dh) -> (B,Hkv,G,Tq,Tk) f32."""
+    B, Tq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Tq, Hkv, H // Hkv, Dh).float()
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (Dh ** -0.5)
+
+
+def _gqa_out(p, v):
+    """p: (B,Hkv,G,Tq,Tk) f32, v: (B,Tk,Hkv,Dh) -> (B,Tq,H,Dh) f32."""
+    B, Hkv, G, Tq, Tk = p.shape
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Tq, Hkv * G, v.shape[-1])
+
+
+def flash_prefill_ref(q, k, v, lengths=None, *, causal: bool = True,
+                      window: int = 0, q_offset: int = 0):
+    """Exact GQA attention of Tq queries at positions ``q_offset + i``
+    over Tk keys at positions ``0..Tk-1``.
+
+    q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) valid key counts.
+    Generalises the reference ``flash_prefill`` (Tq == Tk, offset 0) to
+    chunked prefill, where a chunk attends over the whole cache."""
+    B, Tq, H, Dh = q.shape
+    Tk = k.shape[1]
+    s = _gqa_scores(q, k)
+    qpos = torch.arange(Tq, device=q.device) + q_offset
+    kpos = torch.arange(Tk, device=q.device)
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    zero = torch.zeros((), device=q.device)
+    bias = torch.where(mask, zero, NEG_INF)[None, None, None]
+    if lengths is not None:
+        kvalid = kpos[None, :] < lengths.to(q.device)[:, None]   # (B,Tk)
+        bias = bias + torch.where(kvalid, zero, NEG_INF)[
+            :, None, None, None, :]
+    p = torch.softmax(s + bias, dim=-1)
+    return _gqa_out(p, v).to(q.dtype)
+
+
+def decode_valid(pos, S: int, ring: bool):
+    """(B,S) slot validity: ``slot <= pos``, or every slot of a ring
+    cache once it has wrapped (``pos >= S``)."""
+    slot = torch.arange(S, device=pos.device)
+    valid = slot[None] <= pos[:, None]
+    if ring:
+        valid = valid | (pos[:, None] >= S)
+    return valid
+
+
+def flash_decode_ref(q, k_cache, v_cache, pos, *, ring: bool = False):
+    """One query token per row over a contiguous cache.
+
+    q: (B,H,Dh) or (B,1,H,Dh); caches: (B,S,Hkv,Dh); pos: (B,) index of
+    the newest token (already written).  Returns q's shape."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q = q[:, None]
+    S = k_cache.shape[1]
+    s = _gqa_scores(q, k_cache)                         # (B,Hkv,G,1,S)
+    valid = decode_valid(pos.to(q.device), S, ring)
+    zero = torch.zeros((), device=q.device)
+    s = s + torch.where(valid, zero, NEG_INF)[:, None, None, None, :]
+    out = _gqa_out(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
+def gather_paged_kv(pool, block_tables, s_len: int):
+    """Reassemble per-request caches from a shared page pool.
+
+    pool: (n_pages, page, ...); block_tables: (B, pages_per_seq).
+    Returns (B, s_len, ...).  Table entries are clipped into range, as
+    JAX's gather clamps them."""
+    n_pages, page = pool.shape[:2]
+    bt = block_tables.long().clamp(0, n_pages - 1)
+    g = pool[bt]                                        # (B, n_p, page, ...)
+    B, n_p = g.shape[:2]
+    g = g.reshape((B, n_p * page) + tuple(g.shape[3:]))
+    return g[:, :s_len]
+
+
+def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, pos, *,
+                           s_len: int, ring: bool = False):
+    """Paged decode: gather pages into the contiguous layout, then
+    contiguous decode (page placement cannot change the result)."""
+    k_cache = gather_paged_kv(k_pool, block_tables, s_len)
+    v_cache = gather_paged_kv(v_pool, block_tables, s_len)
+    return flash_decode_ref(q, k_cache, v_cache, pos, ring=ring)

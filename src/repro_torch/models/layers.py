@@ -1,0 +1,94 @@
+"""Shared layer primitives: norms, RoPE, MLPs, embeddings, init helpers.
+
+PyTorch counterpart of ``repro/models/layers.py``.  Weights keep the
+reference layout — projections are ``(d_in, d_out)`` and applied as
+``x @ w`` — so parameters convert one to one through numpy.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Normal(0, scale²) weight of shape ``(d_in, d_out)`` on the
+    generator's device (``scale`` defaults to ``d_in ** -0.5``)."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype):
+    return dense_init(gen, vocab, d_model, dtype, scale=d_model ** -0.5)
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    """RMSNorm over the last axis, scaled by ``(1 + w)``, in f32."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + w.float())).to(dt)
+
+
+def head_rms_norm(x, w, eps: float = 1e-6):
+    """Per-head RMSNorm over d_head (qwen3 qk-norm). x: (..., H, Dh)."""
+    return rms_norm(x, w, eps)
+
+
+# ---------------------------------------------------------------- RoPE ----
+def rope_angles(positions, d_head: int, theta: float):
+    """positions: (...,) int -> cos, sin of shape (..., d_head//2), f32."""
+    half = d_head // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    # a Python-float base: a tensor made from ``theta`` on the card would
+    # be a host-to-device copy, which synchronises the stream every layer
+    freqs = torch.pow(float(theta), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate half-split halves. x: (B, T, H, Dh); cos/sin: (B, T, Dh//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    while cos.ndim < x.ndim:
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLP ----
+def mlp_apply(p, x, act: str):
+    """Gated MLP; ``p`` holds ``gate``, ``up`` and ``down`` weights."""
+    h = x @ p["up"]
+    g = x @ p["gate"]
+    if act == "silu":
+        g = F.silu(g)
+    elif act == "gelu":
+        g = F.gelu(g, approximate="tanh")    # jax.nn.gelu's default
+    else:
+        raise NotImplementedError(
+            f"activation {act!r} arrives with its model family's slice")
+    return (g * h) @ p["down"]
+
+
+# ----------------------------------------------------------- embedding ----
+def embed_apply(emb, tokens):
+    """Row gather; out-of-range ids clamp, as ``jnp.take`` does."""
+    return F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
+
+
+def unembed_apply(w, x):
+    """w: (vocab, d) head; returns f32 logits.
+
+    On the card a low-precision head is multiplied in its own dtype with
+    an f32 output, so no f32 copy of the (vocab, d) head is made per
+    step; elsewhere the product runs in f32, as the reference does."""
+    if w.is_cuda and w.dtype != torch.float32:
+        x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
+        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[0],))
+    return x.float() @ w.float().t()

@@ -1,0 +1,345 @@
+"""Model assembly for the dense attention path: prefill, chunked prefill
+and decode over a contiguous or a paged KV cache.
+
+PyTorch counterpart of ``repro/models/transformer.py`` for configs whose
+blocks are all ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
+llama2-13b).  The reference stacks each block group's parameters on a
+``reps`` axis and runs ``lax.scan``; here each block is an
+:class:`AttnBlock` module in ``Transformer.groups[gi][j][rep]`` and a
+Python loop over reps replaces the scan.  Caches keep the reference's
+pytree layout — ``{"pos", "block_tables", "groups"}`` with ``(reps, ...)``
+leaves per pattern slot — so the engine's gather/scatter code ports line
+for line; they are preallocated and updated in place.
+
+Public API (functions of ``(cfg, model, ...)``):
+
+    init_params(cfg, seed, dtype, device)   -> Transformer
+    init_cache(cfg, batch, cache_len, ...)  -> zeroed cache pytree
+    init_paged_cache(cfg, batch, cache_len, n_pages, page_size, ...)
+    prefill(cfg, model, tokens, lengths, cache_len) -> (last logits, cache)
+    prefill_chunk(cfg, model, tokens, cache, start, lengths)
+    decode_step(cfg, model, token, cache, page_size, paged_len)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from . import attention, layers
+from .config import (BLOCK_ATTN, BLOCK_CROSS, BLOCK_MOE, BLOCK_REC,
+                     BLOCK_RWKV, ModelConfig)
+
+_LATER_SLICE = {
+    BLOCK_MOE: "the MoE slice of the port",
+    BLOCK_REC: "the recurrent-family slice of the port",
+    BLOCK_RWKV: "the recurrent-family slice of the port",
+    BLOCK_CROSS: "the VLM/encoder slice of the port",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what this slice does not port."""
+    for pattern, _ in cfg.block_groups():
+        for btype in pattern:
+            if btype != BLOCK_ATTN:
+                raise NotImplementedError(
+                    f"{cfg.name}: {btype!r} blocks arrive with "
+                    f"{_LATER_SLICE.get(btype, 'a later slice')}")
+    if cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoders arrive with the VLM/encoder slice")
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            f"{cfg.name}: int8 KV caches arrive with the int8 slice")
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class _Params(nn.Module):
+    """A module whose parameters are also read as ``p["name"]``, the
+    reference's dict access, so the attention and MLP functions port
+    unchanged."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+class Attention(_Params):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        e = dict(dtype=dtype, device=device)
+        self.wq = _param(torch.empty(d, cfg.q_dim, **e))
+        self.wk = _param(torch.empty(d, cfg.kv_dim, **e))
+        self.wv = _param(torch.empty(d, cfg.kv_dim, **e))
+        self.wo = _param(torch.empty(cfg.q_dim, d, **e))
+        if cfg.qk_norm:
+            self.q_norm = _param(torch.zeros(cfg.d_head, **e))
+            self.k_norm = _param(torch.zeros(cfg.d_head, **e))
+
+
+class MLP(_Params):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        e = dict(dtype=dtype, device=device)
+        self.gate = _param(torch.empty(cfg.d_model, cfg.d_ff, **e))
+        self.up = _param(torch.empty(cfg.d_model, cfg.d_ff, **e))
+        self.down = _param(torch.empty(cfg.d_ff, cfg.d_model, **e))
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm self-attention + gated MLP (``BLOCK_ATTN``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        e = dict(dtype=dtype, device=device)
+        self.ln1 = _param(torch.zeros(cfg.d_model, **e))
+        self.ln2 = _param(torch.zeros(cfg.d_model, **e))
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    def _norm1(self, x):
+        return layers.rms_norm(x, self.ln1, self.cfg.norm_eps)
+
+    def _mlp_residual(self, x):
+        h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + layers.mlp_apply(self.mlp, h, self.cfg.act)
+
+    def prefill(self, x, positions, lengths, kv, *, window: int,
+                cache_len: int):
+        a = attention.self_attn_forward(
+            self.cfg, self.attn, self._norm1(x), positions, lengths,
+            window=window, cache=kv, cache_len=cache_len)
+        return self._mlp_residual(x + a)
+
+    def chunk(self, x, start: int, kv, active):
+        a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
+                                      start, kv, active)
+        return self._mlp_residual(x + a)
+
+    def decode(self, x, pos, kv, *, window: int, block_tables=None,
+               page_size: int = 0, paged_len: int = 0):
+        h = self._norm1(x)
+        if block_tables is not None:
+            a = attention.self_attn_decode_paged(
+                self.cfg, self.attn, h, pos, kv, block_tables,
+                page_size=page_size, s_len=paged_len, window=window)
+        else:
+            a = attention.self_attn_decode(self.cfg, self.attn, h, pos, kv,
+                                           window=window)
+        return self._mlp_residual(x + a)
+
+
+class Transformer(_Params):
+    """Embedding, block groups and head.  ``groups[gi][j][rep]`` is the
+    block at pattern slot ``j`` of repetition ``rep`` in group ``gi`` —
+    the reference's stacked ``params["groups"][gi][j]`` unstacked."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        e = dict(dtype=dtype, device=device)
+        self.embed = _param(torch.empty(cfg.vocab_size, cfg.d_model, **e))
+        self.ln_f = _param(torch.zeros(cfg.d_model, **e))
+        if not cfg.tie_embeddings:
+            self.unembed = _param(torch.empty(cfg.vocab_size, cfg.d_model,
+                                              **e))
+        self.groups = nn.ModuleList(
+            nn.ModuleList(nn.ModuleList(AttnBlock(cfg, dtype, device)
+                                        for _ in range(reps))
+                          for _ in pattern)
+            for pattern, reps in cfg.block_groups())
+
+    @property
+    def head(self) -> torch.Tensor:
+        return self.embed if self.cfg.tie_embeddings else self.unembed
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    def blocks(self):
+        """(gi, j, rep, block) in execution order."""
+        for gi, group in enumerate(self.groups):
+            for rep in range(len(group[0])):
+                for j, slot in enumerate(group):
+                    yield gi, j, rep, slot[rep]
+
+
+# ----------------------------------------------------------------- init ---
+@torch.no_grad()
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+                device="cuda") -> Transformer:
+    """Random weights from a seeded ``torch.Generator`` on ``device``,
+    with the reference's shapes and scales (``layers.dense_init`` /
+    ``embed_init``: normal times ``fan_in ** -0.5``; norms zero).  The
+    numbers differ from the reference's ``jax.random`` ones; parity
+    tests convert the reference's weights through ``bridge.py``."""
+    model = Transformer(cfg, dtype, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    model.embed.copy_(layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype))
+    if not cfg.tie_embeddings:
+        model.unembed.copy_(layers.embed_init(gen, cfg.vocab_size,
+                                              cfg.d_model, dtype))
+    for _, _, _, blk in model.blocks():
+        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
+                  blk.mlp.gate, blk.mlp.up, blk.mlp.down):
+            w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], dtype))
+    return model
+
+
+# ---------------------------------------------------------------- cache ---
+def _kv_slot(leading, cfg: ModelConfig, dtype, device):
+    shape = tuple(leading) + (cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.float32, device="cuda"):
+    """Zeroed contiguous cache on ``device``; attention caches sized
+    ``cfg.attn_cache_len(cache_len)`` (window-capped)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    S = cfg.attn_cache_len(cache_len)
+    groups = tuple(
+        tuple(_kv_slot((reps, batch, S), cfg, dtype, device)
+              for _ in pattern)
+        for pattern, reps in cfg.block_groups())
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "groups": groups}
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     n_pages: int, page_size: int, dtype=torch.float32,
+                     device="cuda"):
+    """Paged decode-pool cache: K/V live in a shared page pool
+    ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot, indexed
+    through ``block_tables`` (batch, ceil(attn_cache_len / page_size));
+    the caller owns the table contents."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    S = cfg.attn_cache_len(cache_len)
+    n_p = -(-S // page_size)
+    groups = tuple(
+        tuple(_kv_slot((reps, n_pages, page_size), cfg, dtype, device)
+              for _ in pattern)
+        for pattern, reps in cfg.block_groups())
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "block_tables": torch.zeros((batch, n_p), dtype=torch.int32,
+                                        device=device),
+            "groups": groups}
+
+
+def effective_window(cfg: ModelConfig) -> int:
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    if cfg.arch_type == "hybrid":
+        return cfg.local_window
+    return 0
+
+
+def supports_paged_decode(cfg: ModelConfig) -> bool:
+    return cfg.has_decode and any(
+        b in (BLOCK_ATTN, BLOCK_MOE)
+        for pat, _ in cfg.block_groups() for b in pat)
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    return cfg.chunkable_prefill
+
+
+def _kv(cache, gi: int, j: int, rep: int):
+    slot = cache["groups"][gi][j]
+    return slot["k"][rep], slot["v"][rep]
+
+
+# -------------------------------------------------------------- drivers ---
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
+            cache_len: Optional[int] = None):
+    """Process full prompts; returns (last-token logits (B,V) f32, cache).
+
+    tokens: (B,T) int; lengths: (B,) prompt lengths (default T)."""
+    x = layers.embed_apply(model.embed, tokens)
+    B, T, _ = x.shape
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    cache_len = cache_len or cfg.max_seq_len
+    cache = init_cache(cfg, B, cache_len, x.dtype, x.device)
+    positions = torch.arange(T, device=x.device)
+    win = effective_window(cfg)
+    for gi, j, rep, blk in model.blocks():
+        x = blk.prefill(x, positions, lengths, _kv(cache, gi, j, rep),
+                        window=win, cache_len=cache_len)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    idx = (lengths.long() - 1).clamp(0, T - 1)
+    last = x[torch.arange(B, device=x.device), idx]
+    cache["pos"] = lengths.to(torch.int32)
+    return layers.unembed_apply(model.head, last), cache
+
+
+@torch.no_grad()
+def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
+                  start: int, lengths):
+    """One chunked-prefill step: prompt tokens at absolute positions
+    [start, start+Tc) against ``cache`` (from ``init_cache``), written in
+    place.  lengths: (B,) FULL prompt lengths.
+
+    Returns (last_logits (B,V), cache); ``last_logits[b]`` is row b's
+    next-token distribution only when its last prompt position lies in
+    this chunk.  Rows already finished (length <= start) keep their
+    cache bit for bit.  The caller sets ``cache['pos']`` to ``lengths``
+    after the final chunk."""
+    x = layers.embed_apply(model.embed, tokens)
+    B, Tc, _ = x.shape
+    active = lengths.to(x.device) > start
+    for gi, j, rep, blk in model.blocks():
+        x = blk.chunk(x, start, _kv(cache, gi, j, rep), active)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    idx = (lengths.to(x.device).long() - 1 - start).clamp(0, Tc - 1)
+    last = x[torch.arange(B, device=x.device), idx]
+    return layers.unembed_apply(model.head, last), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
+                page_size: int = 0, paged_len: int = 0):
+    """token: (B,) int.  Returns (logits (B,V) f32, cache) with the
+    cache's K/V written in place and ``pos`` advanced for every row
+    (dead rows too, as in the reference).
+
+    Caches from ``init_paged_cache`` (they carry ``block_tables``)
+    decode against the page pool; ``page_size`` is then the pool's page
+    size and ``paged_len`` the request-level cache length (default: the
+    tables' full span)."""
+    x = layers.embed_apply(model.embed, token[:, None])
+    pos = cache["pos"]
+    bt = cache.get("block_tables")
+    if bt is not None:
+        if page_size <= 0:
+            raise ValueError("paged decode_step needs page_size")
+        paged_len = paged_len or bt.shape[1] * page_size
+    win = effective_window(cfg)
+    for gi, j, rep, blk in model.blocks():
+        x = blk.decode(x, pos, _kv(cache, gi, j, rep), window=win,
+                       block_tables=bt, page_size=page_size,
+                       paged_len=paged_len)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return layers.unembed_apply(model.head, x[:, 0]), cache

@@ -1,0 +1,108 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points run on the card unless told otherwise."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+PKG = Path(repro_torch.__file__).resolve().parent
+SRC = PKG.parent
+
+
+def _modules():
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_every_module_imports_without_jax_or_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.MULTILINE)
+
+
+def test_sources_name_no_jax_or_reference_import():
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for m in _FORBIDDEN.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(SRC)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (BucketServeScheduler, MemoryBudget,
+                                  SchedulerConfig)
+    from repro_torch.core.engine import ServingEngine, TorchEngineBackend
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
+    model = tfm.init_params(cfg, seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sched = BucketServeScheduler(
+        cfg, MemoryBudget(2 ** 30, 1, 0), SchedulerConfig())
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ServingEngine(cfg, model, sched)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TorchEngineBackend(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tfm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        serve.main(["--smoke", "--requests", "1"])
+
+
+def test_cpu_serve_launcher_prints_the_summary(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",
+                "--requests", "4", "--paged", "--page-size", "32",
+                "--chunk", "64", "--slots", "4"])
+    out = capsys.readouterr().out
+    assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
+    assert "prefill shapes:" in out and "buckets: [" in out
+    assert "kernel launches: flash_prefill 0, paged_flash_decode 0, " \
+           "flash_decode 0" in out
+
+
+def test_init_params_shapes_and_scales():
+    """The port's own init: reference shapes, normal times fan_in**-0.5,
+    zero norms, reproducible from the seed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
+    a = tfm.init_params(cfg, seed=3, device="cpu")
+    b = tfm.init_params(cfg, seed=3, device="cpu")
+    for (na, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(pa, pb), na
+    blk = a.groups[0][0][0]
+    assert blk.attn.wq.shape == (cfg.d_model, cfg.q_dim)
+    assert blk.mlp.down.shape == (cfg.d_ff, cfg.d_model)
+    assert float(blk.ln1.abs().max()) == 0.0
+    std = float(blk.mlp.down.std())
+    assert abs(std - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
