@@ -11,10 +11,11 @@ goes through six phases, each printing its own lines:
 2. build: the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one process per source in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the reference's sweep shapes (f32 and bf16) and at the main path's
-   shapes (Qwen3-14B attention: H=40, Hkv=8, Dh=128, bf16), with its
-   time, the plain version's time, the card's bound for the same work and
-   ``scaled_dot_product_attention``'s time as a yardstick;
+   the reference's sweep shapes and at the main path's shapes (Qwen3-14B
+   attention: H=40, Hkv=8, Dh=128), both in f32 and in bf16; at the main
+   path's bf16 shapes also its time, the plain version's time, the card's
+   bound for the same work and ``scaled_dot_product_attention``'s time as
+   a yardstick;
 4. model parity: a smoke-size qwen3-14b through the kernels on the card
    and through the plain versions on the CPU, same weights;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
@@ -44,6 +45,11 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, H100 SXM
 TOL = {"float32": dict(atol=1e-4, rtol=1e-3),         # summation order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# Main-path shapes: kernel and plain version both accumulate in f32 and
+# round the output to bf16 once, so they differ by about one bf16 ulp
+# (2**-7 relative) at most; a dropped or misplaced key tile does not.
+MAIN_TOL = {"float32": TOL["float32"],
+            "bfloat16": dict(atol=2e-3, rtol=1e-2)}
 MAIN = dict(H=40, Hkv=8, Dh=128)                      # Qwen3-14B attention
 
 PREFILL_SHAPES = [   # (B, T, H, Hkv, Dh, window, causal): reference sweep
@@ -96,20 +102,20 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def assert_close(torch, name, got, want, dtype, valid=None) -> float:
+def assert_close(torch, name, got, want, tol, valid=None) -> float:
     g, w = got.float(), want.float()
     if valid is not None:
         g, w = g[valid], w[valid]
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
-    torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name}: {m}")
+    torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{name}: {m}")
     return float((g - w).abs().max())
 
 
 # ------------------------------------------------------------ kernels ---
 def kernel_phase(torch):
     from repro_torch.kernels import ops, ref
-    F = torch.nn.functional
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -131,7 +137,7 @@ def kernel_phase(torch):
                                          window=window)
             valid = (torch.arange(T, device=dev)[None] < lens[:, None])
             assert_close(torch, f"flash_prefill{(B, T, H, Hkv, Dh)}", got,
-                         want, dtype, valid)
+                         want, TOL[dtype], valid)
             n_checked += 1
         for B, S, H, Hkv, Dh, ring in DECODE_SHAPES:
             q, kc, vc = rnd((B, H, Dh), dtype), rnd((B, S, Hkv, Dh), dtype), \
@@ -142,7 +148,7 @@ def kernel_phase(torch):
             assert_close(torch, f"flash_decode{(B, S, H, Hkv, Dh)}",
                          ops.flash_decode(q, kc, vc, pos, ring=ring),
                          ref.flash_decode_ref(q, kc, vc, pos, ring=ring),
-                         dtype)
+                         TOL[dtype])
             n_checked += 1
         for B, S, H, Hkv, Dh, page, ring in PAGED_SHAPES:
             q = rnd((B, H, Dh), dtype)
@@ -159,111 +165,134 @@ def kernel_phase(torch):
                                          ring=ring)
             assert_close(torch, f"paged_flash_decode{(B, S, H, Hkv, Dh)}",
                          got, ref.paged_flash_decode_ref(
-                             q, kp, vp, bt, pos, s_len=S, ring=ring), dtype)
+                             q, kp, vp, bt, pos, s_len=S, ring=ring),
+                         TOL[dtype])
             contig = ops.flash_decode(
                 q, ref.gather_paged_kv(kp, bt, S).contiguous(),
                 ref.gather_paged_kv(vp, bt, S).contiguous(), pos, ring=ring)
-            assert_close(torch, "paged vs contiguous", got, contig, dtype)
+            assert_close(torch, "paged vs contiguous", got, contig,
+                         TOL[dtype])
             n_checked += 1
     log("kernels", f"{n_checked} sweep cases agree with the plain versions "
         f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-2 rtol 2e-2)")
 
-    # main-path shapes, bf16
-    dt, H, Hkv, Dh = "bfloat16", MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
-    G, esz = H // Hkv, 2
-    rows = {}
+    # main-path shapes: f32 against the tight tolerance, then bf16 (the
+    # served dtype) checked and timed
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        esz, tol = (4 if dt == "float32" else 2), MAIN_TOL[dt]
+        timed = dt == "bfloat16"
 
-    # whole-prompt prefill, T = 2048
-    T = 2048
-    q, k, v = rnd((1, T, H, Dh), dt), rnd((1, T, Hkv, Dh), dt), \
-        rnd((1, T, Hkv, Dh), dt)
-    lens = torch.tensor([T], dtype=torch.int32, device=dev)
-    got = ops.flash_prefill(q, k, v, lens)
-    err = assert_close(torch, "flash_prefill main", got,
-                       ref.flash_prefill_ref(q, k, v, lens), dt)
-    pairs = T * (T + 1) // 2
-    b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
-                          4.0 * pairs * H * Dh, dt)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    rows["flash_prefill T=2048"] = dict(
-        ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, lens), 10),
-        plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(q, k, v, lens),
-                         5, 1),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        # whole-prompt prefill, T = 2048
+        T = 2048
+        q, k, v = rnd((1, T, H, Dh), dt), rnd((1, T, Hkv, Dh), dt), \
+            rnd((1, T, Hkv, Dh), dt)
+        lens = torch.tensor([T], dtype=torch.int32, device=dev)
+        got = ops.flash_prefill(q, k, v, lens)
+        err = assert_close(torch, f"flash_prefill main {dt}", got,
+                           ref.flash_prefill_ref(q, k, v, lens), tol)
+        worst[f"flash_prefill T=2048 {dt}"] = err
+        if timed:
+            pairs = T * (T + 1) // 2
+            b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
+                                  4.0 * pairs * H * Dh, dt)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows["flash_prefill T=2048"] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, lens),
+                           10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, lens), 5, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q, k, v, got
 
-    # chunked prefill: Tc = 512 at q_offset 1536 over a 4096-slot cache
-    Tc, off, S = 512, 1536, 4096
-    q, k, v = rnd((1, Tc, H, Dh), dt), rnd((1, S, Hkv, Dh), dt), \
-        rnd((1, S, Hkv, Dh), dt)
-    got = ops.flash_prefill(q, k, v, q_offset=off)
-    err = assert_close(torch, "flash_prefill chunk", got,
-                       ref.flash_prefill_ref(q, k, v, q_offset=off), dt)
-    live = off + Tc                       # keys the causal mask reaches
-    pairs = Tc * off + Tc * (Tc + 1) // 2
-    b_ms, b_by = bound_ms(esz * (2 * Tc * H * Dh + 2 * live * Hkv * Dh),
-                          4.0 * pairs * H * Dh, dt)
-    mask = (torch.arange(Tc, device=dev)[:, None] + off
-            >= torch.arange(S, device=dev)[None])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    rows["flash_prefill chunk 512@1536/4096"] = dict(
-        ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, q_offset=off),
-                   10),
-        plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
-            q, k, v, q_offset=off), 5, 1),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), 10),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        # chunked prefill: Tc = 512 at q_offset 1536 over a 4096-slot cache
+        Tc, off, S = 512, 1536, 4096
+        q, k, v = rnd((1, Tc, H, Dh), dt), rnd((1, S, Hkv, Dh), dt), \
+            rnd((1, S, Hkv, Dh), dt)
+        got = ops.flash_prefill(q, k, v, q_offset=off)
+        err = assert_close(torch, f"flash_prefill chunk {dt}", got,
+                           ref.flash_prefill_ref(q, k, v, q_offset=off), tol)
+        worst[f"flash_prefill chunk 512@1536/4096 {dt}"] = err
+        if timed:
+            live = off + Tc                   # keys the causal mask reaches
+            pairs = Tc * off + Tc * (Tc + 1) // 2
+            b_ms, b_by = bound_ms(
+                esz * (2 * Tc * H * Dh + 2 * live * Hkv * Dh),
+                4.0 * pairs * H * Dh, dt)
+            mask = (torch.arange(Tc, device=dev)[:, None] + off
+                    >= torch.arange(S, device=dev)[None])
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows["flash_prefill chunk 512@1536/4096"] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(
+                    q, k, v, q_offset=off), 10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, q_offset=off), 5, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q, k, v, got
 
-    # decode: B = 8 at context 2048 over 4096-slot caches, page 128
-    B, S, ctx, page = 8, 4096, 2048, 128
-    q = rnd((B, H, Dh), dt)
-    kc, vc = rnd((B, S, Hkv, Dh), dt), rnd((B, S, Hkv, Dh), dt)
-    pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
-    kv_bytes = esz * 2 * B * ctx * Hkv * Dh
-    io_bytes = esz * 2 * B * H * Dh + 4 * B
-    flops = 4.0 * B * H * ctx * Dh
-    got = ops.flash_decode(q, kc, vc, pos)
-    err = assert_close(torch, "flash_decode main", got,
-                       ref.flash_decode_ref(q, kc, vc, pos), dt)
-    dmask = (torch.arange(S, device=dev)[None] <= pos[:, None])[:, None,
-                                                                 None]
-    q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    sdpa_decode = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kt, vt, attn_mask=dmask, enable_gqa=True), 20)
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops, dt)
-    rows["flash_decode B=8 ctx=2048"] = dict(
-        ms=time_ms(torch, lambda: ops.flash_decode(q, kc, vc, pos), 50),
-        plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(q, kc, vc, pos),
-                         10),
-        library_ms=sdpa_decode, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=err)
+        # decode: B = 8 at context 2048 over 4096-slot caches, page 128
+        B, S, ctx, page = 8, 4096, 2048, 128
+        q = rnd((B, H, Dh), dt)
+        kc, vc = rnd((B, S, Hkv, Dh), dt), rnd((B, S, Hkv, Dh), dt)
+        pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+        kv_bytes = esz * 2 * B * ctx * Hkv * Dh
+        io_bytes = esz * 2 * B * H * Dh + 4 * B
+        flops = 4.0 * B * H * ctx * Dh
+        got = ops.flash_decode(q, kc, vc, pos)
+        err = assert_close(torch, f"flash_decode main {dt}", got,
+                           ref.flash_decode_ref(q, kc, vc, pos), tol)
+        worst[f"flash_decode B=8 ctx=2048 {dt}"] = err
+        if timed:
+            dmask = (torch.arange(S, device=dev)[None]
+                     <= pos[:, None])[:, None, None]
+            q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            sdpa_decode = time_ms(torch, lambda: sdpa(
+                q4, kt, vt, attn_mask=dmask, enable_gqa=True), 20)
+            b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops, dt)
+            rows["flash_decode B=8 ctx=2048"] = dict(
+                ms=time_ms(torch, lambda: ops.flash_decode(q, kc, vc, pos),
+                           50),
+                plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
+                    q, kc, vc, pos), 10),
+                library_ms=sdpa_decode, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
 
-    n_p = S // page
-    n_pages = B * n_p + 1
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
-    bt = perm[:B * n_p].reshape(B, n_p).to(torch.int32)
-    kp = torch.zeros((n_pages, page, Hkv, Dh), dtype=kc.dtype, device=dev)
-    vp = torch.zeros_like(kp)
-    kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
-    vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
-    got = ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=S)
-    err = max(assert_close(torch, "paged_flash_decode main", got,
-                           ref.paged_flash_decode_ref(q, kp, vp, bt, pos,
-                                                      s_len=S), dt),
-              assert_close(torch, "paged vs contiguous main", got,
-                           ref.flash_decode_ref(q, kc, vc, pos), dt))
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
-                          flops, dt)
-    rows["paged_flash_decode B=8 ctx=2048 page=128"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_flash_decode(
-            q, kp, vp, bt, pos, s_len=S), 50),
-        plain_ms=time_ms(torch, lambda: ref.paged_flash_decode_ref(
-            q, kp, vp, bt, pos, s_len=S), 10),
-        library_ms=None, sdpa_contiguous_ms=sdpa_decode,
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        n_p = S // page
+        n_pages = B * n_p + 1
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+        bt = perm[:B * n_p].reshape(B, n_p).to(torch.int32)
+        kp = torch.zeros((n_pages, page, Hkv, Dh), dtype=kc.dtype, device=dev)
+        vp = torch.zeros_like(kp)
+        kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
+        vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
+        got = ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=S)
+        err = max(assert_close(torch, f"paged_flash_decode main {dt}", got,
+                               ref.paged_flash_decode_ref(
+                                   q, kp, vp, bt, pos, s_len=S), tol),
+                  assert_close(torch, f"paged vs contiguous main {dt}", got,
+                               ref.flash_decode_ref(q, kc, vc, pos), tol))
+        worst[f"paged_flash_decode B=8 ctx=2048 page=128 {dt}"] = err
+        if timed:
+            b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
+                                  flops, dt)
+            rows["paged_flash_decode B=8 ctx=2048 page=128"] = dict(
+                ms=time_ms(torch, lambda: ops.paged_flash_decode(
+                    q, kp, vp, bt, pos, s_len=S), 50),
+                plain_ms=time_ms(torch, lambda: ref.paged_flash_decode_ref(
+                    q, kp, vp, bt, pos, s_len=S), 10),
+                library_ms=None, sdpa_contiguous_ms=sdpa_decode,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q, kc, vc, kp, vp, got
+        torch.cuda.empty_cache()
 
+    log("kernels", "main-path shapes agree with the plain versions (f32 "
+        "atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2); max abs err: "
+        + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f", sdpa on the gathered cache {r['sdpa_contiguous_ms']:.4f}"
@@ -344,7 +373,8 @@ def serve_phase(torch):
                                   Request, SchedulerConfig, TaskType)
     from repro_torch.core.engine import ServingEngine
     from repro_torch.kernels import runtime
-    from repro_torch.launch.serve import device_memory_bytes
+    from repro_torch.launch.serve import (default_pool_tokens,
+                                          device_memory_bytes)
     from repro_torch.models import transformer as tfm
     import dataclasses
 
@@ -421,7 +451,7 @@ def serve_phase(torch):
 
     free, total = torch.cuda.mem_get_info(dev)
     per_tok = cfg.kv_bytes_per_token(2)
-    pool_tokens = int(0.4 * free) // per_tok
+    pool_tokens = default_pool_tokens(cfg, model, dev)
     log("serve", f"device memory free {free / 2**30:.1f} of "
         f"{total / 2**30:.1f} GiB after the weights; paged pool "
         f"{pool_tokens} tokens ({pool_tokens * per_tok / 2**30:.1f} GiB, "

@@ -27,7 +27,11 @@ spans and the loop interleaves decode iterations between spans.  The
 batch's prefill cache is allocated on the device once per job.
 
 Not in this slice (raise ``NotImplementedError``): the prefix cache,
-session retention, the host spill tier and int8 KV caches.
+session retention, the host spill tier and int8 KV caches.  The
+reference engine's slice-boundary yield, fault injection and recovery,
+trace recording and time scaling are not exposed either: the loop runs
+with its defaults (no slicing, no faults, wall clock at scale 1) until a
+slice holds those paths against the reference.
 """
 from __future__ import annotations
 
@@ -42,7 +46,6 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from . import paging
 from .batcher import FormedBatch
-from .faults import FaultInjector
 from .request import Request
 from .serving_loop import (LoopConfig, PrefillJob, ServeResult, ServingLoop,
                            WallClock, plan_chunks)
@@ -108,7 +111,6 @@ class TorchEngineBackend:
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, *,
                  max_slots: int = 8, cache_len: Optional[int] = None,
-                 time_scale: float = 1.0,
                  chunk_tokens: Optional[int] = None,
                  paged: bool = False, page_size: int = 128,
                  kv_pool_tokens: Optional[int] = None,
@@ -133,7 +135,7 @@ class TorchEngineBackend:
         self.max_slots = max_slots
         self.cache_len = cache_len or cfg.max_seq_len
         self.chunk_tokens = chunk_tokens
-        self.clock = WallClock(time_scale)
+        self.clock = WallClock()
         self.supports_decode = cfg.has_decode
         self.flops_per_token = 2.0 * cfg.active_param_count()
         self.paged = paged
@@ -176,31 +178,24 @@ class TorchEngineBackend:
         self.next_tok = torch.zeros((max_slots,), dtype=torch.int32,
                                     device=self.device)
         self.outputs: Dict[int, List[int]] = {}
-        self._prefill_shapes: Dict[tuple, int] = {}
-        self.n_prefill_shapes = 0
+        self._prefill_shapes: set = set()
 
     # ------------------------------------------------------- shapes -----
     def _note_shape(self, kind: str, length: int, bsz: int) -> None:
         """The reference compiles one executable per (pad_to, bsz) shape
         and counts them; eager PyTorch needs none, but the count is kept
         (serve.py prints it, the tests compare it)."""
-        key = (kind, length, bsz)
-        if key not in self._prefill_shapes:
-            self._prefill_shapes[key] = len(self._prefill_shapes)
-            self.n_prefill_shapes += 1
+        self._prefill_shapes.add((kind, length, bsz))
+
+    @property
+    def n_prefill_shapes(self) -> int:
+        return len(self._prefill_shapes)
 
     # --------------------------------------------------------- protocol --
     def begin(self, requests: Sequence[Request]) -> None:
         for r in requests:
             r.materialize_tokens(self.cfg.vocab_size)
-            if r.sliced_tokens > 0:
-                # cold resume of a slice-promoted request: the promoted ids
-                # are the LAST sliced_tokens of the prompt
-                self.outputs[r.rid] = [
-                    int(t) for t in
-                    r.tokens[r.prompt_len - r.sliced_tokens:r.prompt_len]]
-            else:
-                self.outputs[r.rid] = []
+            self.outputs[r.rid] = []
         self.clock.start()
 
     def kv_budget_tokens(self) -> float:
@@ -218,7 +213,7 @@ class TorchEngineBackend:
         return min(r.prompt_len + 1, self.s_attn)
 
     def _decode_tokens(self, r: Request) -> int:
-        return min(r.prompt_len + r.generated - r.sliced_tokens, self.s_attn)
+        return min(r.prompt_len + r.generated, self.s_attn)
 
     def free_blocks(self) -> int:
         return self.alloc.free_pages() if self.paged else 1 << 30
@@ -251,30 +246,8 @@ class TorchEngineBackend:
                 self._bt.sync(slot, r.rid, self.alloc)
         return victims
 
-    def on_slice_yield(self, req: Request, keep: int) -> None:
-        out = self.outputs.get(req.rid)
-        if out is not None:
-            del out[keep:]
-
     def on_preempt_reset(self, req: Request) -> None:
         self.outputs[req.rid] = []       # regenerated after re-prefill
-
-    # ------------------------------------------- fault/drain teardown -----
-    def abort_prefill(self, req: Request) -> None:
-        if self.paged:
-            self.alloc.release(req.rid)
-            self._bt.forget(req.rid)
-
-    def evict_request(self, req: Request) -> None:
-        slot = self._slot_of.pop(req.rid, None)
-        if slot is not None:
-            self.slot_req[slot] = None
-        if self.paged:
-            self.alloc.release(req.rid)
-            if slot is not None:
-                self._bt.clear(slot, req.rid)
-            else:
-                self._bt.forget(req.rid)
 
     def chunk_plan(self, batch: FormedBatch) -> List[Tuple[int, int]]:
         total = max(batch.pad_to, 8)     # min real-tensor prompt width
@@ -457,36 +430,24 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
-                 time_scale: float = 1.0,
                  chunk_tokens: Optional[int] = None, paged: bool = False,
                  page_size: int = 128,
                  kv_pool_tokens: Optional[int] = None,
                  prefix_cache: bool = False,
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
-                 slice_tokens: Optional[int] = None,
-                 recorder=None, tracer=None,
-                 fault_plan=None, recovery=None,
-                 restore_timeout: float = 30.0,
                  device="cuda"):
         self.cfg = cfg
         self.model = model
         self.sched = scheduler
         self.backend = TorchEngineBackend(
             cfg, model, max_slots=max_slots, cache_len=cache_len,
-            time_scale=time_scale, chunk_tokens=chunk_tokens, paged=paged,
+            chunk_tokens=chunk_tokens, paged=paged,
             page_size=page_size, kv_pool_tokens=kv_pool_tokens,
             prefix_cache=prefix_cache, session_ttl=session_ttl,
             host_pool_tokens=host_pool_tokens, device=device)
-        faults = None
-        if fault_plan is not None and fault_plan.any_armed:
-            faults = FaultInjector(fault_plan)
-        self.faults = faults
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(
-            mode="disagg", decode_slot_cap=max_slots,
-            slice_tokens=slice_tokens, restore_timeout=restore_timeout),
-            recorder=recorder, tracer=tracer,
-            faults=faults, recovery=recovery)
+            mode="disagg", decode_slot_cap=max_slots))
         self.result: Optional[ServeResult] = None
         self._pending: List[Request] = []
 

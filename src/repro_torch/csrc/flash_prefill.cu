@@ -191,9 +191,9 @@ template <typename T, int DH, int TPR>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
            int window, int q_offset, cudaStream_t stream) {
-  const int G = H / Hkv;
   const int rows = kThreads / TPR;
-  if (G < 1 || G > rows || H % Hkv != 0) return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > rows) return cudaErrorInvalidValue;
+  const int G = H / Hkv;
   const int BQ = rows / G;
   const size_t smem = 2u * kBK * DH * sizeof(float);
   auto kern = flash_prefill_kernel<T, DH, TPR>;

@@ -10,8 +10,6 @@ import torch
 
 from . import runtime
 
-DH_SUPPORTED = (64, 80, 128, 256)
-
 
 def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
     """q: (B,H,Dh) or (B,1,H,Dh); caches: (B,S,Hkv,Dh) on the card;
@@ -27,14 +25,12 @@ def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
     if (k_cache.shape != (B, S, Hkv, Dh) or v_cache.shape != k_cache.shape
             or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype):
         raise ValueError("flash_decode: cache shapes/dtypes do not match q")
-    if Dh not in DH_SUPPORTED or H % Hkv or (H // Hkv) * Dh > 2048:
-        raise ValueError(f"flash_decode: Dh={Dh}, H={H}, Hkv={Hkv}")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     err = runtime.library().rt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), B, S, H, Hkv, Dh, int(ring),
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
-    runtime.check(err, "flash_decode")
+    runtime.check(err, "flash_decode", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_decode"] += 1
     return out[:, None] if squeeze else out

@@ -11,8 +11,6 @@ import torch
 
 from . import runtime
 
-DH_SUPPORTED = (64, 80, 128, 256)
-
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
                   window: int = 0, q_offset: int = 0):
@@ -27,8 +25,6 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
         raise ValueError(f"flash_prefill: shapes/dtypes q {tuple(q.shape)} "
                          f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, "
                          f"v {tuple(v.shape)} {v.dtype}")
-    if Dh not in DH_SUPPORTED or H % Hkv:
-        raise ValueError(f"flash_prefill: Dh={Dh}, H={H}, Hkv={Hkv}")
     lens_ptr = None
     if lengths is not None:
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
@@ -40,6 +36,6 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_ptr, out.data_ptr(),
         B, Tq, Tk, H, Hkv, Dh, int(causal), int(window), int(q_offset),
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
-    runtime.check(err, "flash_prefill")
+    runtime.check(err, "flash_prefill", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_prefill"] += 1
     return out

@@ -125,10 +125,20 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def check(err: int, kernel: str) -> None:
-    """Raise if the launch returned a CUDA error code."""
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def check(err: int, kernel: str, shape: str) -> None:
+    """Raise if the launch returned a CUDA error code.  The C launch is
+    the one place that holds each kernel's limits (supported Dh, G * Dh,
+    table coverage): it returns cudaErrorInvalidValue for a shape outside
+    them without launching."""
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{kernel}: shape not supported by the kernel "
+                         f"({shape})")
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} "
+                           f"({shape})")
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor,

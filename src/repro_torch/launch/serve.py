@@ -2,8 +2,9 @@
 backend.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
-        --arch qwen3-14b [--smoke] [--device cuda|cpu] [--dtype bf16|f32] \\
-        [--chunk 512] [--paged --page-size 128] [--requests 16]
+        --arch qwen3-14b --max-seq-len 4096 [--smoke] [--device cuda|cpu] \\
+        [--dtype bf16|f32] [--chunk 512] [--paged --page-size 128] \\
+        [--requests 16]
 
 ``--backend torch`` runs the real engine (``core/engine.py``): eager
 prefill and decode with slot-pool continuous batching, the attention
@@ -13,6 +14,12 @@ prefill, ``--paged`` swaps the per-slot KV caches for the shared page
 pool (the scheduler then runs the ceil-to-page Eq.-(6) memory model).
 ``--smoke`` serves the reduced config with the plain PyTorch path
 running on the CPU when ``--device cpu`` is given.
+
+At full width on one 80 GB card, pass ``--max-seq-len 4096``: with the
+config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
+160 KiB for Qwen3-14B) does not fit beside the weights.  Without
+``--pool-tokens`` the paged pool takes 40% of the device memory left
+free after the weights.
 
 The output keeps the reference launcher's greppable line
 (``served N/N requests, T tokens in Xs; prefill shapes: ...; buckets:
@@ -57,6 +64,18 @@ def device_memory_bytes(device: torch.device) -> int:
     return free + torch.cuda.memory_allocated(device)
 
 
+def default_pool_tokens(cfg, model, device: torch.device):
+    """Paged pool size when none is given: 40% of the device memory still
+    free after the weights, the rest left to the per-job prefill cache
+    and activations.  None on the CPU, where the engine's default (slots
+    x cache length) stands."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(0.4 * free) // cfg.kv_bytes_per_token(
+        model.embed.element_size())
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="torch", choices=["torch"],
@@ -74,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged KV decode pool (block-table admission)")
     ap.add_argument("--page-size", type=int, default=128)
     ap.add_argument("--pool-tokens", type=int, default=None,
-                    help="total pooled KV tokens (default: slots x "
-                         "max_seq_len)")
+                    help="total pooled KV tokens (default on the card: "
+                         "40%% of the memory free after the weights; on "
+                         "the CPU: slots x max_seq_len)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-seq-len", type=int, default=None,
@@ -117,11 +137,14 @@ def serve(cfg, model, reqs, args, device: torch.device):
                           weight_bytes=cfg.param_count()
                           * model.embed.element_size())
     sched = _make_sched(cfg, budget, args)
+    pool_tokens = args.pool_tokens
+    if args.paged and pool_tokens is None:
+        pool_tokens = default_pool_tokens(cfg, model, device)
     engine = ServingEngine(cfg, model, sched, max_slots=args.slots,
                            cache_len=cfg.max_seq_len,
                            chunk_tokens=args.chunk, paged=args.paged,
                            page_size=args.page_size,
-                           kv_pool_tokens=args.pool_tokens, device=device)
+                           kv_pool_tokens=pool_tokens, device=device)
     runtime.reset_launch_counts()
     engine.submit(reqs)
     t0 = time.perf_counter()

@@ -20,7 +20,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gather_paged_kv  # noqa: F401
 
 from . import layers
 from .config import ModelConfig

@@ -147,7 +147,9 @@ def test_chunked_run_matches_jax_engine_and_whole_prompt():
 
 
 def _mixed(core, spec_cls, gen, n, max_seq, max_new=6, seed=0):
-    """The paged test's heterogeneous workload, clamped for CPU runs."""
+    """The paged test's heterogeneous workload, clamped for CPU runs.
+    Every request arrives at 0: the generator's microsecond gaps would
+    let a busy host change which requests the first batch sees."""
     spec = spec_cls(dataset="mixed", rps=1e6, n_requests=n, seed=seed,
                     max_model_len=max_seq,
                     task_type=core.TaskType.OFFLINE)
@@ -155,6 +157,7 @@ def _mixed(core, spec_cls, gen, n, max_seq, max_new=6, seed=0):
     for r in reqs:
         r.max_new_tokens = min(r.max_new_tokens, max_new)
         r.prompt_len = min(r.prompt_len, max_seq - 16)
+        r.arrival = 0.0
     return reqs
 
 

@@ -354,3 +354,79 @@ def test_cuda_paged_flash_decode(shape, dtype, cuda_exact_f32):
                               ring=ring)
     for w in (want, contig):
         np.testing.assert_allclose(_f32(got), _f32(w), **_cuda_tol(dtype))
+
+
+# The main path at Qwen3-14B's attention widths (H=40, Hkv=8, Dh=128):
+# prefill T=2048, a 512-token chunk at offset 1536 over 4096 slots, and
+# decode of 8 rows at context 2048 over 4096 slots (page 128).
+MAIN = dict(H=40, Hkv=8, Dh=128)
+
+
+def _cuda_main_tol(dtype):
+    # both sides accumulate in f32 and round the output to bf16 once, so
+    # they differ by about one bf16 ulp (2**-7 relative) at most
+    return dict(atol=2e-3, rtol=1e-2) if dtype == "bfloat16" else \
+        dict(atol=1e-4, rtol=1e-3)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", ["prefill", "chunk", "decode", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_main_path_shapes(case, dtype, cuda_exact_f32):
+    dev = cuda_exact_f32
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    rng = np.random.default_rng(7)
+
+    def rnd(*shape):
+        return _t(_normal(rng, shape, dtype), dtype, dev)
+    if case in ("prefill", "chunk"):
+        Tq, Tk, off = (2048, 2048, 0) if case == "prefill" else \
+            (512, 4096, 1536)
+        q, k, v = rnd(1, Tq, H, Dh), rnd(1, Tk, Hkv, Dh), rnd(1, Tk, Hkv, Dh)
+        got = ops.flash_prefill(q, k, v, q_offset=off)
+        wants = [ref.flash_prefill_ref(q, k, v, q_offset=off)]
+    else:
+        B, S, page = 8, 4096, 128
+        q, kc, vc = rnd(B, H, Dh), rnd(B, S, Hkv, Dh), rnd(B, S, Hkv, Dh)
+        pos = torch.full((B,), 2047, dtype=torch.int32, device=dev)
+        wants = [ref.flash_decode_ref(q, kc, vc, pos)]
+        if case == "decode":
+            got = ops.flash_decode(q, kc, vc, pos)
+        else:
+            n_p = S // page
+            bt = torch.from_numpy(rng.permutation(B * n_p + 1)[:B * n_p]
+                                  .reshape(B, n_p).astype(np.int32)).to(dev)
+            kp = torch.zeros((B * n_p + 1, page, Hkv, Dh), dtype=q.dtype,
+                             device=dev)
+            vp = torch.zeros_like(kp)
+            kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
+            vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
+            got = ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=S)
+            wants.append(ref.paged_flash_decode_ref(q, kp, vp, bt, pos,
+                                                    s_len=S))
+    torch.cuda.synchronize()
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   **_cuda_main_tol(dtype))
+
+
+@needs_cuda
+def test_cuda_unsupported_shapes_raise_without_launch(cuda_exact_f32):
+    """The C launch holds each kernel's limits and refuses a shape outside
+    them; the wrapper raises and counts no launch."""
+    dev = cuda_exact_f32
+    runtime.reset_launch_counts()
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 8, 4, 96), device=dev)          # Dh = 96
+    with pytest.raises(ValueError, match="not supported"):
+        ops.flash_prefill(q, q, q)
+    q = torch.zeros((1, 32, 256), device=dev)           # G * Dh = 8192
+    kc = torch.zeros((1, 16, 1, 256), device=dev)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.flash_decode(q, kc, kc, pos)
+    q = torch.zeros((1, 4, 64), device=dev)
+    kp = torch.zeros((4, 16, 2, 64), device=dev)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="not supported"):    # 2 x 16 < 64
+        ops.paged_flash_decode(q, kp, kp, bt, pos, s_len=64)
+    assert all(n == 0 for n in runtime.launch_counts.values())
