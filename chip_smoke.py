@@ -5,25 +5,31 @@
 
 Run from the root of a checkout on a machine with one CUDA card.  It
 imports only ``repro_torch`` (never JAX or the reference package) and
-goes through six phases, each printing its own lines:
+goes through these phases, each printing its own lines:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the three CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one process per source in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the reference's sweep shapes and at the main path's shapes (Qwen3-14B
-   attention: H=40, Hkv=8, Dh=128), both in f32 and in bf16; at the main
-   path's bf16 shapes also its time, the plain version's time, the card's
-   bound for the same work and ``scaled_dot_product_attention``'s time as
-   a yardstick;
-4. model parity: a smoke-size qwen3-14b through the kernels on the card
-   and through the plain versions on the CPU, same weights;
+   the reference's sweep shapes and at the main paths' shapes (Qwen3-14B
+   attention: H=40, Hkv=8, Dh=128; rwkv6-3b's recurrence: 40 heads of
+   64, a 512-token chunk and a decode step of 8 rows), in f32 and in
+   bf16; at the main paths' bf16 shapes also its time, the plain
+   version's time, the card's bound for the same work and, where one
+   PyTorch call computes the same function, that call's time as a
+   yardstick;
+4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
+   the card and through the plain versions on the CPU, same weights;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
    Qwen3-14B (bf16, random weights from a seeded generator on the card,
    cache length 4096), paged pool with chunked prefill, then a short
-   contiguous-pool run; every kernel must have been launched by the path
-   it belongs to; then four full-width decode steps under
-   ``torch.profiler`` (device busy time and idle share);
+   contiguous-pool run, then four full-width decode steps under
+   ``torch.profiler``; the Qwen3-14B model is freed and full-width,
+   full-depth rwkv6-3b is served the same way on the contiguous pool,
+   and profiled.  Launch counts are zeroed before each path and read
+   after it: every kernel must have been launched by the path it belongs
+   to, and ``wkv6`` exactly 32 times per prefill chunk and per decode
+   step;
 6. the kernel table as one JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -32,7 +38,10 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 from __future__ import annotations
 
 import copy
+import functools
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,6 +60,11 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-3),         # summation order
 MAIN_TOL = {"float32": TOL["float32"],
             "bfloat16": dict(atol=2e-3, rtol=1e-2)}
 MAIN = dict(H=40, Hkv=8, Dh=128)                      # Qwen3-14B attention
+WKV_MAIN = dict(B=8, T=512, H=40, hs=64)              # rwkv6-3b chunk
+# wkv6: kernel and plain version both compute in f32 from exactly cast
+# inputs (another summation order), so the f32 tolerance holds for bf16
+# r/k/v too
+WKV_TOL = TOL["float32"]
 
 PREFILL_SHAPES = [   # (B, T, H, Hkv, Dh, window, causal): reference sweep
     (1, 128, 4, 4, 64, 0, True), (2, 200, 8, 2, 64, 0, True),
@@ -60,6 +74,12 @@ DECODE_SHAPES = [    # (B, S, H, Hkv, Dh, ring)
     (2, 256, 8, 2, 64, False), (1, 600, 4, 1, 128, False),
     (2, 256, 8, 8, 64, False), (2, 128, 4, 2, 64, True),
     (1, 512, 16, 2, 80, False)]
+WKV_SHAPES = [       # (B, T, H, hs): reference sweep
+    (1, 64, 2, 64), (2, 100, 4, 64), (1, 128, 1, 32), (2, 48, 8, 16)]
+# constant decays: exp(-exp(3)) forgets at once, exp(-exp(-6)) keeps
+# nearly everything (the case a chunked cumulative-decay form overflows)
+WKV_DECAYS = {"strong": math.exp(-math.exp(3.0)),
+              "weak": math.exp(-math.exp(-6.0))}
 PAGED_SHAPES = [     # (B, S, H, Hkv, Dh, page, ring)
     (2, 256, 8, 2, 64, 128, False), (2, 256, 8, 8, 64, 128, False),
     (1, 600, 4, 1, 128, 128, False), (1, 300, 4, 2, 64, 128, False),
@@ -80,14 +100,41 @@ def nvidia_smi_line() -> str:
 
 
 # ------------------------------------------------------------- timing ---
+def _events(torch):
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms(torch) -> float:
+    """Clock cycles ``torch.cuda._sleep`` spins per millisecond on this
+    card (measured once)."""
+    start, end = _events(torch)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 2e7 / start.elapsed_time(end)
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls after ``warmup``."""
+    back-to-back calls after ``warmup``.  The calls are queued behind a
+    sleep kernel that outlasts their host-side work, so a call whose
+    host work takes longer than its device work (a short kernel, a small
+    decode step) is timed by the device work.  A call that makes more
+    launches than the launch queue holds is still paced by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = _events(torch)
+    torch.cuda._sleep(int(sleep_cycles_per_ms(torch)
+                          * (2 * iters * host_ms + 1.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -304,6 +351,115 @@ def kernel_phase(torch):
     return rows
 
 
+def wkv6_phase(torch):
+    """wkv6 against its plain version on the card: the reference sweep
+    and the two decay extremes in f32 and bf16, then rwkv6-3b's chunk of
+    512 and decode step (8 rows, 40 heads of 64), checked with f32 and
+    bf16 r/k/v (the state written over s0, as the model does) and timed
+    in bf16."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def inputs(B, T, H, hs, dtype, w):
+        r, k, v = (rnd((B, T, H, hs)).to(dtype) for _ in range(3))
+        return r, k, v, w, rnd((H, hs), 0.1), rnd((B, H, hs, hs), 0.1)
+
+    def check(name, args):
+        y, sT = ops.wkv6(*args)
+        want_y, want_s = ref.wkv6_ref(*args)
+        return max(assert_close(torch, f"{name} y", y, want_y, WKV_TOL),
+                   assert_close(torch, f"{name} sT", sT, want_s, WKV_TOL))
+
+    def check_weak(name, args):
+        """Weak decay over 512 steps: the state grows to ~1/(1-w) = 400
+        steps of k v, and y is a 64-term sum of such terms that can cancel
+        to near 0, where the two f32 summation orders differ by more than
+        atol 1e-4 (1.72e-4 measured on the card).  There the kernel must
+        be as exact as the plain version: its error against a float64
+        evaluation at most twice the plain version's."""
+        y, sT = ops.wkv6(*args)
+        want_y, want_s = ref.wkv6_ref(*args)
+        exact, _ = ref.wkv6_ref(*(a.double() for a in args))
+        err_k = float((y.double() - exact).abs().max())
+        err_p = float((want_y.double() - exact).abs().max())
+        if not torch.isfinite(y).all() or err_k > 2 * err_p + 1e-6:
+            raise AssertionError(f"{name}: max abs err vs float64 kernel "
+                                 f"{err_k:.3g}, plain {err_p:.3g}")
+        assert_close(torch, f"{name} sT", sT, want_s, WKV_TOL)
+        log("kernels", f"{name}: max |y| {float(exact.abs().max()):.4g}; "
+            f"max abs err vs float64: kernel {err_k:.3g}, plain {err_p:.3g}; "
+            f"kernel vs plain {float((y - want_y).abs().max()):.3g}")
+        return float((y - want_y).abs().max())
+
+    n_checked, worst = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, H, hs in WKV_SHAPES:
+            w = torch.sigmoid(rnd((B, T, H, hs))).to(dtype).float()
+            check(f"wkv6{(B, T, H, hs)} {dtype}",
+                  inputs(B, T, H, hs, dtype, w))
+            n_checked += 1
+        for name, decay in WKV_DECAYS.items():
+            B, T, H, hs = 2, 512, 4, 64
+            w = torch.full((B, T, H, hs), decay, device=dev)
+            worst[f"{name} decay {dtype}"] = \
+                (check_weak if name == "weak" else check)(
+                    f"wkv6 {name} decay {dtype}",
+                    inputs(B, T, H, hs, dtype, w))
+            n_checked += 1
+    log("kernels", f"wkv6: {n_checked} sweep and decay cases agree with the "
+        f"plain version (atol 1e-4 rtol 1e-3, f32 and bf16 r/k/v; the weak "
+        f"decay against float64, above); max abs err vs plain "
+        + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+    rows = {}
+    B, T, H, hs = (WKV_MAIN[k] for k in ("B", "T", "H", "hs"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, TT in ((f"wkv6 chunk B={B} T={T}", T),
+                          (f"wkv6 decode B={B}", 1)):
+            # the model's decay: exp(-exp(w0 + lora)), w0 = -0.5
+            w = torch.exp(-torch.exp(rnd((B, TT, H, hs)) - 0.5))
+            r, k, v, w, u, s0 = inputs(B, TT, H, hs, dtype, w)
+            s0 = rnd((B, H, hs, hs))
+            want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+            state = s0.clone()
+            y, _ = ops.wkv6(r, k, v, w, u, state, state_out=state)
+            err = max(assert_close(torch, f"{label} y", y, want_y, WKV_TOL),
+                      assert_close(torch, f"{label} sT", state, want_s,
+                                   WKV_TOL))
+            worst[f"{label} {dtype}"] = err
+            if dtype != torch.bfloat16:
+                continue
+            esz = 2
+            elems = B * TT * H * hs
+            nbytes = (3 * esz + 4 + 4) * elems + 4 * H * hs \
+                + 2 * 4 * B * H * hs * hs
+            # the work the function needs, per (b, t, h): r.S (2 flops per
+            # state element), k v^T (1) and w S + kv (2), plus the bonus
+            # term, which is rank 1: (sum_k r_k u_k k_k) v_t, 5 flops per
+            # channel
+            b_ms, b_by = bound_ms(nbytes, 5.0 * elems * (hs + 1), "float32")
+            rows[label] = dict(
+                ms=time_ms(torch, lambda: ops.wkv6(r, k, v, w, u, s0),
+                           20 if TT > 1 else 100),
+                plain_ms=time_ms(torch, lambda: ref.wkv6_ref(
+                    r, k, v, w, u, s0), 3 if TT > 1 else 20, 1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+    log("kernels", "wkv6 main-path shapes agree with the plain version "
+        "(atol 1e-4 rtol 1e-3); max abs err: " + "; ".join(
+            f"{k} {v:.3g}" for k, v in worst.items() if "B=" in k))
+    for name, r in rows.items():
+        log("kernels", f"{name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library null (no single PyTorch call "
+            f"computes this recurrence), max abs err {r['max_abs_err']:.3g}")
+    return rows
+
+
 # ------------------------------------------------------------- parity ---
 def parity_phase(torch):
     """Smoke qwen3-14b at f32: kernels on the card vs plain on the CPU."""
@@ -366,82 +522,192 @@ def to_paged(torch, tfm, cfg, cache, page=16):
     return paged
 
 
-# -------------------------------------------------------------- serve ---
-def serve_phase(torch):
-    from repro_torch.configs import get_config
-    from repro_torch.core import (BucketServeScheduler, MemoryBudget,
-                                  Request, SchedulerConfig, TaskType)
-    from repro_torch.core.engine import ServingEngine
+def rwkv_parity_phase(torch):
+    """Smoke rwkv6-3b at f32: the wkv6 kernel on the card vs the plain
+    loop on the CPU, same weights and inputs: prefill, chunked prefill in
+    16-token chunks, then 8 decode steps from the chunked carries."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import runtime
-    from repro_torch.launch.serve import (default_pool_tokens,
-                                          device_memory_bytes)
     from repro_torch.models import transformer as tfm
-    import dataclasses
+    cfg = get_smoke_config("rwkv6-3b", max_seq_len=128)
+    cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    lens = torch.tensor([40, 17, 29], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen,
+                         dtype=torch.int32)
+    ids, worst = [], 0.0
 
+    def compare(lc, lg, what):
+        nonlocal worst
+        lg = lg.cpu()
+        torch.testing.assert_close(lg, lc, atol=1e-4, rtol=0,
+                                   msg=lambda m: f"rwkv {what}: {m}")
+        worst = max(worst, float((lg - lc).abs().max()))
+        a, b = lc.argmax(-1).tolist(), lg.argmax(-1).tolist()
+        if a != b:
+            raise AssertionError(f"rwkv {what}: token ids cpu {a} cuda {b}")
+        ids.append(a)
+
+    runtime.reset_launch_counts()
+    lc, _ = tfm.prefill(cfg, cpu_model, toks, lens, cache_len=128)
+    lg, _ = tfm.prefill(cfg, gpu_model, toks.cuda(), lens.cuda(),
+                        cache_len=128)
+    compare(lc, lg, "prefill")
+    C = 16
+    cc = tfm.init_cache(cfg, 3, 128, device="cpu")
+    cg = tfm.init_cache(cfg, 3, 128, device="cuda")
+    first_c, first_g = torch.zeros_like(lc), torch.zeros_like(lc)
+    n_chunks = 0
+    for s in range(0, toks.shape[1], C):
+        l1, cc = tfm.prefill_chunk(cfg, cpu_model, toks[:, s:s + C], cc, s,
+                                   lens)
+        l2, cg = tfm.prefill_chunk(cfg, gpu_model, toks[:, s:s + C].cuda(),
+                                   cg, s, lens.cuda())
+        fin = ((lens - 1) >= s) & ((lens - 1) < s + C)
+        first_c[fin], first_g[fin] = l1[fin], l2.cpu()[fin]
+        n_chunks += 1
+    compare(first_c, first_g, "chunked prefill")
+    cc["pos"], cg["pos"] = lens.clone(), lens.cuda()
+    tok = first_c.argmax(-1).to(torch.int32)
+    for step in range(8):
+        lc, cc = tfm.decode_step(cfg, cpu_model, tok, cc)
+        lg, cg = tfm.decode_step(cfg, gpu_model, tok.cuda(), cg)
+        compare(lc, lg, f"decode step {step}")
+        tok = lc.argmax(-1).to(torch.int32)   # same inputs both sides
+    torch.cuda.synchronize()
+    want = cfg.n_layers * (1 + n_chunks + 8)
+    if runtime.launch_counts["wkv6"] != want:
+        raise AssertionError(f"rwkv parity: wkv6 launched "
+                             f"{runtime.launch_counts['wkv6']} times, "
+                             f"expected {want}")
+    log("parity", f"rwkv6-3b smoke: prefill, {n_chunks} chunks of {C}, 8 "
+        f"decode steps; logits within atol 1e-4 (f32), max abs difference "
+        f"{worst:.3g}; token ids identical: {ids}; wkv6 launched {want} "
+        f"times on the card")
+
+
+# -------------------------------------------------------------- serve ---
+SERVE_LENGTHS = [64, 2048, 300, 1024, 128, 1536, 512, 96, 1800, 700, 256,
+                 1200]
+ATTENTION_KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode")
+
+
+def make_model(torch, arch, cfg):
+    """Full-width bf16 weights from a seeded generator on the card, and a
+    full-width forward that must give finite logits of the right shape."""
+    from repro_torch.models import transformer as tfm
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("qwen3-14b"), max_seq_len=4096)
     t0 = time.perf_counter()
     model = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log("serve", f"qwen3-14b full width: {cfg.n_layers} layers, d_model "
+    params = list(model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in params)
+    n_f32 = sum(p.numel() for p in params if p.dtype == torch.float32)
+    log("serve", f"{arch} full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {wbytes / 1e9:.2f} GB of bf16 "
-        f"weights made on the card in {time.perf_counter() - t0:.1f} s; "
-        f"cache length {cfg.max_seq_len} (the config's 32768 cut to fit "
-        f"the batch prefill cache and the pool beside the weights)")
-
-    # a full-width forward gives finite logits of the expected shape
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in params) / 1e9:.3f} B parameters "
+        f"({n_f32 / 1e6:.2f} M of them f32, the rest bf16), "
+        f"{wbytes / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
     toks = torch.randint(0, cfg.vocab_size, (1, 64), device=dev,
                          dtype=torch.int32)
     logits, cache = tfm.prefill(cfg, model, toks, cache_len=128)
     if logits.shape != (1, cfg.vocab_size) or \
             not torch.isfinite(logits).all():
-        raise AssertionError(f"full-width logits {tuple(logits.shape)} "
-                             "not finite / wrong shape")
-    del logits, cache
+        raise AssertionError(f"{arch}: full-width logits "
+                             f"{tuple(logits.shape)} not finite / wrong "
+                             f"shape")
+    return model, wbytes
 
-    def requests(lengths, max_new):
-        return [Request(rid=i, prompt_len=L, max_new_tokens=max_new,
-                        arrival=0.0, task_type=TaskType.ONLINE)
-                for i, L in enumerate(lengths)]
+
+def requests(lengths, max_new):
+    from repro_torch.core import Request, TaskType
+    return [Request(rid=i, prompt_len=L, max_new_tokens=max_new,
+                    arrival=0.0, task_type=TaskType.ONLINE)
+            for i, L in enumerate(lengths)]
+
+
+def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None):
+    from repro_torch.core import (BucketServeScheduler, MemoryBudget,
+                                  SchedulerConfig)
+    from repro_torch.core.engine import ServingEngine
+    from repro_torch.launch.serve import device_memory_bytes
+    dev = torch.device("cuda")
+    budget = MemoryBudget(hbm_bytes_per_device=device_memory_bytes(dev),
+                          n_devices=1, weight_bytes=wbytes)
+    sched = BucketServeScheduler(cfg, budget, SchedulerConfig(
+        max_batch=slots, memory_model="paged" if paged else "sum",
+        page_size=128))
+    return ServingEngine(cfg, model, sched, max_slots=slots,
+                         cache_len=cfg.max_seq_len, chunk_tokens=512,
+                         paged=paged, page_size=128,
+                         kv_pool_tokens=pool_tokens, device=dev)
+
+
+def serve_run(torch, cfg, eng, reqs, label):
+    """Serve ``reqs`` with the launch counts zeroed just before; returns
+    (counts, stats, model steps run: prefill chunks and decode steps)."""
+    from repro_torch.kernels import runtime
+    be = eng.backend
+    steps = {"prefill": 0, "decode": 0}
+
+    def counted(fn, key):
+        def call(*args):
+            steps[key] += 1
+            return fn(*args)
+        return call
+    be.prefill_chunk = counted(be.prefill_chunk, "prefill")
+    be.decode_iter = counted(be.decode_iter, "decode")
+    runtime.reset_launch_counts()
+    eng.submit(reqs)
+    t = time.perf_counter()
+    done = eng.run(max_wall_s=600)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = dict(runtime.launch_counts)
+    if len(done) != len(reqs):
+        raise AssertionError(f"{label}: served {len(done)}/{len(reqs)}")
+    for r in reqs:
+        out = eng.outputs[r.rid]
+        if len(out) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{label}: rid {r.rid} emitted {out}")
+    res = eng.result
+    ntok = sum(r.generated for r in done)
+    log("serve", f"{label}: served {len(done)}/{len(reqs)} requests, "
+        f"{ntok} tokens in {dt:.2f} s ({ntok / dt:.1f} tok/s); TTFT "
+        f"p50 {res.p50('ttft'):.3f} s, p99 {res.p99('ttft'):.3f} s; "
+        f"TPOT p50 {res.p50('tpot') * 1e3:.1f} ms; prefill shapes "
+        f"{eng.n_prefill_shapes}; prefill chunks {steps['prefill']}, decode "
+        f"steps {steps['decode']}, interleaved "
+        f"{eng.interleaved_decode_steps}; launches {counts}")
+    return counts, dict(tok_s=ntok / dt, ttft_p50=res.p50("ttft"),
+                        ttft_p99=res.p99("ttft"),
+                        tpot_p50=res.p50("tpot"), seconds=dt), steps
+
+
+def serve_phase(torch):
+    """Qwen3-14B: paged pool, then contiguous pool; returns the launches
+    of its three kernels and the model for the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import default_pool_tokens
+    import dataclasses
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen3-14b"), max_seq_len=4096)
+    model, wbytes = make_model(torch, "qwen3-14b", cfg)
+    log("serve", f"cache length {cfg.max_seq_len} (the config's 32768 cut "
+        f"to fit the batch prefill cache and the pool beside the weights)")
 
     def engine(paged, slots, pool_tokens=None):
-        budget = MemoryBudget(hbm_bytes_per_device=device_memory_bytes(dev),
-                              n_devices=1, weight_bytes=wbytes)
-        sched = BucketServeScheduler(cfg, budget, SchedulerConfig(
-            max_batch=slots, memory_model="paged" if paged else "sum",
-            page_size=128))
-        return ServingEngine(cfg, model, sched, max_slots=slots,
-                             cache_len=cfg.max_seq_len, chunk_tokens=512,
-                             paged=paged, page_size=128,
-                             kv_pool_tokens=pool_tokens, device=dev)
+        return make_engine(torch, cfg, model, wbytes, paged, slots,
+                           pool_tokens)
 
     def run(eng, reqs, label):
-        runtime.reset_launch_counts()
-        eng.submit(reqs)
-        t = time.perf_counter()
-        done = eng.run(max_wall_s=600)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        counts = dict(runtime.launch_counts)
-        if len(done) != len(reqs):
-            raise AssertionError(f"{label}: served {len(done)}/{len(reqs)}")
-        for r in reqs:
-            out = eng.outputs[r.rid]
-            if len(out) != r.max_new_tokens or \
-                    not all(0 <= t < cfg.vocab_size for t in out):
-                raise AssertionError(f"{label}: rid {r.rid} emitted {out}")
-        res = eng.result
-        ntok = sum(r.generated for r in done)
-        log("serve", f"{label}: served {len(done)}/{len(reqs)} requests, "
-            f"{ntok} tokens in {dt:.2f} s ({ntok / dt:.1f} tok/s); TTFT "
-            f"p50 {res.p50('ttft'):.3f} s, p99 {res.p99('ttft'):.3f} s; "
-            f"TPOT p50 {res.p50('tpot') * 1e3:.1f} ms; prefill shapes "
-            f"{eng.n_prefill_shapes}; decode steps interleaved "
-            f"{eng.interleaved_decode_steps}; launches {counts}")
-        return counts, dict(tok_s=ntok / dt, ttft_p50=res.p50("ttft"),
-                            ttft_p99=res.p99("ttft"), seconds=dt)
+        return serve_run(torch, cfg, eng, reqs, label)[:2]
 
     # warm-up: cuBLAS handles and the first launch of each kernel
     warm = engine(paged=True, slots=2, pool_tokens=2 * cfg.max_seq_len)
@@ -456,9 +722,8 @@ def serve_phase(torch):
         f"{total / 2**30:.1f} GiB after the weights; paged pool "
         f"{pool_tokens} tokens ({pool_tokens * per_tok / 2**30:.1f} GiB, "
         f"40% of free)")
-    lengths = [64, 2048, 300, 1024, 128, 1536, 512, 96, 1800, 700, 256, 1200]
     paged_eng = engine(paged=True, slots=8, pool_tokens=pool_tokens)
-    paged_counts, paged_stats = run(paged_eng, requests(lengths, 32),
+    paged_counts, paged_stats = run(paged_eng, requests(SERVE_LENGTHS, 32),
                                     "paged pool, chunk 512, page 128")
     if paged_eng.backend.free_blocks() != paged_eng.backend.alloc.n_pages:
         raise AssertionError("paged pool leaked pages")
@@ -481,33 +746,54 @@ def serve_phase(torch):
                                  "path")
     if paged_counts["flash_decode"] or contig_counts["paged_flash_decode"]:
         raise AssertionError("a decode kernel ran on the wrong pool")
+    if paged_counts["wkv6"] or contig_counts["wkv6"]:
+        raise AssertionError("wkv6 ran on an attention path")
     launches = {"flash_prefill": paged_counts["flash_prefill"],
                 "paged_flash_decode": paged_counts["paged_flash_decode"],
                 "flash_decode": contig_counts["flash_decode"]}
     return launches, paged_stats, contig_stats, cfg, model
 
 
-def profile_phase(torch, cfg, model):
-    """Where a full-width decode step spends its time: 8 rows at context
-    1024 on the paged pool, 4 steps under ``torch.profiler``.  Device
-    busy time is the sum of the CUDA kernels' durations under the
-    profiler; the idle share is what is left of the wall time of the same
-    steps run without it."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as tfm
-    dev = torch.device("cuda")
-    B, ctx, page, steps = 8, 1024, 128, 4
-    S = cfg.max_seq_len
-    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
-                         dtype=torch.int32)
-    logits, cache = tfm.prefill(cfg, model, toks, cache_len=S)
-    paged = to_paged(torch, tfm, cfg, cache, page)
-    del cache
-    tok = logits.argmax(-1).to(torch.int32)
+def rwkv_serve_phase(torch):
+    """Full-width, full-depth rwkv6-3b on the contiguous slot pool with
+    512-token chunked prefill: 8 slots, the 12 requests of the Qwen3-14B
+    run.  Returns the wkv6 launches, the run's stats and the model."""
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-3b")
+    model, wbytes = make_model(torch, "rwkv6-3b", cfg)
 
-    def step():
-        return tfm.decode_step(cfg, model, tok, paged, page_size=page,
-                               paged_len=S)[0]
+    warm = make_engine(torch, cfg, model, wbytes, paged=False, slots=2)
+    serve_run(torch, cfg, warm, requests([96, 700], 4), "rwkv warm-up")
+    del warm
+    eng = make_engine(torch, cfg, model, wbytes, paged=False, slots=8)
+    counts, stats, steps = serve_run(
+        torch, cfg, eng, requests(SERVE_LENGTHS, 32),
+        "rwkv6-3b contiguous pool, chunk 512")
+    del eng
+    torch.cuda.empty_cache()
+    want = cfg.n_layers * (steps["prefill"] + steps["decode"])
+    if counts["wkv6"] != want or want == 0:
+        raise AssertionError(f"rwkv6-3b: wkv6 launched {counts['wkv6']} "
+                             f"times, expected {cfg.n_layers} x "
+                             f"({steps['prefill']} prefill chunks + "
+                             f"{steps['decode']} decode steps) = {want}")
+    ran = {k: counts[k] for k in ATTENTION_KERNELS if counts[k]}
+    if ran:
+        raise AssertionError(f"rwkv6-3b: attention kernels ran: {ran}")
+    log("serve", f"rwkv6-3b: wkv6 launched {counts['wkv6']} = "
+        f"{cfg.n_layers} x ({steps['prefill']} prefill chunks + "
+        f"{steps['decode']} decode steps); no attention kernel ran")
+    return counts["wkv6"], stats, cfg, model
+
+
+def profile_steps(torch, label, step, kernel, match, steps=4):
+    """Where a full-width decode step spends its time: ``steps`` calls
+    of ``step`` under ``torch.profiler``.  Device busy time is the sum of
+    the CUDA kernels' durations under the profiler; the idle share is
+    what is left of the wall time of the same steps run without it.
+    ``kernel`` is reported on its own, its device kernels found by
+    ``match`` in their names."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -526,8 +812,8 @@ def profile_phase(torch, cfg, model):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("profile", f"decode step {wall_ms:.2f} ms wall; the profiler "
-            f"saw no device events (device time not measured)")
+        log("profile", f"{label}: {wall_ms:.2f} ms wall; the profiler saw "
+            f"no device events (device time not measured)")
         return
     by_name = {}
     for e in kernels:
@@ -536,18 +822,49 @@ def profile_phase(torch, cfg, model):
 
     def share(pred):
         return sum(v for k, v in by_name.items() if pred(k)) / 1e3 / steps
-    attn = share(lambda k: "decode_kernel" in k)
+    own = share(lambda k: match in k)
     gemm = share(lambda k: any(w in k.lower() for w in
                                ("gemm", "cutlass", "xmma", "nvjet", "sm90")))
-    log("profile", f"full-width decode step, B={B}, context {ctx}, paged: "
-        f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy (idle share "
-        f"{1 - busy_ms / wall_ms:.3f}); paged_flash_decode {attn:.2f} ms, "
-        f"matmuls {gemm:.2f} ms, other kernels "
-        f"{busy_ms - attn - gemm:.2f} ms; {len(kernels) // steps} kernel "
+    log("profile", f"{label}: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms "
+        f"device busy (idle share {1 - busy_ms / wall_ms:.3f}); {kernel} "
+        f"{own:.2f} ms, matmuls {gemm:.2f} ms, other kernels "
+        f"{busy_ms - own - gemm:.2f} ms; {len(kernels) // steps} kernel "
         f"launches per step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log("profile", "top kernels per step: " + "; ".join(
         f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
+
+
+def profile_phase(torch, cfg, model):
+    """Qwen3-14B decode step: 8 rows at context 1024 on the paged pool."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    B, ctx, page = 8, 1024, 128
+    S = cfg.max_seq_len
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=S)
+    paged = to_paged(torch, tfm, cfg, cache, page)
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+    profile_steps(torch, f"qwen3-14b full-width decode step, B={B}, "
+                  f"context {ctx}, paged", lambda: tfm.decode_step(
+                      cfg, model, tok, paged, page_size=page,
+                      paged_len=S), "paged_flash_decode", "decode_kernel")
+
+
+def rwkv_profile_phase(torch, cfg, model):
+    """rwkv6-3b decode step: 8 rows after a 1024-token prefill."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    B, ctx = 8, 1024
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=ctx)
+    tok = logits.argmax(-1).to(torch.int32)
+    profile_steps(torch, f"rwkv6-3b full-width decode step, B={B}, after "
+                  f"{ctx} tokens", lambda: tfm.decode_step(
+                      cfg, model, tok, cache), "wkv6", "wkv6_kernel")
 
 
 def main() -> int:
@@ -571,9 +888,16 @@ def main() -> int:
         f"loaded {runtime.build().relative_to(ROOT)} in {seconds:.1f} s")
 
     rows = kernel_phase(torch)
+    rows.update(wkv6_phase(torch))
     parity_phase(torch)
+    rwkv_parity_phase(torch)
     launches, paged_stats, contig_stats, cfg, model = serve_phase(torch)
     profile_phase(torch, cfg, model)
+    del cfg, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["wkv6"], rwkv_stats, cfg, model = rwkv_serve_phase(torch)
+    rwkv_profile_phase(torch, cfg, model)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -593,8 +917,12 @@ def main() -> int:
         entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
               "src/repro/kernels/decode_attn.py:67",
               rows["flash_decode B=8 ctx=2048"]),
+        entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
+              "src/repro/kernels/wkv6.py:58",
+              rows[f"wkv6 chunk B={WKV_MAIN['B']} T={WKV_MAIN['T']}"]),
     ]}
-    log("serve", f"paged {paged_stats}; contiguous {contig_stats}")
+    log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
+        f"{contig_stats}; rwkv6-3b {rwkv_stats}")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

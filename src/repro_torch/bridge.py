@@ -5,8 +5,14 @@ The caller turns the reference's JAX arrays into numpy first (for
 example ``jax.tree.map(np.asarray, params)``), so this module never sees
 JAX.  Leaves are named by the key paths of the reference's
 ``train/checkpoint.py::_flatten``: dict keys and tuple indices joined by
-``/`` (``groups/0/0/attn/wq``).  Block-group leaves are stacked
-``(reps, ...)``; they are unstacked into ``Transformer.groups[gi][j]``.
+``/`` (``groups/0/0/attn/wq``, ``groups/0/0/rwkv/w0``).  Block-group
+leaves are stacked ``(reps, ...)``; they are unstacked into
+``Transformer.groups[gi][j]``.
+
+Every leaf keeps the dtype the port gives it: the model's dtype, except
+the RWKV decay path and bonus (``w0``, ``wA``, ``wB``, ``u``) and the
+RWKV carry ``s``, which are float32 in a bf16 model too, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models import rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
@@ -62,6 +69,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
 
 
 def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
+    """Copy into ``param``, which keeps its own dtype."""
     if tuple(param.shape) != arr.shape:
         raise ValueError(f"{key}: shape {arr.shape}, port expects "
                          f"{tuple(param.shape)}")
@@ -70,9 +78,15 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
 
 def cache_from_numpy(tree, device="cuda", dtype=None):
     """A reference cache pytree (numpy leaves) as torch tensors with the
-    same structure; float leaves take ``dtype`` when it is given."""
+    same structure; float leaves take ``dtype`` when it is given, except
+    an RWKV block's f32 carry (``rwkv.F32_STATE_LEAVES``)."""
     if isinstance(tree, dict):
-        return {k: cache_from_numpy(v, device, dtype) for k, v in tree.items()}
+        f32 = (rwkv.F32_STATE_LEAVES
+               if set(tree) == set(rwkv.STATE_LEAVES) else ())
+        return {k: cache_from_numpy(
+                    v, device, torch.float32 if dtype is not None
+                    and k in f32 else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(cache_from_numpy(v, device, dtype) for v in tree)
     t = torch.from_numpy(np.array(tree)).to(device)

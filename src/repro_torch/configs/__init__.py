@@ -13,9 +13,11 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# The port's registry holds the dense-GQA configs its first slice
-# serves; the other families join as their blocks are ported.
+# The port's registry holds the configs whose blocks are ported: the
+# dense-GQA decoders and rwkv6-3b; the other families join as their
+# blocks are ported.
 _MODULES = {
+    "rwkv6-3b": "rwkv6_3b",
     "qwen3-14b": "qwen3_14b",
     "llama2-13b": "llama2_13b",          # the paper's own model
 }

@@ -7,6 +7,11 @@ reference) drive real prefill and decode, token for token.  All
 orchestration — arrivals, batch formation, OOM/slot re-queue, chunk
 interleaving, timing — lives in the loop; this module only executes.
 
+Models: the dense attention decoders (qwen3-14b, llama2-13b) and
+rwkv6-3b.  For RWKV the per-slot cache leaves are the recurrent carry
+(``s`` (reps, B, H, hs, hs) f32, ``x_tm`` and ``x_cm`` (reps, B, d)),
+which prefill writes and slot insertion scatters exactly as it does K/V.
+
 Continuous batching: the decode pool is a fixed-capacity slot pool — a
 cache pytree with a leading slot axis and per-slot next-token ids.
 Every iteration decodes all slots (dead slots compute garbage that is
@@ -15,8 +20,9 @@ scattered in with one batched index-put per cache leaf.  Unlike the
 reference's functional ``.at[].set``, the pool is preallocated once and
 every insert and decode step writes into it in place.
 
-Paged decode pool (``paged=True``): self-attention K/V live in a shared
-page pool indexed through per-slot block tables; a
+Paged decode pool (``paged=True``; an attention-free config raises
+``ValueError``): self-attention K/V live in a shared page pool indexed
+through per-slot block tables; a
 :class:`~repro_torch.core.paging.BlockAllocator` hands out pages at
 prefill insert, extends tables page by page as decode advances and
 frees them on release.  Dead slots point at a dedicated trash page, so
@@ -341,7 +347,7 @@ class TorchEngineBackend:
     def _insert_slots(self, batch_cache, slots: List[int], rows: List[int],
                       firsts: List[int]) -> None:
         """Scatter batch rows into pool slots, in place: one index-put
-        per cache leaf for the whole batch."""
+        per cache leaf (K/V, or the RWKV carry) for the whole batch."""
         sl, rw = self._index(slots), self._index(rows)
         self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
         for gi, pattern_slots in enumerate(self.pool_cache["groups"]):

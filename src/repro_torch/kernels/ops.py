@@ -8,6 +8,7 @@ of the operands decides.
 from __future__ import annotations
 
 from . import decode_attn, flash_prefill as _prefill, paged_decode_attn, ref
+from . import wkv6 as _wkv6
 
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
@@ -36,3 +37,10 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
                                           pos, s_len=s_len, ring=ring)
     return paged_decode_attn.paged_flash_decode(
         q, k_pool, v_pool, block_tables, pos, s_len=s_len, ring=ring)
+
+
+def wkv6(r, k, v, w, u, s0, *, state_out=None):
+    """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0."""
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0, state_out=state_out)
+    return _wkv6.wkv6(r, k, v, w, u, s0, state_out=state_out)

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the three attention kernels.
+"""Plain PyTorch versions of the four kernels.
 
 Each function computes exactly what its CUDA kernel computes, with the
-reference's jnp math (``repro/models/attention.py``): f32 scores and
-softmax, masking by adding ``NEG_INF`` rather than ``-inf``.  The CPU
+reference's jnp math: for attention (``repro/models/attention.py``) f32
+scores and softmax, masking by adding ``NEG_INF`` rather than ``-inf``;
+for the RWKV6 recurrence (``repro/models/rwkv.py:wkv_scan``) a loop over
+time of f32 rank-1 updates.  The CPU
 path of the model runs these; ``chip_smoke.py`` and the card tests hold
 each kernel against them.  Rows whose keys are all masked are garbage
 here and in the kernels alike (finite, but not comparable).
@@ -105,3 +107,26 @@ def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, pos, *,
     k_cache = gather_paged_kv(k_pool, block_tables, s_len)
     v_cache = gather_paged_kv(v_pool, block_tables, s_len)
     return flash_decode_ref(q, k_cache, v_cache, pos, ring=ring)
+
+
+def wkv6_ref(r, k, v, w, u, s0, *, state_out=None):
+    """The RWKV6 recurrence, step by step, in f32 (the reference's
+    ``wkv_scan``, which casts every input to f32), or in f64 when ``s0``
+    is f64 (a yardstick for the f32 versions).
+
+    r, k, v, w: (B,T,H,hs) (w the decay in (0, 1)); u: (H,hs); s0:
+    (B,H,hs,hs).  Returns (y (B,T,H,hs), sT (B,H,hs,hs)) in the compute
+    dtype; ``state_out`` receives sT when given (it may be ``s0``
+    itself)."""
+    ct = torch.promote_types(s0.dtype, torch.float32)
+    r, k, v, w = (x.to(ct) for x in (r, k, v, w))
+    u = u.to(ct)[..., None]                             # (H,hs,1)
+    s = s0.to(ct)
+    y = torch.empty(r.shape, dtype=ct, device=r.device)
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B,H,hs,hs)
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", r[:, t], s + u * kv)
+        s = w[:, t, :, :, None] * s + kv
+    if state_out is not None:
+        return y, state_out.copy_(s)
+    return y, s

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_prefill.cu", "decode_attn.cu", "paged_decode_attn.cu")
+SOURCES = ("flash_prefill.cu", "decode_attn.cu", "paged_decode_attn.cu",
+           "wkv6.cu")
 HEADERS = ("common.cuh", "decode_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -35,7 +36,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode")
+KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode", "wkv6")
 launch_counts = {name: 0 for name in KERNELS}
 
 
@@ -107,6 +108,8 @@ _SIGNATURES = {
     # q, kp, vp, block_tables, pos, out, B, n_pages, page, n_p, s_len, H,
     # Hkv, Dh, ring, dtype, stream
     "rt_paged_flash_decode": [_P] * 6 + [_I] * 10 + [_P],
+    # r, k, v, w, u, s0, y, sT, B, T, H, hs, dtype, stream
+    "rt_wkv6": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

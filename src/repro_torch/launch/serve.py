@@ -13,7 +13,10 @@ default; it raises without a card).  ``--chunk N`` enables chunked
 prefill, ``--paged`` swaps the per-slot KV caches for the shared page
 pool (the scheduler then runs the ceil-to-page Eq.-(6) memory model).
 ``--smoke`` serves the reduced config with the plain PyTorch path
-running on the CPU when ``--device cpu`` is given.
+running on the CPU when ``--device cpu`` is given.  ``--arch rwkv6-3b``
+serves RWKV6 on the contiguous slot pool (its per-slot carry has no K/V
+to page, so ``--paged`` is refused), through the hand-written WKV6
+kernel on the card.
 
 At full width on one 80 GB card, pass ``--max-seq-len 4096``: with the
 config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
@@ -176,9 +179,13 @@ def serve(cfg, model, reqs, args, device: torch.device):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = make_config(args)
+    if args.paged and not tfm.supports_paged_decode(cfg):
+        ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
+                 f"serve it on the contiguous slot pool (without --paged)")
     model = tfm.init_params(cfg, seed=0, dtype=DTYPES[args.dtype],
                             device=device)
     serve(cfg, model, make_requests(cfg, args), args, device)

@@ -8,6 +8,19 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+def frozen_param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Params(nn.Module):
+    """A module whose parameters are also read as ``p["name"]``, the
+    reference's dict access, so the block functions port unchanged."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,

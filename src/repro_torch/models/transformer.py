@@ -1,15 +1,18 @@
-"""Model assembly for the dense attention path: prefill, chunked prefill
-and decode over a contiguous or a paged KV cache.
+"""Model assembly: prefill, chunked prefill and decode over a contiguous
+or a paged cache, for dense attention decoders and RWKV6.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for configs whose
-blocks are all ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
-llama2-13b).  The reference stacks each block group's parameters on a
-``reps`` axis and runs ``lax.scan``; here each block is an
-:class:`AttnBlock` module in ``Transformer.groups[gi][j][rep]`` and a
-Python loop over reps replaces the scan.  Caches keep the reference's
-pytree layout — ``{"pos", "block_tables", "groups"}`` with ``(reps, ...)``
-leaves per pattern slot — so the engine's gather/scatter code ports line
-for line; they are preallocated and updated in place.
+blocks are ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
+llama2-13b) or ``BLOCK_RWKV`` (rwkv6-3b).  The reference stacks each
+block group's parameters on a ``reps`` axis and runs ``lax.scan``; here
+each block is an :class:`AttnBlock` or :class:`RwkvBlock` module in
+``Transformer.groups[gi][j][rep]`` and a Python loop over reps replaces
+the scan.  Caches keep the reference's pytree layout — ``{"pos",
+"block_tables", "groups"}`` with ``(reps, ...)`` leaves per pattern slot:
+``k``/``v`` for attention, ``s``/``x_tm``/``x_cm`` for RWKV — so the
+engine's gather/scatter code ports line for line; they are preallocated
+and updated in place.  Each block reads its own views of its slot's
+leaves (``_slot``).
 
 Public API (functions of ``(cfg, model, ...)``):
 
@@ -29,23 +32,23 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from . import attention, layers
+from . import attention, layers, rwkv
+from .layers import Params, frozen_param as _param
 from .config import (BLOCK_ATTN, BLOCK_CROSS, BLOCK_MOE, BLOCK_REC,
                      BLOCK_RWKV, ModelConfig)
 
 _LATER_SLICE = {
     BLOCK_MOE: "the MoE slice of the port",
-    BLOCK_REC: "the recurrent-family slice of the port",
-    BLOCK_RWKV: "the recurrent-family slice of the port",
+    BLOCK_REC: "the recurrent-family slice of the port (models/rglru.py)",
     BLOCK_CROSS: "the VLM/encoder slice of the port",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
+    """Raise NotImplementedError for what the port does not run yet."""
     for pattern, _ in cfg.block_groups():
         for btype in pattern:
-            if btype != BLOCK_ATTN:
+            if btype not in _BLOCKS:
                 raise NotImplementedError(
                     f"{cfg.name}: {btype!r} blocks arrive with "
                     f"{_LATER_SLICE.get(btype, 'a later slice')}")
@@ -57,20 +60,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: int8 KV caches arrive with the int8 slice")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-class _Params(nn.Module):
-    """A module whose parameters are also read as ``p["name"]``, the
-    reference's dict access, so the attention and MLP functions port
-    unchanged."""
-
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return getattr(self, name)
-
-
-class Attention(_Params):
+class Attention(Params):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d = cfg.d_model
@@ -84,7 +74,7 @@ class Attention(_Params):
             self.k_norm = _param(torch.zeros(cfg.d_head, **e))
 
 
-class MLP(_Params):
+class MLP(Params):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         e = dict(dtype=dtype, device=device)
@@ -112,21 +102,29 @@ class AttnBlock(nn.Module):
         h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
         return x + layers.mlp_apply(self.mlp, h, self.cfg.act)
 
-    def prefill(self, x, positions, lengths, kv, *, window: int,
-                cache_len: int):
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.attn.wq, self.attn.wk, self.attn.wv, self.attn.wo,
+                  self.mlp.gate, self.mlp.up, self.mlp.down):
+            w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+
+    # Each block type takes its cache views and the keyword context of
+    # prefill / prefill_chunk / decode_step, and reads what it needs.
+    def prefill(self, x, c, *, positions, lengths, window: int,
+                cache_len: int, **_):
         a = attention.self_attn_forward(
             self.cfg, self.attn, self._norm1(x), positions, lengths,
-            window=window, cache=kv, cache_len=cache_len)
+            window=window, cache=(c["k"], c["v"]), cache_len=cache_len)
         return self._mlp_residual(x + a)
 
-    def chunk(self, x, start: int, kv, active):
+    def chunk(self, x, c, *, start: int, active, **_):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
-                                      start, kv, active)
+                                      start, (c["k"], c["v"]), active)
         return self._mlp_residual(x + a)
 
-    def decode(self, x, pos, kv, *, window: int, block_tables=None,
-               page_size: int = 0, paged_len: int = 0):
+    def decode(self, x, c, *, pos, window: int, block_tables=None,
+               page_size: int = 0, paged_len: int = 0, **_):
         h = self._norm1(x)
+        kv = (c["k"], c["v"])
         if block_tables is not None:
             a = attention.self_attn_decode_paged(
                 self.cfg, self.attn, h, pos, kv, block_tables,
@@ -137,7 +135,65 @@ class AttnBlock(nn.Module):
         return self._mlp_residual(x + a)
 
 
-class Transformer(_Params):
+class RwkvBlock(nn.Module):
+    """Pre-norm RWKV6 time-mix + channel-mix (``BLOCK_RWKV``).  Its cache
+    views are the carry ``s`` (B,H,hs,hs) f32 and the token-shift inputs
+    ``x_tm``, ``x_cm`` (B,d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        e = dict(dtype=dtype, device=device)
+        self.ln1 = _param(torch.zeros(cfg.d_model, **e))
+        self.ln2 = _param(torch.zeros(cfg.d_model, **e))
+        self.rwkv = rwkv.RwkvParams(cfg, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.rwkv.init_(gen)
+
+    def _forward(self, x, c, lengths, state_out):
+        """Returns (x, {s, x_tm, x_cm}); sT lands in ``state_out`` when
+        given."""
+        eps = self.cfg.norm_eps
+        tm, x_tm, s = rwkv.time_mix(self.cfg, self.rwkv,
+                                    layers.rms_norm(x, self.ln1, eps),
+                                    c["x_tm"], c["s"], lengths,
+                                    state_out=state_out)
+        x = x + tm
+        cm, x_cm = rwkv.channel_mix(self.cfg, self.rwkv,
+                                    layers.rms_norm(x, self.ln2, eps),
+                                    c["x_cm"], lengths)
+        return x + cm, {"s": s, "x_tm": x_tm, "x_cm": x_cm}
+
+    def _carry(self, x, c, lengths):
+        """Run the block and write its carry in place (the kernel writes
+        sT over s0)."""
+        x, new = self._forward(x, c, lengths, state_out=c["s"])
+        c["x_tm"].copy_(new["x_tm"])
+        c["x_cm"].copy_(new["x_cm"])
+        return x
+
+    def prefill(self, x, c, *, lengths, **_):
+        return self._carry(x, c, lengths)
+
+    def chunk(self, x, c, *, lengths, active, **_):
+        """``lengths`` are the rows' valid tokens in this chunk; rows
+        whose prompt ended in an earlier chunk (not ``active``) keep
+        every carry leaf bit for bit."""
+        x, new = self._forward(x, c, lengths, state_out=None)
+        for key, val in new.items():
+            m = active.reshape((-1,) + (1,) * (val.ndim - 1))
+            c[key].copy_(torch.where(m, val, c[key]))
+        return x
+
+    def decode(self, x, c, **_):
+        return self._carry(x, c, None)
+
+
+_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_RWKV: RwkvBlock}
+
+
+class Transformer(Params):
     """Embedding, block groups and head.  ``groups[gi][j][rep]`` is the
     block at pattern slot ``j`` of repetition ``rep`` in group ``gi`` —
     the reference's stacked ``params["groups"][gi][j]`` unstacked."""
@@ -155,9 +211,9 @@ class Transformer(_Params):
             self.unembed = _param(torch.empty(cfg.vocab_size, cfg.d_model,
                                               **e))
         self.groups = nn.ModuleList(
-            nn.ModuleList(nn.ModuleList(AttnBlock(cfg, dtype, device)
+            nn.ModuleList(nn.ModuleList(_BLOCKS[btype](cfg, dtype, device)
                                         for _ in range(reps))
-                          for _ in pattern)
+                          for btype in pattern)
             for pattern, reps in cfg.block_groups())
 
     @property
@@ -185,8 +241,9 @@ class Transformer(_Params):
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device="cuda") -> Transformer:
     """Random weights from a seeded ``torch.Generator`` on ``device``,
-    with the reference's shapes and scales (``layers.dense_init`` /
-    ``embed_init``: normal times ``fan_in ** -0.5``; norms zero).  The
+    with the reference's shapes, scales and constants (``dense_init`` /
+    ``embed_init``: normal times ``fan_in ** -0.5``; norms zero; the
+    RWKV leaves as ``rwkv_init``, its decay path and bonus in f32).  The
     numbers differ from the reference's ``jax.random`` ones; parity
     tests convert the reference's weights through ``bridge.py``."""
     model = Transformer(cfg, dtype, device)
@@ -197,9 +254,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         model.unembed.copy_(layers.embed_init(gen, cfg.vocab_size,
                                               cfg.d_model, dtype))
     for _, _, _, blk in model.blocks():
-        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                  blk.mlp.gate, blk.mlp.up, blk.mlp.down):
-            w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], dtype))
+        blk.init_(gen)
     return model
 
 
@@ -208,6 +263,12 @@ def _kv_slot(leading, cfg: ModelConfig, dtype, device):
     shape = tuple(leading) + (cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _state_slot(reps: int, batch: int, cfg: ModelConfig, dtype, device):
+    """A per-slot RWKV carry with a leading ``reps`` axis (``s`` f32)."""
+    st = rwkv.init_state(cfg, batch, dtype, device)
+    return {k: v.new_zeros((reps,) + v.shape) for k, v in st.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -219,7 +280,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     S = cfg.attn_cache_len(cache_len)
     groups = tuple(
         tuple(_kv_slot((reps, batch, S), cfg, dtype, device)
-              for _ in pattern)
+              if btype == BLOCK_ATTN else
+              _state_slot(reps, batch, cfg, dtype, device)
+              for btype in pattern)
         for pattern, reps in cfg.block_groups())
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "groups": groups}
@@ -231,14 +294,17 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """Paged decode-pool cache: K/V live in a shared page pool
     ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot, indexed
     through ``block_tables`` (batch, ceil(attn_cache_len / page_size));
-    the caller owns the table contents."""
+    the caller owns the table contents.  A recurrent carry stays a
+    per-slot tensor, as in ``init_cache``."""
     check_supported(cfg)
     device = resolve_device(device)
     S = cfg.attn_cache_len(cache_len)
     n_p = -(-S // page_size)
     groups = tuple(
         tuple(_kv_slot((reps, n_pages, page_size), cfg, dtype, device)
-              for _ in pattern)
+              if btype == BLOCK_ATTN else
+              _state_slot(reps, batch, cfg, dtype, device)
+              for btype in pattern)
         for pattern, reps in cfg.block_groups())
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "block_tables": torch.zeros((batch, n_p), dtype=torch.int32,
@@ -264,9 +330,9 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return cfg.chunkable_prefill
 
 
-def _kv(cache, gi: int, j: int, rep: int):
-    slot = cache["groups"][gi][j]
-    return slot["k"][rep], slot["v"][rep]
+def _slot(cache, gi: int, j: int, rep: int):
+    """Views of one block's cache leaves (written in place)."""
+    return {k: leaf[rep] for k, leaf in cache["groups"][gi][j].items()}
 
 
 # -------------------------------------------------------------- drivers ---
@@ -285,8 +351,8 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
     positions = torch.arange(T, device=x.device)
     win = effective_window(cfg)
     for gi, j, rep, blk in model.blocks():
-        x = blk.prefill(x, positions, lengths, _kv(cache, gi, j, rep),
-                        window=win, cache_len=cache_len)
+        x = blk.prefill(x, _slot(cache, gi, j, rep), positions=positions,
+                        lengths=lengths, window=win, cache_len=cache_len)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(B, device=x.device), idx]
@@ -304,15 +370,18 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     Returns (last_logits (B,V), cache); ``last_logits[b]`` is row b's
     next-token distribution only when its last prompt position lies in
     this chunk.  Rows already finished (length <= start) keep their
-    cache bit for bit.  The caller sets ``cache['pos']`` to ``lengths``
-    after the final chunk."""
+    cache bit for bit (K/V writes masked, recurrent carries frozen).  The
+    caller sets ``cache['pos']`` to ``lengths`` after the final chunk."""
     x = layers.embed_apply(model.embed, tokens)
     B, Tc, _ = x.shape
-    active = lengths.to(x.device) > start
+    lengths = lengths.to(x.device)
+    active = lengths > start
+    rel_len = (lengths - start).clamp(0, Tc)     # valid tokens per row
     for gi, j, rep, blk in model.blocks():
-        x = blk.chunk(x, start, _kv(cache, gi, j, rep), active)
+        x = blk.chunk(x, _slot(cache, gi, j, rep), start=start,
+                      active=active, lengths=rel_len)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
-    idx = (lengths.to(x.device).long() - 1 - start).clamp(0, Tc - 1)
+    idx = (lengths.long() - 1 - start).clamp(0, Tc - 1)
     last = x[torch.arange(B, device=x.device), idx]
     return layers.unembed_apply(model.head, last), cache
 
@@ -321,8 +390,8 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
 def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
                 page_size: int = 0, paged_len: int = 0):
     """token: (B,) int.  Returns (logits (B,V) f32, cache) with the
-    cache's K/V written in place and ``pos`` advanced for every row
-    (dead rows too, as in the reference).
+    cache's K/V and carries written in place and ``pos`` advanced for
+    every row (dead rows too, as in the reference).
 
     Caches from ``init_paged_cache`` (they carry ``block_tables``)
     decode against the page pool; ``page_size`` is then the pool's page
@@ -337,7 +406,7 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
         paged_len = paged_len or bt.shape[1] * page_size
     win = effective_window(cfg)
     for gi, j, rep, blk in model.blocks():
-        x = blk.decode(x, pos, _kv(cache, gi, j, rep), window=win,
+        x = blk.decode(x, _slot(cache, gi, j, rep), pos=pos, window=win,
                        block_tables=bt, page_size=page_size,
                        paged_len=paged_len)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)

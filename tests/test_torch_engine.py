@@ -8,8 +8,9 @@ ServingEngine`` with the same weights at f32 (the reference's
 batches (the ``_RecordingScheduler`` surface of ``tests/test_serving.py``)
 must be equal and the emitted token ids identical.  Workloads: the
 ``TestEngine`` workload, a chunked run and the paged mixed workload at
-reduced size.  Inside the port: paged == contiguous, chunked ==
-whole-prompt, and engine == unbatched prefill + decode.
+reduced size, and the rwkv6-3b smoke config whole-prompt and chunked.
+Inside the port: paged == contiguous, chunked == whole-prompt, and
+engine == unbatched prefill + decode.
 """
 import functools
 
@@ -196,6 +197,33 @@ def test_paged_and_chunked_compose():
     _, chunked, _ = _run("torch", cfg, model, reqs(), chunk=24, **kw)
     _, whole, _ = _run("torch", cfg, model, reqs(), **kw)
     assert chunked == whole
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_rwkv_engine_matches_jax_engine(chunk):
+    """rwkv6-3b smoke on the contiguous slot pool, whole-prompt and in
+    16-token chunks (prompts of 8-60 tokens): same formed batches and
+    token ids as the JAX engine; chunked ids equal whole-prompt ids."""
+    def reqs(core):
+        return _uniform(core, 8, 5, 8, 60, 2, 7, "OFFLINE")
+    (jf, jout), (tf, tout), cfg, model, _ = _both(
+        dict(max_seq_len=128), reqs, arch="rwkv6-3b", slots=4, chunk=chunk)
+    assert tf == jf
+    assert tout == jout
+    if chunk:
+        _, whole, _ = _run("torch", cfg, model, reqs(tcore), slots=4)
+        assert whole == tout
+
+
+def test_rwkv_paged_pool_is_refused():
+    """An attention-free config has no K/V to page."""
+    cfg = get_smoke_config("rwkv6-3b", max_seq_len=64)
+    model = _model(cfg, "rwkv6-3b")
+    sched = tcore.BucketServeScheduler(
+        cfg, tcore.MemoryBudget(hbm_bytes_per_device=2 ** 30, n_devices=1,
+                                weight_bytes=0), tcore.SchedulerConfig())
+    with pytest.raises(ValueError, match="paged KV"):
+        TorchEngine(cfg, model, sched, device="cpu", paged=True)
 
 
 def test_unported_options_raise():

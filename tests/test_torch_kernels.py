@@ -1,12 +1,14 @@
-"""The port's attention kernels.
+"""The port's kernels: the three attention kernels and the RWKV6
+recurrence.
 
 CPU cases: each plain PyTorch version (``repro_torch/kernels/ref.py``)
 against the reference run as the reference's own kernel tests run it —
 the jnp oracle in both dtypes, and the Pallas kernel in interpret mode
-in f32 (interpretation costs seconds a case) — at the reference sweeps,
-plus ``Tq < Tk`` with a query offset against
-``full_attention(q_offset=...)``.  Tolerances are the reference's
-``_tol``; only valid query rows are compared.
+in f32 (interpretation costs seconds a case; ``wkv6`` in both dtypes) —
+at the reference sweeps, plus ``Tq < Tk`` with a query offset against
+``full_attention(q_offset=...)`` and two decay extremes for ``wkv6``.
+Tolerances are the reference's (``_tol``, ``_wkv_tol``); only valid
+query rows are compared.
 
 CUDA cases (skipped without a card): each hand-written kernel against
 its plain version on the card, at the same sweeps.  Run them on the
@@ -53,6 +55,18 @@ PAGED_SHAPES = [
     (2, 96, 8, 2, 64, 64, True),
     (1, 512, 16, 2, 80, 256, False),
 ]
+WKV_SHAPES = [
+    # (B, T, H, hs) — tests/test_kernels.py
+    (1, 64, 2, 64),
+    (2, 100, 4, 64),                  # ragged T (padding in Pallas)
+    (1, 128, 1, 32),
+    (2, 48, 8, 16),
+]
+# constant decays at both ends: w = exp(-exp(3)) (the state forgets at
+# once) and w = exp(-exp(-6)) (it keeps almost everything), the case that
+# overflows a chunked cumulative-decay form
+WKV_DECAYS = {"strong": float(np.exp(-np.exp(3.0))),
+              "weak": float(np.exp(-np.exp(-6.0)))}
 # chunked prefill: (B, Tq, Tk, H, Hkv, Dh, q_offset)
 CHUNK_SHAPES = [
     (2, 64, 192, 4, 2, 64, 0),
@@ -139,6 +153,29 @@ def _paged_inputs(shape, dtype, seed=4):
         out[perm.reshape(-1)] = cp.reshape(B * n_p, page, Hkv, Dh)
         return out
     return q, kc, vc, pos, pool(kc), pool(vc), perm.astype(np.int32)
+
+
+def _wkv_inputs(shape, dtype, seed=5, decay=None):
+    """r, k, v and w rounded to ``dtype`` (w = sigmoid(normal), or the
+    constant ``decay``), u and s0 in f32, as numpy f32."""
+    B, T, H, hs = shape
+    rng = np.random.default_rng(seed)
+    r, k, v = (_normal(rng, (B, T, H, hs), dtype) for _ in range(3))
+    if decay is None:
+        w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, hs))))
+    else:
+        w = np.full((B, T, H, hs), decay)
+    w = torch.from_numpy(w.astype(np.float32)).to(
+        getattr(torch, dtype)).float().numpy()
+    u = (rng.standard_normal((H, hs)) * 0.1).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, hs, hs)) * 0.1).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _wkv_tol(dtype):
+    # tests/test_kernels.py::test_wkv6
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else \
+        dict(atol=1e-4, rtol=1e-3)
 
 
 def _valid_rows(T, lens):
@@ -231,6 +268,52 @@ def test_paged_flash_decode_ref_matches_pallas(shape, dtype):
                                   interpret=True))
     for want in wants:
         np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+def _wkv_cases():
+    return [(shape, dtype, None) for shape in WKV_SHAPES
+            for dtype in DTYPES] + \
+        [((2, 100, 4, 64), "float32", name) for name in WKV_DECAYS]
+
+
+@pytest.mark.parametrize("shape,dtype,decay", _wkv_cases())
+def test_wkv6_ref_matches_pallas(shape, dtype, decay):
+    """The plain recurrence against the Pallas kernel in interpret mode
+    and the reference's ``lax.scan`` oracle, at the reference sweep in
+    both dtypes and at the two decay extremes."""
+    from repro.kernels import ref as jref
+    from repro.kernels.wkv6 import wkv6 as pallas_wkv6
+    import jax.numpy as jnp
+    r, k, v, w, u, s0 = _wkv_inputs(shape, dtype,
+                                    decay=WKV_DECAYS.get(decay))
+    got_y, got_s = ref.wkv6_ref(*(_t(x, dtype) for x in (r, k, v, w)),
+                                torch.from_numpy(u), torch.from_numpy(s0))
+    assert got_y.dtype == got_s.dtype == torch.float32
+    jargs = tuple(_j(x, dtype) for x in (r, k, v, w)) + \
+        (jnp.asarray(u), jnp.asarray(s0))
+    for want_y, want_s in (pallas_wkv6(*jargs, blk_t=32, interpret=True),
+                           jref.wkv6_ref(*jargs)):
+        np.testing.assert_allclose(_f32(got_y), _f32(want_y),
+                                   **_wkv_tol(dtype))
+        np.testing.assert_allclose(_f32(got_s), _f32(want_s),
+                                   **_wkv_tol(dtype))
+
+
+def test_wkv6_state_out_may_be_s0_and_dispatch_stays_on_cpu():
+    """``state_out`` receives sT, also when it is s0 itself; CPU tensors
+    take the plain version and count no launch."""
+    runtime.reset_launch_counts()
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in
+                         _wkv_inputs((2, 20, 3, 16), "float32"))
+    y, sT = ref.wkv6_ref(r, k, v, w, u, s0)
+    state = s0.clone()
+    y2, s2 = ops.wkv6(r, k, v, w, u, state, state_out=state)
+    assert s2 is state
+    assert torch.equal(y2, y) and torch.equal(state, sT)
+    assert all(n == 0 for n in runtime.launch_counts.values())
+    y64, s64 = ref.wkv6_ref(*(x.double() for x in (r, k, v, w, u, s0)))
+    assert y64.dtype == s64.dtype == torch.float64
+    np.testing.assert_allclose(y64.numpy(), y.numpy(), atol=1e-5, rtol=1e-4)
 
 
 def test_paged_gather_is_exact_and_clips():
@@ -430,3 +513,69 @@ def test_cuda_unsupported_shapes_raise_without_launch(cuda_exact_f32):
     with pytest.raises(ValueError, match="not supported"):    # 2 x 16 < 64
         ops.paged_flash_decode(q, kp, kp, bt, pos, s_len=64)
     assert all(n == 0 for n in runtime.launch_counts.values())
+
+
+def _wkv_cuda(r, k, v, w, u, s0, dtype, dev):
+    """Kernel operands on the card: r/k/v in ``dtype``, w/u/s0 f32."""
+    return tuple(_t(x, dtype, dev) for x in (r, k, v)) + \
+        tuple(_t(x, "float32", dev) for x in (w, u, s0))
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape,dtype,decay", _wkv_cases())
+def test_cuda_wkv6(shape, dtype, decay, cuda_exact_f32):
+    """The kernel against its plain version on the card.  Both compute in
+    f32 from exactly cast inputs, so the f32 tolerance holds in both
+    dtypes."""
+    dev = cuda_exact_f32
+    args = _wkv_cuda(*_wkv_inputs(shape, dtype, decay=WKV_DECAYS.get(decay)),
+                     dtype, dev)
+    n0 = runtime.launch_counts["wkv6"]
+    y, sT = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts["wkv6"] == n0 + 1
+    want_y, want_s = ref.wkv6_ref(*args)
+    np.testing.assert_allclose(_f32(y), _f32(want_y), **_cuda_tol("float32"))
+    np.testing.assert_allclose(_f32(sT), _f32(want_s),
+                               **_cuda_tol("float32"))
+
+
+@needs_cuda
+@pytest.mark.parametrize("T", [512, 1])
+def test_cuda_wkv6_main_path_shapes(T, cuda_exact_f32):
+    """rwkv6-3b serving: a 512-token chunk and a decode step of 8 rows,
+    40 heads of 64, bf16 r/k/v, f32 decay; the state written in place
+    over s0 as the model does."""
+    dev = cuda_exact_f32
+    rng = np.random.default_rng(9)
+    B, H, hs = 8, 40, 64
+    r, k, v = (_normal(rng, (B, T, H, hs), "bfloat16") for _ in range(3))
+    w_hat = rng.standard_normal((B, T, H, hs)).astype(np.float32) - 0.5
+    w = np.exp(-np.exp(w_hat)).astype(np.float32)
+    u = (rng.standard_normal((H, hs)) * 0.1).astype(np.float32)
+    s0 = rng.standard_normal((B, H, hs, hs)).astype(np.float32)
+    args = _wkv_cuda(r, k, v, w, u, s0, "bfloat16", dev)
+    want_y, want_s = ref.wkv6_ref(*args)
+    state = args[-1].clone()
+    y, sT = ops.wkv6(*args[:-1], state, state_out=state)
+    torch.cuda.synchronize()
+    assert sT is state
+    np.testing.assert_allclose(_f32(y), _f32(want_y), **_cuda_tol("float32"))
+    np.testing.assert_allclose(_f32(state), _f32(want_s),
+                               **_cuda_tol("float32"))
+
+
+@needs_cuda
+def test_cuda_wkv6_unsupported_raises_without_launch(cuda_exact_f32):
+    dev = cuda_exact_f32
+    runtime.reset_launch_counts()
+    B, T, H, hs = 1, 4, 2, 48                         # hs = 48
+    x = torch.zeros((B, T, H, hs), device=dev)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.wkv6(x, x, x, x, torch.zeros((H, hs), device=dev),
+                 torch.zeros((B, H, hs, hs), device=dev))
+    x = torch.zeros((B, T, H, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):  # bf16 decay
+        ops.wkv6(x, x, x, x.bfloat16(), torch.zeros((H, 64), device=dev),
+                 torch.zeros((B, H, 64, 64), device=dev))
+    assert runtime.launch_counts["wkv6"] == 0

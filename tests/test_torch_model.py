@@ -235,7 +235,7 @@ def test_bridge_round_trip_and_unported_blocks():
     assert np.array_equal(model.groups[0][0][1].attn.wq.numpy(), wq[1])
     with pytest.raises(NotImplementedError, match="recurrent"):
         ttfm.check_supported(
-            jax_smoke_config("rwkv6-3b"))
+            jax_smoke_config("recurrentgemma-2b"))
 
 
 def test_logits_f32_and_argmax_ties_take_the_first_index():

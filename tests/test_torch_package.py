@@ -61,6 +61,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                   SchedulerConfig)
     from repro_torch.core.engine import ServingEngine, TorchEngineBackend
     from repro_torch.launch import serve
+    from repro_torch.models import rwkv
     from repro_torch.models import transformer as tfm
 
     cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
@@ -75,6 +76,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tfm.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA card"):
+        rwkv.init_state(get_smoke_config("rwkv6-3b"), 1)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--smoke", "--requests", "1"])
 
 
@@ -88,6 +91,33 @@ def test_cpu_serve_launcher_prints_the_summary(capsys):
     assert "prefill shapes:" in out and "buckets: [" in out
     assert "kernel launches: flash_prefill 0, paged_flash_decode 0, " \
            "flash_decode 0" in out
+
+
+def test_launcher_refuses_paged_for_an_attention_free_config(monkeypatch,
+                                                            capsys):
+    """``--paged`` with rwkv6-3b exits with a message naming the config,
+    before the default pool size divides by its zero KV bytes a token."""
+    from repro_torch.launch import serve
+
+    def unreachable(*args):
+        raise AssertionError("default_pool_tokens reached")
+    monkeypatch.setattr(serve, "default_pool_tokens", unreachable)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--smoke", "--arch", "rwkv6-3b", "--device", "cpu",
+                    "--paged"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "rwkv6-3b" in err and "--paged" in err, err
+
+
+def test_cpu_serve_launcher_runs_rwkv(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--smoke", "--arch", "rwkv6-3b", "--device", "cpu",
+                "--dtype", "f32", "--requests", "4", "--chunk", "64",
+                "--slots", "4"])
+    out = capsys.readouterr().out
+    assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
+    assert "wkv6 0" in out
 
 
 def test_init_params_shapes_and_scales():
