@@ -9,15 +9,20 @@ goes through these phases, each printing its own lines:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a, one process per source in parallel);
+   sm_90a, one process per source in parallel); ``cuobjdump -sass``
+   must find HGMMA (wgmma) instructions in the prefill tensor-core body,
+   and the wrapper's rule for which prefill body takes a call must be
+   the C launch's;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the reference's sweep shapes and at the main paths' shapes (Qwen3-14B
    attention: H=40, Hkv=8, Dh=128; rwkv6-3b's recurrence: 40 heads of
    64, a 512-token chunk and a decode step of 8 rows), in f32 and in
-   bf16; at the main paths' bf16 shapes also its time, the plain
+   bf16, each prefill call through the body its dtype and head dim
+   select; at the main paths' bf16 shapes also its time, the plain
    version's time, the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
-   yardstick;
+   yardstick; then the prefill tensor-core body's phase profile at its
+   two main-path shapes (a library built with ``-DRT_PREFILL_PHASES``);
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
@@ -28,8 +33,8 @@ goes through these phases, each printing its own lines:
    full-depth rwkv6-3b is served the same way on the contiguous pool,
    and profiled.  Launch counts are zeroed before each path and read
    after it: every kernel must have been launched by the path it belongs
-   to, and ``wkv6`` exactly 32 times per prefill chunk and per decode
-   step;
+   to, every bf16 ``flash_prefill`` launch through the tensor-core body,
+   and ``wkv6`` exactly 32 times per prefill chunk and per decode step;
 6. the kernel table as one JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -149,6 +154,44 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def prefill(q, k, v, *args, **kw):
+    """``ops.flash_prefill``, checking that the launch went through the
+    body that the dispatch rule names for q's dtype and head dim."""
+    from repro_torch.kernels import flash_prefill as fp, ops, runtime
+    body = fp.body(q.dtype, q.shape[-1])
+    n0 = runtime.prefill_body_counts[body]
+    out = ops.flash_prefill(q, k, v, *args, **kw)
+    if runtime.prefill_body_counts[body] != n0 + 1:
+        raise AssertionError(f"flash_prefill {q.dtype} Dh={q.shape[-1]}: "
+                             f"not launched through the {body} body")
+    return out
+
+
+def hgmma_count(lib) -> int:
+    """HGMMA (wgmma) instructions in the SASS of the prefill tensor-core
+    kernels of the built library, by the toolkit's own cuobjdump."""
+    from repro_torch.kernels import runtime
+    sass = subprocess.run([str(runtime.cuda_tool("cuobjdump")), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return sum(fn.count("HGMMA") for fn in sass.split("Function : ")
+               if "flash_prefill_wgmma" in fn.split("\n", 1)[0])
+
+
+def check_body_rule() -> None:
+    """The wrapper's rule for which prefill body takes a call is the one
+    the C launch applies (``rt_flash_prefill_body``)."""
+    from repro_torch.kernels import flash_prefill as fp, runtime
+    lib = runtime.library()
+    for dtype, code in runtime.DTYPE_CODES.items():
+        for Dh in (64, 80, 128, 256):
+            c_body = ("tensor_core" if lib.rt_flash_prefill_body(code, Dh)
+                      else "cuda_core")
+            if c_body != fp.body(dtype, Dh):
+                raise AssertionError(f"prefill body of {dtype} Dh={Dh}: C "
+                                     f"{c_body}, wrapper {fp.body(dtype, Dh)}")
+
+
 def assert_close(torch, name, got, want, tol, valid=None) -> float:
     g, w = got.float(), want.float()
     if valid is not None:
@@ -161,7 +204,7 @@ def assert_close(torch, name, got, want, tol, valid=None) -> float:
 
 # ------------------------------------------------------------ kernels ---
 def kernel_phase(torch):
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, runtime
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -178,8 +221,7 @@ def kernel_phase(torch):
                 rnd((B, T, Hkv, Dh), dtype)
             lens = torch.tensor([T, max(T // 2, 1)][:B], dtype=torch.int32,
                                 device=dev)
-            got = ops.flash_prefill(q, k, v, lens, causal=causal,
-                                    window=window)
+            got = prefill(q, k, v, lens, causal=causal, window=window)
             want = ref.flash_prefill_ref(q, k, v, lens, causal=causal,
                                          window=window)
             valid = (torch.arange(T, device=dev)[None] < lens[:, None])
@@ -221,7 +263,9 @@ def kernel_phase(torch):
                          TOL[dtype])
             n_checked += 1
     log("kernels", f"{n_checked} sweep cases agree with the plain versions "
-        f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-2 rtol 2e-2)")
+        f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-2 rtol 2e-2); prefill "
+        f"launches by body {runtime.prefill_body_counts} (f32 and bf16 Dh "
+        f"80/256 on the CUDA cores, bf16 Dh 64/128 on the tensor cores)")
 
     # main-path shapes: f32 against the tight tolerance, then bf16 (the
     # served dtype) checked and timed
@@ -236,7 +280,7 @@ def kernel_phase(torch):
         q, k, v = rnd((1, T, H, Dh), dt), rnd((1, T, Hkv, Dh), dt), \
             rnd((1, T, Hkv, Dh), dt)
         lens = torch.tensor([T], dtype=torch.int32, device=dev)
-        got = ops.flash_prefill(q, k, v, lens)
+        got = prefill(q, k, v, lens)
         err = assert_close(torch, f"flash_prefill main {dt}", got,
                            ref.flash_prefill_ref(q, k, v, lens), tol)
         worst[f"flash_prefill T=2048 {dt}"] = err
@@ -259,7 +303,7 @@ def kernel_phase(torch):
         Tc, off, S = 512, 1536, 4096
         q, k, v = rnd((1, Tc, H, Dh), dt), rnd((1, S, Hkv, Dh), dt), \
             rnd((1, S, Hkv, Dh), dt)
-        got = ops.flash_prefill(q, k, v, q_offset=off)
+        got = prefill(q, k, v, q_offset=off)
         err = assert_close(torch, f"flash_prefill chunk {dt}", got,
                            ref.flash_prefill_ref(q, k, v, q_offset=off), tol)
         worst[f"flash_prefill chunk 512@1536/4096 {dt}"] = err
@@ -349,6 +393,64 @@ def kernel_phase(torch):
             f"({r['bound_by']}), sdpa {lib} ms{extra}, max abs err "
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+PREFILL_PHASES = ("load wait", "issue", "S wait", "softmax", "P.V wait",
+                  "rescale+split")
+
+
+def prefill_phase_profile(torch):
+    """Where the prefill tensor-core body's time goes at the two bf16
+    main-path shapes: ``csrc/flash_prefill.cu`` built alone with
+    ``-DRT_PREFILL_PHASES`` (not the library the port runs), whose
+    blocks add the clock cycles thread 0 spends in each phase of the key
+    loop.  Launched through the C entry directly, so no launch count
+    moves."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    lib = ctypes.CDLL(str(runtime.build(sources=("flash_prefill.cu",),
+                                        defines=("RT_PREFILL_PHASES",))))
+    fn, read = lib.rt_flash_prefill, lib.rt_prefill_phases
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = read.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    n = len(PREFILL_PHASES)
+    for label, Tq, Tk, off in (("T=2048", 2048, 2048, 0),
+                               ("chunk 512@1536/4096", 512, 4096, 1536)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                   for shape in ((1, Tq, H, Dh), (1, Tk, Hkv, Dh),
+                                 (1, Tk, Hkv, Dh)))
+        out = torch.empty_like(q)
+
+        def call():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                     out.data_ptr(), 1, Tq, Tk, H, Hkv, Dh, 1, 0, off,
+                     runtime.DTYPE_CODES[torch.bfloat16],
+                     runtime.stream_ptr(dev))
+            if err:
+                raise RuntimeError(f"instrumented flash_prefill: error {err}")
+        call()
+        torch.cuda.synchronize()
+        counts = (ctypes.c_ulonglong * (n + 2))()
+        if read(None, 1):
+            raise RuntimeError("rt_prefill_phases reset failed")
+        call()
+        torch.cuda.synchronize()
+        if read(ctypes.addressof(counts), 0):
+            raise RuntimeError("rt_prefill_phases read failed")
+        tiles, blocks = counts[n], counts[n + 1]
+        cyc = [counts[i] / tiles for i in range(n)]
+        ms = time_ms(torch, call, 10)
+        log("profile", f"flash_prefill tensor-core body, {label}, "
+            f"instrumented build {ms:.4f} ms: {blocks} blocks, "
+            f"{tiles / blocks:.1f} key tiles a block; clock cycles a tile "
+            f"(thread 0 of a block) " + ", ".join(
+                f"{p} {c:.0f}" for p, c in zip(PREFILL_PHASES, cyc))
+            + f"; {sum(cyc):.0f} in all")
 
 
 def wkv6_phase(torch):
@@ -668,6 +770,8 @@ def serve_run(torch, cfg, eng, reqs, label):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     counts = dict(runtime.launch_counts)
+    counts.update({f"flash_prefill/{b}": n
+                   for b, n in runtime.prefill_body_counts.items()})
     if len(done) != len(reqs):
         raise AssertionError(f"{label}: served {len(done)}/{len(reqs)}")
     for r in reqs:
@@ -748,6 +852,16 @@ def serve_phase(torch):
         raise AssertionError("a decode kernel ran on the wrong pool")
     if paged_counts["wkv6"] or contig_counts["wkv6"]:
         raise AssertionError("wkv6 ran on an attention path")
+    for label, c in (("paged", paged_counts), ("contiguous", contig_counts)):
+        if c["flash_prefill/tensor_core"] != c["flash_prefill"] or \
+                c["flash_prefill/cuda_core"]:
+            raise AssertionError(
+                f"{label}: {c['flash_prefill']} flash_prefill launches, "
+                f"{c['flash_prefill/tensor_core']} of them through the "
+                f"tensor-core body")
+    log("serve", f"every flash_prefill launch of the bf16 serve runs went "
+        f"through the tensor-core body: {paged_counts['flash_prefill']} "
+        f"paged, {contig_counts['flash_prefill']} contiguous")
     launches = {"flash_prefill": paged_counts["flash_prefill"],
                 "paged_flash_decode": paged_counts["paged_flash_decode"],
                 "flash_decode": contig_counts["flash_decode"]}
@@ -886,8 +1000,18 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     log("build", f"nvcc sm_90a, {', '.join(runtime.SOURCES)}: built and "
         f"loaded {runtime.build().relative_to(ROOT)} in {seconds:.1f} s")
+    n_hgmma = hgmma_count(runtime.build())
+    if n_hgmma == 0:
+        raise AssertionError("no HGMMA instruction in the prefill "
+                             "tensor-core kernels")
+    check_body_rule()
+    log("build", f"cuobjdump -sass: {n_hgmma} HGMMA instructions in the "
+        f"prefill tensor-core kernels (Dh 64 and 128); the wrapper's body "
+        f"rule matches rt_flash_prefill_body for f32/bf16 x Dh "
+        f"64/80/128/256")
 
     rows = kernel_phase(torch)
+    prefill_phase_profile(torch)
     rows.update(wkv6_phase(torch))
     parity_phase(torch)
     rwkv_parity_phase(torch)
@@ -907,9 +1031,10 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
     table = {"kernels": [
-        entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
-              "src/repro/kernels/flash_prefill.py:84",
-              rows["flash_prefill chunk 512@1536/4096"]),
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rows["flash_prefill chunk 512@1536/4096"]),
+             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
         entry("paged_flash_decode",
               "src/repro_torch/csrc/paged_decode_attn.cu",
               "src/repro/kernels/paged_decode_attn.py:80",

@@ -4,28 +4,60 @@
 // generalised to Tq != Tk with a query offset: Tq queries at absolute
 // positions q_offset + i attend over Tk keys at positions 0..Tk-1, which
 // is what chunked prefill runs (a chunk of Tc queries over the cache).
-// Causal, sliding-window and non-causal masks, per-row key `lengths`.
+// Causal, sliding-window and non-causal masks, per-row key `lengths`,
+// the reference's finite mask value (kNegInf) and its l >= 1e-30 clamp;
+// f32 online softmax and accumulation, the output rounded once.
 //
-// Bound on the H100: at long T the work is the 4*T^2/2*H*Dh FLOPs of the
-// two products (tensor-core bound at 989 TFLOP/s bf16); at short T the
-// bytes of q, k, v and out.  This first version computes in f32 on the
-// CUDA cores and so sits well above that bound; wgmma/TMA is later work.
+// Bound on the H100: at long T the 4 * live pairs * H * Dh FLOPs of the
+// two products (operations: 989 TFLOP/s dense bf16 on the tensor cores);
+// at short T the bytes of q, k, v and out (3.35 TB/s).
 //
-// Design: one block of 256 threads per (q tile, kv head, batch row).  The
-// q tile holds 256/TPR rows: BQ = rows/G query positions times the G
-// query heads of that kv head, so each K/V tile loaded into shared memory
-// is shared by all G heads (the GQA saving the Pallas kernel gets from
-// its `h // G` index map).  Each row is owned by TPR consecutive lanes,
-// each holding Dh/TPR dims of q and of the f32 accumulator in registers;
-// a score is a per-lane partial dot product summed with TPR-lane
-// shuffles.  The sequential kv-block grid axis of the Pallas kernel
-// becomes a loop over 32-key tiles, which starts at the first tile the
-// window reaches and stops at the last live causal tile for
-// q_offset + q_end (and at the row's length).  Tiles are read with
-// 16-byte loads into registers and the next tile's loads are issued
-// before the current tile's math.  Online softmax keeps m, l
-// and the accumulator in f32; l is clamped at 1e-30 as in the reference.
+// Two bodies, chosen by dtype and head dim before the launch
+// (rt_flash_prefill_body, mirrored by kernels/flash_prefill.py:body):
+//
+// * bf16 with Dh in {64, 128}: the tensor-core body.  One block is one
+//   warpgroup (128 threads) and owns 64 query rows of one query head; the
+//   grid is (H, q tiles, B) with the head fastest, so the G query heads of
+//   a kv head run together and reread its K/V from L2, and the q tiles are
+//   issued last tile first (the causal tiles with the most keys start
+//   first).  Shared memory holds the Q tile, two stages of 64-key K tiles
+//   and three of V tiles (97 KB at Dh = 128, two blocks an SM), all in the
+//   128-byte-swizzled layout of hopper.cuh, filled by 16-byte cp.async
+//   copies that zero-fill rows past Tq and Tk.  At the top of each key
+//   tile the block waits for that tile's copies (cp.async.wait_group and
+//   __syncthreads) and issues the next tile's, one tile ahead.  Q is read
+//   once into registers as the A fragments of S = Q·Kᵀ: Dh/16 wgmma
+//   m64n64k16 with K read K-major from shared memory, 32 f32 accumulators
+//   a thread.  Thread t of warp w holds rows w*16 + t/4 and +8 of S,
+//   columns 8j + 2(t%4) + {0,1}: the row max and sum are shuffles among
+//   the 4 lanes of a row, the scores are scaled by scale * log2(e) for
+//   exp2, and masks are applied only on tiles that cross the diagonal, the
+//   window edge, the row's length or Tk.  P goes to the tensor cores as
+//   two bf16 terms, hi = bf16(p) and lo = bf16(p - hi): P rounded to bf16
+//   alone is off by up to 2^-9 relative a term, which at rows with a few
+//   keys exceeds the main path's tolerance against the f32 reference.
+//   The accumulator fragment of two adjacent 8-column blocks of S is the
+//   register A fragment of one k16 step, so O += P·V is eight wgmma
+//   m64n{Dh}k16 (hi and lo for four k-steps) with V read MN-major (the
+//   transpose bit) from the same swizzled tile, Dh/2 f32 accumulators a
+//   thread; the split makes the tensor-core work 1.5 times the bound's.
+//   S of tile t and P·V of tile t - 1 are issued together.  No TMA, warp
+//   specialisation, clusters or persistent blocks yet.
+//
+// * f32 (any supported Dh) and bf16 with Dh in {80, 256}: the CUDA-core
+//   body, in f32.  One block of 256 threads per (q tile, kv head, batch
+//   row).  The q tile holds 256/TPR rows: BQ = rows/G query positions
+//   times the G query heads of that kv head, so each K/V tile loaded into
+//   shared memory is shared by all G heads.  Each row is owned by TPR
+//   consecutive lanes, each holding Dh/TPR dims of q and of the f32
+//   accumulator in registers; a score is a per-lane partial dot product
+//   summed with TPR-lane shuffles, over 32-key tiles read with 16-byte
+//   loads whose next tile is issued before the current tile's math.
+//
+// Both bodies loop over key tiles from the first the window reaches to
+// the last live causal tile for q_offset + q_end (and the row's length).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -230,7 +262,334 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
   }
 }
 
+// ------------------------------------------------ tensor-core body ---
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+namespace sm = rt::sm90;
+
+constexpr int kRows = 64;      // query rows a block (the wgmma M)
+constexpr int kKeys = 64;      // keys a tile
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kAtom = kKeys * 128;  // bytes of one 64-column atom of a tile
+
+constexpr int kKStages = 2;    // K tiles in shared memory
+constexpr int kVStages = 3;    // V tiles: P·V of t - 1 reads one while t + 1
+                               // lands in another
+
+// shared memory: the Q tile and the K and V stages, each 64 x DH bf16,
+// plus room to align them to 1024 bytes
+template <int DH>
+struct Smem {
+  static constexpr int kTile = kKeys * DH * 2;
+  static constexpr int kBytes = (1 + kKStages + kVStages) * kTile + 1024;
+};
+
+// Phase profile, compiled in only with -DRT_PREFILL_PHASES (chip_smoke.py
+// builds such a library beside the real one): thread 0 of each block adds
+// the clock cycles it spent in each phase of the key loop, its tile count
+// and 1 to g_phase_counts; rt_prefill_phases reads or zeroes them.  The
+// compiler may move arithmetic across the clock reads, so a phase counts
+// what the compiled code does between two of them.
+#ifdef RT_PREFILL_PHASES
+constexpr int kPhases = 6;  // load wait, issue, S wait, softmax, P·V wait,
+                            // rescale and split
+__device__ unsigned long long g_phase_counts[kPhases + 2];
+#define RT_PHASE(i)                                                      \
+  do {                                                                   \
+    const long long now_ = clock64();                                    \
+    phase_cycles[i] += now_ - phase_t;                                   \
+    phase_t = now_;                                                      \
+  } while (0)
+#else
+#define RT_PHASE(i) \
+  do {              \
+  } while (0)
+#endif
+
+// cp.async of rows [row0, row0 + 64) of a bf16 array with `stride`
+// elements a row into a swizzled tile; rows at or past `nrows` are
+// zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          size_t stride, int row0, int nrows,
+                                          int tid) {
+  constexpr int CPR = DH / 8;                  // 16-byte chunks a row
+  constexpr int N = kKeys * CPR / kThreads;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int idx = tid + u * kThreads;
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = row0 + r < nrows;
+    const bf16* p = src + (ok ? (size_t)(row0 + r) * stride : 0) + c * 8;
+    sm::cp_async16(dst + sm::swizzled(r, c, kKeys), p, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int* __restrict__ lengths,
+                           bf16* __restrict__ out, int Tq, int Tk, int H,
+                           int Hkv, int causal, int window, int q_offset,
+                           float scale_log2) {
+  constexpr int NO = DH / 2;       // O accumulators a thread
+  constexpr int T = Smem<DH>::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (sm::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + T, sv = sk + kKStages * T;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // last tile first
+  const int kvh = h / (H / Hkv);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;   // rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);               // columns 8j + c0 + {0, 1}
+  const int qp0 = q_offset + q0 + r0, qp1 = qp0 + 8;
+
+  // block-uniform key range [kstart, kend); per-row masks on edge tiles
+  const int len = lengths ? lengths[b] : Tk;
+  const int kvalid = min(Tk, len);
+  const int q_lo = q_offset + q0;
+  const int q_hi = q_offset + min(q0 + kRows, Tq) - 1;
+  int kend = kvalid;
+  if (causal) kend = min(kend, q_hi + 1);
+  const int kstart = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t0 = kstart / kKeys;
+  const int t1 = (kend + kKeys - 1) / kKeys;
+
+  const size_t qs = (size_t)H * DH, ks = (size_t)Hkv * DH;
+  const bf16* qb = q + ((size_t)b * Tq * H + h) * DH;
+  const bf16* kbase = k + ((size_t)b * Tk * Hkv + kvh) * DH;
+  const bf16* vbase = v + ((size_t)b * Tk * Hkv + kvh) * DH;
+
+  // cp.async groups, oldest first: Q; K and V of tile t0; then one a tile
+  // t: K and V of t + 1, issued at the top of t into the K stage S of t - 1
+  // read and the V stage P·V of t - 2 read, both done before that top.
+  load_tile<DH>(sq, qb, qs, q0, Tq, tid);
+  sm::cp_async_commit();
+  if (t0 < t1) {
+    load_tile<DH>(sk, kbase, ks, t0 * kKeys, Tk, tid);
+    load_tile<DH>(sv, vbase, ks, t0 * kKeys, Tk, tid);
+  }
+  sm::cp_async_commit();
+
+  // Q as the register A fragments of S = Q·Kᵀ's Dh/16 k-steps
+  sm::cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qa[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      qa[kk][e] = sm::ld_shared32(
+          sq + sm::swizzled(r0 + 8 * (e & 1), 2 * kk + e / 2, kKeys) +
+          2 * c0);
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = rt::kNegInf, m1 = rt::kNegInf, l0 = 0.f, l1 = 0.f;
+  // P of the previous tile as two bf16 terms, hi + lo: S's fragment of
+  // columns 16kk..16kk+15 is the register A fragment of k-step kk
+  uint32_t ph[4][4] = {}, pl[4][4] = {};
+
+  // O += P·V of the tile in V stage `stage`, V MN-major in shared memory
+  auto pv = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv =
+          sm::desc_sw128(sv + stage * T + kk * 16 * 128, kAtom, 1024);
+      sm::wgmma_m64k16<1>(o, ph[kk], dv, 1);
+      sm::wgmma_m64k16<1>(o, pl[kk], dv, 1);
+    }
+  };
+
+#ifdef RT_PREFILL_PHASES
+  unsigned long long phase_cycles[kPhases] = {};
+  long long phase_t = clock64();
+#endif
+
+  // Tile t: S = Q·Kᵀ of t and P·V of t - 1 are issued together and run
+  // back to back on the tensor cores.  The source waits for P·V only after
+  // the softmax, but the compiler places that wait before it (the SASS has
+  // the WARPGROUP.DEPBAR there), so the softmax does not overlap P·V yet.
+  for (int t = t0, vs = 0; t < t1; ++t, vs = vs == kVStages - 1 ? 0 : vs + 1) {
+    const int buf = (t - t0) & 1;      // K stage of t; V stage of t is vs
+    const int kb = t * kKeys;
+    sm::cp_async_wait<0>();      // K and V of t landed
+    sm::fence_async_shared();
+    __syncthreads();             // ... for every thread, which are all past
+                                 // S of t - 1 and P·V of t - 2
+    RT_PHASE(0);
+    if (t + 1 < t1) {
+      load_tile<DH>(sk + (buf ^ 1) * T, kbase, ks, kb + kKeys, Tk, tid);
+      load_tile<DH>(sv + (vs == kVStages - 1 ? 0 : vs + 1) * T, vbase, ks,
+                    kb + kKeys, Tk, tid);
+    }
+    sm::cp_async_commit();
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    sm::fence_regs(s);
+    sm::fence_regs(o);
+    sm::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
+      sm::wgmma_m64k16<0>(s, qa[kk],
+                          sm::desc_sw128(sk + buf * T + off, 16, 1024),
+                          kk > 0);
+    }
+    sm::wgmma_commit();
+    if (t > t0) {
+      pv(vs == 0 ? kVStages - 1 : vs - 1);
+      sm::wgmma_commit();
+      RT_PHASE(1);
+      sm::wgmma_wait<1>();       // S of t done; P·V of t - 1 may still run
+    } else {
+      RT_PHASE(1);
+      sm::wgmma_wait<0>();
+    }
+    sm::fence_regs(s);
+    RT_PHASE(2);
+
+    // online softmax in the exp2 domain
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    const bool edge = kb + kKeys > kvalid ||
+                      (causal && kb + kKeys - 1 > q_lo) ||
+                      (window > 0 && q_hi - kb >= window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = kb + (i / 4) * 8 + c0 + (i & 1);
+        const int qp = (i & 2) ? qp1 : qp0;
+        bool ok = kp < kvalid;
+        if (causal) ok = ok && qp >= kp;
+        if (window > 0) ok = ok && qp - kp < window;
+        if (!ok) s[i] = rt::kNegInf;
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float a0 = sm::exp2_ftz(m0 - mx0), a1 = sm::exp2_ftz(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = sm::exp2_ftz(s[i] - ((i & 2) ? m1 : m0));
+      if (i & 2) ps1 += s[i];
+      else ps0 += s[i];
+    }
+    l0 = l0 * a0 + ps0;     // this thread's share of the row sums
+    l1 = l1 * a1 + ps1;
+
+    RT_PHASE(3);
+    sm::wgmma_wait<0>();         // P·V of t - 1 done: O and P are free
+    sm::fence_regs(o);
+    sm::fence_regs(ph);
+    sm::fence_regs(pl);
+    RT_PHASE(4);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? a1 : a0;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sm::split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e],
+                       pl[kk][e]);
+    RT_PHASE(5);
+  }
+#ifdef RT_PREFILL_PHASES
+  if (tid == 0) {
+    for (int i = 0; i < kPhases; ++i)
+      atomicAdd(&g_phase_counts[i], phase_cycles[i]);
+    atomicAdd(&g_phase_counts[kPhases], (unsigned long long)(t1 - t0));
+    atomicAdd(&g_phase_counts[kPhases + 1], 1ull);
+  }
+#endif
+  if (t0 < t1) {                 // P·V of the last tile (landed at its top)
+    sm::fence_regs(o);
+    sm::wgmma_fence();
+    pv((t1 - 1 - t0) % kVStages);
+    sm::wgmma_commit();
+    sm::wgmma_wait<0>();
+    sm::fence_regs(o);
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  bf16* o0 = out + ((size_t)(b * Tq + row0) * H + h) * DH + c0;
+  bf16* o1 = out + ((size_t)(b * Tq + row1) * H + h) * DH + c0;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (row0 < Tq)
+      *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
+          sm::pack_bf16(o[4 * j] / lc0, o[4 * j + 1] / lc0);
+    if (row1 < Tq)
+      *reinterpret_cast<uint32_t*>(o1 + 8 * j) =
+          sm::pack_bf16(o[4 * j + 2] / lc1, o[4 * j + 3] / lc1);
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
+           int window, int q_offset, cudaStream_t stream) {
+  if (Hkv < 1 || H % Hkv != 0) return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<DH>::kBytes;
+  auto kern = flash_prefill_wgmma_kernel<DH>;
+  cudaError_t err = rt::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, (Tq + kRows - 1) / kRows, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
+      static_cast<bf16*>(out), Tq, Tk, H, Hkv, causal, window, q_offset,
+      1.4426950408889634f / sqrtf(static_cast<float>(DH)));
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
+
+#ifdef RT_PREFILL_PHASES
+// counts: kPhases cycle sums, then tiles and blocks; zeroes them if reset
+extern "C" int rt_prefill_phases(unsigned long long* counts, int reset) {
+  if (reset) {
+    const unsigned long long zero[tc::kPhases + 2] = {};
+    return cudaMemcpyToSymbol(tc::g_phase_counts, zero, sizeof(zero));
+  }
+  return cudaMemcpyFromSymbol(counts, tc::g_phase_counts,
+                              sizeof(unsigned long long) * (tc::kPhases + 2));
+}
+#endif
+
+// Which body takes a call: 1 for the tensor-core body (bf16, Dh 64 or
+// 128), 0 for the CUDA-core body.
+extern "C" int rt_flash_prefill_body(int dtype, int Dh) {
+  return dtype == rt::kBFloat16 && (Dh == 64 || Dh == 128);
+}
 
 // q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) int32 or null;
 // out: (B,Tq,H,Dh).  All contiguous, one dtype.  Returns a cudaError_t.
@@ -243,6 +602,11 @@ extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v,
   if (dtype == rt::kFloat32)
     return dispatch<float>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh,
                            causal, window, q_offset, s);
+  if (rt_flash_prefill_body(dtype, Dh))
+    return Dh == 64 ? tc::launch<64>(q, k, v, lengths, out, B, Tq, Tk, H,
+                                     Hkv, causal, window, q_offset, s)
+                    : tc::launch<128>(q, k, v, lengths, out, B, Tq, Tk, H,
+                                      Hkv, causal, window, q_offset, s);
   if (dtype == rt::kBFloat16)
     return dispatch<__nv_bfloat16>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
                                    Dh, causal, window, q_offset, s);

@@ -4,12 +4,27 @@ Replaces ``repro/kernels/flash_prefill.py:flash_prefill`` (Pallas TPU),
 generalised to ``Tq != Tk`` with a query offset for chunked prefill.
 The plain PyTorch version is ``kernels/ref.py:flash_prefill_ref``;
 ``kernels/ops.py`` picks between the two by the tensors' device.
+
+The source has two bodies, chosen by dtype and head dim before the
+launch (``body``): bf16 at Dh 64 or 128 runs on the tensor cores
+(``wgmma``), everything else on the CUDA cores in f32.  The choice is
+not a fallback: a failed build or launch of either body raises.
 """
 from __future__ import annotations
 
 import torch
 
 from . import runtime
+
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+
+
+def body(dtype: torch.dtype, Dh: int) -> str:
+    """The body of ``csrc/flash_prefill.cu`` that takes a call, as its C
+    dispatch (``rt_flash_prefill_body``) decides."""
+    if dtype == torch.bfloat16 and Dh in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
@@ -38,4 +53,5 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
     runtime.check(err, "flash_prefill", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_prefill"] += 1
+    runtime.prefill_body_counts[body(q.dtype, Dh)] += 1
     return out

@@ -9,7 +9,10 @@ or loaded at import: the first kernel launch builds, so the CPU tests
 import every module without ``nvcc``.
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches
-its kernel and nowhere else; ``reset_launch_counts`` zeroes them.
+its kernel and nowhere else; the prefill wrapper also adds one to
+``prefill_body_counts[<body>]`` for the body that launch ran
+(``kernels/flash_prefill.py:body``).  ``reset_launch_counts`` zeroes
+both.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_prefill.cu", "decode_attn.cu", "paged_decode_attn.cu",
            "wkv6.cu")
-HEADERS = ("common.cuh", "decode_common.cuh")
+HEADERS = ("common.cuh", "decode_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,11 +41,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode", "wkv6")
 launch_counts = {name: 0 for name in KERNELS}
+# the two bodies of csrc/flash_prefill.cu
+PREFILL_BODIES = ("tensor_core", "cuda_core")
+prefill_body_counts = {name: 0 for name in PREFILL_BODIES}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, prefill_body_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -53,28 +60,34 @@ def _nvcc() -> str:
                        "machine with the card")
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def cuda_tool(name: str) -> Path:
+    """A tool of the toolkit that builds the kernels (``cuobjdump``)."""
+    return Path(_nvcc()).parent / name
+
+
+def _source_hash(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources (in parallel) and link the shared library;
-    returns its path.  A library already built from the same sources is
-    reused."""
-    out = BUILD_ROOT / _source_hash() / LIB_NAME
+def build(sources=SOURCES, defines=()) -> Path:
+    """Compile ``sources`` (in parallel, with ``-D`` of each of
+    ``defines``) and link the shared library; returns its path.  A
+    library already built from the same sources and flags is reused."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    out = BUILD_ROOT / _source_hash(sources, flags) / LIB_NAME
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         procs = []
-        for name in SOURCES:
+        for name in sources:
             obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c",
                    str(CSRC / name), "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -89,7 +102,7 @@ def build() -> Path:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp_lib)],
+            [nvcc, *flags, "-shared", *objs, "-o", str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
@@ -103,6 +116,8 @@ _SIGNATURES = {
     # q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh, causal, window,
     # q_offset, dtype, stream
     "rt_flash_prefill": [_P] * 5 + [_I] * 10 + [_P],
+    # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
+    "rt_flash_prefill_body": [_I] * 2,
     # q, k, v, pos, out, B, S, H, Hkv, Dh, ring, dtype, stream
     "rt_flash_decode": [_P] * 5 + [_I] * 7 + [_P],
     # q, kp, vp, block_tables, pos, out, B, n_pages, page, n_p, s_len, H,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import runtime
 
@@ -74,6 +75,16 @@ CHUNK_SHAPES = [
     (1, 64, 256, 8, 2, 128, 128),
     (2, 96, 256, 4, 1, 80, 37),
 ]
+# the tensor-core prefill body (bf16, Dh 64 and 128) off its 64-row,
+# 64-key tile grid: (B, Tq, Tk, H, Hkv, causal, window, q_offset, lengths)
+TENSOR_CORE_CASES = {
+    "ragged": (1, 100, 230, 4, 2, True, 0, 130, None),
+    "offset": (2, 77, 300, 8, 2, True, 0, 37, None),
+    "lengths": (2, 150, 150, 4, 1, True, 0, 0, (150, 91)),
+    "window": (1, 300, 300, 4, 2, True, 100, 0, None),
+    "window_offset_lengths": (2, 70, 333, 4, 2, True, 64, 200, (333, 250)),
+    "noncausal_lengths": (2, 96, 200, 4, 4, False, 0, 0, (200, 75)),
+}
 DTYPES = ["float32", "bfloat16"]
 
 
@@ -180,6 +191,20 @@ def _wkv_tol(dtype):
 
 def _valid_rows(T, lens):
     return np.arange(T)[None, :, None, None] < lens[:, None, None, None]
+
+
+def _live_rows(B, Tq, Tk, causal, window, q_offset, lens):
+    """(B,Tq,1,1): query rows with at least one unmasked key (rows whose
+    keys are all masked are garbage in both versions)."""
+    qp = np.arange(Tq)[:, None] + q_offset
+    kp = np.arange(Tk)[None, :]
+    ok = np.ones((Tq, Tk), bool)
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= qp - kp < window
+    live = ok[None] & (kp[None] < np.asarray(lens)[:, None, None])
+    return live.any(-1)[:, :, None, None]
 
 
 # ------------------------------------------------------------ CPU cases --
@@ -351,6 +376,18 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
     assert all(n == 0 for n in runtime.launch_counts.values())
 
 
+@pytest.mark.parametrize("dtype,Dh,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 80, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 80, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+def test_flash_prefill_body_rule(dtype, Dh, want):
+    """bf16 at Dh 64 or 128 takes the tensor-core body; f32 and the other
+    head dims the CUDA-core body (``csrc/flash_prefill.cu``)."""
+    assert prefill_kernel.body(dtype, Dh) == want
+    assert want in runtime.PREFILL_BODIES
+
+
 # ----------------------------------------------------------- CUDA cases --
 @pytest.fixture
 def cuda_exact_f32():
@@ -375,9 +412,12 @@ def test_cuda_flash_prefill(shape, dtype, cuda_exact_f32):
     args = [_t(x, dtype, dev) for x in (q, k, v)]
     lt = torch.from_numpy(lens).to(dev)
     n0 = runtime.launch_counts["flash_prefill"]
+    which = prefill_kernel.body(args[0].dtype, Dh)
+    b0 = runtime.prefill_body_counts[which]
     got = ops.flash_prefill(*args, lt, causal=causal, window=window)
     torch.cuda.synchronize()
     assert runtime.launch_counts["flash_prefill"] == n0 + 1
+    assert runtime.prefill_body_counts[which] == b0 + 1
     want = ref.flash_prefill_ref(*args, lt, causal=causal, window=window)
     valid = _valid_rows(T, lens)
     np.testing.assert_allclose(np.where(valid, _f32(got), 0),
@@ -399,6 +439,46 @@ def test_cuda_flash_prefill_chunk_offset(shape, dtype, cuda_exact_f32):
     torch.cuda.synchronize()
     want = ref.flash_prefill_ref(q, k, v, causal=True, q_offset=off)
     np.testing.assert_allclose(_f32(got), _f32(want), **_cuda_tol(dtype))
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", sorted(TENSOR_CORE_CASES))
+@pytest.mark.parametrize("Dh", prefill_kernel.TENSOR_CORE_HEAD_DIMS)
+def test_cuda_flash_prefill_tensor_core_body(case, Dh, cuda_exact_f32):
+    """bf16 through the wgmma body at ragged Tq / Tk, offsets off the
+    64-row grid, lengths, windows and no mask, against the plain
+    version at the sweep tolerance."""
+    dev = cuda_exact_f32
+    B, Tq, Tk, H, Hkv, causal, window, off, lens = TENSOR_CORE_CASES[case]
+    rng = np.random.default_rng(3)
+    q, k, v = (_t(_normal(rng, shape, "bfloat16"), "bfloat16", dev)
+               for shape in ((B, Tq, H, Dh), (B, Tk, Hkv, Dh),
+                             (B, Tk, Hkv, Dh)))
+    lens = np.array(lens if lens else (Tk,) * B, np.int32)
+    lt = torch.from_numpy(lens).to(dev)
+    b0 = runtime.prefill_body_counts["tensor_core"]
+    got = ops.flash_prefill(q, k, v, lt, causal=causal, window=window,
+                            q_offset=off)
+    torch.cuda.synchronize()
+    assert runtime.prefill_body_counts["tensor_core"] == b0 + 1
+    want = ref.flash_prefill_ref(q, k, v, lt, causal=causal, window=window,
+                                 q_offset=off)
+    live = _live_rows(B, Tq, Tk, causal, window, off, lens)
+    assert live.any()
+    np.testing.assert_allclose(np.where(live, _f32(got), 0),
+                               np.where(live, _f32(want), 0),
+                               **_cuda_tol("bfloat16"))
+
+
+@needs_cuda
+def test_cuda_flash_prefill_body_rule_matches_c(cuda_exact_f32):
+    """The wrapper's body rule is the one the C launch applies."""
+    lib = runtime.library()
+    for dtype, code in runtime.DTYPE_CODES.items():
+        for Dh in (64, 80, 128, 256):
+            c_body = ("tensor_core" if lib.rt_flash_prefill_body(code, Dh)
+                      else "cuda_core")
+            assert c_body == prefill_kernel.body(dtype, Dh)
 
 
 @needs_cuda
@@ -491,6 +571,28 @@ def test_cuda_main_path_shapes(case, dtype, cuda_exact_f32):
     for want in wants:
         np.testing.assert_allclose(_f32(got), _f32(want),
                                    **_cuda_main_tol(dtype))
+
+
+@needs_cuda
+def test_cuda_flash_prefill_tensor_core_chunk_b4(cuda_exact_f32):
+    """A 512-token chunk of four rows at Qwen3-14B's widths (rows of other
+    lengths, offset 1024 over 2048 slots) through the wgmma body, at the
+    main path's tolerance."""
+    dev = cuda_exact_f32
+    B, Tq, Tk, off = 4, 512, 2048, 1024
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    rng = np.random.default_rng(8)
+    q, k, v = (_t(_normal(rng, shape, "bfloat16"), "bfloat16", dev)
+               for shape in ((B, Tq, H, Dh), (B, Tk, Hkv, Dh),
+                             (B, Tk, Hkv, Dh)))
+    lt = torch.tensor([1536, 1100, 2048, 700], dtype=torch.int32, device=dev)
+    b0 = runtime.prefill_body_counts["tensor_core"]
+    got = ops.flash_prefill(q, k, v, lt, q_offset=off)
+    torch.cuda.synchronize()
+    assert runtime.prefill_body_counts["tensor_core"] == b0 + 1
+    want = ref.flash_prefill_ref(q, k, v, lt, q_offset=off)
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               **_cuda_main_tol("bfloat16"))
 
 
 @needs_cuda
