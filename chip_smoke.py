@@ -21,8 +21,12 @@ goes through these phases, each printing its own lines:
    select; at the main paths' bf16 shapes also its time, the plain
    version's time, the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
-   yardstick; then the prefill tensor-core body's phase profile at its
-   two main-path shapes (a library built with ``-DRT_PREFILL_PHASES``);
+   yardstick; the decode kernels also at rows of every length (0-4095)
+   and on wrapped rings, where two calls must give the same bits, with
+   the split (n_split, L) and body each call chose, and a sweep of the
+   split length a step either side of the rule's; then the prefill
+   tensor-core body's phase profile at its two main-path shapes (a
+   library built with ``-DRT_PREFILL_PHASES``);
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
@@ -85,6 +89,15 @@ WKV_SHAPES = [       # (B, T, H, hs): reference sweep
 # nearly everything (the case a chunked cumulative-decay form overflows)
 WKV_DECAYS = {"strong": math.exp(-math.exp(3.0)),
               "weak": math.exp(-math.exp(-6.0))}
+# decode rows at the main widths (B = 8 over 4096 slots): (label, pos,
+# ring).  Every length from one slot to the whole cache, so rows end in
+# the first split, mid-split and in the last; then rings wrapped or not.
+DECODE_MIXED = [
+    ("mixed contexts", [0, 63, 255, 256, 1023, 2047, 3000, 4095], False),
+    ("wrapped ring", [5000, 100, 4096, 8191, 0, 4095, 9000, 2047], True)]
+# decode rows of the Qwen3-14B serve run: the first eight prompts
+# (SERVE_LENGTHS) a few tokens into their decode
+SERVE_DECODE_POS = [95, 2079, 331, 1055, 159, 1567, 543, 127]
 PAGED_SHAPES = [     # (B, S, H, Hkv, Dh, page, ring)
     (2, 256, 8, 2, 64, 128, False), (2, 256, 8, 8, 64, 128, False),
     (1, 600, 4, 1, 128, 128, False), (1, 300, 4, 2, 64, 128, False),
@@ -338,6 +351,9 @@ def kernel_phase(torch):
         err = assert_close(torch, f"flash_decode main {dt}", got,
                            ref.flash_decode_ref(q, kc, vc, pos), tol)
         worst[f"flash_decode B=8 ctx=2048 {dt}"] = err
+        plan = runtime.decode_plans["flash_decode"]
+        log("kernels", f"flash_decode B=8 S={S} {dt}: n_split "
+            f"{plan.n_split}, L {plan.L}, {plan.body} body")
         if timed:
             dmask = (torch.arange(S, device=dev)[None]
                      <= pos[:, None])[:, None, None]
@@ -351,7 +367,8 @@ def kernel_phase(torch):
                 plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
                     q, kc, vc, pos), 10),
                 library_ms=sdpa_decode, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err)
+                max_abs_err=err, plan=plan)
+            decode_split_sweep(torch, q, kc, vc, plan.L)
 
         n_p = S // page
         n_pages = B * n_p + 1
@@ -368,6 +385,9 @@ def kernel_phase(torch):
                   assert_close(torch, f"paged vs contiguous main {dt}", got,
                                ref.flash_decode_ref(q, kc, vc, pos), tol))
         worst[f"paged_flash_decode B=8 ctx=2048 page=128 {dt}"] = err
+        plan = runtime.decode_plans["paged_flash_decode"]
+        log("kernels", f"paged_flash_decode B=8 S={S} page={page} {dt}: "
+            f"n_split {plan.n_split}, L {plan.L}, {plan.body} body")
         if timed:
             b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
                                   flops, dt)
@@ -377,7 +397,32 @@ def kernel_phase(torch):
                 plain_ms=time_ms(torch, lambda: ref.paged_flash_decode_ref(
                     q, kp, vp, bt, pos, s_len=S), 10),
                 library_ms=None, sdpa_contiguous_ms=sdpa_decode,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, plan=plan)
+
+        # rows of every length and wrapped rings, both pools, each kernel
+        # called twice: the two calls must give the same bits
+        for label, posl, ring in DECODE_MIXED:
+            pm = torch.tensor(posl, dtype=torch.int32, device=dev)
+            calls = [(ops.flash_decode(q, kc, vc, pm, ring=ring),
+                      ops.paged_flash_decode(q, kp, vp, bt, pm, s_len=S,
+                                             ring=ring)) for _ in range(2)]
+            (a, b), (a2, b2) = calls
+            worst[f"decode {label} {dt}"] = max(
+                assert_close(torch, f"flash_decode {label} {dt}", a,
+                             ref.flash_decode_ref(q, kc, vc, pm, ring=ring),
+                             tol),
+                assert_close(torch, f"paged_flash_decode {label} {dt}", b,
+                             ref.paged_flash_decode_ref(
+                                 q, kp, vp, bt, pm, s_len=S, ring=ring), tol),
+                assert_close(torch, f"paged vs contiguous {label} {dt}", b,
+                             a, tol))
+            if not (torch.equal(a, a2) and torch.equal(b, b2)):
+                raise AssertionError(f"decode {label} {dt}: two calls on "
+                                     f"the same inputs differ")
+        log("kernels", f"decode {dt}: {', '.join(d[0] for d in DECODE_MIXED)}"
+            f" agree with the plain versions (paged also with the "
+            f"contiguous kernel), and two calls of each kernel give the "
+            f"same bits")
         del q, kc, vc, kp, vp, got
         torch.cuda.empty_cache()
 
@@ -388,11 +433,52 @@ def kernel_phase(torch):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f", sdpa on the gathered cache {r['sdpa_contiguous_ms']:.4f}"
                  if "sdpa_contiguous_ms" in r else "")
+        if "plan" in r:
+            extra += (f"; n_split {r['plan'].n_split}, L {r['plan'].L}, "
+                      f"{r['plan'].body} body")
         log("kernels", f"{name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), sdpa {lib} ms{extra}, max abs err "
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def decode_split_sweep(torch, q, kc, vc, L0):
+    """Device time of the contiguous decode kernel at the split length
+    ``L0`` the rule chose and a step either side, at context 2048 and at
+    the serve run's decode rows (bf16, B = 8 over 4096 slots).  Launched
+    through the C entry directly, so no launch count moves."""
+    from repro_torch.kernels import ref, runtime
+    dev = q.device
+    B, H, Dh = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    lib = runtime.library()
+    out = torch.empty_like(q)
+    arrivals = runtime.arrival_counters(dev, B * Hkv)
+    res = []
+    for label, posl in (("ctx 2048", [2047] * B),
+                        ("serve rows", SERVE_DECODE_POS)):
+        pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+        want = ref.flash_decode_ref(q, kc, vc, pos)
+        for L in (L0 // 2, L0, 2 * L0):
+            n_split = -(-S // L)
+            part = torch.empty((B, H, n_split, Dh + 2), device=dev)
+
+            def call():
+                err = lib.rt_flash_decode(
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                    pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+                    arrivals.data_ptr(), B, S, H, Hkv, Dh, 0, L, n_split,
+                    runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(dev))
+                if err:
+                    raise RuntimeError(f"flash_decode L={L}: error {err}")
+            call()
+            assert_close(torch, f"flash_decode L={L} {label}", out, want,
+                         MAIN_TOL["bfloat16"])
+            res.append(f"{label} L={L}{' (rule)' if L == L0 else ''} "
+                       f"{time_ms(torch, call, 50):.4f} ms")
+    log("kernels", "flash_decode split sweep, bf16 B=8 S=4096: "
+        + "; ".join(res))
 
 
 PREFILL_PHASES = ("load wait", "issue", "S wait", "softmax", "P.V wait",
@@ -772,6 +858,8 @@ def serve_run(torch, cfg, eng, reqs, label):
     counts = dict(runtime.launch_counts)
     counts.update({f"flash_prefill/{b}": n
                    for b, n in runtime.prefill_body_counts.items()})
+    counts.update({f"{k}/last plan": p for k, p in runtime.decode_plans.items()
+                   if p is not None})
     if len(done) != len(reqs):
         raise AssertionError(f"{label}: served {len(done)}/{len(reqs)}")
     for r in reqs:
@@ -862,6 +950,14 @@ def serve_phase(torch):
     log("serve", f"every flash_prefill launch of the bf16 serve runs went "
         f"through the tensor-core body: {paged_counts['flash_prefill']} "
         f"paged, {contig_counts['flash_prefill']} contiguous")
+    for name, c in (("paged_flash_decode", paged_counts),
+                    ("flash_decode", contig_counts)):
+        plan = c[f"{name}/last plan"]
+        if plan.body != "tensor_core":
+            raise AssertionError(f"{name}: bf16 serve run took the "
+                                 f"{plan.body} body")
+        log("serve", f"{name}: last launch of the serve run split-KV with "
+            f"n_split {plan.n_split}, L {plan.L}, {plan.body} body")
     launches = {"flash_prefill": paged_counts["flash_prefill"],
                 "paged_flash_decode": paged_counts["paged_flash_decode"],
                 "flash_decode": contig_counts["flash_decode"]}
@@ -1030,18 +1126,22 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
+    def decode_entry(name, source, replaces, row):
+        p = row["plan"]
+        return dict(entry(name, source, replaces, row),
+                    body=f"{p.body} (split-KV, n_split {p.n_split}, L {p.L})")
     table = {"kernels": [
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill.py:84",
                    rows["flash_prefill chunk 512@1536/4096"]),
              body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
-        entry("paged_flash_decode",
-              "src/repro_torch/csrc/paged_decode_attn.cu",
-              "src/repro/kernels/paged_decode_attn.py:80",
-              rows["paged_flash_decode B=8 ctx=2048 page=128"]),
-        entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
-              "src/repro/kernels/decode_attn.py:67",
-              rows["flash_decode B=8 ctx=2048"]),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     rows["paged_flash_decode B=8 ctx=2048 page=128"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     rows["flash_decode B=8 ctx=2048"]),
         entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
               "src/repro/kernels/wkv6.py:58",
               rows[f"wkv6 chunk B={WKV_MAIN['B']} T={WKV_MAIN['T']}"]),

@@ -3,66 +3,66 @@
 // Replaces: repro/kernels/decode_attn.py:flash_decode (Pallas TPU): one
 // query token per row against a (B, S, Hkv, Dh) cache, `pos` validity and
 // ring (sliding-window) caches.  It carries the contiguous slot pool of
-// the serving engine.  Bound, design and what holds it back: see
-// decode_common.cuh; a slot s of row b is cache row b*S + s.
+// the serving engine.  A slot s of row b is cache row b*S + s.
+//
+// Bound (the bytes of K and V), the split rule, the cp.async pipeline,
+// the body rule (bf16 on the tensor cores, f32 on the CUDA cores), the
+// one-launch merge and what still holds the kernel back: see
+// decode_common.cuh.  The host picks the split (kernels/decode_attn.py:
+// plan) and allocates the partials; this file only names the kernel.
 #include "decode_common.cuh"
 
 namespace {
 
-template <typename T, int DH>
+template <typename T, int DH, int MT>
 __global__ void __launch_bounds__(rt::kDecThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ pos,
-                    T* __restrict__ out, int H, int Hkv, int G, int S,
-                    int ring, float scale) {
-  rt::decode_block<T, DH>(q, kc, vc, pos, out, H, Hkv, G, S, ring, scale,
-                          rt::ContiguousSlots{S});
+flash_decode_kernel(rt::DecodeArgs<T> a, rt::ContiguousSlots slots) {
+  rt::decode_body<DH, MT>(a, slots);
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* out, int B, int S, int H, int Hkv, int ring,
-           cudaStream_t stream) {
-  if (!rt::decode_shape_ok(H, Hkv, DH)) return cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const size_t smem = rt::decode_smem_bytes(G, DH);
-  auto kern = flash_decode_kernel<T, DH>;
-  cudaError_t err = rt::allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(Hkv, B), rt::kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(pos),
-      static_cast<T*>(out), H, Hkv, G, S, ring,
-      1.0f / sqrtf(static_cast<float>(DH)));
-  return cudaGetLastError();
-}
+struct Kernels {
+  template <typename T, int DH, int MT>
+  static auto get() { return flash_decode_kernel<T, DH, MT>; }
+};
 
 template <typename T>
-int dispatch(const void* q, const void* kc, const void* vc, const void* pos,
-             void* out, int B, int S, int H, int Hkv, int Dh, int ring,
-             cudaStream_t stream) {
-  switch (Dh) {
-    case 64: return launch<T, 64>(q, kc, vc, pos, out, B, S, H, Hkv, ring, stream);
-    case 80: return launch<T, 80>(q, kc, vc, pos, out, B, S, H, Hkv, ring, stream);
-    case 128: return launch<T, 128>(q, kc, vc, pos, out, B, S, H, Hkv, ring, stream);
-    case 256: return launch<T, 256>(q, kc, vc, pos, out, B, S, H, Hkv, ring, stream);
-    default: return cudaErrorInvalidValue;
-  }
+int launch(const void* q, const void* kc, const void* vc, const void* pos,
+           void* out, void* part, void* arrivals, int B, int S, int H,
+           int Hkv, int Dh, int ring, int L, int n_split,
+           cudaStream_t stream) {
+  if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  const auto a = rt::decode_args<T>(q, kc, vc, pos, out, part, arrivals, H,
+                                    Hkv, Dh, S, ring, L, n_split);
+  return rt::launch_decode<T, Kernels>(a, rt::ContiguousSlots{S}, B, Dh,
+                                       stream);
 }
 
 }  // namespace
 
-// q: (B,H,Dh); k, v: (B,S,Hkv,Dh); pos: (B,) int32; out: (B,H,Dh).
-// All contiguous, one dtype.  Returns a cudaError_t.
+// q: (B,H,Dh); k, v: (B,S,Hkv,Dh); pos: (B,) int32; out: (B,H,Dh); part:
+// (B,H,n_split,Dh+2) f32 scratch (may be null when n_split == 1);
+// arrivals: >= B*Hkv int32, zero.  All contiguous, one dtype; L and
+// n_split from kernels/decode_attn.py:plan.  Returns a cudaError_t.
 extern "C" int rt_flash_decode(const void* q, const void* kc, const void* vc,
-                               const void* pos, void* out, int B, int S, int H,
-                               int Hkv, int Dh, int ring, int dtype,
-                               void* stream) {
+                               const void* pos, void* out, void* part,
+                               void* arrivals, int B, int S, int H, int Hkv,
+                               int Dh, int ring, int L, int n_split,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return dispatch<float>(q, kc, vc, pos, out, B, S, H, Hkv, Dh, ring, s);
+    return launch<float>(q, kc, vc, pos, out, part, arrivals, B, S, H, Hkv,
+                         Dh, ring, L, n_split, s);
   if (dtype == rt::kBFloat16)
-    return dispatch<__nv_bfloat16>(q, kc, vc, pos, out, B, S, H, Hkv, Dh, ring,
-                                   s);
+    return launch<__nv_bfloat16>(q, kc, vc, pos, out, part, arrivals, B, S,
+                                 H, Hkv, Dh, ring, L, n_split, s);
   return cudaErrorInvalidValue;
+}
+
+// 1 when (dtype, Dh) runs the tensor-core body of both decode kernels
+// (bf16, at every head dim they take), 0 for the CUDA-core body (f32):
+// the dispatch of decode_common.cuh's decode_body overloads, which
+// kernels/decode_attn.py:body repeats.
+extern "C" int rt_decode_body(int dtype, int Dh) {
+  (void)Dh;
+  return dtype == rt::kBFloat16;
 }

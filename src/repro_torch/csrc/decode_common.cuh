@@ -1,30 +1,85 @@
-// GQA flash-decode body shared by the contiguous and the paged decode
-// kernels; they differ only in how a virtual slot maps to a cache row.
+// Split-KV GQA flash-decode shared by the contiguous and the paged decode
+// kernels; they differ only in how a virtual slot maps to a cache row
+// (the Slots policies below).
 //
 // Bound on the H100: the bytes of K and V read (every live slot of every
-// kv head once per step, 3.35 TB/s); the FLOPs are tiny.  Design: one
-// block of 128 threads per (kv head, batch row) streams the live slots in
-// 32-slot tiles through shared memory, so each K/V element is read from
-// device memory once and scored against all G query heads of its kv
-// head (the GQA saving the Pallas kernels get by processing G heads per
-// grid step).  A tile is read with 16-byte loads into registers, and the
-// next tile's loads are issued before the current tile's math, so the
-// loads of one tile are in flight together and overlap the math.  Warp w
-// scores heads w, w+4, ... with one slot per lane, so the tile's max and
-// sum are warp shuffles; the online softmax keeps m, l and the (G, Dh)
-// accumulator in f32.  The loop stops at the last live slot (pos + 1, or
-// the whole cache once a ring has wrapped).  What holds it back first: at
-// B = 8 and Hkv = 8 the grid is only 64 blocks on 132 SMs, one block of
-// four warps per SM; split-KV is the later fix.
+// kv head once per step, 3.35 TB/s).  At Qwen3-14B's widths (H = 40,
+// Hkv = 8, Dh = 128, bf16) and B = 8 at context 2048 that is 67 MB, or
+// 0.020 ms; the products are 5 query heads against each K/V row, far
+// below the tensor cores' rate.  So the design is about keeping enough
+// bytes in flight on every SM, and reading each K/V row once for all G
+// query heads of its kv head.
+//
+// Split rule.  The grid is (n_split, Hkv, B): block (i, kvh, b) streams
+// slots [i L, (i + 1) L) of its row, L a multiple of kDecQuantum.  The
+// host picks L and n_split = ceil(s_len / L) from s_len, B and Hkv alone
+// (kernels/decode_attn.py:plan: about 512 blocks over s_len, at most
+// kDecMaxSplit splits), never from pos, which would need a sync.  A
+// block reads pos[b] itself: the live slots are [0, n) with n =
+// min(s_len, pos + 1), or s_len once a ring has wrapped, and a block
+// whose range starts at or past n exits at once, writing nothing.
+//
+// Inside a block, four warps each take every fourth warp tile of the
+// block's range and run their own online softmax over them; no
+// __syncthreads is taken inside the slot loop.  The warps' (m, l, acc)
+// are merged in shared memory in warp order.
+//
+// Merge.  With n_live = ceil(n / L) live splits, a block with n_live = 1
+// writes the output itself.  Otherwise each live block writes its partial
+// (acc[Dh], m, l; f32, m in log2 units) to scratch (B, H, n_split,
+// Dh + 2), and the last of them to arrive (an int32 counter per (b,
+// kvh), __threadfence before the atomicAdd) merges the n_live partials
+// in split order and resets the counter to 0: one launch, and the same
+// sums in the same order whichever block comes last, so two calls give
+// the same bits.  out = sum_i 2^(m_i - M) acc_i / max(sum_i 2^(m_i - M)
+// l_i, 1e-30), M = max_i m_i; a row with no live slot (pos < 0) gets 0.
+//
+// Bodies (rt_decode_body, kernels/decode_attn.py:body).  bf16, every Dh
+// the kernels take (64, 80, 128, 256, all multiples of 16), runs on the
+// tensor cores: a warp tile is 16 slots of K and V, copied by cp.async
+// (zero-filled past n) into a kDecStages-deep ring of the warp's own
+// shared memory, rows padded by 16 bytes so ldmatrix is free of bank
+// conflicts.  S = Q·Kᵀ and P·V are mma.sync.m16n8k16 with the G query
+// heads padded to 16 rows (32 when G > 16); K goes in by ldmatrix, V by
+// ldmatrix.trans, P stays in registers as the A fragment and is split
+// into bf16 hi + lo so P·V keeps the f32 reference's tolerance (the
+// doubled product costs nothing in a kernel bound by bytes).  f32 runs on
+// the CUDA cores: a warp tile is 32 slots, lane j scores slot j from its
+// K row read into registers, and each lane accumulates (head, 4-dim)
+// pairs of P·V from V rows read into registers; only Q, P (G x 32) and the
+// tile's row indices sit in shared memory.
+//
+// What still holds it back (chip_smoke.py on an H100 SXM, 700 W): at the
+// main shape the kernel takes about 1.7x its bound; the rule's L = 512
+// runs the 256 live blocks as one wave at two blocks an SM (109 KB of
+// shared memory a block at Dh = 128); halving L (two waves) or doubling
+// it (half the SMs busy) is slower.  Not measured, but the likely rest:
+// each block waits a full memory latency for its first tile and drains
+// its last with no block behind it on the SM to hide either.  Short rows pay the same fixed costs on
+// less data: the serve run's rows (about 6000 live slots over 8 rows)
+// take about 2.6x their bound.  A persistent grid that keeps every SM
+// streaming, or TMA copies that need no registers, are the next steps;
+// the decode step around the kernel is bound by the host.
 #pragma once
 
+#include <math.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rt {
 
-constexpr int kDecThreads = 128;
-constexpr int kDecBS = 32;     // slots per shared-memory tile
-constexpr int kDecMaxOut = 16;  // G * Dh <= 16 * 128
+constexpr int kDecThreads = 128;  // four warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecMaxGD = 2048;   // G * Dh
+constexpr int kDecQuantum = 128;  // L is a multiple of this
+constexpr int kDecMaxSplit = 64;
+constexpr int kDecStages = 3;     // cp.async ring depth (tensor-core body)
+constexpr int kTcTile = 16;       // slots of a warp tile, tensor-core body
+constexpr int kCcTile = 32;       // slots of a warp tile, CUDA-core body
+static_assert(kDecQuantum % (kDecWarps * kCcTile) == 0 &&
+                  kDecQuantum % (kDecWarps * kTcTile) == 0,
+              "a split is whole warp tiles");
 
 // Contiguous caches (B, S, Hkv, Dh): slot s of row b is cache row b*S + s.
 struct ContiguousSlots {
@@ -46,138 +101,612 @@ struct PagedSlots {
   }
 };
 
-// q: (B, H, Dh); out: (B, H, Dh).  s_len is the request-level cache
-// length: slot s is live iff s < s_len and (s <= pos or (ring and
-// pos >= s_len)), i.e. iff s < n for the n computed below.
-template <typename T, int DH, typename Slots>
-__device__ void decode_block(const T* __restrict__ q, const T* __restrict__ kc,
-                             const T* __restrict__ vc,
-                             const int* __restrict__ pos, T* __restrict__ out,
-                             int H, int Hkv, int G, int s_len, int ring,
-                             float scale, Slots slots) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [G][DH]
-  float* Ks = qs + G * DH;                   // [BS][DH + 1] (padded)
-  float* Vs = Ks + kDecBS * (DH + 1);        // [BS][DH]
-  float* Ps = Vs + kDecBS * DH;              // [G][BS]
-  float* ms = Ps + G * kDecBS;               // [G]
-  float* ls = ms + G;                        // [G]
-  float* as = ls + G;                        // [G] rescale factors
+// q: (B, H, Dh); out: (B, H, Dh); part: (B, H, n_split, Dh + 2) f32
+// scratch (unused when n_split == 1); arrivals: (B, Hkv) int32, zero
+// between launches.  s_len is the request-level cache length.
+template <typename T>
+struct DecodeArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const int* pos;
+  T* out;
+  float* part;
+  int* arrivals;
+  int H, Hkv, G, s_len, ring, L, n_split;
+  float scale_log2;  // log2(e) / sqrt(Dh)
+};
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int GD = G * DH;
+struct BlockRange {
+  int b, kvh, split;
+  int n;       // live slots of the row
+  int n_live;  // splits holding live slots
+  int start, end;
+};
 
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * DH;
-  for (int idx = tid; idx < GD; idx += kDecThreads) qs[idx] = to_f(qb[idx]);
-  for (int g = tid; g < G; g += kDecThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
+__device__ __forceinline__ BlockRange block_range(const int* pos, int s_len,
+                                                  int ring, int L) {
+  BlockRange r;
+  r.split = blockIdx.x;
+  r.kvh = blockIdx.y;
+  r.b = blockIdx.z;
+  const int p = pos[r.b];
+  r.n = (ring && p >= s_len) ? s_len : min(s_len, p + 1);
+  r.n_live = r.n > 0 ? (r.n + L - 1) / L : 0;
+  r.start = r.split * L;
+  r.end = min(r.start + L, r.n);
+  return r;
+}
+
+// True when the block has nothing to stream; block 0 of a row with no
+// live slot writes its zeros.
+template <typename T>
+__device__ __forceinline__ bool block_is_empty(const DecodeArgs<T>& a,
+                                               const BlockRange& r, int DH) {
+  if (r.split < r.n_live) return false;
+  if (r.n_live == 0 && r.split == 0) {
+    T* ob = a.out + ((size_t)r.b * a.H + (size_t)r.kvh * a.G) * DH;
+    for (int idx = threadIdx.x; idx < a.G * DH; idx += kDecThreads)
+      ob[idx] = from_f<T>(0.f);
   }
-  float acc[kDecMaxOut];
-#pragma unroll
-  for (int o = 0; o < kDecMaxOut; ++o) acc[o] = 0.f;
+  return true;
+}
 
-  const int p = pos[b];
-  const int n = (ring && p >= s_len) ? s_len : min(s_len, p + 1);
-  const size_t hstride = (size_t)Hkv * DH;
+// floats of the merge area: the warps' acc, m and l, and the cross-split
+// weights
+__host__ __device__ inline size_t merge_floats(int G, int DH) {
+  return (size_t)kDecWarps * G * DH + 2 * kDecWarps * G +
+         (size_t)kDecMaxSplit * G;
+}
 
-  // a tile is kDecBS rows of CPR 16-byte chunks; thread tid holds chunks
-  // tid, tid + 128, ... of K and of V in registers
-  constexpr int VEC = kVec<T>;
-  constexpr int CPR = DH / VEC;
-  constexpr int NCH = (kDecBS * CPR + kDecThreads - 1) / kDecThreads;
-  static_assert(DH % VEC == 0, "rows must be whole 16-byte chunks");
-  uint4 kreg[NCH], vreg[NCH];
-  auto issue = [&](int s0) {
+// The block's warps have written their (acc, m, l) to ws; merge them in
+// warp order, then write the output (one live split) or the partial, and
+// let the last block of the (b, kvh) merge the partials in split order.
+template <typename T, int DH>
+__device__ void finish_block(float* ws, const DecodeArgs<T>& a,
+                             const BlockRange& r) {
+  const int G = a.G, GD = G * DH, tid = threadIdx.x;
+  const float* Wacc = ws;
+  const float* Wm = ws + kDecWarps * GD;
+  const float* Wl = Wm + kDecWarps * G;
+  float* Wt = ws + kDecWarps * GD + 2 * kDecWarps * G;  // [split][G]
+  constexpr int DP = DH + 2;
+  const size_t head0 = (size_t)r.b * a.H + (size_t)r.kvh * G;
+  T* ob = a.out + head0 * DH;
+  __syncthreads();
+  for (int idx = tid; idx < GD; idx += kDecThreads) {
+    const int g = idx / DH, d = idx - g * DH;
+    float M = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      const int idx = tid + i * kDecThreads;
-      const int j = idx / CPR, c = idx - j * CPR;
-      const int s = s0 + j;
-      kreg[i] = vreg[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < kDecBS * CPR && s < n) {
-        const size_t off =
-            slots.row(b, s) * hstride + (size_t)kvh * DH + c * VEC;
-        kreg[i] = ld16(kc + off);
-        vreg[i] = ld16(vc + off);
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, Wm[w * G + g]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float e = exp2f(Wm[w * G + g] - M);
+      l += e * Wl[w * G + g];
+      acc += e * Wacc[w * GD + idx];
+    }
+    if (r.n_live == 1) {
+      ob[idx] = from_f<T>(acc / fmaxf(l, 1e-30f));
+    } else {
+      float* pp = a.part + ((head0 + g) * a.n_split + r.split) * DP;
+      pp[d] = acc;
+      if (d == 0) {
+        pp[DH] = M;
+        pp[DH + 1] = l;
       }
     }
-  };
-  issue(0);
+  }
+  if (r.n_live == 1) return;
 
-  for (int s0 = 0; s0 < n; s0 += kDecBS) {
-    __syncthreads();
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = a.arrivals + (size_t)r.b * a.Hkv + r.kvh;
+    is_last = atomicAdd(cnt, 1) == r.n_live - 1;
+    if (is_last) *cnt = 0;  // every live block has arrived
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int g = tid; g < G; g += kDecThreads) {
+    const float* pg = a.part + (head0 + g) * a.n_split * DP;
+    float M = -INFINITY;
+    for (int i = 0; i < r.n_live; ++i) M = fmaxf(M, __ldcg(pg + i * DP + DH));
+    float l = 0.f;
+    for (int i = 0; i < r.n_live; ++i)
+      l += exp2f(__ldcg(pg + i * DP + DH) - M) * __ldcg(pg + i * DP + DH + 1);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    for (int i = 0; i < r.n_live; ++i)
+      Wt[i * G + g] = exp2f(__ldcg(pg + i * DP + DH) - M) * inv;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < GD; idx += kDecThreads) {
+    const int g = idx / DH, d = idx - g * DH;
+    const float* pg = a.part + (head0 + g) * a.n_split * DP + d;
+    float acc = 0.f;
+    for (int i = 0; i < r.n_live; ++i)
+      acc += Wt[i * G + g] * __ldcg(pg + i * DP);
+    ob[idx] = from_f<T>(acc);
+  }
+}
+
+// ------------------------------------------------ tensor-core body (bf16)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, f32) += A (16 x 16 bf16, row) · B (16 x 8 bf16, col).  Lane t
+// holds A rows t/4 and t/4 + 8 (a0/a2 and a1/a3, columns 2(t%4) + {0,1}
+// and + 8), B column t/4 at rows 2(t%4) + {0,1} (b0) and + 8 (b1), and d
+// at rows t/4 (d0, d1) and t/4 + 8 (d2, d3), columns 2(t%4) + {0,1}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int DH>
+struct TcLayout {
+  static constexpr int RB = DH * 2 + 16;            // padded row bytes
+  static constexpr int CH = DH / 8;                 // 16-byte chunks a row
+  static constexpr int TILE = kTcTile * RB;         // one K or V tile
+  static constexpr int WARP_RING = kDecStages * 2 * TILE;
+  static_assert((kTcTile * CH) % 32 == 0, "whole copies a lane");
+};
+
+// dynamic shared memory of the tensor-core body: Q rows, then the warps'
+// rings, which the merge area reuses once the slot loop is done
+inline size_t tc_smem_bytes(int DH, int MT, int G) {
+  const size_t rb = (size_t)DH * 2 + 16;
+  const size_t ring = (size_t)kDecWarps * kDecStages * 2 * kTcTile * rb;
+  const size_t merge = sizeof(float) * merge_floats(G, DH);
+  return 16 * MT * rb + (ring > merge ? ring : merge);
+}
+
+template <int DH, int MT, typename Slots>
+__device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
+  using bf16 = __nv_bfloat16;
+  using Lay = TcLayout<DH>;
+  constexpr int RB = Lay::RB, CH = Lay::CH, NB = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
+  if (block_is_empty(a, r, DH)) return;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G;
+
+  // Q rows g < G of this kv head, zero rows up to 16 MT
+  unsigned char* qs = smem_raw;
+  unsigned char* ring = smem_raw + 16 * MT * RB;
+  const bf16* qb = a.q + ((size_t)r.b * a.H + (size_t)r.kvh * G) * DH;
+  for (int idx = tid; idx < 16 * MT * CH; idx += kDecThreads) {
+    const int row = idx / CH, c = idx - row * CH;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < G) val = ld16(qb + (size_t)row * DH + c * 8);
+    *reinterpret_cast<uint4*>(qs + row * RB + c * 16) = val;
+  }
+  __syncthreads();
+  const uint32_t qs_s = sm90::smem_addr(qs);
+  const uint32_t ring_s = sm90::smem_addr(ring) + warp * Lay::WARP_RING;
+
+  // this warp's tiles: t-th starts at start + (warp + 4 t) * kTcTile
+  const int span = r.end - r.start;
+  constexpr int STEP = kDecWarps * kTcTile;
+  const int nt = span > warp * kTcTile
+                     ? (span - warp * kTcTile + STEP - 1) / STEP : 0;
+  const size_t hstride = (size_t)a.Hkv * DH;
+  const bf16* kbase = a.k + (size_t)r.kvh * DH;
+  const bf16* vbase = a.v + (size_t)r.kvh * DH;
+
+  auto issue = [&](int t) {
+    const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
+    const uint32_t kdst = ring_s + (t % kDecStages) * 2 * Lay::TILE;
+    const uint32_t vdst = kdst + Lay::TILE;
+    const int my_s = s0 + (lane & (kTcTile - 1));
+    const unsigned long long my_row =
+        my_s < r.end ? (unsigned long long)slots.row(r.b, my_s) : 0ull;
 #pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      const int idx = tid + i * kDecThreads;
-      if (idx < kDecBS * CPR) {
-        const int j = idx / CPR, c = idx - j * CPR;
-        float kf[VEC], vf[VEC];
-        unpack16(kreg[i], kf, T());
-        unpack16(vreg[i], vf, T());
+    for (int i = 0; i < kTcTile * CH / 32; ++i) {
+      const int idx = lane + 32 * i;
+      const int j = idx / CH, c = idx - j * CH;
+      const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
+      const bool ok = s0 + j < r.end;
+      const size_t off = (size_t)row * hstride + c * 8;
+      sm90::cp_async16(kdst + j * RB + c * 16, ok ? kbase + off : kbase, ok);
+      sm90::cp_async16(vdst + j * RB + c * 16, ok ? vbase + off : vbase, ok);
+    }
+  };
+
+  float o[MT][NB][4];
+  float m_r[MT][2], l_r[MT][2];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          Ks[j * (DH + 1) + c * VEC + e] = kf[e];
-          Vs[j * DH + c * VEC + e] = vf[e];
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nb][e] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_r[mt][h] = -INFINITY;
+      l_r[mt][h] = 0.f;
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < kDecStages - 1; ++t) {
+    if (t < nt) issue(t);
+    sm90::cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    if (t + kDecStages - 1 < nt) issue(t + kDecStages - 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<kDecStages - 1>();
+    __syncwarp();
+    const uint32_t ks = ring_s + (t % kDecStages) * 2 * Lay::TILE;
+    const uint32_t vs = ks + Lay::TILE;
+    const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
+
+    // S = Q·Kᵀ: 16 MT rows by the tile's 16 slots (two n8 blocks)
+    float s[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][0][e] = s[mt][1][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, ks + ((lane >> 4) * 8 + (lane & 7)) * RB +
+                          (kk * 2 + ((lane >> 3) & 1)) * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, qs_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   RB + (kk * 2 + (lane >> 4)) * 16);
+        mma_bf16(s[mt][0], qa, kb[0], kb[1]);
+        mma_bf16(s[mt][1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // online softmax in log2 units; slot s0 is live, so every row's
+    // maximum is finite
+    uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = s0 + nb * 8 + 2 * (lane & 3) + (e & 1);
+          s[mt][nb][e] = slot < r.end ? s[mt][nb][e] * a.scale_log2
+                                      : -INFINITY;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = fmaxf(fmaxf(s[mt][0][2 * h], s[mt][0][2 * h + 1]),
+                         fmaxf(s[mt][1][2 * h], s[mt][1][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m_r[mt][h], mx);
+        const float al = sm90::exp2_ftz(m_r[mt][h] - mn);
+        m_r[mt][h] = mn;
+        float ps = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[mt][nb][e] = sm90::exp2_ftz(s[mt][nb][e] - mn);
+            ps += s[mt][nb][e];
+          }
+        l_r[mt][h] = l_r[mt][h] * al + ps;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          o[mt][nb][2 * h] *= al;
+          o[mt][nb][2 * h + 1] *= al;
+        }
+      }
+      // the S fragment of the two n8 blocks is P's A fragment
+      sm90::split_bf16(s[mt][0][0], s[mt][0][1], ph[mt][0], pl[mt][0]);
+      sm90::split_bf16(s[mt][0][2], s[mt][0][3], ph[mt][1], pl[mt][1]);
+      sm90::split_bf16(s[mt][1][0], s[mt][1][1], ph[mt][2], pl[mt][2]);
+      sm90::split_bf16(s[mt][1][2], s[mt][1][3], ph[mt][3], pl[mt][3]);
+    }
+
+    // O += P·V, P as hi + lo
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RB +
+                                (2 * j + (lane >> 4)) * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(o[mt][2 * j], ph[mt], vb[0], vb[1]);
+        mma_bf16(o[mt][2 * j], pl[mt], vb[0], vb[1]);
+        mma_bf16(o[mt][2 * j + 1], ph[mt], vb[2], vb[3]);
+        mma_bf16(o[mt][2 * j + 1], pl[mt], vb[2], vb[3]);
+      }
+    }
+    __syncwarp();
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: the merge area
+
+  float* ws = reinterpret_cast<float*>(ring);
+  const int GD = G * DH;
+  float* Wm = ws + kDecWarps * GD;
+  float* Wl = Wm + kDecWarps * G;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_r[mt][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int g = mt * 16 + h * 8 + lane / 4;
+      if (g < G) {
+        if ((lane & 3) == 0) {
+          Wm[warp * G + g] = m_r[mt][h];
+          Wl[warp * G + g] = l;
+        }
+        float* wa = ws + warp * GD + g * DH + 2 * (lane & 3);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          wa[nb * 8] = o[mt][nb][2 * h];
+          wa[nb * 8 + 1] = o[mt][nb][2 * h + 1];
         }
       }
     }
-    __syncthreads();
-    if (s0 + kDecBS < n) issue(s0 + kDecBS);   // in flight during the math
+  finish_block<bf16, DH>(ws, a, r);
+}
 
-    for (int g = warp; g < G; g += kDecThreads / 32) {
-      const float* qg = qs + g * DH;
-      const float* kr = Ks + lane * (DH + 1);
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) dot += qg[d] * kr[d];
-      const float sc = (s0 + lane < n) ? dot * scale : kNegInf;
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, warp_max(sc));
-      const float pj = expf(sc - m_new);
-      const float psum = warp_sum(pj);
-      Ps[g * kDecBS + lane] = pj;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        as[g] = a;
-        ls[g] = ls[g] * a + psum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
+// ------------------------------------------------ CUDA-core body (f32)
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
-#pragma unroll
-    for (int o = 0; o < kDecMaxOut; ++o) {
-      const int idx = tid + o * kDecThreads;
-      if (idx < GD) {
-        const int g = idx / DH, d = idx - g * DH;
-        const float* pg = Ps + g * kDecBS;
-        float a = acc[o] * as[g];
-#pragma unroll 8
-        for (int j = 0; j < kDecBS; ++j) a += pg[j] * Vs[j * DH + d];
-        acc[o] = a;
-      }
-    }
-  }
+// dynamic shared memory of the CUDA-core body: Q, the tile's row indices,
+// P and the rescale factors of each warp, and the merge area
+inline size_t cc_smem_bytes(int DH, int G) {
+  return sizeof(float) * ((size_t)G * DH) +
+         sizeof(unsigned long long) * kDecWarps * kCcTile +
+         sizeof(float) * ((size_t)kDecWarps * G * kCcTile + kDecWarps * G +
+                          merge_floats(G, DH));
+}
+
+template <int DH, int MT, typename Slots>
+__device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
+  constexpr int C = DH / 4;                  // float4 chunks of a row
+  constexpr int GM = kDecMaxGD / DH;         // most heads of a kv head
+  constexpr int NP = kDecMaxGD / 4 / 32;     // (head, chunk) pairs a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
+  if (block_is_empty(a, r, DH)) return;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G, GC = G * C;
+
+  float* Qs = reinterpret_cast<float*>(smem_raw);                  // [G][DH]
+  unsigned long long* Rs =
+      reinterpret_cast<unsigned long long*>(Qs + G * DH);          // [W][32]
+  float* Ps = reinterpret_cast<float*>(Rs + kDecWarps * kCcTile);  // [W][G][32]
+  float* As = Ps + kDecWarps * G * kCcTile;                        // [W][G]
+  float* ws = As + kDecWarps * G;
+  Rs += warp * kCcTile;
+  Ps += warp * G * kCcTile;
+  As += warp * G;
+
+  const float* qb = a.q + ((size_t)r.b * a.H + (size_t)r.kvh * G) * DH;
+  for (int idx = tid; idx < G * DH; idx += kDecThreads) Qs[idx] = qb[idx];
   __syncthreads();
 
-  T* ob = out + ((size_t)b * H + (size_t)kvh * G) * DH;
+  const int span = r.end - r.start;
+  constexpr int STEP = kDecWarps * kCcTile;
+  const int nt = span > warp * kCcTile
+                     ? (span - warp * kCcTile + STEP - 1) / STEP : 0;
+  const size_t hstride = (size_t)a.Hkv * DH;
+  const float* kbase = a.k + (size_t)r.kvh * DH;
+  const float* vbase = a.v + (size_t)r.kvh * DH;
+
+  float m[GM], l[GM];
+  float4 acc[NP];
 #pragma unroll
-  for (int o = 0; o < kDecMaxOut; ++o) {
-    const int idx = tid + o * kDecThreads;
-    if (idx < GD) ob[idx] = from_f<T>(acc[o] / fmaxf(ls[idx / DH], 1e-30f));
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = 0; t < nt; ++t) {
+    const int s0 = r.start + (warp + kDecWarps * t) * kCcTile;
+    const int s = s0 + lane;
+    const bool ok = s < r.end;
+    const size_t row = ok ? slots.row(r.b, s) : 0;
+    Rs[lane] = row;
+
+    // lane j scores slot s0 + j against the G heads
+    float sc[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) sc[g] = 0.f;
+    if (ok) {
+      const float* kr = kbase + row * hstride;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) {
+        const float4 kv = ldg4(kr + 4 * c);
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+          if (g < G) {
+            const float4 qv = *reinterpret_cast<const float4*>(Qs + g * DH +
+                                                               4 * c);
+            sc[g] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+          }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        const float x = ok ? sc[g] * a.scale_log2 : -INFINITY;
+        const float mn = fmaxf(m[g], warp_max(x));  // lane 0 is live
+        const float al = exp2f(m[g] - mn);
+        const float p = exp2f(x - mn);
+        l[g] = l[g] * al + warp_sum(p);
+        m[g] = mn;
+        Ps[g * kCcTile + lane] = p;
+        if (lane == 0) As[g] = al;
+      }
+    __syncwarp();
+
+    // lane owns (head, chunk) pairs lane, lane + 32, ... of G x C
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int idx = lane + 32 * i;
+      if (idx < GC) {
+        const float al = As[idx / C];
+        acc[i].x *= al;
+        acc[i].y *= al;
+        acc[i].z *= al;
+        acc[i].w *= al;
+      }
+    }
+    const int nj = min(kCcTile, r.end - s0);
+    for (int j = 0; j < nj; ++j) {
+      const float* vr = vbase + (size_t)Rs[j] * hstride;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int idx = lane + 32 * i;
+        if (idx < GC) {
+          const int g = idx / C, c = idx - g * C;
+          const float4 vv = ldg4(vr + 4 * c);
+          const float p = Ps[g * kCcTile + j];
+          acc[i].x += p * vv.x;
+          acc[i].y += p * vv.y;
+          acc[i].z += p * vv.z;
+          acc[i].w += p * vv.w;
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  const int GD = G * DH;
+  float* Wm = ws + kDecWarps * GD;
+  float* Wl = Wm + kDecWarps * G;
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        Wm[warp * G + g] = m[g];
+        Wl[warp * G + g] = l[g];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int idx = lane + 32 * i;
+    if (idx < GC) *reinterpret_cast<float4*>(ws + warp * GD + 4 * idx) = acc[i];
+  }
+  finish_block<float, DH>(ws, a, r);
+}
+
+// ------------------------------------------------------------- host side
+inline bool decode_shape_ok(int H, int Hkv, int DH) {
+  return Hkv > 0 && H % Hkv == 0 && (H / Hkv) * DH <= kDecMaxGD;
+}
+
+// The plan the host chose (kernels/decode_attn.py:plan) must cover the
+// cache with whole quanta and no split past it.
+inline bool decode_plan_ok(int s_len, int L, int n_split) {
+  return s_len > 0 && L > 0 && L % kDecQuantum == 0 && n_split >= 1 &&
+         n_split <= kDecMaxSplit && (long long)n_split * L >= s_len &&
+         (long long)(n_split - 1) * L < s_len;
+}
+
+// Calls f(Inst<DH, MT>{}) for the body instance that takes (Dh, G): MT
+// 16-row tiles of query heads on the tensor cores (1 for f32).
+template <int D, int M>
+struct Inst {
+  static constexpr int DH = D, MT = M;
+};
+
+template <typename T, typename F>
+inline int with_instance(int Dh, int G, F&& f) {
+  if constexpr (sizeof(T) == 2) {
+    if (G > 16 && Dh == 64) return f(Inst<64, 2>{});
+    if (G > 16 && Dh == 80) return f(Inst<80, 2>{});
+  }
+  switch (Dh) {  // G * Dh <= 2048: G <= 16 at Dh 128, G <= 8 at Dh 256
+    case 64: return f(Inst<64, 1>{});
+    case 80: return f(Inst<80, 1>{});
+    case 128: return f(Inst<128, 1>{});
+    case 256: return f(Inst<256, 1>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
-inline size_t decode_smem_bytes(int G, int DH) {
-  return sizeof(float) * ((size_t)G * DH + (size_t)kDecBS * (DH + 1) +
-                          (size_t)kDecBS * DH + (size_t)G * kDecBS + 3 * G);
+template <int DH, int MT>
+inline size_t decode_smem_bytes(int G, float) { return cc_smem_bytes(DH, G); }
+template <int DH, int MT>
+inline size_t decode_smem_bytes(int G, __nv_bfloat16) {
+  return tc_smem_bytes(DH, MT, G);
 }
 
-inline bool decode_shape_ok(int H, int Hkv, int DH) {
-  return Hkv > 0 && H % Hkv == 0 && (H / Hkv) * DH <= kDecMaxOut * kDecThreads;
+// Fills the launch arguments shared by both kernels.
+template <typename T>
+inline DecodeArgs<T> decode_args(const void* q, const void* k, const void* v,
+                                 const void* pos, void* out, void* part,
+                                 void* arrivals, int H, int Hkv, int Dh,
+                                 int s_len, int ring, int L, int n_split) {
+  DecodeArgs<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.pos = static_cast<const int*>(pos);
+  a.out = static_cast<T*>(out);
+  a.part = static_cast<float*>(part);
+  a.arrivals = static_cast<int*>(arrivals);
+  a.H = H;
+  a.Hkv = Hkv;
+  a.G = H / Hkv;
+  a.s_len = s_len;
+  a.ring = ring;
+  a.L = L;
+  a.n_split = n_split;
+  a.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(Dh));
+  return a;
+}
+
+// Launches Kernels::get<T, DH, MT>() (the calling source's __global__
+// template at the body instance that takes Dh and G) over the grid
+// (n_split, Hkv, B), after checking the shape and the plan.
+template <typename T, typename Kernels, typename Slots>
+inline int launch_decode(const DecodeArgs<T>& a, Slots slots, int B, int Dh,
+                         cudaStream_t stream) {
+  if (!decode_shape_ok(a.H, a.Hkv, Dh) ||
+      !decode_plan_ok(a.s_len, a.L, a.n_split) ||
+      (a.n_split > 1 && (a.part == nullptr || a.arrivals == nullptr)))
+    return cudaErrorInvalidValue;
+  return with_instance<T>(Dh, a.G, [&](auto inst) -> int {
+    constexpr int DH = decltype(inst)::DH, MT = decltype(inst)::MT;
+    auto kern = Kernels::template get<T, DH, MT>();
+    const size_t smem = decode_smem_bytes<DH, MT>(a.G, T());
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(a.n_split, a.Hkv, B), kDecThreads, smem, stream>>>(a, slots);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace rt

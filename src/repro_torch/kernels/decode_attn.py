@@ -1,14 +1,76 @@
 """Wrapper of the hand-written CUDA contiguous decode kernel
-(``csrc/decode_attn.cu``).
+(``csrc/decode_attn.cu``), and the split rule and body rule that both
+decode kernels share (``csrc/decode_common.cuh``).
 
 Replaces ``repro/kernels/decode_attn.py:flash_decode`` (Pallas TPU).
-The plain PyTorch version is ``kernels/ref.py:flash_decode_ref``.
+The plain PyTorch version is ``kernels/ref.py:flash_decode_ref``; the
+split-and-merge algebra of the kernel is ``ref.split_kv_decode_ref``.
+
+The kernel is split-KV: block (i, kvh, b) streams slots ``[i L, (i+1)
+L)`` of row b and the last live block of each (b, kvh) merges the
+partials in split order, in the same launch.  ``plan`` picks ``L`` and
+``n_split`` from the cache length and the grid alone (the live length
+sits on the card); ``body`` names the body a call runs: bf16 on the
+tensor cores (``mma.sync``), f32 on the CUDA cores.  Neither is a
+fallback: a failed build or launch of either raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import runtime
+
+# csrc/decode_common.cuh: kDecQuantum, kDecMaxSplit
+SPLIT_QUANTUM = 128
+MAX_SPLITS = 64
+# blocks the grid aims at over the whole cache: at B = 8, Hkv = 8 and
+# 4096 slots that is L = 512 and 8 splits, and at context 2048 the 256
+# live blocks run as one wave at two blocks an SM (109 KB of shared memory
+# a block); chip_smoke.py's split sweep times L a step either side
+TARGET_BLOCKS = 512
+
+
+class DecodePlan(NamedTuple):
+    n_split: int
+    L: int          # slots a split streams (a multiple of SPLIT_QUANTUM)
+    body: str       # "tensor_core" or "cuda_core"
+
+
+def body(dtype: torch.dtype, Dh: int) -> str:
+    """The body of the decode kernels that takes a call, as their C
+    dispatch (``rt_decode_body``) decides: bf16 at every head dim the
+    kernels take (64, 80, 128, 256, all multiples of the mma's 16) on the
+    tensor cores, f32 on the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def plan(B: int, Hkv: int, s_len: int, dtype: torch.dtype,
+         Dh: int) -> DecodePlan:
+    """The grid a decode call launches: the smallest power-of-two multiple
+    ``L`` of ``SPLIT_QUANTUM`` that gives at most ``TARGET_BLOCKS`` blocks
+    over ``s_len`` slots and at most ``MAX_SPLITS`` splits, and
+    ``n_split = ceil(s_len / L)``."""
+    if s_len <= 0:
+        raise ValueError(f"decode: cache length {s_len}")
+    want = -(-s_len * B * Hkv // TARGET_BLOCKS)
+    L = SPLIT_QUANTUM
+    while L < want or -(-s_len // L) > MAX_SPLITS:
+        L *= 2
+    return DecodePlan(-(-s_len // L), L, body(dtype, Dh))
+
+
+def scratch(q: torch.Tensor, Hkv: int, s_len: int):
+    """(plan, partials, arrival counters) of one call: the f32 partials
+    ``(B, H, n_split, Dh + 2)`` when there is more than one split."""
+    B, H, Dh = q.shape
+    p = plan(B, Hkv, s_len, q.dtype, Dh)
+    part = None
+    if p.n_split > 1:
+        part = torch.empty((B, H, p.n_split, Dh + 2), dtype=torch.float32,
+                           device=q.device)
+    return p, part, runtime.arrival_counters(q.device, B * Hkv)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
@@ -27,10 +89,13 @@ def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
         raise ValueError("flash_decode: cache shapes/dtypes do not match q")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    p, part, arrivals = scratch(q, Hkv, S)
     err = runtime.library().rt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, S, H, Hkv, Dh, int(ring),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        arrivals.data_ptr(), B, S, H, Hkv, Dh, int(ring), p.L, p.n_split,
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
     runtime.check(err, "flash_decode", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_decode"] += 1
+    runtime.decode_plans["flash_decode"] = p
     return out[:, None] if squeeze else out

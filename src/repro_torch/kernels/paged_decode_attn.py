@@ -4,12 +4,16 @@
 Replaces ``repro/kernels/paged_decode_attn.py:paged_flash_decode``
 (Pallas TPU).  The plain PyTorch version is
 ``kernels/ref.py:paged_flash_decode_ref``.
+
+The same split-KV kernel as the contiguous one, with the same split and
+body rules (``decode_attn.plan``, ``decode_attn.body``); the lanes that
+copy a slot's K/V row look its page up in the block table.
 """
 from __future__ import annotations
 
 import torch
 
-from . import runtime
+from . import decode_attn, runtime
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *,
@@ -38,13 +42,17 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *,
                          f"{tuple(bt.shape)} for B={B}")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    p, part, arrivals = decode_attn.scratch(q, Hkv, int(s_len))
     err = runtime.library().rt_paged_flash_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, n_pages, page, n_p, int(s_len),
-        H, Hkv, Dh, int(ring), runtime.DTYPE_CODES[q.dtype],
+        pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), arrivals.data_ptr(), B,
+        n_pages, page, n_p, int(s_len), H, Hkv, Dh, int(ring), p.L,
+        p.n_split, runtime.DTYPE_CODES[q.dtype],
         runtime.stream_ptr(q.device))
     runtime.check(err, "paged_flash_decode",
                   f"Dh={Dh}, H={H}, Hkv={Hkv}, s_len={s_len}, {n_p} pages "
                   f"of {page}")
     runtime.launch_counts["paged_flash_decode"] += 1
+    runtime.decode_plans["paged_flash_decode"] = p
     return out[:, None] if squeeze else out

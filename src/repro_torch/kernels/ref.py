@@ -86,6 +86,43 @@ def flash_decode_ref(q, k_cache, v_cache, pos, *, ring: bool = False):
     return out[:, 0] if squeeze else out
 
 
+def split_kv_decode_ref(q, k_cache, v_cache, pos, *, L: int,
+                        ring: bool = False):
+    """``flash_decode_ref`` computed as the split-KV decode kernels compute
+    it: the slots cut into ranges of ``L``, a partial (m, l, acc) of each
+    range over its live slots, and the partials merged in range order,
+    ``out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30)``
+    with ``M = max_i m_i``; a range with no live slot has m = -inf and
+    l = 0 and weighs nothing, and a row with none at all gives 0.  The
+    algebra's plain version, for the tests: nothing on the main path
+    calls it.  Same arguments as ``flash_decode_ref``."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q = q[:, None]
+    S = k_cache.shape[1]
+    s = _gqa_scores(q, k_cache)[:, :, :, 0]             # (B,Hkv,G,S)
+    valid = decode_valid(pos.to(q.device), S, ring)[:, None, None]
+    vf = v_cache.float()
+    ms, ls, accs = [], [], []
+    for lo in range(0, S, L):
+        si = s[..., lo:lo + L].masked_fill(~valid[..., lo:lo + L],
+                                           float("-inf"))
+        m = si.amax(-1)                                 # (B,Hkv,G)
+        p = torch.exp(si - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, vf[:, lo:lo + L]))
+    m = torch.stack(ms)                                 # (n_split,B,Hkv,G)
+    M = m.amax(0)
+    w = torch.exp(m - torch.where(torch.isinf(M), 0.0, M))
+    l = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)     # (B,Hkv,G,Dh)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    B, Hkv, G, Dh = out.shape
+    out = out.reshape(B, 1, Hkv * G, Dh).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
 def gather_paged_kv(pool, block_tables, s_len: int):
     """Reassemble per-request caches from a shared page pool.
 

@@ -12,7 +12,8 @@ Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches
 its kernel and nowhere else; the prefill wrapper also adds one to
 ``prefill_body_counts[<body>]`` for the body that launch ran
 (``kernels/flash_prefill.py:body``).  ``reset_launch_counts`` zeroes
-both.
+both.  ``decode_plans`` holds the grid and body of each decode kernel's
+last launch (``kernels/decode_attn.py:plan``); the reset clears it.
 """
 from __future__ import annotations
 
@@ -46,10 +47,16 @@ PREFILL_BODIES = ("tensor_core", "cuda_core")
 prefill_body_counts = {name: 0 for name in PREFILL_BODIES}
 
 
+# kernel -> decode_attn.DecodePlan of its last launch
+decode_plans = {"flash_decode": None, "paged_flash_decode": None}
+
+
 def reset_launch_counts() -> None:
     for counts in (launch_counts, prefill_body_counts):
         for name in counts:
             counts[name] = 0
+    for name in decode_plans:
+        decode_plans[name] = None
 
 
 def _nvcc() -> str:
@@ -118,11 +125,14 @@ _SIGNATURES = {
     "rt_flash_prefill": [_P] * 5 + [_I] * 10 + [_P],
     # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
     "rt_flash_prefill_body": [_I] * 2,
-    # q, k, v, pos, out, B, S, H, Hkv, Dh, ring, dtype, stream
-    "rt_flash_decode": [_P] * 5 + [_I] * 7 + [_P],
-    # q, kp, vp, block_tables, pos, out, B, n_pages, page, n_p, s_len, H,
-    # Hkv, Dh, ring, dtype, stream
-    "rt_paged_flash_decode": [_P] * 6 + [_I] * 10 + [_P],
+    # q, k, v, pos, out, part, arrivals, B, S, H, Hkv, Dh, ring, L,
+    # n_split, dtype, stream
+    "rt_flash_decode": [_P] * 7 + [_I] * 9 + [_P],
+    # q, kp, vp, block_tables, pos, out, part, arrivals, B, n_pages, page,
+    # n_p, s_len, H, Hkv, Dh, ring, L, n_split, dtype, stream
+    "rt_paged_flash_decode": [_P] * 8 + [_I] * 12 + [_P],
+    # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
+    "rt_decode_body": [_I] * 2,
     # r, k, v, w, u, s0, y, sT, B, T, H, hs, dtype, stream
     "rt_wkv6": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -137,6 +147,21 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_arrivals: dict = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernels' int32 arrival counters, one per (row, kv head),
+    zero between launches (the last block of each group resets its own).
+    Allocated zeroed once per device and grown when a call needs more;
+    launches on one stream use them in turn."""
+    buf = _arrivals.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[device] = buf
+    return buf
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

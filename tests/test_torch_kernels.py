@@ -8,18 +8,28 @@ in f32 (interpretation costs seconds a case; ``wkv6`` in both dtypes) —
 at the reference sweeps, plus ``Tq < Tk`` with a query offset against
 ``full_attention(q_offset=...)`` and two decay extremes for ``wkv6``.
 Tolerances are the reference's (``_tol``, ``_wkv_tol``); only valid
-query rows are compared.
+query rows are compared.  The decode kernels' split-KV algebra
+(``ref.split_kv_decode_ref``: partials over ranges of L slots merged in
+range order) is held against the same references at several L, and the
+host-side split rule (``decode_attn.plan``) against its invariants.
 
 CUDA cases (skipped without a card): each hand-written kernel against
-its plain version on the card, at the same sweeps.  Run them on the
+its plain version on the card, at the same sweeps and at the main
+path's widths (decode also at rows of every length, on wrapped rings,
+with more than one split and bit-identical over two calls).  Run them on the
 H100 with ``python -m pytest tests/test_torch_kernels.py -k cuda``.
 The JAX reference is imported inside the CPU cases only: the machine
 with the card has no JAX.
 """
+import functools
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attn as decode_kernel
 from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import runtime
@@ -293,6 +303,142 @@ def test_paged_flash_decode_ref_matches_pallas(shape, dtype):
                                   interpret=True))
     for want in wants:
         np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+# split lengths of the split-KV algebra, from a cache of S slots: one
+# that divides S, one that does not, one longer than S
+SPLIT_LENGTHS = {"divides": lambda S: S // 4, "ragged": lambda S: S // 3 + 1,
+                 "over": lambda S: S + 64}
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_decode(shape, pos=None):
+    """The Pallas contiguous decode kernel in interpret mode, f32, at
+    ``_decode_inputs(shape)`` (``pos`` replaces the inputs' positions)."""
+    from repro.kernels.decode_attn import flash_decode as pallas_decode
+    import jax.numpy as jnp
+    q, kc, vc, p = _decode_inputs(shape, "float32")
+    p = p if pos is None else np.array(pos, np.int32)
+    return _f32(pallas_decode(_j(q, "float32"), _j(kc, "float32"),
+                              _j(vc, "float32"), jnp.asarray(p),
+                              ring=shape[-1], blk_s=128, interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_paged(shape):
+    from repro.kernels.paged_decode_attn import \
+        paged_flash_decode as pallas_paged
+    import jax.numpy as jnp
+    q, kc, vc, pos, kp, vp, bt = _paged_inputs(shape, "float32")
+    return _f32(pallas_paged(_j(q, "float32"), _j(kp, "float32"),
+                             _j(vp, "float32"), jnp.asarray(bt),
+                             jnp.asarray(pos), s_len=shape[1],
+                             ring=shape[-1], interpret=True))
+
+
+@pytest.mark.parametrize("split", sorted(SPLIT_LENGTHS))
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_split_kv_decode_ref_matches_pallas(shape, split):
+    """The split-and-merge algebra of the decode kernels, in f32, against
+    the plain version and the Pallas kernel in interpret mode."""
+    S, ring = shape[1], shape[-1]
+    q, kc, vc, pos = (torch.from_numpy(x) for x in
+                      _decode_inputs(shape, "float32"))
+    got = ref.split_kv_decode_ref(q, kc, vc, pos, L=SPLIT_LENGTHS[split](S),
+                                  ring=ring)
+    for want in (ref.flash_decode_ref(q, kc, vc, pos, ring=ring),
+                 _pallas_decode(shape)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+@pytest.mark.parametrize("split", sorted(SPLIT_LENGTHS))
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_split_kv_paged_ref_matches_pallas(shape, split):
+    """The same algebra over the pages gathered from a shuffled pool,
+    against the plain paged version and the Pallas paged kernel."""
+    S, ring = shape[1], shape[-1]
+    q, kc, vc, pos, kp, vp, bt = (torch.from_numpy(x) for x in
+                                  _paged_inputs(shape, "float32"))
+    got = ref.split_kv_decode_ref(q, ref.gather_paged_kv(kp, bt, S),
+                                  ref.gather_paged_kv(vp, bt, S), pos,
+                                  L=SPLIT_LENGTHS[split](S), ring=ring)
+    for want in (ref.paged_flash_decode_ref(q, kp, vp, bt, pos, s_len=S,
+                                            ring=ring),
+                 _pallas_paged(shape)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+# (shape, pos): every split but the first empty; a ring wrapped once and
+# twice beside one not yet wrapped
+SPLIT_EDGES = {"first_slot_only": ((2, 256, 8, 2, 64, False), (0, 0)),
+               "wrapped_ring": ((3, 256, 8, 2, 64, True), (300, 767, 40))}
+
+
+@pytest.mark.parametrize("split", sorted(SPLIT_LENGTHS))
+@pytest.mark.parametrize("edge", sorted(SPLIT_EDGES))
+def test_split_kv_decode_ref_edges(edge, split):
+    shape, pos = SPLIT_EDGES[edge]
+    S, ring = shape[1], shape[-1]
+    L = SPLIT_LENGTHS[split](S)
+    q, kc, vc, _ = (torch.from_numpy(x) for x in
+                    _decode_inputs(shape, "float32"))
+    pt = torch.tensor(pos, dtype=torch.int32)
+    valid = ref.decode_valid(pt, S, ring)
+    live = [int(valid[:, lo:lo + L].any(1).sum()) for lo in range(0, S, L)]
+    if edge == "first_slot_only":
+        assert sum(live) == len(pos) and live[0] == len(pos)
+    got = ref.split_kv_decode_ref(q, kc, vc, pt, L=L, ring=ring)
+    for want in (ref.flash_decode_ref(q, kc, vc, pt, ring=ring),
+                 _pallas_decode(shape, pos)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol("float32"))
+
+
+def test_split_kv_decode_ref_no_live_slot_is_zero():
+    """A row with no live slot (pos < 0) merges to 0, not NaN, as the
+    kernels write it."""
+    q, kc, vc, _ = (torch.from_numpy(x) for x in
+                    _decode_inputs((2, 256, 8, 2, 64, False), "float32"))
+    got = ref.split_kv_decode_ref(q, kc, vc, torch.tensor([-1, 100]), L=64)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    np.testing.assert_allclose(
+        _f32(got[1]), _f32(ref.flash_decode_ref(
+            q, kc, vc, torch.tensor([-1, 100]))[1]), **_tol("float32"))
+
+
+@pytest.mark.parametrize("B,Hkv,s_len", [
+    (8, 8, 4096), (1, 8, 4096), (2, 2, 256), (1, 1, 600), (1, 1, 96),
+    (8, 8, 32768), (64, 8, 4096), (3, 5, 1), (1, 1, 10 ** 6)])
+def test_decode_split_plan(B, Hkv, s_len):
+    """The host-side split rule: whole quanta, every slot covered, no
+    split wholly past the cache, at most MAX_SPLITS splits."""
+    p = decode_kernel.plan(B, Hkv, s_len, torch.bfloat16, 128)
+    assert p.L % decode_kernel.SPLIT_QUANTUM == 0
+    assert 1 <= p.n_split <= decode_kernel.MAX_SPLITS
+    assert p.n_split * p.L >= s_len > (p.n_split - 1) * p.L
+    assert p.body == "tensor_core"
+    if (B, Hkv, s_len) == (8, 8, 4096):     # the main shape splits
+        assert p.n_split > 1
+
+
+def test_decode_plan_constants_match_source():
+    """The wrapper's quantum and split cap are the kernel's."""
+    src = (Path(ref.__file__).parent.parent / "csrc" /
+           "decode_common.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kDecQuantum") == decode_kernel.SPLIT_QUANTUM
+    assert const("kDecMaxSplit") == decode_kernel.MAX_SPLITS
+
+
+@pytest.mark.parametrize("dtype,Dh,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 80, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+def test_decode_body_rule(dtype, Dh, want):
+    """bf16 at every head dim takes the tensor-core decode body, f32 the
+    CUDA-core body (``csrc/decode_common.cuh``)."""
+    assert decode_kernel.body(dtype, Dh) == want
 
 
 def _wkv_cases():
@@ -571,6 +717,101 @@ def test_cuda_main_path_shapes(case, dtype, cuda_exact_f32):
     for want in wants:
         np.testing.assert_allclose(_f32(got), _f32(want),
                                    **_cuda_main_tol(dtype))
+
+
+# decode rows the serve path gives: contexts spread over 0-4095, and a
+# ring cache wrapped (or not) at each row
+MAIN_DECODE_POS = {
+    "mixed": ([0, 63, 255, 256, 1023, 2047, 3000, 4095], False),
+    "ring": ([5000, 100, 4096, 8191, 0, 4095, 9000, 2047], True),
+}
+
+
+def _main_decode_inputs(dtype, dev, seed=11):
+    """Qwen3-14B's decode widths, B = 8 over 4096 slots: q, the
+    contiguous caches, and the same caches in a shuffled page-128 pool."""
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    B, S, page = 8, 4096, 128
+    rng = np.random.default_rng(seed)
+    q, kc, vc = (_t(_normal(rng, shape, dtype), dtype, dev) for shape in
+                 ((B, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh)))
+    n_p = S // page
+    bt = torch.from_numpy(rng.permutation(B * n_p + 1)[:B * n_p]
+                          .reshape(B, n_p).astype(np.int32)).to(dev)
+    kp = torch.zeros((B * n_p + 1, page, Hkv, Dh), dtype=q.dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
+    vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
+    return q, kc, vc, kp, vp, bt
+
+
+def _decode_call(pool, q, kc, vc, kp, vp, bt, pos, ring=False):
+    if pool == "contiguous":
+        return ops.flash_decode(q, kc, vc, pos, ring=ring)
+    return ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=kc.shape[1],
+                                  ring=ring)
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", sorted(MAIN_DECODE_POS))
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_main_widths_mixed(case, pool, dtype, cuda_exact_f32):
+    """Split-KV decode at the main widths with rows of every length (some
+    in one split, some in all 8) and wrapped rings, against the plain
+    version (and the paged kernel against the contiguous one), at the
+    main path's tolerance."""
+    dev = cuda_exact_f32
+    q, kc, vc, kp, vp, bt = _main_decode_inputs(dtype, dev)
+    posl, ring = MAIN_DECODE_POS[case]
+    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    got = _decode_call(pool, q, kc, vc, kp, vp, bt, pos, ring)
+    torch.cuda.synchronize()
+    wants = [ref.flash_decode_ref(q, kc, vc, pos, ring=ring)]
+    if pool == "paged":
+        wants += [ref.paged_flash_decode_ref(q, kp, vp, bt, pos, s_len=4096,
+                                             ring=ring),
+                  ops.flash_decode(q, kc, vc, pos, ring=ring)]
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   **_cuda_main_tol(dtype))
+
+
+@needs_cuda
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_split_grid_and_bits(pool, dtype, cuda_exact_f32):
+    """At 4096 slots a call launches more than one split, with the plan
+    and body the wrapper's rules name, once per call; two calls on the
+    same inputs give the same bits (the merge runs in split order)."""
+    dev = cuda_exact_f32
+    q, kc, vc, kp, vp, bt = _main_decode_inputs(dtype, dev)
+    pos = torch.tensor(MAIN_DECODE_POS["mixed"][0], dtype=torch.int32,
+                       device=dev)
+    kernel = "flash_decode" if pool == "contiguous" else "paged_flash_decode"
+    runtime.reset_launch_counts()
+    a = _decode_call(pool, q, kc, vc, kp, vp, bt, pos)
+    b = _decode_call(pool, q, kc, vc, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts[kernel] == 2
+    used = runtime.decode_plans[kernel]
+    assert used == decode_kernel.plan(8, MAIN["Hkv"], 4096, q.dtype,
+                                      MAIN["Dh"])
+    assert used.n_split > 1
+    assert used.body == ("tensor_core" if dtype == "bfloat16"
+                         else "cuda_core")
+    assert torch.equal(a, b)
+
+
+@needs_cuda
+def test_cuda_decode_body_rule_matches_c(cuda_exact_f32):
+    """The wrapper's decode body rule is the one the C launch applies."""
+    lib = runtime.library()
+    for dtype, code in runtime.DTYPE_CODES.items():
+        for Dh in (64, 80, 128, 256):
+            c_body = ("tensor_core" if lib.rt_decode_body(code, Dh)
+                      else "cuda_core")
+            assert c_body == decode_kernel.body(dtype, Dh)
 
 
 @needs_cuda
