@@ -26,7 +26,10 @@ goes through these phases, each printing its own lines:
    the split (n_split, L) and body each call chose, and a sweep of the
    split length a step either side of the rule's; then the prefill
    tensor-core body's phase profile at its two main-path shapes (a
-   library built with ``-DRT_PREFILL_PHASES``);
+   library built with ``-DRT_PREFILL_PHASES``); ``wkv6`` also at a ragged
+   T, bit-identical over two calls at the chunk, with the wrapper's tile
+   rule the C launch's, and timed at the plan's tile and the tiles around
+   it (the tile sweep);
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
@@ -89,6 +92,11 @@ WKV_SHAPES = [       # (B, T, H, hs): reference sweep
 # nearly everything (the case a chunked cumulative-decay form overflows)
 WKV_DECAYS = {"strong": math.exp(-math.exp(3.0)),
               "weak": math.exp(-math.exp(-6.0))}
+WKV_RAGGED = (2, 37, 4, 64)   # T off the kernel's 16-step tile
+# wkv6 tiles timed at the main shapes, (rows, columns) a thread and
+# columns a block: the plans' (4, 8, 64) for a chunk and (4, 8, 32) for a
+# decode step, and one step away in each
+WKV_SWEEP = [(4, 8, 64), (4, 8, 32), (8, 4, 64), (8, 4, 32), (8, 8, 64)]
 # decode rows at the main widths (B = 8 over 4096 slots): (label, pos,
 # ring).  Every length from one slot to the whole cache, so rows end in
 # the first split, mid-split and in the last; then rings wrapped or not.
@@ -541,13 +549,17 @@ def prefill_phase_profile(torch):
 
 def wkv6_phase(torch):
     """wkv6 against its plain version on the card: the reference sweep
-    and the two decay extremes in f32 and bf16, then rwkv6-3b's chunk of
-    512 and decode step (8 rows, 40 heads of 64), checked with f32 and
-    bf16 r/k/v (the state written over s0, as the model does) and timed
-    in bf16."""
+    and the two decay extremes in f32 and bf16, a ragged T (off the
+    16-step tile), then rwkv6-3b's chunk of 512 and decode step (8 rows,
+    40 heads of 64), checked with f32 and bf16 r/k/v (the state written
+    over s0, as the model does), the chunk bit-identical over two calls,
+    and timed in bf16; then the tile sweep (``wkv6_tile_sweep``).  The
+    wrapper's split rule must be the C launch's."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+    check_wkv6_plan_rule()
 
     def rnd(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -604,6 +616,17 @@ def wkv6_phase(torch):
         + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
     rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        B, T, H, hs = WKV_RAGGED
+        w = torch.sigmoid(rnd((B, T, H, hs)))
+        r, k, v, w, u, s0 = inputs(B, T, H, hs, dtype, w)
+        want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+        state = s0.clone()
+        y, _ = ops.wkv6(r, k, v, w, u, state, state_out=state)
+        worst[f"ragged T={T} {dtype}"] = max(
+            assert_close(torch, f"wkv6 ragged T={T} y", y, want_y, WKV_TOL),
+            assert_close(torch, f"wkv6 ragged T={T} sT", state, want_s,
+                         WKV_TOL))
     B, T, H, hs = (WKV_MAIN[k] for k in ("B", "T", "H", "hs"))
     for dtype in (torch.float32, torch.bfloat16):
         for label, TT in ((f"wkv6 chunk B={B} T={T}", T),
@@ -619,6 +642,12 @@ def wkv6_phase(torch):
                       assert_close(torch, f"{label} sT", state, want_s,
                                    WKV_TOL))
             worst[f"{label} {dtype}"] = err
+            if TT > 1:
+                y1, s1 = ops.wkv6(r, k, v, w, u, s0)
+                y2, s2 = ops.wkv6(r, k, v, w, u, s0)
+                if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
+                    raise AssertionError(f"{label} {dtype}: two calls on "
+                                         f"the same inputs differ")
             if dtype != torch.bfloat16:
                 continue
             esz = 2
@@ -636,16 +665,73 @@ def wkv6_phase(torch):
                 plain_ms=time_ms(torch, lambda: ref.wkv6_ref(
                     r, k, v, w, u, s0), 3 if TT > 1 else 20, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err)
-    log("kernels", "wkv6 main-path shapes agree with the plain version "
-        "(atol 1e-4 rtol 1e-3); max abs err: " + "; ".join(
-            f"{k} {v:.3g}" for k, v in worst.items() if "B=" in k))
+                max_abs_err=err, plan=wk.plan(B, H, hs, TT))
+            wkv6_tile_sweep(torch, label, (r, k, v, w, u, s0), want_y)
+    log("kernels", "wkv6 main-path shapes and the ragged T agree with the "
+        "plain version (atol 1e-4 rtol 1e-3), the chunk bit-identical over "
+        "two calls; max abs err: " + "; ".join(
+            f"{k} {v:.3g}" for k, v in worst.items() if "=" in k))
     for name, r in rows.items():
+        p = r["plan"]
         log("kernels", f"{name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library null (no single PyTorch call "
-            f"computes this recurrence), max abs err {r['max_abs_err']:.3g}")
+            f"computes this recurrence), max abs err {r['max_abs_err']:.3g}; "
+            f"tile {p.kr} rows x {p.vc} columns a thread, {p.cols} columns "
+            f"a block")
     return rows
+
+
+def check_wkv6_plan_rule() -> None:
+    """The wrapper's split rule (``kernels/wkv6.py:plan``) is the one the
+    C launch applies (``rt_wkv6_plan``)."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import wkv6 as wk
+    lib = runtime.library()
+    out = (ctypes.c_int * 3)()
+    for hs in wk.HEAD_SIZES:
+        for B, H in ((1, 1), (2, 4), (8, 40), (1, 40), (64, 40)):
+            for T in (0, 1, 512):
+                if lib.rt_wkv6_plan(B, H, hs, T, out) or \
+                        tuple(out) != tuple(wk.plan(B, H, hs, T)):
+                    raise AssertionError(
+                        f"wkv6 plan of B={B} H={H} hs={hs} T={T}: C "
+                        f"{tuple(out)}, wrapper {wk.plan(B, H, hs, T)}")
+
+
+def wkv6_tile_sweep(torch, label, args, want_y):
+    """Device time of the wkv6 kernel at the plan's tile and the tiles
+    around it (rows a thread halved or doubled, columns a thread halved,
+    half a head a block), each checked against the plain version.
+    Launched through the C entry directly (``rt_wkv6_tile``), so no
+    launch count moves."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import wkv6 as wk
+    r, k, v, w, u, s0 = args
+    B, T, H, hs = r.shape
+    p0 = wk.plan(B, H, hs, T)
+    lib = runtime.library()
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    sT = torch.empty_like(s0)
+    res = []
+    for p in WKV_SWEEP:
+        p = wk.WkvPlan(*p)
+
+        def call():
+            err = lib.rt_wkv6_tile(
+                *(x.data_ptr() for x in (r, k, v, w, u, s0, y, sT)), B, T,
+                H, hs, runtime.DTYPE_CODES[r.dtype], *p,
+                runtime.stream_ptr(r.device))
+            if err:
+                raise RuntimeError(f"wkv6 tile {tuple(p)}: error {err}")
+        call()
+        assert_close(torch, f"{label} tile {tuple(p)}", y, want_y, WKV_TOL)
+        res.append(f"{p.kr}x{p.vc}, {p.cols} columns a block"
+                   f"{' (plan)' if p == p0 else ''} "
+                   f"{time_ms(torch, call, 20 if T > 1 else 100):.4f} ms")
+    log("kernels", f"{label} tile sweep (rows x columns a thread), bf16: "
+        + "; ".join(res))
 
 
 # ------------------------------------------------------------- parity ---
@@ -1130,6 +1216,18 @@ def main() -> int:
         p = row["plan"]
         return dict(entry(name, source, replaces, row),
                     body=f"{p.body} (split-KV, n_split {p.n_split}, L {p.L})")
+    def wkv6_entry(row):
+        from repro_torch.kernels import wkv6 as wk
+        p = row["plan"]
+        H, hs = WKV_MAIN["H"], WKV_MAIN["hs"]
+        return dict(entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                          "src/repro/kernels/wkv6.py:58", row),
+                    body=f"cuda_core (state split: {p.kr} rows x {p.vc} "
+                         f"columns a thread, {p.cols} columns a block, "
+                         f"{p.threads(hs)} threads, "
+                         f"{p.blocks(WKV_MAIN['B'], H, hs)} blocks; "
+                         f"cp.async ring of {wk.STAGES} x {wk.TILE_T} "
+                         f"steps)")
     table = {"kernels": [
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill.py:84",
@@ -1142,9 +1240,7 @@ def main() -> int:
         decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
                      "src/repro/kernels/decode_attn.py:67",
                      rows["flash_decode B=8 ctx=2048"]),
-        entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
-              "src/repro/kernels/wkv6.py:58",
-              rows[f"wkv6 chunk B={WKV_MAIN['B']} T={WKV_MAIN['T']}"]),
+        wkv6_entry(rows[f"wkv6 chunk B={WKV_MAIN['B']} T={WKV_MAIN['T']}"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")

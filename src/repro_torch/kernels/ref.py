@@ -167,3 +167,50 @@ def wkv6_ref(r, k, v, w, u, s0, *, state_out=None):
     if state_out is not None:
         return y, state_out.copy_(s)
     return y, s
+
+
+def _fold_halves(x, dim):
+    """Sum over ``dim`` (a power of two long) as the kernel's shuffles
+    take it: the first half plus the second, repeated."""
+    while x.shape[dim] > 1:
+        a, b = x.chunk(2, dim=dim)
+        x = a + b
+    return x.squeeze(dim)
+
+
+def _chain(x, dim):
+    """Sum over ``dim`` in order, one term at a time."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def wkv6_tiled_ref(r, k, v, w, u, s0, *, kr: int = 8, state_out=None):
+    """``wkv6_ref`` computed in the order of the CUDA kernel
+    (``csrc/wkv6.cu``) whose threads hold ``kr`` state rows each: the
+    bonus hoisted out of the state, ``c_t = sum_k (r_t[k] u[k]) k_t[k]``
+    summed in order over 8-element groups whose sums are folded halves
+    first, then ``y_t[v] = fold_g(sum_{i<kr} r[g kr + i] S[g kr + i, v])
+    + c_t v_t[v]`` over the ``hs / kr`` row groups g, and ``S = w S +
+    k v``.  The kernel fuses the multiply-adds; this plain version rounds
+    each product, so the two agree to f32 rounding, not bit for bit.  For
+    the tests: nothing on the main path calls it.  Same arguments and
+    result as ``wkv6_ref`` (in f32)."""
+    ct = torch.float32
+    r, k, v, w = (x.to(ct) for x in (r, k, v, w))
+    B, T, H, hs = r.shape
+    g = hs // kr
+    u = u.to(ct)                                        # (H,hs)
+    s = s0.to(ct)
+    y = torch.empty(r.shape, dtype=ct, device=r.device)
+    for t in range(T):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # (B,H,hs)
+        c = _fold_halves(_chain(((rt * u) * kt).reshape(B, H, hs // 8, 8),
+                                3), 2)                  # (B,H)
+        part = _chain((rt[..., None] * s).reshape(B, H, g, kr, hs), 3)
+        y[:, t] = _fold_halves(part, 2) + c[..., None] * vt
+        s = wt[..., None] * s + kt[..., None] * vt[..., None, :]
+    if state_out is not None:
+        return y, state_out.copy_(s)
+    return y, s

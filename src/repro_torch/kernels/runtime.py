@@ -135,6 +135,10 @@ _SIGNATURES = {
     "rt_decode_body": [_I] * 2,
     # r, k, v, w, u, s0, y, sT, B, T, H, hs, dtype, stream
     "rt_wkv6": [_P] * 8 + [_I] * 5 + [_P],
+    # the same, then kr, vc, cols (a given tile), stream
+    "rt_wkv6_tile": [_P] * 8 + [_I] * 8 + [_P],
+    # B, H, hs, T, out[3] -> the tile rt_wkv6 launches (kr, vc, cols)
+    "rt_wkv6_plan": [_I] * 4 + [_P],
 }
 
 

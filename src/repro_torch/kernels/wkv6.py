@@ -1,21 +1,104 @@
-"""Wrapper of the hand-written CUDA RWKV6 recurrence (``csrc/wkv6.cu``).
+"""Wrapper of the hand-written CUDA RWKV6 recurrence (``csrc/wkv6.cu``),
+and the rule that splits its state over threads and blocks.
 
 Replaces ``repro/kernels/wkv6.py:wkv6`` (Pallas TPU).  The plain PyTorch
-version is ``kernels/ref.py:wkv6_ref``; ``kernels/ops.py`` picks between
-the two by the tensors' device.
+version is ``kernels/ref.py:wkv6_ref``; the kernel's arithmetic order
+(the hoisted bonus, row-group partials folded halves first) is
+``ref.wkv6_tiled_ref``.  ``kernels/ops.py`` picks between the kernel and
+``wkv6_ref`` by the tensors' device.
+
+A thread of the kernel keeps a ``kr`` x ``vc`` register tile of one
+(b, h)'s state; the ``hs / kr`` threads that share a column are adjacent
+lanes of a warp; a block holds ``cols`` columns of one (b, h).  ``plan``
+picks the tile from the shape alone, as the C launch does.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import runtime
+
+# csrc/wkv6.cu: kWkvTileT, kWkvStages, kWkvMaxThreads, kWkvPlanRows,
+# kWkvPlanCols, kWkvMinCols, kWkvTargetBlocks
+TILE_T = 16
+STAGES = 3
+MAX_THREADS = 256
+PLAN_ROWS = 4
+PLAN_COLS = 8
+MIN_COLS = 16
+# blocks the grid aims at, 2 an SM of the 132: at B = 8, H = 40, hs = 64
+# one block of 128 threads a head (320 blocks) for a chunk, two blocks of
+# 64 a head for a decode step; chip_smoke.py's tile sweep times the tiles
+# around it
+TARGET_BLOCKS = 264
+# the (kr, vc) register tiles the C launch is built for
+TILES = ((4, 8), (4, 2), (8, 8), (8, 4))
+HEAD_SIZES = (16, 32, 64)
+
+
+class WkvPlan(NamedTuple):
+    kr: int         # state rows a thread
+    vc: int         # state columns a thread
+    cols: int       # state columns a block
+
+    def threads(self, hs: int) -> int:
+        return hs // self.kr * (self.cols // self.vc)
+
+    def blocks(self, B: int, H: int, hs: int) -> int:
+        return B * H * (hs // self.cols)
+
+
+def valid(hs: int, p: WkvPlan, dtype: torch.dtype) -> bool:
+    """Whether the C launch takes tile ``p`` (csrc/wkv6.cu:valid_tile):
+    a built (kr, vc), ``cols`` dividing hs and a multiple of vc, 16-byte
+    rows of v in a block, a column's threads inside one warp, and whole
+    warps of at most ``MAX_THREADS`` threads a block."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    if hs not in HEAD_SIZES or (p.kr, p.vc) not in TILES:
+        return False
+    g = hs // p.kr
+    if (p.kr > hs or g < p.vc or p.cols < 1 or hs % p.cols
+            or p.cols % p.vc or p.cols * esz % 16):
+        return False
+    threads = p.threads(hs)
+    return threads % 32 == 0 and threads <= MAX_THREADS
+
+
+def plan(B: int, H: int, hs: int, T: int) -> WkvPlan:
+    """The tile a call launches: ``PLAN_ROWS`` rows by ``PLAN_COLS``
+    columns a thread (halved while a column's threads are fewer than
+    the columns, or a head's threads fewer than a warp), and the widest
+    block, from a whole head down to ``MIN_COLS`` columns and a warp,
+    whose grid reaches ``TARGET_BLOCKS`` blocks (twice that for fewer
+    steps than a tile: a decode step)."""
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {hs} not supported by the "
+                         f"kernel (16, 32 or 64)")
+    if T < 0:
+        raise ValueError(f"wkv6: T = {T}")
+    kr = PLAN_ROWS
+    g = hs // kr
+    vc = PLAN_COLS
+    while vc > 1 and (vc > g or g * hs // vc < 32):
+        vc //= 2
+    # a step shorter than a tile (decode) is bound by its state bytes:
+    # twice the blocks keep more of them in flight
+    target = TARGET_BLOCKS if T >= TILE_T else 2 * TARGET_BLOCKS
+    cols = hs
+    while (cols // 2 >= MIN_COLS and g * (cols // 2) // vc >= 32
+           and B * H * (hs // cols) < target):
+        cols //= 2
+    return WkvPlan(kr, vc, cols)
 
 
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
     """r, k, v: (B,T,H,hs) f32 or bf16; w: (B,T,H,hs) f32 decay; u: (H,hs)
     f32; s0: (B,H,hs,hs) f32; all on the card.  Returns (y (B,T,H,hs) f32,
     sT (B,H,hs,hs) f32).  ``state_out`` receives sT when given; it may be
-    ``s0`` itself (each (b, h) reads its state before writing it)."""
+    ``s0`` itself (each thread reads its state elements before writing
+    them)."""
     r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
     runtime.check_operands("wkv6", r, k, v, w, u, s0, dtype=r.dtype)
     B, T, H, hs = r.shape

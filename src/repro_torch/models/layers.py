@@ -90,7 +90,9 @@ def mlp_apply(p, x, act: str):
 
 # ----------------------------------------------------------- embedding ----
 def embed_apply(emb, tokens):
-    """Row gather; out-of-range ids clamp, as ``jnp.take`` does."""
+    """Row gather.  Out-of-range ids are clamped into the vocabulary
+    here; the reference's ``jnp.take`` (JAX's default ``mode="fill"``)
+    gives NaN rows for them instead.  No serving path feeds such ids."""
     return F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
 
 

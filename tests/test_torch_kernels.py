@@ -12,11 +12,17 @@ query rows are compared.  The decode kernels' split-KV algebra
 (``ref.split_kv_decode_ref``: partials over ranges of L slots merged in
 range order) is held against the same references at several L, and the
 host-side split rule (``decode_attn.plan``) against its invariants.
+Likewise the ``wkv6`` kernel's arithmetic order (``ref.wkv6_tiled_ref``:
+the hoisted bonus, row-group partials folded halves first), also for
+its weak-decay accuracy against float64, and its tile rule
+(``wkv6.plan``, ``wkv6.valid``).
 
 CUDA cases (skipped without a card): each hand-written kernel against
 its plain version on the card, at the same sweeps and at the main
 path's widths (decode also at rows of every length, on wrapped rings,
-with more than one split and bit-identical over two calls).  Run them on the
+with more than one split and bit-identical over two calls; ``wkv6``
+also at ragged T, through every built tile, bit-identical over two
+calls, with the C launch's tile rule the wrapper's).  Run them on the
 H100 with ``python -m pytest tests/test_torch_kernels.py -k cuda``.
 The JAX reference is imported inside the CPU cases only: the machine
 with the card has no JAX.
@@ -33,6 +39,7 @@ from repro_torch.kernels import decode_attn as decode_kernel
 from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import runtime
+from repro_torch.kernels import wkv6 as wkv6_kernel
 
 needs_cuda = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -487,6 +494,148 @@ def test_wkv6_state_out_may_be_s0_and_dispatch_stays_on_cpu():
     np.testing.assert_allclose(y64.numpy(), y.numpy(), atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("shape,dtype,decay", _wkv_cases())
+def test_wkv6_tiled_ref_matches_references(shape, dtype, decay):
+    """The kernel's arithmetic order (``ref.wkv6_tiled_ref`` at the rows a
+    thread holds in the shape's plan: the hoisted bonus, row-group
+    partials folded halves first) against the reference's ``lax.scan``
+    oracle and the plain step-by-step recurrence, at the reference sweep
+    and the two decay extremes."""
+    from repro.kernels import ref as jref
+    import jax.numpy as jnp
+    r, k, v, w, u, s0 = _wkv_inputs(shape, dtype,
+                                    decay=WKV_DECAYS.get(decay))
+    B, T, H, hs = shape
+    kr = wkv6_kernel.plan(B, H, hs, T).kr
+    args = tuple(_t(x, dtype) for x in (r, k, v, w)) + \
+        (torch.from_numpy(u), torch.from_numpy(s0))
+    got_y, got_s = ref.wkv6_tiled_ref(*args, kr=kr)
+    assert got_y.dtype == got_s.dtype == torch.float32
+    plain_y, plain_s = ref.wkv6_ref(*args)
+    np.testing.assert_allclose(_f32(got_y), _f32(plain_y),
+                               **_cuda_tol("float32"))
+    np.testing.assert_allclose(_f32(got_s), _f32(plain_s),
+                               **_cuda_tol("float32"))
+    jargs = tuple(_j(x, dtype) for x in (r, k, v, w)) + \
+        (jnp.asarray(u), jnp.asarray(s0))
+    want_y, want_s = jref.wkv6_ref(*jargs)
+    np.testing.assert_allclose(_f32(got_y), _f32(want_y), **_wkv_tol(dtype))
+    np.testing.assert_allclose(_f32(got_s), _f32(want_s), **_wkv_tol(dtype))
+
+
+@pytest.mark.parametrize("kr", sorted({kr for kr, _ in wkv6_kernel.TILES}))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wkv6_tiled_ref_keeps_weak_decay_accuracy(kr, dtype):
+    """Weak decay over 512 steps (the card's weak-decay case): the state
+    grows to ~400 steps of k v and y's sums cancel, so two f32 orders
+    differ by more than atol 1e-4.  The kernel's order must be as exact
+    as the plain one: its error against a float64 evaluation at most
+    twice the plain version's, plus 1e-6."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in _wkv_inputs(
+        (2, 512, 4, 64), dtype, decay=WKV_DECAYS["weak"]))
+    exact, exact_s = ref.wkv6_ref(*(x.double() for x in (r, k, v, w, u, s0)))
+    plain, _ = ref.wkv6_ref(r, k, v, w, u, s0)
+    got, got_s = ref.wkv6_tiled_ref(r, k, v, w, u, s0, kr=kr)
+    err_got = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert torch.isfinite(got).all()
+    assert err_got <= 2 * err_plain + 1e-6, (err_got, err_plain)
+    np.testing.assert_allclose(got_s.numpy(), exact_s.numpy(),
+                               **_cuda_tol("float32"))
+
+
+def test_wkv6_refs_take_an_empty_sequence():
+    """T = 0: no output steps and the state passes through."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in
+                         _wkv_inputs((2, 0, 3, 16), "float32"))
+    for fn in (ref.wkv6_ref, functools.partial(ref.wkv6_tiled_ref, kr=4)):
+        y, sT = fn(r, k, v, w, u, s0)
+        assert y.shape == (2, 0, 3, 16)
+        assert torch.equal(sT, s0)
+
+
+@pytest.mark.parametrize("hs", wkv6_kernel.HEAD_SIZES)
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 4), (8, 40), (1, 40),
+                                 (64, 40)])
+def test_wkv6_plan_gives_a_valid_tile(hs, B, H):
+    """The split rule: a built tile that divides the head, a column's
+    threads adjacent in one warp, whole warps and at most 1024 threads a
+    block, taken by the C launch in both dtypes, for a chunk and a decode
+    step; the decode step's blocks hold at most the chunk's columns."""
+    p1 = wkv6_kernel.plan(B, H, hs, 1)
+    p = wkv6_kernel.plan(B, H, hs, 512)
+    assert (p1.kr, p1.vc) == (p.kr, p.vc) and p1.cols <= p.cols
+    for p in (p, p1):
+        _check_wkv_tile(hs, p)
+
+
+def _check_wkv_tile(hs, p):
+    assert (p.kr, p.vc) in wkv6_kernel.TILES
+    g = hs // p.kr
+    assert hs % p.kr == 0 and hs % p.cols == 0 and p.cols % p.vc == 0
+    assert 32 % g == 0 and p.vc <= g                # a column in one warp
+    threads = p.threads(hs)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert p.cols >= min(hs, wkv6_kernel.MIN_COLS)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert wkv6_kernel.valid(hs, p, dtype)
+
+
+def test_wkv6_plan_at_the_serving_shapes():
+    """rwkv6-3b at B = 8 (40 heads of 64), 4 rows by 8 columns a thread:
+    the chunk one block of 128 threads a head, the decode step two blocks
+    of 64."""
+    p = wkv6_kernel.plan(8, 40, 64, 512)
+    assert p == wkv6_kernel.WkvPlan(kr=4, vc=8, cols=64)
+    assert p.threads(64) == 128 and p.blocks(8, 40, 64) == 320
+    p = wkv6_kernel.plan(8, 40, 64, 1)
+    assert p == wkv6_kernel.WkvPlan(kr=4, vc=8, cols=32)
+    assert p.threads(64) == 64 and p.blocks(8, 40, 64) == 640
+
+
+@pytest.mark.parametrize("hs", [0, 8, 48, 96, 128])
+def test_wkv6_plan_refuses_other_head_sizes(hs):
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_kernel.plan(8, 40, hs, 512)
+
+
+def test_wkv6_plan_refuses_negative_T():
+    with pytest.raises(ValueError, match="T = -1"):
+        wkv6_kernel.plan(8, 40, 64, -1)
+
+
+@pytest.mark.parametrize("tile,dtype,ok", [
+    ((4, 8, 64), torch.bfloat16, True), ((8, 4, 32), torch.float32, True),
+    ((8, 8, 64), torch.bfloat16, True), ((4, 2, 16), torch.float32, True),
+    ((16, 4, 64), torch.float32, False),        # not a built tile
+    ((4, 8, 48), torch.float32, False),         # cols does not divide hs
+    ((4, 8, 8), torch.float32, False),          # 16 threads: not a warp
+    ((4, 2, 64), torch.float32, False),         # 512 threads
+    ((8, 8, 8), torch.bfloat16, False),         # 8 threads
+])
+def test_wkv6_tile_rule(tile, dtype, ok):
+    """``valid`` is the C launch's rule for a given tile at hs = 64."""
+    assert wkv6_kernel.valid(64, wkv6_kernel.WkvPlan(*tile), dtype) == ok
+
+
+def test_wkv6_plan_constants_match_source():
+    """The wrapper's plan constants and tiles are the kernel's."""
+    src = (Path(ref.__file__).parent.parent / "csrc" / "wkv6.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    for name, value in [("kWkvTileT", wkv6_kernel.TILE_T),
+                        ("kWkvStages", wkv6_kernel.STAGES),
+                        ("kWkvMaxThreads", wkv6_kernel.MAX_THREADS),
+                        ("kWkvPlanRows", wkv6_kernel.PLAN_ROWS),
+                        ("kWkvPlanCols", wkv6_kernel.PLAN_COLS),
+                        ("kWkvMinCols", wkv6_kernel.MIN_COLS),
+                        ("kWkvTargetBlocks", wkv6_kernel.TARGET_BLOCKS)]:
+        assert const(name) == value, name
+    built = set(re.findall(r"if_tile<T, HS, (\d+), (\d+)>", src))
+    assert built == {(str(a), str(b)) for a, b in wkv6_kernel.TILES}
+
+
 def test_paged_gather_is_exact_and_clips():
     """The gather reconstructs the contiguous cache bit for bit, and an
     out-of-range table entry reads the last page (JAX's clamp) instead
@@ -864,6 +1013,18 @@ def _wkv_cuda(r, k, v, w, u, s0, dtype, dev):
         tuple(_t(x, "float32", dev) for x in (w, u, s0))
 
 
+def _wkv_main(T, dev, seed=9):
+    """rwkv6-3b's widths at B = 8: bf16 r/k/v, the model's decay."""
+    rng = np.random.default_rng(seed)
+    B, H, hs = 8, 40, 64
+    r, k, v = (_normal(rng, (B, T, H, hs), "bfloat16") for _ in range(3))
+    w_hat = rng.standard_normal((B, T, H, hs)).astype(np.float32) - 0.5
+    w = np.exp(-np.exp(w_hat)).astype(np.float32)
+    u = (rng.standard_normal((H, hs)) * 0.1).astype(np.float32)
+    s0 = rng.standard_normal((B, H, hs, hs)).astype(np.float32)
+    return _wkv_cuda(r, k, v, w, u, s0, "bfloat16", dev)
+
+
 @needs_cuda
 @pytest.mark.parametrize("shape,dtype,decay", _wkv_cases())
 def test_cuda_wkv6(shape, dtype, decay, cuda_exact_f32):
@@ -889,15 +1050,7 @@ def test_cuda_wkv6_main_path_shapes(T, cuda_exact_f32):
     """rwkv6-3b serving: a 512-token chunk and a decode step of 8 rows,
     40 heads of 64, bf16 r/k/v, f32 decay; the state written in place
     over s0 as the model does."""
-    dev = cuda_exact_f32
-    rng = np.random.default_rng(9)
-    B, H, hs = 8, 40, 64
-    r, k, v = (_normal(rng, (B, T, H, hs), "bfloat16") for _ in range(3))
-    w_hat = rng.standard_normal((B, T, H, hs)).astype(np.float32) - 0.5
-    w = np.exp(-np.exp(w_hat)).astype(np.float32)
-    u = (rng.standard_normal((H, hs)) * 0.1).astype(np.float32)
-    s0 = rng.standard_normal((B, H, hs, hs)).astype(np.float32)
-    args = _wkv_cuda(r, k, v, w, u, s0, "bfloat16", dev)
+    args = _wkv_main(T, cuda_exact_f32)
     want_y, want_s = ref.wkv6_ref(*args)
     state = args[-1].clone()
     y, sT = ops.wkv6(*args[:-1], state, state_out=state)
@@ -922,3 +1075,81 @@ def test_cuda_wkv6_unsupported_raises_without_launch(cuda_exact_f32):
         ops.wkv6(x, x, x, x.bfloat16(), torch.zeros((H, 64), device=dev),
                  torch.zeros((B, H, 64, 64), device=dev))
     assert runtime.launch_counts["wkv6"] == 0
+
+
+@needs_cuda
+def test_cuda_wkv6_plan_matches_c(cuda_exact_f32):
+    """The wrapper's split rule is the one the C launch applies
+    (``rt_wkv6_plan``), and the C launch refuses other head sizes."""
+    import ctypes
+    lib = runtime.library()
+    out = (ctypes.c_int * 3)()
+    for hs in wkv6_kernel.HEAD_SIZES:
+        for B, H in ((1, 1), (2, 4), (8, 40), (1, 40), (64, 40)):
+            for T in (0, 1, 512):
+                assert lib.rt_wkv6_plan(B, H, hs, T, out) == 0
+                assert tuple(out) == tuple(wkv6_kernel.plan(B, H, hs, T))
+    assert lib.rt_wkv6_plan(8, 40, 48, 512, out) == \
+        runtime.CUDA_ERROR_INVALID_VALUE
+
+
+@needs_cuda
+def test_cuda_wkv6_two_calls_give_the_same_bits(cuda_exact_f32):
+    """No atomics and a fixed fold order: the chunk is bit-identical
+    over two calls."""
+    args = _wkv_main(512, cuda_exact_f32)
+    y1, s1 = ops.wkv6(*args)
+    y2, s2 = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@needs_cuda
+@pytest.mark.parametrize("T", [0, 17, 37])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_wkv6_ragged_T(T, dtype, cuda_exact_f32):
+    """T off the 16-step tile (and T = 0), the state written over s0."""
+    dev = cuda_exact_f32
+    args = _wkv_cuda(*_wkv_inputs((2, T, 4, 64), dtype), dtype, dev)
+    want_y, want_s = ref.wkv6_ref(*args)
+    state = args[-1].clone()
+    y, sT = ops.wkv6(*args[:-1], state, state_out=state)
+    torch.cuda.synchronize()
+    assert sT is state and y.shape == (2, T, 4, 64)
+    np.testing.assert_allclose(_f32(y), _f32(want_y), **_cuda_tol("float32"))
+    np.testing.assert_allclose(_f32(state), _f32(want_s),
+                               **_cuda_tol("float32"))
+
+
+def _wkv_tile_call(args, tile, y, sT):
+    """One launch of the kernel with a given tile (``rt_wkv6_tile``): the
+    timing sweep's entry, which counts no launch."""
+    r, k, v, w, u, s0 = args
+    B, T, H, hs = r.shape
+    return runtime.library().rt_wkv6_tile(
+        *(x.data_ptr() for x in (r, k, v, w, u, s0, y, sT)), B, T, H, hs,
+        runtime.DTYPE_CODES[r.dtype], *tile, runtime.stream_ptr(r.device))
+
+
+@needs_cuda
+@pytest.mark.parametrize("tile", [(4, 8, 64), (4, 8, 32), (4, 2, 16),
+                                  (8, 8, 64), (8, 4, 32)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_wkv6_every_tile(tile, dtype, cuda_exact_f32):
+    """Each built tile, through the C entry the sweep times, agrees with
+    the plain version; an unbuilt or invalid tile is refused."""
+    dev = cuda_exact_f32
+    args = _wkv_cuda(*_wkv_inputs((2, 100, 4, 64), dtype), dtype, dev)
+    y = torch.empty(args[0].shape, dtype=torch.float32, device=dev)
+    sT = torch.empty_like(args[-1])
+    n0 = dict(runtime.launch_counts)
+    assert _wkv_tile_call(args, tile, y, sT) == 0
+    torch.cuda.synchronize()
+    assert runtime.launch_counts == n0
+    want_y, want_s = ref.wkv6_ref(*args)
+    np.testing.assert_allclose(_f32(y), _f32(want_y), **_cuda_tol("float32"))
+    np.testing.assert_allclose(_f32(sT), _f32(want_s),
+                               **_cuda_tol("float32"))
+    for bad in ((16, 4, 64), (4, 8, 48), (4, 8, 8)):
+        assert _wkv_tile_call(args, bad, y, sT) == \
+            runtime.CUDA_ERROR_INVALID_VALUE
