@@ -36,14 +36,32 @@ goes through these phases, each printing its own lines:
    Qwen3-14B (bf16, random weights from a seeded generator on the card,
    cache length 4096), paged pool with chunked prefill, then a short
    contiguous-pool run, then four full-width decode steps under
-   ``torch.profiler``; the Qwen3-14B model is freed and full-width,
-   full-depth rwkv6-3b is served the same way on the contiguous pool,
-   and profiled.  Launch counts are zeroed before each path and read
-   after it: every kernel must have been launched by the path it belongs
-   to, every bf16 ``flash_prefill`` launch through the tensor-core body,
-   and ``wkv6`` exactly 32 times per prefill chunk and per decode step;
-6. the kernel table as one JSON line, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   ``torch.profiler``;
+6. retention (KV retention in the engine, on the same model): smoke qwen3-14b at f32 on the
+   reference tests' shared-prefix and 2-session workloads, cold and with
+   retention on the card and with retention on the CPU, token ids equal;
+   a resumed chunk off the tile grid (Tc 45 at ``q_offset`` 1037 over
+   4096, bf16, full width) against the plain version on the tensor-core
+   body; full-width Qwen3-14B serving 4 sessions x 3 turns behind a
+   512-token system prompt cold and then with session retention (hits,
+   tokens skipped, unaligned ``flash_prefill`` launches all on the
+   tensor-core body, turns >= 2 prefilling at most 40% of the cold
+   run's prompt tokens, pages balanced, each resumed turn's first-token
+   logits against the turn prefilled cold within 1.5x the spread of the
+   cold run against the same prompts prefilled alone, TTFT of later
+   turns); then
+   the same over a 48-page pool with a 128-page host spill tier (spills,
+   restores and holds > 0, both tiers balanced, one page spilled,
+   overwritten and restored into another page byte-identical);
+7. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
+   rwkv6-3b is served the same way on the contiguous pool, and profiled.
+   Launch counts are zeroed before each serve run and read after it:
+   every kernel must have been launched by the path it belongs to, every
+   bf16 ``flash_prefill`` launch through the tensor-core body, and
+   ``wkv6`` exactly 32 times per prefill chunk and per decode step;
+8. the kernel table as one JSON line (launches from the paged serve
+   run), the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -904,21 +922,27 @@ def requests(lengths, max_new):
             for i, L in enumerate(lengths)]
 
 
-def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None):
+def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None,
+                dev="cuda", chunk=512, hbm_bytes=None, **retention):
+    """A ``ServingEngine`` (page 128) budgeted with the device's memory
+    unless ``hbm_bytes`` is given; ``retention`` passes the KV retention
+    options (``prefix_cache``, ``session_ttl``, ``host_pool_tokens``)."""
     from repro_torch.core import (BucketServeScheduler, MemoryBudget,
                                   SchedulerConfig)
     from repro_torch.core.engine import ServingEngine
     from repro_torch.launch.serve import device_memory_bytes
-    dev = torch.device("cuda")
-    budget = MemoryBudget(hbm_bytes_per_device=device_memory_bytes(dev),
-                          n_devices=1, weight_bytes=wbytes)
+    dev = torch.device(dev)
+    budget = MemoryBudget(
+        hbm_bytes_per_device=hbm_bytes or device_memory_bytes(dev),
+        n_devices=1, weight_bytes=wbytes)
     sched = BucketServeScheduler(cfg, budget, SchedulerConfig(
         max_batch=slots, memory_model="paged" if paged else "sum",
         page_size=128))
     return ServingEngine(cfg, model, sched, max_slots=slots,
-                         cache_len=cfg.max_seq_len, chunk_tokens=512,
+                         cache_len=cfg.max_seq_len, chunk_tokens=chunk,
                          paged=paged, page_size=128,
-                         kv_pool_tokens=pool_tokens, device=dev)
+                         kv_pool_tokens=pool_tokens, device=dev,
+                         **retention)
 
 
 def serve_run(torch, cfg, eng, reqs, label):
@@ -944,6 +968,8 @@ def serve_run(torch, cfg, eng, reqs, label):
     counts = dict(runtime.launch_counts)
     counts.update({f"flash_prefill/{b}": n
                    for b, n in runtime.prefill_body_counts.items()})
+    counts.update({f"flash_prefill/unaligned/{b}": n
+                   for b, n in runtime.prefill_unaligned_counts.items()})
     counts.update({f"{k}/last plan": p for k, p in runtime.decode_plans.items()
                    if p is not None})
     if len(done) != len(reqs):
@@ -1047,7 +1073,7 @@ def serve_phase(torch):
     launches = {"flash_prefill": paged_counts["flash_prefill"],
                 "paged_flash_decode": paged_counts["paged_flash_decode"],
                 "flash_decode": contig_counts["flash_decode"]}
-    return launches, paged_stats, contig_stats, cfg, model
+    return launches, paged_stats, contig_stats, cfg, model, wbytes
 
 
 def rwkv_serve_phase(torch):
@@ -1080,6 +1106,426 @@ def rwkv_serve_phase(torch):
         f"{cfg.n_layers} x ({steps['prefill']} prefill chunks + "
         f"{steps['decode']} decode steps); no attention kernel ran")
     return counts["wkv6"], stats, cfg, model
+
+
+# ---------------------------------------------------------- retention ---
+RET_PREFIX = 512            # system prompt shared by the full-width sessions
+RET_SESSIONS, RET_TURNS, RET_NEW = 4, 3, 32
+RET_SPILL_PAGES = 48        # device pool of the spill run (32 a request)
+RET_HOST_PAGES = 128        # its host tier: 2.6 GB at 160 KiB a token
+UNALIGNED = (45, 1037, 4096)    # a resumed chunk: Tc at q_offset over S
+
+
+def smoke_retention_workloads(cfg):
+    """The reference tests' workloads: ``TestPrefixCacheEngine``'s
+    shared-prefix set (16 requests, 2 system prompts of 512 tokens) and
+    ``TestSessionBackendParity``'s 2 sessions x 3 turns."""
+    from repro_torch.core import TaskType
+    from repro_torch.data.workload import WorkloadSpec, generate
+
+    def prefix():
+        reqs = generate(WorkloadSpec(
+            dataset="alpaca", rps=1e6, n_requests=16, seed=3,
+            max_model_len=cfg.max_seq_len, task_type=TaskType.OFFLINE,
+            prefix_groups=2, prefix_tokens=512, vocab_size=cfg.vocab_size))
+        for r in reqs:
+            r.max_new_tokens = min(r.max_new_tokens, 4)
+        return reqs
+
+    def sessions():
+        return generate(WorkloadSpec(
+            dataset="alpaca", rps=1e6, sessions=2, turns=3,
+            utterance_tokens=220, max_new_tokens=4, seed=7,
+            task_type=TaskType.OFFLINE, max_model_len=cfg.max_seq_len,
+            vocab_size=cfg.vocab_size))
+    return [("prefix", prefix, dict(pool_tokens=8 * 1024),
+             dict(prefix_cache=True)),
+            ("sessions", sessions, dict(pool_tokens=64 * 128),
+             dict(session_ttl=1000.0))]
+
+
+def retention_smoke(torch):
+    """Smoke qwen3-14b at f32: each workload cold on the card, with
+    retention on the card, and with retention through the plain versions
+    on the CPU.  The three must give the same token ids (and, for the
+    sessions, the same composed prompts)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=1024)
+    cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    for name, make, pool, ret in smoke_retention_workloads(cfg):
+        got = {}
+        for label, model, dev, kw in (
+                ("card cold", gpu_model, "cuda", {}),
+                ("card retention", gpu_model, "cuda", ret),
+                ("cpu retention", cpu_model, "cpu", ret)):
+            reqs = make()
+            eng = make_engine(torch, cfg, model, 0, True, 4, dev=dev,
+                              chunk=None, hbm_bytes=2 ** 30, **pool, **kw)
+            eng.submit(reqs)
+            done = eng.run(max_wall_s=600)
+            if len(done) != len(reqs):
+                raise AssertionError(f"retention smoke {name} {label}: "
+                                     f"served {len(done)}/{len(reqs)}")
+            got[label] = ({r.rid: list(eng.outputs[r.rid]) for r in reqs},
+                          {r.rid: r.tokens.tolist() for r in reqs})
+            res = eng.result
+            if kw and not (res.prefix_hits if name == "prefix"
+                           else res.session_hits):
+                raise AssertionError(f"retention smoke {name} {label}: "
+                                     f"no hit")
+            if kw:
+                hits = (f"prefix hits {res.prefix_hits}/"
+                        f"{res.prefix_lookups}, session hits "
+                        f"{res.session_hits}/{res.session_lookups}, "
+                        f"{res.prefill_tokens_skipped} prompt tokens "
+                        f"skipped")
+        if not got["card cold"] == got["card retention"] \
+                == got["cpu retention"]:
+            raise AssertionError(f"retention smoke {name}: token ids or "
+                                 f"prompts differ between card cold, card "
+                                 f"retention and cpu retention")
+        log("retention", f"smoke f32 {name} workload ({len(got['card cold'][0])}"
+            f" requests): token ids identical cold and with retention on "
+            f"the card and with retention on the CPU; {hits}")
+
+
+def unaligned_prefill_check(torch):
+    """A resumed chunk at the full-width shape: Tc = 45 queries at
+    q_offset 1037 (off the 64-row tile) over a 4096-slot cache, bf16,
+    against the plain version at the main-path tolerance, through the
+    tensor-core body and counted as unaligned."""
+    from repro_torch.kernels import ref, runtime
+    Tc, off, S = UNALIGNED
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((1, Tc, H, Dh), (1, S, Hkv, Dh),
+                                      (1, S, Hkv, Dh)))
+    n0 = runtime.prefill_unaligned_counts["tensor_core"]
+    got = prefill(q, k, v, q_offset=off)
+    if runtime.prefill_unaligned_counts["tensor_core"] != n0 + 1:
+        raise AssertionError("unaligned prefill not counted")
+    err = assert_close(torch, f"flash_prefill Tc={Tc} @ {off}/{S}", got,
+                       ref.flash_prefill_ref(q, k, v, q_offset=off),
+                       MAIN_TOL["bfloat16"])
+    log("retention", f"flash_prefill chunk Tc={Tc} at q_offset {off} over "
+        f"{S} slots, bf16 H={H} Hkv={Hkv} Dh={Dh}: tensor-core body, "
+        f"counted unaligned, agrees with the plain version (atol 2e-3 "
+        f"rtol 1e-2), max abs err {err:.3g}")
+    return err
+
+
+def session_requests(cfg, seed=0):
+    """4 sessions x 3 turns sized to the window by the launcher's rule
+    (utterances of max_seq_len // (2 turns) - 8 tokens, 32 new tokens),
+    each conversation opening with one shared 512-token system prompt
+    (the session workload has no ``prefix_groups``, so it is prepended
+    here and every turn's length grows by it)."""
+    import numpy as np
+    from repro_torch.data.workload import WorkloadSpec, generate
+    reqs = generate(WorkloadSpec(
+        dataset="mixed", rps=8.0, max_model_len=cfg.max_seq_len - RET_PREFIX,
+        vocab_size=cfg.vocab_size, sessions=RET_SESSIONS, turns=RET_TURNS,
+        utterance_tokens=max(cfg.max_seq_len // (2 * RET_TURNS) - 8, 8),
+        max_new_tokens=RET_NEW, seed=seed))
+    system = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, RET_PREFIX).astype(np.int32)
+    for r in reqs:
+        r.prompt_len += RET_PREFIX
+        if r.turn == 0:
+            r.tokens = np.concatenate([system, r.tokens])
+        else:
+            r.history_tokens += RET_PREFIX
+    return reqs
+
+
+def capture_first_logits(be, store):
+    """Record each request's first-token logits (f32, on the host) as the
+    engine's prefill produces them; returns the function that undoes the
+    wrapping."""
+    from repro_torch.models import transformer as tfm
+    originals = (tfm.prefill, tfm.prefill_chunk, be.prefill_chunk)
+    last = {}
+
+    def keep(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            last["logits"] = out[0]
+            return out
+        return call
+
+    def chunk(job, idx):
+        start, clen = job.chunks[idx]
+        whole = len(job.chunks) == 1 and start == 0
+        out = originals[2](job, idx)
+        logits = last.pop("logits")
+        for i, r in enumerate(job.batch.requests):
+            if whole or start <= r.prompt_len - 1 < start + clen:
+                store[r.rid] = logits[i].float().cpu()
+        return out
+    tfm.prefill, tfm.prefill_chunk = keep(tfm.prefill), keep(tfm.prefill_chunk)
+    be.prefill_chunk = chunk
+
+    def undo():
+        tfm.prefill, tfm.prefill_chunk, be.prefill_chunk = originals
+    return undo
+
+
+def cold_first_logits(torch, cfg, model, tokens, chunk=512):
+    """First-token logits of ``tokens`` prefilled alone from position 0
+    in 512-token chunks: the turn served cold."""
+    from repro_torch.models import transformer as tfm
+    dev = model.device
+    L = len(tokens)
+    toks = torch.as_tensor(tokens, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([L], dtype=torch.int32, device=dev)
+    cache = tfm.init_cache(cfg, 1, cfg.max_seq_len, model.dtype, dev)
+    for s in range(0, L, chunk):
+        logits, cache = tfm.prefill_chunk(cfg, model, toks[:, s:s + chunk],
+                                          cache, s, lens)
+    return logits[0].float().cpu()
+
+
+def later(reqs, first_turn):
+    return [r for r in reqs if r.turn >= first_turn]
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[(len(xs) - 1) // 2]
+
+
+def session_phase(torch, cfg, model, wbytes, pool_tokens):
+    """Full-width Qwen3-14B, bf16: the multi-turn workload served cold
+    (no retention), then with session retention, in one call."""
+    from repro_torch.kernels import runtime
+    runs = {}
+    for label, kw in (("cold", {}), ("resumed", dict(session_ttl=1000.0))):
+        eng = make_engine(torch, cfg, model, wbytes, True, 8, pool_tokens,
+                          dev=model.device, **kw)
+        reqs = session_requests(cfg)
+        logits = {}
+        undo = capture_first_logits(eng.backend, logits)
+        try:
+            counts, stats, steps = serve_run(
+                torch, cfg, eng, reqs, f"sessions {label}, {RET_SESSIONS} x "
+                f"{RET_TURNS} turns, chunk 512, page 128")
+        finally:
+            undo()
+        runs[label] = dict(eng=eng, reqs=reqs, counts=counts, stats=stats,
+                           logits=logits, res=eng.result)
+    cold, warm = runs["cold"], runs["resumed"]
+    res, be = warm["res"], warm["eng"].backend
+    c = warm["counts"]
+
+    # kernels of the path, unaligned resumes on the tensor-core body
+    for name in ("flash_prefill", "paged_flash_decode"):
+        if c[name] <= 0:
+            raise AssertionError(f"sessions resumed: {name} not launched")
+    una = {b: c[f"flash_prefill/unaligned/{b}"]
+           for b in runtime.PREFILL_BODIES}
+    if una["tensor_core"] <= 0 or una["cuda_core"] or \
+            c["flash_prefill/tensor_core"] != c["flash_prefill"]:
+        raise AssertionError(f"sessions resumed: unaligned flash_prefill "
+                             f"launches by body {una}, all launches "
+                             f"{c['flash_prefill']}, tensor-core "
+                             f"{c['flash_prefill/tensor_core']}")
+    # prefill saved on turns >= 2 (the reference's criterion)
+    cold_t2 = sum(r.prefilled_tokens for r in later(cold["reqs"], 2))
+    warm_t2 = sum(r.prefilled_tokens for r in later(warm["reqs"], 2))
+    if not warm_t2 <= 0.4 * cold_t2 or res.session_hits <= 0:
+        raise AssertionError(f"sessions resumed: turns >= 2 prefilled "
+                             f"{warm_t2} of the cold run's {cold_t2} prompt "
+                             f"tokens, {res.session_hits} session hits")
+    # pages balance, and clear frees every retained page
+    a = be.alloc
+    if a.free_pages() + a.live_pages() != a.n_pages:
+        raise AssertionError("sessions resumed: free + live != total")
+    live = a.live_pages()
+    be.retention.clear(a)
+    if a.free_pages() != a.n_pages:
+        raise AssertionError("sessions resumed: clear left pages live")
+
+    # first-token logits.  Serving one turn cold twice with other batch
+    # shapes already moves bf16 logits (cuBLAS picks kernels by M): the
+    # spread of the cold run against the same prompts prefilled alone is
+    # the yardstick, and a resumed turn must stay within 1.5x it
+    def diff(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.mean()), bool(a.argmax() == b.argmax())
+    spread = [0.0, 0.0]
+    for r in cold["reqs"]:
+        ref_logits = cold_first_logits(torch, cfg, model,
+                                       r.tokens[:r.prompt_len])
+        mx, mean, _ = diff(cold["logits"][r.rid], ref_logits)
+        spread = [max(spread[0], mx), max(spread[1], mean)]
+    if not 0.0 < spread[0] < 1.0:
+        raise AssertionError(f"sessions cold: logits spread {spread}")
+    resumed = [r for r in warm["reqs"] if r.prefix_hit_tokens > 0]
+    cold_by = {r.rid: r for r in cold["reqs"]}
+    worst, top1 = [0.0, 0.0], 0
+    same_prompt = []
+    for r in resumed:
+        pairs = [("cold prefill", cold_first_logits(
+            torch, cfg, model, r.tokens[:r.prompt_len]))]
+        q = cold_by[r.rid]
+        if q.prompt_len == r.prompt_len and \
+                (q.tokens[:q.prompt_len] == r.tokens[:r.prompt_len]).all():
+            same_prompt.append(r.rid)
+            pairs.append(("cold run", cold["logits"][r.rid]))
+        for what, want in pairs:
+            mx, mean, same_top = diff(warm["logits"][r.rid], want)
+            if mx > 1.5 * spread[0] or mean > 1.5 * spread[1]:
+                raise AssertionError(
+                    f"resumed rid {r.rid} first-token logits vs the {what}: "
+                    f"max abs {mx:.4g}, mean abs {mean:.4g}, above 1.5x the "
+                    f"cold run's spread {spread}")
+            worst = [max(worst[0], mx), max(worst[1], mean)]
+            top1 += same_top
+    # ids against the cold run: reported, not gated
+    full, first_div = 0, {}
+    for r in warm["reqs"]:
+        a_ids, b_ids = warm["eng"].outputs[r.rid], cold["eng"].outputs[r.rid]
+        if a_ids == b_ids:
+            full += 1
+        else:
+            first_div[r.rid] = next(i for i, (x, y) in
+                                    enumerate(zip(a_ids, b_ids)) if x != y)
+    ttft = {label: {t: p50([r.ttft() for r in later(run["reqs"], t)])
+                    for t in (1, 2)} for label, run in runs.items()}
+    log("retention", f"sessions resumed: session hits {res.session_hits}/"
+        f"{res.session_lookups}, prefix hits {res.prefix_hits}/"
+        f"{res.prefix_lookups}, {res.prefill_tokens_skipped} prompt tokens "
+        f"skipped ({res.prefill_tokens_processed} prefilled; cold run "
+        f"{cold['res'].prefill_tokens_processed}); turns >= 2 prefilled "
+        f"{warm_t2} of the cold run's {cold_t2} prompt tokens "
+        f"({warm_t2 / cold_t2:.3f}); flash_prefill {c['flash_prefill']} "
+        f"launches, {una['tensor_core']} at unaligned offsets (tensor-core "
+        f"body {una['tensor_core']}, CUDA-core {una['cuda_core']}); "
+        f"paged_flash_decode {c['paged_flash_decode']}; pages {a.n_pages}, "
+        f"{live} retained at the end, all free after clear")
+    log("retention", f"first-token logits (std about "
+        f"{float(cold['logits'][0].std()):.2f}): the cold run against the "
+        f"same prompts prefilled alone differs by max abs {spread[0]:.4g}, "
+        f"mean abs {spread[1]:.4g}; the {len(resumed)} resumed turns "
+        f"against their prompt prefilled cold, and the {len(same_prompt)} "
+        f"of them whose prompt the cold run also composed ({same_prompt}) "
+        f"against the cold run, by at most max abs {worst[0]:.4g}, mean abs "
+        f"{worst[1]:.4g} (gate: 1.5x the cold spread); top-1 token equal in "
+        f"{top1}/{len(resumed) + len(same_prompt)}; ids equal to the cold "
+        f"run in full for {full}/{len(warm['reqs'])} requests, first "
+        f"divergent step of the others {first_div}")
+    log("retention", f"TTFT p50, turns >= 1: cold {ttft['cold'][1]:.3f} s, "
+        f"resumed {ttft['resumed'][1]:.3f} s; turns >= 2: cold "
+        f"{ttft['cold'][2]:.3f} s, resumed {ttft['resumed'][2]:.3f} s; "
+        f"cold {cold['stats']}; resumed {warm['stats']}")
+    out = dict(hits=(res.session_hits, res.session_lookups,
+                     res.prefix_hits, res.prefix_lookups),
+               skipped=res.prefill_tokens_skipped,
+               unaligned=una["tensor_core"], launches={
+                   k: c[k] for k in ("flash_prefill", "paged_flash_decode")},
+               t2_share=warm_t2 / cold_t2, ttft=ttft, logits_err=worst,
+               logits_spread=spread,
+               ids_full=(full, len(warm["reqs"])))
+    del runs, cold, warm, be
+    return out
+
+
+def spill_phase(torch, cfg, model, wbytes):
+    """Full-width Qwen3-14B, bf16: the multi-turn workload over a 48-page
+    device pool with a 128-page host tier, then the copier's round trip
+    of one page on the card."""
+    dev = model.device
+    eng = make_engine(torch, cfg, model, wbytes, True, 8,
+                      (RET_SPILL_PAGES + 1) * 128, dev=dev,
+                      session_ttl=1000.0,
+                      host_pool_tokens=RET_HOST_PAGES * 128)
+    be = eng.backend
+    if be.alloc.n_pages != RET_SPILL_PAGES or \
+            be.alloc.host_pages != RET_HOST_PAGES:
+        raise AssertionError(f"spill run: {be.alloc.n_pages} device pages, "
+                             f"{be.alloc.host_pages} host pages")
+    counts, stats, _ = serve_run(torch, cfg, eng, session_requests(cfg),
+                                 f"spill, {RET_SPILL_PAGES}-page pool, "
+                                 f"{RET_HOST_PAGES}-page host tier")
+    res, a = eng.result, be.alloc
+    if not (res.spilled_pages > 0 and res.restored_pages > 0
+            and res.spill_hold_events > 0):
+        raise AssertionError(f"spill run: {res.spilled_pages} spilled, "
+                             f"{res.restored_pages} restored, "
+                             f"{res.spill_hold_events} holds")
+    if a.free_host_slots() + a.spilled_slots() != a.host_pages or \
+            a.free_pages() + a.live_pages() != a.n_pages:
+        raise AssertionError("spill run: a tier does not balance")
+    for name in ("flash_prefill", "paged_flash_decode"):
+        if counts[name] <= 0:
+            raise AssertionError(f"spill run: {name} not launched")
+    host_end = (a.free_host_slots(), a.spilled_slots())
+    be.retention.clear(a)
+    if a.free_host_slots() != a.host_pages or a.free_pages() != a.n_pages:
+        raise AssertionError("spill run: clear left pages or slots in use")
+    # one page spilled, overwritten in the pool, restored into another
+    # page: the bytes at spill time come back
+    cp = be.retention.copier
+    gen = torch.Generator(device=dev).manual_seed(7)
+    leaves = [leaf for _, leaf in cp._attn_leaves()]
+    src, dst, hslot = 0, 1, 0
+    for leaf in leaves:
+        leaf[:, src] = torch.randn(leaf[:, src].shape, generator=gen,
+                                   device=dev).to(leaf.dtype)
+    want = [leaf[:, src].clone() for leaf in leaves]
+    cp.spill(src, hslot)
+    for leaf in leaves:
+        leaf[:, src] = torch.randn(leaf[:, src].shape, generator=gen,
+                                   device=dev).to(leaf.dtype)
+    cp.poll()
+    cp.restore(hslot, dst)
+    cp.poll()
+    for leaf, w in zip(leaves, want):
+        if not torch.equal(leaf[:, dst].view(torch.int16),
+                           w.view(torch.int16)) or \
+                torch.equal(leaf[:, dst], leaf[:, src]):
+            raise AssertionError("spill round trip: the restored page is "
+                                 "not the page as spilled")
+    log("retention", f"spill run: {res.spilled_pages} pages spilled "
+        f"({res.spilled_bytes} B), {res.restored_pages} restored "
+        f"({res.restored_tokens} tokens), {res.spill_drops} dropped, "
+        f"{res.spill_hold_events} holds, session hits {res.session_hits}/"
+        f"{res.session_lookups}, {res.prefill_tokens_processed} prompt "
+        f"tokens prefilled ({res.prefill_tokens_skipped} skipped); at the end host slots free {host_end[0]} "
+        f"+ spilled {host_end[1]} == {a.host_pages}, all free after clear; "
+        f"launches flash_prefill {counts['flash_prefill']}, "
+        f"paged_flash_decode {counts['paged_flash_decode']}; one "
+        f"page ({len(leaves)} leaves of {tuple(want[0].shape)} "
+        f"{want[0].dtype}) spilled, overwritten and restored into another "
+        f"page: byte-identical; {stats}")
+    out = dict(spilled=res.spilled_pages, restored=res.restored_pages,
+               holds=res.spill_hold_events, stats=stats)
+    del eng, be, cp, leaves, want
+    return out
+
+
+def retention_phase(torch, cfg, model, wbytes):
+    """KV retention on the port's engine: smoke parity at f32, the
+    unaligned resume kernel check, then full-width sessions cold against
+    resumed and a run with the host spill tier."""
+    from repro_torch.launch.serve import default_pool_tokens
+    t0 = time.perf_counter()
+    retention_smoke(torch)
+    err = unaligned_prefill_check(torch)
+    pool = default_pool_tokens(cfg, model, torch.device("cuda"))
+    sessions = session_phase(torch, cfg, model, wbytes, pool)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spill = spill_phase(torch, cfg, model, wbytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("retention", f"phase took {time.perf_counter() - t0:.1f} s")
+    return dict(unaligned_err=err, sessions=sessions, spill=spill)
 
 
 def profile_steps(torch, label, step, kernel, match, steps=4):
@@ -1197,8 +1643,10 @@ def main() -> int:
     rows.update(wkv6_phase(torch))
     parity_phase(torch)
     rwkv_parity_phase(torch)
-    launches, paged_stats, contig_stats, cfg, model = serve_phase(torch)
+    launches, paged_stats, contig_stats, cfg, model, wbytes = \
+        serve_phase(torch)
     profile_phase(torch, cfg, model)
+    retention = retention_phase(torch, cfg, model, wbytes)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1244,6 +1692,7 @@ def main() -> int:
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
+    log("retention", f"{retention}")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,26 @@ Chunked prefill: long prompts are split into ``chunk_tokens``-sized
 spans and the loop interleaves decode iterations between spans.  The
 batch's prefill cache is allocated on the device once per job.
 
-Not in this slice (raise ``NotImplementedError``): the prefix cache,
-session retention, the host spill tier and int8 KV caches.  The
+KV retention (``prefix_cache``, ``session_ttl``, ``host_pool_tokens``;
+paged pool and a ``prefix_cacheable`` config only):
+:class:`~repro_torch.core.retention.KvRetention` makes every decision —
+radix hits on full prompt pages, a finished turn's transcript pinned
+under its session key, TTL expiry, spill to host and restore.  The
+engine only moves bytes: ``_seed_prefix`` copies each row's cached
+prefix (a session's partial tail page included) from the pool into the
+batch prefill cache, chunked prefill resumes at the batch's smallest
+hit (``batch_prefix_skip``, an offset that need not be page- or
+tile-aligned), the insert skips the shared pages, full prompt pages are
+registered once their K/V is in the pool, and ``release`` hands the
+transcript (prompt + generated[:-1]) to the retention layer.
+
+Host spill tier: ``_EngineCopier`` copies a spilled page to host memory
+and back.  A torch slice of the pool is a view, and the freed page can
+be handed out and written before the copy to host runs, so the copier
+clones the page on the device at spill time (the reference may keep
+the slice because a JAX array never changes).
+
+Not in this slice (raise ``NotImplementedError``): int8 KV caches.  The
 reference engine's slice-boundary yield, fault injection and recovery,
 trace recording and time scaling are not exposed either: the loop runs
 with its defaults (no slicing, no faults, wall clock at scale 1) until a
@@ -49,12 +67,17 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
+from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
 from . import paging
 from .batcher import FormedBatch
+from .prefix_cache import PrefixCache
 from .request import Request
+from .retention import KvRetention, maintain_backend
 from .serving_loop import (LoopConfig, PrefillJob, ServeResult, ServingLoop,
-                           WallClock, plan_chunks)
+                           WallClock, batch_prefix_skip, plan_chunks)
+
+SPILL_DTYPES = ("", "bf16", "int8", "int4")
 
 
 class _BlockTableMirror:
@@ -102,10 +125,131 @@ class _BlockTableMirror:
             self.dirty = True
 
 
-def _not_in_slice(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the next slice of the "
-        f"port (prefix seeding and the spill copier)")
+class _EngineCopier:
+    """Host<->device KV page mover: the data half of the spill tier (the
+    retention layer makes every decision; this object moves bytes).
+
+    ``spill`` clones the page's K/V leaves on the device, on the compute
+    stream, so the clone holds the page as it was even if the freed page
+    is handed out and written before ``poll`` — the reference keeps a
+    slice instead, which is safe only because a JAX array never changes.
+    ``poll``, called by the retention tick between device steps, copies
+    the staged clones to host memory, then writes every pending restore
+    back into its reserved pool page with one index-put a leaf on the
+    compute stream, so it lands before the held request's
+    ``_seed_prefix`` reads it.
+
+    Host leaves are allocated at the first spill of each leaf and left
+    uninitialised (a host slot is read only after it was written).  Raw
+    leaves are CPU tensors in the pool's dtype (bf16 included, which
+    numpy lacks); ``spill_dtype`` "int8" or "int4" compresses the float
+    K/V payload ("k"/"v") to numpy codes with per-(token, head) f32
+    scales, and the restore dequantizes to the pool's dtype.  An int8
+    pool's own codes would pass an int8 tier raw (requantizing integer
+    codes does not round-trip); that branch waits for the int8 KV tier,
+    which the port does not run yet."""
+
+    _Q_KEYS = ("k", "v")                    # payload leaves; scales raw
+
+    def __init__(self, backend: "TorchEngineBackend", host_pages: int,
+                 spill_dtype: str = ""):
+        self.be = backend
+        self.host_pages = host_pages
+        self.spill_dtype = spill_dtype
+        self._host: Dict[tuple, object] = {}     # tensor, or numpy codes
+        self._scales: Dict[tuple, np.ndarray] = {}  # compressed leaves only
+        self._staged: Dict[int, list] = {}      # hslot -> [(leafkey, clone)]
+        self._pending: List[Tuple[int, int]] = []   # (hslot, dest page)
+
+    def _attn_leaves(self):
+        for gi, (pattern, _) in enumerate(self.be.cfg.block_groups()):
+            for j, btype in enumerate(pattern):
+                if btype in (BLOCK_ATTN, BLOCK_MOE):
+                    slot = self.be.pool_cache["groups"][gi][j]
+                    for k, leaf in slot.items():
+                        yield (gi, j, k), leaf
+
+    def _host_leaf(self, lk: tuple, like):
+        h = self._host.get(lk)
+        if h is None:
+            shape = (like.shape[0], self.host_pages) + tuple(like.shape[1:])
+            h = (np.empty(shape, like.dtype) if isinstance(like, np.ndarray)
+                 else torch.empty(shape, dtype=like.dtype))
+            self._host[lk] = h
+        return h
+
+    def _scale_leaf(self, lk: tuple, like: np.ndarray) -> np.ndarray:
+        s = self._scales.get(lk)
+        if s is None:
+            s = np.empty((like.shape[0], self.host_pages) + like.shape[1:],
+                         np.float32)
+            self._scales[lk] = s
+        return s
+
+    def _quantizes(self, lk: tuple, dtype: torch.dtype) -> bool:
+        """Does this leaf compress on spill?  Fixed per leaf for the run;
+        the restore keys off the same rule."""
+        if self.spill_dtype in ("", "bf16") or lk[2] not in self._Q_KEYS:
+            return False
+        if self.spill_dtype == "int8" and dtype == torch.int8:
+            return False                    # int8 pool: lossless pass-through
+        return True
+
+    def _materialize(self, hslot: int, lk: tuple, page) -> None:
+        if not self._quantizes(lk, page.dtype):
+            self._host_leaf(lk, page)[:, hslot].copy_(page)
+            return
+        x = page.float().cpu().numpy()
+        if self.spill_dtype == "int4":
+            payload, scale = quantize_kv_int4(x)
+        else:                               # int8 spill of a float pool
+            scale = np.maximum(np.abs(x).max(axis=-1) / 127.0,
+                               1e-8).astype(np.float32)
+            payload = np.clip(np.rint(x / scale[..., None]),
+                              -127, 127).astype(np.int8)
+        self._host_leaf(lk, payload)[:, hslot] = payload
+        self._scale_leaf(lk, scale)[:, hslot] = scale
+
+    def _decompress(self, lk: tuple, hslots: List[int],
+                    leaf: torch.Tensor) -> torch.Tensor:
+        """The host copies of ``hslots`` in the pool leaf's dtype."""
+        src = self._host[lk]
+        if lk not in self._scales:
+            return src[:, torch.as_tensor(hslots)]   # raw pass-through
+        codes, scale = src[:, hslots], self._scales[lk][:, hslots]
+        if self.spill_dtype == "int4":
+            x = dequantize_kv_int4(codes, scale, leaf.shape[-1])
+        else:
+            x = codes.astype(np.float32) * scale[..., None]
+        if leaf.dtype == torch.int8:
+            return torch.from_numpy(
+                np.clip(np.rint(x), -127, 127).astype(np.int8))
+        return torch.from_numpy(x).to(leaf.dtype)
+
+    def spill(self, page: int, hslot: int) -> None:
+        self._staged[hslot] = [(lk, leaf[:, page].clone())
+                               for lk, leaf in self._attn_leaves()]
+
+    def poll(self) -> None:
+        """Drain both directions: staged spills to host memory, then the
+        pending restores into the pool."""
+        for hslot, pages in self._staged.items():
+            for lk, page in pages:
+                self._materialize(hslot, lk, page)
+        self._staged.clear()
+        if not self._pending:
+            return
+        hslots = [h for h, _ in self._pending]
+        dst = self.be._index([p for _, p in self._pending])
+        self._pending = []
+        for lk, leaf in self._attn_leaves():
+            leaf[:, dst] = self._decompress(lk, hslots, leaf).to(leaf.device)
+
+    def drop(self, hslot: int) -> None:
+        self._staged.pop(hslot, None)   # host cells just become garbage
+
+    def restore(self, hslot: int, page: int) -> None:
+        self._pending.append((hslot, page))
 
 
 class TorchEngineBackend:
@@ -123,14 +267,12 @@ class TorchEngineBackend:
                  prefix_cache: bool = False,
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
+                 spill_bw: float = 16e9, spill_dtype: str = "",
                  device="cuda"):
-        if prefix_cache:
-            raise _not_in_slice("prefix_cache")
-        if session_ttl is not None:
-            raise _not_in_slice("session_ttl")
-        if host_pool_tokens:
-            raise _not_in_slice("host_pool_tokens")
         tfm.check_supported(cfg)
+        if spill_dtype not in SPILL_DTYPES:
+            raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
+                             f"{SPILL_DTYPES}")
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {device}")
@@ -145,7 +287,32 @@ class TorchEngineBackend:
         self.supports_decode = cfg.has_decode
         self.flops_per_token = 2.0 * cfg.active_param_count()
         self.paged = paged
+        self.spill_dtype = spill_dtype
         like_model = dict(dtype=self.dtype, device=self.device)
+        # the retention layer: the radix prefix index, TTL'd sessions
+        # when session_ttl is set, and the host spill tier beneath when
+        # host_pool_tokens is; host slots and the per-page transfer price
+        # are counted in the spill dtype's bytes (paging.host_tier_geometry)
+        self.retention: Optional[KvRetention] = None
+        host_pages, slot_bytes = paging.host_tier_geometry(
+            cfg, host_pool_tokens, page_size, spill_dtype)
+        if prefix_cache or session_ttl is not None:
+            if not paged:
+                raise ValueError("KV retention rides on the paged KV pool: "
+                                 "pass paged=True")
+            if not cfg.prefix_cacheable:
+                raise ValueError(
+                    f"{cfg.name}: KV retention needs chunk-resumable "
+                    f"prefill and purely attention-paged state (no "
+                    f"recurrent carries)")
+            self.retention = KvRetention(
+                page_size, session_ttl=session_ttl,
+                host_pool_pages=host_pages,
+                spill_seconds_per_page=slot_bytes / spill_bw,
+                spill_page_bytes=slot_bytes)
+        elif host_pages:
+            raise ValueError("the host spill tier rides on the retention "
+                             "layer: pass prefix_cache or session_ttl")
 
         if paged:
             if not tfm.supports_paged_decode(cfg):
@@ -166,8 +333,9 @@ class TorchEngineBackend:
                     f"trash page)")
             n_pages = max(n_pages, self.pages_per_seq)
             self.alloc = paging.BlockAllocator(
-                n_pages, page_size,
-                page_bytes=page_size * max(cfg.cache_bytes_per_token(), 1))
+                n_pages, page_size, host_pages=host_pages,
+                page_bytes=page_size * max(cfg.cache_bytes_per_token(), 1),
+                host_slot_bytes=slot_bytes)
             self.trash_page = n_pages            # pool index n_pages
             self.pool_cache = tfm.init_paged_cache(
                 cfg, max_slots, self.cache_len, n_pages + 1, page_size,
@@ -176,6 +344,9 @@ class TorchEngineBackend:
                                          self.trash_page)
             self.pool_cache["block_tables"].copy_(
                 torch.from_numpy(self._bt.host))
+            if host_pages:
+                self.retention.copier = _EngineCopier(self, host_pages,
+                                                      spill_dtype)
         else:
             self.pool_cache = tfm.init_cache(cfg, max_slots, self.cache_len,
                                              **like_model)
@@ -185,6 +356,11 @@ class TorchEngineBackend:
                                     device=self.device)
         self.outputs: Dict[int, List[int]] = {}
         self._prefill_shapes: set = set()
+
+    @property
+    def prefix_cache(self) -> Optional[PrefixCache]:
+        """The retention layer's radix index (None when disabled)."""
+        return self.retention.prefix if self.retention is not None else None
 
     # ------------------------------------------------------- shapes -----
     def _note_shape(self, kind: str, length: int, bsz: int) -> None:
@@ -231,6 +407,7 @@ class TorchEngineBackend:
         if not self.paged:
             return len(requests)
         return paging.admit_blocks(self.alloc, requests, self._insert_tokens,
+                                   cache=self.retention,
                                    tokens_of=self._prompt_tokens)
 
     def decode_preempt(self, pool: Sequence[Request]) -> List[Request]:
@@ -238,6 +415,7 @@ class TorchEngineBackend:
             return []
         victims = paging.extend_for_decode(self.alloc, pool,
                                            self._decode_tokens,
+                                           cache=self.retention,
                                            slack_of=self.slack_of)
         for v in victims:
             slot = self._slot_of.pop(v.rid, None)
@@ -259,7 +437,9 @@ class TorchEngineBackend:
         total = max(batch.pad_to, 8)     # min real-tensor prompt width
         c = self.chunk_tokens if tfm.supports_chunked_prefill(self.cfg) \
             else None
-        return plan_chunks(total, c)
+        skip = batch_prefix_skip(batch) if self.retention is not None \
+            else 0
+        return plan_chunks(total, c, skip=skip)
 
     def transfer_seconds(self, batch: FormedBatch) -> float:
         return 0.0            # prefill writes straight into the slot pool
@@ -268,6 +448,8 @@ class TorchEngineBackend:
         reqs = job.batch.requests
         B = len(reqs)
         start, clen = job.chunks[idx]
+        # chunk mode whenever the plan is split or starts past position 0
+        # (a cached prefix was skipped: the one span continues a cache)
         chunked = len(job.chunks) > 1 or job.chunks[0][0] > 0
         h = job.handle
         if h is None:
@@ -288,6 +470,8 @@ class TorchEngineBackend:
                           if chunked else None),
                 "first": np.zeros((B,), np.int64),
             }
+            if job.chunks[0][0] > 0:
+                self._seed_prefix(h, reqs)
         if not chunked:
             self._note_shape("prefill", clen, B)
             logits, cache = tfm.prefill(self.cfg, self.model, h["toks"],
@@ -309,17 +493,45 @@ class TorchEngineBackend:
             self._finish_prefill(job)
         return 0.0            # wall backend: the loop reads the clock
 
+    def _seed_prefix(self, h, reqs: Sequence[Request]) -> None:
+        """Copy each row's cached prefix K/V out of the page pool into
+        the batch prefill cache, so chunked prefill resumes past it: for
+        each row and attention leaf, one gather of the row's hit pages
+        and an in-place copy of positions [0, prefix_hit_tokens).  A
+        session-resumed row's hit ends inside its partial tail page; the
+        copy stops at that exact token.  The values are the pool's bits.
+        """
+        page = self.page_size
+        rows = []
+        for i, r in enumerate(reqs):
+            n = r.prefix_hit_tokens
+            if n:
+                pages = self.alloc.table(r.rid)[:-(-n // page)]
+                rows.append((i, n, self._index(pages)))
+        for gi, (pattern, _) in enumerate(self.cfg.block_groups()):
+            for j, btype in enumerate(pattern):
+                if btype not in (BLOCK_ATTN, BLOCK_MOE):
+                    continue        # unreachable under prefix_cacheable
+                pool_slot = self.pool_cache["groups"][gi][j]
+                for k, leaf in h["cache"]["groups"][gi][j].items():
+                    for i, n, pages in rows:
+                        g = pool_slot[k][:, pages]   # (reps, np, page, ...)
+                        leaf[:, i, :n] = g.flatten(1, 2)[:, :n]
+
     def _finish_prefill(self, job: PrefillJob) -> None:
         """First tokens out; batched slot insertion for continuing rows."""
         h = job.handle
-        slots, rows, firsts, tables = [], [], [], []
+        slots, rows, firsts, tables, shared = [], [], [], [], []
+        to_register = []
         free = iter(i for i, r in enumerate(self.slot_req) if r is None)
         for i, r in enumerate(job.batch.requests):
             tok = int(h["first"][i])
             self.outputs[r.rid].append(tok)
             if r.max_new_tokens <= 1 or not self.cfg.has_decode:
                 if self.paged:
-                    # done at first token: never scattered into the pool
+                    # done at first token: never scattered into the pool,
+                    # so its pages hold no transcript — a plain free,
+                    # never retention (which would index them)
                     self.alloc.release(r.rid)
                 continue
             slot = next(free)
@@ -332,12 +544,23 @@ class TorchEngineBackend:
                 t = self.alloc.table(r.rid)      # reserved at admission
                 self._bt.insert(slot, r.rid, t)
                 tables.append(t)
+                # shared prefix pages already hold this K/V and may be
+                # read by other live requests: never written again
+                if self.retention is not None:
+                    shared.append(r.prefix_hit_tokens // self.page_size)
+                    to_register.append((r, t))
+                else:
+                    shared.append(0)
         if slots:
             if self.paged:
                 self._insert_slots_paged(h["cache"], slots, rows, firsts,
-                                         tables)
+                                         tables, shared)
             else:
                 self._insert_slots(h["cache"], slots, rows, firsts)
+        # index full prompt pages only once their K/V is in the pool: a
+        # later batch may hit them at once
+        for r, t in to_register:
+            self.prefix_cache.register(self.alloc, self._prompt_tokens(r), t)
         job.handle = None
 
     def _index(self, values: Sequence[int]) -> torch.Tensor:
@@ -360,15 +583,19 @@ class TorchEngineBackend:
 
     def _insert_slots_paged(self, batch_cache, slots: List[int],
                             rows: List[int], firsts: List[int],
-                            tables: List[List[int]]) -> None:
+                            tables: List[List[int]],
+                            shared: Sequence[int]) -> None:
         """Scatter prefilled caches into the page pool, in place: K/V rows
         are chopped into page-sized spans and written to each request's
-        allocated pages (one index-put per leaf for the whole batch)."""
+        allocated pages (one index-put per leaf for the whole batch).
+        The first ``shared[i]`` pages of a table are a cached prefix that
+        already lives in the pool: skipped, so a shared page is written
+        once, by its first owner."""
         sl, rw = self._index(slots), self._index(rows)
         self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
         dst, srow, spg = [], [], []
-        for row, t in zip(rows, tables):
-            for j, pg in enumerate(t):
+        for row, t, skip in zip(rows, tables, shared):
+            for j, pg in enumerate(t[skip:], skip):
                 dst.append(pg)
                 srow.append(row)
                 spg.append(j)
@@ -417,14 +644,40 @@ class TorchEngineBackend:
         if slot is not None:
             self.slot_req[slot] = None
         if self.paged:
-            self.alloc.release(req.rid)
+            self._release_pages(req)
             if slot is not None:
                 self._bt.clear(slot, req.rid)
             else:
                 self._bt.forget(req.rid)
 
+    def _release_pages(self, req: Request) -> None:
+        """End of a request's pages: with retention, the transcript's
+        full pages join the radix and the partial tail stays pinned under
+        the session key (core/retention.py); else a plain free."""
+        if self.retention is not None:
+            self.retention.on_release(self.alloc, req,
+                                      self._transcript_tokens(req),
+                                      self.clock.now())
+        else:
+            self.alloc.release(req.rid)
+
+    def _transcript_tokens(self, req: Request) -> np.ndarray:
+        """The token path whose K/V the pool holds for ``req``: the
+        prompt plus generated[:-1] (the step that produced the last token
+        never wrote its K/V).  ``sliced_tokens`` (generated tokens a
+        slice yield promoted into the prompt) is 0 until slice yield is
+        ported."""
+        out = self.outputs.get(req.rid) or []
+        gen = np.asarray(out[req.sliced_tokens:max(req.generated - 1, 0)],
+                         np.int32)
+        return np.concatenate(
+            [np.asarray(self._prompt_tokens(req), np.int32), gen])
+
     def generated_tokens(self, req: Request) -> np.ndarray:
         return np.asarray(self.outputs.get(req.rid, ()), np.int32)
+
+    def maintain(self, now: float) -> None:
+        maintain_backend(self, now)
 
 
 class ServingEngine:
@@ -442,6 +695,7 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
+                 spill_bw: float = 16e9, spill_dtype: str = "",
                  device="cuda"):
         self.cfg = cfg
         self.model = model
@@ -451,7 +705,8 @@ class ServingEngine:
             chunk_tokens=chunk_tokens, paged=paged,
             page_size=page_size, kv_pool_tokens=kv_pool_tokens,
             prefix_cache=prefix_cache, session_ttl=session_ttl,
-            host_pool_tokens=host_pool_tokens, device=device)
+            host_pool_tokens=host_pool_tokens, spill_bw=spill_bw,
+            spill_dtype=spill_dtype, device=device)
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(
             mode="disagg", decode_slot_cap=max_slots))
         self.result: Optional[ServeResult] = None

@@ -53,5 +53,8 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
     runtime.check(err, "flash_prefill", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_prefill"] += 1
-    runtime.prefill_body_counts[body(q.dtype, Dh)] += 1
+    b = body(q.dtype, Dh)
+    runtime.prefill_body_counts[b] += 1
+    if q_offset > 0 and q_offset % runtime.PREFILL_TILE:
+        runtime.prefill_unaligned_counts[b] += 1
     return out

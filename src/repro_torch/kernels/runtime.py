@@ -11,9 +11,13 @@ import every module without ``nvcc``.
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches
 its kernel and nowhere else; the prefill wrapper also adds one to
 ``prefill_body_counts[<body>]`` for the body that launch ran
-(``kernels/flash_prefill.py:body``).  ``reset_launch_counts`` zeroes
-both.  ``decode_plans`` holds the grid and body of each decode kernel's
-last launch (``kernels/decode_attn.py:plan``); the reset clears it.
+(``kernels/flash_prefill.py:body``), and to
+``prefill_unaligned_counts[<body>]`` when the launch's ``q_offset`` is
+positive and not a multiple of ``PREFILL_TILE`` (a chunk resumed inside
+a query tile, as after a session hit).  ``reset_launch_counts`` zeroes
+all three.  ``decode_plans`` holds the grid and body of each decode
+kernel's last launch (``kernels/decode_attn.py:plan``); the reset
+clears it.
 """
 from __future__ import annotations
 
@@ -45,6 +49,9 @@ launch_counts = {name: 0 for name in KERNELS}
 # the two bodies of csrc/flash_prefill.cu
 PREFILL_BODIES = ("tensor_core", "cuda_core")
 prefill_body_counts = {name: 0 for name in PREFILL_BODIES}
+# query rows a block of the tensor-core prefill body
+PREFILL_TILE = 64
+prefill_unaligned_counts = {name: 0 for name in PREFILL_BODIES}
 
 
 # kernel -> decode_attn.DecodePlan of its last launch
@@ -52,7 +59,8 @@ decode_plans = {"flash_decode": None, "paged_flash_decode": None}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, prefill_body_counts):
+    for counts in (launch_counts, prefill_body_counts,
+                   prefill_unaligned_counts):
         for name in counts:
             counts[name] = 0
     for name in decode_plans:

@@ -4,7 +4,9 @@ backend.
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
         --arch qwen3-14b --max-seq-len 4096 [--smoke] [--device cuda|cpu] \\
         [--dtype bf16|f32] [--chunk 512] [--paged --page-size 128] \\
-        [--requests 16]
+        [--requests 16] [--prefix-cache --prefix-scenarios 2] \\
+        [--sessions 4 --turns 3 --session-ttl 60] \\
+        [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4]
 
 ``--backend torch`` runs the real engine (``core/engine.py``): eager
 prefill and decode with slot-pool continuous batching, the attention
@@ -17,6 +19,15 @@ running on the CPU when ``--device cpu`` is given.  ``--arch rwkv6-3b``
 serves RWKV6 on the contiguous slot pool (its per-slot carry has no K/V
 to page, so ``--paged`` is refused), through the hand-written WKV6
 kernel on the card.
+
+KV retention (``core/retention.py``): ``--prefix-cache`` shares cached
+full prompt pages across requests (``--prefix-scenarios N`` draws every
+prompt from N shared system prompts of ``--prefix-tokens``);
+``--sessions N --turns T`` serves multi-turn conversations whose next
+turn resumes past the retained transcript for ``--session-ttl`` seconds;
+``--kv-spill`` adds the host spill tier (``--host-pool-tokens``, default
+4x the device pool; ``--spill-dtype``).  Spill implies the prefix cache,
+which implies ``--paged``.
 
 At full width on one 80 GB card, pass ``--max-seq-len 4096``: with the
 config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
@@ -106,6 +117,45 @@ def build_parser() -> argparse.ArgumentParser:
                          "config's; 256 with --smoke)")
     ap.add_argument("--sched", default="bucket",
                     choices=["bucket", "goodput"])
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prefix cache on the paged pool "
+                         "(radix lookup + refcounted shared pages; "
+                         "implies --paged)")
+    ap.add_argument("--prefix-scenarios", type=int, default=0,
+                    help="shared-prefix workload: N distinct system "
+                         "prompts with Zipf reuse (0 = length-only "
+                         "workload)")
+    ap.add_argument("--prefix-tokens", type=int, default=128,
+                    help="tokens per shared system prompt (with "
+                         "--prefix-scenarios)")
+    ap.add_argument("--sessions", type=int, default=0,
+                    help="multi-turn conversation workload: N sessions "
+                         "of --turns turns each; enables session "
+                         "retention (implies --prefix-cache)")
+    ap.add_argument("--turns", type=int, default=3,
+                    help="turns per session (with --sessions)")
+    ap.add_argument("--session-ttl", type=float, default=60.0,
+                    help="seconds a finished conversation's KV stays "
+                         "pinned awaiting the next turn")
+    ap.add_argument("--think-time", type=float, default=0.0,
+                    help="mean think-time gap (s) between a session's "
+                         "turns; above --session-ttl the tail expires "
+                         "(with --kv-spill the next turn restores it)")
+    ap.add_argument("--kv-spill", action="store_true",
+                    help="host-memory spill tier under the retention "
+                         "layer: evicted retained pages are copied to the "
+                         "host and restored on a later hit (implies "
+                         "--prefix-cache)")
+    ap.add_argument("--host-pool-tokens", type=int, default=None,
+                    help="host spill budget in KV tokens (default: 4x "
+                         "the device pool); implies --kv-spill")
+    ap.add_argument("--spill-bw", type=float, default=16.0,
+                    help="host<->device link bandwidth in GB/s used to "
+                         "price spill and restore transfers")
+    ap.add_argument("--spill-dtype", default="bf16",
+                    choices=["bf16", "int8", "int4"],
+                    help="host spill tier precision: int8/int4 keep more "
+                         "pages in the same host budget, lossily")
     return ap
 
 
@@ -121,9 +171,21 @@ def make_config(args):
 
 def make_requests(cfg, args, max_new: int = 8):
     """The reference launcher's mixed workload (8 req/s), generated
-    tokens capped at ``max_new`` and prompts clipped to the window."""
+    tokens capped at ``max_new`` and prompts clipped to the window; with
+    ``--sessions``, conversations whose turns are sized to fit the window
+    up front (the loop composes each turn's prompt from the transcript,
+    which must come to ``prompt_len`` exactly, so nothing is clipped)."""
+    if args.sessions:
+        per_turn = max(cfg.max_seq_len // (2 * args.turns) - 8, 8)
+        return generate(WorkloadSpec(
+            dataset="mixed", rps=8.0, max_model_len=cfg.max_seq_len,
+            vocab_size=cfg.vocab_size, sessions=args.sessions,
+            turns=args.turns, utterance_tokens=per_turn,
+            max_new_tokens=max_new, think_time_s=args.think_time))
     spec = WorkloadSpec(dataset="mixed", rps=8.0, n_requests=args.requests,
                         max_model_len=cfg.max_seq_len,
+                        prefix_groups=args.prefix_scenarios,
+                        prefix_tokens=args.prefix_tokens,
                         vocab_size=cfg.vocab_size)
     reqs = generate(spec)
     for r in reqs:
@@ -143,11 +205,21 @@ def serve(cfg, model, reqs, args, device: torch.device):
     pool_tokens = args.pool_tokens
     if args.paged and pool_tokens is None:
         pool_tokens = default_pool_tokens(cfg, model, device)
+    host_tokens = None
+    if args.kv_spill:
+        host_tokens = args.host_pool_tokens or 4 * (
+            pool_tokens or args.slots * cfg.max_seq_len)
     engine = ServingEngine(cfg, model, sched, max_slots=args.slots,
                            cache_len=cfg.max_seq_len,
                            chunk_tokens=args.chunk, paged=args.paged,
                            page_size=args.page_size,
-                           kv_pool_tokens=pool_tokens, device=device)
+                           kv_pool_tokens=pool_tokens,
+                           prefix_cache=args.prefix_cache,
+                           session_ttl=args.session_ttl if args.sessions
+                           else None,
+                           host_pool_tokens=host_tokens,
+                           spill_bw=args.spill_bw * 1e9,
+                           spill_dtype=args.spill_dtype, device=device)
     runtime.reset_launch_counts()
     engine.submit(reqs)
     t0 = time.perf_counter()
@@ -163,6 +235,7 @@ def serve(cfg, model, reqs, args, device: torch.device):
                       f"free {be.free_blocks()}; "
                       f"peak pool {engine.result.peak_pool}; "
                       f"preemptions {engine.result.preempt_events}; ")
+        paged_info += retention_info(engine.result, args)
     print(f"served {len(done)}/{len(reqs)} requests, {toks} tokens in "
           f"{dt:.1f}s; prefill shapes: {engine.n_prefill_shapes}; "
           f"decode steps interleaved between prefill chunks: "
@@ -178,9 +251,37 @@ def serve(cfg, model, reqs, args, device: torch.device):
     return engine, done, dt
 
 
+def retention_info(r, args) -> str:
+    """The summary line's retention fields (the reference launcher's)."""
+    out = ""
+    if args.prefix_cache:
+        out += (f"prefix hits {r.prefix_hits}/{r.prefix_lookups} "
+                f"({r.prefix_hit_rate():.2f}), {r.prefill_tokens_skipped} "
+                f"prompt tokens skipped, {r.prefix_pages_saved} pages "
+                f"saved, {r.shared_pages_peak} peak shared; ")
+    if args.sessions:
+        out += (f"session hits {r.session_hits}/{r.session_lookups}, "
+                f"{r.session_hit_tokens} transcript tokens restored, "
+                f"{r.tail_pages_reused} tails reused, "
+                f"{r.sessions_retained} retained; ")
+    if args.kv_spill:
+        out += (f"spill[{args.spill_dtype}]: {r.spilled_pages} pages "
+                f"({r.spilled_bytes} B) out, "
+                f"{r.restored_pages} back ({r.restored_tokens} tokens, "
+                f"{r.restored_bytes} B), {r.spill_drops} dropped, "
+                f"{r.spill_hold_events} holds; ")
+    return out
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    # an explicit host budget turns the tier on; spill rides on the
+    # prefix cache, which rides on the paged pool
+    args.kv_spill = args.kv_spill or args.host_pool_tokens is not None
+    args.prefix_cache = (args.prefix_cache or args.sessions > 0
+                         or args.kv_spill)
+    args.paged = args.paged or args.prefix_cache
     device = resolve_device(args.device)
     cfg = make_config(args)
     if args.paged and not tfm.supports_paged_decode(cfg):

@@ -14,9 +14,14 @@ JAX's ``.at[].set`` does.  Where the reference relies on JAX dropping an
 out-of-range write (a dead slot whose position ran past a contiguous
 cache), the port masks the write; where it relies on JAX clamping a
 gather, the port clips the index.
+
+The int4 codecs of the host spill tier (``pack_int4`` ...
+``dequantize_kv_int4``) are numpy, as in the reference: they run on the
+host around the device-to-host copy of a spilled page.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -207,3 +212,52 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     out = paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
                                  s_len=s_len, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+# ------------------------------------------- int4 spill-tier compression --
+# Host-side (numpy) helpers for the spill tier: pages crossing the host
+# link may be packed two int4 values per byte with per-(token, head) f32
+# scales.  Copied from the reference; they run on the host around the
+# device-to-host copy, never on the card.
+
+def pack_int4(q) -> np.ndarray:
+    """Pack int8 values in [-8, 7] two-per-byte along the LAST axis.
+    An odd tail is zero-padded — ``unpack_int4(p, n)`` restores the
+    exact original length."""
+    q = np.asarray(q, np.int8)
+    if q.shape[-1] % 2:
+        q = np.concatenate(
+            [q, np.zeros(q.shape[:-1] + (1,), np.int8)], axis=-1)
+    u = (q.astype(np.int16) & 0xF).astype(np.uint8)
+    return (u[..., 0::2] | (u[..., 1::2] << 4)).astype(np.uint8)
+
+
+def unpack_int4(p, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_int4`: bytes -> int8 values, trimmed to
+    the original last-axis length ``n``."""
+    p = np.asarray(p, np.uint8)
+    assert n <= 2 * p.shape[-1], (n, p.shape)
+    lo = (p & 0xF).astype(np.int16)
+    hi = (p >> 4).astype(np.int16)
+    out = np.empty(p.shape[:-1] + (2 * p.shape[-1],), np.int16)
+    out[..., 0::2] = lo
+    out[..., 1::2] = hi
+    out = np.where(out >= 8, out - 16, out).astype(np.int8)
+    return out[..., :n]
+
+
+def quantize_kv_int4(x):
+    """Symmetric per-(token, head) int4 for spilled pages:
+    x (..., Dh) float -> (packed uint8 (..., ceil(Dh/2)), scale f32),
+    on a 4-bit grid (limit 7)."""
+    x = np.asarray(x, np.float32)
+    scale = np.abs(x).max(axis=-1) / 7.0
+    scale = np.maximum(scale, 1e-8).astype(np.float32)
+    q = np.clip(np.rint(x / scale[..., None]), -7, 7).astype(np.int8)
+    return pack_int4(q), scale
+
+
+def dequantize_kv_int4(packed, scale, n: int, dtype=np.float32):
+    """Inverse of :func:`quantize_kv_int4` (``n`` = original Dh)."""
+    q = unpack_int4(packed, n)
+    return (q.astype(np.float32) * scale[..., None]).astype(dtype)

@@ -226,18 +226,33 @@ def test_rwkv_paged_pool_is_refused():
         TorchEngine(cfg, model, sched, device="cpu", paged=True)
 
 
-def test_unported_options_raise():
+def test_retention_and_int8_refusals():
+    """What the port refuses, with the reason, as the reference does:
+    KV retention off the paged pool, or on a config that cannot resume a
+    prefill from cached pages (rwkv6-3b's recurrent carry); and int8 KV
+    caches, which arrive with the int8 slice."""
     cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
     model = _model(cfg)
     budget = tcore.MemoryBudget(hbm_bytes_per_device=2 ** 30, n_devices=1,
                                 weight_bytes=0)
-    for kw in (dict(paged=True, prefix_cache=True),
-               dict(paged=True, session_ttl=10.0),
-               dict(paged=True, host_pool_tokens=1024)):
-        sched = tcore.BucketServeScheduler(cfg, budget,
+
+    def engine(cfg_, model_, **kw):
+        sched = tcore.BucketServeScheduler(cfg_, budget,
                                            tcore.SchedulerConfig())
-        with pytest.raises(NotImplementedError):
-            TorchEngine(cfg, model, sched, device="cpu", **kw)
+        return TorchEngine(cfg_, model_, sched, device="cpu", **kw)
+    for kw in (dict(prefix_cache=True), dict(session_ttl=10.0)):
+        with pytest.raises(ValueError, match="paged KV pool"):
+            engine(cfg, model, **kw)
+    rcfg = get_smoke_config("rwkv6-3b", max_seq_len=64)
+    assert not rcfg.prefix_cacheable
+    with pytest.raises(ValueError, match="chunk-resumable"):
+        engine(rcfg, _model(rcfg, "rwkv6-3b"), paged=True, prefix_cache=True)
+    with pytest.raises(ValueError, match="retention layer"):
+        engine(cfg, model, paged=True, host_pool_tokens=1024)
+    cfg8 = get_smoke_config("qwen3-14b", max_seq_len=64,
+                            kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        engine(cfg8, model, paged=True)
 
 
 def test_chunked_prefill_cache_allocated_once_per_job(monkeypatch):

@@ -22,7 +22,9 @@ its plain version on the card, at the same sweeps and at the main
 path's widths (decode also at rows of every length, on wrapped rings,
 with more than one split and bit-identical over two calls; ``wkv6``
 also at ragged T, through every built tile, bit-identical over two
-calls, with the C launch's tile rule the wrapper's).  Run them on the
+calls, with the C launch's tile rule the wrapper's; the prefill
+wrapper's count of launches at a ``q_offset`` off the 64-row tile, which
+a resumed chunk takes).  Run them on the
 H100 with ``python -m pytest tests/test_torch_kernels.py -k cuda``.
 The JAX reference is imported inside the CPU cases only: the machine
 with the card has no JAX.
@@ -425,6 +427,33 @@ def test_decode_split_plan(B, Hkv, s_len):
     assert p.body == "tensor_core"
     if (B, Hkv, s_len) == (8, 8, 4096):     # the main shape splits
         assert p.n_split > 1
+
+
+def test_prefill_tile_matches_the_source():
+    """The unaligned-offset counter's tile is the tensor-core body's
+    query rows a block."""
+    src = (Path(ref.__file__).parent.parent / "csrc" /
+           "flash_prefill.cu").read_text()
+    assert int(re.search(r"constexpr int kRows = (\d+);", src)[1]) \
+        == runtime.PREFILL_TILE
+    runtime.prefill_unaligned_counts["tensor_core"] = 3
+    runtime.reset_launch_counts()
+    assert not any(runtime.prefill_unaligned_counts.values())
+
+
+@needs_cuda
+def test_cuda_unaligned_offset_is_counted():
+    """A chunk at q_offset 1037 runs on the tensor-core body and counts
+    as unaligned; one at 1024 does not."""
+    dev = torch.device("cuda")
+    q = torch.randn(1, 45, 8, 128, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, 2048, 2, 128, device=dev, dtype=torch.bfloat16)
+    runtime.reset_launch_counts()
+    ops.flash_prefill(q, k, k, q_offset=1037)
+    ops.flash_prefill(q, k, k, q_offset=1024)
+    assert runtime.prefill_unaligned_counts == {"tensor_core": 1,
+                                                "cuda_core": 0}
+    assert runtime.prefill_body_counts["tensor_core"] == 2
 
 
 def test_decode_plan_constants_match_source():

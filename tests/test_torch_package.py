@@ -93,6 +93,25 @@ def test_cpu_serve_launcher_prints_the_summary(capsys):
            "flash_decode 0" in out
 
 
+def test_cpu_serve_launcher_resumes_sessions_and_spills(capsys):
+    """Two 2-turn sessions with the spill tier: ``--session-ttl 0``
+    expires each finished turn's tail at once, so it is demoted to the
+    host and the next turn restores it; the summary shows the session
+    hits and the spilled and restored pages."""
+    from repro_torch.launch import serve
+    serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",
+                "--sessions", "2", "--turns", "2", "--kv-spill",
+                "--session-ttl", "0", "--page-size", "32", "--chunk", "64"])
+    out = capsys.readouterr().out
+    assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
+    hits = re.search(r"session hits (\d+)/(\d+)", out)
+    assert hits and int(hits[1]) > 0 and int(hits[2]) == 4, out
+    spill = re.search(r"spill\[bf16\]: (\d+) pages \(\d+ B\) out, "
+                      r"(\d+) back", out)
+    assert spill and int(spill[1]) > 0 and int(spill[2]) > 0, out
+    assert re.search(r"prefix hits [1-9]\d*/4", out), out
+
+
 def test_launcher_refuses_paged_for_an_attention_free_config(monkeypatch,
                                                             capsys):
     """``--paged`` with rwkv6-3b exits with a message naming the config,
