@@ -53,13 +53,31 @@ goes through these phases, each printing its own lines:
    the same over a 48-page pool with a 128-page host spill tier (spills,
    restores and holds > 0, both tiers balanced, one page spilled,
    overwritten and restored into another page byte-identical);
-7. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
+7. recovery (slice yield, faults, recovery and drain in the engine, on
+   the same model): smoke qwen3-14b at f32 on ``TestSlicePreemption``'s
+   workload over a 5-page pool with slice 4, its ids equal to the
+   uncontended run's and to the CPU run's; ``TestEngineFaults``'
+   workload drained at half its run's wall time, the checkpoint through
+   JSON, resumed on a cold engine, ids equal to the uninterrupted run's;
+   then full-width Qwen3-14B, 12 requests of 512-2048 prompt tokens and
+   64 new tokens under the goodput scheduler with slice 16 over a
+   34-page pool, the fault plan armed and a Tracer on (every request
+   finished or quarantined, slice yields, preemptions and fault events
+   > 0, each kept slice the head of its final output, pages balanced,
+   ``memory_allocated`` back within 64 MiB, the timeline valid,
+   ``paged_flash_decode`` 40 launches a decode step, every
+   ``flash_prefill`` launch on the tensor-core body); then the same
+   workload without faults drained at half that time, the first
+   engine's pool freed and the checkpoint resumed on a cold engine
+   (nothing lost or duplicated, kept slices equal, pages balanced in
+   both engines);
+8. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
    rwkv6-3b is served the same way on the contiguous pool, and profiled.
    Launch counts are zeroed before each serve run and read after it:
    every kernel must have been launched by the path it belongs to, every
    bf16 ``flash_prefill`` launch through the tensor-core body, and
    ``wkv6`` exactly 32 times per prefill chunk and per decode step;
-8. the kernel table as one JSON line (launches from the paged serve
+9. the kernel table as one JSON line (launches from the paged serve
    run), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -923,35 +941,33 @@ def requests(lengths, max_new):
 
 
 def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None,
-                dev="cuda", chunk=512, hbm_bytes=None, **retention):
-    """A ``ServingEngine`` (page 128) budgeted with the device's memory
-    unless ``hbm_bytes`` is given; ``retention`` passes the KV retention
-    options (``prefix_cache``, ``session_ttl``, ``host_pool_tokens``)."""
-    from repro_torch.core import (BucketServeScheduler, MemoryBudget,
-                                  SchedulerConfig)
+                dev="cuda", chunk=512, hbm_bytes=None, page=128,
+                goodput=False, **options):
+    """A ``ServingEngine`` budgeted with the device's memory unless
+    ``hbm_bytes`` is given, under the BucketServe scheduler (the goodput
+    scheduler with ``goodput``); ``options`` passes the engine's other
+    options (KV retention, ``slice_tokens``, ``fault_plan``, ``tracer``)."""
+    from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
+                                  MemoryBudget, SchedulerConfig)
     from repro_torch.core.engine import ServingEngine
     from repro_torch.launch.serve import device_memory_bytes
     dev = torch.device(dev)
     budget = MemoryBudget(
         hbm_bytes_per_device=hbm_bytes or device_memory_bytes(dev),
         n_devices=1, weight_bytes=wbytes)
-    sched = BucketServeScheduler(cfg, budget, SchedulerConfig(
-        max_batch=slots, memory_model="paged" if paged else "sum",
-        page_size=128))
+    sched = (GoodputScheduler if goodput else BucketServeScheduler)(
+        cfg, budget, SchedulerConfig(
+            max_batch=slots, memory_model="paged" if paged else "sum",
+            page_size=page))
     return ServingEngine(cfg, model, sched, max_slots=slots,
                          cache_len=cfg.max_seq_len, chunk_tokens=chunk,
-                         paged=paged, page_size=128,
-                         kv_pool_tokens=pool_tokens, device=dev,
-                         **retention)
+                         paged=paged, page_size=page,
+                         kv_pool_tokens=pool_tokens, device=dev, **options)
 
 
-def serve_run(torch, cfg, eng, reqs, label):
-    """Serve ``reqs`` with the launch counts zeroed just before; returns
-    (counts, stats, model steps run: prefill chunks and decode steps)."""
-    from repro_torch.kernels import runtime
-    be = eng.backend
-    steps = {"prefill": 0, "decode": 0}
-
+def count_steps(be, steps):
+    """Count the backend's prefill chunks and decode steps into
+    ``steps``."""
     def counted(fn, key):
         def call(*args):
             steps[key] += 1
@@ -959,6 +975,14 @@ def serve_run(torch, cfg, eng, reqs, label):
         return call
     be.prefill_chunk = counted(be.prefill_chunk, "prefill")
     be.decode_iter = counted(be.decode_iter, "decode")
+
+
+def serve_run(torch, cfg, eng, reqs, label):
+    """Serve ``reqs`` with the launch counts zeroed just before; returns
+    (counts, stats, model steps run: prefill chunks and decode steps)."""
+    from repro_torch.kernels import runtime
+    steps = {"prefill": 0, "decode": 0}
+    count_steps(eng.backend, steps)
     runtime.reset_launch_counts()
     eng.submit(reqs)
     t = time.perf_counter()
@@ -1528,6 +1552,361 @@ def retention_phase(torch, cfg, model, wbytes):
     return dict(unaligned_err=err, sessions=sessions, spill=spill)
 
 
+# ----------------------------------------------------------- recovery ---
+REC_N, REC_NEW, REC_SLICE = 12, 64, 16
+REC_PROMPTS = (512, 2048)
+REC_PAGES = 34          # device pool of the full-width recovery runs
+REC_PLAN = "seed=7,decode_step=0.02,prefill_chunk=0.05,maintain_tick=0.1"
+REC_MEM_SLACK = 64 * 2 ** 20
+
+
+def capture_yields(be, kept):
+    """Record each request's outputs as a slice yield leaves them (the
+    kept tokens), keyed by rid."""
+    hook = be.on_slice_yield
+
+    def on_yield(req, keep):
+        hook(req, keep)
+        kept.setdefault(req.rid, []).append(list(be.outputs[req.rid]))
+    be.on_slice_yield = on_yield
+
+
+def check_kept(label, kept, final):
+    """Every kept slice is the head of its request's final output, byte
+    for byte; returns the number of yields checked."""
+    n = 0
+    for rid, heads in kept.items():
+        for head in heads:
+            if rid in final and final[rid][:len(head)] != head:
+                raise AssertionError(f"{label}: rid {rid} kept {head} at a "
+                                     f"yield, final output {final[rid]}")
+            n += rid in final
+    return n
+
+
+def smoke_preempt_requests():
+    """``TestSlicePreemption``'s workload: 6 requests at t = 0, prompts of
+    20-40 tokens, 20-40 new tokens."""
+    import numpy as np
+    from repro_torch.core import Request, TaskType
+    rng = np.random.default_rng(3)
+    return [Request(rid=i, prompt_len=int(rng.integers(20, 40)),
+                    max_new_tokens=int(rng.integers(20, 40)), arrival=0.0,
+                    task_type=TaskType.OFFLINE) for i in range(6)]
+
+
+def smoke_fault_requests():
+    """``TestEngineFaults``' workload: 8 requests at t = 0, prompts of
+    8-48 tokens, 6 new tokens."""
+    import numpy as np
+    from repro_torch.core import Request, TaskType
+    rng = np.random.default_rng(3)
+    return [Request(rid=i, prompt_len=int(rng.integers(8, 48)),
+                    max_new_tokens=6, arrival=0.0,
+                    task_type=TaskType.OFFLINE) for i in range(8)]
+
+
+def finished_ids(eng, reqs):
+    return {r.rid: list(eng.outputs[r.rid]) for r in reqs
+            if r.finished >= 0 and not r.dropped}
+
+
+def recovery_smoke(torch):
+    """Smoke qwen3-14b at f32: slice-yield resume against the uncontended
+    run on the card and the CPU, then a drain at a wall time mid-run,
+    resumed cold from the checkpoint's JSON, against the uninterrupted
+    run."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.recovery import LoopCheckpoint
+    from repro_torch.models import transformer as tfm
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=128)
+    cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+
+    def engine(model, dev, paged=False, **kw):
+        return make_engine(torch, cfg, model, 0, paged, 4, dev=dev,
+                           chunk=None, hbm_bytes=2 ** 30, **kw)
+
+    def serve_all(eng, reqs, label):
+        eng.submit(reqs)
+        if len(eng.run(max_wall_s=600)) != len(reqs):
+            raise AssertionError(f"recovery smoke {label}: not all served")
+        return finished_ids(eng, reqs)
+    ids, yields = {}, {}
+    for label, model, dev in (("card", gpu_model, "cuda"),
+                              ("cpu", cpu_model, "cpu")):
+        eng = engine(model, dev, paged=True, page=32, pool_tokens=5 * 32,
+                     slice_tokens=4)
+        kept = {}
+        capture_yields(eng.backend, kept)
+        reqs = smoke_preempt_requests()
+        ids[label] = serve_all(eng, reqs, f"slice yield, {label}")
+        yields[label] = eng.result.slice_yields
+        check_kept(f"recovery smoke {label}", kept, ids[label])
+        if not yields[label] or eng.backend.free_blocks() != \
+                eng.backend.alloc.n_pages:
+            raise AssertionError(f"recovery smoke {label}: "
+                                 f"{yields[label]} slice yields, pages "
+                                 f"unbalanced")
+        if label == "card":
+            sliced = sum(r.sliced_tokens > 0 for r in reqs)
+            uncontended = [dataclasses.replace(
+                r, arrival=0.0, generated=0,
+                prompt_len=r.prompt_len - r.sliced_tokens,
+                tokens=r.tokens[:r.prompt_len - r.sliced_tokens],
+                sliced_tokens=0, first_token=-1.0, prefill_start=-1.0,
+                finished=-1.0) for r in reqs]
+    ids["uncontended"] = serve_all(engine(gpu_model, "cuda", paged=True,
+                                          page=32), uncontended,
+                                   "uncontended")
+    if not ids["card"] == ids["uncontended"] == ids["cpu"]:
+        raise AssertionError("recovery smoke: slice-yield ids differ from "
+                             "the uncontended run or the CPU")
+    log("recovery", f"smoke f32 slice yield (5-page pool, slice 4): "
+        f"{yields['card']} yields on the card ({sliced} requests kept "
+        f"work), {yields['cpu']} on the CPU; ids equal to the uncontended "
+        f"run and to the CPU run for all {len(ids['card'])} requests")
+
+    # drain at a wall time mid-run (half the uninterrupted run's seconds,
+    # halved again while nothing is left in flight), JSON, cold resume
+    kw = dict(slice_tokens=2)
+    t = time.perf_counter()
+    want = serve_all(engine(gpu_model, "cuda", **kw), smoke_fault_requests(),
+                     "uninterrupted")
+    frac, wall = 0.5, time.perf_counter() - t
+    while True:
+        eng = engine(gpu_model, "cuda", **kw)
+        reqs = smoke_fault_requests()
+        eng.loop.run(reqs, time_limit=math.inf, max_wall_s=600,
+                     drain_at=frac * wall)
+        ck = LoopCheckpoint.from_json(eng.loop.drain().to_json())
+        if ck.requests or frac < 0.01:
+            break
+        frac /= 2
+    cold_eng = engine(gpu_model, "cuda", **kw)
+    cold = ck.restore_requests()
+    cold_eng.loop.run(cold, time_limit=math.inf, max_wall_s=600,
+                      resume_clock=ck.now)
+    done1, done2 = finished_ids(eng, reqs), finished_ids(cold_eng, cold)
+    if not ck.requests or set(done1) & set(done2) or \
+            set(done1) | set(done2) != set(want):
+        raise AssertionError(f"recovery smoke drain: {len(ck.requests)} "
+                             f"in the checkpoint; finished {sorted(done1)} "
+                             f"before, {sorted(done2)} after, of "
+                             f"{sorted(want)}")
+    if {**done1, **done2} != want:
+        raise AssertionError("recovery smoke drain: resumed ids differ "
+                             "from the uninterrupted run")
+    log("recovery", f"smoke f32 drain at {frac * wall * 1e3:.1f} ms of a "
+        f"{wall * 1e3:.1f} ms run: {len(done1)} finished before, "
+        f"{len(ck.requests)} in the checkpoint ({len(ck.to_json())} B of "
+        f"JSON, {sum(r.sliced_tokens > 0 for r in cold)} with kept "
+        f"slices), {len(done2)} finished after a cold resume; ids equal "
+        f"to the uninterrupted run, nothing lost or duplicated")
+
+
+def recovery_requests(cfg, seed=0):
+    """12 requests at t = 0 with prompts of 512-2048 tokens and 64 new
+    tokens each, their classes drawn from the default class mix with
+    each class's SLOs."""
+    import numpy as np
+    from repro_torch.core import Request, TaskType
+    from repro_torch.data.workload import CLASS_SLOS, DEFAULT_CLASS_MIX
+    rng = np.random.default_rng(seed)
+    names = [c for c, _ in DEFAULT_CLASS_MIX]
+    weights = [w for _, w in DEFAULT_CLASS_MIX]
+    out = []
+    for i in range(REC_N):
+        cls = names[rng.choice(len(names), p=weights)]
+        ttft, tpot = CLASS_SLOS[cls]
+        out.append(Request(
+            rid=i, prompt_len=int(rng.integers(REC_PROMPTS[0],
+                                               REC_PROMPTS[1] + 1)),
+            max_new_tokens=REC_NEW, arrival=0.0,
+            task_type=TaskType.OFFLINE if cls == "batch"
+            else TaskType.ONLINE, cls=cls, slo_ttft=ttft, slo_tpot=tpot))
+    return out
+
+
+def recovery_engine(torch, cfg, model, wbytes, **kw):
+    """The full-width recovery runs' engine: goodput scheduler, slice
+    yield, paged pool of ``REC_PAGES``, chunk 512, 8 slots."""
+    return make_engine(torch, cfg, model, wbytes, True, 8,
+                       (REC_PAGES + 1) * 128, dev=model.device, goodput=True,
+                       slice_tokens=REC_SLICE, **kw)
+
+
+def recovery_faults(torch, cfg, model, wbytes):
+    """Full-width Qwen3-14B, bf16, under the goodput scheduler with slice
+    yield over a 40-page pool, the fault plan armed and a Tracer on."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.telemetry import Tracer, validate_perfetto
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import _fault_line
+    plan = FaultPlan.parse(REC_PLAN)
+    tracer = Tracer()
+    eng = recovery_engine(torch, cfg, model, wbytes, fault_plan=plan,
+                          tracer=tracer)
+    be = eng.backend
+    if be.alloc.n_pages != REC_PAGES:
+        raise AssertionError(f"recovery: {be.alloc.n_pages} pages")
+    kept, steps = {}, {"prefill": 0, "decode": 0}
+    capture_yields(be, kept)
+    count_steps(be, steps)
+    reqs = recovery_requests(cfg)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    runtime.reset_launch_counts()
+    eng.submit(reqs)
+    t = time.perf_counter()
+    eng.run(max_wall_s=600)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    mem1 = torch.cuda.memory_allocated()
+    counts = dict(runtime.launch_counts)
+    bodies = dict(runtime.prefill_body_counts)
+    unaligned = dict(runtime.prefill_unaligned_counts)
+    res = eng.result
+    final = finished_ids(eng, reqs)
+    quarantined = [r.rid for r in reqs if r.quarantined]
+    errs = []
+    if sorted(list(final) + quarantined) != [r.rid for r in reqs]:
+        errs.append(f"finished {sorted(final)}, quarantined {quarantined}")
+    errs += [f"rid {rid}: {len(o)} tokens" for rid, o in final.items()
+             if len(o) != REC_NEW]
+    n_kept = check_kept("recovery faults", kept, final)
+    if not (res.slice_yields > 0 and res.preempt_events > 0 and n_kept):
+        errs.append(f"{res.slice_yields} slice yields, "
+                    f"{res.preempt_events} preemptions, {n_kept} kept "
+                    f"slices checked")
+    if res.fault_events <= 0:
+        errs.append("no fault fired")
+    if be.free_blocks() != be.alloc.n_pages:
+        errs.append(f"{be.free_blocks()} of {be.alloc.n_pages} pages free")
+    doc = tracer.export()
+    bad = validate_perfetto(doc)
+    if bad:
+        errs.append(f"timeline: {bad[:3]}")
+    if abs(mem1 - mem0) > REC_MEM_SLACK:
+        errs.append(f"memory_allocated {mem0} before, {mem1} after")
+    if counts["paged_flash_decode"] != steps["decode"] * cfg.n_layers or \
+            not steps["decode"]:
+        errs.append(f"paged_flash_decode {counts['paged_flash_decode']} "
+                    f"launches for {steps['decode']} decode steps")
+    if bodies["tensor_core"] != counts["flash_prefill"] or \
+            bodies["cuda_core"] or unaligned["cuda_core"] or \
+            not counts["flash_prefill"]:
+        errs.append(f"flash_prefill {counts['flash_prefill']} launches, "
+                    f"bodies {bodies}, unaligned {unaligned}")
+    if errs:
+        raise AssertionError("recovery faults: " + "; ".join(errs))
+    n_ev = sum(1 for e in doc["traceEvents"] if e.get("ph") != "M")
+    attain = ", ".join(f"{c} {res.slo_attainment(c):.2f}"
+                       for c in res.classes())
+    log("recovery", f"full width, goodput scheduler, slice {REC_SLICE}, "
+        f"{REC_PAGES}-page pool, plan {REC_PLAN}: {len(final)}/{REC_N} "
+        f"finished, {len(quarantined)} quarantined in {dt:.2f} s; "
+        f"{res.slice_yields} slice yields ({n_kept} kept slices equal to "
+        f"the head of the final output), {res.preempt_events} preemptions; "
+        f"TTFT p50 {res.p50('ttft'):.3f} s, p99 {res.p99('ttft'):.3f} s, "
+        f"TPOT p50 {res.p50('tpot') * 1e3:.1f} ms; attainment {attain}; "
+        f"pages {be.free_blocks()}/{be.alloc.n_pages} free; "
+        f"memory_allocated {mem0} -> {mem1} B")
+    log("recovery", _fault_line(res, plan))
+    log("recovery", f"timeline valid: {n_ev} events on "
+        f"{len(tracer._tracks)} tracks; {steps['prefill']} prefill chunks, "
+        f"{steps['decode']} decode steps; flash_prefill "
+        f"{counts['flash_prefill']} launches (tensor-core "
+        f"{bodies['tensor_core']}, {unaligned['tensor_core']} at unaligned "
+        f"offsets), paged_flash_decode {counts['paged_flash_decode']} = "
+        f"{steps['decode']} x {cfg.n_layers}")
+    out = dict(seconds=dt, yields=res.slice_yields,
+               preempts=res.preempt_events, faults=res.fault_events,
+               ttft_p50=res.p50("ttft"), ttft_p99=res.p99("ttft"),
+               tpot_p50=res.p50("tpot"), launches={
+                   k: counts[k] for k in ("flash_prefill",
+                                          "paged_flash_decode")},
+               steps=dict(steps))
+    return out, final
+
+
+def recovery_drain(torch, cfg, model, wbytes, drain_at, uninterrupted):
+    """The same workload without the fault plan, drained at ``drain_at``
+    wall seconds, its checkpoint round-tripped through JSON, the first
+    engine's pool freed, and resumed on a cold engine."""
+    from repro_torch.core.recovery import LoopCheckpoint
+    eng = recovery_engine(torch, cfg, model, wbytes)
+    kept = {}
+    capture_yields(eng.backend, kept)
+    reqs = recovery_requests(cfg)
+    t = time.perf_counter()
+    eng.loop.run(reqs, time_limit=math.inf, max_wall_s=600,
+                 drain_at=drain_at)
+    ck = LoopCheckpoint.from_json(eng.loop.drain().to_json())
+    be = eng.backend
+    balanced = [be.free_blocks() == be.alloc.n_pages]
+    done1 = finished_ids(eng, reqs)
+    del eng, be
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold_eng = recovery_engine(torch, cfg, model, wbytes)
+    capture_yields(cold_eng.backend, kept)
+    cold = ck.restore_requests()
+    cold_eng.loop.run(cold, time_limit=math.inf, max_wall_s=600,
+                      resume_clock=ck.now)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    be = cold_eng.backend
+    balanced.append(be.free_blocks() == be.alloc.n_pages)
+    done2 = finished_ids(cold_eng, cold)
+    final = {**done1, **done2}
+    n_kept = check_kept("recovery drain", kept, final)
+    errs = []
+    if not ck.requests:
+        errs.append("nothing in flight at the drain")
+    if set(done1) & set(done2) or len(final) != REC_N:
+        errs.append(f"finished {sorted(done1)} before, {sorted(done2)} "
+                    f"after")
+    errs += [f"rid {rid}: {len(o)} tokens" for rid, o in final.items()
+             if len(o) != REC_NEW]
+    if not all(balanced):
+        errs.append(f"pages balanced before / after: {balanced}")
+    if errs:
+        raise AssertionError("recovery drain: " + "; ".join(errs))
+    same = sum(final[rid] == uninterrupted.get(rid) for rid in final)
+    log("recovery", f"full-width drain at {drain_at:.2f} s: {len(done1)} "
+        f"finished before, {len(ck.requests)} in the checkpoint "
+        f"({len(ck.to_json())} B of JSON, "
+        f"{sum(r.sliced_tokens > 0 for r in cold)} with kept slices, "
+        f"{sum(r.sliced_tokens for r in cold)} kept tokens), {len(done2)} "
+        f"finished after a cold resume; {n_kept} kept slices equal to the "
+        f"head of the final output; pages balanced in both engines; "
+        f"{dt:.2f} s in all; ids equal to the faulted uninterrupted run in "
+        f"full for {same}/{REC_N} requests (bf16: batch shape moves the "
+        f"logits; not gated)")
+    return dict(seconds=dt, before=len(done1), checkpoint=len(ck.requests),
+                after=len(done2), ids_equal=same)
+
+
+def recovery_phase(torch, cfg, model, wbytes):
+    """Slice yield, faults, recovery and drain on the port's engine: the
+    smoke f32 checks, then full width with the fault plan, then a drain
+    and a cold resume of the same workload."""
+    t0 = time.perf_counter()
+    recovery_smoke(torch)
+    faults, final = recovery_faults(torch, cfg, model, wbytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drain = recovery_drain(torch, cfg, model, wbytes, faults["seconds"] / 2,
+                           final)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("recovery", f"phase took {time.perf_counter() - t0:.1f} s")
+    return dict(faults=faults, drain=drain)
+
+
 def profile_steps(torch, label, step, kernel, match, steps=4):
     """Where a full-width decode step spends its time: ``steps`` calls
     of ``step`` under ``torch.profiler``.  Device busy time is the sum of
@@ -1647,6 +2026,7 @@ def main() -> int:
         serve_phase(torch)
     profile_phase(torch, cfg, model)
     retention = retention_phase(torch, cfg, model, wbytes)
+    recovery = recovery_phase(torch, cfg, model, wbytes)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1693,6 +2073,7 @@ def main() -> int:
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
     log("retention", f"{retention}")
+    log("recovery", f"{recovery}")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -51,11 +51,21 @@ be handed out and written before the copy to host runs, so the copier
 clones the page on the device at spill time (the reference may keep
 the slice because a JAX array never changes).
 
-Not in this slice (raise ``NotImplementedError``): int8 KV caches.  The
-reference engine's slice-boundary yield, fault injection and recovery,
-trace recording and time scaling are not exposed either: the loop runs
-with its defaults (no slicing, no faults, wall clock at scale 1) until a
-slice holds those paths against the reference.
+Slice-boundary preemption, faults, recovery and drain (the reference
+engine's hooks, driven by the copied ``ServingLoop``): with
+``slice_tokens`` a preempted, killed or drained decode keeps its
+generated tokens up to the last multiple of ``slice_tokens``
+(``on_slice_yield`` truncates the outputs there; ``begin`` re-seeds them
+for a request resumed cold from a checkpoint); ``abort_prefill`` frees
+an abandoned prefill job's pages and its device batch cache, and
+``evict_request`` tears a pooled request down without registering its
+K/V with the retention layer, its block-table row pointed at the trash
+page before the next in-place decode step.  ``fault_plan``,
+``recovery``, ``restore_timeout``, ``recorder``, ``tracer`` and
+``time_scale`` are passed to the loop and its clock as the reference
+engine passes them.
+
+Not in this slice (raise ``NotImplementedError``): int8 KV caches.
 """
 from __future__ import annotations
 
@@ -71,6 +81,7 @@ from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
 from . import paging
 from .batcher import FormedBatch
+from .faults import FaultInjector
 from .prefix_cache import PrefixCache
 from .request import Request
 from .retention import KvRetention, maintain_backend
@@ -147,7 +158,25 @@ class _EngineCopier:
     scales, and the restore dequantizes to the pool's dtype.  An int8
     pool's own codes would pass an int8 tier raw (requantizing integer
     codes does not round-trip); that branch waits for the int8 KV tier,
-    which the port does not run yet."""
+    which the port does not run yet.
+
+    Restores under faults.  A restore's copy is queued and written at
+    the next ``poll``, and it lands before its page can change owner:
+    ``restore`` is called only for a run the retention layer dispatched
+    (a run that hard-fails past its retries, or is shed, is cancelled
+    before any call, ``KvRetention._restore_path``), and a queued page
+    is RESTORING: reserved by ``restore_begin``, on no block table and
+    not on the free list.  It leaves that state only through
+    ``restore_commit``, and ``KvRetention.tick`` commits landed restores
+    just before it calls ``poll``, in the same call, before any
+    admission can attach the page.  A stall only moves the modelled
+    ready time (the bytes land early, while the page is still
+    reserved); a timed-out hold (``cancel_hold``) and a drain leave the
+    restore in flight, owned by the layer; a lost maintain tick skips
+    the commit and the poll together; no eviction rung takes a
+    restoring page or tail; and the teardowns that commit and free one
+    run after the poll (the expiry pass of ``tick``) or outside a run
+    (``clear``)."""
 
     _Q_KEYS = ("k", "v")                    # payload leaves; scales raw
 
@@ -268,7 +297,7 @@ class TorchEngineBackend:
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
                  spill_bw: float = 16e9, spill_dtype: str = "",
-                 device="cuda"):
+                 time_scale: float = 1.0, device="cuda"):
         tfm.check_supported(cfg)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
@@ -283,7 +312,7 @@ class TorchEngineBackend:
         self.max_slots = max_slots
         self.cache_len = cache_len or cfg.max_seq_len
         self.chunk_tokens = chunk_tokens
-        self.clock = WallClock()
+        self.clock = WallClock(time_scale)
         self.supports_decode = cfg.has_decode
         self.flops_per_token = 2.0 * cfg.active_param_count()
         self.paged = paged
@@ -356,6 +385,9 @@ class TorchEngineBackend:
                                     device=self.device)
         self.outputs: Dict[int, List[int]] = {}
         self._prefill_shapes: set = set()
+        # the job whose device batch cache (``job.handle``) is live, so
+        # that ``abort_prefill`` can drop it
+        self._job: Optional[PrefillJob] = None
 
     @property
     def prefix_cache(self) -> Optional[PrefixCache]:
@@ -377,7 +409,15 @@ class TorchEngineBackend:
     def begin(self, requests: Sequence[Request]) -> None:
         for r in requests:
             r.materialize_tokens(self.cfg.vocab_size)
-            self.outputs[r.rid] = []
+            # a slice-promoted request resumed cold from a drain
+            # checkpoint: the promoted ids are the last sliced_tokens of
+            # its prompt, and seeding the outputs with them keeps the
+            # generated-token indexing (_transcript_tokens, the next
+            # yield) aligned on an engine that never ran those steps
+            self.outputs[r.rid] = [
+                int(t) for t in
+                r.tokens[r.prompt_len - r.sliced_tokens:r.prompt_len]] \
+                if r.sliced_tokens > 0 else []
         self.clock.start()
 
     def kv_budget_tokens(self) -> float:
@@ -395,7 +435,9 @@ class TorchEngineBackend:
         return min(r.prompt_len + 1, self.s_attn)
 
     def _decode_tokens(self, r: Request) -> int:
-        return min(r.prompt_len + r.generated, self.s_attn)
+        """Tokens after this iteration's write (sliced tokens were
+        promoted into the prompt by a slice yield: not counted twice)."""
+        return min(r.prompt_len + r.generated - r.sliced_tokens, self.s_attn)
 
     def free_blocks(self) -> int:
         return self.alloc.free_pages() if self.paged else 1 << 30
@@ -424,14 +466,57 @@ class TorchEngineBackend:
                 self._bt.clear(slot, v.rid)
             else:
                 self._bt.forget(v.rid)
+            # outputs survive: the loop keeps a slice (on_slice_yield)
+            # or restarts the victim (on_preempt_reset)
         for r in pool:                       # tables may have grown a page
             slot = self._slot_of.get(r.rid)
             if slot is not None:
                 self._bt.sync(slot, r.rid, self.alloc)
         return victims
 
+    def on_slice_yield(self, req: Request, keep: int) -> None:
+        """A yield kept ``keep`` generated tokens, now promoted into the
+        prompt: drop the tail past them; the resume prefill's first
+        token lands at index ``keep``."""
+        out = self.outputs.get(req.rid)
+        if out is not None:
+            del out[keep:]
+
     def on_preempt_reset(self, req: Request) -> None:
         self.outputs[req.rid] = []       # regenerated after re-prefill
+
+    # ------------------------------------------- fault/drain teardown -----
+    def abort_prefill(self, req: Request) -> None:
+        """A request leaves mid-prefill (job abandoned after its retry
+        budget, or a drain): free the pages reserved at admission and
+        drop the job's device batch cache, which at full width is
+        several GB and must not outlive the job.  No slot was taken yet
+        (slots are assigned in ``_finish_prefill``)."""
+        job = self._job
+        if job is not None and any(r is req for r in job.batch.requests):
+            job.handle = None
+            self._job = None
+        if self.paged:
+            self.alloc.release(req.rid)
+            self._bt.forget(req.rid)
+
+    def evict_request(self, req: Request) -> None:
+        """Tear down a pooled request's slot and pages without
+        registering its K/V with the retention layer (decode-pool kill,
+        drain); ``outputs`` survives for the loop to promote the kept
+        slice.  ``_bt.clear`` points the slot's block-table row at the
+        trash page and marks the mirror dirty, and ``decode_iter`` pushes
+        the mirror before the next in-place step, so the dead slot's
+        masked write never lands in a freed (or reassigned) page."""
+        slot = self._slot_of.pop(req.rid, None)
+        if slot is not None:
+            self.slot_req[slot] = None
+        if self.paged:
+            self.alloc.release(req.rid)
+            if slot is not None:
+                self._bt.clear(slot, req.rid)
+            else:
+                self._bt.forget(req.rid)
 
     def chunk_plan(self, batch: FormedBatch) -> List[Tuple[int, int]]:
         total = max(batch.pad_to, 8)     # min real-tensor prompt width
@@ -470,6 +555,7 @@ class TorchEngineBackend:
                           if chunked else None),
                 "first": np.zeros((B,), np.int64),
             }
+            self._job = job
             if job.chunks[0][0] > 0:
                 self._seed_prefix(h, reqs)
         if not chunked:
@@ -562,6 +648,7 @@ class TorchEngineBackend:
         for r, t in to_register:
             self.prefix_cache.register(self.alloc, self._prompt_tokens(r), t)
         job.handle = None
+        self._job = None
 
     def _index(self, values: Sequence[int]) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int64),
@@ -664,9 +751,9 @@ class TorchEngineBackend:
     def _transcript_tokens(self, req: Request) -> np.ndarray:
         """The token path whose K/V the pool holds for ``req``: the
         prompt plus generated[:-1] (the step that produced the last token
-        never wrote its K/V).  ``sliced_tokens`` (generated tokens a
-        slice yield promoted into the prompt) is 0 until slice yield is
-        ported."""
+        never wrote its K/V).  The first ``sliced_tokens`` generated
+        tokens were promoted into the prompt by a slice yield: counted
+        once."""
         out = self.outputs.get(req.rid) or []
         gen = np.asarray(out[req.sliced_tokens:max(req.generated - 1, 0)],
                          np.int32)
@@ -684,11 +771,15 @@ class ServingEngine:
     """Facade: schedule and serve a request set on the PyTorch backend.
 
     Thin wiring only — the run loop is ``ServingLoop`` in ``disagg``
-    topology (prefill chunks interleave with slot decode).  ``device``
-    defaults to ``"cuda"`` and raises when no card is present."""
+    topology (prefill chunks interleave with slot decode).  The options
+    and defaults are the reference engine's; a ``FaultInjector`` is
+    built only for a plan with an armed site (``self.faults``).
+    ``device`` defaults to ``"cuda"`` and raises when no card is
+    present."""
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
+                 time_scale: float = 1.0,
                  chunk_tokens: Optional[int] = None, paged: bool = False,
                  page_size: int = 128,
                  kv_pool_tokens: Optional[int] = None,
@@ -696,6 +787,10 @@ class ServingEngine:
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
                  spill_bw: float = 16e9, spill_dtype: str = "",
+                 slice_tokens: Optional[int] = None,
+                 recorder=None, tracer=None,
+                 fault_plan=None, recovery=None,
+                 restore_timeout: float = 30.0,
                  device="cuda"):
         self.cfg = cfg
         self.model = model
@@ -706,9 +801,14 @@ class ServingEngine:
             page_size=page_size, kv_pool_tokens=kv_pool_tokens,
             prefix_cache=prefix_cache, session_ttl=session_ttl,
             host_pool_tokens=host_pool_tokens, spill_bw=spill_bw,
-            spill_dtype=spill_dtype, device=device)
+            spill_dtype=spill_dtype, time_scale=time_scale, device=device)
+        self.faults = FaultInjector(fault_plan) \
+            if fault_plan is not None and fault_plan.any_armed else None
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(
-            mode="disagg", decode_slot_cap=max_slots))
+            mode="disagg", decode_slot_cap=max_slots,
+            slice_tokens=slice_tokens, restore_timeout=restore_timeout),
+            recorder=recorder, tracer=tracer, faults=self.faults,
+            recovery=recovery)
         self.result: Optional[ServeResult] = None
         self._pending: List[Request] = []
 

@@ -6,7 +6,10 @@ backend.
         [--dtype bf16|f32] [--chunk 512] [--paged --page-size 128] \\
         [--requests 16] [--prefix-cache --prefix-scenarios 2] \\
         [--sessions 4 --turns 3 --session-ttl 60] \\
-        [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4]
+        [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4] \\
+        [--sched goodput --slice-tokens 16] [--fault-plan SPEC] \\
+        [--trace-record PATH | --trace-replay PATH] [--trace-out PATH] \\
+        [--burst-factor F]
 
 ``--backend torch`` runs the real engine (``core/engine.py``): eager
 prefill and decode with slot-pool continuous batching, the attention
@@ -28,6 +31,19 @@ turn resumes past the retained transcript for ``--session-ttl`` seconds;
 ``--kv-spill`` adds the host spill tier (``--host-pool-tokens``, default
 4x the device pool; ``--spill-dtype``).  Spill implies the prefix cache,
 which implies ``--paged``.
+
+Recovery and telemetry (``core/faults.py``, ``core/recovery.py``,
+``core/telemetry.py``, ``data/trace.py``): ``--slice-tokens N`` keeps a
+preempted decode's generated tokens up to the last multiple of N and
+resumes it after a re-prefill; ``--fault-plan SPEC`` arms the seeded
+fault injector and prints the recovery counters; ``--trace-record``
+writes the request stream as a JSONL trace that ``--trace-replay``
+serves again (either package's trace reads in the other), both printing
+the formed-batch log; ``--trace-out`` exports the event timeline as
+Perfetto JSON and exits non-zero if it breaks the schema;
+``--burst-factor F > 1`` draws the three-class mix with bursty arrivals.
+``--drain-after`` is the reference's cost-model smoke and is refused
+here: the port has no cost-model backend yet.
 
 At full width on one 80 GB card, pass ``--max-seq-len 4096``: with the
 config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
@@ -51,7 +67,10 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                               MemoryBudget, SchedulerConfig)
 from repro_torch.core.engine import ServingEngine
-from repro_torch.data.workload import WorkloadSpec, generate
+from repro_torch.core.faults import FaultPlan
+from repro_torch.core.telemetry import Tracer, validate_perfetto
+from repro_torch.data.trace import TraceRecorder, TraceWorkload
+from repro_torch.data.workload import DEFAULT_CLASS_MIX, WorkloadSpec, generate
 from repro_torch.device import resolve_device
 from repro_torch.kernels import runtime
 from repro_torch.models import transformer as tfm
@@ -156,6 +175,33 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["bf16", "int8", "int4"],
                     help="host spill tier precision: int8/int4 keep more "
                          "pages in the same host budget, lossily")
+    ap.add_argument("--trace-record", default=None, metavar="PATH",
+                    help="record this run's request stream to a versioned "
+                         "JSONL trace (data/trace.py) that replays through "
+                         "either package")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export the run's event timeline as Chrome "
+                         "trace-event / Perfetto JSON (core/telemetry.py "
+                         "Tracer), validated against the schema")
+    ap.add_argument("--trace-replay", default=None, metavar="PATH",
+                    help="serve a recorded trace instead of generating a "
+                         "workload (arrivals preserved, no clamps: the "
+                         "trace is authoritative)")
+    ap.add_argument("--burst-factor", type=float, default=1.0,
+                    help="> 1 draws the chat/longctx/batch class mix with "
+                         "bursty arrivals peaking at this multiple of the "
+                         "rate")
+    ap.add_argument("--slice-tokens", type=int, default=None,
+                    help="slice-boundary preemption: a preempted decode "
+                         "keeps its generated tokens up to the last "
+                         "multiple of N and resumes after a re-prefill "
+                         "instead of restarting")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="arm the seeded fault injector (core/faults.py), "
+                         "e.g. 'seed=7,decode_step=0.02,prefill_chunk=0.05'")
+    ap.add_argument("--drain-after", type=float, default=None, metavar="T",
+                    help="the reference's drain/resume smoke on its cost "
+                         "model; refused here (no cost-model backend yet)")
     return ap
 
 
@@ -174,7 +220,13 @@ def make_requests(cfg, args, max_new: int = 8):
     tokens capped at ``max_new`` and prompts clipped to the window; with
     ``--sessions``, conversations whose turns are sized to fit the window
     up front (the loop composes each turn's prompt from the transcript,
-    which must come to ``prompt_len`` exactly, so nothing is clipped)."""
+    which must come to ``prompt_len`` exactly, so nothing is clipped);
+    with ``--trace-replay``, the recorded requests as they are."""
+    if args.trace_replay:
+        tw = TraceWorkload(args.trace_replay)
+        print(f"replaying {len(tw)} recorded requests from "
+              f"{args.trace_replay} (meta: {tw.meta})")
+        return tw.requests()
     if args.sessions:
         per_turn = max(cfg.max_seq_len // (2 * args.turns) - 8, 8)
         return generate(WorkloadSpec(
@@ -182,11 +234,14 @@ def make_requests(cfg, args, max_new: int = 8):
             vocab_size=cfg.vocab_size, sessions=args.sessions,
             turns=args.turns, utterance_tokens=per_turn,
             max_new_tokens=max_new, think_time_s=args.think_time))
+    burst = dict(class_mix=DEFAULT_CLASS_MIX,
+                 burst_factor=args.burst_factor) \
+        if args.burst_factor > 1.0 else {}
     spec = WorkloadSpec(dataset="mixed", rps=8.0, n_requests=args.requests,
                         max_model_len=cfg.max_seq_len,
                         prefix_groups=args.prefix_scenarios,
                         prefix_tokens=args.prefix_tokens,
-                        vocab_size=cfg.vocab_size)
+                        vocab_size=cfg.vocab_size, **burst)
     reqs = generate(spec)
     for r in reqs:
         r.max_new_tokens = min(r.max_new_tokens, max_new)
@@ -205,6 +260,12 @@ def serve(cfg, model, reqs, args, device: torch.device):
     pool_tokens = args.pool_tokens
     if args.paged and pool_tokens is None:
         pool_tokens = default_pool_tokens(cfg, model, device)
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    # the recorder doubles as the replay checker: a recorded run and its
+    # replay both print the formed-batch log
+    recorder = TraceRecorder() if (args.trace_record
+                                   or args.trace_replay) else None
+    tracer = Tracer() if args.trace_out else None
     host_tokens = None
     if args.kv_spill:
         host_tokens = args.host_pool_tokens or 4 * (
@@ -219,7 +280,10 @@ def serve(cfg, model, reqs, args, device: torch.device):
                            else None,
                            host_pool_tokens=host_tokens,
                            spill_bw=args.spill_bw * 1e9,
-                           spill_dtype=args.spill_dtype, device=device)
+                           spill_dtype=args.spill_dtype,
+                           slice_tokens=args.slice_tokens,
+                           recorder=recorder, tracer=tracer,
+                           fault_plan=plan, device=device)
     runtime.reset_launch_counts()
     engine.submit(reqs)
     t0 = time.perf_counter()
@@ -246,9 +310,57 @@ def serve(cfg, model, reqs, args, device: torch.device):
           f"{res.p95('ttft'):.3f}/{res.p99('ttft'):.3f} s, "
           f"TPOT p50/p99 {res.p50('tpot') * 1e3:.1f}/"
           f"{res.p99('tpot') * 1e3:.1f} ms")
+    if args.slice_tokens:
+        print(f"slice yields {res.slice_yields}")
     print("kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in runtime.launch_counts.items()))
+    if plan is not None:
+        print(_fault_line(res, plan))
+    _finish_trace(args, recorder)
+    _finish_timeline(args, tracer)
     return engine, done, dt
+
+
+def _fault_line(res, plan) -> str:
+    """Recovery counters under an armed plan (the reference launcher's
+    line: replays of the same SPEC print it verbatim)."""
+    return (f"faults[{plan.spec()}]: {res.fault_events} injected, "
+            f"{res.fault_retries} retried, {res.fault_kills} killed, "
+            f"{res.quarantined} quarantined; restore channel: "
+            f"{res.restore_stalls} stalls, {res.restore_retries} retries, "
+            f"{res.restore_failures} failures, {res.restore_sheds} sheds, "
+            f"{res.restore_timeouts} timeouts, "
+            f"{res.corruptions} corruptions")
+
+
+def _finish_trace(args, recorder) -> None:
+    """Print the formed-batch log and save the recorded trace."""
+    if recorder is None:
+        return
+    print("batch log:", recorder.batch_log)
+    if args.trace_record:
+        recorder.save(args.trace_record,
+                      meta={"arch": args.arch, "backend": args.backend,
+                            "burst_factor": args.burst_factor})
+        print(f"recorded {len(recorder.snapshots)} requests -> "
+              f"{args.trace_record}")
+
+
+def _finish_timeline(args, tracer) -> None:
+    """Export the Perfetto timeline (``--trace-out``) and validate it
+    against the schema; any violation exits non-zero."""
+    if tracer is None:
+        return
+    doc = tracer.save(args.trace_out)
+    errs = validate_perfetto(doc)
+    n_ev = sum(1 for e in doc["traceEvents"] if e.get("ph") != "M")
+    if errs:
+        for e in errs[:10]:
+            print(f"[trace] INVALID: {e}")
+        raise SystemExit(f"--trace-out produced an invalid trace "
+                         f"({len(errs)} schema violations)")
+    print(f"[trace] {n_ev} events on {len(tracer._tracks)} tracks -> "
+          f"{args.trace_out} (open in ui.perfetto.dev)")
 
 
 def retention_info(r, args) -> str:
@@ -276,6 +388,9 @@ def retention_info(r, args) -> str:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.drain_after is not None:
+        raise SystemExit("--drain-after is a cost-model smoke: "
+                         "use --backend sim")
     # an explicit host budget turns the tier on; spill rides on the
     # prefix cache, which rides on the paged pool
     args.kv_spill = args.kv_spill or args.host_pool_tokens is not None

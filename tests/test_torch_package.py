@@ -55,6 +55,22 @@ def test_sources_name_no_jax_or_reference_import():
     assert not offenders, offenders
 
 
+COPIED = [f"core/{m}.py" for m in (
+    "request", "bucket", "batcher", "scheduler", "monitor", "serving_loop",
+    "paging", "prefix_cache", "retention", "telemetry", "faults",
+    "recovery")] + ["models/config.py", "data/workload.py", "data/trace.py"]
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_equals_the_reference(rel):
+    """Each JAX-free module the port copies is the reference's source with
+    ``repro.`` rewritten to ``repro_torch.``: the two engines' decisions
+    come from the same code."""
+    ref = (SRC / "repro" / rel).read_text()
+    assert (PKG / rel).read_text() == re.sub(r"\brepro\.", "repro_torch.",
+                                             ref)
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import (BucketServeScheduler, MemoryBudget,

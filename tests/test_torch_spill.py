@@ -29,20 +29,23 @@ from test_torch_prefix import (PAGE, one_torch_thread, serve,  # noqa: F401
 
 TIGHT_POOL = 12 * PAGE        # retention without spill drops sessions
 HOST = 64 * PAGE
+TIME_SCALE = 10.0             # engine seconds per wall second
 
 
 @functools.lru_cache(maxsize=None)
 def spill_run(host, spill_dtype=""):
     """``TestSpillEngineAcceptance._run`` in the port: 3 sessions x 4
-    turns over a 12-page pool.  Each run is made once for the file: on the
-    wall clock a spill run waits out the retention layer's 60 s restore
-    reservation of two held turns (the reference's engine waits the
-    same)."""
+    turns over a 12-page pool.  Each run is made once for the file.  A
+    spill run waits out the retention layer's 60 s restore reservation of
+    two held turns (the reference's engine waits the same); the engine's
+    clock runs ``TIME_SCALE`` times the wall clock, so the wait takes 6 s
+    and the 1000 s session TTL stays far beyond the run."""
     cfg = smoke_cfg("torch", max_seq_len=1024)
     return serve("torch", cfg, session_workload("torch", cfg, sessions=3,
                                                 turns=4, utter=200, out=8),
                  pool_tokens=TIGHT_POOL, session_ttl=1000.0,
-                 host_pool_tokens=host, spill_dtype=spill_dtype)
+                 host_pool_tokens=host, spill_dtype=spill_dtype,
+                 time_scale=TIME_SCALE)
 
 
 def check_tiers_balance(run):
