@@ -32,11 +32,20 @@ goes through these phases, each printing its own lines:
    it (the tile sweep);
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
+   then the decode graph at smoke size: the engine with its decode step
+   captured as a CUDA graph (``core/engine.py:DecodeGraph``, the default
+   on the card) against the same engine run eagerly
+   (``decode_graph=False``) and on the CPU, f32, on the paged and the
+   contiguous qwen3-14b pools and the rwkv6-3b carry pool: ids
+   identical, launch counts equal;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
    Qwen3-14B (bf16, random weights from a seeded generator on the card,
    cache length 4096), paged pool with chunked prefill, then a short
-   contiguous-pool run, then four full-width decode steps under
-   ``torch.profiler``;
+   contiguous-pool run, each run eagerly and then with the decode graph
+   (ids and launch counts identical; tok/s, TTFT, TPOT, the capture's
+   seconds and the graph's private pool bytes), then four full-width
+   decode steps under ``torch.profiler``, eager and as graph replays
+   (wall, device busy, idle share, kernels a step);
 6. retention (KV retention in the engine, on the same model): smoke qwen3-14b at f32 on the
    reference tests' shared-prefix and 2-session workloads, cold and with
    retention on the card and with retention on the CPU, token ids equal;
@@ -72,8 +81,10 @@ goes through these phases, each printing its own lines:
    (nothing lost or duplicated, kept slices equal, pages balanced in
    both engines);
 8. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
-   rwkv6-3b is served the same way on the contiguous pool, and profiled.
-   Launch counts are zeroed before each serve run and read after it:
+   rwkv6-3b is served the same way on the contiguous pool (eager, then
+   with the graph), and profiled (eager and graph).
+   Launch counts are zeroed before each serve run and read after it (a
+   graph replay counts the launches its capture made):
    every kernel must have been launched by the path it belongs to, every
    bf16 ``flash_prefill`` launch through the tensor-core body, and
    ``wkv6`` exactly 32 times per prefill chunk and per decode step;
@@ -898,8 +909,113 @@ def rwkv_parity_phase(torch):
         f"times on the card")
 
 
+# -------------------------------------------------------------- graph ---
+GRAPH_SMOKE_LENGTHS = [40, 17, 90, 8, 60, 33, 120, 25]   # 8 requests, 4 slots
+
+
+def graph_smoke(torch):
+    """Smoke f32, the engine's decode step as a CUDA graph against the
+    same engine run eagerly on the card and on the CPU: qwen3-14b on the
+    paged and the contiguous pool and rwkv6-3b on its carry pool, chunk
+    32, 4 slots, 8 requests of 8 new tokens.  Ids must be identical, and
+    the graph run's launch counts the eager run's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    res = []
+    for arch, paged in (("qwen3-14b", True), ("qwen3-14b", False),
+                        ("rwkv6-3b", False)):
+        cfg = get_smoke_config(arch, max_seq_len=128)
+        cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                    device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        ids, counts, replays = {}, {}, 0
+        for label, model, dev, flag in (("cpu", cpu_model, "cpu", None),
+                                        ("eager", gpu_model, "cuda", False),
+                                        ("graph", gpu_model, "cuda", None)):
+            eng = make_engine(torch, cfg, model, 0, paged, 4, dev=dev,
+                              chunk=32, hbm_bytes=2 ** 30, page=16,
+                              decode_graph=flag)
+            g = eng.backend.decode_graph
+            if (g is not None) != (label == "graph"):
+                raise AssertionError(f"graph smoke {arch} {label}: decode "
+                                     f"graph {g}")
+            reqs = requests(GRAPH_SMOKE_LENGTHS, 8)
+            runtime.reset_launch_counts()
+            eng.submit(reqs)
+            if len(eng.run(max_wall_s=600)) != len(reqs):
+                raise AssertionError(f"graph smoke {arch} {label}: not all "
+                                     f"served")
+            torch.cuda.synchronize()
+            counts[label] = dict(runtime.launch_counts)
+            ids[label] = finished_ids(eng, reqs)
+            replays = g.replays if g is not None else replays
+        pool = "paged" if paged else "contiguous"
+        if not ids["graph"] == ids["eager"] == ids["cpu"]:
+            raise AssertionError(f"graph smoke {arch} {pool}: ids differ "
+                                 f"(graph, eager, cpu): {ids}")
+        if counts["graph"] != counts["eager"] or not replays:
+            raise AssertionError(f"graph smoke {arch} {pool}: launches "
+                                 f"graph {counts['graph']}, eager "
+                                 f"{counts['eager']}; {replays} replays")
+        res.append(f"{arch} {pool} {replays} replays")
+    log("graph", f"smoke f32, decode graph against eager on the card and "
+        f"the CPU, {len(GRAPH_SMOKE_LENGTHS)} requests each: ids identical "
+        f"and launch counts equal ({'; '.join(res)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def serve_pair(torch, cfg, make_eng, lengths, max_new, label):
+    """The same requests served by an engine run eagerly, then by one
+    with its decode graph (the default), in turn: token ids and launch
+    counts must be identical, and a paged pool must get every page back.
+    Returns the graph run's counts, both runs' stats (the graph's with
+    its capture seconds and private pool bytes) and the graph run's
+    prefill chunks and decode steps."""
+    runs = {}
+    for mode, flag in (("eager", False), ("graph", None)):
+        eng = make_eng(flag)
+        g = eng.backend.decode_graph
+        if (g is not None) != (mode == "graph"):
+            raise AssertionError(f"{label} {mode}: decode graph {g}")
+        reqs = requests(lengths, max_new)
+        counts, stats, steps = serve_run(torch, cfg, eng, reqs,
+                                         f"{label}, {mode}")
+        be = eng.backend
+        if be.paged and be.free_blocks() != be.alloc.n_pages:
+            raise AssertionError(f"{label} {mode}: paged pool leaked pages")
+        if g is not None:
+            if g.replays != steps["decode"]:
+                raise AssertionError(f"{label}: {g.replays} replays for "
+                                     f"{steps['decode']} decode steps")
+            stats.update(capture_s=g.capture_seconds,
+                         graph_pool_bytes=g.pool_bytes)
+        runs[mode] = (counts, stats, steps, finished_ids(eng, reqs))
+        del eng, be, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ce, se, ste, ide), (cg, sg, stg, idg) = runs["eager"], runs["graph"]
+    if idg != ide:
+        bad = [(rid, next(i for i, (a, b) in enumerate(zip(ide[rid],
+                                                          idg[rid]))
+                          if a != b)) for rid in ide if ide[rid] != idg[rid]]
+        raise AssertionError(f"{label}: graph ids differ from eager for "
+                             f"{len(bad)} requests (rid, first divergent "
+                             f"token): {bad}")
+    if cg != ce or stg != ste:
+        raise AssertionError(f"{label}: graph launches {cg} steps {stg}, "
+                             f"eager {ce} {ste}")
+    log("graph", f"{label}: ids identical graph against eager for "
+        f"{len(idg)} requests, launch counts equal; graph capture "
+        f"{sg['capture_s']:.3f} s, private pool {sg['graph_pool_bytes']} B; "
+        f"TPOT p50 eager {se['tpot_p50'] * 1e3:.1f} ms, graph "
+        f"{sg['tpot_p50'] * 1e3:.1f} ms")
+    return cg, {"eager": se, "graph": sg}, stg
+
+
 # -------------------------------------------------------------- serve ---
-SERVE_LENGTHS = [64, 2048, 300, 1024, 128, 1536, 512, 96, 1800, 700, 256,
+SERVE_LENGTHS =[64, 2048, 300, 1024, 128, 1536, 512, 96, 1800, 700, 256,
                  1200]
 ATTENTION_KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode")
 
@@ -1030,17 +1146,16 @@ def serve_phase(torch):
     log("serve", f"cache length {cfg.max_seq_len} (the config's 32768 cut "
         f"to fit the batch prefill cache and the pool beside the weights)")
 
-    def engine(paged, slots, pool_tokens=None):
+    def engine(paged, slots, pool_tokens=None, decode_graph=None):
         return make_engine(torch, cfg, model, wbytes, paged, slots,
-                           pool_tokens)
-
-    def run(eng, reqs, label):
-        return serve_run(torch, cfg, eng, reqs, label)[:2]
+                           pool_tokens, decode_graph=decode_graph)
 
     # warm-up: cuBLAS handles and the first launch of each kernel
-    warm = engine(paged=True, slots=2, pool_tokens=2 * cfg.max_seq_len)
-    run(warm, requests([96, 700], 4), "warm-up")
+    warm = engine(paged=True, slots=2, pool_tokens=2 * cfg.max_seq_len,
+                  decode_graph=False)
+    serve_run(torch, cfg, warm, requests([96, 700], 4), "warm-up")
     del warm
+    gc.collect()
     torch.cuda.empty_cache()
 
     free, total = torch.cuda.mem_get_info(dev)
@@ -1050,20 +1165,12 @@ def serve_phase(torch):
         f"{total / 2**30:.1f} GiB after the weights; paged pool "
         f"{pool_tokens} tokens ({pool_tokens * per_tok / 2**30:.1f} GiB, "
         f"40% of free)")
-    paged_eng = engine(paged=True, slots=8, pool_tokens=pool_tokens)
-    paged_counts, paged_stats = run(paged_eng, requests(SERVE_LENGTHS, 32),
-                                    "paged pool, chunk 512, page 128")
-    if paged_eng.backend.free_blocks() != paged_eng.backend.alloc.n_pages:
-        raise AssertionError("paged pool leaked pages")
-    del paged_eng
-    torch.cuda.empty_cache()
-
-    contig_eng = engine(paged=False, slots=4)
-    contig_counts, contig_stats = run(contig_eng,
-                                      requests([200, 900, 64, 1500], 16),
-                                      "contiguous pool, chunk 512")
-    del contig_eng
-    torch.cuda.empty_cache()
+    paged_counts, paged_stats, _ = serve_pair(
+        torch, cfg, lambda flag: engine(True, 8, pool_tokens, flag),
+        SERVE_LENGTHS, 32, "paged pool, chunk 512, page 128")
+    contig_counts, contig_stats, _ = serve_pair(
+        torch, cfg, lambda flag: engine(False, 4, None, flag),
+        [200, 900, 64, 1500], 16, "contiguous pool, chunk 512")
 
     for name in ("flash_prefill", "paged_flash_decode"):
         if paged_counts[name] <= 0:
@@ -1108,15 +1215,15 @@ def rwkv_serve_phase(torch):
     cfg = get_config("rwkv6-3b")
     model, wbytes = make_model(torch, "rwkv6-3b", cfg)
 
-    warm = make_engine(torch, cfg, model, wbytes, paged=False, slots=2)
+    warm = make_engine(torch, cfg, model, wbytes, paged=False, slots=2,
+                       decode_graph=False)
     serve_run(torch, cfg, warm, requests([96, 700], 4), "rwkv warm-up")
     del warm
-    eng = make_engine(torch, cfg, model, wbytes, paged=False, slots=8)
-    counts, stats, steps = serve_run(
-        torch, cfg, eng, requests(SERVE_LENGTHS, 32),
-        "rwkv6-3b contiguous pool, chunk 512")
-    del eng
-    torch.cuda.empty_cache()
+    counts, stats, steps = serve_pair(
+        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
+                                             paged=False, slots=8,
+                                             decode_graph=flag),
+        SERVE_LENGTHS, 32, "rwkv6-3b contiguous pool, chunk 512")
     want = cfg.n_layers * (steps["prefill"] + steps["decode"])
     if counts["wkv6"] != want or want == 0:
         raise AssertionError(f"rwkv6-3b: wkv6 launched {counts['wkv6']} "
@@ -1935,7 +2042,7 @@ def profile_steps(torch, label, step, kernel, match, steps=4):
     if not kernels:
         log("profile", f"{label}: {wall_ms:.2f} ms wall; the profiler saw "
             f"no device events (device time not measured)")
-        return
+        return dict(wall_ms=wall_ms)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1954,6 +2061,26 @@ def profile_steps(torch, label, step, kernel, match, steps=4):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log("profile", "top kernels per step: " + "; ".join(
         f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms, own_ms=own, gemm_ms=gemm,
+                other_ms=busy_ms - own - gemm,
+                launches=len(kernels) // steps)
+
+
+def profile_pair(torch, label, step, kernel, match):
+    """``profile_steps`` of ``step`` run eagerly, then of a
+    ``DecodeGraph`` of it replayed (its launches are the kernels a replay
+    runs, as the profiler sees them)."""
+    from repro_torch.core.engine import DecodeGraph
+    eager = profile_steps(torch, f"{label}, eager", step, kernel, match)
+    g = DecodeGraph(step, torch.device("cuda"))
+    graph = profile_steps(torch, f"{label}, graph replay", g.replay,
+                          kernel, match)
+    graph.update(capture_s=g.capture_seconds, graph_pool_bytes=g.pool_bytes)
+    log("profile", f"{label}: graph capture {g.capture_seconds:.3f} s, "
+        f"private pool {g.pool_bytes} B; step wall eager "
+        f"{eager['wall_ms']:.2f} ms, graph {graph['wall_ms']:.2f} ms")
+    return {"eager": eager, "graph": graph}
 
 
 def profile_phase(torch, cfg, model):
@@ -1968,10 +2095,11 @@ def profile_phase(torch, cfg, model):
     paged = to_paged(torch, tfm, cfg, cache, page)
     del cache
     tok = logits.argmax(-1).to(torch.int32)
-    profile_steps(torch, f"qwen3-14b full-width decode step, B={B}, "
-                  f"context {ctx}, paged", lambda: tfm.decode_step(
-                      cfg, model, tok, paged, page_size=page,
-                      paged_len=S), "paged_flash_decode", "decode_kernel")
+    return profile_pair(torch, f"qwen3-14b full-width decode step, B={B}, "
+                        f"context {ctx}, paged", lambda: tfm.decode_step(
+                            cfg, model, tok, paged, page_size=page,
+                            paged_len=S), "paged_flash_decode",
+                        "decode_kernel")
 
 
 def rwkv_profile_phase(torch, cfg, model):
@@ -1983,9 +2111,9 @@ def rwkv_profile_phase(torch, cfg, model):
                          dtype=torch.int32)
     logits, cache = tfm.prefill(cfg, model, toks, cache_len=ctx)
     tok = logits.argmax(-1).to(torch.int32)
-    profile_steps(torch, f"rwkv6-3b full-width decode step, B={B}, after "
-                  f"{ctx} tokens", lambda: tfm.decode_step(
-                      cfg, model, tok, cache), "wkv6", "wkv6_kernel")
+    return profile_pair(torch, f"rwkv6-3b full-width decode step, B={B}, "
+                        f"after {ctx} tokens", lambda: tfm.decode_step(
+                            cfg, model, tok, cache), "wkv6", "wkv6_kernel")
 
 
 def main() -> int:
@@ -2022,16 +2150,17 @@ def main() -> int:
     rows.update(wkv6_phase(torch))
     parity_phase(torch)
     rwkv_parity_phase(torch)
+    graph_smoke(torch)
     launches, paged_stats, contig_stats, cfg, model, wbytes = \
         serve_phase(torch)
-    profile_phase(torch, cfg, model)
+    profile = {"qwen3-14b": profile_phase(torch, cfg, model)}
     retention = retention_phase(torch, cfg, model, wbytes)
     recovery = recovery_phase(torch, cfg, model, wbytes)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
     launches["wkv6"], rwkv_stats, cfg, model = rwkv_serve_phase(torch)
-    rwkv_profile_phase(torch, cfg, model)
+    profile["rwkv6-3b"] = rwkv_profile_phase(torch, cfg, model)
 
     def entry(name, source, replaces, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -2072,6 +2201,7 @@ def main() -> int:
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
+    log("profile", json.dumps(profile))
     log("retention", f"{retention}")
     log("recovery", f"{recovery}")
     print(json.dumps(table))

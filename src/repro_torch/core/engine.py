@@ -65,17 +65,29 @@ page before the next in-place decode step.  ``fault_plan``,
 ``time_scale`` are passed to the loop and its clock as the reference
 engine passes them.
 
+Compiled decode step (``decode_graph``): the reference ``jax.jit``s its
+decode step once per engine.  Here :class:`DecodeGraph` captures one
+step (``decode_step`` and the argmax into ``next_tok``) as a CUDA graph
+at construction, over the engine's own pool, and ``decode_iter``
+replays it.  The slot count, cache length, page size and pool are fixed
+for the engine's life, and every step reads and writes the same
+tensors in place (the pool's leaves, ``pos``, the block tables and
+``next_tok``), so one capture serves every step.  Prefill stays eager.
+
 Not in this slice (raise ``NotImplementedError``): int8 KV caches.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import runtime
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
@@ -281,8 +293,97 @@ class _EngineCopier:
         self._pending.append((hslot, page))
 
 
+class DecodeGraph:
+    """One decode step captured as a CUDA graph and replayed: the port's
+    counterpart of the reference engine's ``jax.jit`` of ``decode_step``
+    (``repro/core/engine.py``), compiled once per engine.
+
+    ``step`` is a function of no arguments that runs one step on tensors
+    it keeps (a replay writes the storage the capture saw).  At
+    construction ``WARMUP`` eager steps run on a side stream, as
+    ``torch.cuda.graphs`` requires (they build and load the kernel
+    library and set up cuBLAS and the allocator), then one step is
+    captured on the same stream into the graph's private memory pool;
+    ``replay`` runs it on the current stream.  A failed capture raises;
+    nothing falls back to eager steps.  ``capture_seconds`` is the time
+    the capture took and ``pool_bytes`` what the private pool reserved.
+
+    The kernel wrappers count launches and record decode plans in
+    Python, which a replay does not run.  The counts and plans are put
+    back after the capture to what they were before the warm-up (neither
+    ran a served step), and every replay adds the capture's launches and
+    sets its plans (``runtime.add_counts``).  The decode kernels' arrival
+    counters are the graph's own for its lifetime
+    (``runtime.own_arrivals``).
+
+    ``graph`` stands in for ``torch.cuda.CUDAGraph`` (an object with
+    ``capture_begin``, ``capture_end`` and ``replay``); with one given,
+    ``device`` may be the CPU, which has no streams."""
+
+    WARMUP = 2
+
+    def __init__(self, step: Callable[[], object], device, *, graph=None):
+        device = torch.device(device)
+        cuda = device.type == "cuda"
+        if graph is None:
+            if not cuda:
+                raise ValueError(f"DecodeGraph: a CUDA graph is captured on "
+                                 f"a CUDA device, not {device}")
+            graph = torch.cuda.CUDAGraph()
+        self.graph = graph
+        self.replays = 0
+        self._arrivals: dict = {}
+        self.pool_bytes = 0
+        saved = runtime.count_state()
+        try:
+            with runtime.own_arrivals(self._arrivals):
+                self._capture(step, device)
+        finally:
+            runtime.set_count_state(saved)
+
+    def _capture(self, step, device: torch.device) -> None:
+        cuda = device.type == "cuda"
+        side = torch.cuda.Stream(device) if cuda else None
+
+        def on_side():
+            return (torch.cuda.stream(side) if cuda
+                    else contextlib.nullcontext())
+        if cuda:
+            side.wait_stream(torch.cuda.current_stream(device))
+        with on_side():
+            for _ in range(self.WARMUP):
+                step()
+        if cuda:
+            torch.cuda.synchronize(device)
+            reserved = torch.cuda.memory_reserved(device)
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with on_side():
+            self.graph.capture_begin()
+            try:
+                step()
+            finally:
+                self.graph.capture_end()
+        if cuda:
+            torch.cuda.synchronize(device)
+            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.capture_seconds = time.perf_counter() - t0
+        self._captured = runtime.count_state()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        runtime.add_counts(self._captured)
+
+
 class TorchEngineBackend:
-    """ExecutionBackend over eager PyTorch prefill/decode on one device."""
+    """ExecutionBackend over PyTorch prefill/decode on one device.
+
+    ``decode_graph``: None captures the decode step as a CUDA graph
+    (:class:`DecodeGraph`) on a CUDA device and runs it eagerly on the
+    CPU; True asks for the graph and raises on the CPU; False runs the
+    step eagerly on the card too (the graph-against-eager comparisons).
+    The reference engine has no such option: it always compiles."""
 
     prefill_needs_slots = True
     # armed by the ServingLoop when the scheduler is slack-aware
@@ -297,7 +398,8 @@ class TorchEngineBackend:
                  session_ttl: Optional[float] = None,
                  host_pool_tokens: Optional[int] = None,
                  spill_bw: float = 16e9, spill_dtype: str = "",
-                 time_scale: float = 1.0, device="cuda"):
+                 time_scale: float = 1.0, device="cuda",
+                 decode_graph: Optional[bool] = None):
         tfm.check_supported(cfg)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
@@ -305,6 +407,9 @@ class TorchEngineBackend:
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {device}")
+        if decode_graph and model.device.type != "cuda":
+            raise ValueError(f"decode_graph=True: a CUDA graph needs the "
+                             f"card, the engine runs on {model.device}")
         self.device = model.device
         self.dtype = model.dtype
         self.cfg = cfg
@@ -388,6 +493,38 @@ class TorchEngineBackend:
         # the job whose device batch cache (``job.handle``) is live, so
         # that ``abort_prefill`` can drop it
         self._job: Optional[PrefillJob] = None
+        self._step = self._decode_step_fn()
+        self.decode_graph: Optional[DecodeGraph] = None
+        if decode_graph is None:
+            decode_graph = self.device.type == "cuda"
+        if decode_graph and cfg.has_decode:
+            self.decode_graph = DecodeGraph(self._step, self.device)
+            self._reset_pool()
+
+    def _decode_step_fn(self) -> Callable[[], None]:
+        """One decode step over the pool, the argmax written into
+        ``next_tok``: the function a ``DecodeGraph`` captures.  It holds
+        the tensors and not the backend: no reference cycle keeps a
+        dropped engine's pool alive through it."""
+        cfg, model, cache, nxt = (self.cfg, self.model, self.pool_cache,
+                                  self.next_tok)
+        kw = dict(page_size=self.page_size,
+                  paged_len=self.s_attn) if self.paged else {}
+
+        def step() -> None:
+            logits, _ = tfm.decode_step(cfg, model, nxt, cache, **kw)
+            nxt.copy_(torch.argmax(logits, -1))
+        return step
+
+    def _reset_pool(self) -> None:
+        """Zero what the capture's warm-up steps wrote (every row was
+        dead): the engine starts as an eager one does."""
+        self.next_tok.zero_()
+        self.pool_cache["pos"].zero_()
+        for slots in self.pool_cache["groups"]:
+            for slot in slots:
+                for leaf in slot.values():
+                    leaf.zero_()
 
     @property
     def prefix_cache(self) -> Optional[PrefixCache]:
@@ -715,11 +852,10 @@ class TorchEngineBackend:
             self.pool_cache["block_tables"].copy_(
                 torch.from_numpy(self._bt.host))
             self._bt.dirty = False
-        paged_kw = dict(page_size=self.page_size,
-                        paged_len=self.s_attn) if self.paged else {}
-        logits, self.pool_cache = tfm.decode_step(
-            self.cfg, self.model, self.next_tok, self.pool_cache, **paged_kw)
-        self.next_tok = torch.argmax(logits, -1).to(torch.int32)
+        if self.decode_graph is not None:
+            self.decode_graph.replay()
+        else:
+            self._step()
         toks = self.next_tok.cpu().numpy()
         for slot, r in enumerate(self.slot_req):
             if r is not None:
@@ -775,7 +911,7 @@ class ServingEngine:
     and defaults are the reference engine's; a ``FaultInjector`` is
     built only for a plan with an armed site (``self.faults``).
     ``device`` defaults to ``"cuda"`` and raises when no card is
-    present."""
+    present; ``decode_graph`` is ``TorchEngineBackend``'s."""
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
@@ -791,7 +927,7 @@ class ServingEngine:
                  recorder=None, tracer=None,
                  fault_plan=None, recovery=None,
                  restore_timeout: float = 30.0,
-                 device="cuda"):
+                 device="cuda", decode_graph: Optional[bool] = None):
         self.cfg = cfg
         self.model = model
         self.sched = scheduler
@@ -801,7 +937,8 @@ class ServingEngine:
             page_size=page_size, kv_pool_tokens=kv_pool_tokens,
             prefix_cache=prefix_cache, session_ttl=session_ttl,
             host_pool_tokens=host_pool_tokens, spill_bw=spill_bw,
-            spill_dtype=spill_dtype, time_scale=time_scale, device=device)
+            spill_dtype=spill_dtype, time_scale=time_scale, device=device,
+            decode_graph=decode_graph)
         self.faults = FaultInjector(fault_plan) \
             if fault_plan is not None and fault_plan.any_armed else None
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(

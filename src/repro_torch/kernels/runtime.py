@@ -17,10 +17,14 @@ positive and not a multiple of ``PREFILL_TILE`` (a chunk resumed inside
 a query tile, as after a session hit).  ``reset_launch_counts`` zeroes
 all three.  ``decode_plans`` holds the grid and body of each decode
 kernel's last launch (``kernels/decode_attn.py:plan``); the reset
-clears it.
+clears it.  A replayed CUDA graph runs no wrapper:
+``core/engine.py:DecodeGraph`` reads what its capture added to the
+counts and plans (``count_state``), puts them back as they were, and
+adds the capture's share again at every replay (``add_counts``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -58,13 +62,38 @@ prefill_unaligned_counts = {name: 0 for name in PREFILL_BODIES}
 decode_plans = {"flash_decode": None, "paged_flash_decode": None}
 
 
+COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts)
+
+
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, prefill_body_counts,
-                   prefill_unaligned_counts):
+    for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
     for name in decode_plans:
         decode_plans[name] = None
+
+
+def count_state():
+    """A copy of every count of ``COUNTERS`` and of ``decode_plans``."""
+    return tuple(dict(c) for c in COUNTERS), dict(decode_plans)
+
+
+def set_count_state(state) -> None:
+    """Put back a ``count_state``."""
+    counts, plans = state
+    for c, saved in zip(COUNTERS, counts):
+        c.update(saved)
+    decode_plans.update(plans)
+
+
+def add_counts(state) -> None:
+    """Add the counts of a ``count_state`` to the live ones, and set the
+    plans it holds (those that are not None)."""
+    counts, plans = state
+    for c, add in zip(COUNTERS, counts):
+        for name, n in add.items():
+            c[name] += n
+    decode_plans.update({k: p for k, p in plans.items() if p is not None})
 
 
 def _nvcc() -> str:
@@ -162,17 +191,35 @@ def library() -> ctypes.CDLL:
 
 
 _arrivals: dict = {}
+_arrival_store = None       # a graph's own buffers while it is captured
+
+
+@contextlib.contextmanager
+def own_arrivals(store: dict):
+    """Inside the block, ``arrival_counters`` keeps its buffers in
+    ``store`` instead of the per-device ones.  A CUDA graph holds the
+    pointer it captured for its lifetime; the per-device buffer is
+    replaced when a call needs more, so a graph captures over a store of
+    its own (``core/engine.py:DecodeGraph``)."""
+    global _arrival_store
+    prev, _arrival_store = _arrival_store, store
+    try:
+        yield
+    finally:
+        _arrival_store = prev
 
 
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     """The decode kernels' int32 arrival counters, one per (row, kv head),
     zero between launches (the last block of each group resets its own).
-    Allocated zeroed once per device and grown when a call needs more;
-    launches on one stream use them in turn."""
-    buf = _arrivals.get(device)
+    Allocated zeroed once per device (or per ``own_arrivals`` store) and
+    grown when a call needs more; launches on one stream use them in
+    turn."""
+    store = _arrivals if _arrival_store is None else _arrival_store
+    buf = store.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _arrivals[device] = buf
+        store[device] = buf
     return buf
 
 

@@ -356,7 +356,8 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(B, device=x.device), idx]
-    cache["pos"] = lengths.to(torch.int32)
+    # a copy: decode_step advances pos in place, never the caller's lengths
+    cache["pos"] = lengths.to(torch.int32, copy=True)
     return layers.unembed_apply(model.head, last), cache
 
 
@@ -389,9 +390,12 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
                 page_size: int = 0, paged_len: int = 0):
-    """token: (B,) int.  Returns (logits (B,V) f32, cache) with the
-    cache's K/V and carries written in place and ``pos`` advanced for
-    every row (dead rows too, as in the reference).
+    """token: (B,) int.  Returns (logits (B,V) f32, cache): the same
+    dict, its K/V and carries written in place and ``pos`` advanced in
+    place for every row (dead rows too, as in the reference).  Every
+    tensor the step reads or writes keeps its storage, so the step can
+    be captured once as a CUDA graph and replayed
+    (``core/engine.py:DecodeGraph``).
 
     Caches from ``init_paged_cache`` (they carry ``block_tables``)
     decode against the page pool; ``page_size`` is then the pool's page
@@ -410,5 +414,5 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
                        block_tables=bt, page_size=page_size,
                        paged_len=paged_len)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return layers.unembed_apply(model.head, x[:, 0]), cache
