@@ -8,7 +8,8 @@ imports only ``repro_torch`` (never JAX or the reference package) and
 goes through these phases, each printing its own lines:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+2. build: the four CUDA sources from ``src/repro_torch/csrc`` (six
+   kernels: the two decode sources also hold the int8 variants; nvcc,
    sm_90a, one process per source in parallel); ``cuobjdump -sass``
    must find HGMMA (wgmma) instructions in the prefill tensor-core body,
    and the wrapper's rule for which prefill body takes a call must be
@@ -80,7 +81,26 @@ goes through these phases, each printing its own lines:
    engine's pool freed and the checkpoint resumed on a cold engine
    (nothing lost or duplicated, kept slices equal, pages balanced in
    both engines);
-8. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
+8. int8 KV tier (on the same model): the int8 decode kernels were held
+   in the kernel phase (the reference sweeps with int8 caches in f32 and
+   bf16, against the plain int8 versions and bit for bit against the
+   float kernels over the dequantized cache with the same plan, at the
+   main widths also at rows of every length and wrapped rings and over
+   two calls; the bf16 main shape timed with its plain version, the
+   dequantize + bf16 kernel route, SDPA on the dequantized gathered
+   cache and its bound; a split sweep), and smoke qwen3-14b f32 over
+   int8 caches after the parity phase (card ids == CPU ids, graph ==
+   eager == CPU, paged == contiguous, prefix and session hits == cold);
+   here full-width Qwen3-14B serves the paged run's 12 requests over an
+   int8 pool under the same ``pool_tokens`` (about 1.94x the bf16
+   pages) and the contiguous run's 4, eager and with the graph; the
+   first decode step's logits over an int8 cache against a bf16 cache
+   (max abs at most 1.5) and the int8 step's profile; the recovery
+   workload without faults over its 4480-token budget, 34 bf16 pages
+   against 66 int8 pages; and an int8 pool with an int8 spill tier
+   (spills and restores, a page of codes and scales byte-identical
+   through the tier);
+9. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
    rwkv6-3b is served the same way on the contiguous pool (eager, then
    with the graph), and profiled (eager and graph).
    Launch counts are zeroed before each serve run and read after it (a
@@ -88,8 +108,9 @@ goes through these phases, each printing its own lines:
    every kernel must have been launched by the path it belongs to, every
    bf16 ``flash_prefill`` launch through the tensor-core body, and
    ``wkv6`` exactly 32 times per prefill chunk and per decode step;
-9. the kernel table as one JSON line (launches from the paged serve
-   run), the ``nvidia-smi`` line, and as the last line
+10. the kernel table as one JSON line (launches from the serve runs:
+   each decode kernel from the run on its own pool, the int8 kernels
+   from the int8 runs), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -119,6 +140,15 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-3),         # summation order
 MAIN_TOL = {"float32": TOL["float32"],
             "bfloat16": dict(atol=2e-3, rtol=1e-2)}
 MAIN = dict(H=40, Hkv=8, Dh=128)                      # Qwen3-14B attention
+# int8 caches at smoke f32, card against CPU: the K/V of the two sides
+# differ in the last f32 bits, and a value on a rounding boundary takes
+# the neighbouring code on one side, which moves the logits by up to a
+# few 1e-3; the ids must still be equal
+INT8_SMOKE_ATOL = 5e-3          # one flipped code measured 2.5e-3
+# first-decode-step logits of the int8 cache against the bf16 cache at
+# full width: the reference's int4 spill-tier bound (tests/test_kv_spill.py
+# TestInt4LogitDrift), which int8 must meet a fortiori
+INT8_DRIFT_MAX = 1.5
 WKV_MAIN = dict(B=8, T=512, H=40, hs=64)              # rwkv6-3b chunk
 # wkv6: kernel and plain version both compute in f32 from exactly cast
 # inputs (another summation order), so the f32 tolerance holds for bf16
@@ -498,11 +528,14 @@ def kernel_phase(torch):
     return rows
 
 
-def decode_split_sweep(torch, q, kc, vc, L0):
+def decode_split_sweep(torch, q, kc, vc, L0, scales=()):
     """Device time of the contiguous decode kernel at the split length
     ``L0`` the rule chose and a step either side, at context 2048 and at
-    the serve run's decode rows (bf16, B = 8 over 4096 slots).  Launched
-    through the C entry directly, so no launch count moves."""
+    the serve run's decode rows (bf16, B = 8 over 4096 slots).  With
+    ``scales`` (k_s, v_s) the caches are int8 codes and the int8 kernel
+    is timed: its plan is the float kernels' while its tiles are half the
+    bytes.  Launched through the C entry directly, so no launch count
+    moves."""
     from repro_torch.kernels import ref, runtime
     dev = q.device
     B, H, Dh = q.shape
@@ -510,30 +543,253 @@ def decode_split_sweep(torch, q, kc, vc, L0):
     lib = runtime.library()
     out = torch.empty_like(q)
     arrivals = runtime.arrival_counters(dev, B * Hkv)
+    name = "flash_decode_int8" if scales else "flash_decode"
+    entry = getattr(lib, "rt_" + name)
     res = []
     for label, posl in (("ctx 2048", [2047] * B),
                         ("serve rows", SERVE_DECODE_POS)):
         pos = torch.tensor(posl, dtype=torch.int32, device=dev)
-        want = ref.flash_decode_ref(q, kc, vc, pos)
+        want = (ref.flash_decode_int8_ref(q, kc, vc, *scales, pos) if scales
+                else ref.flash_decode_ref(q, kc, vc, pos))
         for L in (L0 // 2, L0, 2 * L0):
             n_split = -(-S // L)
             part = torch.empty((B, H, n_split, Dh + 2), device=dev)
 
             def call():
-                err = lib.rt_flash_decode(
+                err = entry(
                     q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                    pos.data_ptr(), out.data_ptr(), part.data_ptr(),
-                    arrivals.data_ptr(), B, S, H, Hkv, Dh, 0, L, n_split,
+                    *(t.data_ptr() for t in scales), pos.data_ptr(),
+                    out.data_ptr(), part.data_ptr(), arrivals.data_ptr(), B,
+                    S, H, Hkv, Dh, 0, L, n_split,
                     runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(dev))
                 if err:
-                    raise RuntimeError(f"flash_decode L={L}: error {err}")
+                    raise RuntimeError(f"{name} L={L}: error {err}")
             call()
-            assert_close(torch, f"flash_decode L={L} {label}", out, want,
+            assert_close(torch, f"{name} L={L} {label}", out, want,
                          MAIN_TOL["bfloat16"])
             res.append(f"{label} L={L}{' (rule)' if L == L0 else ''} "
                        f"{time_ms(torch, call, 50):.4f} ms")
-    log("kernels", "flash_decode split sweep, bf16 B=8 S=4096: "
-        + "; ".join(res))
+    log("int8" if scales else "kernels", f"{name} split sweep, bf16 B=8 "
+        f"S=4096: " + "; ".join(res))
+
+
+def int8_kernel_phase(torch):
+    """The int8 decode kernels on the card: the reference sweeps with
+    int8 caches (codes and scales from ``quantize_kv`` of normal data) in
+    f32 and bf16, rings and rows past their length included, against the
+    plain int8 versions and bit for bit against the float kernel over the
+    dequantized cache (the same plan); at the main widths (B = 8 over
+    4096 slots) the same at context 2048 and at rows of every length and
+    wrapped rings, two calls giving the same bits; then the bf16 main
+    shape timed: kernel, plain version, dequantize + bf16 kernel, SDPA
+    on the dequantized gathered cache, and the bound."""
+    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.models.attention import quantize_kv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    deq = ref.dequantize_kv
+
+    def rnd(shape, dtype="float32"):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(getattr(torch, dtype))
+
+    def same_bits(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the int8 kernel differs from the "
+                                 f"float kernel over the dequantized cache "
+                                 f"(max abs {float((got.float() - want.float()).abs().max()):.3g})")
+
+    n_checked = 0
+    for dtype in ("float32", "bfloat16"):
+        for B, S, H, Hkv, Dh, ring in DECODE_SHAPES:
+            q = rnd((B, H, Dh), dtype)
+            kc, ks = quantize_kv(rnd((B, S, Hkv, Dh)))
+            vc, vs = quantize_kv(rnd((B, S, Hkv, Dh)))
+            pos = torch.tensor([S // 3, 2 * S + 5][:B] if ring else
+                               [S - 1, S // 2][:B], dtype=torch.int32,
+                               device=dev)
+            name = f"flash_decode_int8{(B, S, H, Hkv, Dh)} {dtype}"
+            got = ops.flash_decode_int8(q, kc, vc, ks, vs, pos, ring=ring)
+            assert_close(torch, name, got, ref.flash_decode_int8_ref(
+                q, kc, vc, ks, vs, pos, ring=ring), TOL[dtype])
+            same_bits(name, got, ops.flash_decode(
+                q, deq(kc, ks, q.dtype), deq(vc, vs, q.dtype), pos,
+                ring=ring))
+            n_checked += 1
+        for B, S, H, Hkv, Dh, page, ring in PAGED_SHAPES:
+            q = rnd((B, H, Dh), dtype)
+            n_p = -(-S // page)
+            n_pages = B * n_p + 3
+            kp, ksp = quantize_kv(rnd((n_pages, page, Hkv, Dh)))
+            vp, vsp = quantize_kv(rnd((n_pages, page, Hkv, Dh)))
+            bt = torch.randperm(n_pages, generator=gen, device=dev)[
+                :B * n_p].reshape(B, n_p).to(torch.int32)
+            pos = torch.tensor([2 * S + 5, S // 3][:B] if ring else
+                               [S - 1, S // 2][:B], dtype=torch.int32,
+                               device=dev)
+            name = f"paged_flash_decode_int8{(B, S, H, Hkv, Dh)} {dtype}"
+            got = ops.paged_flash_decode_int8(q, kp, vp, ksp, vsp, bt, pos,
+                                              s_len=S, ring=ring)
+            assert_close(torch, name, got, ref.paged_flash_decode_int8_ref(
+                q, kp, vp, ksp, vsp, bt, pos, s_len=S, ring=ring),
+                TOL[dtype])
+            same_bits(name, got, ops.paged_flash_decode(
+                q, deq(kp, ksp, q.dtype), deq(vp, vsp, q.dtype), bt, pos,
+                s_len=S, ring=ring))
+            gathered = [ref.gather_paged_kv(t, bt, S).contiguous()
+                        for t in (kp, vp, ksp, vsp)]
+            assert_close(torch, f"{name} vs contiguous", got,
+                         ops.flash_decode_int8(q, *gathered, pos, ring=ring),
+                         TOL[dtype])
+            n_checked += 1
+    log("int8", f"{n_checked} sweep cases of the int8 decode kernels agree "
+        f"with the plain int8 versions (f32 atol 1e-4 rtol 1e-3; bf16 atol "
+        f"2e-2 rtol 2e-2) and give the float kernel's bits over the "
+        f"dequantized cache")
+
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    B, S, ctx, page = 8, 4096, 2048, 128
+    n_p = S // page
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        tol = MAIN_TOL[dt]
+        q = rnd((B, H, Dh), dt)
+        kc, ks = quantize_kv(rnd((B, S, Hkv, Dh)))
+        vc, vs = quantize_kv(rnd((B, S, Hkv, Dh)))
+        kd, vd = deq(kc, ks, q.dtype), deq(vc, vs, q.dtype)
+        bt = torch.randperm(B * n_p, generator=gen, device=dev).reshape(
+            B, n_p).to(torch.int32)
+        pools = []
+        for t in (kc, vc, ks, vs):
+            pl = t.new_zeros((B * n_p + 1, page) + tuple(t.shape[2:]))
+            pl[bt.reshape(-1).long()] = t.reshape((B * n_p, page)
+                                                  + tuple(t.shape[2:]))
+            pools.append(pl)
+        kpd, vpd = deq(pools[0], pools[2], q.dtype), \
+            deq(pools[1], pools[3], q.dtype)
+        cases = [("context 2048", [ctx - 1] * B, False)] + DECODE_MIXED
+        for label, posl, ring in cases:
+            pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+            want = ref.flash_decode_int8_ref(q, kc, vc, ks, vs, pos,
+                                             ring=ring)
+            a, a2 = (ops.flash_decode_int8(q, kc, vc, ks, vs, pos, ring=ring)
+                     for _ in range(2))
+            plan8 = runtime.decode_plans["flash_decode_int8"]
+            b, b2 = (ops.paged_flash_decode_int8(q, *pools, bt, pos, s_len=S,
+                                                 ring=ring)
+                     for _ in range(2))
+            worst[f"int8 decode {label} {dt}"] = max(
+                assert_close(torch, f"flash_decode_int8 {label} {dt}", a,
+                             want, tol),
+                assert_close(torch, f"paged_flash_decode_int8 {label} {dt}",
+                             b, want, tol))
+            same_bits(f"flash_decode_int8 {label} {dt}", a, ops.flash_decode(
+                q, kd, vd, pos, ring=ring))
+            same_bits(f"paged_flash_decode_int8 {label} {dt}", b,
+                      ops.paged_flash_decode(q, kpd, vpd, bt, pos, s_len=S,
+                                             ring=ring))
+            if plan8 != runtime.decode_plans["flash_decode"]:
+                raise AssertionError(f"int8 plan {plan8}, float plan "
+                                     f"{runtime.decode_plans['flash_decode']}")
+            if not (torch.equal(a, a2) and torch.equal(b, b2)):
+                raise AssertionError(f"int8 decode {label} {dt}: two calls "
+                                     f"on the same inputs differ")
+        log("int8", f"main widths {dt}, B=8 over {S} slots ("
+            f"{', '.join(c[0] for c in cases)}): both int8 kernels agree "
+            f"with the plain version, give the float kernels' bits over the "
+            f"dequantized cache with the same plan ({plan8.body} body, "
+            f"n_split {plan8.n_split}, L {plan8.L}), and the same bits over "
+            f"two calls")
+        if dt == "bfloat16":
+            pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+            esz = 2
+            code_bytes = 2 * B * ctx * Hkv * Dh
+            scale_bytes = 2 * 4 * B * ctx * Hkv
+            io_bytes = esz * 2 * B * H * Dh + 4 * B
+            flops = 4.0 * B * H * ctx * Dh + 2.0 * B * ctx * Hkv * Dh
+            dmask = (torch.arange(S, device=dev)[None]
+                     <= pos[:, None])[:, None, None]
+            q4, kt, vt = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+            sdpa_ms = time_ms(torch, lambda: sdpa(
+                q4, kt, vt, attn_mask=dmask, enable_gqa=True), 20)
+            want = ref.flash_decode_int8_ref(q, kc, vc, ks, vs, pos)
+            for name, call, plain, dq, tables in (
+                    ("flash_decode_int8 B=8 ctx=2048",
+                     lambda: ops.flash_decode_int8(q, kc, vc, ks, vs, pos),
+                     lambda: ref.flash_decode_int8_ref(q, kc, vc, ks, vs,
+                                                       pos),
+                     lambda: ops.flash_decode(q, deq(kc, ks, q.dtype),
+                                              deq(vc, vs, q.dtype), pos),
+                     0),
+                    ("paged_flash_decode_int8 B=8 ctx=2048 page=128",
+                     lambda: ops.paged_flash_decode_int8(q, *pools, bt, pos,
+                                                         s_len=S),
+                     lambda: ref.paged_flash_decode_int8_ref(
+                         q, *pools, bt, pos, s_len=S),
+                     lambda: ops.paged_flash_decode(
+                         q, deq(pools[0], pools[2], q.dtype),
+                         deq(pools[1], pools[3], q.dtype), bt, pos, s_len=S),
+                     4 * B * (ctx // page))):
+                err = assert_close(torch, name, call(), want, tol)
+                b_ms, b_by = bound_ms(code_bytes + scale_bytes + io_bytes
+                                      + tables, flops, dt)
+                kernel = name.split()[0]
+                rows[name] = dict(
+                    ms=time_ms(torch, call, 50),
+                    plain_ms=time_ms(torch, plain, 10),
+                    dequant_ms=time_ms(torch, dq, 20),
+                    library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err, plan=runtime.decode_plans[kernel],
+                    code_bytes=code_bytes, scale_bytes=scale_bytes)
+            decode_split_sweep(torch, q, kc, vc,
+                               rows["flash_decode_int8 B=8 ctx=2048"]
+                               ["plan"].L, scales=(ks, vs))
+        del q, kc, vc, ks, vs, kd, vd, pools, kpd, vpd
+        torch.cuda.empty_cache()
+    log("int8", "max abs err: " + "; ".join(f"{k} {v:.3g}"
+                                            for k, v in worst.items()))
+
+    # the chunk path: a 512-token chunk at offset 1536 of a 4096-slot int8
+    # cache dequantizes its 2048 live slots of K and V in torch, then runs
+    # flash_prefill on them unchanged (a layer's share of a chunk)
+    Tc, off = 512, 1536
+    live = off + Tc
+    q = rnd((1, Tc, H, Dh), "bfloat16")
+    kc, ks = quantize_kv(rnd((1, S, Hkv, Dh)))
+    vc, vs = quantize_kv(rnd((1, S, Hkv, Dh)))
+
+    def dequant():
+        return (deq(kc[:, :live], ks[:, :live], q.dtype),
+                deq(vc[:, :live], vs[:, :live], q.dtype))
+    kd, vd = dequant()
+    err = assert_close(torch, "flash_prefill over the dequantized prefix",
+                       ops.flash_prefill(q, kd, vd, q_offset=off),
+                       ref.flash_prefill_ref(q, kd, vd, q_offset=off),
+                       MAIN_TOL["bfloat16"])
+    deq_ms = time_ms(torch, dequant, 20)
+    pre_ms = time_ms(torch, lambda: ops.flash_prefill(q, kd, vd,
+                                                      q_offset=off), 10)
+    log("int8", f"int8 chunk path, Tc {Tc} at q_offset {off} over {S} "
+        f"slots (bf16, H={H} Hkv={Hkv} Dh={Dh}): dequantize the {live} "
+        f"live slots of K and V {deq_ms:.4f} ms, flash_prefill on them "
+        f"{pre_ms:.4f} ms (max abs err {err:.3g}); dequantize moves "
+        f"{2 * live * Hkv * (Dh + 4 + 2 * Dh)} B")
+    del q, kc, vc, ks, vs, kd, vd
+    rows["int8 chunk dequantize"] = dict(dequant_ms=deq_ms,
+                                         prefill_ms=pre_ms)
+    for name, r in rows.items():
+        if "plan" not in r:
+            continue
+        p = r["plan"]
+        log("int8", f"{name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, dequantize + bf16 kernel "
+            f"{r['dequant_ms']:.4f} ms, sdpa on the dequantized gathered "
+            f"cache {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['code_bytes']} B of codes, "
+            f"{r['scale_bytes']} B of scales); n_split {p.n_split}, L "
+            f"{p.L}, {p.body} body; max abs err {r['max_abs_err']:.3g}")
+    return rows
 
 
 PREFILL_PHASES = ("load wait", "issue", "S wait", "softmax", "P.V wait",
@@ -782,11 +1038,19 @@ def wkv6_tile_sweep(torch, label, args, want_y):
 
 
 # ------------------------------------------------------------- parity ---
-def parity_phase(torch):
-    """Smoke qwen3-14b at f32: kernels on the card vs plain on the CPU."""
+def parity_phase(torch, kv_dtype=""):
+    """Smoke qwen3-14b at f32: kernels on the card vs plain on the CPU.
+    With ``kv_dtype`` "int8" the caches are int8 and the decode steps
+    run the int8 decode kernels; the token ids must then be equal on the
+    card and on the CPU, and the logits agree within ``INT8_SMOKE_ATOL``
+    (a K/V value on a rounding boundary may take the neighbouring code on
+    one side)."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tfm
-    cfg = get_smoke_config("qwen3-14b", max_seq_len=128)
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=128,
+                           kv_cache_dtype=kv_dtype)
+    atol = INT8_SMOKE_ATOL if kv_dtype else 1e-3
     cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
                                 device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -795,6 +1059,7 @@ def parity_phase(torch):
     toks = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen,
                          dtype=torch.int32)
     worst = 0.0
+    runtime.reset_launch_counts()
     for paged in (False, True):
         lc, cc = tfm.prefill(cfg, cpu_model, toks, lens, cache_len=128)
         lg, cg = tfm.prefill(cfg, gpu_model, toks.cuda(), lens.cuda(),
@@ -806,7 +1071,7 @@ def parity_phase(torch):
             kw = dict(page_size=16, paged_len=128)
         ids_cpu, ids_gpu = [], []
         for step in range(9):
-            torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+            torch.testing.assert_close(lg.cpu(), lc, atol=atol, rtol=1e-3)
             worst = max(worst, float((lg.cpu() - lc).abs().max()))
             ids_cpu.append(lc.argmax(-1).tolist())
             ids_gpu.append(lg.argmax(-1).tolist())
@@ -816,10 +1081,23 @@ def parity_phase(torch):
             lc, cc = tfm.decode_step(cfg, cpu_model, tok, cc, **kw)
             lg, cg = tfm.decode_step(cfg, gpu_model, tok.cuda(), cg, **kw)
         torch.cuda.synchronize()
-        log("parity", f"{'paged' if paged else 'contiguous'}: prefill + 8 "
-            f"decode steps, logits within atol 1e-3 (f32); token ids cpu "
-            f"{ids_cpu} | cuda {ids_gpu}")
-    log("parity", f"max abs logit difference {worst:.3g}")
+        if kv_dtype and ids_cpu != ids_gpu:
+            raise AssertionError(f"parity {kv_dtype}: token ids cpu "
+                                 f"{ids_cpu}, cuda {ids_gpu}")
+        log("parity", f"{kv_dtype or 'float'} cache, "
+            f"{'paged' if paged else 'contiguous'}: prefill + 8 "
+            f"decode steps, logits within atol {atol:g} (f32); token ids "
+            f"cpu {ids_cpu} | cuda {ids_gpu}")
+    if kv_dtype:
+        n8 = (runtime.launch_counts["flash_decode_int8"],
+              runtime.launch_counts["paged_flash_decode_int8"])
+        if n8 != (8 * cfg.n_layers,) * 2 or \
+                runtime.launch_counts["flash_decode"] or \
+                runtime.launch_counts["paged_flash_decode"]:
+            raise AssertionError(f"parity {kv_dtype}: decode launches "
+                                 f"{runtime.launch_counts}")
+    log("parity", f"{kv_dtype or 'float'} cache: max abs logit difference "
+        f"{worst:.3g}")
 
 
 def to_paged(torch, tfm, cfg, cache, page=16):
@@ -835,8 +1113,8 @@ def to_paged(torch, tfm, cfg, cache, page=16):
     paged["pos"] = cache["pos"].clone()
     paged["block_tables"] = torch.arange(B * n_p, dtype=torch.int32,
                                          device=dev).reshape(B, n_p)
-    for key in ("k", "v"):
-        src = cache["groups"][0][0][key]             # (reps, B, S, Hkv, Dh)
+    for key in cache["groups"][0][0]:               # K/V, and int8 scales
+        src = cache["groups"][0][0][key]             # (reps, B, S, Hkv[, Dh])
         dst = paged["groups"][0][0][key]
         dst[:, :B * n_p] = src.reshape((src.shape[0], B * n_p, page)
                                        + src.shape[3:])
@@ -913,20 +1191,26 @@ def rwkv_parity_phase(torch):
 GRAPH_SMOKE_LENGTHS = [40, 17, 90, 8, 60, 33, 120, 25]   # 8 requests, 4 slots
 
 
-def graph_smoke(torch):
+GRAPH_SMOKE_RUNS = (("qwen3-14b", True), ("qwen3-14b", False),
+                    ("rwkv6-3b", False))
+
+
+def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype=""):
     """Smoke f32, the engine's decode step as a CUDA graph against the
     same engine run eagerly on the card and on the CPU: qwen3-14b on the
     paged and the contiguous pool and rwkv6-3b on its carry pool, chunk
     32, 4 slots, 8 requests of 8 new tokens.  Ids must be identical, and
-    the graph run's launch counts the eager run's."""
+    the graph run's launch counts the eager run's.  With ``kv_dtype``
+    "int8" the attention configs' caches are int8.  Returns the graph
+    runs' ids by (arch, paged)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tfm
     t0 = time.perf_counter()
-    res = []
-    for arch, paged in (("qwen3-14b", True), ("qwen3-14b", False),
-                        ("rwkv6-3b", False)):
-        cfg = get_smoke_config(arch, max_seq_len=128)
+    res, all_ids = [], {}
+    for arch, paged in runs:
+        cfg = get_smoke_config(arch, max_seq_len=128,
+                               kv_cache_dtype=kv_dtype)
         cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
                                     device="cpu")
         gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -960,10 +1244,13 @@ def graph_smoke(torch):
                                  f"graph {counts['graph']}, eager "
                                  f"{counts['eager']}; {replays} replays")
         res.append(f"{arch} {pool} {replays} replays")
-    log("graph", f"smoke f32, decode graph against eager on the card and "
-        f"the CPU, {len(GRAPH_SMOKE_LENGTHS)} requests each: ids identical "
-        f"and launch counts equal ({'; '.join(res)}) in "
+        all_ids[arch, paged] = ids["graph"]
+    log("graph", f"smoke f32{' ' + kv_dtype if kv_dtype else ''}, decode "
+        f"graph against eager on the card and the CPU, "
+        f"{len(GRAPH_SMOKE_LENGTHS)} requests each: ids identical and "
+        f"launch counts equal ({'; '.join(res)}) in "
         f"{time.perf_counter() - t0:.1f} s")
+    return all_ids
 
 
 def serve_pair(torch, cfg, make_eng, lengths, max_new, label):
@@ -1204,7 +1491,8 @@ def serve_phase(torch):
     launches = {"flash_prefill": paged_counts["flash_prefill"],
                 "paged_flash_decode": paged_counts["paged_flash_decode"],
                 "flash_decode": contig_counts["flash_decode"]}
-    return launches, paged_stats, contig_stats, cfg, model, wbytes
+    return launches, paged_stats, contig_stats, cfg, model, wbytes, \
+        pool_tokens
 
 
 def rwkv_serve_phase(torch):
@@ -1275,17 +1563,24 @@ def smoke_retention_workloads(cfg):
              dict(session_ttl=1000.0))]
 
 
-def retention_smoke(torch):
+def retention_smoke(torch, kv_dtype=""):
     """Smoke qwen3-14b at f32: each workload cold on the card, with
     retention on the card, and with retention through the plain versions
     on the CPU.  The three must give the same token ids (and, for the
-    sessions, the same composed prompts)."""
+    sessions, the same composed prompts).  ``kv_dtype`` "int8" runs the
+    same over int8 caches with 64-token chunked prefill: a whole-prompt
+    prefill attends over the unquantized K/V and a prefill resumed from
+    cached pages over their dequantized codes (in the reference too), so
+    hit == cold holds for int8 only when the cold run's chunks also
+    attend over codes."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as tfm
-    cfg = get_smoke_config("qwen3-14b", max_seq_len=1024)
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=1024,
+                           kv_cache_dtype=kv_dtype)
     cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
                                 device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    chunk = 64 if kv_dtype else None
     for name, make, pool, ret in smoke_retention_workloads(cfg):
         got = {}
         for label, model, dev, kw in (
@@ -1294,7 +1589,7 @@ def retention_smoke(torch):
                 ("cpu retention", cpu_model, "cpu", ret)):
             reqs = make()
             eng = make_engine(torch, cfg, model, 0, True, 4, dev=dev,
-                              chunk=None, hbm_bytes=2 ** 30, **pool, **kw)
+                              chunk=chunk, hbm_bytes=2 ** 30, **pool, **kw)
             eng.submit(reqs)
             done = eng.run(max_wall_s=600)
             if len(done) != len(reqs):
@@ -1315,12 +1610,19 @@ def retention_smoke(torch):
                         f"skipped")
         if not got["card cold"] == got["card retention"] \
                 == got["cpu retention"]:
+            base = got["card cold"][0]
+            diff = {label: sorted(rid for rid in base if o[rid] != base[rid])
+                    for label, (o, _) in got.items()}
             raise AssertionError(f"retention smoke {name}: token ids or "
                                  f"prompts differ between card cold, card "
-                                 f"retention and cpu retention")
-        log("retention", f"smoke f32 {name} workload ({len(got['card cold'][0])}"
-            f" requests): token ids identical cold and with retention on "
-            f"the card and with retention on the CPU; {hits}")
+                                 f"retention and cpu retention (requests "
+                                 f"whose ids differ from card cold: {diff}; "
+                                 f"prompts equal: "
+                                 f"{[g[1] == got['card cold'][1] for g in got.values()]})")
+        log("retention", f"smoke f32{' ' + kv_dtype if kv_dtype else ''} "
+            f"{name} workload ({len(got['card cold'][0])} requests): token "
+            f"ids identical cold and with retention on the card and with "
+            f"retention on the CPU; {hits}")
 
 
 def unaligned_prefill_check(torch):
@@ -2014,6 +2316,273 @@ def recovery_phase(torch, cfg, model, wbytes):
     return dict(faults=faults, drain=drain)
 
 
+# ---------------------------------------------------------------- int8 ---
+# the recovery runs' 4480-token budget at int8: 163840 B a token of bf16
+# over 84480 B of int8 codes and scales buys 67 pages, less the trash page
+REC_PAGES_INT8 = 66
+
+
+def int8_smoke(torch):
+    """Smoke qwen3-14b at f32 over int8 caches: prefill and decode on the
+    card against the CPU (ids equal), the engine's decode graph against
+    eager and the CPU on the paged and the contiguous pool (ids equal,
+    and paged equal to contiguous), and prefix and session hits against
+    the cold run."""
+    t0 = time.perf_counter()
+    parity_phase(torch, kv_dtype="int8")
+    ids = graph_smoke(torch, runs=(("qwen3-14b", True),
+                                   ("qwen3-14b", False)), kv_dtype="int8")
+    if ids["qwen3-14b", True] != ids["qwen3-14b", False]:
+        raise AssertionError("int8 smoke: paged ids differ from contiguous "
+                             "ids")
+    retention_smoke(torch, kv_dtype="int8")
+    log("int8", f"smoke f32 int8: card ids == CPU ids, graph == eager == "
+        f"CPU, paged == contiguous, prefix and session hits == cold, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def int8_serve(torch, cfg8, model, wbytes, pool_tokens, bf16_pages):
+    """Full-width Qwen3-14B over an int8 pool: the bf16 serve runs'
+    requests under the same ``pool_tokens`` (the paged pool then holds
+    about 1.94x the pages), eager and with the decode graph, then the
+    contiguous pool's four requests."""
+    from repro_torch.core import paging
+    want = paging.device_pool_pages(cfg8, pool_tokens, 128) - 1
+
+    def paged_engine(flag):
+        eng = make_engine(torch, cfg8, model, wbytes, True, 8, pool_tokens,
+                          decode_graph=flag)
+        if eng.backend.alloc.n_pages != want:
+            raise AssertionError(f"int8 pool: {eng.backend.alloc.n_pages} "
+                                 f"pages, want {want}")
+        if eng.backend.pool_cache["groups"][0][0]["k"].dtype != torch.int8:
+            raise AssertionError("int8 pool: the pool is not int8")
+        return eng
+    paged, stats, steps = serve_pair(
+        torch, cfg8, paged_engine, SERVE_LENGTHS, 32,
+        "int8 paged pool, chunk 512, page 128")
+    contig, contig_stats, csteps = serve_pair(
+        torch, cfg8, lambda flag: make_engine(torch, cfg8, model, wbytes,
+                                              False, 4, decode_graph=flag),
+        [200, 900, 64, 1500], 16, "int8 contiguous pool, chunk 512")
+    errs = []
+    for label, c, kernel, st in (("paged", paged, "paged_flash_decode_int8",
+                                  steps),
+                                 ("contiguous", contig, "flash_decode_int8",
+                                  csteps)):
+        others = {k: c[k] for k in ("paged_flash_decode", "flash_decode",
+                                    "flash_decode_int8",
+                                    "paged_flash_decode_int8", "wkv6")
+                  if k != kernel and c[k]}
+        if c[kernel] != st["decode"] * cfg8.n_layers or not st["decode"] \
+                or others:
+            errs.append(f"{label}: {kernel} {c[kernel]} launches for "
+                        f"{st['decode']} decode steps; others {others}")
+        if c["flash_prefill/tensor_core"] != c["flash_prefill"] or \
+                not c["flash_prefill"]:
+            errs.append(f"{label}: flash_prefill {c['flash_prefill']}, "
+                        f"tensor-core {c['flash_prefill/tensor_core']}")
+    if errs:
+        raise AssertionError("int8 serve: " + "; ".join(errs))
+    log("int8", f"int8 paged pool of {want} pages against the bf16 pool's "
+        f"{bf16_pages} under the same {pool_tokens} tokens "
+        f"({want / bf16_pages:.3f}x); paged_flash_decode_int8 "
+        f"{paged['paged_flash_decode_int8']} = {steps['decode']} x "
+        f"{cfg8.n_layers}, flash_decode_int8 "
+        f"{contig['flash_decode_int8']} = {csteps['decode']} x "
+        f"{cfg8.n_layers}; no float decode kernel ran")
+    return dict(pages=want, bf16_pages=bf16_pages, stats=stats,
+                contig_stats=contig_stats,
+                launches={"paged_flash_decode_int8":
+                          paged["paged_flash_decode_int8"],
+                          "flash_decode_int8": contig["flash_decode_int8"]})
+
+
+def int8_drift_and_profile(torch, cfg, cfg8, model):
+    """8 rows of 1024 tokens prefilled into a bf16 and an int8 paged
+    cache, one decode step of each from the same tokens: the int8 step's
+    logits against the bf16 step's (gate ``INT8_DRIFT_MAX``); then the
+    int8 step profiled, eager and as a graph replay."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    B, ctx, page = 8, 1024, 128
+    S = cfg.max_seq_len
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), generator=gen,
+                         device=dev, dtype=torch.int32)
+    logits, tok, paged = {}, None, None
+    for c in (cfg, cfg8):
+        first, cache = tfm.prefill(c, model, toks, cache_len=S)
+        paged = to_paged(torch, tfm, c, cache, page)
+        del cache
+        if tok is None:
+            tok = first.argmax(-1).to(torch.int32)    # the same for both
+        logits[c.kv_cache_dtype or "bf16"], _ = tfm.decode_step(
+            c, model, tok, paged, page_size=page, paged_len=S)
+    d = (logits["int8"].float() - logits["bf16"].float()).abs()
+    drift = float(d.max())
+    agree = int((logits["int8"].argmax(-1) == logits["bf16"].argmax(-1))
+                .sum())
+    if not drift <= INT8_DRIFT_MAX or not torch.isfinite(d).all():
+        raise AssertionError(f"int8 first-step logits drift {drift} from "
+                             f"bf16 (gate {INT8_DRIFT_MAX})")
+    log("int8", f"first decode step at context {ctx}, B={B}: int8 logits "
+        f"against bf16 max abs {drift:.4f} (gate {INT8_DRIFT_MAX}), mean "
+        f"abs {float(d.mean()):.4f}, std of the bf16 logits "
+        f"{float(logits['bf16'].float().std()):.3f}; top-1 equal in "
+        f"{agree}/{B} rows")
+    prof = profile_pair(torch, f"qwen3-14b full-width decode step, B={B}, "
+                        f"context {ctx}, int8 paged", lambda: tfm.decode_step(
+                            cfg8, model, tok, paged, page_size=page,
+                            paged_len=S), "paged_flash_decode_int8",
+                        "decode_kernel")
+    return dict(drift=drift, mean_abs=float(d.mean()), top1=agree,
+                profile=prof)
+
+
+def int8_tight_pair(torch, cfg, cfg8, model, wbytes):
+    """The recovery phase's workload without faults over its 4480-token
+    budget: 34 bf16 pages, then 66 int8 pages.  Every request must
+    finish with all its tokens and both pools balance."""
+    from repro_torch.kernels import runtime
+    out = {}
+    for label, c, want in (("bf16", cfg, REC_PAGES),
+                           ("int8", cfg8, REC_PAGES_INT8)):
+        eng = recovery_engine(torch, c, model, wbytes)
+        be = eng.backend
+        if be.alloc.n_pages != want:
+            raise AssertionError(f"tight pool {label}: {be.alloc.n_pages} "
+                                 f"pages, want {want}")
+        reqs = recovery_requests(c)
+        runtime.reset_launch_counts()
+        eng.submit(reqs)
+        t = time.perf_counter()
+        eng.run(max_wall_s=600)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        final = finished_ids(eng, reqs)
+        res = eng.result
+        if len(final) != REC_N or any(len(o) != REC_NEW
+                                      for o in final.values()) or \
+                be.free_blocks() != want:
+            raise AssertionError(f"tight pool {label}: {len(final)}/{REC_N} "
+                                 f"finished, pages {be.free_blocks()}/{want}")
+        out[label] = dict(pages=want, seconds=dt,
+                          preempts=res.preempt_events,
+                          yields=res.slice_yields,
+                          ttft_p50=res.p50("ttft"), ttft_p99=res.p99("ttft"),
+                          tpot_p50=res.p50("tpot"))
+        log("int8", f"tight pool {label}, {want} pages, goodput scheduler, "
+            f"slice {REC_SLICE}, no faults: {len(final)}/{REC_N} finished in "
+            f"{dt:.2f} s; {res.preempt_events} preemptions, "
+            f"{res.slice_yields} slice yields; TTFT p50 "
+            f"{res.p50('ttft'):.3f} s, p99 {res.p99('ttft'):.3f} s; TPOT "
+            f"p50 {res.p50('tpot') * 1e3:.1f} ms")
+        del eng, be
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_spill(torch, cfg8, model, wbytes):
+    """An int8 pool of ``RET_SPILL_PAGES`` pages with an int8 host tier:
+    the multi-turn workload (spills and restores > 0), then one page of
+    codes and scales spilled, overwritten and restored into another page,
+    byte for byte (an int8 pool passes an int8 tier raw)."""
+    from repro_torch.core import paging
+    dev = model.device
+    per_tok = cfg8.kv_bytes_per_token(2)
+    pool = -(-(RET_SPILL_PAGES + 1) * 128 * cfg8.cache_bytes_per_token()
+             // per_tok)
+    eng = make_engine(torch, cfg8, model, wbytes, True, 8, pool, dev=dev,
+                      session_ttl=1000.0,
+                      host_pool_tokens=RET_HOST_PAGES * 128,
+                      spill_dtype="int8")
+    be = eng.backend
+    host = paging.host_tier_geometry(cfg8, RET_HOST_PAGES * 128, 128,
+                                     "int8")[0]
+    if be.alloc.n_pages != RET_SPILL_PAGES or be.alloc.host_pages != host:
+        raise AssertionError(f"int8 spill run: {be.alloc.n_pages} device "
+                             f"pages, {be.alloc.host_pages} host pages")
+    counts, stats, _ = serve_run(torch, cfg8, eng, session_requests(cfg8),
+                                 f"int8 spill, {RET_SPILL_PAGES}-page int8 "
+                                 f"pool, {host}-slot int8 host tier")
+    res, a = eng.result, be.alloc
+    if not (res.spilled_pages > 0 and res.restored_pages > 0) or \
+            a.free_host_slots() + a.spilled_slots() != a.host_pages or \
+            a.free_pages() + a.live_pages() != a.n_pages or \
+            not counts["paged_flash_decode_int8"]:
+        raise AssertionError(f"int8 spill run: {res.spilled_pages} spilled, "
+                             f"{res.restored_pages} restored, launches "
+                             f"{counts}")
+    cp = be.retention.copier
+    if cp._scales:
+        raise AssertionError("int8 spill run: a leaf was requantized")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    leaves = dict((lk[2], leaf) for lk, leaf in cp._attn_leaves())
+
+    def fill(leaf, page):
+        shape = leaf[:, page].shape
+        leaf[:, page] = (torch.randint(-127, 128, shape, generator=gen,
+                                       device=dev).to(torch.int8)
+                         if leaf.dtype == torch.int8 else
+                         torch.rand(shape, generator=gen, device=dev))
+    be.retention.clear(a)
+    src, dst, hslot = 0, 1, 0
+    for leaf in leaves.values():
+        fill(leaf, src)
+    want = {k: leaf[:, src].clone() for k, leaf in leaves.items()}
+    cp.spill(src, hslot)
+    for leaf in leaves.values():
+        fill(leaf, src)
+    cp.poll()
+    cp.restore(hslot, dst)
+    cp.poll()
+    for k, leaf in leaves.items():
+        got, w = leaf[:, dst], want[k]
+        bits = (torch.equal(got, w) if got.dtype == torch.int8 else
+                torch.equal(got.view(torch.int32), w.view(torch.int32)))
+        if not bits or torch.equal(got, leaf[:, src]):
+            raise AssertionError(f"int8 spill round trip: leaf {k} is not "
+                                 f"the page as spilled")
+    log("int8", f"int8 spill run: {res.spilled_pages} pages spilled "
+        f"({res.spilled_bytes} B), {res.restored_pages} restored, "
+        f"{res.spill_hold_events} holds, session hits {res.session_hits}/"
+        f"{res.session_lookups}; paged_flash_decode_int8 "
+        f"{counts['paged_flash_decode_int8']}; one page of "
+        f"{', '.join(f'{k} {tuple(w.shape)} {w.dtype}' for k, w in want.items())}"
+        f" spilled raw, overwritten and restored into another page: "
+        f"byte-identical; {stats}")
+    out = dict(spilled=res.spilled_pages, restored=res.restored_pages,
+               host_pages=host, stats=stats)
+    del eng, be, cp, leaves, want
+    return out
+
+
+def int8_phase(torch, cfg, model, wbytes, pool_tokens):
+    """The int8 KV tier at full width on the same model: the serve runs
+    over an int8 pool under the bf16 runs' ``pool_tokens``, the
+    first-step logit drift against bf16 and the int8 step's profile, the
+    tight-pool pair, and the int8 spill tier."""
+    import dataclasses
+    from repro_torch.core import paging
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    serve = int8_serve(torch, cfg8, model, wbytes, pool_tokens,
+                       paging.device_pool_pages(cfg, pool_tokens, 128) - 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drift = int8_drift_and_profile(torch, cfg, cfg8, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tight = int8_tight_pair(torch, cfg, cfg8, model, wbytes)
+    spill = int8_spill(torch, cfg8, model, wbytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("int8", f"phase took {time.perf_counter() - t0:.1f} s")
+    return dict(serve=serve, drift=drift, tight=tight, spill=spill)
+
+
 def profile_steps(torch, label, step, kernel, match, steps=4):
     """Where a full-width decode step spends its time: ``steps`` calls
     of ``step`` under ``torch.profiler``.  Device busy time is the sum of
@@ -2146,16 +2715,21 @@ def main() -> int:
         f"64/80/128/256")
 
     rows = kernel_phase(torch)
+    rows.update(int8_kernel_phase(torch))
     prefill_phase_profile(torch)
     rows.update(wkv6_phase(torch))
     parity_phase(torch)
     rwkv_parity_phase(torch)
     graph_smoke(torch)
-    launches, paged_stats, contig_stats, cfg, model, wbytes = \
+    int8_smoke(torch)
+    launches, paged_stats, contig_stats, cfg, model, wbytes, pool_tokens = \
         serve_phase(torch)
     profile = {"qwen3-14b": profile_phase(torch, cfg, model)}
     retention = retention_phase(torch, cfg, model, wbytes)
     recovery = recovery_phase(torch, cfg, model, wbytes)
+    int8 = int8_phase(torch, cfg, model, wbytes, pool_tokens)
+    launches.update(int8["serve"]["launches"])
+    profile["qwen3-14b int8"] = int8["drift"].pop("profile")
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2198,12 +2772,20 @@ def main() -> int:
                      "src/repro/kernels/decode_attn.py:67",
                      rows["flash_decode B=8 ctx=2048"]),
         wkv6_entry(rows[f"wkv6 chunk B={WKV_MAIN['B']} T={WKV_MAIN['T']}"]),
+        decode_entry("paged_flash_decode_int8",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/models/attention.py:326",
+                     rows["paged_flash_decode_int8 B=8 ctx=2048 page=128"]),
+        decode_entry("flash_decode_int8", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/models/attention.py:597",
+                     rows["flash_decode_int8 B=8 ctx=2048"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
     log("profile", json.dumps(profile))
     log("retention", f"{retention}")
     log("recovery", f"{recovery}")
+    log("int8", f"{int8}")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

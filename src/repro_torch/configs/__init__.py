@@ -17,7 +17,9 @@ from repro_torch.models.config import ModelConfig, reduced
 # dense-GQA decoders and rwkv6-3b; the other families join as their
 # blocks are ported.
 _MODULES = {
+    "yi-6b": "yi_6b",
     "rwkv6-3b": "rwkv6_3b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "qwen3-14b": "qwen3_14b",
     "llama2-13b": "llama2_13b",          # the paper's own model
 }

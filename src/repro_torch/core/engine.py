@@ -74,7 +74,13 @@ for the engine's life, and every step reads and writes the same
 tensors in place (the pool's leaves, ``pos``, the block tables and
 ``next_tok``), so one capture serves every step.  Prefill stays eager.
 
-Not in this slice (raise ``NotImplementedError``): int8 KV caches.
+int8 KV caches (``cfg.kv_cache_dtype == "int8"``): every pool, batch
+cache and page carries four leaves a block, int8 ``k``/``v`` codes and
+f32 ``k_s``/``v_s`` scale planes (one per token and kv head).  Slot
+insertion, the page scatter, ``_seed_prefix``, the spill copier and the
+decode graph treat them as they treat any leaf.  Pool sizing is in
+bytes (``paging.device_pool_pages``), so the same ``kv_pool_tokens``
+buys about twice the pages of a bf16 pool.
 """
 from __future__ import annotations
 
@@ -168,9 +174,10 @@ class _EngineCopier:
     numpy lacks); ``spill_dtype`` "int8" or "int4" compresses the float
     K/V payload ("k"/"v") to numpy codes with per-(token, head) f32
     scales, and the restore dequantizes to the pool's dtype.  An int8
-    pool's own codes would pass an int8 tier raw (requantizing integer
-    codes does not round-trip); that branch waits for the int8 KV tier,
-    which the port does not run yet.
+    pool's leaves pass an int8 tier raw, codes and scale planes
+    (requantizing integer codes does not round-trip), so its restore is
+    lossless; an int4 tier packs an int8 pool's codes and re-expands
+    them to int8 codes on restore, as the reference does.
 
     Restores under faults.  A restore's copy is queued and written at
     the next ``poll``, and it lands before its page can change owner:

@@ -10,31 +10,38 @@
 // one-launch merge and what still holds the kernel back: see
 // decode_common.cuh.  The host picks the split (kernels/decode_attn.py:
 // plan) and allocates the partials; this file only names the kernel.
+//
+// rt_flash_decode_int8 runs the same body over an int8 cache (codes
+// (B, S, Hkv, Dh) and f32 scales (B, S, Hkv)), dequantizing in the
+// kernel: it replaces the jnp dequantization of the reference's
+// repro/models/attention.py:self_attn_decode (scope
+// vmem_fused:flash_decode_int8), which has no Pallas kernel.
 #include "decode_common.cuh"
 
 namespace {
 
-template <typename T, int DH, int MT>
+template <typename T, typename KV, int DH, int MT>
 __global__ void __launch_bounds__(rt::kDecThreads)
-flash_decode_kernel(rt::DecodeArgs<T> a, rt::ContiguousSlots slots) {
+flash_decode_kernel(rt::DecodeArgs<T, KV> a, rt::ContiguousSlots slots) {
   rt::decode_body<DH, MT>(a, slots);
 }
 
 struct Kernels {
-  template <typename T, int DH, int MT>
-  static auto get() { return flash_decode_kernel<T, DH, MT>; }
+  template <typename T, typename KV, int DH, int MT>
+  static auto get() { return flash_decode_kernel<T, KV, DH, MT>; }
 };
 
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* out, void* part, void* arrivals, int B, int S, int H,
-           int Hkv, int Dh, int ring, int L, int n_split,
-           cudaStream_t stream) {
+template <typename T, typename KV>
+int launch(const void* q, const void* kc, const void* vc, const void* ks,
+           const void* vs, const void* pos, void* out, void* part,
+           void* arrivals, int B, int S, int H, int Hkv, int Dh, int ring,
+           int L, int n_split, cudaStream_t stream) {
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
-  const auto a = rt::decode_args<T>(q, kc, vc, pos, out, part, arrivals, H,
-                                    Hkv, Dh, S, ring, L, n_split);
-  return rt::launch_decode<T, Kernels>(a, rt::ContiguousSlots{S}, B, Dh,
-                                       stream);
+  const auto a = rt::decode_args<T, KV>(q, kc, vc, ks, vs, pos, out, part,
+                                        arrivals, H, Hkv, Dh, S, ring, L,
+                                        n_split);
+  return rt::launch_decode<T, KV, Kernels>(a, rt::ContiguousSlots{S}, B, Dh,
+                                           stream);
 }
 
 }  // namespace
@@ -50,11 +57,33 @@ extern "C" int rt_flash_decode(const void* q, const void* kc, const void* vc,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return launch<float>(q, kc, vc, pos, out, part, arrivals, B, S, H, Hkv,
-                         Dh, ring, L, n_split, s);
+    return launch<float, float>(q, kc, vc, nullptr, nullptr, pos, out, part,
+                                arrivals, B, S, H, Hkv, Dh, ring, L, n_split,
+                                s);
   if (dtype == rt::kBFloat16)
-    return launch<__nv_bfloat16>(q, kc, vc, pos, out, part, arrivals, B, S,
-                                 H, Hkv, Dh, ring, L, n_split, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, kc, vc, nullptr, nullptr, pos, out, part, arrivals, B, S, H, Hkv,
+        Dh, ring, L, n_split, s);
+  return cudaErrorInvalidValue;
+}
+
+// The same over an int8 cache: kc, vc (B,S,Hkv,Dh) int8 codes; ks, vs
+// (B,S,Hkv) f32 scales; q and out in dtype (f32 or bf16).
+extern "C" int rt_flash_decode_int8(const void* q, const void* kc,
+                                    const void* vc, const void* ks,
+                                    const void* vs, const void* pos,
+                                    void* out, void* part, void* arrivals,
+                                    int B, int S, int H, int Hkv, int Dh,
+                                    int ring, int L, int n_split, int dtype,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kFloat32)
+    return launch<float, int8_t>(q, kc, vc, ks, vs, pos, out, part, arrivals,
+                                 B, S, H, Hkv, Dh, ring, L, n_split, s);
+  if (dtype == rt::kBFloat16)
+    return launch<__nv_bfloat16, int8_t>(q, kc, vc, ks, vs, pos, out, part,
+                                         arrivals, B, S, H, Hkv, Dh, ring, L,
+                                         n_split, s);
   return cudaErrorInvalidValue;
 }
 

@@ -60,9 +60,34 @@
 // take about 2.6x their bound.  A persistent grid that keeps every SM
 // streaming, or TMA copies that need no registers, are the next steps;
 // the decode step around the kernel is bound by the host.
+//
+// int8 caches (rt_flash_decode_int8, rt_paged_flash_decode_int8).  The
+// reference's int8 KV variant stores K and V as int8 codes with one f32
+// scale per (slot, kv head) and dequantizes in jnp before its decode
+// (repro/models/attention.py, scopes vmem_fused:flash_decode_int8 and
+// vmem_fused:paged_flash_decode_int8).  Here the same body takes KV =
+// int8_t: a block streams the code rows (Dh bytes, still 16-byte
+// cp.async chunks) and the tile's scales, and forms code * scale in f32,
+// rounded to q's type, which is dequantize_kv(codes, scale, q.dtype)
+// bit for bit.  On the tensor cores a warp converts each landed tile into
+// a bf16 tile of its own beside its ring, and the rest of the body runs
+// unchanged on it; on the CUDA cores the products are formed as the rows
+// are read.  So the int8 kernel gives the bits of the bf16 (or f32)
+// kernel run on the dequantized cache with the same plan, and reads about
+// half the bytes: at B = 8, context 2048 and Qwen3-14B's widths 33.5 MB
+// of codes and 1.05 MB of scales.  The split rule is the float kernels'
+// (the plan is keyed on q's dtype and Dh alone).  Measured there
+// (chip_smoke.py, H100 SXM, 700 W) it takes about 2.9x that bound, only
+// 10% less than the bf16 kernel: a warp converts each tile after it lands
+// and before its products, with nothing overlapping the conversion, and
+// at context 1024 in a serve step (two live splits, one block an SM) it
+// is slower than the bf16 kernel.  Converting the next tile while the
+// tensor cores work on this one is the next step.
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -103,12 +128,16 @@ struct PagedSlots {
 
 // q: (B, H, Dh); out: (B, H, Dh); part: (B, H, n_split, Dh + 2) f32
 // scratch (unused when n_split == 1); arrivals: (B, Hkv) int32, zero
-// between launches.  s_len is the request-level cache length.
-template <typename T>
+// between launches.  s_len is the request-level cache length.  K and V
+// hold KV elements: T, or int8 codes with f32 scales (one per cache row
+// and kv head, k_scale[row * Hkv + kvh]; null for a float cache).
+template <typename T, typename KV = T>
 struct DecodeArgs {
   const T* q;
-  const T* k;
-  const T* v;
+  const KV* k;
+  const KV* v;
+  const float* k_scale;
+  const float* v_scale;
   const int* pos;
   T* out;
   float* part;
@@ -116,6 +145,9 @@ struct DecodeArgs {
   int H, Hkv, G, s_len, ring, L, n_split;
   float scale_log2;  // log2(e) / sqrt(Dh)
 };
+
+template <typename KV>
+constexpr bool kInt8Kv = std::is_same<KV, int8_t>::value;
 
 struct BlockRange {
   int b, kvh, split;
@@ -140,8 +172,8 @@ __device__ __forceinline__ BlockRange block_range(const int* pos, int s_len,
 
 // True when the block has nothing to stream; block 0 of a row with no
 // live slot writes its zeros.
-template <typename T>
-__device__ __forceinline__ bool block_is_empty(const DecodeArgs<T>& a,
+template <typename T, typename KV>
+__device__ __forceinline__ bool block_is_empty(const DecodeArgs<T, KV>& a,
                                                const BlockRange& r, int DH) {
   if (r.split < r.n_live) return false;
   if (r.n_live == 0 && r.split == 0) {
@@ -162,8 +194,8 @@ __host__ __device__ inline size_t merge_floats(int G, int DH) {
 // The block's warps have written their (acc, m, l) to ws; merge them in
 // warp order, then write the output (one live split) or the partial, and
 // let the last block of the (b, kvh) merge the partials in split order.
-template <typename T, int DH>
-__device__ void finish_block(float* ws, const DecodeArgs<T>& a,
+template <typename T, int DH, typename KV>
+__device__ void finish_block(float* ws, const DecodeArgs<T, KV>& a,
                              const BlockRange& r) {
   const int G = a.G, GD = G * DH, tid = threadIdx.x;
   const float* Wacc = ws;
@@ -262,28 +294,48 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int DH>
+// A warp's shared memory in the tensor-core body.  Float caches: a ring
+// of kDecStages stages, each a bf16 K tile and a V tile of kTcTile rows
+// padded to RB bytes.  int8 caches: each stage holds the K and V code
+// tiles (kTcTile rows of DH bytes) and their kTcTile + kTcTile f32
+// scales, and after the ring one bf16 K tile and one V tile, which the
+// warp fills from the stage it is about to use.
+template <int DH, bool Q8>
 struct TcLayout {
   static constexpr int RB = DH * 2 + 16;            // padded row bytes
   static constexpr int CH = DH / 8;                 // 16-byte chunks a row
   static constexpr int TILE = kTcTile * RB;         // one K or V tile
-  static constexpr int WARP_RING = kDecStages * 2 * TILE;
+  static constexpr int CTILE = kTcTile * DH;        // one int8 code tile
+  static constexpr int STAGE = Q8 ? 2 * CTILE + 2 * kTcTile * 4 : 2 * TILE;
+  static constexpr int WARP_RING = kDecStages * STAGE + (Q8 ? 2 * TILE : 0);
   static_assert((kTcTile * CH) % 32 == 0, "whole copies a lane");
+  static_assert((2 * kTcTile * (DH / 16)) % 32 == 0, "whole code copies");
 };
 
 // dynamic shared memory of the tensor-core body: Q rows, then the warps'
 // rings, which the merge area reuses once the slot loop is done
-inline size_t tc_smem_bytes(int DH, int MT, int G) {
-  const size_t rb = (size_t)DH * 2 + 16;
-  const size_t ring = (size_t)kDecWarps * kDecStages * 2 * kTcTile * rb;
+template <int DH, bool Q8>
+inline size_t tc_smem_bytes(int MT, int G) {
+  using Lay = TcLayout<DH, Q8>;
+  const size_t ring = (size_t)kDecWarps * Lay::WARP_RING;
   const size_t merge = sizeof(float) * merge_floats(G, DH);
-  return 16 * MT * rb + (ring > merge ? ring : merge);
+  return 16 * MT * (size_t)Lay::RB + (ring > merge ? ring : merge);
 }
 
-template <int DH, int MT, typename Slots>
-__device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
+// 4-byte copy to shared memory (the scales), zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+template <int DH, int MT, typename KV, typename Slots>
+__device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
+                            Slots slots) {
   using bf16 = __nv_bfloat16;
-  using Lay = TcLayout<DH>;
+  constexpr bool Q8 = kInt8Kv<KV>;
+  using Lay = TcLayout<DH, Q8>;
   constexpr int RB = Lay::RB, CH = Lay::CH, NB = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
@@ -303,7 +355,8 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
   }
   __syncthreads();
   const uint32_t qs_s = sm90::smem_addr(qs);
-  const uint32_t ring_s = sm90::smem_addr(ring) + warp * Lay::WARP_RING;
+  unsigned char* wring = ring + warp * Lay::WARP_RING;
+  const uint32_t ring_s = sm90::smem_addr(wring);
 
   // this warp's tiles: t-th starts at start + (warp + 4 t) * kTcTile
   const int span = r.end - r.start;
@@ -311,25 +364,49 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
   const int nt = span > warp * kTcTile
                      ? (span - warp * kTcTile + STEP - 1) / STEP : 0;
   const size_t hstride = (size_t)a.Hkv * DH;
-  const bf16* kbase = a.k + (size_t)r.kvh * DH;
-  const bf16* vbase = a.v + (size_t)r.kvh * DH;
+  const KV* kbase = a.k + (size_t)r.kvh * DH;
+  const KV* vbase = a.v + (size_t)r.kvh * DH;
 
   auto issue = [&](int t) {
     const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
-    const uint32_t kdst = ring_s + (t % kDecStages) * 2 * Lay::TILE;
-    const uint32_t vdst = kdst + Lay::TILE;
+    const uint32_t kdst = ring_s + (t % kDecStages) * Lay::STAGE;
     const int my_s = s0 + (lane & (kTcTile - 1));
     const unsigned long long my_row =
         my_s < r.end ? (unsigned long long)slots.row(r.b, my_s) : 0ull;
+    if constexpr (Q8) {
+      // K then V codes, 16-byte chunks of DH-byte rows; lanes 0-15 the K
+      // scales of the tile's slots, lanes 16-31 the V scales
+      constexpr int C8 = DH / 16, PER = kTcTile * C8;
 #pragma unroll
-    for (int i = 0; i < kTcTile * CH / 32; ++i) {
-      const int idx = lane + 32 * i;
-      const int j = idx / CH, c = idx - j * CH;
-      const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
-      const bool ok = s0 + j < r.end;
-      const size_t off = (size_t)row * hstride + c * 8;
-      sm90::cp_async16(kdst + j * RB + c * 16, ok ? kbase + off : kbase, ok);
-      sm90::cp_async16(vdst + j * RB + c * 16, ok ? vbase + off : vbase, ok);
+      for (int i = 0; i < 2 * PER / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int kv = idx / PER, rem = idx - kv * PER;
+        const int j = rem / C8, c = rem - j * C8;
+        const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
+        const bool ok = s0 + j < r.end;
+        const KV* base = kv ? vbase : kbase;
+        sm90::cp_async16(kdst + kv * Lay::CTILE + j * DH + c * 16,
+                         ok ? base + (size_t)row * hstride + c * 16 : base,
+                         ok);
+      }
+      const bool ok = my_s < r.end;
+      const float* sbase = (lane < kTcTile ? a.k_scale : a.v_scale) + r.kvh;
+      cp_async4(kdst + 2 * Lay::CTILE + lane * 4,
+                ok ? sbase + (size_t)my_row * a.Hkv : sbase, ok);
+    } else {
+      const uint32_t vdst = kdst + Lay::TILE;
+#pragma unroll
+      for (int i = 0; i < kTcTile * CH / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int j = idx / CH, c = idx - j * CH;
+        const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
+        const bool ok = s0 + j < r.end;
+        const size_t off = (size_t)row * hstride + c * 8;
+        sm90::cp_async16(kdst + j * RB + c * 16, ok ? kbase + off : kbase,
+                         ok);
+        sm90::cp_async16(vdst + j * RB + c * 16, ok ? vbase + off : vbase,
+                         ok);
+      }
     }
   };
 
@@ -358,7 +435,41 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
     sm90::cp_async_commit();
     sm90::cp_async_wait<kDecStages - 1>();
     __syncwarp();
-    const uint32_t ks = ring_s + (t % kDecStages) * 2 * Lay::TILE;
+    uint32_t ks = ring_s + (t % kDecStages) * Lay::STAGE;
+    if constexpr (Q8) {
+      // dequantize the landed codes into the warp's bf16 tiles:
+      // bf16(code * scale), as dequantize_kv(codes, scale, bf16) rounds
+      constexpr int C8 = DH / 16, PER = kTcTile * C8;
+      const unsigned char* st = wring + (t % kDecStages) * Lay::STAGE;
+      const float* sc = reinterpret_cast<const float*>(st + 2 * Lay::CTILE);
+      unsigned char* cvt = wring + kDecStages * Lay::STAGE;
+#pragma unroll
+      for (int i = 0; i < 2 * PER / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int kv = idx / PER, rem = idx - kv * PER;
+        const int j = rem / C8, c = rem - j * C8;
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            st + kv * Lay::CTILE + j * DH + c * 16);
+        const float s = sc[kv * kTcTile + j];
+        const unsigned w[4] = {u.x, u.y, u.z, u.w};
+        uint32_t o8[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b0 = (int)(signed char)(w[e] & 0xff);
+          const int b1 = (int)(signed char)((w[e] >> 8) & 0xff);
+          const int b2 = (int)(signed char)((w[e] >> 16) & 0xff);
+          const int b3 = (int)(signed char)(w[e] >> 24);
+          o8[2 * e] = sm90::pack_bf16((float)b0 * s, (float)b1 * s);
+          o8[2 * e + 1] = sm90::pack_bf16((float)b2 * s, (float)b3 * s);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(cvt + kv * Lay::TILE + j * RB +
+                                              c * 32);
+        dst[0] = make_uint4(o8[0], o8[1], o8[2], o8[3]);
+        dst[1] = make_uint4(o8[4], o8[5], o8[6], o8[7]);
+      }
+      __syncwarp();
+      ks = sm90::smem_addr(cvt);
+    }
     const uint32_t vs = ks + Lay::TILE;
     const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
 
@@ -475,21 +586,30 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
 }
 
 // ------------------------------------------------ CUDA-core body (f32)
-__device__ __forceinline__ float4 ldg4(const float* p) {
+// Four K or V elements of a row as f32: a float4, or four int8 codes
+// times the row's scale (dequantize_kv's product).
+__device__ __forceinline__ float4 load4(const float* p, float) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const int8_t* p, float s) {
+  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
+  return make_float4((float)c.x * s, (float)c.y * s, (float)c.z * s,
+                     (float)c.w * s);
 }
 
 // dynamic shared memory of the CUDA-core body: Q, the tile's row indices,
-// P and the rescale factors of each warp, and the merge area
+// P, the rescale factors and the tile's V scales of each warp, and the
+// merge area
 inline size_t cc_smem_bytes(int DH, int G) {
   return sizeof(float) * ((size_t)G * DH) +
          sizeof(unsigned long long) * kDecWarps * kCcTile +
          sizeof(float) * ((size_t)kDecWarps * G * kCcTile + kDecWarps * G +
-                          merge_floats(G, DH));
+                          kDecWarps * kCcTile + merge_floats(G, DH));
 }
 
-template <int DH, int MT, typename Slots>
-__device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
+template <int DH, int MT, typename KV, typename Slots>
+__device__ void decode_body(const DecodeArgs<float, KV>& a, Slots slots) {
+  constexpr bool Q8 = kInt8Kv<KV>;
   constexpr int C = DH / 4;                  // float4 chunks of a row
   constexpr int GM = kDecMaxGD / DH;         // most heads of a kv head
   constexpr int NP = kDecMaxGD / 4 / 32;     // (head, chunk) pairs a lane
@@ -504,10 +624,12 @@ __device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
       reinterpret_cast<unsigned long long*>(Qs + G * DH);          // [W][32]
   float* Ps = reinterpret_cast<float*>(Rs + kDecWarps * kCcTile);  // [W][G][32]
   float* As = Ps + kDecWarps * G * kCcTile;                        // [W][G]
-  float* ws = As + kDecWarps * G;
+  float* Vs = As + kDecWarps * G;                                  // [W][32]
+  float* ws = Vs + kDecWarps * kCcTile;
   Rs += warp * kCcTile;
   Ps += warp * G * kCcTile;
   As += warp * G;
+  Vs += warp * kCcTile;
 
   const float* qb = a.q + ((size_t)r.b * a.H + (size_t)r.kvh * G) * DH;
   for (int idx = tid; idx < G * DH; idx += kDecThreads) Qs[idx] = qb[idx];
@@ -518,8 +640,8 @@ __device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
   const int nt = span > warp * kCcTile
                      ? (span - warp * kCcTile + STEP - 1) / STEP : 0;
   const size_t hstride = (size_t)a.Hkv * DH;
-  const float* kbase = a.k + (size_t)r.kvh * DH;
-  const float* vbase = a.v + (size_t)r.kvh * DH;
+  const KV* kbase = a.k + (size_t)r.kvh * DH;
+  const KV* vbase = a.v + (size_t)r.kvh * DH;
 
   float m[GM], l[GM];
   float4 acc[NP];
@@ -537,16 +659,21 @@ __device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
     const bool ok = s < r.end;
     const size_t row = ok ? slots.row(r.b, s) : 0;
     Rs[lane] = row;
+    float ksc = 1.f;
+    if constexpr (Q8) {
+      ksc = ok ? __ldg(a.k_scale + row * a.Hkv + r.kvh) : 0.f;
+      Vs[lane] = ok ? __ldg(a.v_scale + row * a.Hkv + r.kvh) : 0.f;
+    }
 
     // lane j scores slot s0 + j against the G heads
     float sc[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) sc[g] = 0.f;
     if (ok) {
-      const float* kr = kbase + row * hstride;
+      const KV* kr = kbase + row * hstride;
 #pragma unroll 4
       for (int c = 0; c < C; ++c) {
-        const float4 kv = ldg4(kr + 4 * c);
+        const float4 kv = load4(kr + 4 * c, ksc);
 #pragma unroll
         for (int g = 0; g < GM; ++g)
           if (g < G) {
@@ -584,13 +711,14 @@ __device__ void decode_body(const DecodeArgs<float>& a, Slots slots) {
     }
     const int nj = min(kCcTile, r.end - s0);
     for (int j = 0; j < nj; ++j) {
-      const float* vr = vbase + (size_t)Rs[j] * hstride;
+      const KV* vr = vbase + (size_t)Rs[j] * hstride;
+      const float vsc = Q8 ? Vs[j] : 1.f;
 #pragma unroll
       for (int i = 0; i < NP; ++i) {
         const int idx = lane + 32 * i;
         if (idx < GC) {
           const int g = idx / C, c = idx - g * C;
-          const float4 vv = ldg4(vr + 4 * c);
+          const float4 vv = load4(vr + 4 * c, vsc);
           const float p = Ps[g * kCcTile + j];
           acc[i].x += p * vv.x;
           acc[i].y += p * vv.y;
@@ -656,23 +784,27 @@ inline int with_instance(int Dh, int G, F&& f) {
   }
 }
 
-template <int DH, int MT>
-inline size_t decode_smem_bytes(int G, float) { return cc_smem_bytes(DH, G); }
-template <int DH, int MT>
-inline size_t decode_smem_bytes(int G, __nv_bfloat16) {
-  return tc_smem_bytes(DH, MT, G);
+template <typename T, typename KV, int DH, int MT>
+inline size_t decode_smem_bytes(int G) {
+  if constexpr (sizeof(T) == 2) return tc_smem_bytes<DH, kInt8Kv<KV>>(MT, G);
+  return cc_smem_bytes(DH, G);
 }
 
-// Fills the launch arguments shared by both kernels.
-template <typename T>
-inline DecodeArgs<T> decode_args(const void* q, const void* k, const void* v,
-                                 const void* pos, void* out, void* part,
-                                 void* arrivals, int H, int Hkv, int Dh,
-                                 int s_len, int ring, int L, int n_split) {
-  DecodeArgs<T> a;
+// Fills the launch arguments shared by both kernels; k_scale and v_scale
+// are null for a float cache.
+template <typename T, typename KV = T>
+inline DecodeArgs<T, KV> decode_args(const void* q, const void* k,
+                                     const void* v, const void* k_scale,
+                                     const void* v_scale, const void* pos,
+                                     void* out, void* part, void* arrivals,
+                                     int H, int Hkv, int Dh, int s_len,
+                                     int ring, int L, int n_split) {
+  DecodeArgs<T, KV> a;
   a.q = static_cast<const T*>(q);
-  a.k = static_cast<const T*>(k);
-  a.v = static_cast<const T*>(v);
+  a.k = static_cast<const KV*>(k);
+  a.v = static_cast<const KV*>(v);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
   a.pos = static_cast<const int*>(pos);
   a.out = static_cast<T*>(out);
   a.part = static_cast<float*>(part);
@@ -688,20 +820,21 @@ inline DecodeArgs<T> decode_args(const void* q, const void* k, const void* v,
   return a;
 }
 
-// Launches Kernels::get<T, DH, MT>() (the calling source's __global__
+// Launches Kernels::get<T, KV, DH, MT>() (the calling source's __global__
 // template at the body instance that takes Dh and G) over the grid
 // (n_split, Hkv, B), after checking the shape and the plan.
-template <typename T, typename Kernels, typename Slots>
-inline int launch_decode(const DecodeArgs<T>& a, Slots slots, int B, int Dh,
-                         cudaStream_t stream) {
+template <typename T, typename KV, typename Kernels, typename Slots>
+inline int launch_decode(const DecodeArgs<T, KV>& a, Slots slots, int B,
+                         int Dh, cudaStream_t stream) {
   if (!decode_shape_ok(a.H, a.Hkv, Dh) ||
       !decode_plan_ok(a.s_len, a.L, a.n_split) ||
-      (a.n_split > 1 && (a.part == nullptr || a.arrivals == nullptr)))
+      (a.n_split > 1 && (a.part == nullptr || a.arrivals == nullptr)) ||
+      (kInt8Kv<KV> && (a.k_scale == nullptr || a.v_scale == nullptr)))
     return cudaErrorInvalidValue;
   return with_instance<T>(Dh, a.G, [&](auto inst) -> int {
     constexpr int DH = decltype(inst)::DH, MT = decltype(inst)::MT;
-    auto kern = Kernels::template get<T, DH, MT>();
-    const size_t smem = decode_smem_bytes<DH, MT>(a.G, T());
+    auto kern = Kernels::template get<T, KV, DH, MT>();
+    const size_t smem = decode_smem_bytes<T, KV, DH, MT>(a.G);
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3(a.n_split, a.Hkv, B), kDecThreads, smem, stream>>>(a, slots);

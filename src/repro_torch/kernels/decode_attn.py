@@ -6,6 +6,16 @@ Replaces ``repro/kernels/decode_attn.py:flash_decode`` (Pallas TPU).
 The plain PyTorch version is ``kernels/ref.py:flash_decode_ref``; the
 split-and-merge algebra of the kernel is ``ref.split_kv_decode_ref``.
 
+``flash_decode_int8`` runs the same kernel over an int8 cache: int8
+codes (B,S,Hkv,Dh) and one f32 scale per (slot, kv head) (B,S,Hkv), as
+the reference's int8 KV variant stores them.  The block streams the
+codes and scales and forms ``code * scale`` in f32, rounded to q's
+dtype, which is ``dequantize_kv(codes, scale, q.dtype)``; the rest is the
+body above, on the same plan.  The reference dequantizes in jnp under
+the scope ``vmem_fused:flash_decode_int8`` (``repro/models/
+attention.py:self_attn_decode``); its plain version is
+``ref.flash_decode_int8_ref``.
+
 The kernel is split-KV: block (i, kvh, b) streams slots ``[i L, (i+1)
 L)`` of row b and the last live block of each (b, kvh) merges the
 partials in split order, in the same launch.  ``plan`` picks ``L`` and
@@ -73,6 +83,26 @@ def scratch(q: torch.Tensor, Hkv: int, s_len: int):
     return p, part, runtime.arrival_counters(q.device, B * Hkv)
 
 
+def check_int8_kv(kernel: str, q, k_codes, v_codes, k_scale, v_scale,
+                  shape) -> None:
+    """int8 codes of ``shape`` (..., Hkv, Dh) and f32 scales of
+    ``shape[:-1]``, contiguous, on q's card; the codes 16-byte aligned
+    (``runtime.check_operands``)."""
+    runtime.check_operands(kernel, q, k_codes, v_codes, dtype=q.dtype)
+    if (tuple(k_codes.shape) != tuple(shape)
+            or v_codes.shape != k_codes.shape
+            or k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8):
+        raise ValueError(f"{kernel}: codes {tuple(k_codes.shape)} "
+                         f"{k_codes.dtype} / {tuple(v_codes.shape)} "
+                         f"{v_codes.dtype}, want int8 {tuple(shape)}")
+    for s in (k_scale, v_scale):
+        if (tuple(s.shape) != tuple(shape[:-1]) or s.dtype != torch.float32
+                or s.device != q.device or not s.is_contiguous()):
+            raise ValueError(f"{kernel}: scales {tuple(s.shape)} {s.dtype} "
+                             f"on {s.device}, want contiguous float32 "
+                             f"{tuple(shape[:-1])} on {q.device}")
+
+
 def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
     """q: (B,H,Dh) or (B,1,H,Dh); caches: (B,S,Hkv,Dh) on the card;
     pos: (B,).  Returns q's shape."""
@@ -98,4 +128,32 @@ def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
     runtime.check(err, "flash_decode", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_decode"] += 1
     runtime.decode_plans["flash_decode"] = p
+    return out[:, None] if squeeze else out
+
+
+def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
+                      ring: bool = False):
+    """q: (B,H,Dh) or (B,1,H,Dh), f32 or bf16; codes: (B,S,Hkv,Dh) int8
+    and scales (B,S,Hkv) f32 on the card; pos: (B,).  Returns q's
+    shape."""
+    squeeze = q.ndim == 4
+    if squeeze:
+        q = q[:, 0]
+    q = q.contiguous()
+    B, H, Dh = q.shape
+    S, Hkv = k_codes.shape[1], k_codes.shape[2]
+    check_int8_kv("flash_decode_int8", q, k_codes, v_codes, k_scale,
+                  v_scale, (B, S, Hkv, Dh))
+    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    p, part, arrivals = scratch(q, Hkv, S)
+    err = runtime.library().rt_flash_decode_int8(
+        q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        arrivals.data_ptr(), B, S, H, Hkv, Dh, int(ring), p.L, p.n_split,
+        runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
+    runtime.check(err, "flash_decode_int8", f"Dh={Dh}, H={H}, Hkv={Hkv}")
+    runtime.launch_counts["flash_decode_int8"] += 1
+    runtime.decode_plans["flash_decode_int8"] = p
     return out[:, None] if squeeze else out

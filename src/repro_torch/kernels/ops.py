@@ -39,6 +39,30 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
         q, k_pool, v_pool, block_tables, pos, s_len=s_len, ring=ring)
 
 
+def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
+                      ring: bool = False):
+    """One-token decode attention over a contiguous int8 cache (codes
+    and per-(slot, kv head) f32 scales)."""
+    if q.device.type == "cpu":
+        return ref.flash_decode_int8_ref(q, k_codes, v_codes, k_scale,
+                                         v_scale, pos, ring=ring)
+    return decode_attn.flash_decode_int8(q, k_codes, v_codes, k_scale,
+                                         v_scale, pos, ring=ring)
+
+
+def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
+                            block_tables, pos, *, s_len: int,
+                            ring: bool = False):
+    """One-token decode attention over a paged int8 pool."""
+    if q.device.type == "cpu":
+        return ref.paged_flash_decode_int8_ref(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, pos,
+            s_len=s_len, ring=ring)
+    return paged_decode_attn.paged_flash_decode_int8(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, pos,
+        s_len=s_len, ring=ring)
+
+
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
     """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0."""
     if r.device.type == "cpu":

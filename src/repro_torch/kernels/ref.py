@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function computes exactly what its CUDA kernel computes, with the
 reference's jnp math: for attention (``repro/models/attention.py``) f32
@@ -144,6 +144,39 @@ def paged_flash_decode_ref(q, k_pool, v_pool, block_tables, pos, *,
     k_cache = gather_paged_kv(k_pool, block_tables, s_len)
     v_cache = gather_paged_kv(v_pool, block_tables, s_len)
     return flash_decode_ref(q, k_cache, v_cache, pos, ring=ring)
+
+
+def dequantize_kv(codes, scale, dtype=torch.float32):
+    """int8 K/V codes (..., Dh) times their per-(token, head) f32 scales
+    (...), rounded to ``dtype``: ``repro/models/attention.py:
+    dequantize_kv``.  The int8 decode kernels form the same values in
+    registers (the product in f32, then one rounding to q's dtype)."""
+    return (codes.float() * scale[..., None]).to(dtype)
+
+
+def flash_decode_int8_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *,
+                          ring: bool = False):
+    """``flash_decode_ref`` over an int8 cache: codes (B,S,Hkv,Dh) and
+    scales (B,S,Hkv) dequantized to q's dtype, then the plain decode (the
+    reference's ``vmem_fused:flash_decode_int8`` scope)."""
+    return flash_decode_ref(q, dequantize_kv(k_codes, k_scale, q.dtype),
+                            dequantize_kv(v_codes, v_scale, q.dtype), pos,
+                            ring=ring)
+
+
+def paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                block_tables, pos, *, s_len: int,
+                                ring: bool = False):
+    """``paged_flash_decode_ref`` over an int8 pool: codes
+    (n_pages,page,Hkv,Dh) and scales (n_pages,page,Hkv) gathered through
+    the block tables, dequantized to q's dtype, then the plain decode
+    (the reference's ``vmem_fused:paged_flash_decode_int8`` scope)."""
+    def gathered(codes, scale):
+        return dequantize_kv(gather_paged_kv(codes, block_tables, s_len),
+                             gather_paged_kv(scale, block_tables, s_len),
+                             q.dtype)
+    return flash_decode_ref(q, gathered(k_pool, k_scale),
+                            gathered(v_pool, v_scale), pos, ring=ring)
 
 
 def wkv6_ref(r, k, v, w, u, s0, *, state_out=None):

@@ -9,7 +9,8 @@ or loaded at import: the first kernel launch builds, so the CPU tests
 import every module without ``nvcc``.
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches
-its kernel and nowhere else; the prefill wrapper also adds one to
+its kernel and nowhere else (the int8 decode variants count as kernels
+of their own, ``flash_decode_int8`` and ``paged_flash_decode_int8``); the prefill wrapper also adds one to
 ``prefill_body_counts[<body>]`` for the body that launch ran
 (``kernels/flash_prefill.py:body``), and to
 ``prefill_unaligned_counts[<body>]`` when the launch's ``q_offset`` is
@@ -48,7 +49,11 @@ LIB_NAME = "librepro_torch_kernels.so"
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode", "wkv6")
+KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode", "wkv6",
+           "paged_flash_decode_int8", "flash_decode_int8")
+# the decode kernels, each with a decode plan
+DECODE_KERNELS = ("flash_decode", "paged_flash_decode", "flash_decode_int8",
+                  "paged_flash_decode_int8")
 launch_counts = {name: 0 for name in KERNELS}
 # the two bodies of csrc/flash_prefill.cu
 PREFILL_BODIES = ("tensor_core", "cuda_core")
@@ -59,7 +64,7 @@ prefill_unaligned_counts = {name: 0 for name in PREFILL_BODIES}
 
 
 # kernel -> decode_attn.DecodePlan of its last launch
-decode_plans = {"flash_decode": None, "paged_flash_decode": None}
+decode_plans = {name: None for name in DECODE_KERNELS}
 
 
 COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts)
@@ -168,6 +173,12 @@ _SIGNATURES = {
     # q, kp, vp, block_tables, pos, out, part, arrivals, B, n_pages, page,
     # n_p, s_len, H, Hkv, Dh, ring, L, n_split, dtype, stream
     "rt_paged_flash_decode": [_P] * 8 + [_I] * 12 + [_P],
+    # q, k codes, v codes, k scales, v scales, pos, out, part, arrivals,
+    # then as rt_flash_decode
+    "rt_flash_decode_int8": [_P] * 9 + [_I] * 9 + [_P],
+    # q, kp, vp, k scales, v scales, block_tables, pos, out, part,
+    # arrivals, then as rt_paged_flash_decode
+    "rt_paged_flash_decode_int8": [_P] * 10 + [_I] * 12 + [_P],
     # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
     "rt_decode_body": [_I] * 2,
     # r, k, v, w, u, s0, y, sT, B, T, H, hs, dtype, stream

@@ -4,6 +4,7 @@ backend.
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
         --arch qwen3-14b --max-seq-len 4096 [--smoke] [--device cuda|cpu] \\
         [--dtype bf16|f32] [--chunk 512] [--paged --page-size 128] \\
+        [--kv-dtype bf16|int8] \\
         [--requests 16] [--prefix-cache --prefix-scenarios 2] \\
         [--sessions 4 --turns 3 --session-ttl 60] \\
         [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4] \\
@@ -17,6 +18,10 @@ products on the hand-written CUDA kernels when ``--device cuda`` (the
 default; it raises without a card).  ``--chunk N`` enables chunked
 prefill, ``--paged`` swaps the per-slot KV caches for the shared page
 pool (the scheduler then runs the ceil-to-page Eq.-(6) memory model).
+``--kv-dtype int8`` stores K/V as int8 codes with f32 per-(token, head)
+scales (the reference's int8 KV variant): the pool is sized in bytes,
+so the same ``--pool-tokens`` buys about twice the pages, and decode
+runs the int8 decode kernels, which dequantize in registers.
 ``--smoke`` serves the reduced config with the plain PyTorch path
 running on the CPU when ``--device cpu`` is given.  ``--arch rwkv6-3b``
 serves RWKV6 on the contiguous slot pool (its per-slot carry has no K/V
@@ -171,6 +176,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spill-bw", type=float, default=16.0,
                     help="host<->device link bandwidth in GB/s used to "
                          "price spill and restore transfers")
+    ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
+                    help="device KV pool precision: int8 codes with f32 "
+                         "per-(token, head) scales take about half the "
+                         "bytes a token, so the same byte budget holds "
+                         "about twice the pages")
     ap.add_argument("--spill-dtype", default="bf16",
                     choices=["bf16", "int8", "int4"],
                     help="host spill tier precision: int8/int4 keep more "
@@ -208,10 +218,13 @@ def build_parser() -> argparse.ArgumentParser:
 def make_config(args):
     max_seq = args.max_seq_len or (256 if args.smoke else None)
     if args.smoke:
-        return get_smoke_config(args.arch, max_seq_len=max_seq)
-    cfg = get_config(args.arch)
-    if max_seq:
-        cfg = dataclasses.replace(cfg, max_seq_len=max_seq)
+        cfg = get_smoke_config(args.arch, max_seq_len=max_seq)
+    else:
+        cfg = get_config(args.arch)
+        if max_seq:
+            cfg = dataclasses.replace(cfg, max_seq_len=max_seq)
+    if args.kv_dtype == "int8" and cfg.kv_cache_dtype != "int8":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     return cfg
 
 
@@ -295,8 +308,8 @@ def serve(cfg, model, reqs, args, device: torch.device):
     paged_info = ""
     if args.paged:
         be = engine.backend
-        paged_info = (f"pages: {be.alloc.n_pages} x {be.page_size} tok, "
-                      f"free {be.free_blocks()}; "
+        paged_info = (f"pages: {be.alloc.n_pages} x {be.page_size} tok "
+                      f"({args.kv_dtype} pool), free {be.free_blocks()}; "
                       f"peak pool {engine.result.peak_pool}; "
                       f"preemptions {engine.result.preempt_events}; ")
         paged_info += retention_info(engine.result, args)

@@ -15,6 +15,17 @@ out-of-range write (a dead slot whose position ran past a contiguous
 cache), the port masks the write; where it relies on JAX clamping a
 gather, the port clips the index.
 
+int8 KV caches (``cfg.kv_cache_dtype == "int8"``) are 4-tuples ``(k, v,
+k_s, v_s)``: int8 codes and one f32 scale per (token, kv head), from
+:func:`quantize_kv`, with the reference's arithmetic.  The three paths
+attend over what the reference's do: whole-prompt prefill over the
+unquantized K/V (it only stores codes), a prefill chunk over the
+dequantized cache prefix (the chunk's own codes included; the port
+dequantizes ``[0, start + Tc)`` and calls the prefill kernel unchanged),
+and decode through the int8 decode kernels, which dequantize in
+registers (the reference gathers and dequantizes the whole cache in jnp
+first).
+
 The int4 codecs of the host spill tier (``pack_int4`` ...
 ``dequantize_kv_int4``) are numpy, as in the reference: they run on the
 host around the device-to-host copy of a spilled page.
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import dequantize_kv
 
 from . import layers
 from .config import ModelConfig
@@ -52,6 +64,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos, *,
                                   s_len=s_len, ring=bool(window))
 
 
+def quantize_kv(x):
+    """Symmetric per-(token, head) int8: x (..., Dh) -> (codes int8,
+    scale f32 (...)), as ``repro/models/attention.py:quantize_kv``: the
+    scale is max |x| / 127 in f32, at least 1e-8, and the codes are x /
+    scale rounded half to even and clipped to [-127, 127].
+    ``dequantize_kv`` (``kernels/ref.py``) is its inverse."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
 def _project_q(cfg: ModelConfig, p, x):
     B, T, _ = x.shape
     q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
@@ -77,10 +101,23 @@ def _qkv_roped(cfg: ModelConfig, p, x, positions):
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
 
 
-def _check_float_cache(cfg: ModelConfig):
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV caches arrive with the int8 slice of the port")
+def _quantized(cache) -> bool:
+    return len(cache) == 4
+
+
+def _store(cache, index, k, v, where=None) -> None:
+    """Write ``k``/``v`` into ``cache`` at ``index`` (quantized first for
+    an int8 cache, codes and scales alike); with ``where`` (a mask that
+    broadcasts against the K/V), only where it is true."""
+    vals = (*quantize_kv(k), *quantize_kv(v)) if _quantized(cache) \
+        else (k, v)
+    order = (0, 2, 1, 3) if _quantized(cache) else (0, 1)
+    for leaf, j in zip(cache, order):
+        val = vals[j]
+        if where is not None:
+            m = where if val.ndim == where.ndim else where[..., 0]
+            val = torch.where(m, val, leaf[index])
+        leaf[index] = val
 
 
 def self_attn_forward(cfg: ModelConfig, p, x, positions, lengths=None, *,
@@ -92,8 +129,11 @@ def self_attn_forward(cfg: ModelConfig, p, x, positions, lengths=None, *,
     and values are written into it in place: the first S positions, or,
     when ``window`` is below ``cache_len`` (S == window then), a ring of
     each row's last ``window`` live positions.  The cache must be zeroed
-    past what is written, as a fresh ``init_cache`` is.  Returns the
-    attention output (B,T,d)."""
+    past what is written, as a fresh ``init_cache`` is.  An int8 cache
+    ``(k, v, k_s, v_s)`` stores codes and scales and is written whole:
+    the reference quantizes the zero padding past T too, so those slots
+    get scale 1e-8.  Attention runs over the unquantized K/V either way.
+    Returns the attention output (B,T,d)."""
     B, T, _ = x.shape
     if positions.ndim == 1:
         positions = positions[None].expand(B, T)
@@ -102,17 +142,16 @@ def self_attn_forward(cfg: ModelConfig, p, x, positions, lengths=None, *,
                          window=window)
     out = out.reshape(B, T, cfg.q_dim) @ p["wo"]
     if cache is not None:
-        _check_float_cache(cfg)
-        k_cache, v_cache = cache
-        S = k_cache.shape[1]
+        S = cache[0].shape[1]
         if window and window < (cache_len or T):
-            kr, vr = _ring_from_prefill(k, v, lengths, window)
-            k_cache.copy_(kr)
-            v_cache.copy_(vr)
+            _store(cache, slice(None), *_ring_from_prefill(k, v, lengths,
+                                                           window))
         else:
             n = min(T, S)
-            k_cache[:, :n] = k[:, :n]
-            v_cache[:, :n] = v[:, :n]
+            _store(cache, (slice(None), slice(0, n)), k[:, :n], v[:, :n])
+            if _quantized(cache) and n < S:
+                for leaf in cache[2:]:
+                    leaf[:, n:] = 1e-8          # quantize_kv of the zeros
     return out
 
 
@@ -143,29 +182,31 @@ def self_attn_chunk(cfg: ModelConfig, p, x, start: int, cache, active=None):
     cache: (k_cache, v_cache) (B,S,Hkv,Dh), positional (non-ring),
     written in place.  ``active`` (B,) bool freezes rows whose prompt
     ended before ``start``: their cache span is left as it was, which is
-    what the reference's freeze of finished rows restores."""
-    _check_float_cache(cfg)
+    what the reference's freeze of finished rows restores.  An int8 cache
+    ``(k, v, k_s, v_s)`` takes the chunk's codes and scales, and the
+    chunk attends over slots ``[0, start + Tc)`` dequantized to q's dtype
+    (the reference dequantizes the whole cache; the causal mask hides the
+    rest)."""
     B, Tc, _ = x.shape
-    k_cache, v_cache = cache
-    S = k_cache.shape[1]
+    S = cache[0].shape[1]
     if start < 0 or start + Tc > S:
         raise ValueError(f"chunk [{start}, {start + Tc}) outside the "
                          f"cache of {S} slots")
     positions = (start + torch.arange(Tc, device=x.device))[None].expand(
         B, Tc)
     q, k, v = _qkv_roped(cfg, p, x, positions)
-    if active is None:
-        k_cache[:, start:start + Tc] = k
-        v_cache[:, start:start + Tc] = v
+    span = (slice(None), slice(start, start + Tc))
+    _store(cache, span, k, v,
+           None if active is None else active[:, None, None, None])
+    if _quantized(cache):
+        live = (slice(None), slice(0, start + Tc))
+        kd = dequantize_kv(cache[0][live], cache[2][live], q.dtype)
+        vd = dequantize_kv(cache[1][live], cache[3][live], q.dtype)
     else:
-        m = active[:, None, None, None]
-        k_cache[:, start:start + Tc] = torch.where(
-            m, k, k_cache[:, start:start + Tc])
-        v_cache[:, start:start + Tc] = torch.where(
-            m, v, v_cache[:, start:start + Tc])
+        kd, vd = cache
     # every slot past start+Tc is causally hidden (the kernel stops at
     # the last live tile), so no validity bookkeeping is needed
-    out = full_attention(q, k_cache, v_cache, causal=True, q_offset=start)
+    out = full_attention(q, kd, vd, causal=True, q_offset=start)
     return out.reshape(B, Tc, cfg.q_dim) @ p["wo"]
 
 
@@ -173,19 +214,21 @@ def self_attn_decode(cfg: ModelConfig, p, x, pos, cache, *, window: int = 0):
     """One-token decode over a contiguous cache. x: (B,1,d); pos: (B,)
     position of this token.  The new K/V are written in place; a slot
     past the cache (a dead row whose position ran on) is not written,
-    as JAX drops that scatter."""
-    _check_float_cache(cfg)
+    as JAX drops that scatter.  An int8 cache ``(k, v, k_s, v_s)`` takes
+    the token's codes and scales under the same mask, and the int8 decode
+    kernel reads it."""
     B = x.shape[0]
     q, k, v = _qkv_roped(cfg, p, x, pos[:, None])
-    k_cache, v_cache = cache
-    S = k_cache.shape[1]
+    S = cache[0].shape[1]
     slot = torch.remainder(pos, S) if window else pos
     live = (slot < S)[:, None, None]
     slot_c = slot.clamp(max=S - 1).long()
     bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot_c] = torch.where(live, k[:, 0], k_cache[bidx, slot_c])
-    v_cache[bidx, slot_c] = torch.where(live, v[:, 0], v_cache[bidx, slot_c])
-    out = decode_attention(q, k_cache, v_cache, pos, window=window)
+    _store(cache, (bidx, slot_c), k[:, 0], v[:, 0], live)
+    if _quantized(cache):
+        out = ops.flash_decode_int8(q, *cache, pos, ring=bool(window))
+    else:
+        out = decode_attention(q, *cache, pos, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
@@ -195,22 +238,25 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     ``pos`` (``pos % s_len`` for ring caches) lands in page
     ``block_tables[b, slot // page]`` offset ``slot % page``, written in
     place.  Dead slots walk past their table; the clip keeps their write
-    in range (their tables point at the trash page)."""
-    _check_float_cache(cfg)
+    in range (their tables point at the trash page).  An int8 pool
+    ``(k, v, k_s, v_s)`` takes the token's codes and scales at the same
+    place, and the int8 paged decode kernel reads it."""
     B = x.shape[0]
     q, k, v = _qkv_roped(cfg, p, x, pos[:, None])
-    k_pool, v_pool = cache
     n_p = block_tables.shape[1]
     slot = torch.remainder(pos, s_len) if window else pos
     col = torch.clamp(torch.div(slot, page_size, rounding_mode="floor"),
                       0, n_p - 1).long()
     bidx = torch.arange(B, device=x.device)
-    entry = block_tables[bidx, col].long().clamp(0, k_pool.shape[0] - 1)
+    entry = block_tables[bidx, col].long().clamp(0, cache[0].shape[0] - 1)
     off = torch.remainder(slot, page_size).long()
-    k_pool[entry, off] = k[:, 0]
-    v_pool[entry, off] = v[:, 0]
-    out = paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
-                                 s_len=s_len, window=window)
+    _store(cache, (entry, off), k[:, 0], v[:, 0])
+    if _quantized(cache):
+        out = ops.paged_flash_decode_int8(q, *cache, block_tables, pos,
+                                          s_len=s_len, ring=bool(window))
+    else:
+        out = paged_decode_attention(q, *cache, block_tables, pos,
+                                     s_len=s_len, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 

@@ -9,7 +9,8 @@ each block is an :class:`AttnBlock` or :class:`RwkvBlock` module in
 ``Transformer.groups[gi][j][rep]`` and a Python loop over reps replaces
 the scan.  Caches keep the reference's pytree layout — ``{"pos",
 "block_tables", "groups"}`` with ``(reps, ...)`` leaves per pattern slot:
-``k``/``v`` for attention, ``s``/``x_tm``/``x_cm`` for RWKV — so the
+``k``/``v`` for attention (and ``k_s``/``v_s``, the f32 scale planes of
+an int8 cache), ``s``/``x_tm``/``x_cm`` for RWKV — so the
 engine's gather/scatter code ports line for line; they are preallocated
 and updated in place.  Each block reads its own views of its slot's
 leaves (``_slot``).
@@ -55,9 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: encoders arrive with the VLM/encoder slice")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            f"{cfg.name}: int8 KV caches arrive with the int8 slice")
 
 
 class Attention(Params):
@@ -109,22 +107,28 @@ class AttnBlock(nn.Module):
 
     # Each block type takes its cache views and the keyword context of
     # prefill / prefill_chunk / decode_step, and reads what it needs.
+    @staticmethod
+    def _kv(c):
+        """The attention functions' cache tuple: (k, v), or (k, v, k_s,
+        v_s) for an int8 cache."""
+        return tuple(c[k] for k in _KV_KEYS if k in c)
+
     def prefill(self, x, c, *, positions, lengths, window: int,
                 cache_len: int, **_):
         a = attention.self_attn_forward(
             self.cfg, self.attn, self._norm1(x), positions, lengths,
-            window=window, cache=(c["k"], c["v"]), cache_len=cache_len)
+            window=window, cache=self._kv(c), cache_len=cache_len)
         return self._mlp_residual(x + a)
 
     def chunk(self, x, c, *, start: int, active, **_):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
-                                      start, (c["k"], c["v"]), active)
+                                      start, self._kv(c), active)
         return self._mlp_residual(x + a)
 
     def decode(self, x, c, *, pos, window: int, block_tables=None,
                page_size: int = 0, paged_len: int = 0, **_):
         h = self._norm1(x)
-        kv = (c["k"], c["v"])
+        kv = self._kv(c)
         if block_tables is not None:
             a = attention.self_attn_decode_paged(
                 self.cfg, self.attn, h, pos, kv, block_tables,
@@ -259,10 +263,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------- cache ---
+_KV_KEYS = ("k", "v", "k_s", "v_s")
+
+
 def _kv_slot(leading, cfg: ModelConfig, dtype, device):
+    """Zeroed K/V leaves ``leading + (Hkv, Dh)`` in ``dtype``; for an int8
+    cache int8 codes and f32 scale planes ``leading + (Hkv,)``, as the
+    reference's ``init_cache`` makes them."""
     shape = tuple(leading) + (cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.kv_cache_dtype != "int8":
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    codes = dict(dtype=torch.int8, device=device)
+    scales = dict(dtype=torch.float32, device=device)
+    return {"k": torch.zeros(shape, **codes),
+            "v": torch.zeros(shape, **codes),
+            "k_s": torch.zeros(shape[:-1], **scales),
+            "v_s": torch.zeros(shape[:-1], **scales)}
 
 
 def _state_slot(reps: int, batch: int, cfg: ModelConfig, dtype, device):
@@ -292,7 +309,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
                      n_pages: int, page_size: int, dtype=torch.float32,
                      device="cuda"):
     """Paged decode-pool cache: K/V live in a shared page pool
-    ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot, indexed
+    ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot (an int8
+    pool adds its scale planes ``(reps, n_pages, page_size, Hkv)``), indexed
     through ``block_tables`` (batch, ceil(attn_cache_len / page_size));
     the caller owns the table contents.  A recurrent carry stays a
     per-slot tensor, as in ``init_cache``."""

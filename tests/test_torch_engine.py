@@ -226,11 +226,12 @@ def test_rwkv_paged_pool_is_refused():
         TorchEngine(cfg, model, sched, device="cpu", paged=True)
 
 
-def test_retention_and_int8_refusals():
+def test_retention_refusals_and_int8_pool():
     """What the port refuses, with the reason, as the reference does:
     KV retention off the paged pool, or on a config that cannot resume a
-    prefill from cached pages (rwkv6-3b's recurrent carry); and int8 KV
-    caches, which arrive with the int8 slice."""
+    prefill from cached pages (rwkv6-3b's recurrent carry).  An int8 KV
+    cache builds a paged pool of int8 codes and f32 scale planes, with
+    the pages ``paging.device_pool_pages`` gives its byte budget."""
     cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
     model = _model(cfg)
     budget = tcore.MemoryBudget(hbm_bytes_per_device=2 ** 30, n_devices=1,
@@ -251,8 +252,15 @@ def test_retention_and_int8_refusals():
         engine(cfg, model, paged=True, host_pool_tokens=1024)
     cfg8 = get_smoke_config("qwen3-14b", max_seq_len=64,
                             kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        engine(cfg8, model, paged=True)
+    be = engine(cfg8, model, paged=True, page_size=16,
+                kv_pool_tokens=40 * 16).backend
+    assert be.alloc.n_pages == \
+        tcore.paging.device_pool_pages(cfg8, 40 * 16, 16) - 1
+    assert be.alloc.n_pages >= 1.8 * (40 - 1)
+    slot = be.pool_cache["groups"][0][0]
+    assert slot["k"].dtype == torch.int8 and slot["v"].dtype == torch.int8
+    assert slot["k_s"].shape == slot["k"].shape[:-1]
+    assert slot["k_s"].dtype == torch.float32
 
 
 def test_chunked_prefill_cache_allocated_once_per_job(monkeypatch):

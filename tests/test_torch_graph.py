@@ -269,11 +269,13 @@ def test_decode_graph_counts_each_replay_as_its_captured_launches():
             g.replay()
             assert runtime.launch_counts == {
                 "flash_prefill": 5, "paged_flash_decode": 3 * k,
-                "flash_decode": 0, "wkv6": 2 * k}
+                "flash_decode": 0, "wkv6": 2 * k,
+                "paged_flash_decode_int8": 0, "flash_decode_int8": 0}
             assert runtime.prefill_body_counts == {"tensor_core": 5,
                                                    "cuda_core": 0}
-            assert runtime.decode_plans == {"flash_decode": None,
-                                            "paged_flash_decode": plan}
+            assert runtime.decode_plans == {
+                "flash_decode": None, "paged_flash_decode": plan,
+                "flash_decode_int8": None, "paged_flash_decode_int8": None}
         assert g.replays == 3 and len(buffers) == DecodeGraph.WARMUP + 1
         assert g.graph.calls == ["begin", "end"] + ["replay"] * 3
         assert g.pool_bytes == 0 and g.capture_seconds >= 0

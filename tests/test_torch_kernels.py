@@ -981,6 +981,150 @@ def test_cuda_decode_split_grid_and_bits(pool, dtype, cuda_exact_f32):
     assert torch.equal(a, b)
 
 
+def _int8(rng, shape, dev):
+    """int8 codes of ``shape`` and f32 scales of ``shape[:-1]`` on the
+    card."""
+    codes = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-3, 0.05, shape[:-1])
+                             .astype(np.float32))
+    return codes.to(dev), scale.to(dev)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_decode_int8(shape, dtype, cuda_exact_f32):
+    """The int8 contiguous kernel against its plain version, and bit for
+    bit against the float kernel over the dequantized cache (the same
+    plan: the int8 body forms exactly dequantize_kv's values)."""
+    dev = cuda_exact_f32
+    B, S, H, Hkv, Dh, ring = shape
+    rng = np.random.default_rng(S + Dh)
+    q = _t(_normal(rng, (B, H, Dh), dtype), dtype, dev)
+    kc, ks = _int8(rng, (B, S, Hkv, Dh), dev)
+    vc, vs = _int8(rng, (B, S, Hkv, Dh), dev)
+    pos = torch.tensor([S // 3, 2 * S + 5][:B] if ring else
+                       [S - 1, S // 2][:B], dtype=torch.int32, device=dev)
+    n0 = runtime.launch_counts["flash_decode_int8"]
+    got = ops.flash_decode_int8(q, kc, vc, ks, vs, pos, ring=ring)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts["flash_decode_int8"] == n0 + 1
+    want = ref.flash_decode_int8_ref(q, kc, vc, ks, vs, pos, ring=ring)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_cuda_tol(dtype))
+    same = ops.flash_decode(q, ref.dequantize_kv(kc, ks, q.dtype),
+                            ref.dequantize_kv(vc, vs, q.dtype), pos,
+                            ring=ring)
+    assert torch.equal(got, same)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_paged_flash_decode_int8(shape, dtype, cuda_exact_f32):
+    """The int8 paged kernel against its plain version, bit for bit
+    against the float paged kernel over the dequantized pool, and equal
+    to the int8 contiguous kernel over the gathered cache."""
+    dev = cuda_exact_f32
+    B, S, H, Hkv, Dh, page, ring = shape
+    rng = np.random.default_rng(S + page)
+    n_p = -(-S // page)
+    n_pages = B * n_p + 3
+    q = _t(_normal(rng, (B, H, Dh), dtype), dtype, dev)
+    kp, ks = _int8(rng, (n_pages, page, Hkv, Dh), dev)
+    vp, vs = _int8(rng, (n_pages, page, Hkv, Dh), dev)
+    bt = torch.from_numpy(rng.permutation(n_pages)[:B * n_p].reshape(
+        B, n_p).astype(np.int32)).to(dev)
+    pos = torch.tensor([2 * S + 5, S // 3][:B] if ring else
+                       [S - 1, S // 2][:B], dtype=torch.int32, device=dev)
+    n0 = runtime.launch_counts["paged_flash_decode_int8"]
+    got = ops.paged_flash_decode_int8(q, kp, vp, ks, vs, bt, pos, s_len=S,
+                                      ring=ring)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts["paged_flash_decode_int8"] == n0 + 1
+    want = ref.paged_flash_decode_int8_ref(q, kp, vp, ks, vs, bt, pos,
+                                           s_len=S, ring=ring)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_cuda_tol(dtype))
+    same = ops.paged_flash_decode(q, ref.dequantize_kv(kp, ks, q.dtype),
+                                  ref.dequantize_kv(vp, vs, q.dtype), bt,
+                                  pos, s_len=S, ring=ring)
+    assert torch.equal(got, same)
+    contig = ops.flash_decode_int8(
+        q, *(ref.gather_paged_kv(t, bt, S).contiguous()
+             for t in (kp, vp, ks, vs)), pos, ring=ring)
+    np.testing.assert_allclose(_f32(got), _f32(contig), **_cuda_tol(dtype))
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", sorted(MAIN_DECODE_POS))
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_int8_main_widths(case, pool, dtype, cuda_exact_f32):
+    """Both int8 kernels at the main widths (B = 8 over 4096 slots, rows
+    of every length, wrapped rings): against the plain version at the
+    main path's tolerance, bit for bit against the float kernel over the
+    dequantized cache with the same plan, and over two calls."""
+    dev = cuda_exact_f32
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    B, S, page = 8, 4096, 128
+    rng = np.random.default_rng(12)
+    q = _t(_normal(rng, (B, H, Dh), dtype), dtype, dev)
+    kc, ks = _int8(rng, (B, S, Hkv, Dh), dev)
+    vc, vs = _int8(rng, (B, S, Hkv, Dh), dev)
+    posl, ring = MAIN_DECODE_POS[case]
+    pos = torch.tensor(posl, dtype=torch.int32, device=dev)
+    want = ref.flash_decode_int8_ref(q, kc, vc, ks, vs, pos, ring=ring)
+    if pool == "contiguous":
+        def call():
+            return ops.flash_decode_int8(q, kc, vc, ks, vs, pos, ring=ring)
+        same = ops.flash_decode(q, ref.dequantize_kv(kc, ks, q.dtype),
+                                ref.dequantize_kv(vc, vs, q.dtype), pos,
+                                ring=ring)
+        kernel = "flash_decode_int8"
+    else:
+        n_p = S // page
+        bt = torch.from_numpy(rng.permutation(B * n_p + 1)[:B * n_p]
+                              .reshape(B, n_p).astype(np.int32)).to(dev)
+        pools = []
+        for t in (kc, vc, ks, vs):
+            p = t.new_zeros((B * n_p + 1, page) + tuple(t.shape[2:]))
+            p[bt.reshape(-1).long()] = t.reshape((B * n_p, page)
+                                                 + tuple(t.shape[2:]))
+            pools.append(p)
+
+        def call():
+            return ops.paged_flash_decode_int8(q, *pools, bt, pos, s_len=S,
+                                               ring=ring)
+        same = ops.paged_flash_decode(
+            q, ref.dequantize_kv(pools[0], pools[2], q.dtype),
+            ref.dequantize_kv(pools[1], pools[3], q.dtype), bt, pos,
+            s_len=S, ring=ring)
+        kernel = "paged_flash_decode_int8"
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               **_cuda_main_tol(dtype))
+    assert torch.equal(got, same) and torch.equal(got, again)
+    assert runtime.decode_plans[kernel] == decode_kernel.plan(
+        B, Hkv, S, q.dtype, Dh)
+
+
+@needs_cuda
+def test_cuda_decode_int8_refuses_bad_scales(cuda_exact_f32):
+    """Scales must be f32 of the codes' shape without Dh, contiguous,
+    on the card."""
+    dev = cuda_exact_f32
+    rng = np.random.default_rng(0)
+    q = _t(_normal(rng, (1, 4, 64), "bfloat16"), "bfloat16", dev)
+    kc, ks = _int8(rng, (1, 128, 2, 64), dev)
+    pos = torch.tensor([5], dtype=torch.int32, device=dev)
+    for bad in (ks.double(), ks[:, :64], ks.cpu(),
+                ks.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="scales"):
+            ops.flash_decode_int8(q, kc, kc, bad, ks, pos)
+    with pytest.raises(ValueError, match="codes"):
+        ops.flash_decode_int8(q, kc.float(), kc, ks, ks, pos)
+
+
 @needs_cuda
 def test_cuda_decode_body_rule_matches_c(cuda_exact_f32):
     """The wrapper's decode body rule is the one the C launch applies."""

@@ -1,6 +1,7 @@
 """The port's model path against the JAX reference, with the same weights.
 
-For the qwen3-14b and llama2-13b smoke configs at f32, the reference's
+For the qwen3-14b, llama2-13b, yi-6b and stablelm-1.6b smoke configs at
+f32, the reference's
 ``init_params`` weights go through ``repro_torch/bridge.py``; the same
 numpy inputs then run through ``repro.models.transformer`` and
 ``repro_torch.models.transformer``: ``prefill``, ``prefill_chunk`` at
@@ -23,7 +24,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import transformer as ttfm
 
-ARCHS = ["qwen3-14b", "llama2-13b"]
+ARCHS = ["qwen3-14b", "llama2-13b", "yi-6b", "stablelm-1.6b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
 CACHE_TOL = dict(atol=2e-5, rtol=2e-4)
 

@@ -58,7 +58,9 @@ def test_sources_name_no_jax_or_reference_import():
 COPIED = [f"core/{m}.py" for m in (
     "request", "bucket", "batcher", "scheduler", "monitor", "serving_loop",
     "paging", "prefix_cache", "retention", "telemetry", "faults",
-    "recovery")] + ["models/config.py", "data/workload.py", "data/trace.py"]
+    "recovery")] + ["models/config.py", "data/workload.py", "data/trace.py"] \
+    + [f"configs/{m}.py" for m in ("yi_6b", "stablelm_1_6b", "llama2_13b",
+                                   "rwkv6_3b")]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -107,6 +109,31 @@ def test_cpu_serve_launcher_prints_the_summary(capsys):
     assert "prefill shapes:" in out and "buckets: [" in out
     assert "kernel launches: flash_prefill 0, paged_flash_decode 0, " \
            "flash_decode 0" in out
+
+
+def test_cpu_serve_launcher_serves_an_int8_pool(capsys):
+    """``--kv-dtype int8`` serves every request over an int8 paged pool
+    and names it in the summary, with the pages the same byte budget buys
+    at int8 (about twice the bf16 pool's)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.paging import device_pool_pages
+    from repro_torch.launch import serve
+    pages = {}
+    for kv in ("bf16", "int8"):
+        serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",
+                    "--requests", "4", "--paged", "--page-size", "32",
+                    "--chunk", "64", "--slots", "4", "--kv-dtype", kv])
+        out = capsys.readouterr().out
+        assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
+        m = re.search(rf"pages: (\d+) x 32 tok \({kv} pool\), free (\d+)",
+                      out)
+        assert m and m[1] == m[2], out
+        pages[kv] = int(m[1])
+    cfg8 = get_smoke_config("qwen3-14b", max_seq_len=256,
+                            kv_cache_dtype="int8")
+    assert pages["int8"] == device_pool_pages(cfg8, 4 * 256, 32) - 1
+    assert pages["int8"] >= 1.8 * pages["bf16"]
+    assert "paged_flash_decode_int8 0" in out
 
 
 def test_cpu_serve_launcher_resumes_sessions_and_spills(capsys):
