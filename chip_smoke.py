@@ -38,7 +38,9 @@ goes through these phases, each printing its own lines:
    on the card) against the same engine run eagerly
    (``decode_graph=False``) and on the CPU, f32, on the paged and the
    contiguous qwen3-14b pools and the rwkv6-3b carry pool: ids
-   identical, launch counts equal;
+   identical, launch counts equal; the same for smoke llama2-13b (MHA,
+   G = 1) on both pools, whose paged ids must also equal the contiguous
+   ones;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
    Qwen3-14B (bf16, random weights from a seeded generator on the card,
    cache length 4096), paged pool with chunked prefill, then a short
@@ -100,7 +102,24 @@ goes through these phases, each printing its own lines:
    against 66 int8 pages; and an int8 pool with an int8 spill tier
    (spills and restores, a page of codes and scales byte-identical
    through the tier);
-9. rwkv6-3b: the Qwen3-14B model is freed and full-width, full-depth
+9. paper (the paper's own model): the Qwen3-14B model is freed and
+   full-width, full-depth llama2-13b (bf16, seeded random weights, its
+   native 4096-token cache) is built; both decode kernels at its widths
+   (B = 8, H = Hkv = 40, Dh 128 over 4096 slots, contexts 2048 and
+   4096) and a 512-token prefill chunk at offset 1536, each against its
+   plain version and timed beside its bound and SDPA, with the decode
+   split the rule picks; the fits of the cost model's ``H100`` spec
+   (``core/hardware.py``: ``bw_eff`` from a profiled graph-mode decode
+   step, ``mfu`` from an 8 x 512 prefill chunk, ``link_bw`` from a 1 GiB
+   copy), each beside the spec's constant; the 12 requests at t = 0
+   served eagerly and with the graph (ids and launch counts identical,
+   formed batches equal to the cost model's on the same requests); then
+   32 requests of the launcher's mixed workload arriving at 8 req/s,
+   served under BucketServe (waste trigger) and under the DistServe-like
+   baseline on fresh engines (every request finished, every page free
+   after each run), each with the cost model's prediction on the same
+   requests (TTFT, TPOT, makespan) beside the measurement;
+10. rwkv6-3b: the llama2-13b model is freed and full-width, full-depth
    rwkv6-3b is served the same way on the contiguous pool (eager, then
    with the graph), and profiled (eager and graph).
    Launch counts are zeroed before each serve run and read after it (a
@@ -108,7 +127,7 @@ goes through these phases, each printing its own lines:
    every kernel must have been launched by the path it belongs to, every
    bf16 ``flash_prefill`` launch through the tensor-core body, and
    ``wkv6`` exactly 32 times per prefill chunk and per decode step;
-10. the kernel table as one JSON line (launches from the serve runs:
+11. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
    from the int8 runs), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -401,88 +420,32 @@ def kernel_phase(torch):
         Tc, off, S = 512, 1536, 4096
         q, k, v = rnd((1, Tc, H, Dh), dt), rnd((1, S, Hkv, Dh), dt), \
             rnd((1, S, Hkv, Dh), dt)
-        got = prefill(q, k, v, q_offset=off)
-        err = assert_close(torch, f"flash_prefill chunk {dt}", got,
-                           ref.flash_prefill_ref(q, k, v, q_offset=off), tol)
-        worst[f"flash_prefill chunk 512@1536/4096 {dt}"] = err
+        row = chunk_case(torch, q, k, v, off, tol, f"chunk {dt}", timed)
+        worst[f"flash_prefill chunk 512@1536/4096 {dt}"] = row["max_abs_err"]
         if timed:
-            live = off + Tc                   # keys the causal mask reaches
-            pairs = Tc * off + Tc * (Tc + 1) // 2
-            b_ms, b_by = bound_ms(
-                esz * (2 * Tc * H * Dh + 2 * live * Hkv * Dh),
-                4.0 * pairs * H * Dh, dt)
-            mask = (torch.arange(Tc, device=dev)[:, None] + off
-                    >= torch.arange(S, device=dev)[None])
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            rows["flash_prefill chunk 512@1536/4096"] = dict(
-                ms=time_ms(torch, lambda: ops.flash_prefill(
-                    q, k, v, q_offset=off), 10),
-                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
-                    q, k, v, q_offset=off), 5, 1),
-                library_ms=time_ms(torch, lambda: sdpa(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 10),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        del q, k, v, got
+            rows["flash_prefill chunk 512@1536/4096"] = row
+        del q, k, v
 
         # decode: B = 8 at context 2048 over 4096-slot caches, page 128
         B, S, ctx, page = 8, 4096, 2048, 128
         q = rnd((B, H, Dh), dt)
         kc, vc = rnd((B, S, Hkv, Dh), dt), rnd((B, S, Hkv, Dh), dt)
+        kp, vp, bt = paged_copy(torch, kc, vc, page, gen)
         pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
-        kv_bytes = esz * 2 * B * ctx * Hkv * Dh
-        io_bytes = esz * 2 * B * H * Dh + 4 * B
-        flops = 4.0 * B * H * ctx * Dh
-        got = ops.flash_decode(q, kc, vc, pos)
-        err = assert_close(torch, f"flash_decode main {dt}", got,
-                           ref.flash_decode_ref(q, kc, vc, pos), tol)
-        worst[f"flash_decode B=8 ctx=2048 {dt}"] = err
-        plan = runtime.decode_plans["flash_decode"]
-        log("kernels", f"flash_decode B=8 S={S} {dt}: n_split "
-            f"{plan.n_split}, L {plan.L}, {plan.body} body")
+        case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
+                           f"main {dt}", timed)
+        for name, row in case.items():
+            key = f"{name} B=8 ctx=2048" + (" page=128" if "paged" in name
+                                            else "")
+            worst[f"{key} {dt}"] = row["max_abs_err"]
+            plan = row["plan"]
+            log("kernels", f"{name} B=8 S={S} {dt}: n_split "
+                f"{plan.n_split}, L {plan.L}, {plan.body} body")
+            if timed:
+                rows[key] = row
         if timed:
-            dmask = (torch.arange(S, device=dev)[None]
-                     <= pos[:, None])[:, None, None]
-            q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-            sdpa_decode = time_ms(torch, lambda: sdpa(
-                q4, kt, vt, attn_mask=dmask, enable_gqa=True), 20)
-            b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops, dt)
-            rows["flash_decode B=8 ctx=2048"] = dict(
-                ms=time_ms(torch, lambda: ops.flash_decode(q, kc, vc, pos),
-                           50),
-                plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
-                    q, kc, vc, pos), 10),
-                library_ms=sdpa_decode, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err, plan=plan)
-            decode_split_sweep(torch, q, kc, vc, plan.L)
-
-        n_p = S // page
-        n_pages = B * n_p + 1
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
-        bt = perm[:B * n_p].reshape(B, n_p).to(torch.int32)
-        kp = torch.zeros((n_pages, page, Hkv, Dh), dtype=kc.dtype, device=dev)
-        vp = torch.zeros_like(kp)
-        kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
-        vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
-        got = ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=S)
-        err = max(assert_close(torch, f"paged_flash_decode main {dt}", got,
-                               ref.paged_flash_decode_ref(
-                                   q, kp, vp, bt, pos, s_len=S), tol),
-                  assert_close(torch, f"paged vs contiguous main {dt}", got,
-                               ref.flash_decode_ref(q, kc, vc, pos), tol))
-        worst[f"paged_flash_decode B=8 ctx=2048 page=128 {dt}"] = err
-        plan = runtime.decode_plans["paged_flash_decode"]
-        log("kernels", f"paged_flash_decode B=8 S={S} page={page} {dt}: "
-            f"n_split {plan.n_split}, L {plan.L}, {plan.body} body")
-        if timed:
-            b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
-                                  flops, dt)
-            rows["paged_flash_decode B=8 ctx=2048 page=128"] = dict(
-                ms=time_ms(torch, lambda: ops.paged_flash_decode(
-                    q, kp, vp, bt, pos, s_len=S), 50),
-                plain_ms=time_ms(torch, lambda: ref.paged_flash_decode_ref(
-                    q, kp, vp, bt, pos, s_len=S), 10),
-                library_ms=None, sdpa_contiguous_ms=sdpa_decode,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, plan=plan)
+            decode_split_sweep(torch, q, kc, vc,
+                               case["flash_decode"]["plan"].L)
 
         # rows of every length and wrapped rings, both pools, each kernel
         # called twice: the two calls must give the same bits
@@ -508,12 +471,19 @@ def kernel_phase(torch):
             f" agree with the plain versions (paged also with the "
             f"contiguous kernel), and two calls of each kernel give the "
             f"same bits")
-        del q, kc, vc, kp, vp, got
+        del q, kc, vc, kp, vp
         torch.cuda.empty_cache()
 
     log("kernels", "main-path shapes agree with the plain versions (f32 "
         "atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2); max abs err: "
         + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    log_rows("kernels", rows)
+    return rows
+
+
+def log_rows(phase, rows):
+    """One line a timed kernel row: its time, its plain version's, its
+    bound, SDPA's, the decode split where it has one, its error."""
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         extra = (f", sdpa on the gathered cache {r['sdpa_contiguous_ms']:.4f}"
@@ -521,11 +491,115 @@ def kernel_phase(torch):
         if "plan" in r:
             extra += (f"; n_split {r['plan'].n_split}, L {r['plan'].L}, "
                       f"{r['plan'].body} body")
-        log("kernels", f"{name}: kernel {r['ms']:.4f} ms, plain "
+        log(phase, f"{name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), sdpa {lib} ms{extra}, max abs err "
             f"{r['max_abs_err']:.3g}")
+
+
+def paged_copy(torch, kc, vc, page, gen):
+    """Contiguous caches (B, S, Hkv, Dh) scattered into a page pool in a
+    random page order, with one spare page: (k pool, v pool, block
+    tables)."""
+    B, S, Hkv, Dh = kc.shape
+    n_p = S // page
+    n_pages = B * n_p + 1
+    bt = torch.randperm(n_pages - 1, generator=gen, device=kc.device)[
+        :B * n_p].reshape(B, n_p).to(torch.int32)
+    kp = torch.zeros((n_pages, page, Hkv, Dh), dtype=kc.dtype,
+                     device=kc.device)
+    vp = torch.zeros_like(kp)
+    kp[bt.reshape(-1).long()] = kc.reshape(B * n_p, page, Hkv, Dh)
+    vp[bt.reshape(-1).long()] = vc.reshape(B * n_p, page, Hkv, Dh)
+    return kp, vp, bt
+
+
+def decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol, label, timed):
+    """Both decode kernels on rows ``pos`` (one context for all) of the
+    contiguous cache (kc, vc) and of the same cache paged (kp, vp through
+    bt): each against its plain version, the paged kernel also against
+    the contiguous plain version.  With ``timed`` each is also timed
+    beside its plain version, SDPA on the contiguous cache and the
+    card's bound for the live context.  Returns {kernel: row}, each row
+    with its max abs error and the split its call took."""
+    from repro_torch.kernels import ops, ref, runtime
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, esz = str(q.dtype).split(".")[-1], q.element_size()
+    B, H, Dh = q.shape
+    S, Hkv, page = kc.shape[1], kc.shape[2], kp.shape[1]
+    want = ref.flash_decode_ref(q, kc, vc, pos)
+    err = assert_close(torch, f"flash_decode {label}",
+                       ops.flash_decode(q, kc, vc, pos), want, tol)
+    rows = {"flash_decode": dict(max_abs_err=err,
+                                 plan=runtime.decode_plans["flash_decode"])}
+    got = ops.paged_flash_decode(q, kp, vp, bt, pos, s_len=S)
+    err = max(assert_close(torch, f"paged_flash_decode {label}", got,
+                           ref.paged_flash_decode_ref(q, kp, vp, bt, pos,
+                                                      s_len=S), tol),
+              assert_close(torch, f"paged vs contiguous {label}", got, want,
+                           tol))
+    rows["paged_flash_decode"] = dict(
+        max_abs_err=err, plan=runtime.decode_plans["paged_flash_decode"])
+    if not timed:
+        return rows
+    ctx = int(pos.max()) + 1
+    kv_bytes = esz * 2 * B * ctx * Hkv * Dh
+    io_bytes = esz * 2 * B * H * Dh + 4 * B
+    flops = 4.0 * B * H * ctx * Dh
+    dmask = (torch.arange(S, device=q.device)[None]
+             <= pos[:, None])[:, None, None]
+    q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa_ms = time_ms(torch, lambda: sdpa(q4, kt, vt, attn_mask=dmask,
+                                          enable_gqa=True), 20)
+    b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops, dt)
+    rows["flash_decode"].update(
+        ms=time_ms(torch, lambda: ops.flash_decode(q, kc, vc, pos), 50),
+        plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
+            q, kc, vc, pos), 10),
+        library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
+                          flops, dt)
+    rows["paged_flash_decode"].update(
+        ms=time_ms(torch, lambda: ops.paged_flash_decode(
+            q, kp, vp, bt, pos, s_len=S), 50),
+        plain_ms=time_ms(torch, lambda: ref.paged_flash_decode_ref(
+            q, kp, vp, bt, pos, s_len=S), 10),
+        library_ms=None, sdpa_contiguous_ms=sdpa_ms, bound_ms=b_ms,
+        bound_by=b_by)
     return rows
+
+
+def chunk_case(torch, q, k, v, off, tol, label, timed):
+    """``flash_prefill`` on a chunk of queries at ``q_offset`` ``off``
+    over the cache (k, v), through the body its dtype and head dim name,
+    against its plain version.  With ``timed`` also timed beside its
+    plain version, SDPA under the same causal mask and the card's bound
+    for the keys the mask reaches.  Returns the row."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, esz = str(q.dtype).split(".")[-1], q.element_size()
+    _, Tc, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    row = dict(max_abs_err=assert_close(
+        torch, f"flash_prefill {label}", prefill(q, k, v, q_offset=off),
+        ref.flash_prefill_ref(q, k, v, q_offset=off), tol))
+    if not timed:
+        return row
+    pairs = Tc * off + Tc * (Tc + 1) // 2
+    b_ms, b_by = bound_ms(esz * (2 * Tc * H * Dh + 2 * (off + Tc) * Hkv * Dh),
+                          4.0 * pairs * H * Dh, dt)
+    mask = (torch.arange(Tc, device=q.device)[:, None] + off
+            >= torch.arange(S, device=q.device)[None])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row.update(
+        ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, q_offset=off),
+                   10),
+        plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+            q, k, v, q_offset=off), 5, 1),
+        library_ms=time_ms(torch, lambda: sdpa(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 10),
+        bound_ms=b_ms, bound_by=b_by)
+    return row
 
 
 def decode_split_sweep(torch, q, kc, vc, L0, scales=()):
@@ -1100,19 +1174,25 @@ def parity_phase(torch, kv_dtype=""):
         f"{worst:.3g}")
 
 
-def to_paged(torch, tfm, cfg, cache, page=16):
+def to_paged(torch, tfm, cfg, cache, page=16, s_len=None):
     """A contiguous prefill cache moved into a paged pool (identity page
-    order plus a trash page), on the cache's device."""
+    order plus a trash page), on the cache's device.  With ``s_len`` past
+    the cache's length the block tables span ``s_len`` slots, and their
+    entries past the cache point at the trash page."""
     dev = cache["pos"].device
     B = cache["pos"].shape[0]
     S = cache["groups"][0][0]["k"].shape[2]
     n_p = S // page
-    paged = tfm.init_paged_cache(cfg, B, S, B * n_p + 1, page,
+    s_len = s_len or S
+    paged = tfm.init_paged_cache(cfg, B, s_len, B * n_p + 1, page,
                                  dtype=cache["groups"][0][0]["k"].dtype,
                                  device=dev)
     paged["pos"] = cache["pos"].clone()
-    paged["block_tables"] = torch.arange(B * n_p, dtype=torch.int32,
-                                         device=dev).reshape(B, n_p)
+    bt = torch.full((B, s_len // page), B * n_p, dtype=torch.int32,
+                    device=dev)
+    bt[:, :n_p] = torch.arange(B * n_p, dtype=torch.int32,
+                               device=dev).reshape(B, n_p)
+    paged["block_tables"] = bt
     for key in cache["groups"][0][0]:               # K/V, and int8 scales
         src = cache["groups"][0][0][key]             # (reps, B, S, Hkv[, Dh])
         dst = paged["groups"][0][0][key]
@@ -1253,6 +1333,20 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype=""):
     return all_ids
 
 
+def paper_smoke(torch):
+    """Smoke llama2-13b (MHA, G = 1) at f32 through ``graph_smoke``: the
+    card's ids equal the CPU's and graph equals eager, on the paged and
+    the contiguous pool; then paged equals contiguous."""
+    ids = graph_smoke(torch, runs=(("llama2-13b", True),
+                                   ("llama2-13b", False)))
+    if ids["llama2-13b", True] != ids["llama2-13b", False]:
+        raise AssertionError(f"llama2-13b smoke: paged ids "
+                             f"{ids['llama2-13b', True]} differ from "
+                             f"contiguous {ids['llama2-13b', False]}")
+    log("graph", "smoke f32 llama2-13b (G = 1): paged ids equal contiguous "
+        f"for {len(ids['llama2-13b', True])} requests")
+
+
 def serve_pair(torch, cfg, make_eng, lengths, max_new, label):
     """The same requests served by an engine run eagerly, then by one
     with its decode graph (the default), in turn: token ids and launch
@@ -1345,23 +1439,25 @@ def requests(lengths, max_new):
 
 def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None,
                 dev="cuda", chunk=512, hbm_bytes=None, page=128,
-                goodput=False, **options):
+                goodput=False, sched=None, **options):
     """A ``ServingEngine`` budgeted with the device's memory unless
     ``hbm_bytes`` is given, under the BucketServe scheduler (the goodput
-    scheduler with ``goodput``); ``options`` passes the engine's other
-    options (KV retention, ``slice_tokens``, ``fault_plan``, ``tracer``)."""
+    scheduler with ``goodput``), or under ``sched`` when one is given;
+    ``options`` passes the engine's other options (KV retention,
+    ``slice_tokens``, ``fault_plan``, ``tracer``)."""
     from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                                   MemoryBudget, SchedulerConfig)
     from repro_torch.core.engine import ServingEngine
     from repro_torch.launch.serve import device_memory_bytes
     dev = torch.device(dev)
-    budget = MemoryBudget(
-        hbm_bytes_per_device=hbm_bytes or device_memory_bytes(dev),
-        n_devices=1, weight_bytes=wbytes)
-    sched = (GoodputScheduler if goodput else BucketServeScheduler)(
-        cfg, budget, SchedulerConfig(
-            max_batch=slots, memory_model="paged" if paged else "sum",
-            page_size=page))
+    if sched is None:
+        budget = MemoryBudget(
+            hbm_bytes_per_device=hbm_bytes or device_memory_bytes(dev),
+            n_devices=1, weight_bytes=wbytes)
+        sched = (GoodputScheduler if goodput else BucketServeScheduler)(
+            cfg, budget, SchedulerConfig(
+                max_batch=slots, memory_model="paged" if paged else "sum",
+                page_size=page))
     return ServingEngine(cfg, model, sched, max_slots=slots,
                          cache_len=cfg.max_seq_len, chunk_tokens=chunk,
                          paged=paged, page_size=page,
@@ -2685,6 +2781,350 @@ def rwkv_profile_phase(torch, cfg, model):
                             cfg, model, tok, cache), "wkv6", "wkv6_kernel")
 
 
+# ---------------------------------------------------------------- paper ---
+PAPER_SLOTS = 8             # prefill batch cap and decode slots
+PAPER_REQUESTS = 32         # the comparison's requests, arriving over time
+PAPER_RPS = 8.0
+PAPER_MAX_NEW = 64          # generated tokens a request, at most
+# llama2-13b attention (MHA, G = 1) at the decode kernels' main shape
+PAPER_ATTN = dict(B=8, H=40, Hkv=40, Dh=128, S=4096)
+
+
+def paper_kernels(torch):
+    """The attention kernels at llama2-13b's widths, bf16: both decode
+    kernels at B = 8 over 4096 slots at contexts 2048 and 4096 (the
+    whole cache), with the split the rule picks, and a 512-token prefill
+    chunk at ``q_offset`` 1536 over 4096; each against its plain version
+    at that shape, timed beside its bound and SDPA's time."""
+    from repro_torch.kernels import decode_attn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tol = MAIN_TOL["bfloat16"]
+    B, H, Hkv, Dh, S = (PAPER_ATTN[k] for k in ("B", "H", "Hkv", "Dh", "S"))
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+    rows = {}
+    q = rnd((B, H, Dh))
+    kc, vc = rnd((B, S, Hkv, Dh)), rnd((B, S, Hkv, Dh))
+    kp, vp, bt = paged_copy(torch, kc, vc, 128, gen)
+    for ctx in (2048, S):
+        pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+        case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
+                           f"llama2 ctx {ctx}", True)
+        rows[f"flash_decode B=8 H=Hkv=40 ctx={ctx}"] = case["flash_decode"]
+        rows[f"paged_flash_decode B=8 H=Hkv=40 ctx={ctx} page=128"] = \
+            case["paged_flash_decode"]
+    p = decode_attn.plan(B, Hkv, S, torch.bfloat16, Dh)
+    log("paper", f"decode split at llama2-13b widths (B {B}, Hkv {Hkv}, S "
+        f"{S}): n_split {p.n_split}, L {p.L}, {B * Hkv * p.n_split} blocks "
+        f"on {torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs, {p.body} body")
+    del q, kc, vc, kp, vp
+
+    q, k, v = rnd((1, 512, H, Dh)), rnd((1, S, Hkv, Dh)), rnd((1, S, Hkv, Dh))
+    rows["flash_prefill H=Hkv=40 chunk 512@1536/4096"] = chunk_case(
+        torch, q, k, v, 1536, tol, "llama2 chunk", True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    log_rows("paper", rows)
+    return rows
+
+
+def paper_fits(torch, cfg, model, wbytes):
+    """The card's figures for ``core/hardware.py``'s ``H100`` spec, each
+    beside the spec's constant: ``bw_eff`` from a graph-mode decode step
+    (B = 8 at context 1024, paged, profiled eagerly and as a graph),
+    ``mfu`` from a 512-token prefill chunk of 8 rows at offset 1536, and
+    ``link_bw`` from a 1 GiB device-to-device copy; with the cost model's
+    time for the same step and chunk."""
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.simulator import CostModel
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    cost = CostModel(cfg, H100)
+    per_tok = cfg.kv_bytes_per_token(2)
+    B, ctx, page = 8, 1024, 128
+    # the prompt and the profiled steps fit in 10 pages a row; the block
+    # tables span the engine's 4096 slots, the rest on the trash page
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=10 * page)
+    paged = to_paged(torch, tfm, cfg, cache, page, s_len=cfg.max_seq_len)
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+    prof = profile_pair(
+        torch, f"llama2-13b full-width decode step, B={B}, context {ctx}, "
+        f"paged", lambda: tfm.decode_step(cfg, model, tok, paged,
+                                          page_size=page,
+                                          paged_len=cfg.max_seq_len),
+        "paged_flash_decode", "decode_kernel")
+    del paged, logits, tok
+    torch.cuda.empty_cache()
+    step_ms = prof["graph"]["wall_ms"]
+    step_bytes = wbytes + B * (ctx + 1) * per_tok
+    bw_eff = step_bytes / (step_ms * 1e-3) / HBM_BYTES_PER_S
+    step_pred = cost.decode_iter_seconds(B * (ctx + 1), B) * 1e3
+
+    Tc, off = 512, 1536
+    toks = torch.randint(0, cfg.vocab_size, (B, off + Tc), device=dev,
+                         dtype=torch.int32)
+    lens = torch.full((B,), off + Tc, dtype=torch.int32, device=dev)
+    cache = tfm.init_cache(cfg, B, off + Tc, torch.bfloat16, dev)
+    for start in range(0, off, Tc):
+        _, cache = tfm.prefill_chunk(cfg, model, toks[:, start:start + Tc],
+                                     cache, start, lens)
+    chunk_ms = time_ms(torch, lambda: tfm.prefill_chunk(
+        cfg, model, toks[:, off:], cache, off, lens), 5, 1)
+    del cache, toks
+    torch.cuda.empty_cache()
+    chunk_flops = 2.0 * cost.p_active * B * Tc + B * (
+        cost._attn_flops(off + Tc) - cost._attn_flops(off))
+    mfu = chunk_flops / (chunk_ms * 1e-3) / PEAK_FLOPS["bfloat16"]
+    chunk_pred = cost.prefill_chunk_seconds(B, off, Tc) * 1e3
+
+    src = torch.empty(2 ** 29, dtype=torch.bfloat16, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(torch, lambda: dst.copy_(src), 10)
+    del src, dst
+    link_bw = 2 ** 30 / (copy_ms * 1e-3)
+    log("paper", f"H100 spec fitted on this card: bw_eff {bw_eff:.4f} "
+        f"(spec {H100.bw_eff}; {step_bytes / 1e9:.2f} GB a graph step in "
+        f"{step_ms:.3f} ms, the cost model's {step_pred:.3f} ms), mfu "
+        f"{mfu:.4f} (spec {H100.mfu}; {chunk_flops / 1e12:.2f} TFLOP a "
+        f"chunk in {chunk_ms:.3f} ms, the cost model's {chunk_pred:.3f} "
+        f"ms), link_bw {link_bw:.4g} B/s (spec {H100.link_bw:.4g}; 1 GiB "
+        f"copied in {copy_ms:.3f} ms)")
+    return dict(bw_eff=bw_eff, mfu=mfu, link_bw=link_bw, step_ms=step_ms,
+                step_pred_ms=step_pred, chunk_ms=chunk_ms,
+                chunk_pred_ms=chunk_pred, copy_ms=copy_ms, profile=prof)
+
+
+def record_formed(sched):
+    """Record every batch ``sched`` forms (request-id tuples) in
+    ``sched.formed``; returns ``sched``."""
+    sched.formed = []
+    form = sched.next_prefill_batch
+
+    def recorded(now):
+        batch = form(now)
+        if batch is not None:
+            sched.formed.append(tuple(r.rid for r in batch.requests))
+        return batch
+    sched.next_prefill_batch = recorded
+    return sched
+
+
+def paper_scheduler(cfg, name, budget):
+    """``bucketserve`` (the paper's waste trigger on the paged memory
+    model) or ``distserve`` (``baselines.DistServeLikeScheduler``), each
+    capped at ``PAPER_SLOTS`` a batch, on ``budget``."""
+    from repro_torch.core import BucketServeScheduler, SchedulerConfig
+    from repro_torch.core.baselines import DistServeLikeScheduler
+    if name == "bucketserve":
+        return BucketServeScheduler(cfg, budget, SchedulerConfig(
+            max_batch=PAPER_SLOTS, trigger="waste", memory_model="paged",
+            page_size=128))
+    return DistServeLikeScheduler(cfg, budget, max_batch=PAPER_SLOTS)
+
+
+def paper_sim(cfg, sched, reqs, pool_tokens, chunk=512, page=128):
+    """The port's cost model on ``core/hardware.py``'s ``H100`` beside an
+    engine run: the engine's disagg loop, slots, chunk, page and pool."""
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.simulator import CostModel, Simulator
+    sim = Simulator(sched, CostModel(cfg, H100), mode="disagg",
+                    decode_slot_cap=PAPER_SLOTS, chunk_tokens=chunk,
+                    paged=True, page_size=page, kv_pool_tokens=pool_tokens,
+                    cache_len=cfg.max_seq_len)
+    return sim, sim.run(reqs)
+
+
+def paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm, dev="cuda",
+                  n=PAPER_REQUESTS, max_new=PAPER_MAX_NEW, chunk=512,
+                  page=128):
+    """BucketServe against the DistServe-like baseline on the same
+    requests with their arrivals: the launcher's ``make_requests`` rules
+    (the mixed dataset at 8 req/s, prompts clipped at ``max_seq_len -
+    16``, generated tokens capped at ``max_new``), each system on a fresh
+    engine with the decode graph in the disagg loop that
+    ``SIM_MODE`` gives both, each budgeted from the one reading ``hbm``;
+    and the cost model on the same requests beside each run.  Gates: every
+    request finished in both runs and in both predictions, and every page
+    free after each run."""
+    from repro_torch.core import MemoryBudget
+    from repro_torch.core.baselines import SIM_MODE
+    from repro_torch.launch import serve as launcher
+    args = launcher.build_parser().parse_args(
+        ["--arch", cfg.name, "--requests", str(n), "--dataset", "mixed",
+         "--rps", str(PAPER_RPS), "--paged"])
+    base = launcher.make_requests(cfg, args, max_new=max_new)
+    budget = MemoryBudget(hbm_bytes_per_device=hbm, n_devices=1,
+                          weight_bytes=wbytes)
+    log("paper", f"{len(base)} requests of the mixed dataset at "
+        f"{PAPER_RPS} req/s over {base[-1].arrival:.2f} s, prompts "
+        f"{min(r.prompt_len for r in base)}-"
+        f"{max(r.prompt_len for r in base)} tokens "
+        f"({sum(r.prompt_len for r in base)} in all), "
+        f"{sum(r.max_new_tokens for r in base)} tokens to generate")
+    out = {}
+    for name in ("bucketserve", "distserve"):
+        if SIM_MODE[name] != "disagg":
+            raise AssertionError(f"{name}: mode {SIM_MODE[name]}")
+        sched = record_formed(paper_scheduler(cfg, name, budget))
+        eng = make_engine(torch, cfg, model, wbytes, True, PAPER_SLOTS,
+                          pool_tokens, dev=dev, chunk=chunk, page=page,
+                          sched=sched)
+        counts, stats, steps = serve_run(torch, cfg, eng, copy.deepcopy(base),
+                                         f"llama2-13b {name}")
+        be, res = eng.backend, eng.result
+        if be.free_blocks() != be.alloc.n_pages:
+            raise AssertionError(f"paper {name}: {be.free_blocks()} of "
+                                 f"{be.alloc.n_pages} pages free")
+        sim_sched = record_formed(paper_scheduler(cfg, name, budget))
+        _, pred = paper_sim(cfg, sim_sched, copy.deepcopy(base), pool_tokens,
+                            chunk, page)
+        if len(pred.finished()) != len(base):
+            raise AssertionError(f"paper {name}: the cost model finished "
+                                 f"{len(pred.finished())}/{len(base)}")
+        buckets = [(b.low, b.up) for b in sched.buckets.buckets] \
+            if hasattr(sched, "buckets") else None
+        row = dict(stats, slo=res.slo_attainment(),
+                   padding_waste=res.padding_waste_ratio(),
+                   kv_util=res.kv_util_time_weighted,
+                   preemptions=res.preempt_events, buckets=buckets,
+                   pages=be.alloc.n_pages, makespan=res.makespan,
+                   prefill_chunks=steps["prefill"],
+                   decode_steps=steps["decode"],
+                   launches={k: counts[k] for k in ATTENTION_KERNELS},
+                   batches=len(sched.formed),
+                   predicted=dict(
+                       tok_s=pred.output_tok_s(),
+                       batches=len(sim_sched.formed),
+                       ttft_p50=pred.p50("ttft"), ttft_p99=pred.p99("ttft"),
+                       tpot_p50=pred.p50("tpot"), makespan=pred.makespan,
+                       slo=pred.slo_attainment(),
+                       padding_waste=pred.padding_waste_ratio(),
+                       preemptions=pred.preempt_events))
+        out[name] = row
+        pr = row["predicted"]
+        log("paper", f"{name}: {row['tok_s']:.1f} tok/s, TTFT p50/p99 "
+            f"{row['ttft_p50']:.3f}/{row['ttft_p99']:.3f} s, TPOT p50 "
+            f"{row['tpot_p50'] * 1e3:.1f} ms, SLO {row['slo']:.3f}, padding "
+            f"waste {row['padding_waste']:.3f}, kv util "
+            f"{row['kv_util']:.3f}, preemptions {row['preemptions']}, "
+            f"buckets {buckets}, {row['batches']} batches formed "
+            f"({row['prefill_chunks']} prefill chunks, "
+            f"{row['decode_steps']} decode steps); {row['pages']} pages, "
+            f"all free after")
+        log("paper", f"{name} cost model (H100 spec) against the card: TTFT "
+            f"p50 {pr['ttft_p50']:.3f} against {row['ttft_p50']:.3f} s, "
+            f"TPOT p50 {pr['tpot_p50'] * 1e3:.1f} against "
+            f"{row['tpot_p50'] * 1e3:.1f} ms, makespan "
+            f"{pr['makespan']:.3f} against {row['makespan']:.3f} s; "
+            f"predicted {pr['tok_s']:.1f} tok/s, SLO {pr['slo']:.3f}, "
+            f"padding waste {pr['padding_waste']:.3f}, preemptions "
+            f"{pr['preemptions']}, {pr['batches']} batches formed: "
+            f"{sim_sched.formed}")
+        del eng, be, res
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def paper_phase(torch):
+    """The paper's own model, llama2-13b, at full width and depth (bf16,
+    seeded random weights, its native 4096-token cache): the kernels at
+    its widths, the ``H100`` spec's fits, the 12-request set at t = 0
+    eagerly and with the graph (ids and launches identical, formed
+    batches equal to the cost model's), then BucketServe against the
+    DistServe-like baseline on 32 requests arriving at 8 req/s with the
+    cost model's prediction beside each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MemoryBudget
+    from repro_torch.launch.serve import default_pool_tokens, \
+        device_memory_bytes
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = get_config("llama2-13b")
+    model, wbytes = make_model(torch, "llama2-13b", cfg)
+    kernels = paper_kernels(torch)
+    fits = paper_fits(torch, cfg, model, wbytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    free, total = torch.cuda.mem_get_info(dev)
+    per_tok = cfg.kv_bytes_per_token(2)
+    pool_tokens = default_pool_tokens(cfg, model, dev)
+    hbm = device_memory_bytes(dev)
+    row_cache = cfg.max_seq_len * per_tok
+    log("paper", f"memory: {wbytes / 1e9:.2f} GB of weights, "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free; pool "
+        f"{pool_tokens} tokens = {pool_tokens // 128} pages of 128 "
+        f"({pool_tokens * per_tok / 1e9:.2f} GB, 40% of free at "
+        f"{per_tok} B a token); a prefill job's batch cache "
+        f"{row_cache / 1e9:.2f} GB a row, {PAPER_SLOTS * row_cache / 1e9:.2f}"
+        f" GB at {PAPER_SLOTS} rows")
+
+    # the 12-request set at t = 0, eager then graph.  The engine gets 3x
+    # the batch cap in slots (block-table rows only on the paged pool):
+    # it shares its slots between prefill admission and live decodes,
+    # where the cost model gives prefill its own, so with as many slots
+    # as the cap its slot clamp splits batches the cost model keeps whole
+    budget = MemoryBudget(hbm_bytes_per_device=hbm, n_devices=1,
+                          weight_bytes=wbytes)
+    formed = {}
+
+    def pair_engine(flag):
+        sched = record_formed(paper_scheduler(cfg, "bucketserve", budget))
+        formed[flag] = sched.formed
+        return make_engine(torch, cfg, model, wbytes, True, 3 * PAPER_SLOTS,
+                           pool_tokens, sched=sched, decode_graph=flag)
+    counts, stats, steps = serve_pair(
+        torch, cfg, pair_engine, SERVE_LENGTHS, 32,
+        f"llama2-13b paged pool, chunk 512, page 128, "
+        f"{3 * PAPER_SLOTS} slots, batches of {PAPER_SLOTS}")
+    if counts["paged_flash_decode"] != cfg.n_layers * steps["decode"] or \
+            counts["flash_prefill"] != cfg.n_layers * steps["prefill"] or \
+            counts["flash_prefill/tensor_core"] != counts["flash_prefill"] \
+            or counts["flash_decode"] or counts["wkv6"]:
+        raise AssertionError(f"llama2-13b launches {counts} for "
+                             f"{steps['prefill']} prefill chunks and "
+                             f"{steps['decode']} decode steps")
+    plan = counts["paged_flash_decode/last plan"]
+    log("paper", f"llama2-13b launches on the serve run: flash_prefill "
+        f"{counts['flash_prefill']} = {cfg.n_layers} x {steps['prefill']} "
+        f"chunks, all on the tensor-core body; paged_flash_decode "
+        f"{counts['paged_flash_decode']} = {cfg.n_layers} x "
+        f"{steps['decode']} steps (last plan n_split {plan.n_split}, L "
+        f"{plan.L}, {plan.body} body); flash_decode 0")
+    sim_sched = record_formed(paper_scheduler(cfg, "bucketserve", budget))
+    _, pred = paper_sim(cfg, sim_sched, requests(SERVE_LENGTHS, 32),
+                        pool_tokens)
+    if not formed[False] == formed[None] == sim_sched.formed:
+        raise AssertionError(f"llama2-13b at t = 0, formed batches: eager "
+                             f"{formed[False]}, graph {formed[None]}, cost "
+                             f"model {sim_sched.formed}")
+    log("paper", f"formed batches at t = 0 equal on the card (eager and "
+        f"graph) and in the cost model: {sim_sched.formed}; cost model "
+        f"TTFT p50 {pred.p50('ttft'):.3f} s, TPOT p50 "
+        f"{pred.p50('tpot') * 1e3:.1f} ms, makespan {pred.makespan:.3f} s "
+        f"against the graph run's {stats['graph']['ttft_p50']:.3f} s, "
+        f"{stats['graph']['tpot_p50'] * 1e3:.1f} ms, "
+        f"{stats['graph']['seconds']:.3f} s")
+
+    compare = paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm)
+    log("paper", f"done in {time.perf_counter() - t0:.1f} s")
+    return dict(kernels={k: {f: v for f, v in r.items() if f != "plan"}
+                         for k, r in kernels.items()},
+                fits={k: v for k, v in fits.items() if k != "profile"},
+                profile=fits["profile"], serve=stats,
+                launches={k: counts[k] for k in ATTENTION_KERNELS},
+                compare=compare, pool_tokens=pool_tokens)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2721,6 +3161,7 @@ def main() -> int:
     parity_phase(torch)
     rwkv_parity_phase(torch)
     graph_smoke(torch)
+    paper_smoke(torch)
     int8_smoke(torch)
     launches, paged_stats, contig_stats, cfg, model, wbytes, pool_tokens = \
         serve_phase(torch)
@@ -2731,6 +3172,9 @@ def main() -> int:
     launches.update(int8["serve"]["launches"])
     profile["qwen3-14b int8"] = int8["drift"].pop("profile")
     del cfg, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper = paper_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
     launches["wkv6"], rwkv_stats, cfg, model = rwkv_serve_phase(torch)
@@ -2786,6 +3230,7 @@ def main() -> int:
     log("retention", f"{retention}")
     log("recovery", f"{recovery}")
     log("int8", f"{int8}")
+    log("paper", json.dumps(paper))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,17 @@
 """Serving launcher: BucketServe on the unified serving loop, PyTorch
-backend.
+backend or the analytic cost model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
         --arch qwen3-14b --max-seq-len 4096 [--smoke] [--device cuda|cpu] \\
-        [--dtype bf16|f32] [--chunk 512] [--paged --page-size 128] \\
-        [--kv-dtype bf16|int8] \\
-        [--requests 16] [--prefix-cache --prefix-scenarios 2] \\
+        [--backend torch|sim] [--dtype bf16|f32] [--chunk 512] \\
+        [--paged --page-size 128] [--kv-dtype bf16|int8] \\
+        [--requests 16] [--dataset mixed] [--rps 8] \\
+        [--trigger waste|majority] [--prefix-cache --prefix-scenarios 2] \\
         [--sessions 4 --turns 3 --session-ttl 60] \\
         [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4] \\
         [--sched goodput --slice-tokens 16] [--fault-plan SPEC] \\
         [--trace-record PATH | --trace-replay PATH] [--trace-out PATH] \\
-        [--burst-factor F]
+        [--burst-factor F] [--drain-after T]
 
 ``--backend torch`` runs the real engine (``core/engine.py``): eager
 prefill and decode with slot-pool continuous batching, the attention
@@ -27,6 +28,24 @@ running on the CPU when ``--device cpu`` is given.  ``--arch rwkv6-3b``
 serves RWKV6 on the contiguous slot pool (its per-slot carry has no K/V
 to page, so ``--paged`` is refused), through the hand-written WKV6
 kernel on the card.
+
+``--backend sim`` drives the same scheduler through the analytic cost
+model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
+in virtual time, and prints the reference launcher's ``[sim]`` lines;
+``--drain-after T`` runs the reference's drain/resume smoke on it
+(checkpoint at T virtual seconds, JSON round trip, cold resume, token
+ids equal to an uninterrupted run) and is refused on ``--backend
+torch``.  No device is touched on this backend.
+
+The workload is the reference launcher's: ``--dataset`` at ``--rps``
+(``data/workload.py``), prompts clipped at ``max_seq_len - 16`` and
+generated tokens capped at 8; ``--trigger`` picks the bucket split rule
+(``waste``, the paper's Eq. 1-4 padding-waste rule, by default).  Given
+the same flags, this launcher and the reference's build the same
+scheduler and the same requests.  Two defaults differ on purpose:
+``--arch`` (the port's main model, qwen3-14b, against the reference's
+yi-6b) and ``--requests`` (16, a full-width run on one card, against
+32).
 
 KV retention (``core/retention.py``): ``--prefix-cache`` shares cached
 full prompt pages across requests (``--prefix-scenarios N`` draws every
@@ -47,8 +66,6 @@ serves again (either package's trace reads in the other), both printing
 the formed-batch log; ``--trace-out`` exports the event timeline as
 Perfetto JSON and exits non-zero if it breaks the schema;
 ``--burst-factor F > 1`` draws the three-class mix with bursty arrivals.
-``--drain-after`` is the reference's cost-model smoke and is refused
-here: the port has no cost-model backend yet.
 
 At full width on one 80 GB card, pass ``--max-seq-len 4096``: with the
 config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
@@ -56,13 +73,15 @@ config's 32768 the per-job prefill cache alone (slots x 32768 tokens x
 ``--pool-tokens`` the paged pool takes 40% of the device memory left
 free after the weights.
 
-The output keeps the reference launcher's greppable line
-(``served N/N requests, T tokens in Xs; prefill shapes: ...; buckets:
-[...]``) and adds one line with each kernel's launch count.
+The output keeps the reference launcher's lines (``served N/N requests,
+T tokens in Xs; prefill shapes: ...; buckets: [...]``, the ``tails:``
+line with its per-class lines, and the kv util / padding waste / blame
+line) and adds one line with each kernel's launch count.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import time
 
@@ -73,6 +92,8 @@ from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                               MemoryBudget, SchedulerConfig)
 from repro_torch.core.engine import ServingEngine
 from repro_torch.core.faults import FaultPlan
+from repro_torch.core.recovery import LoopCheckpoint
+from repro_torch.core.simulator import A100X4, CostModel, Simulator
 from repro_torch.core.telemetry import Tracer, validate_perfetto
 from repro_torch.data.trace import TraceRecorder, TraceWorkload
 from repro_torch.data.workload import DEFAULT_CLASS_MIX, WorkloadSpec, generate
@@ -84,10 +105,14 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _make_sched(cfg, budget, args):
+    """``--sched`` picks the queue policy: arrival-order BucketServe or
+    the deadline-slack goodput scheduler, on the same buckets and the
+    same Eq.-(6) controller; ``--trigger`` the bucket split rule."""
     cls = GoodputScheduler if args.sched == "goodput" \
         else BucketServeScheduler
     return cls(cfg, budget, SchedulerConfig(
-        max_batch=args.slots, memory_model="paged" if args.paged else "sum",
+        max_batch=args.slots, trigger=args.trigger,
+        memory_model="paged" if args.paged else "sum",
         page_size=args.page_size))
 
 
@@ -116,9 +141,9 @@ def default_pool_tokens(cfg, model, device: torch.device):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="torch", choices=["torch"],
-                    help="the PyTorch engine (the cost model arrives with "
-                         "a later slice)")
+    ap.add_argument("--backend", default="torch", choices=["torch", "sim"],
+                    help="the PyTorch engine or the analytic cost model "
+                         "(virtual time, no device)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--arch", default="qwen3-14b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
@@ -135,7 +160,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "40%% of the memory free after the weights; on "
                          "the CPU: slots x max_seq_len)")
     ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--dataset", default="mixed",
+                    help="workload length distribution (data/workload.py)")
+    ap.add_argument("--rps", type=float, default=8.0,
+                    help="mean arrival rate in requests per second")
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--trigger", default="waste",
+                    choices=["majority", "waste"],
+                    help="bucket split rule: the paper's padding-waste "
+                         "rule (Eq. 1-4) or the majority rule")
     ap.add_argument("--max-seq-len", type=int, default=None,
                     help="cache length per request (default: the "
                          "config's; 256 with --smoke)")
@@ -210,8 +243,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm the seeded fault injector (core/faults.py), "
                          "e.g. 'seed=7,decode_step=0.02,prefill_chunk=0.05'")
     ap.add_argument("--drain-after", type=float, default=None, metavar="T",
-                    help="the reference's drain/resume smoke on its cost "
-                         "model; refused here (no cost-model backend yet)")
+                    help="drain/resume smoke on --backend sim: checkpoint "
+                         "a run at T virtual seconds, JSON round trip, "
+                         "resume on a cold loop and require token ids "
+                         "equal to an uninterrupted run")
     return ap
 
 
@@ -229,36 +264,39 @@ def make_config(args):
 
 
 def make_requests(cfg, args, max_new: int = 8):
-    """The reference launcher's mixed workload (8 req/s), generated
-    tokens capped at ``max_new`` and prompts clipped to the window; with
-    ``--sessions``, conversations whose turns are sized to fit the window
-    up front (the loop composes each turn's prompt from the transcript,
-    which must come to ``prompt_len`` exactly, so nothing is clipped);
-    with ``--trace-replay``, the recorded requests as they are."""
+    """The reference launcher's workload: ``--dataset`` at ``--rps``,
+    generated tokens capped at ``max_new`` and prompts clipped at
+    ``max_seq_len - 16``; ``--burst-factor > 1`` draws the three-class
+    mix with bursty arrivals under the same clamps; with ``--sessions``,
+    conversations whose turns are sized to fit the window up front (the
+    loop composes each turn's prompt from the transcript, which must
+    come to ``prompt_len`` exactly, so nothing is clipped); with
+    ``--trace-replay``, the recorded requests as they are."""
     if args.trace_replay:
         tw = TraceWorkload(args.trace_replay)
-        print(f"replaying {len(tw)} recorded requests from "
+        reqs = tw.requests()
+        print(f"replaying {len(reqs)} recorded requests from "
               f"{args.trace_replay} (meta: {tw.meta})")
-        return tw.requests()
+        return reqs
     if args.sessions:
         per_turn = max(cfg.max_seq_len // (2 * args.turns) - 8, 8)
         return generate(WorkloadSpec(
-            dataset="mixed", rps=8.0, max_model_len=cfg.max_seq_len,
-            vocab_size=cfg.vocab_size, sessions=args.sessions,
-            turns=args.turns, utterance_tokens=per_turn,
-            max_new_tokens=max_new, think_time_s=args.think_time))
+            dataset=args.dataset, rps=args.rps,
+            max_model_len=cfg.max_seq_len, vocab_size=cfg.vocab_size,
+            sessions=args.sessions, turns=args.turns,
+            utterance_tokens=per_turn, max_new_tokens=max_new,
+            think_time_s=args.think_time))
     burst = dict(class_mix=DEFAULT_CLASS_MIX,
                  burst_factor=args.burst_factor) \
         if args.burst_factor > 1.0 else {}
-    spec = WorkloadSpec(dataset="mixed", rps=8.0, n_requests=args.requests,
-                        max_model_len=cfg.max_seq_len,
-                        prefix_groups=args.prefix_scenarios,
-                        prefix_tokens=args.prefix_tokens,
-                        vocab_size=cfg.vocab_size, **burst)
-    reqs = generate(spec)
+    reqs = generate(WorkloadSpec(
+        dataset=args.dataset, rps=args.rps, n_requests=args.requests,
+        max_model_len=cfg.max_seq_len, prefix_groups=args.prefix_scenarios,
+        prefix_tokens=args.prefix_tokens, vocab_size=cfg.vocab_size,
+        **burst))
     for r in reqs:
         r.max_new_tokens = min(r.max_new_tokens, max_new)
-        r.prompt_len = min(r.prompt_len, cfg.max_seq_len - max_new - 1)
+        r.prompt_len = min(r.prompt_len, cfg.max_seq_len - 16)
     return reqs
 
 
@@ -319,10 +357,8 @@ def serve(cfg, model, reqs, args, device: torch.device):
           f"{engine.interleaved_decode_steps}; {paged_info}"
           f"buckets: {[(b.low, b.up) for b in sched.buckets.buckets]}")
     res = engine.result
-    print(f"tails: TTFT p50/p95/p99 {res.p50('ttft'):.3f}/"
-          f"{res.p95('ttft'):.3f}/{res.p99('ttft'):.3f} s, "
-          f"TPOT p50/p99 {res.p50('tpot') * 1e3:.1f}/"
-          f"{res.p99('tpot') * 1e3:.1f} ms")
+    print(_tail_line(res))
+    print(_util_line(res))
     if args.slice_tokens:
         print(f"slice yields {res.slice_yields}")
     print("kernel launches: " + ", ".join(
@@ -332,6 +368,158 @@ def serve(cfg, model, reqs, args, device: torch.device):
     _finish_trace(args, recorder)
     _finish_timeline(args, tracer)
     return engine, done, dt
+
+
+def _tail_line(res) -> str:
+    """Percentile tails, overall and per class, with each class's SLO
+    attainment and goodput (the reference launcher's line)."""
+    out = (f"tails: TTFT p50/p95/p99 {res.p50('ttft'):.3f}/"
+           f"{res.p95('ttft'):.3f}/{res.p99('ttft'):.3f} s, "
+           f"TPOT p50/p95/p99 {res.p50('tpot') * 1e3:.1f}/"
+           f"{res.p95('tpot') * 1e3:.1f}/{res.p99('tpot') * 1e3:.1f} ms, "
+           f"{res.incomplete()} incomplete")
+    for c in res.classes():
+        out += (f"\nclass {c}: TTFT p50/p95/p99 "
+                f"{res.p50('ttft', c):.3f}/{res.p95('ttft', c):.3f}/"
+                f"{res.p99('ttft', c):.3f} s, TPOT p99 "
+                f"{res.p99('tpot', c) * 1e3:.1f} ms, "
+                f"attainment {res.slo_attainment(c):.2f}, "
+                f"goodput {res.goodput(c):.3f} req/s")
+    if res.classes():
+        out += (f"\ngoodput {res.goodput():.3f} req/s "
+                f"({res.server_rps():.3f} finished req/s)")
+    return out
+
+
+def _util_line(res) -> str:
+    """Time-weighted KV utilisation, padding waste (what the buckets
+    exist to cut) and the latency blame per phase."""
+    return (f"kv util (time-weighted) {res.kv_util_time_weighted:.2f}; "
+            f"padding waste {res.padding_waste_ratio():.3f}; "
+            f"blame {_fmt_blame(res.blame())}")
+
+
+def _fmt_blame(b) -> str:
+    return "{" + ", ".join(f"{k}: {v:.3f}s" for k, v in b.items()) + "}"
+
+
+def _make_sim(cfg, args, plan=None, recorder=None, tracer=None):
+    """The cost model on the reference launcher's ``A100X4`` spec, so
+    that the two launchers print the same ``[sim]`` lines."""
+    hw = A100X4
+    budget = MemoryBudget(hbm_bytes_per_device=hw.hbm_bytes,
+                          n_devices=hw.decode_chips,
+                          weight_bytes=cfg.param_count() * 2)
+    sched = _make_sched(cfg, budget, args)
+    sim = Simulator(sched, CostModel(cfg, hw), mode="disagg",
+                    decode_slot_cap=args.slots, chunk_tokens=args.chunk,
+                    paged=args.paged, page_size=args.page_size,
+                    kv_pool_tokens=args.pool_tokens,
+                    prefix_cache=args.prefix_cache,
+                    session_ttl=args.session_ttl if args.sessions else None,
+                    host_pool_tokens=args.host_pool_tokens,
+                    spill_bw=args.spill_bw * 1e9,
+                    spill_dtype=args.spill_dtype,
+                    slice_tokens=args.slice_tokens,
+                    recorder=recorder, tracer=tracer,
+                    fault_plan=plan)
+    return sim, sched
+
+
+def _run_sim(cfg, args, reqs, recorder=None, tracer=None, plan=None):
+    """One cost-model pass over the workload, printing the ``[sim]``
+    lines."""
+    sim, sched = _make_sim(cfg, args, plan, recorder, tracer)
+    # recovery backoff and restart penalties stretch the virtual
+    # makespan under an armed plan: give the storm room to finish
+    res = sim.run(reqs, time_limit=40000.0 if plan is not None else 3600.0)
+    info = ""
+    if args.prefix_cache:
+        info = (f"prefix hits {res.prefix_hits}/{res.prefix_lookups} "
+                f"({res.prefix_hit_rate():.2f}), "
+                f"{res.prefill_tokens_skipped} prompt tokens "
+                f"skipped, {res.prefix_pages_saved} pages saved; ")
+    if args.sessions:
+        info += (f"session hits {res.session_hits}/{res.session_lookups}, "
+                 f"{res.session_hit_tokens} transcript tokens restored, "
+                 f"{res.tail_pages_reused} tails reused, "
+                 f"{res.sessions_expired} expired; ")
+    if args.kv_spill:
+        info += (f"spill[{args.spill_dtype}]: {res.spilled_pages} pages "
+                 f"({res.spilled_bytes} B) out, "
+                 f"{res.restored_pages} back ({res.restored_tokens} tokens, "
+                 f"{res.restored_bytes} B), {res.spill_drops} dropped, "
+                 f"{res.spill_hold_events} holds; ")
+    print(f"[sim] served {len(res.finished())}/{len(reqs)} requests in "
+          f"{res.makespan:.2f} virtual s; {res.throughput_tok_s():.0f} tok/s; "
+          f"SLO {res.slo_attainment():.2f}; OOM {res.oom_events}; "
+          f"peak pool {res.peak_pool}; preemptions {res.preempt_events}; "
+          f"{info}"
+          f"buckets: {[(b.low, b.up) for b in sched.buckets.buckets]}")
+    print(f"[sim] {_tail_line(res)}")
+    print(f"[sim] {_util_line(res)}")
+    if plan is not None:
+        print(f"[sim] {_fault_line(res, plan)}")
+    return res
+
+
+def _transcript(backend, r):
+    """A request's whole token path: the prompt (slice promotion
+    included) and the generated ids past the promoted boundary."""
+    toks = [] if r.tokens is None else \
+        [int(t) for t in r.tokens[:r.prompt_len]]
+    gen = backend.generated_tokens(r)[r.sliced_tokens:]
+    return toks + [int(t) for t in gen]
+
+
+def _drain_resume_sim(cfg, args, reqs, plan):
+    """``--drain-after``: an uninterrupted run, a second run drained at T
+    virtual seconds (checkpoint through JSON), then a cold loop resuming
+    the checkpoint.  Every request must finish exactly once across the
+    drained and resumed pair with token ids equal to the uninterrupted
+    run's, else the launcher exits non-zero."""
+    t = args.drain_after
+    ref_sim, _ = _make_sim(cfg, args, plan)
+    ref = ref_sim.run(copy.deepcopy(reqs), time_limit=40000.0)
+    want = {r.rid: _transcript(ref_sim.loop.backend, r)
+            for r in ref.requests if r.finished >= 0 and not r.dropped}
+
+    sim1, _ = _make_sim(cfg, args, plan)
+    res1 = sim1.run(copy.deepcopy(reqs), time_limit=40000.0, drain_at=t)
+    ck = LoopCheckpoint.from_json(sim1.loop.drain().to_json())
+    sim2, _ = _make_sim(cfg, args, plan)
+    res2 = sim2.run(ck.restore_requests(), time_limit=40000.0,
+                    resume_clock=ck.now)
+
+    done1 = {r.rid: r for r in res1.requests
+             if r.finished >= 0 and not r.dropped}
+    done2 = {r.rid: r for r in res2.requests
+             if r.finished >= 0 and not r.dropped}
+    print(f"[drain] checkpoint at t={ck.now:.2f}s: {len(done1)} finished "
+          f"pre-drain, {len(ck.requests)} in-flight/queued + "
+          f"{len(ck.held_turns)} held turns serialized, "
+          f"{len(done2)} finished after cold resume")
+    if plan is not None:
+        print(f"[drain] {_fault_line(res2, plan)}")
+    errs = []
+    if set(done1) & set(done2):
+        errs.append(f"duplicated rids {sorted(set(done1) & set(done2))}")
+    if set(done1) | set(done2) != set(want):
+        lost = set(want) - (set(done1) | set(done2))
+        extra = (set(done1) | set(done2)) - set(want)
+        errs.append(f"lost {sorted(lost)} / extra {sorted(extra)}")
+    for rid, r in done1.items():
+        if rid in want and _transcript(sim1.loop.backend, r) != want[rid]:
+            errs.append(f"rid {rid} diverged pre-drain")
+    for rid, r in done2.items():
+        if rid in want and _transcript(sim2.loop.backend, r) != want[rid]:
+            errs.append(f"rid {rid} diverged after resume")
+    if errs:
+        raise SystemExit("[drain] resume NOT work-preserving: "
+                         + "; ".join(errs))
+    print(f"[drain] drain-resume token ids identical "
+          f"({len(done1)}+{len(done2)}/{len(want)} requests, "
+          f"checkpoint {len(ck.to_json())} B)")
 
 
 def _fault_line(res, plan) -> str:
@@ -401,7 +589,7 @@ def retention_info(r, args) -> str:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.drain_after is not None:
+    if args.drain_after is not None and args.backend != "sim":
         raise SystemExit("--drain-after is a cost-model smoke: "
                          "use --backend sim")
     # an explicit host budget turns the tier on; spill rides on the
@@ -410,14 +598,38 @@ def main(argv=None):
     args.prefix_cache = (args.prefix_cache or args.sessions > 0
                          or args.kv_spill)
     args.paged = args.paged or args.prefix_cache
-    device = resolve_device(args.device)
     cfg = make_config(args)
     if args.paged and not tfm.supports_paged_decode(cfg):
         ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
                  f"serve it on the contiguous slot pool (without --paged)")
+    if args.backend == "sim":
+        main_sim(cfg, args)
+        return
+    device = resolve_device(args.device)
     model = tfm.init_params(cfg, seed=0, dtype=DTYPES[args.dtype],
                             device=device)
     serve(cfg, model, make_requests(cfg, args), args, device)
+
+
+def main_sim(cfg, args) -> None:
+    """``--backend sim``: the reference launcher's cost-model path, its
+    host spill budget defaulting to 4x the pool as the reference's."""
+    if args.kv_spill and args.host_pool_tokens is None:
+        args.host_pool_tokens = 4 * (args.pool_tokens
+                                     or args.slots * cfg.max_seq_len)
+    if not args.kv_spill:
+        args.host_pool_tokens = None
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    reqs = make_requests(cfg, args)
+    if args.drain_after is not None:
+        _drain_resume_sim(cfg, args, reqs, plan)
+        return
+    recorder = TraceRecorder() if (args.trace_record
+                                   or args.trace_replay) else None
+    tracer = Tracer() if args.trace_out else None
+    _run_sim(cfg, args, reqs, recorder, tracer, plan)
+    _finish_trace(args, recorder)
+    _finish_timeline(args, tracer)
 
 
 if __name__ == "__main__":

@@ -166,9 +166,12 @@ def test_paged_mixed_workload_matches_jax_engine_and_contiguous():
     """The paged mixed workload at reduced size (10 requests, 256-token
     window, 32-token pages): same batches and ids as the JAX paged
     engine with a pool of one window per slot.  Under page pressure (a
-    pool of four windows, preemptions) batch formation follows the wall
-    clock, so there only the ids are held: paged equals the port's
-    contiguous pool."""
+    10-page pool, 9 usable: ``TestPagedPreemption``'s checks) a decode
+    runs out of pages and a request is preempted, re-prefilled and
+    finished; batch formation then follows the wall clock, so only the
+    ids are held: equal to the unconstrained runs (the port's contiguous
+    pool and the ample paged pool), every page back, and each request's
+    length counted once by the monitor despite the requeue."""
     def reqs(core):
         if core is jcore:
             return _mixed(core, JaxSpec, jax_generate, 10, 256)
@@ -179,8 +182,10 @@ def test_paged_mixed_workload_matches_jax_engine_and_contiguous():
     assert tout == jout
     assert teng.backend.free_blocks() == teng.backend.alloc.n_pages
     _, tight, eng = _run("torch", cfg, model, reqs(tcore), slots=6,
-                         paged=True, page_size=32, pool_tokens=4 * 256)
+                         paged=True, page_size=32, pool_tokens=10 * 32)
+    assert eng.result.preempt_events > 0
     assert eng.backend.free_blocks() == eng.backend.alloc.n_pages
+    assert len(eng.sched.monitor.seq_lens) == 10
     _, contig, _ = _run("torch", cfg, model, reqs(tcore), slots=6)
     assert tight == contig == tout
 

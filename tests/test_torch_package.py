@@ -58,7 +58,8 @@ def test_sources_name_no_jax_or_reference_import():
 COPIED = [f"core/{m}.py" for m in (
     "request", "bucket", "batcher", "scheduler", "monitor", "serving_loop",
     "paging", "prefix_cache", "retention", "telemetry", "faults",
-    "recovery")] + ["models/config.py", "data/workload.py", "data/trace.py"] \
+    "recovery", "simulator", "baselines", "analysis")] \
+    + ["models/config.py", "data/workload.py", "data/trace.py"] \
     + [f"configs/{m}.py" for m in ("yi_6b", "stablelm_1_6b", "llama2_13b",
                                    "rwkv6_3b")]
 
