@@ -125,11 +125,32 @@ goes through these phases, each printing its own lines:
    Launch counts are zeroed before each serve run and read after it (a
    graph replay counts the launches its capture made):
    every kernel must have been launched by the path it belongs to, every
-   bf16 ``flash_prefill`` launch through the tensor-core body, and
-   ``wkv6`` exactly 32 times per prefill chunk and per decode step;
-11. the kernel table as one JSON line (launches from the serve runs:
+   bf16 Qwen3-14B or llama2-13b ``flash_prefill`` launch through the
+   tensor-core body, and ``wkv6`` exactly 32 times per prefill chunk and
+   per decode step;
+11. recurrentgemma-2b (RG-LRU blocks and local attention on ring
+   caches): the rwkv6-3b model is freed; both decode kernels at its
+   widths (B = 8, H = 10, Hkv = 1: G = 10 at Dh 256) over the 2048-slot
+   ring, on rows not yet wrapped and wrapped (two calls, same bits) and
+   with every slot live, and ``flash_prefill`` on a 4096-token prompt
+   under the 2048-token window (the CUDA-core body), f32 and bf16, each
+   against its plain version and in bf16 timed beside its bound and
+   SDPA; smoke f32 recurrentgemma (5 layers) and qwen3-14b with a
+   48-token window through ``graph_smoke`` on both pools (card ids ==
+   CPU ids, graph == eager, paged == contiguous); then full width and
+   depth (bf16, seeded random weights, the cache cut from 32768 to 8192)
+   serving 12 requests of 256-6144 prompt tokens at t = 0 on the paged
+   pool (page 128) and 4 on the contiguous pool, eagerly and with the
+   graph (ids and launches identical, every page free, one
+   ``flash_prefill`` a local-attention layer a prefill and one decode
+   kernel a layer a step), and a decode step of 8 wrapped rows profiled
+   eager and as a graph replay, with the RG-LRU functions' share of an
+   eager step and of a 6144-token prefill;
+12. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
-   from the int8 runs), the ``nvidia-smi`` line, and as the last line
+   from the int8 runs; the three attention kernels once more at
+   recurrentgemma-2b's widths with its runs' launches, each entry naming
+   its ``path``), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -181,7 +202,8 @@ PREFILL_SHAPES = [   # (B, T, H, Hkv, Dh, window, causal): reference sweep
 DECODE_SHAPES = [    # (B, S, H, Hkv, Dh, ring)
     (2, 256, 8, 2, 64, False), (1, 600, 4, 1, 128, False),
     (2, 256, 8, 8, 64, False), (2, 128, 4, 2, 64, True),
-    (1, 512, 16, 2, 80, False)]
+    (1, 512, 16, 2, 80, False),
+    (2, 256, 10, 1, 256, False), (2, 256, 10, 1, 256, True)]   # G = 10
 WKV_SHAPES = [       # (B, T, H, hs): reference sweep
     (1, 64, 2, 64), (2, 100, 4, 64), (1, 128, 1, 32), (2, 48, 8, 16)]
 # constant decays: exp(-exp(3)) forgets at once, exp(-exp(-6)) keeps
@@ -206,7 +228,23 @@ PAGED_SHAPES = [     # (B, S, H, Hkv, Dh, page, ring)
     (2, 256, 8, 2, 64, 128, False), (2, 256, 8, 8, 64, 128, False),
     (1, 600, 4, 1, 128, 128, False), (1, 300, 4, 2, 64, 128, False),
     (2, 128, 4, 2, 64, 64, True), (2, 96, 8, 2, 64, 64, True),
-    (1, 512, 16, 2, 80, 256, False)]
+    (1, 512, 16, 2, 80, 256, False), (2, 256, 10, 1, 256, 128, True)]
+# recurrentgemma-2b's local attention (G = 10 at Dh 256) over its
+# 2048-slot ring: decode rows not yet wrapped and wrapped, a band of
+# window 2048 over a 4096-token prompt
+RG_ATTN = dict(B=8, H=10, Hkv=1, Dh=256, S=2048)
+RG_DECODE_POS = [0, 700, 2046, 2047, 2048, 3000, 5000, 9000]
+RG_PREFILL_T = 4096
+# the full-width serve: the cache cut from 32768 to 8192 (the ring is
+# 2048 slots either way; the cut bounds the prompt), 12 prompts of
+# 256-6144 tokens, 7 of them past the window, 32 new tokens each
+RG_MAX_SEQ = 8192
+RG_SERVE_LENGTHS = [256, 6144, 1024, 4096, 512, 3000, 2500, 768, 5000, 1500,
+                    3500, 2200]
+RG_CONTIG_LENGTHS = [300, 2500, 700, 4000]
+RG_PROFILE_CTX = 2560       # the decode step's rows: their rings wrapped
+RG_RANGES = ("rec_block_forward", "rec_block_decode", "linear_scan",
+             "_rglru_gates", "_conv1d", "rglru_step")
 
 
 def log(phase: str, msg: str) -> None:
@@ -1176,28 +1214,33 @@ def parity_phase(torch, kv_dtype=""):
 
 def to_paged(torch, tfm, cfg, cache, page=16, s_len=None):
     """A contiguous prefill cache moved into a paged pool (identity page
-    order plus a trash page), on the cache's device.  With ``s_len`` past
-    the cache's length the block tables span ``s_len`` slots, and their
+    order plus a trash page), on the cache's device; recurrent carries
+    (a hybrid's RG-LRU state) stay per slot.  With ``s_len`` past the
+    cache's length the block tables span ``s_len`` slots, and their
     entries past the cache point at the trash page."""
     dev = cache["pos"].device
     B = cache["pos"].shape[0]
-    S = cache["groups"][0][0]["k"].shape[2]
+    k0 = next(s["k"] for g in cache["groups"] for s in g if "k" in s)
+    S = k0.shape[2]
     n_p = S // page
     s_len = s_len or S
     paged = tfm.init_paged_cache(cfg, B, s_len, B * n_p + 1, page,
-                                 dtype=cache["groups"][0][0]["k"].dtype,
-                                 device=dev)
+                                 dtype=k0.dtype, device=dev)
     paged["pos"] = cache["pos"].clone()
     bt = torch.full((B, s_len // page), B * n_p, dtype=torch.int32,
                     device=dev)
     bt[:, :n_p] = torch.arange(B * n_p, dtype=torch.int32,
                                device=dev).reshape(B, n_p)
     paged["block_tables"] = bt
-    for key in cache["groups"][0][0]:               # K/V, and int8 scales
-        src = cache["groups"][0][0][key]             # (reps, B, S, Hkv[, Dh])
-        dst = paged["groups"][0][0][key]
-        dst[:, :B * n_p] = src.reshape((src.shape[0], B * n_p, page)
-                                       + src.shape[3:])
+    for src_g, dst_g in zip(cache["groups"], paged["groups"]):
+        for src_s, dst_s in zip(src_g, dst_g):
+            for key, src in src_s.items():
+                if "k" not in src_s:                 # a per-slot carry
+                    dst_s[key].copy_(src)
+                    continue
+                # K/V and int8 scales: (reps, B, S, Hkv[, Dh])
+                dst_s[key][:, :B * n_p] = src.reshape(
+                    (src.shape[0], B * n_p, page) + src.shape[3:])
     return paged
 
 
@@ -1275,14 +1318,15 @@ GRAPH_SMOKE_RUNS = (("qwen3-14b", True), ("qwen3-14b", False),
                     ("rwkv6-3b", False))
 
 
-def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype=""):
+def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", **overrides):
     """Smoke f32, the engine's decode step as a CUDA graph against the
     same engine run eagerly on the card and on the CPU: qwen3-14b on the
     paged and the contiguous pool and rwkv6-3b on its carry pool, chunk
     32, 4 slots, 8 requests of 8 new tokens.  Ids must be identical, and
     the graph run's launch counts the eager run's.  With ``kv_dtype``
-    "int8" the attention configs' caches are int8.  Returns the graph
-    runs' ids by (arch, paged)."""
+    "int8" the attention configs' caches are int8; ``overrides`` go to
+    every run's smoke config.  Returns the graph runs' ids by (arch,
+    paged)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tfm
@@ -1290,7 +1334,7 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype=""):
     res, all_ids = [], {}
     for arch, paged in runs:
         cfg = get_smoke_config(arch, max_seq_len=128,
-                               kv_cache_dtype=kv_dtype)
+                               kv_cache_dtype=kv_dtype, **overrides)
         cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
                                     device="cpu")
         gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -1325,8 +1369,9 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype=""):
                                  f"{counts['eager']}; {replays} replays")
         res.append(f"{arch} {pool} {replays} replays")
         all_ids[arch, paged] = ids["graph"]
-    log("graph", f"smoke f32{' ' + kv_dtype if kv_dtype else ''}, decode "
-        f"graph against eager on the card and the CPU, "
+    what = "".join(f" {k}={v}" for k, v in overrides.items())
+    log("graph", f"smoke f32{' ' + kv_dtype if kv_dtype else ''}{what}, "
+        f"decode graph against eager on the card and the CPU, "
         f"{len(GRAPH_SMOKE_LENGTHS)} requests each: ids identical and "
         f"launch counts equal ({'; '.join(res)}) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3125,6 +3170,283 @@ def paper_phase(torch):
                 compare=compare, pool_tokens=pool_tokens)
 
 
+# ------------------------------------------------------ recurrentgemma ---
+def rg_kernels(torch):
+    """The attention kernels at recurrentgemma-2b's widths (H = 10, Hkv =
+    1, G = 10 at Dh 256), f32 and bf16: both decode kernels at B = 8 over
+    the 2048-slot ring, on rows not yet wrapped and wrapped (two calls
+    giving the same bits) and with every slot of the ring live, and a
+    4096-token prompt under the 2048-token window through the CUDA-core
+    prefill body; each against its plain version, and in bf16 timed
+    beside its bound and SDPA (on the gathered cache for decode, under
+    the band mask for prefill), with the decode split the rule picks."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, Hkv, Dh, S = (RG_ATTN[k] for k in ("B", "H", "Hkv", "Dh", "S"))
+    T = RG_PREFILL_T
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        esz, tol, timed = (4 if dt == "float32" else 2), MAIN_TOL[dt], \
+            dt == "bfloat16"
+
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(getattr(torch, dt))
+        q = rnd((B, H, Dh))
+        kc, vc = rnd((B, S, Hkv, Dh)), rnd((B, S, Hkv, Dh))
+        kp, vp, bt = paged_copy(torch, kc, vc, 128, gen)
+        pm = torch.tensor(RG_DECODE_POS, dtype=torch.int32, device=dev)
+        calls = [(ops.flash_decode(q, kc, vc, pm, ring=True),
+                  ops.paged_flash_decode(q, kp, vp, bt, pm, s_len=S,
+                                         ring=True)) for _ in range(2)]
+        (a, b), (a2, b2) = calls
+        worst[f"decode ring rows {dt}"] = max(
+            assert_close(torch, f"recurrentgemma flash_decode ring {dt}", a,
+                         ref.flash_decode_ref(q, kc, vc, pm, ring=True), tol),
+            assert_close(torch, f"recurrentgemma paged_flash_decode ring "
+                         f"{dt}", b, ref.paged_flash_decode_ref(
+                             q, kp, vp, bt, pm, s_len=S, ring=True), tol),
+            assert_close(torch, f"recurrentgemma paged vs contiguous {dt}",
+                         b, a, tol))
+        if not (torch.equal(a, a2) and torch.equal(b, b2)):
+            raise AssertionError(f"recurrentgemma decode {dt}: two calls on "
+                                 f"the same inputs differ")
+        # every slot of the ring live: the steady state of a served row
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
+                           f"recurrentgemma {dt}", timed)
+        for name, row in case.items():
+            key = f"{name} B=8 H=10 Hkv=1 Dh=256 ring 2048" + (
+                " page=128" if "paged" in name else "")
+            worst[f"{key} {dt}"] = row["max_abs_err"]
+            plan = row["plan"]
+            log("rg", f"{name} at recurrentgemma's widths {dt}: n_split "
+                f"{plan.n_split}, L {plan.L}, {B * Hkv * plan.n_split} "
+                f"blocks, {plan.body} body")
+            if timed:
+                rows[key] = row
+        del q, kc, vc, kp, vp
+
+        q, k, v = rnd((1, T, H, Dh)), rnd((1, T, Hkv, Dh)), \
+            rnd((1, T, Hkv, Dh))
+        lens = torch.tensor([T], dtype=torch.int32, device=dev)
+        err = assert_close(torch, f"recurrentgemma flash_prefill {dt}",
+                           prefill(q, k, v, lens, window=S),
+                           ref.flash_prefill_ref(q, k, v, lens, window=S),
+                           tol)
+        worst[f"flash_prefill T={T} window {S} {dt}"] = err
+        if timed:
+            pairs = S * (S + 1) // 2 + (T - S) * S
+            b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
+                                  4.0 * pairs * H * Dh, dt)
+            i = torch.arange(T, device=dev)
+            band = (i[:, None] >= i[None]) & (i[:, None] - i[None] < S)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows[f"flash_prefill H=10 Hkv=1 Dh=256 T={T} window {S}"] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(
+                    q, k, v, lens, window=S), 10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, lens, window=S), 3, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, attn_mask=band, enable_gqa=True), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q, k, v
+        torch.cuda.empty_cache()
+    log("rg", "kernels at recurrentgemma's widths agree with the plain "
+        "versions (f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2); max "
+        "abs err: " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    log_rows("rg", rows)
+    return rows
+
+
+def rg_smoke(torch):
+    """Smoke f32 ring caches through the engine (``graph_smoke``):
+    recurrentgemma with 5 layers (its two block groups) and qwen3-14b
+    with a 48-token sliding window, each on the paged and the contiguous
+    pool: card ids == CPU ids, graph == eager, and paged == contiguous."""
+    for arch, over in (("recurrentgemma-2b", dict(n_layers=5)),
+                       ("qwen3-14b", dict(sliding_window=48))):
+        ids = graph_smoke(torch, runs=((arch, True), (arch, False)), **over)
+        if ids[arch, True] != ids[arch, False]:
+            raise AssertionError(f"{arch} {over} smoke: paged ids "
+                                 f"{ids[arch, True]} differ from contiguous "
+                                 f"{ids[arch, False]}")
+        log("rg", f"smoke f32 {arch} {over}: paged ids equal contiguous for "
+            f"{len(ids[arch, True])} requests")
+
+
+def rg_op_shares(torch, label, fn, steps=2):
+    """Device time of ``fn`` under ``torch.profiler``, eager, with the
+    RG-LRU functions (``RG_RANGES``) each inside a ``record_function``
+    range: each range's device time (its kernels, nested ranges
+    included) and share of the device busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import rglru
+    saved = {n: getattr(rglru, n) for n in RG_RANGES}
+
+    def ranged(name, f):
+        def call(*args, **kw):
+            with record_function(f"rg/{name}"):
+                return f(*args, **kw)
+        return call
+    fn()
+    torch.cuda.synchronize()
+    try:
+        for n, f in saved.items():
+            setattr(rglru, n, ranged(n, f))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(rglru, n, f)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the ranges also show as device-side annotations spanning their
+    # kernels (idle gaps included): only kernels count as busy time
+    kernels = [e for e in events if e.device_type == cuda
+               and not e.name.startswith("rg/")]
+    if not kernels:
+        log("rg", f"{label}: the profiler saw no device events (shares not "
+            f"measured)")
+        return {}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    attn = sum(e.time_range.elapsed_us() for e in kernels
+               if "flash_prefill" in e.name or "decode_kernel" in e.name
+               ) / 1e3 / steps
+
+    def launched_us(e):
+        """Device time of the kernels launched under a CPU event."""
+        return sum(k.duration for k in e.kernels) + sum(
+            launched_us(c) for c in e.cpu_children)
+    out = {"busy_ms": busy, "attention_ms": attn}
+    for e in events:
+        if e.device_type != cuda and e.name.startswith("rg/"):
+            key = e.name[3:] + "_ms"
+            out[key] = out.get(key, 0.0) + launched_us(e) / 1e3 / steps
+    log("rg", f"{label}: {busy:.2f} ms device busy; attention kernels "
+        f"{attn:.2f} ms; " + "; ".join(
+            f"{n} {out.get(n + '_ms', 0.0):.2f} ms "
+            f"({out.get(n + '_ms', 0.0) / busy:.3f})" for n in RG_RANGES
+            if n + "_ms" in out))
+    return out
+
+
+def rg_profile(torch, cfg, model):
+    """A full-width decode step of 8 rows whose rings have wrapped
+    (paged, page 128): eager and as a graph replay (``profile_pair``),
+    then the RG-LRU functions' share of an eager step and of a 6144-token
+    prefill."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    B, page = 8, 128
+    toks = torch.randint(0, cfg.vocab_size, (B, RG_PROFILE_CTX), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=cfg.max_seq_len)
+    paged = to_paged(torch, tfm, cfg, cache, page)
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+    S = cfg.attn_cache_len(cfg.max_seq_len)
+
+    def step():
+        tfm.decode_step(cfg, model, tok, paged, page_size=page, paged_len=S)
+    label = (f"recurrentgemma-2b full-width decode step, B={B}, after "
+             f"{RG_PROFILE_CTX} tokens (rings wrapped), paged")
+    prof = profile_pair(torch, label, step, "paged_flash_decode",
+                        "decode_kernel")
+    prof["decode_shares"] = rg_op_shares(torch, f"{label}, eager", step)
+    T = max(RG_SERVE_LENGTHS)
+    ptoks = torch.randint(0, cfg.vocab_size, (1, T), device=dev,
+                          dtype=torch.int32)
+    prof["prefill_shares"] = rg_op_shares(
+        torch, f"recurrentgemma-2b full-width prefill, 1 x {T} tokens",
+        lambda: tfm.prefill(cfg, model, ptoks, cache_len=cfg.max_seq_len),
+        steps=1)
+    return prof
+
+
+def rg_check_launches(label, cfg, counts, steps, decode_kernel):
+    """Each local-attention layer launches ``flash_prefill`` once a
+    prefill (the CUDA-core body: Dh 256) and ``decode_kernel`` once a
+    decode step; nothing else of the kernels runs."""
+    n_attn = sum(p.count("attn") * r for p, r in cfg.block_groups())
+    other = "flash_decode" if decode_kernel == "paged_flash_decode" else \
+        "paged_flash_decode"
+    if counts[decode_kernel] != n_attn * steps["decode"] or \
+            counts["flash_prefill"] != n_attn * steps["prefill"] or \
+            counts["flash_prefill/cuda_core"] != counts["flash_prefill"] or \
+            not steps["decode"] or counts[other] or counts["wkv6"]:
+        raise AssertionError(f"{label}: launches {counts} for "
+                             f"{steps['prefill']} prefills and "
+                             f"{steps['decode']} decode steps of {n_attn} "
+                             f"attention layers")
+    plan = counts[f"{decode_kernel}/last plan"]
+    log("rg", f"{label}: flash_prefill {counts['flash_prefill']} = {n_attn} "
+        f"x {steps['prefill']} prefills, all on the CUDA-core body; "
+        f"{decode_kernel} {counts[decode_kernel]} = {n_attn} x "
+        f"{steps['decode']} steps (last plan n_split {plan.n_split}, L "
+        f"{plan.L}, {plan.body} body)")
+
+
+def rg_phase(torch):
+    """recurrentgemma-2b: the kernels at its widths, the smoke ring
+    parity, then full width and depth (bf16, seeded random weights, the
+    cache cut to ``RG_MAX_SEQ``): 12 requests at t = 0 on the paged pool
+    and 4 on the contiguous pool, each eagerly and with the decode graph
+    (ids and launches identical, every page free), and the decode step's
+    profile.  Returns the kernel rows, the launches of each path's run,
+    the serve stats and the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import default_pool_tokens
+    import dataclasses
+    t0 = time.perf_counter()
+    rows = rg_kernels(torch)
+    rg_smoke(torch)
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              max_seq_len=RG_MAX_SEQ)
+    model, wbytes = make_model(torch, "recurrentgemma-2b", cfg)
+    log("rg", f"cache length {cfg.max_seq_len} (the config's 32768 cut: the "
+        f"local-attention ring is {cfg.attn_cache_len(cfg.max_seq_len)} "
+        f"slots either way, the cut bounds the prompt); block groups "
+        f"{cfg.block_groups()}")
+    warm = make_engine(torch, cfg, model, wbytes, True, 2,
+                       2 * cfg.max_seq_len, decode_graph=False)
+    serve_run(torch, cfg, warm, requests([96, 3000], 4),
+              "recurrentgemma warm-up")
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_tokens = default_pool_tokens(cfg, model, dev)
+    label = "recurrentgemma-2b paged pool, page 128, 8 slots"
+    paged_counts, paged_stats, paged_steps = serve_pair(
+        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes, True,
+                                             8, pool_tokens,
+                                             decode_graph=flag),
+        RG_SERVE_LENGTHS, 32, label)
+    rg_check_launches(label, cfg, paged_counts, paged_steps,
+                      "paged_flash_decode")
+    label = "recurrentgemma-2b contiguous pool, 4 slots"
+    contig_counts, contig_stats, contig_steps = serve_pair(
+        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
+                                             False, 4, decode_graph=flag),
+        RG_CONTIG_LENGTHS, 16, label)
+    rg_check_launches(label, cfg, contig_counts, contig_steps,
+                      "flash_decode")
+    profile = rg_profile(torch, cfg, model)
+    log("rg", f"done in {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, launches={
+        "flash_prefill": paged_counts["flash_prefill"],
+        "paged_flash_decode": paged_counts["paged_flash_decode"],
+        "flash_decode": contig_counts["flash_decode"]},
+        serve={"paged": paged_stats, "contiguous": contig_stats},
+        profile=profile, pool_tokens=pool_tokens)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3179,24 +3501,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["wkv6"], rwkv_stats, cfg, model = rwkv_serve_phase(torch)
     profile["rwkv6-3b"] = rwkv_profile_phase(torch, cfg, model)
+    del cfg, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg = rg_phase(torch)
+    profile["recurrentgemma-2b"] = rg.pop("profile")
 
-    def entry(name, source, replaces, row):
+    def entry(name, source, replaces, row, path="qwen3-14b", n=None):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": launches[name] if n is None else n,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
-    def decode_entry(name, source, replaces, row):
+                "library_ms": row["library_ms"], "path": path}
+    def decode_entry(name, source, replaces, row, **kw):
         p = row["plan"]
-        return dict(entry(name, source, replaces, row),
+        return dict(entry(name, source, replaces, row, **kw),
                     body=f"{p.body} (split-KV, n_split {p.n_split}, L {p.L})")
     def wkv6_entry(row):
         from repro_torch.kernels import wkv6 as wk
         p = row["plan"]
         H, hs = WKV_MAIN["H"], WKV_MAIN["hs"]
         return dict(entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
-                          "src/repro/kernels/wkv6.py:58", row),
+                          "src/repro/kernels/wkv6.py:58", row,
+                          path="rwkv6-3b"),
                     body=f"cuda_core (state split: {p.kr} rows x {p.vc} "
                          f"columns a thread, {p.cols} columns a block, "
                          f"{p.threads(hs)} threads, "
@@ -3223,6 +3552,27 @@ def main() -> int:
         decode_entry("flash_decode_int8", "src/repro_torch/csrc/decode_attn.cu",
                      "src/repro/models/attention.py:597",
                      rows["flash_decode_int8 B=8 ctx=2048"]),
+        # recurrentgemma-2b's path: its widths, its runs' launches
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rg["rows"][f"flash_prefill H=10 Hkv=1 Dh=256 "
+                              f"T={RG_PREFILL_T} window 2048"],
+                   path="recurrentgemma-2b",
+                   n=rg["launches"]["flash_prefill"]),
+             body="cuda_core (Dh 256, window 2048)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     rg["rows"]["paged_flash_decode B=8 H=10 Hkv=1 Dh=256 "
+                                "ring 2048 page=128"],
+                     path="recurrentgemma-2b",
+                     n=rg["launches"]["paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     rg["rows"]["flash_decode B=8 H=10 Hkv=1 Dh=256 ring "
+                                "2048"],
+                     path="recurrentgemma-2b",
+                     n=rg["launches"]["flash_decode"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
@@ -3231,6 +3581,7 @@ def main() -> int:
     log("recovery", f"{recovery}")
     log("int8", f"{int8}")
     log("paper", json.dumps(paper))
+    log("rg", json.dumps(rg, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

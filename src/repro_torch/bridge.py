@@ -10,9 +10,10 @@ leaves are stacked ``(reps, ...)``; they are unstacked into
 ``Transformer.groups[gi][j]``.
 
 Every leaf keeps the dtype the port gives it: the model's dtype, except
-the RWKV decay path and bonus (``w0``, ``wA``, ``wB``, ``u``) and the
-RWKV carry ``s``, which are float32 in a bf16 model too, as in the
-reference.
+the RWKV decay path and bonus (``w0``, ``wA``, ``wB``, ``u``), the
+RG-LRU gates and decay (``wr``, ``wi``, ``lam``) and the recurrent
+carries ``s`` (RWKV) and ``h`` (RG-LRU), which are float32 in a bf16
+model too, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.models import rwkv
+from repro_torch.models import rglru, rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 
@@ -79,10 +80,11 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
 def cache_from_numpy(tree, device="cuda", dtype=None):
     """A reference cache pytree (numpy leaves) as torch tensors with the
     same structure; float leaves take ``dtype`` when it is given, except
-    an RWKV block's f32 carry (``rwkv.F32_STATE_LEAVES``)."""
+    a recurrent block's f32 carry (``rwkv.F32_STATE_LEAVES``,
+    ``rglru.F32_STATE_LEAVES``)."""
     if isinstance(tree, dict):
-        f32 = (rwkv.F32_STATE_LEAVES
-               if set(tree) == set(rwkv.STATE_LEAVES) else ())
+        f32 = next((mod.F32_STATE_LEAVES for mod in (rwkv, rglru)
+                    if set(tree) == set(mod.STATE_LEAVES)), ())
         return {k: cache_from_numpy(
                     v, device, torch.float32 if dtype is not None
                     and k in f32 else dtype)

@@ -14,12 +14,13 @@ import importlib
 from repro_torch.models.config import ModelConfig, reduced
 
 # The port's registry holds the configs whose blocks are ported: the
-# dense-GQA decoders and rwkv6-3b; the other families join as their
-# blocks are ported.
+# dense-GQA decoders, rwkv6-3b and recurrentgemma-2b; the other families
+# join as their blocks are ported.
 _MODULES = {
     "yi-6b": "yi_6b",
     "rwkv6-3b": "rwkv6_3b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "qwen3-14b": "qwen3_14b",
     "llama2-13b": "llama2_13b",          # the paper's own model
 }

@@ -7,10 +7,14 @@ reference) drive real prefill and decode, token for token.  All
 orchestration — arrivals, batch formation, OOM/slot re-queue, chunk
 interleaving, timing — lives in the loop; this module only executes.
 
-Models: the dense attention decoders (qwen3-14b, llama2-13b) and
-rwkv6-3b.  For RWKV the per-slot cache leaves are the recurrent carry
-(``s`` (reps, B, H, hs, hs) f32, ``x_tm`` and ``x_cm`` (reps, B, d)),
-which prefill writes and slot insertion scatters exactly as it does K/V.
+Models: the dense attention decoders (qwen3-14b, llama2-13b), rwkv6-3b
+and recurrentgemma-2b.  For RWKV the per-slot cache leaves are the
+recurrent carry (``s`` (reps, B, H, hs, hs) f32, ``x_tm`` and ``x_cm``
+(reps, B, d)), which prefill writes and slot insertion scatters exactly
+as it does K/V.  recurrentgemma mixes both kinds: its RG-LRU blocks keep
+a per-slot carry (``h`` (reps, B, w) f32, ``conv`` (reps, B, cw-1, w)),
+its local-attention blocks ring caches of ``local_window`` slots, which
+page like any K/V; ring configs prefill whole prompts (no chunk plan).
 
 Continuous batching: the decode pool is a fixed-capacity slot pool — a
 cache pytree with a leading slot axis and per-slot next-token ids.
@@ -816,12 +820,13 @@ class TorchEngineBackend:
                             rows: List[int], firsts: List[int],
                             tables: List[List[int]],
                             shared: Sequence[int]) -> None:
-        """Scatter prefilled caches into the page pool, in place: K/V rows
-        are chopped into page-sized spans and written to each request's
-        allocated pages (one index-put per leaf for the whole batch).
-        The first ``shared[i]`` pages of a table are a cached prefix that
-        already lives in the pool: skipped, so a shared page is written
-        once, by its first owner."""
+        """Scatter prefilled caches into the page pool, in place:
+        attention K/V rows are chopped into page-sized spans and written
+        to each request's allocated pages (one index-put per leaf for the
+        whole batch); per-slot leaves (a recurrent carry) take the
+        contiguous slot scatter.  The first ``shared[i]`` pages of a
+        table are a cached prefix that already lives in the pool:
+        skipped, so a shared page is written once, by its first owner."""
         sl, rw = self._index(slots), self._index(rows)
         self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
         dst, srow, spg = [], [], []
@@ -834,9 +839,14 @@ class TorchEngineBackend:
             self._index(spg)
         page, maxp = self.page_size, self.pages_per_seq
 
-        for gi, pattern_slots in enumerate(self.pool_cache["groups"]):
-            for j, pool_slot in enumerate(pattern_slots):
+        for gi, (pattern, _) in enumerate(self.cfg.block_groups()):
+            for j, btype in enumerate(pattern):
+                pool_slot = self.pool_cache["groups"][gi][j]
                 bc_slot = batch_cache["groups"][gi][j]
+                if btype not in (BLOCK_ATTN, BLOCK_MOE):
+                    for k, pool_leaf in pool_slot.items():
+                        pool_leaf[:, sl] = bc_slot[k][:, rw]
+                    continue
                 for k, pool_leaf in pool_slot.items():
                     bl = bc_slot[k]
                     pad = maxp * page - bl.shape[2]

@@ -96,7 +96,12 @@ namespace rt {
 
 constexpr int kDecThreads = 128;  // four warps
 constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kDecMaxGD = 2048;   // G * Dh
+// most G * Dh a kv head's query heads span: 2048, and 4096 at Dh 256
+// (G <= 16: recurrentgemma's G = 10).  Per head dim, so the f32 body's
+// register arrays stay the size they were at Dh 64, 80 and 128.
+__host__ __device__ constexpr int dec_max_gd(int DH) {
+  return DH == 256 ? 4096 : 2048;
+}
 constexpr int kDecQuantum = 128;  // L is a multiple of this
 constexpr int kDecMaxSplit = 64;
 constexpr int kDecStages = 3;     // cp.async ring depth (tensor-core body)
@@ -186,7 +191,7 @@ __device__ __forceinline__ bool block_is_empty(const DecodeArgs<T, KV>& a,
 
 // floats of the merge area: the warps' acc, m and l, and the cross-split
 // weights
-__host__ __device__ inline size_t merge_floats(int G, int DH) {
+__host__ __device__ constexpr size_t merge_floats(int G, int DH) {
   return (size_t)kDecWarps * G * DH + 2 * kDecWarps * G +
          (size_t)kDecMaxSplit * G;
 }
@@ -315,7 +320,7 @@ struct TcLayout {
 // dynamic shared memory of the tensor-core body: Q rows, then the warps'
 // rings, which the merge area reuses once the slot loop is done
 template <int DH, bool Q8>
-inline size_t tc_smem_bytes(int MT, int G) {
+constexpr size_t tc_smem_bytes(int MT, int G) {
   using Lay = TcLayout<DH, Q8>;
   const size_t ring = (size_t)kDecWarps * Lay::WARP_RING;
   const size_t merge = sizeof(float) * merge_floats(G, DH);
@@ -600,19 +605,33 @@ __device__ __forceinline__ float4 load4(const int8_t* p, float s) {
 // dynamic shared memory of the CUDA-core body: Q, the tile's row indices,
 // P, the rescale factors and the tile's V scales of each warp, and the
 // merge area
-inline size_t cc_smem_bytes(int DH, int G) {
+constexpr size_t cc_smem_bytes(int DH, int G) {
   return sizeof(float) * ((size_t)G * DH) +
          sizeof(unsigned long long) * kDecWarps * kCcTile +
          sizeof(float) * ((size_t)kDecWarps * G * kCcTile + kDecWarps * G +
                           kDecWarps * kCcTile + merge_floats(G, DH));
 }
 
+// Both bodies fit the 227 KB of shared memory a block may opt into at the
+// largest G each head dim takes (the rings do not depend on G; the merge
+// area and the f32 body's Q and P do): 206 KB for the bf16 ring at Dh 256,
+// 172 KB for its int8 ring, 94 KB for the f32 body at G = 16.
+constexpr size_t kSmemOptIn = 227 * 1024;
+static_assert(tc_smem_bytes<256, false>(1, 16) <= kSmemOptIn &&
+                  tc_smem_bytes<256, true>(1, 16) <= kSmemOptIn &&
+                  tc_smem_bytes<128, false>(1, 16) <= kSmemOptIn &&
+                  tc_smem_bytes<64, false>(2, 32) <= kSmemOptIn &&
+                  tc_smem_bytes<80, false>(2, 25) <= kSmemOptIn &&
+                  cc_smem_bytes(256, 16) <= kSmemOptIn &&
+                  cc_smem_bytes(64, 32) <= kSmemOptIn,
+              "a decode block's shared memory exceeds the opt-in limit");
+
 template <int DH, int MT, typename KV, typename Slots>
 __device__ void decode_body(const DecodeArgs<float, KV>& a, Slots slots) {
   constexpr bool Q8 = kInt8Kv<KV>;
   constexpr int C = DH / 4;                  // float4 chunks of a row
-  constexpr int GM = kDecMaxGD / DH;         // most heads of a kv head
-  constexpr int NP = kDecMaxGD / 4 / 32;     // (head, chunk) pairs a lane
+  constexpr int GM = dec_max_gd(DH) / DH;       // most heads of a kv head
+  constexpr int NP = dec_max_gd(DH) / 4 / 32;   // (head, chunk) pairs a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
   if (block_is_empty(a, r, DH)) return;
@@ -751,7 +770,7 @@ __device__ void decode_body(const DecodeArgs<float, KV>& a, Slots slots) {
 
 // ------------------------------------------------------------- host side
 inline bool decode_shape_ok(int H, int Hkv, int DH) {
-  return Hkv > 0 && H % Hkv == 0 && (H / Hkv) * DH <= kDecMaxGD;
+  return Hkv > 0 && H % Hkv == 0 && (H / Hkv) * DH <= dec_max_gd(DH);
 }
 
 // The plan the host chose (kernels/decode_attn.py:plan) must cover the
@@ -775,7 +794,7 @@ inline int with_instance(int Dh, int G, F&& f) {
     if (G > 16 && Dh == 64) return f(Inst<64, 2>{});
     if (G > 16 && Dh == 80) return f(Inst<80, 2>{});
   }
-  switch (Dh) {  // G * Dh <= 2048: G <= 16 at Dh 128, G <= 8 at Dh 256
+  switch (Dh) {  // G * Dh <= dec_max_gd: G <= 16 at Dh 128 and at Dh 256
     case 64: return f(Inst<64, 1>{});
     case 80: return f(Inst<80, 1>{});
     case 128: return f(Inst<128, 1>{});

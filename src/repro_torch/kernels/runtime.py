@@ -243,9 +243,10 @@ CUDA_ERROR_INVALID_VALUE = 1
 
 def check(err: int, kernel: str, shape: str) -> None:
     """Raise if the launch returned a CUDA error code.  The C launch is
-    the one place that holds each kernel's limits (supported Dh, G * Dh,
-    table coverage): it returns cudaErrorInvalidValue for a shape outside
-    them without launching."""
+    the one place that holds each kernel's limits (supported Dh; for the
+    decode kernels G * Dh at most 2048, or 4096 at Dh 256, that is G <= 16
+    there; table coverage): it returns cudaErrorInvalidValue for a shape
+    outside them without launching."""
     if err == CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"{kernel}: shape not supported by the kernel "
                          f"({shape})")

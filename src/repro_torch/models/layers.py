@@ -23,6 +23,27 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
+class KeepsF32(Params):
+    """Params whose ``F32_LEAVES`` are float32 whatever the model's
+    dtype, as the reference keeps them.  ``model.to(torch.bfloat16)``
+    would cast them and change the model: it is refused before anything
+    moves."""
+
+    FAMILY = ""
+    F32_LEAVES: tuple = ()
+
+    def _apply(self, fn, recurse=True):
+        leaf = getattr(self, self.F32_LEAVES[0])
+        probe = fn(torch.zeros(1, dtype=torch.float32, device=leaf.device))
+        if probe.dtype != torch.float32:
+            raise TypeError(
+                f"{self.FAMILY} parameters {self.F32_LEAVES} stay float32; "
+                f"build the model in the dtype wanted (init_params / "
+                f"params_from_numpy dtype=...) instead of casting it to "
+                f"{probe.dtype}")
+        return super()._apply(fn, recurse)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float | None = None) -> torch.Tensor:
     """Normal(0, scale²) weight of shape ``(d_in, d_out)`` on the

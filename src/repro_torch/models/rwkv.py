@@ -41,9 +41,12 @@ def channel_mix_width(cfg: ModelConfig) -> int:
     return int(3.5 * cfg.d_model)          # v6 uses 3.5 x d_model
 
 
-class RwkvParams(layers.Params):
+class RwkvParams(layers.KeepsF32):
     """Time-mix and channel-mix weights of one block, with the
     reference's names and shapes (``rwkv_init``)."""
+
+    FAMILY = "RWKV"
+    F32_LEAVES = F32_LEAVES
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -78,18 +81,6 @@ class RwkvParams(layers.Params):
                                         scale=0.01))
         self.u.copy_(layers.dense_init(gen, *self.u.shape, torch.float32,
                                        scale=0.1))
-
-    def _apply(self, fn, recurse=True):
-        # ``model.to(torch.bfloat16)`` would cast the decay path and the
-        # bonus, and change the model: refuse it before anything moves
-        probe = fn(torch.zeros(1, dtype=torch.float32,
-                               device=self.w0.device))
-        if probe.dtype != torch.float32:
-            raise TypeError(
-                f"RWKV parameters {F32_LEAVES} stay float32; build the model "
-                f"in the dtype wanted (init_params / params_from_numpy "
-                f"dtype=...) instead of casting it to {probe.dtype}")
-        return super()._apply(fn, recurse)
 
 
 def _shift(x, x_prev):

@@ -1,19 +1,22 @@
 """Model assembly: prefill, chunked prefill and decode over a contiguous
-or a paged cache, for dense attention decoders and RWKV6.
+or a paged cache, for dense attention decoders, RWKV6 and the
+RG-LRU / local-attention hybrid.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for configs whose
 blocks are ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
-llama2-13b) or ``BLOCK_RWKV`` (rwkv6-3b).  The reference stacks each
-block group's parameters on a ``reps`` axis and runs ``lax.scan``; here
-each block is an :class:`AttnBlock` or :class:`RwkvBlock` module in
-``Transformer.groups[gi][j][rep]`` and a Python loop over reps replaces
-the scan.  Caches keep the reference's pytree layout — ``{"pos",
-"block_tables", "groups"}`` with ``(reps, ...)`` leaves per pattern slot:
-``k``/``v`` for attention (and ``k_s``/``v_s``, the f32 scale planes of
-an int8 cache), ``s``/``x_tm``/``x_cm`` for RWKV — so the
-engine's gather/scatter code ports line for line; they are preallocated
-and updated in place.  Each block reads its own views of its slot's
-leaves (``_slot``).
+llama2-13b), ``BLOCK_RWKV`` (rwkv6-3b) or ``BLOCK_REC`` with
+``BLOCK_ATTN`` (recurrentgemma-2b, whose attention layers are local: ring
+caches of ``local_window`` slots).  The reference stacks each block
+group's parameters on a ``reps`` axis and runs ``lax.scan``; here each
+block is an :class:`AttnBlock`, :class:`RwkvBlock` or :class:`RecBlock`
+module in ``Transformer.groups[gi][j][rep]`` and a Python loop over reps
+replaces the scan.  Caches keep the reference's pytree layout —
+``{"pos", "block_tables", "groups"}`` with ``(reps, ...)`` leaves per
+pattern slot: ``k``/``v`` for attention (and ``k_s``/``v_s``, the f32
+scale planes of an int8 cache), ``s``/``x_tm``/``x_cm`` for RWKV,
+``h``/``conv`` for RG-LRU — so the engine's gather/scatter code ports
+line for line; they are preallocated and updated in place.  Each block
+reads its own views of its slot's leaves (``_slot``).
 
 Public API (functions of ``(cfg, model, ...)``):
 
@@ -33,14 +36,13 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from . import attention, layers, rwkv
+from . import attention, layers, rglru, rwkv
 from .layers import Params, frozen_param as _param
 from .config import (BLOCK_ATTN, BLOCK_CROSS, BLOCK_MOE, BLOCK_REC,
                      BLOCK_RWKV, ModelConfig)
 
 _LATER_SLICE = {
     BLOCK_MOE: "the MoE slice of the port",
-    BLOCK_REC: "the recurrent-family slice of the port (models/rglru.py)",
     BLOCK_CROSS: "the VLM/encoder slice of the port",
 }
 
@@ -139,6 +141,16 @@ class AttnBlock(nn.Module):
         return self._mlp_residual(x + a)
 
 
+def _write_carry(c, new, active=None) -> None:
+    """Write a recurrent block's new carry into its cache views, in
+    place; with ``active``, rows not active keep theirs bit for bit."""
+    for key, val in new.items():
+        if active is not None:
+            m = active.reshape((-1,) + (1,) * (val.ndim - 1))
+            val = torch.where(m, val, c[key])
+        c[key].copy_(val)
+
+
 class RwkvBlock(nn.Module):
     """Pre-norm RWKV6 time-mix + channel-mix (``BLOCK_RWKV``).  Its cache
     views are the carry ``s`` (B,H,hs,hs) f32 and the token-shift inputs
@@ -185,16 +197,62 @@ class RwkvBlock(nn.Module):
         whose prompt ended in an earlier chunk (not ``active``) keep
         every carry leaf bit for bit."""
         x, new = self._forward(x, c, lengths, state_out=None)
-        for key, val in new.items():
-            m = active.reshape((-1,) + (1,) * (val.ndim - 1))
-            c[key].copy_(torch.where(m, val, c[key]))
+        _write_carry(c, new, active)
         return x
 
     def decode(self, x, c, **_):
         return self._carry(x, c, None)
 
 
-_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_RWKV: RwkvBlock}
+class RecBlock(nn.Module):
+    """Pre-norm RG-LRU recurrent branch + gated GeLU MLP (``BLOCK_REC``).
+    Its cache views are the carry ``h`` (B,w) f32 and the conv state
+    ``conv`` (B,cw-1,w)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        e = dict(dtype=dtype, device=device)
+        self.ln1 = _param(torch.zeros(cfg.d_model, **e))
+        self.ln2 = _param(torch.zeros(cfg.d_model, **e))
+        self.rec = rglru.RecParams(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.rec.init_(gen)
+        for w in (self.mlp.gate, self.mlp.up, self.mlp.down):
+            w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+
+    def _mlp_residual(self, x):
+        h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + layers.mlp_apply(self.mlp, h, "gelu")
+
+    def _forward(self, x, c, lengths):
+        r, new = rglru.rec_block_forward(
+            self.cfg, self.rec, layers.rms_norm(x, self.ln1,
+                                                self.cfg.norm_eps),
+            c, lengths)
+        return self._mlp_residual(x + r), new
+
+    def prefill(self, x, c, *, lengths, **_):
+        x, new = self._forward(x, c, lengths)
+        _write_carry(c, new)
+        return x
+
+    def chunk(self, x, c, *, lengths, active, **_):
+        """As ``RwkvBlock.chunk``: rows not ``active`` keep their carry."""
+        x, new = self._forward(x, c, lengths)
+        _write_carry(c, new, active)
+        return x
+
+    def decode(self, x, c, **_):
+        r, _ = rglru.rec_block_decode(
+            self.cfg, self.rec, layers.rms_norm(x, self.ln1,
+                                                self.cfg.norm_eps), c)
+        return self._mlp_residual(x + r)
+
+
+_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_RWKV: RwkvBlock, BLOCK_REC: RecBlock}
 
 
 class Transformer(Params):
@@ -247,7 +305,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random weights from a seeded ``torch.Generator`` on ``device``,
     with the reference's shapes, scales and constants (``dense_init`` /
     ``embed_init``: normal times ``fan_in ** -0.5``; norms zero; the
-    RWKV leaves as ``rwkv_init``, its decay path and bonus in f32).  The
+    RWKV leaves as ``rwkv_init``, its decay path and bonus in f32; the
+    RG-LRU leaves as ``rglru_init``, its gates and ``lam`` in f32).  The
     numbers differ from the reference's ``jax.random`` ones; parity
     tests convert the reference's weights through ``bridge.py``."""
     model = Transformer(cfg, dtype, device)
@@ -282,9 +341,14 @@ def _kv_slot(leading, cfg: ModelConfig, dtype, device):
             "v_s": torch.zeros(shape[:-1], **scales)}
 
 
-def _state_slot(reps: int, batch: int, cfg: ModelConfig, dtype, device):
-    """A per-slot RWKV carry with a leading ``reps`` axis (``s`` f32)."""
-    st = rwkv.init_state(cfg, batch, dtype, device)
+_STATE_INIT = {BLOCK_RWKV: rwkv.init_state, BLOCK_REC: rglru.init_state}
+
+
+def _state_slot(btype: str, reps: int, batch: int, cfg: ModelConfig, dtype,
+                device):
+    """A per-slot recurrent carry (RWKV's or RG-LRU's, its f32 leaves
+    f32) with a leading ``reps`` axis."""
+    st = _STATE_INIT[btype](cfg, batch, dtype, device)
     return {k: v.new_zeros((reps,) + v.shape) for k, v in st.items()}
 
 
@@ -298,7 +362,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     groups = tuple(
         tuple(_kv_slot((reps, batch, S), cfg, dtype, device)
               if btype == BLOCK_ATTN else
-              _state_slot(reps, batch, cfg, dtype, device)
+              _state_slot(btype, reps, batch, cfg, dtype, device)
               for btype in pattern)
         for pattern, reps in cfg.block_groups())
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -321,7 +385,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     groups = tuple(
         tuple(_kv_slot((reps, n_pages, page_size), cfg, dtype, device)
               if btype == BLOCK_ATTN else
-              _state_slot(reps, batch, cfg, dtype, device)
+              _state_slot(btype, reps, batch, cfg, dtype, device)
               for btype in pattern)
         for pattern, reps in cfg.block_groups())
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),

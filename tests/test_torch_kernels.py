@@ -64,6 +64,9 @@ DECODE_SHAPES = [
     (2, 256, 8, 8, 64, False),
     (2, 128, 4, 2, 64, True),
     (1, 512, 16, 2, 80, False),
+    # recurrentgemma's local attention: G = 10 at Dh 256 (G * Dh 2560)
+    (2, 256, 10, 1, 256, False),
+    (2, 256, 10, 1, 256, True),
 ]
 PAGED_SHAPES = [
     # (B, S, H, Hkv, Dh, page, ring)
@@ -74,6 +77,7 @@ PAGED_SHAPES = [
     (2, 128, 4, 2, 64, 64, True),
     (2, 96, 8, 2, 64, 64, True),
     (1, 512, 16, 2, 80, 256, False),
+    (2, 256, 10, 1, 256, 128, True),
 ]
 WKV_SHAPES = [
     # (B, T, H, hs) — tests/test_kernels.py

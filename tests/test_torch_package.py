@@ -61,7 +61,7 @@ COPIED = [f"core/{m}.py" for m in (
     "recovery", "simulator", "baselines", "analysis")] \
     + ["models/config.py", "data/workload.py", "data/trace.py"] \
     + [f"configs/{m}.py" for m in ("yi_6b", "stablelm_1_6b", "llama2_13b",
-                                   "rwkv6_3b")]
+                                   "rwkv6_3b", "recurrentgemma_2b")]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -80,7 +80,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                   SchedulerConfig)
     from repro_torch.core.engine import ServingEngine, TorchEngineBackend
     from repro_torch.launch import serve
-    from repro_torch.models import rwkv
+    from repro_torch.models import rglru, rwkv
     from repro_torch.models import transformer as tfm
 
     cfg = get_smoke_config("qwen3-14b", max_seq_len=64)
@@ -96,6 +96,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tfm.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         rwkv.init_state(get_smoke_config("rwkv6-3b"), 1)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rglru.init_state(get_smoke_config("recurrentgemma-2b"), 1)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--smoke", "--requests", "1"])
 
@@ -181,6 +183,48 @@ def test_cpu_serve_launcher_runs_rwkv(capsys):
     out = capsys.readouterr().out
     assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
     assert "wkv6 0" in out
+
+
+def test_cpu_serve_launcher_runs_recurrentgemma_on_the_paged_pool(capsys):
+    """recurrentgemma-2b's local-attention rings page and its RG-LRU
+    carries stay per slot: every request served and every page free (on
+    the CPU the wrappers run their plain versions: no launch counted)."""
+    from repro_torch.launch import serve
+    serve.main(["--smoke", "--arch", "recurrentgemma-2b", "--device", "cpu",
+                "--dtype", "f32", "--paged", "--page-size", "32",
+                "--requests", "4", "--slots", "4"])
+    out = capsys.readouterr().out
+    assert re.search(r"served 4/4 requests, \d+ tokens in", out), out
+    m = re.search(r"pages: (\d+) x 32 tok \(bf16 pool\), free (\d+)", out)
+    assert m and m[1] == m[2], out
+    assert "paged_flash_decode 0" in out
+
+
+def test_long_context_example_serves_each_family_on_the_cpu(capsys):
+    """The twin of ``examples/long_context_serving.py`` at smoke size:
+    rwkv6-3b, recurrentgemma-2b and the dense sliding-window variant each
+    serve their 8 prompts of 100-200 tokens, and the full-scale memory
+    lines are those of the reference's configs."""
+    from repro_torch.examples import long_context_serving as ex
+    served = ex.main(["--device", "cpu"])
+    assert len(served) == 3
+    for name, outs in served.items():
+        assert len(outs) == 8 and all(len(o) == 6 for o in outs.values()), \
+            name
+    rows = {r[0]: r for r in ex.memory_models()}
+    assert set(rows) == {"qwen3-14b", "qwen3-14b+swa", "rwkv6-3b",
+                         "recurrentgemma-2b"}
+    assert rows["recurrentgemma-2b"][3] == 2048
+    assert "served 8/8" in capsys.readouterr().out
+
+
+def test_quickstart_example_serves_on_the_cpu(capsys):
+    from repro_torch.examples import quickstart
+    done = quickstart.main(["--device", "cpu", "--requests", "6",
+                            "--chunk", "32"])
+    assert len(done) == 6
+    out = capsys.readouterr().out
+    assert "served 6/6 requests" in out and "prefill shapes:" in out
 
 
 def test_init_params_shapes_and_scales():

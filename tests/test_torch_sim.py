@@ -74,6 +74,9 @@ LAUNCHER_FLAGS = {
     # the full config (the cost model builds no model): its buckets
     # split, and the split rule decides where
     "llama2-13b": ["--arch", "llama2-13b", "--requests", "64"],
+    # a hybrid: ring caches of the local window, RG-LRU state per request
+    "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--requests",
+                          "12"],
 }
 
 
