@@ -146,12 +146,34 @@ goes through these phases, each printing its own lines:
    kernel a layer a step), and a decode step of 8 wrapped rows profiled
    eager and as a graph replay, with the RG-LRU functions' share of an
    eager step and of a 6144-token prefill;
-12. the kernel table as one JSON line (launches from the serve runs:
+12. MoE (qwen3-moe-235b-a22b, llama4-scout-17b-a16e): the
+   recurrentgemma-2b model is freed; both decode kernels at qwen3-moe's
+   widths (B = 8, H = 64, Hkv = 4: G = 16 at Dh 128, the decode body's
+   G * Dh cap) over 4096 slots at context 2048 and on rows of every
+   length and wrapped rings (two calls, same bits), and a 512-token
+   chunk at offset 1536, f32 and bf16, each against its plain version
+   and in bf16 timed beside its bound and SDPA; llama4-scout's G = 5
+   decode rows checked; one MoE layer of each config at full width
+   (bf16): ``moe_local`` against ``moe_dense_ref`` at 8 tokens and at a
+   512-token chunk, every grouped product through the library's grouped
+   GEMM, timed against its bytes bound beside the plain route and the
+   dense oracle, with the distinct experts hit; smoke f32 qwen3-moe and
+   llama4-scout through ``graph_smoke`` on both pools (card ids == CPU
+   ids, graph == eager, paged == contiguous; the f32 grouped products
+   on the plain route); then qwen3-moe at full width with its depth cut
+   from 94 to 8 layers (bf16, seeded random weights, cache 4096): 12
+   requests at t = 0 on the paged pool and 4 on the contiguous pool,
+   eagerly and with the graph (ids and launches identical, every page
+   free, one ``flash_prefill`` a layer a chunk on the tensor-core body,
+   one decode kernel a layer a step, three grouped GEMM calls a layer
+   a step), and a decode step profiled eager and as a graph replay with
+   the MoE functions' share of an eager step and of a prefill;
+13. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
    from the int8 runs; the three attention kernels once more at
-   recurrentgemma-2b's widths with its runs' launches, each entry naming
-   its ``path``), the ``nvidia-smi`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   recurrentgemma-2b's and at qwen3-moe's widths with those runs'
+   launches, each entry naming its ``path``), the ``nvidia-smi`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -198,12 +220,14 @@ WKV_TOL = TOL["float32"]
 PREFILL_SHAPES = [   # (B, T, H, Hkv, Dh, window, causal): reference sweep
     (1, 128, 4, 4, 64, 0, True), (2, 200, 8, 2, 64, 0, True),
     (2, 384, 4, 1, 128, 0, True), (1, 300, 4, 2, 64, 128, True),
-    (2, 256, 4, 4, 80, 0, False), (1, 64, 2, 2, 256, 0, True)]
+    (2, 256, 4, 4, 80, 0, False), (1, 64, 2, 2, 256, 0, True),
+    (1, 300, 16, 1, 128, 0, True)]                             # G = 16
 DECODE_SHAPES = [    # (B, S, H, Hkv, Dh, ring)
     (2, 256, 8, 2, 64, False), (1, 600, 4, 1, 128, False),
     (2, 256, 8, 8, 64, False), (2, 128, 4, 2, 64, True),
     (1, 512, 16, 2, 80, False),
-    (2, 256, 10, 1, 256, False), (2, 256, 10, 1, 256, True)]   # G = 10
+    (2, 256, 10, 1, 256, False), (2, 256, 10, 1, 256, True),   # G = 10
+    (1, 300, 16, 1, 128, False), (2, 256, 16, 1, 128, True)]   # G = 16
 WKV_SHAPES = [       # (B, T, H, hs): reference sweep
     (1, 64, 2, 64), (2, 100, 4, 64), (1, 128, 1, 32), (2, 48, 8, 16)]
 # constant decays: exp(-exp(3)) forgets at once, exp(-exp(-6)) keeps
@@ -228,7 +252,8 @@ PAGED_SHAPES = [     # (B, S, H, Hkv, Dh, page, ring)
     (2, 256, 8, 2, 64, 128, False), (2, 256, 8, 8, 64, 128, False),
     (1, 600, 4, 1, 128, 128, False), (1, 300, 4, 2, 64, 128, False),
     (2, 128, 4, 2, 64, 64, True), (2, 96, 8, 2, 64, 64, True),
-    (1, 512, 16, 2, 80, 256, False), (2, 256, 10, 1, 256, 128, True)]
+    (1, 512, 16, 2, 80, 256, False), (2, 256, 10, 1, 256, 128, True),
+    (1, 300, 16, 1, 128, 128, False), (2, 256, 16, 1, 128, 128, True)]
 # recurrentgemma-2b's local attention (G = 10 at Dh 256) over its
 # 2048-slot ring: decode rows not yet wrapped and wrapped, a band of
 # window 2048 over a 4096-token prompt
@@ -1318,7 +1343,8 @@ GRAPH_SMOKE_RUNS = (("qwen3-14b", True), ("qwen3-14b", False),
                     ("rwkv6-3b", False))
 
 
-def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", **overrides):
+def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", counts_out=None,
+                **overrides):
     """Smoke f32, the engine's decode step as a CUDA graph against the
     same engine run eagerly on the card and on the CPU: qwen3-14b on the
     paged and the contiguous pool and rwkv6-3b on its carry pool, chunk
@@ -1326,7 +1352,8 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", **overrides):
     the graph run's launch counts the eager run's.  With ``kv_dtype``
     "int8" the attention configs' caches are int8; ``overrides`` go to
     every run's smoke config.  Returns the graph runs' ids by (arch,
-    paged)."""
+    paged), and puts their counts (the MoE's grouped products by route
+    included) into ``counts_out`` when it is given."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tfm
@@ -1356,7 +1383,8 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", **overrides):
                 raise AssertionError(f"graph smoke {arch} {label}: not all "
                                      f"served")
             torch.cuda.synchronize()
-            counts[label] = dict(runtime.launch_counts)
+            counts[label] = dict(runtime.launch_counts, **{
+                f"grouped/{k}": n for k, n in runtime.grouped_counts.items()})
             ids[label] = finished_ids(eng, reqs)
             replays = g.replays if g is not None else replays
         pool = "paged" if paged else "contiguous"
@@ -1369,6 +1397,8 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", **overrides):
                                  f"{counts['eager']}; {replays} replays")
         res.append(f"{arch} {pool} {replays} replays")
         all_ids[arch, paged] = ids["graph"]
+        if counts_out is not None:
+            counts_out[arch, paged] = counts["graph"]
     what = "".join(f" {k}={v}" for k, v in overrides.items())
     log("graph", f"smoke f32{' ' + kv_dtype if kv_dtype else ''}{what}, "
         f"decode graph against eager on the card and the CPU, "
@@ -1540,6 +1570,7 @@ def serve_run(torch, cfg, eng, reqs, label):
                    for b, n in runtime.prefill_unaligned_counts.items()})
     counts.update({f"{k}/last plan": p for k, p in runtime.decode_plans.items()
                    if p is not None})
+    counts.update({f"grouped/{k}": n for k, n in runtime.grouped_counts.items()})
     if len(done) != len(reqs):
         raise AssertionError(f"{label}: served {len(done)}/{len(reqs)}")
     for r in reqs:
@@ -3277,25 +3308,25 @@ def rg_smoke(torch):
             f"{len(ids[arch, True])} requests")
 
 
-def rg_op_shares(torch, label, fn, steps=2):
+def op_shares(torch, phase, label, fn, module, names, steps=2):
     """Device time of ``fn`` under ``torch.profiler``, eager, with the
-    RG-LRU functions (``RG_RANGES``) each inside a ``record_function``
+    functions ``names`` of ``module`` each inside a ``record_function``
     range: each range's device time (its kernels, nested ranges
     included) and share of the device busy time."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import rglru
-    saved = {n: getattr(rglru, n) for n in RG_RANGES}
+    saved = {n: getattr(module, n) for n in names}
+    tag = phase + "/"
 
     def ranged(name, f):
         def call(*args, **kw):
-            with record_function(f"rg/{name}"):
+            with record_function(tag + name):
                 return f(*args, **kw)
         return call
     fn()
     torch.cuda.synchronize()
     try:
         for n, f in saved.items():
-            setattr(rglru, n, ranged(n, f))
+            setattr(module, n, ranged(n, f))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -3303,16 +3334,16 @@ def rg_op_shares(torch, label, fn, steps=2):
             torch.cuda.synchronize()
     finally:
         for n, f in saved.items():
-            setattr(rglru, n, f)
+            setattr(module, n, f)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     # the ranges also show as device-side annotations spanning their
     # kernels (idle gaps included): only kernels count as busy time
     kernels = [e for e in events if e.device_type == cuda
-               and not e.name.startswith("rg/")]
+               and not e.name.startswith(tag)]
     if not kernels:
-        log("rg", f"{label}: the profiler saw no device events (shares not "
-            f"measured)")
+        log(phase, f"{label}: the profiler saw no device events (shares "
+            f"not measured)")
         return {}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
     attn = sum(e.time_range.elapsed_us() for e in kernels
@@ -3325,15 +3356,21 @@ def rg_op_shares(torch, label, fn, steps=2):
             launched_us(c) for c in e.cpu_children)
     out = {"busy_ms": busy, "attention_ms": attn}
     for e in events:
-        if e.device_type != cuda and e.name.startswith("rg/"):
-            key = e.name[3:] + "_ms"
+        if e.device_type != cuda and e.name.startswith(tag):
+            key = e.name[len(tag):] + "_ms"
             out[key] = out.get(key, 0.0) + launched_us(e) / 1e3 / steps
-    log("rg", f"{label}: {busy:.2f} ms device busy; attention kernels "
+    log(phase, f"{label}: {busy:.2f} ms device busy; attention kernels "
         f"{attn:.2f} ms; " + "; ".join(
             f"{n} {out.get(n + '_ms', 0.0):.2f} ms "
-            f"({out.get(n + '_ms', 0.0) / busy:.3f})" for n in RG_RANGES
+            f"({out.get(n + '_ms', 0.0) / busy:.3f})" for n in names
             if n + "_ms" in out))
     return out
+
+
+def rg_op_shares(torch, label, fn, steps=2):
+    """``op_shares`` of the RG-LRU functions (``RG_RANGES``)."""
+    from repro_torch.models import rglru
+    return op_shares(torch, "rg", label, fn, rglru, RG_RANGES, steps)
 
 
 def rg_profile(torch, cfg, model):
@@ -3447,6 +3484,323 @@ def rg_phase(torch):
         profile=profile, pool_tokens=pool_tokens)
 
 
+# ------------------------------------------------------------------ moe ---
+MOE_ARCH = "qwen3-moe-235b-a22b"
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+# qwen3-moe's attention: 64 query heads on 4 kv heads, G = 16 at Dh 128
+# (G * Dh 2048, the decode body's cap); llama4-scout's: 40 on 8, G = 5
+MOE_ATTN = dict(B=8, H=64, Hkv=4, Dh=128, S=4096)
+SCOUT_ATTN = dict(B=8, H=40, Hkv=8, Dh=128, S=4096)
+# the full-width serve: the depth cut from 94 layers to 8 (21.15 B
+# parameters, 42.3 GB in bf16, beside the pool on one 80 GB card) and the
+# cache to 4096; every width as published
+MOE_LAYERS = 8
+MOE_MAX_SEQ = 4096
+# the MoE layer alone, (B, T) of its input: a decode batch and a chunk
+MOE_FFN_SHAPES = {"decode 8 tokens": (8, 1), "chunk 512 tokens": (1, 512)}
+MOE_RANGES = ("moe_local", "router_topk", "grouped_ffn")
+MOE_PATH = "qwen3-moe-235b-a22b (8 of 94 layers)"
+
+
+def moe_kernels(torch):
+    """The attention kernels at qwen3-moe's widths (B = 8, H = 64, Hkv =
+    4: G = 16 at Dh 128), f32 and bf16: both decode kernels over 4096
+    slots at context 2048 and on rows of every length and wrapped rings
+    (two calls, same bits), and a 512-token chunk at offset 1536 over
+    4096 slots through the body its dtype names; each against its plain
+    version, and in bf16 timed beside its bound and SDPA, with the
+    decode split the rule picks.  Then llama4-scout's G = 5 decode rows
+    (H = 40, Hkv = 8), checked, not timed."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        tol, timed = MAIN_TOL[dt], dt == "bfloat16"
+
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(getattr(torch, dt))
+        for widths, name, timed_here in ((MOE_ATTN, "qwen3-moe", timed),
+                                         (SCOUT_ATTN, "llama4-scout", False)):
+            B, H, Hkv, Dh, S = (widths[k] for k in ("B", "H", "Hkv", "Dh",
+                                                    "S"))
+            q = rnd((B, H, Dh))
+            kc, vc = rnd((B, S, Hkv, Dh)), rnd((B, S, Hkv, Dh))
+            kp, vp, bt = paged_copy(torch, kc, vc, 128, gen)
+            pos = torch.full((B,), 2047, dtype=torch.int32, device=dev)
+            case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
+                               f"{name} {dt}", timed_here)
+            for kname, row in case.items():
+                key = f"{kname} B=8 H={H} Hkv={Hkv} ctx=2048" + (
+                    " page=128" if "paged" in kname else "")
+                worst[f"{key} {dt}"] = row["max_abs_err"]
+                plan = row["plan"]
+                log("moe", f"{kname} at {name}'s widths (G = {H // Hkv}) "
+                    f"{dt}: n_split {plan.n_split}, L {plan.L}, "
+                    f"{B * Hkv * plan.n_split} blocks, {plan.body} body")
+                if timed_here:
+                    rows[key] = row
+            for label, posl, ring in DECODE_MIXED:
+                pm = torch.tensor(posl, dtype=torch.int32, device=dev)
+                (a, b), (a2, b2) = [
+                    (ops.flash_decode(q, kc, vc, pm, ring=ring),
+                     ops.paged_flash_decode(q, kp, vp, bt, pm, s_len=S,
+                                            ring=ring)) for _ in range(2)]
+                worst[f"{name} decode {label} {dt}"] = max(
+                    assert_close(torch, f"{name} flash_decode {label} {dt}",
+                                 a, ref.flash_decode_ref(q, kc, vc, pm,
+                                                         ring=ring), tol),
+                    assert_close(torch, f"{name} paged_flash_decode {label} "
+                                 f"{dt}", b, ref.paged_flash_decode_ref(
+                                     q, kp, vp, bt, pm, s_len=S, ring=ring),
+                                 tol),
+                    assert_close(torch, f"{name} paged vs contiguous "
+                                 f"{label} {dt}", b, a, tol))
+                if not (torch.equal(a, a2) and torch.equal(b, b2)):
+                    raise AssertionError(f"{name} decode {label} {dt}: two "
+                                         f"calls on the same inputs differ")
+            del q, kc, vc, kp, vp
+        B, H, Hkv, Dh, S = (MOE_ATTN[k] for k in ("B", "H", "Hkv", "Dh",
+                                                  "S"))
+        Tc, off = 512, 1536
+        q, k, v = rnd((1, Tc, H, Dh)), rnd((1, S, Hkv, Dh)), \
+            rnd((1, S, Hkv, Dh))
+        row = chunk_case(torch, q, k, v, off, tol, f"qwen3-moe chunk {dt}",
+                         timed)
+        key = f"flash_prefill H={H} Hkv={Hkv} chunk 512@1536/4096"
+        worst[f"{key} {dt}"] = row["max_abs_err"]
+        if timed:
+            rows[key] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    log("moe", "kernels at qwen3-moe's widths (G = 16) and llama4-scout's "
+        "decode rows (G = 5) agree with the plain versions (f32 atol 1e-4 "
+        "rtol 1e-3; bf16 atol 2e-3 rtol 1e-2), two calls the same bits; "
+        "max abs err: " + "; ".join(f"{k} {v:.3g}" for k, v in
+                                    worst.items()))
+    log_rows("moe", rows)
+    return rows
+
+
+def moe_ffn(torch):
+    """One MoE layer of each config at full width, bf16, seeded random
+    weights and inputs: ``moe_local`` against ``moe_dense_ref`` on the
+    same input, at a decode batch (8 tokens) and at a 512-token chunk,
+    within the bf16 tolerance (atol 2e-2, rtol 2e-2: both accumulate in
+    f32 and round each projection to bf16; a flipped expert moves an
+    output by a whole expert); every grouped product through the
+    library's grouped GEMM.  Timed against the bytes the call must move
+    (each expert it routes to read once, the shared expert and the f32
+    router, the input and the output) and its FLOPs, beside the plain
+    route (the masked loop over the E experts) and the dense oracle.
+    The routing of random weights is the traffic: how many distinct
+    experts a batch hits is logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    rows = {}
+    for arch in (MOE_ARCH, SCOUT_ARCH):
+        cfg = get_config(arch)
+        d, f, E, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
+        gen = torch.Generator(device=dev).manual_seed(3)
+        p = moe.Moe(cfg, torch.bfloat16, dev)
+        with torch.no_grad():
+            p.init_(gen)
+        for label, (B, T) in MOE_FFN_SHAPES.items():
+            x = torch.randn((B, T, d), generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+            N = B * T
+            runtime.reset_launch_counts()
+            got = moe.moe_local(cfg, p, x)
+            if runtime.grouped_counts != {"grouped_mm": 3, "masked_loop": 0}:
+                raise AssertionError(f"{arch} moe_local {label}: grouped "
+                                     f"products {runtime.grouped_counts}")
+            err = assert_close(torch, f"{arch} moe_local {label}", got,
+                               moe.moe_dense_ref(cfg, p, x),
+                               TOL["bfloat16"])
+            _, idx, _ = moe.router_topk(cfg, p, x.reshape(N, d))
+            hit = int(torch.unique(idx).numel())
+            nbytes = (hit * 3 * d * f * 2 + d * E * 4 + 2 * N * d * 2
+                      + (3 * d * cfg.d_ff * 2 if cfg.shared_expert else 0))
+            flops = (2.0 * N * k * 3 * d * f + 2.0 * N * d * E
+                     + (2.0 * N * 3 * d * cfg.d_ff if cfg.shared_expert
+                        else 0))
+            b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+            ms = time_ms(torch, lambda: moe.moe_local(cfg, p, x), 10)
+            dense_ms = time_ms(torch, lambda: moe.moe_dense_ref(cfg, p, x),
+                               3, 1)
+            library = moe.grouped_mm
+            moe.grouped_mm = moe.grouped_mm_plain
+            try:
+                plain_ms = time_ms(torch, lambda: moe.moe_local(cfg, p, x),
+                                   3, 1)
+            finally:
+                moe.grouped_mm = library
+            rows[f"{arch} {label}"] = dict(
+                ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, max_abs_err=err,
+                experts_hit=hit, tokens=N, bytes=nbytes, flops=flops)
+            log("moe", f"{arch} MoE layer, {label} (bf16, full width: d "
+                f"{d}, {E} experts, top-{k}, d_ff_expert {f}"
+                f"{', shared expert' if cfg.shared_expert else ''}): "
+                f"{hit} distinct experts hit by {N * k} routed pairs; "
+                f"moe_local {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), "
+                f"{ms / b_ms:.2f}x; plain route (masked loop) "
+                f"{plain_ms:.4f} ms; dense oracle {dense_ms:.4f} ms; "
+                f"against the oracle max abs err {err:.3g}")
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_smoke(torch):
+    """Smoke f32 qwen3-moe and llama4-scout through ``graph_smoke`` on
+    both pools: card ids == CPU ids, graph == eager (launches and grouped
+    products by route equal), paged == contiguous.  The f32 grouped
+    products on the card take the plain route, chosen by dtype."""
+    counts = {}
+    runs = tuple((arch, paged) for arch in (MOE_ARCH, SCOUT_ARCH)
+                 for paged in (True, False))
+    ids = graph_smoke(torch, runs=runs, counts_out=counts)
+    for arch in (MOE_ARCH, SCOUT_ARCH):
+        if ids[arch, True] != ids[arch, False]:
+            raise AssertionError(f"{arch} smoke: paged ids "
+                                 f"{ids[arch, True]} differ from contiguous "
+                                 f"{ids[arch, False]}")
+    for (arch, paged), c in counts.items():
+        if c["grouped/grouped_mm"] or not c["grouped/masked_loop"]:
+            raise AssertionError(f"{arch} smoke f32: grouped products {c}")
+    log("moe", "smoke f32 qwen3-moe and llama4-scout: paged ids equal "
+        "contiguous; the f32 grouped products took the plain route (the "
+        "masked loop, chosen by dtype) on the card: " + "; ".join(
+            f"{a} {'paged' if pg else 'contiguous'} "
+            f"{c['grouped/masked_loop']}" for (a, pg), c in counts.items()))
+
+
+def moe_check_launches(label, cfg, counts, steps, decode_kernel):
+    """Each layer launches ``flash_prefill`` once a prefill chunk (the
+    tensor-core body) and ``decode_kernel`` once a decode step, and runs
+    its three grouped products through the grouped GEMM in each; nothing
+    else of the kernels runs."""
+    L = cfg.n_layers
+    other = "flash_decode" if decode_kernel == "paged_flash_decode" else \
+        "paged_flash_decode"
+    if counts[decode_kernel] != L * steps["decode"] or \
+            counts["flash_prefill"] != L * steps["prefill"] or \
+            counts["flash_prefill/tensor_core"] != counts["flash_prefill"] \
+            or not steps["decode"] or counts[other] or counts["wkv6"] or \
+            counts["grouped/grouped_mm"] != 3 * L * (steps["prefill"]
+                                                     + steps["decode"]) or \
+            counts["grouped/masked_loop"]:
+        raise AssertionError(f"{label}: launches {counts} for "
+                             f"{steps['prefill']} prefill chunks and "
+                             f"{steps['decode']} decode steps of {L} layers")
+    plan = counts[f"{decode_kernel}/last plan"]
+    log("moe", f"{label}: flash_prefill {counts['flash_prefill']} = {L} x "
+        f"{steps['prefill']} chunks, all on the tensor-core body; "
+        f"{decode_kernel} {counts[decode_kernel]} = {L} x {steps['decode']} "
+        f"steps (last plan n_split {plan.n_split}, L {plan.L}, {plan.body} "
+        f"body); grouped GEMM calls {counts['grouped/grouped_mm']} = 3 x "
+        f"{L} x {steps['prefill'] + steps['decode']}")
+
+
+def moe_profile(torch, cfg, model):
+    """A full-width decode step of 8 rows at context 1024 (paged, page
+    128), eager and as a graph replay (``profile_pair``), and the MoE
+    functions' share of an eager step and of an 8 x 512 prefill through
+    ``record_function`` ranges."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    B, ctx, page = 8, 1024, 128
+    S = cfg.max_seq_len
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=S)
+    paged = to_paged(torch, tfm, cfg, cache, page)
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+
+    def step():
+        tfm.decode_step(cfg, model, tok, paged, page_size=page, paged_len=S)
+    label = (f"qwen3-moe-235b-a22b full width, {cfg.n_layers} of 94 "
+             f"layers, decode step, B={B}, context {ctx}, paged")
+    prof = profile_pair(torch, label, step, "paged_flash_decode",
+                        "decode_kernel")
+    prof["decode_shares"] = op_shares(torch, "moe", f"{label}, eager", step,
+                                      moe, MOE_RANGES)
+    ptoks = toks[:, :512].contiguous()
+    prof["prefill_shares"] = op_shares(
+        torch, "moe", f"qwen3-moe-235b-a22b full width, {cfg.n_layers} "
+        f"layers, prefill {B} x 512 tokens", lambda: tfm.prefill(
+            cfg, model, ptoks, cache_len=S), moe, MOE_RANGES, steps=1)
+    return prof
+
+
+def moe_phase(torch):
+    """The MoE family: the kernels at qwen3-moe's widths, one MoE layer of
+    each config at full width, the smoke parity, then qwen3-moe at full
+    width with its depth cut to ``MOE_LAYERS`` (bf16, seeded random
+    weights, cache ``MOE_MAX_SEQ``): 12 requests at t = 0 on the paged
+    pool and 4 on the contiguous pool, each eagerly and with the decode
+    graph (ids and launches identical, every page free), and the decode
+    step's profile.  Returns the kernel rows, the MoE layer rows, each
+    path's launches, the serve stats and the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import default_pool_tokens
+    import dataclasses
+    t0 = time.perf_counter()
+    rows = moe_kernels(torch)
+    ffn = moe_ffn(torch)
+    moe_smoke(torch)
+    dev = torch.device("cuda")
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
+                              max_seq_len=MOE_MAX_SEQ)
+    model, wbytes = make_model(torch, MOE_ARCH, cfg)
+    log("moe", f"depth cut from {full.n_layers} to {cfg.n_layers} layers "
+        f"({cfg.param_count() / 1e9:.2f} B of {full.param_count() / 1e9:.1f}"
+        f" B parameters, {cfg.active_param_count() / 1e9:.2f} B active a "
+        f"token), cache length {cfg.max_seq_len} (the config's "
+        f"{full.max_seq_len} cut); every width as published")
+    warm = make_engine(torch, cfg, model, wbytes, True, 2,
+                       2 * cfg.max_seq_len, decode_graph=False)
+    serve_run(torch, cfg, warm, requests([96, 700], 4), "qwen3-moe warm-up")
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_tokens = default_pool_tokens(cfg, model, dev)
+    label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) paged pool, chunk "
+             f"512, page 128, 8 slots")
+    paged_counts, paged_stats, paged_steps = serve_pair(
+        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes, True,
+                                             8, pool_tokens,
+                                             decode_graph=flag),
+        SERVE_LENGTHS, 32, label)
+    moe_check_launches(label, cfg, paged_counts, paged_steps,
+                       "paged_flash_decode")
+    label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) contiguous pool, "
+             f"chunk 512, 4 slots")
+    contig_counts, contig_stats, contig_steps = serve_pair(
+        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
+                                             False, 4, decode_graph=flag),
+        [200, 900, 64, 1500], 16, label)
+    moe_check_launches(label, cfg, contig_counts, contig_steps,
+                       "flash_decode")
+    profile = moe_profile(torch, cfg, model)
+    log("moe", f"done in {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, ffn=ffn, launches={
+        "flash_prefill": paged_counts["flash_prefill"],
+        "paged_flash_decode": paged_counts["paged_flash_decode"],
+        "flash_decode": contig_counts["flash_decode"]},
+        serve={"paged": paged_stats, "contiguous": contig_stats},
+        profile=profile, pool_tokens=pool_tokens)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3506,6 +3860,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rg = rg_phase(torch)
     profile["recurrentgemma-2b"] = rg.pop("profile")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch)
+    profile["qwen3-moe-235b-a22b"] = moe.pop("profile")
 
     def entry(name, source, replaces, row, path="qwen3-14b", n=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3573,6 +3931,23 @@ def main() -> int:
                                 "2048"],
                      path="recurrentgemma-2b",
                      n=rg["launches"]["flash_decode"]),
+        # qwen3-moe-235b-a22b's path (8 of its 94 layers): G = 16 at Dh 128
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   moe["rows"]["flash_prefill H=64 Hkv=4 chunk "
+                               "512@1536/4096"],
+                   path=MOE_PATH, n=moe["launches"]["flash_prefill"]),
+             body="tensor_core (wgmma; bf16, Dh 128, G = 16)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     moe["rows"]["paged_flash_decode B=8 H=64 Hkv=4 "
+                                 "ctx=2048 page=128"],
+                     path=MOE_PATH, n=moe["launches"]["paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     moe["rows"]["flash_decode B=8 H=64 Hkv=4 ctx=2048"],
+                     path=MOE_PATH, n=moe["launches"]["flash_decode"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
@@ -3582,6 +3957,7 @@ def main() -> int:
     log("int8", f"{int8}")
     log("paper", json.dumps(paper))
     log("rg", json.dumps(rg, default=str))
+    log("moe", json.dumps(moe, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,13 @@ leaves are stacked ``(reps, ...)``; they are unstacked into
 
 Every leaf keeps the dtype the port gives it: the model's dtype, except
 the RWKV decay path and bonus (``w0``, ``wA``, ``wB``, ``u``), the
-RG-LRU gates and decay (``wr``, ``wi``, ``lam``) and the recurrent
-carries ``s`` (RWKV) and ``h`` (RG-LRU), which are float32 in a bf16
-model too, as in the reference.
+RG-LRU gates and decay (``wr``, ``wi``, ``lam``), the MoE router
+(``groups/<g>/<j>/moe/router``) and the recurrent carries ``s`` (RWKV)
+and ``h`` (RG-LRU), which are float32 in a bf16 model too, as in the
+reference.  The MoE experts (``moe/w_gate``, ``moe/w_up`` (E, d, f),
+``moe/w_down`` (E, f, d)) and the shared expert (``moe/shared/{gate,
+up,down}``) land once, at load, in the reference's layout, which is the
+one the grouped product takes (``models/moe.py:grouped_mm``).
 """
 from __future__ import annotations
 

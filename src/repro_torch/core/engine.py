@@ -7,8 +7,11 @@ reference) drive real prefill and decode, token for token.  All
 orchestration — arrivals, batch formation, OOM/slot re-queue, chunk
 interleaving, timing — lives in the loop; this module only executes.
 
-Models: the dense attention decoders (qwen3-14b, llama2-13b), rwkv6-3b
-and recurrentgemma-2b.  For RWKV the per-slot cache leaves are the
+Models: the dense attention decoders (qwen3-14b, llama2-13b), the MoE
+decoders (qwen3-moe-235b-a22b, llama4-scout-17b-a16e: their K/V pool as
+a dense decoder's, their FFN the MoE by ``moe_impl``, the reference
+engine's option, in prefill, the chunk and the captured decode step),
+rwkv6-3b and recurrentgemma-2b.  For RWKV the per-slot cache leaves are the
 recurrent carry (``s`` (reps, B, H, hs, hs) f32, ``x_tm`` and ``x_cm``
 (reps, B, d)), which prefill writes and slot insertion scatters exactly
 as it does K/V.  recurrentgemma mixes both kinds: its RG-LRU blocks keep
@@ -98,6 +101,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import runtime
+from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
@@ -394,7 +398,12 @@ class TorchEngineBackend:
     (:class:`DecodeGraph`) on a CUDA device and runs it eagerly on the
     CPU; True asks for the graph and raises on the CPU; False runs the
     step eagerly on the card too (the graph-against-eager comparisons).
-    The reference engine has no such option: it always compiles."""
+    The reference engine has no such option: it always compiles.
+
+    ``moe_impl`` is the reference engine's: the MoE blocks' path in
+    prefill, the chunk and the decode step, ``"local"`` (grouped, the
+    default) or ``"ref"`` (the dense oracle); ``"ep"`` is refused here,
+    as the port has no expert parallelism yet."""
 
     prefill_needs_slots = True
     # armed by the ServingLoop when the scheduler is slack-aware
@@ -410,8 +419,10 @@ class TorchEngineBackend:
                  host_pool_tokens: Optional[int] = None,
                  spill_bw: float = 16e9, spill_dtype: str = "",
                  time_scale: float = 1.0, device="cuda",
-                 decode_graph: Optional[bool] = None):
+                 decode_graph: Optional[bool] = None,
+                 moe_impl: str = "local"):
         tfm.check_supported(cfg)
+        moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
                              f"{SPILL_DTYPES}")
@@ -428,6 +439,7 @@ class TorchEngineBackend:
         self.max_slots = max_slots
         self.cache_len = cache_len or cfg.max_seq_len
         self.chunk_tokens = chunk_tokens
+        self.moe_impl = moe_impl
         self.clock = WallClock(time_scale)
         self.supports_decode = cfg.has_decode
         self.flops_per_token = 2.0 * cfg.active_param_count()
@@ -521,6 +533,7 @@ class TorchEngineBackend:
                                   self.next_tok)
         kw = dict(page_size=self.page_size,
                   paged_len=self.s_attn) if self.paged else {}
+        kw["moe_impl"] = self.moe_impl
 
         def step() -> None:
             logits, _ = tfm.decode_step(cfg, model, nxt, cache, **kw)
@@ -709,14 +722,15 @@ class TorchEngineBackend:
         if not chunked:
             self._note_shape("prefill", clen, B)
             logits, cache = tfm.prefill(self.cfg, self.model, h["toks"],
-                                        h["lens"], cache_len=self.cache_len)
+                                        h["lens"], cache_len=self.cache_len,
+                                        moe_impl=self.moe_impl)
             h["first"][:] = torch.argmax(logits, -1).cpu().numpy()
             h["cache"] = cache
         else:
             self._note_shape("chunk", clen, B)
             logits, h["cache"] = tfm.prefill_chunk(
                 self.cfg, self.model, h["toks"][:, start:start + clen],
-                h["cache"], start, h["lens"])
+                h["cache"], start, h["lens"], moe_impl=self.moe_impl)
             last = h["np_lens"] - 1
             fin = (last >= start) & (last < start + clen)
             if fin.any():
@@ -928,7 +942,8 @@ class ServingEngine:
     and defaults are the reference engine's; a ``FaultInjector`` is
     built only for a plan with an armed site (``self.faults``).
     ``device`` defaults to ``"cuda"`` and raises when no card is
-    present; ``decode_graph`` is ``TorchEngineBackend``'s."""
+    present; ``decode_graph`` and ``moe_impl`` are
+    ``TorchEngineBackend``'s."""
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
@@ -944,7 +959,8 @@ class ServingEngine:
                  recorder=None, tracer=None,
                  fault_plan=None, recovery=None,
                  restore_timeout: float = 30.0,
-                 device="cuda", decode_graph: Optional[bool] = None):
+                 device="cuda", decode_graph: Optional[bool] = None,
+                 moe_impl: str = "local"):
         self.cfg = cfg
         self.model = model
         self.sched = scheduler
@@ -955,7 +971,7 @@ class ServingEngine:
             prefix_cache=prefix_cache, session_ttl=session_ttl,
             host_pool_tokens=host_pool_tokens, spill_bw=spill_bw,
             spill_dtype=spill_dtype, time_scale=time_scale, device=device,
-            decode_graph=decode_graph)
+            decode_graph=decode_graph, moe_impl=moe_impl)
         self.faults = FaultInjector(fault_plan) \
             if fault_plan is not None and fault_plan.any_armed else None
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(

@@ -15,9 +15,13 @@ of their own, ``flash_decode_int8`` and ``paged_flash_decode_int8``); the prefil
 (``kernels/flash_prefill.py:body``), and to
 ``prefill_unaligned_counts[<body>]`` when the launch's ``q_offset`` is
 positive and not a multiple of ``PREFILL_TILE`` (a chunk resumed inside
-a query tile, as after a session hit).  ``reset_launch_counts`` zeroes
-all three.  ``decode_plans`` holds the grid and body of each decode
-kernel's last launch (``kernels/decode_attn.py:plan``); the reset
+a query tile, as after a session hit).  ``grouped_counts`` counts the
+MoE's grouped products on the card by route (``models/moe.py:
+grouped_mm``: the library's grouped GEMM for bf16, the plain masked loop
+for f32); they are no kernels of the port, so they stay out of
+``launch_counts``.  ``reset_launch_counts`` zeroes all four.
+``decode_plans`` holds the grid and body of each decode kernel's last
+launch (``kernels/decode_attn.py:plan``); the reset
 clears it.  A replayed CUDA graph runs no wrapper:
 ``core/engine.py:DecodeGraph`` reads what its capture added to the
 counts and plans (``count_state``), puts them back as they were, and
@@ -67,7 +71,12 @@ prefill_unaligned_counts = {name: 0 for name in PREFILL_BODIES}
 decode_plans = {name: None for name in DECODE_KERNELS}
 
 
-COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts)
+# the MoE's grouped products on the card, by route (models/moe.py)
+grouped_counts = {"grouped_mm": 0, "masked_loop": 0}
+
+
+COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts,
+            grouped_counts)
 
 
 def reset_launch_counts() -> None:

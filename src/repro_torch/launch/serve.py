@@ -27,7 +27,10 @@ runs the int8 decode kernels, which dequantize in registers.
 running on the CPU when ``--device cpu`` is given.  ``--arch rwkv6-3b``
 serves RWKV6 on the contiguous slot pool (its per-slot carry has no K/V
 to page, so ``--paged`` is refused), through the hand-written WKV6
-kernel on the card.
+kernel on the card.  The MoE configs (``--arch qwen3-moe-235b-a22b``,
+``--arch llama4-scout-17b-a16e``) are served with ``moe_impl="local"``,
+as the reference launcher serves them; at full depth neither fits one
+80 GB card.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -334,7 +337,8 @@ def serve(cfg, model, reqs, args, device: torch.device):
                            spill_dtype=args.spill_dtype,
                            slice_tokens=args.slice_tokens,
                            recorder=recorder, tracer=tracer,
-                           fault_plan=plan, device=device)
+                           fault_plan=plan, device=device,
+                           moe_impl="local")
     runtime.reset_launch_counts()
     engine.submit(reqs)
     t0 = time.perf_counter()

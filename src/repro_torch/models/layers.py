@@ -95,6 +95,22 @@ def apply_rope(x, cos, sin):
 
 
 # ----------------------------------------------------------------- MLP ----
+class MLP(Params):
+    """Gated MLP weights ``gate``, ``up`` (d, d_ff) and ``down`` (d_ff,
+    d)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        e = dict(dtype=dtype, device=device)
+        self.gate = frozen_param(torch.empty(cfg.d_model, cfg.d_ff, **e))
+        self.up = frozen_param(torch.empty(cfg.d_model, cfg.d_ff, **e))
+        self.down = frozen_param(torch.empty(cfg.d_ff, cfg.d_model, **e))
+
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.gate, self.up, self.down):
+            w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+
+
 def mlp_apply(p, x, act: str):
     """Gated MLP; ``p`` holds ``gate``, ``up`` and ``down`` weights."""
     h = x @ p["up"]

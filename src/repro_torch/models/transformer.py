@@ -1,16 +1,18 @@
 """Model assembly: prefill, chunked prefill and decode over a contiguous
-or a paged cache, for dense attention decoders, RWKV6 and the
-RG-LRU / local-attention hybrid.
+or a paged cache, for dense attention decoders, MoE decoders, RWKV6 and
+the RG-LRU / local-attention hybrid.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for configs whose
 blocks are ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
-llama2-13b), ``BLOCK_RWKV`` (rwkv6-3b) or ``BLOCK_REC`` with
-``BLOCK_ATTN`` (recurrentgemma-2b, whose attention layers are local: ring
-caches of ``local_window`` slots).  The reference stacks each block
-group's parameters on a ``reps`` axis and runs ``lax.scan``; here each
-block is an :class:`AttnBlock`, :class:`RwkvBlock` or :class:`RecBlock`
-module in ``Transformer.groups[gi][j][rep]`` and a Python loop over reps
-replaces the scan.  Caches keep the reference's pytree layout —
+llama2-13b), ``BLOCK_MOE`` (qwen3-moe-235b-a22b, llama4-scout-17b-a16e:
+the same attention, a MoE FFN run by ``moe_impl``), ``BLOCK_RWKV``
+(rwkv6-3b) or ``BLOCK_REC`` with ``BLOCK_ATTN`` (recurrentgemma-2b, whose
+attention layers are local: ring caches of ``local_window`` slots).  The
+reference stacks each block group's parameters on a ``reps`` axis and
+runs ``lax.scan``; here each block is an :class:`AttnBlock`,
+:class:`MoeBlock`, :class:`RwkvBlock` or :class:`RecBlock` module in
+``Transformer.groups[gi][j][rep]`` and a Python loop over reps replaces
+the scan.  Caches keep the reference's pytree layout —
 ``{"pos", "block_tables", "groups"}`` with ``(reps, ...)`` leaves per
 pattern slot: ``k``/``v`` for attention (and ``k_s``/``v_s``, the f32
 scale planes of an int8 cache), ``s``/``x_tm``/``x_cm`` for RWKV,
@@ -23,9 +25,10 @@ Public API (functions of ``(cfg, model, ...)``):
     init_params(cfg, seed, dtype, device)   -> Transformer
     init_cache(cfg, batch, cache_len, ...)  -> zeroed cache pytree
     init_paged_cache(cfg, batch, cache_len, n_pages, page_size, ...)
-    prefill(cfg, model, tokens, lengths, cache_len) -> (last logits, cache)
-    prefill_chunk(cfg, model, tokens, cache, start, lengths)
-    decode_step(cfg, model, token, cache, page_size, paged_len)
+    prefill(cfg, model, tokens, lengths, cache_len, moe_impl)
+        -> (last logits, cache)
+    prefill_chunk(cfg, model, tokens, cache, start, lengths, moe_impl)
+    decode_step(cfg, model, token, cache, page_size, paged_len, moe_impl)
 """
 from __future__ import annotations
 
@@ -36,13 +39,12 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from . import attention, layers, rglru, rwkv
-from .layers import Params, frozen_param as _param
+from . import attention, layers, moe, rglru, rwkv
+from .layers import MLP, Params, frozen_param as _param
 from .config import (BLOCK_ATTN, BLOCK_CROSS, BLOCK_MOE, BLOCK_REC,
                      BLOCK_RWKV, ModelConfig)
 
 _LATER_SLICE = {
-    BLOCK_MOE: "the MoE slice of the port",
     BLOCK_CROSS: "the VLM/encoder slice of the port",
 }
 
@@ -74,17 +76,10 @@ class Attention(Params):
             self.k_norm = _param(torch.zeros(cfg.d_head, **e))
 
 
-class MLP(Params):
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__()
-        e = dict(dtype=dtype, device=device)
-        self.gate = _param(torch.empty(cfg.d_model, cfg.d_ff, **e))
-        self.up = _param(torch.empty(cfg.d_model, cfg.d_ff, **e))
-        self.down = _param(torch.empty(cfg.d_ff, cfg.d_model, **e))
-
-
 class AttnBlock(nn.Module):
-    """Pre-norm self-attention + gated MLP (``BLOCK_ATTN``)."""
+    """Pre-norm self-attention + gated MLP (``BLOCK_ATTN``).
+    :class:`MoeBlock` keeps the attention and swaps the FFN
+    (``_add_ffn``, ``_init_ffn``, ``_ffn``)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -93,19 +88,28 @@ class AttnBlock(nn.Module):
         self.ln1 = _param(torch.zeros(cfg.d_model, **e))
         self.ln2 = _param(torch.zeros(cfg.d_model, **e))
         self.attn = Attention(cfg, dtype, device)
+        self._add_ffn(cfg, dtype, device)
+
+    def _add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
         self.mlp = MLP(cfg, dtype, device)
+
+    def _init_ffn(self, gen: torch.Generator) -> None:
+        self.mlp.init_(gen)
+
+    def _ffn(self, h, **_):
+        return layers.mlp_apply(self.mlp, h, self.cfg.act)
 
     def _norm1(self, x):
         return layers.rms_norm(x, self.ln1, self.cfg.norm_eps)
 
-    def _mlp_residual(self, x):
+    def _mlp_residual(self, x, **kw):
         h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
-        return x + layers.mlp_apply(self.mlp, h, self.cfg.act)
+        return x + self._ffn(h, **kw)
 
     def init_(self, gen: torch.Generator) -> None:
-        for w in (self.attn.wq, self.attn.wk, self.attn.wv, self.attn.wo,
-                  self.mlp.gate, self.mlp.up, self.mlp.down):
+        for w in (self.attn.wq, self.attn.wk, self.attn.wv, self.attn.wo):
             w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+        self._init_ffn(gen)
 
     # Each block type takes its cache views and the keyword context of
     # prefill / prefill_chunk / decode_step, and reads what it needs.
@@ -116,19 +120,19 @@ class AttnBlock(nn.Module):
         return tuple(c[k] for k in _KV_KEYS if k in c)
 
     def prefill(self, x, c, *, positions, lengths, window: int,
-                cache_len: int, **_):
+                cache_len: int, **kw):
         a = attention.self_attn_forward(
             self.cfg, self.attn, self._norm1(x), positions, lengths,
             window=window, cache=self._kv(c), cache_len=cache_len)
-        return self._mlp_residual(x + a)
+        return self._mlp_residual(x + a, **kw)
 
-    def chunk(self, x, c, *, start: int, active, **_):
+    def chunk(self, x, c, *, start: int, active, **kw):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
                                       start, self._kv(c), active)
-        return self._mlp_residual(x + a)
+        return self._mlp_residual(x + a, **kw)
 
     def decode(self, x, c, *, pos, window: int, block_tables=None,
-               page_size: int = 0, paged_len: int = 0, **_):
+               page_size: int = 0, paged_len: int = 0, **kw):
         h = self._norm1(x)
         kv = self._kv(c)
         if block_tables is not None:
@@ -138,7 +142,23 @@ class AttnBlock(nn.Module):
         else:
             a = attention.self_attn_decode(self.cfg, self.attn, h, pos, kv,
                                            window=window)
-        return self._mlp_residual(x + a)
+        return self._mlp_residual(x + a, **kw)
+
+
+class MoeBlock(AttnBlock):
+    """Pre-norm self-attention + MoE FFN (``BLOCK_MOE``): ``AttnBlock``'s
+    attention, cache leaves and int8 tier on both pools; the FFN residual
+    is ``moe.apply`` by ``moe_impl`` (the reference's ``_apply_block``
+    and ``_apply_moe``)."""
+
+    def _add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
+        self.moe = moe.Moe(cfg, dtype, device)
+
+    def _init_ffn(self, gen: torch.Generator) -> None:
+        self.moe.init_(gen)
+
+    def _ffn(self, h, *, moe_impl: str = "local", **_):
+        return moe.apply(self.cfg, self.moe, h, moe_impl)
 
 
 def _write_carry(c, new, active=None) -> None:
@@ -220,8 +240,7 @@ class RecBlock(nn.Module):
 
     def init_(self, gen: torch.Generator) -> None:
         self.rec.init_(gen)
-        for w in (self.mlp.gate, self.mlp.up, self.mlp.down):
-            w.copy_(layers.dense_init(gen, w.shape[0], w.shape[1], w.dtype))
+        self.mlp.init_(gen)
 
     def _mlp_residual(self, x):
         h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
@@ -252,7 +271,8 @@ class RecBlock(nn.Module):
         return self._mlp_residual(x + r)
 
 
-_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_RWKV: RwkvBlock, BLOCK_REC: RecBlock}
+_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_MOE: MoeBlock, BLOCK_RWKV: RwkvBlock,
+           BLOCK_REC: RecBlock}
 
 
 class Transformer(Params):
@@ -306,8 +326,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     with the reference's shapes, scales and constants (``dense_init`` /
     ``embed_init``: normal times ``fan_in ** -0.5``; norms zero; the
     RWKV leaves as ``rwkv_init``, its decay path and bonus in f32; the
-    RG-LRU leaves as ``rglru_init``, its gates and ``lam`` in f32).  The
-    numbers differ from the reference's ``jax.random`` ones; parity
+    RG-LRU leaves as ``rglru_init``, its gates and ``lam`` in f32; the
+    MoE leaves as ``moe_init``, its router in f32, drawn expert by
+    expert).  The numbers differ from the reference's ``jax.random`` ones; parity
     tests convert the reference's weights through ``bridge.py``."""
     model = Transformer(cfg, dtype, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
@@ -323,6 +344,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 # ---------------------------------------------------------------- cache ---
 _KV_KEYS = ("k", "v", "k_s", "v_s")
+_KV_BLOCKS = (BLOCK_ATTN, BLOCK_MOE)        # blocks with self-attention K/V
 
 
 def _kv_slot(leading, cfg: ModelConfig, dtype, device):
@@ -361,7 +383,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     S = cfg.attn_cache_len(cache_len)
     groups = tuple(
         tuple(_kv_slot((reps, batch, S), cfg, dtype, device)
-              if btype == BLOCK_ATTN else
+              if btype in _KV_BLOCKS else
               _state_slot(btype, reps, batch, cfg, dtype, device)
               for btype in pattern)
         for pattern, reps in cfg.block_groups())
@@ -384,7 +406,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     n_p = -(-S // page_size)
     groups = tuple(
         tuple(_kv_slot((reps, n_pages, page_size), cfg, dtype, device)
-              if btype == BLOCK_ATTN else
+              if btype in _KV_BLOCKS else
               _state_slot(btype, reps, batch, cfg, dtype, device)
               for btype in pattern)
         for pattern, reps in cfg.block_groups())
@@ -404,8 +426,7 @@ def effective_window(cfg: ModelConfig) -> int:
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:
     return cfg.has_decode and any(
-        b in (BLOCK_ATTN, BLOCK_MOE)
-        for pat, _ in cfg.block_groups() for b in pat)
+        b in _KV_BLOCKS for pat, _ in cfg.block_groups() for b in pat)
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
@@ -420,10 +441,12 @@ def _slot(cache, gi: int, j: int, rep: int):
 # -------------------------------------------------------------- drivers ---
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, moe_impl: str = "local"):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
-    tokens: (B,T) int; lengths: (B,) prompt lengths (default T)."""
+    tokens: (B,T) int; lengths: (B,) prompt lengths (default T);
+    moe_impl: the MoE blocks' path, ``"local"`` (grouped) or ``"ref"``
+    (the dense oracle)."""
     x = layers.embed_apply(model.embed, tokens)
     B, T, _ = x.shape
     if lengths is None:
@@ -434,7 +457,8 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
     win = effective_window(cfg)
     for gi, j, rep, blk in model.blocks():
         x = blk.prefill(x, _slot(cache, gi, j, rep), positions=positions,
-                        lengths=lengths, window=win, cache_len=cache_len)
+                        lengths=lengths, window=win, cache_len=cache_len,
+                        moe_impl=moe_impl)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(B, device=x.device), idx]
@@ -445,7 +469,7 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
 
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
-                  start: int, lengths):
+                  start: int, lengths, moe_impl: str = "local"):
     """One chunked-prefill step: prompt tokens at absolute positions
     [start, start+Tc) against ``cache`` (from ``init_cache``), written in
     place.  lengths: (B,) FULL prompt lengths.
@@ -462,7 +486,7 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     rel_len = (lengths - start).clamp(0, Tc)     # valid tokens per row
     for gi, j, rep, blk in model.blocks():
         x = blk.chunk(x, _slot(cache, gi, j, rep), start=start,
-                      active=active, lengths=rel_len)
+                      active=active, lengths=rel_len, moe_impl=moe_impl)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1 - start).clamp(0, Tc - 1)
     last = x[torch.arange(B, device=x.device), idx]
@@ -471,7 +495,8 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
-                page_size: int = 0, paged_len: int = 0):
+                page_size: int = 0, paged_len: int = 0,
+                moe_impl: str = "local"):
     """token: (B,) int.  Returns (logits (B,V) f32, cache): the same
     dict, its K/V and carries written in place and ``pos`` advanced in
     place for every row (dead rows too, as in the reference).  Every
@@ -494,7 +519,7 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
     for gi, j, rep, blk in model.blocks():
         x = blk.decode(x, _slot(cache, gi, j, rep), pos=pos, window=win,
                        block_tables=bt, page_size=page_size,
-                       paged_len=paged_len)
+                       paged_len=paged_len, moe_impl=moe_impl)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     pos.add_(1)
     return layers.unembed_apply(model.head, x[:, 0]), cache

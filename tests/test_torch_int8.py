@@ -18,8 +18,8 @@ inputs (f32):
 - the plain int8 decode versions (``ref.flash_decode_int8_ref``,
   ``ref.paged_flash_decode_int8_ref``) against the reference's
   dequantize-then-``decode_attention``;
-- prefill and 6 decode steps of qwen3-14b and yi-6b smoke in int8 (port
-  logits against JAX logits), and mirrors of
+- prefill and 6 decode steps of qwen3-14b, yi-6b and qwen3-moe smoke in
+  int8 (port logits against JAX logits), and mirrors of
   ``test_int8_decode_tracks_bf16`` and ``test_int8_with_sliding_window_
   ring``;
 - the engine: token ids equal the JAX engine's on
@@ -400,7 +400,8 @@ def test_paged_flash_decode_int8_ref_matches_reference(shape, dtype):
 
 
 # ---------------------------------------------------------------- model --
-@pytest.mark.parametrize("arch", ["qwen3-14b", "yi-6b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "yi-6b",
+                                  "qwen3-moe-235b-a22b"])
 def test_int8_prefill_and_decode_match_reference(arch):
     """Prefill and 6 decode steps in int8: port logits against JAX
     logits (prefill attends over the unquantized K/V: ``LOGIT_TOL``;

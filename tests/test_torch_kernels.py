@@ -67,6 +67,9 @@ DECODE_SHAPES = [
     # recurrentgemma's local attention: G = 10 at Dh 256 (G * Dh 2560)
     (2, 256, 10, 1, 256, False),
     (2, 256, 10, 1, 256, True),
+    # qwen3-moe-235b-a22b: G = 16 at Dh 128 (G * Dh 2048, the cap)
+    (1, 300, 16, 1, 128, False),
+    (2, 256, 16, 1, 128, True),
 ]
 PAGED_SHAPES = [
     # (B, S, H, Hkv, Dh, page, ring)
@@ -78,6 +81,8 @@ PAGED_SHAPES = [
     (2, 96, 8, 2, 64, 64, True),
     (1, 512, 16, 2, 80, 256, False),
     (2, 256, 10, 1, 256, 128, True),
+    (1, 300, 16, 1, 128, 128, False),     # qwen3-moe: G = 16 at Dh 128
+    (2, 256, 16, 1, 128, 128, True),
 ]
 WKV_SHAPES = [
     # (B, T, H, hs) — tests/test_kernels.py
@@ -97,6 +102,7 @@ CHUNK_SHAPES = [
     (2, 64, 192, 4, 2, 64, 37),
     (1, 64, 256, 8, 2, 128, 128),
     (2, 96, 256, 4, 1, 80, 37),
+    (1, 64, 300, 16, 1, 128, 100),        # qwen3-moe: G = 16 at Dh 128
 ]
 # the tensor-core prefill body (bf16, Dh 64 and 128) off its 64-row,
 # 64-key tile grid: (B, Tq, Tk, H, Hkv, causal, window, q_offset, lengths)

@@ -61,7 +61,9 @@ COPIED = [f"core/{m}.py" for m in (
     "recovery", "simulator", "baselines", "analysis")] \
     + ["models/config.py", "data/workload.py", "data/trace.py"] \
     + [f"configs/{m}.py" for m in ("yi_6b", "stablelm_1_6b", "llama2_13b",
-                                   "rwkv6_3b", "recurrentgemma_2b")]
+                                   "rwkv6_3b", "recurrentgemma_2b",
+                                   "qwen3_moe_235b_a22b",
+                                   "llama4_scout_17b_a16e")]
 
 
 @pytest.mark.parametrize("rel", COPIED)
