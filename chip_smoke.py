@@ -19,7 +19,9 @@ goes through these phases, each printing its own lines:
    attention: H=40, Hkv=8, Dh=128; rwkv6-3b's recurrence: 40 heads of
    64, a 512-token chunk and a decode step of 8 rows), in f32 and in
    bf16, each prefill call through the body its dtype and head dim
-   select; at the main paths' bf16 shapes also its time, the plain
+   select, a chunk's query offset passed as the engine passes it (a 0-d
+   int32 tensor the kernel reads on the card); at the main paths' bf16
+   shapes also its time, the plain
    version's time, the card's bound for the same work and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick; the decode kernels also at rows of every length (0-4095)
@@ -33,22 +35,31 @@ goes through these phases, each printing its own lines:
    it (the tile sweep);
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
-   then the decode graph at smoke size: the engine with its decode step
-   captured as a CUDA graph (``core/engine.py:DecodeGraph``, the default
-   on the card) against the same engine run eagerly
-   (``decode_graph=False``) and on the CPU, f32, on the paged and the
+   then the graphs at smoke size: the engine with its decode step and
+   its prefills captured as CUDA graphs (``core/engine.py:DecodeGraph``,
+   ``PrefillGraph``, the default on the card) against the same engine
+   run eagerly (``decode_graph=False, prefill_graph=False``) and on the
+   CPU, f32, on the paged and the
    contiguous qwen3-14b pools and the rwkv6-3b carry pool: ids
-   identical, launch counts equal; the same for smoke llama2-13b (MHA,
+   identical, launch counts equal, one prefill graph captured for each
+   prefill shape met twice; the same for smoke llama2-13b (MHA,
    G = 1) on both pools, whose paged ids must also equal the contiguous
    ones;
 5. serve: the port's ``ServingEngine`` on full-width, full-depth
    Qwen3-14B (bf16, random weights from a seeded generator on the card,
    cache length 4096), paged pool with chunked prefill, then a short
-   contiguous-pool run, each run eagerly and then with the decode graph
-   (ids and launch counts identical; tok/s, TTFT, TPOT, the capture's
-   seconds and the graph's private pool bytes), then four full-width
-   decode steps under ``torch.profiler``, eager and as graph replays
-   (wall, device busy, idle share, kernels a step);
+   contiguous-pool run, each run eagerly and then with the decode and
+   the prefill graphs, the paged run also with the decode graph alone
+   (ids and launch counts identical; tok/s, TTFT, TPOT, the decode
+   capture's seconds and the graph's private pool bytes, the prefill
+   graphs' captures, replays, pool bytes and capture seconds beside the
+   prefill shapes; the prefill graphs must replay), then four
+   full-width decode steps under ``torch.profiler``, eager and as graph
+   replays (wall, device busy, idle share, kernels a step), and
+   full-width prefill chunks of (Tc, B) = (512, 8), (512, 1), (128, 4)
+   at offset 1536 and (45, 4) at 1037 through the engine's
+   ``prefill_chunk``, eager and as prefill-graph replays (the same
+   figures a chunk);
 6. retention (KV retention in the engine, on the same model): smoke qwen3-14b at f32 on the
    reference tests' shared-prefix and 2-session workloads, cold and with
    retention on the card and with retention on the CPU, token ids equal;
@@ -76,7 +87,9 @@ goes through these phases, each printing its own lines:
    34-page pool, the fault plan armed and a Tracer on (every request
    finished or quarantined, slice yields, preemptions and fault events
    > 0, each kept slice the head of its final output, pages balanced,
-   ``memory_allocated`` back within 64 MiB, the timeline valid,
+   ``memory_allocated`` back within 64 MiB of its value after the
+   engine's construction, which allocates its batch prefill cache and
+   buffers, the timeline valid,
    ``paged_flash_decode`` 40 launches a decode step, every
    ``flash_prefill`` launch on the tensor-core body); then the same
    workload without faults drained at half that time, the first
@@ -90,8 +103,10 @@ goes through these phases, each printing its own lines:
    main widths also at rows of every length and wrapped rings and over
    two calls; the bf16 main shape timed with its plain version, the
    dequantize + bf16 kernel route, SDPA on the dequantized gathered
-   cache and its bound; a split sweep), and smoke qwen3-14b f32 over
-   int8 caches after the parity phase (card ids == CPU ids, graph ==
+   cache and its bound; a split sweep; a chunk's dequantization of its
+   live prefix timed against the engine's fixed-size one of the whole
+   cache, the chunk's bits the same over both), and smoke qwen3-14b f32
+   over int8 caches after the parity phase (card ids == CPU ids, graph ==
    eager == CPU, paged == contiguous, prefix and session hits == cold);
    here full-width Qwen3-14B serves the paged run's 12 requests over an
    int8 pool under the same ``pool_tokens`` (about 1.94x the bf16
@@ -116,14 +131,18 @@ goes through these phases, each printing its own lines:
    formed batches equal to the cost model's on the same requests); then
    32 requests of the launcher's mixed workload arriving at 8 req/s,
    served under BucketServe (waste trigger) and under the DistServe-like
-   baseline on fresh engines (every request finished, every page free
-   after each run), each with the cost model's prediction on the same
+   baseline on fresh engines, each with the decode graph alone and then
+   with both graphs (every request finished, every page free after each
+   run, the prefill graphs replayed), each with the cost model's
+   prediction on the same
    requests (TTFT, TPOT, makespan) beside the measurement;
 10. rwkv6-3b: the llama2-13b model is freed and full-width, full-depth
    rwkv6-3b is served the same way on the contiguous pool (eager, then
    with the graph), and profiled (eager and graph).
    Launch counts are zeroed before each serve run and read after it (a
-   graph replay counts the launches its capture made):
+   graph replay counts the launches its capture made; a prefill replay's
+   unaligned ``flash_prefill`` launches are counted from its own
+   offset):
    every kernel must have been launched by the path it belongs to, every
    bf16 Qwen3-14B or llama2-13b ``flash_prefill`` launch through the
    tensor-core body, and ``wkv6`` exactly 32 times per prefill chunk and
@@ -643,8 +662,10 @@ def chunk_case(torch, q, k, v, off, tol, label, timed):
     dt, esz = str(q.dtype).split(".")[-1], q.element_size()
     _, Tc, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    # the offset as the engine passes it: a 0-d int32 on the card
+    dev_off = torch.full((), off, dtype=torch.int32, device=q.device)
     row = dict(max_abs_err=assert_close(
-        torch, f"flash_prefill {label}", prefill(q, k, v, q_offset=off),
+        torch, f"flash_prefill {label}", prefill(q, k, v, q_offset=dev_off),
         ref.flash_prefill_ref(q, k, v, q_offset=off), tol))
     if not timed:
         return row
@@ -907,13 +928,28 @@ def int8_kernel_phase(torch):
     deq_ms = time_ms(torch, dequant, 20)
     pre_ms = time_ms(torch, lambda: ops.flash_prefill(q, kd, vd,
                                                       q_offset=off), 10)
+
+    def dequant_all():
+        return deq(kc, ks, q.dtype), deq(vc, vs, q.dtype)
+    kf, vf = dequant_all()
+    full_out = ops.flash_prefill(q, kf, vf, q_offset=off)
+    if not torch.equal(full_out, ops.flash_prefill(q, kd, vd, q_offset=off)):
+        raise AssertionError("int8 chunk: flash_prefill over the whole "
+                             "dequantized cache differs from over its live "
+                             "prefix")
+    full_ms = time_ms(torch, dequant_all, 20)
     log("int8", f"int8 chunk path, Tc {Tc} at q_offset {off} over {S} "
         f"slots (bf16, H={H} Hkv={Hkv} Dh={Dh}): dequantize the {live} "
         f"live slots of K and V {deq_ms:.4f} ms, flash_prefill on them "
         f"{pre_ms:.4f} ms (max abs err {err:.3g}); dequantize moves "
-        f"{2 * live * Hkv * (Dh + 4 + 2 * Dh)} B")
-    del q, kc, vc, ks, vs, kd, vd
+        f"{2 * live * Hkv * (Dh + 4 + 2 * Dh)} B; the engine's fixed-size "
+        f"dequantize of all {S} slots (one graph for every offset, as the "
+        f"reference) {full_ms:.4f} ms, moving "
+        f"{2 * S * Hkv * (Dh + 4 + 2 * Dh)} B, flash_prefill over it the "
+        f"same bits")
+    del q, kc, vc, ks, vs, kd, vd, kf, vf
     rows["int8 chunk dequantize"] = dict(dequant_ms=deq_ms,
+                                         dequant_full_ms=full_ms,
                                          prefill_ms=pre_ms)
     for name, r in rows.items():
         if "plan" not in r:
@@ -945,8 +981,7 @@ def prefill_phase_profile(torch):
     lib = ctypes.CDLL(str(runtime.build(sources=("flash_prefill.cu",),
                                         defines=("RT_PREFILL_PHASES",))))
     fn, read = lib.rt_flash_prefill, lib.rt_prefill_phases
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
+    fn.argtypes = runtime._SIGNATURES["rt_flash_prefill"]
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = read.restype = ctypes.c_int
     dev = torch.device("cuda")
@@ -960,10 +995,12 @@ def prefill_phase_profile(torch):
                                  (1, Tk, Hkv, Dh)))
         out = torch.empty_like(q)
 
+        off_t = torch.full((), off, dtype=torch.int32, device=dev)
+
         def call():
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                     out.data_ptr(), 1, Tq, Tk, H, Hkv, Dh, 1, 0, off,
-                     runtime.DTYPE_CODES[torch.bfloat16],
+                     out.data_ptr(), 1, Tq, Tk, H, Hkv, Dh, 1, 0,
+                     off_t.data_ptr(), runtime.DTYPE_CODES[torch.bfloat16],
                      runtime.stream_ptr(dev))
             if err:
                 raise RuntimeError(f"instrumented flash_prefill: error {err}")
@@ -1345,15 +1382,17 @@ GRAPH_SMOKE_RUNS = (("qwen3-14b", True), ("qwen3-14b", False),
 
 def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", counts_out=None,
                 **overrides):
-    """Smoke f32, the engine's decode step as a CUDA graph against the
-    same engine run eagerly on the card and on the CPU: qwen3-14b on the
-    paged and the contiguous pool and rwkv6-3b on its carry pool, chunk
-    32, 4 slots, 8 requests of 8 new tokens.  Ids must be identical, and
-    the graph run's launch counts the eager run's.  With ``kv_dtype``
-    "int8" the attention configs' caches are int8; ``overrides`` go to
-    every run's smoke config.  Returns the graph runs' ids by (arch,
-    paged), and puts their counts (the MoE's grouped products by route
-    included) into ``counts_out`` when it is given."""
+    """Smoke f32, the engine with its decode step and its prefills as CUDA
+    graphs against the same engine run eagerly (neither graph) on the
+    card and on the CPU: qwen3-14b on the paged and the contiguous pool
+    and rwkv6-3b on its carry pool, chunk 32, 4 slots, 8 requests of 8
+    new tokens.  Ids must be identical, the graph run's launch counts the
+    eager run's, its decode graph replayed and one prefill graph captured
+    a prefill shape.  With ``kv_dtype`` "int8" the attention configs'
+    caches are int8; ``overrides`` go to every run's smoke config.
+    Returns the graph runs' ids by (arch, paged), and puts their counts
+    (the MoE's grouped products by route included) into ``counts_out``
+    when it is given."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tfm
@@ -1365,17 +1404,19 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", counts_out=None,
         cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
                                     device="cpu")
         gpu_model = copy.deepcopy(cpu_model).to("cuda")
-        ids, counts, replays = {}, {}, 0
+        ids, counts, replays, pgraph = {}, {}, 0, None
         for label, model, dev, flag in (("cpu", cpu_model, "cpu", None),
                                         ("eager", gpu_model, "cuda", False),
                                         ("graph", gpu_model, "cuda", None)):
             eng = make_engine(torch, cfg, model, 0, paged, 4, dev=dev,
                               chunk=32, hbm_bytes=2 ** 30, page=16,
                               decode_graph=flag)
-            g = eng.backend.decode_graph
-            if (g is not None) != (label == "graph"):
+            be = eng.backend
+            g, pg = be.decode_graph, be.prefill_graph
+            if (g is not None) != (label == "graph") or \
+                    (pg is not None) != (label == "graph"):
                 raise AssertionError(f"graph smoke {arch} {label}: decode "
-                                     f"graph {g}")
+                                     f"graph {g}, prefill graph {pg}")
             reqs = requests(GRAPH_SMOKE_LENGTHS, 8)
             runtime.reset_launch_counts()
             eng.submit(reqs)
@@ -1384,9 +1425,17 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", counts_out=None,
                                      f"served")
             torch.cuda.synchronize()
             counts[label] = dict(runtime.launch_counts, **{
-                f"grouped/{k}": n for k, n in runtime.grouped_counts.items()})
+                f"grouped/{k}": n for k, n in runtime.grouped_counts.items()},
+                **{f"flash_prefill/unaligned/{k}": n for k, n in
+                   runtime.prefill_unaligned_counts.items()})
             ids[label] = finished_ids(eng, reqs)
-            replays = g.replays if g is not None else replays
+            if g is not None:
+                replays, pgraph = g.replays, pg
+                if not prefill_graph_ok(pg, eng.n_prefill_shapes) or \
+                        not pg.captures:
+                    raise AssertionError(
+                        f"graph smoke {arch}: {pg.captures} prefill graphs "
+                        f"captured for {eng.n_prefill_shapes} shapes")
         pool = "paged" if paged else "contiguous"
         if not ids["graph"] == ids["eager"] == ids["cpu"]:
             raise AssertionError(f"graph smoke {arch} {pool}: ids differ "
@@ -1395,13 +1444,14 @@ def graph_smoke(torch, runs=GRAPH_SMOKE_RUNS, kv_dtype="", counts_out=None,
             raise AssertionError(f"graph smoke {arch} {pool}: launches "
                                  f"graph {counts['graph']}, eager "
                                  f"{counts['eager']}; {replays} replays")
-        res.append(f"{arch} {pool} {replays} replays")
+        res.append(f"{arch} {pool} {replays} decode replays, prefill graphs "
+                   f"{pgraph.captures} captured / {pgraph.replays} replayed")
         all_ids[arch, paged] = ids["graph"]
         if counts_out is not None:
             counts_out[arch, paged] = counts["graph"]
     what = "".join(f" {k}={v}" for k, v in overrides.items())
     log("graph", f"smoke f32{' ' + kv_dtype if kv_dtype else ''}{what}, "
-        f"decode graph against eager on the card and the CPU, "
+        f"decode and prefill graphs against eager on the card and the CPU, "
         f"{len(GRAPH_SMOKE_LENGTHS)} requests each: ids identical and "
         f"launch counts equal ({'; '.join(res)}) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1422,19 +1472,55 @@ def paper_smoke(torch):
         f"for {len(ids['llama2-13b', True])} requests")
 
 
-def serve_pair(torch, cfg, make_eng, lengths, max_new, label):
-    """The same requests served by an engine run eagerly, then by one
-    with its decode graph (the default), in turn: token ids and launch
-    counts must be identical, and a paged pool must get every page back.
-    Returns the graph run's counts, both runs' stats (the graph's with
-    its capture seconds and private pool bytes) and the graph run's
-    prefill chunks and decode steps."""
+GRAPH_MODES = {"eager": dict(decode_graph=False, prefill_graph=False),
+               "decode graph": dict(decode_graph=None, prefill_graph=False),
+               "graph": dict(decode_graph=None, prefill_graph=None)}
+
+
+def prefill_graph_ok(pg, n_shapes: int) -> bool:
+    """The engine's ``PrefillGraph`` met ``n_shapes`` prefill shapes: one
+    eager run each, one capture for each shape met twice, and every
+    later call of a shape a replay."""
+    met = pg.met.values()
+    return (len(pg.met) == n_shapes == pg.eager_runs
+            and pg.captures == len(pg) == sum(n >= 2 for n in met)
+            and pg.replays == sum(n - 2 for n in met if n > 2))
+
+
+def prefill_graph_stats(eng, label, want_replays=False):
+    """The prefill graphs' bookkeeping after a run with them
+    (``prefill_graph_ok``), and replays when ``want_replays``."""
+    pg = eng.backend.prefill_graph
+    n = eng.n_prefill_shapes
+    stats = dict(prefill_captures=pg.captures, prefill_replays=pg.replays,
+                 prefill_eager=pg.eager_runs,
+                 prefill_pool_bytes=pg.pool_bytes,
+                 prefill_capture_s=pg.capture_seconds, prefill_shapes=n,
+                 prefill_graphs=len(pg))
+    if not prefill_graph_ok(pg, n) or (want_replays and not pg.replays):
+        raise AssertionError(f"{label}: prefill graphs {stats}")
+    return stats
+
+
+def serve_pair(torch, cfg, make_eng, lengths, max_new, label,
+               modes=("eager", "graph"), want_replays=False):
+    """The same requests served by engines in each of ``modes``
+    (``GRAPH_MODES``: eager, with the decode graph alone, with the decode
+    and the prefill graphs), in turn; ``make_eng(**graphs)`` builds one.
+    Token ids and launch counts must be identical in every mode, and a
+    paged pool must get every page back.  Returns the last mode's counts,
+    every run's stats (with the decode graph's capture seconds and
+    private pool bytes, and the prefill graphs' captures, replays, pool
+    bytes and capture seconds beside the prefill shapes) and the last
+    run's prefill chunks and decode steps."""
     runs = {}
-    for mode, flag in (("eager", False), ("graph", None)):
-        eng = make_eng(flag)
-        g = eng.backend.decode_graph
-        if (g is not None) != (mode == "graph"):
-            raise AssertionError(f"{label} {mode}: decode graph {g}")
+    for mode in modes:
+        eng = make_eng(**GRAPH_MODES[mode])
+        g, pg = eng.backend.decode_graph, eng.backend.prefill_graph
+        if (g is not None) != (mode != "eager") or \
+                (pg is not None) != (mode == "graph"):
+            raise AssertionError(f"{label} {mode}: decode graph {g}, "
+                                 f"prefill graph {pg}")
         reqs = requests(lengths, max_new)
         counts, stats, steps = serve_run(torch, cfg, eng, reqs,
                                          f"{label}, {mode}")
@@ -1447,27 +1533,43 @@ def serve_pair(torch, cfg, make_eng, lengths, max_new, label):
                                      f"{steps['decode']} decode steps")
             stats.update(capture_s=g.capture_seconds,
                          graph_pool_bytes=g.pool_bytes)
+        if pg is not None:
+            stats.update(prefill_graph_stats(eng, f"{label} {mode}",
+                                             want_replays))
         runs[mode] = (counts, stats, steps, finished_ids(eng, reqs))
-        del eng, be, g
+        del eng, be, g, pg
         gc.collect()
         torch.cuda.empty_cache()
-    (ce, se, ste, ide), (cg, sg, stg, idg) = runs["eager"], runs["graph"]
-    if idg != ide:
-        bad = [(rid, next(i for i, (a, b) in enumerate(zip(ide[rid],
-                                                          idg[rid]))
-                          if a != b)) for rid in ide if ide[rid] != idg[rid]]
-        raise AssertionError(f"{label}: graph ids differ from eager for "
-                             f"{len(bad)} requests (rid, first divergent "
-                             f"token): {bad}")
-    if cg != ce or stg != ste:
-        raise AssertionError(f"{label}: graph launches {cg} steps {stg}, "
-                             f"eager {ce} {ste}")
-    log("graph", f"{label}: ids identical graph against eager for "
-        f"{len(idg)} requests, launch counts equal; graph capture "
-        f"{sg['capture_s']:.3f} s, private pool {sg['graph_pool_bytes']} B; "
-        f"TPOT p50 eager {se['tpot_p50'] * 1e3:.1f} ms, graph "
-        f"{sg['tpot_p50'] * 1e3:.1f} ms")
-    return cg, {"eager": se, "graph": sg}, stg
+    ce, se, ste, ide = runs[modes[0]]
+    for mode in modes[1:]:
+        cg, sg, stg, idg = runs[mode]
+        if idg != ide:
+            bad = [(rid, next(i for i, (a, b) in enumerate(zip(ide[rid],
+                                                              idg[rid]))
+                              if a != b))
+                   for rid in ide if ide[rid] != idg[rid]]
+            raise AssertionError(f"{label}: {mode} ids differ from "
+                                 f"{modes[0]} for {len(bad)} requests (rid, "
+                                 f"first divergent token): {bad}")
+        if cg != ce or stg != ste:
+            raise AssertionError(f"{label}: {mode} launches {cg} steps "
+                                 f"{stg}, {modes[0]} {ce} {ste}")
+    cg, sg, stg, idg = runs[modes[-1]]
+    pre = ""
+    if "prefill_captures" in sg:
+        pre = (f"; prefill graphs {sg['prefill_captures']} captured for "
+               f"{sg['prefill_shapes']} shapes, {sg['prefill_replays']} "
+               f"replays, pool {sg['prefill_pool_bytes']} B, capture "
+               f"{sg['prefill_capture_s']:.3f} s")
+    log("graph", f"{label}: ids identical in every mode "
+        f"({', '.join(modes)}) for {len(idg)} requests, launch counts "
+        f"equal; decode graph capture {sg['capture_s']:.3f} s, private "
+        f"pool {sg['graph_pool_bytes']} B{pre}; " + ", ".join(
+            f"{m} TTFT p50 {runs[m][1]['ttft_p50']:.3f} s p99 "
+            f"{runs[m][1]['ttft_p99']:.3f} s TPOT p50 "
+            f"{runs[m][1]['tpot_p50'] * 1e3:.1f} ms {runs[m][1]['tok_s']:.1f}"
+            f" tok/s" for m in modes))
+    return cg, {m: runs[m][1] for m in modes}, stg
 
 
 # -------------------------------------------------------------- serve ---
@@ -1514,12 +1616,17 @@ def requests(lengths, max_new):
 
 def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None,
                 dev="cuda", chunk=512, hbm_bytes=None, page=128,
-                goodput=False, sched=None, **options):
+                goodput=False, sched=None, batch=None, **options):
     """A ``ServingEngine`` budgeted with the device's memory unless
     ``hbm_bytes`` is given, under the BucketServe scheduler (the goodput
-    scheduler with ``goodput``), or under ``sched`` when one is given;
+    scheduler with ``goodput``) capped at ``batch`` requests a batch
+    (default ``slots``), or under ``sched`` when one is given, whose cap
+    ``batch`` must then name; the batch prefill cache is allocated at
+    construction with that many rows;
     ``options`` passes the engine's other options (KV retention,
-    ``slice_tokens``, ``fault_plan``, ``tracer``)."""
+    ``slice_tokens``, ``fault_plan``, ``tracer``); ``prefill_graph``
+    follows ``decode_graph`` unless it is given: an eager run is eager
+    in both, a graph run captures both."""
     from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                                   MemoryBudget, SchedulerConfig)
     from repro_torch.core.engine import ServingEngine
@@ -1531,12 +1638,14 @@ def make_engine(torch, cfg, model, wbytes, paged, slots, pool_tokens=None,
             n_devices=1, weight_bytes=wbytes)
         sched = (GoodputScheduler if goodput else BucketServeScheduler)(
             cfg, budget, SchedulerConfig(
-                max_batch=slots, memory_model="paged" if paged else "sum",
-                page_size=page))
+                max_batch=batch or slots,
+                memory_model="paged" if paged else "sum", page_size=page))
+    options.setdefault("prefill_graph", options.get("decode_graph"))
     return ServingEngine(cfg, model, sched, max_slots=slots,
                          cache_len=cfg.max_seq_len, chunk_tokens=chunk,
                          paged=paged, page_size=page,
-                         kv_pool_tokens=pool_tokens, device=dev, **options)
+                         kv_pool_tokens=pool_tokens, device=dev,
+                         prefill_rows=batch or slots, **options)
 
 
 def count_steps(be, steps):
@@ -1580,11 +1689,17 @@ def serve_run(torch, cfg, eng, reqs, label):
             raise AssertionError(f"{label}: rid {r.rid} emitted {out}")
     res = eng.result
     ntok = sum(r.generated for r in done)
+    pg = eng.backend.prefill_graph
+    pgs = "" if pg is None else (
+        f" (prefill graphs: {pg.captures} captured in "
+        f"{pg.capture_seconds:.3f} s, {pg.replays} replays, "
+        f"{pg.eager_runs} eager, pool {pg.pool_bytes} B)")
     log("serve", f"{label}: served {len(done)}/{len(reqs)} requests, "
         f"{ntok} tokens in {dt:.2f} s ({ntok / dt:.1f} tok/s); TTFT "
         f"p50 {res.p50('ttft'):.3f} s, p99 {res.p99('ttft'):.3f} s; "
         f"TPOT p50 {res.p50('tpot') * 1e3:.1f} ms; prefill shapes "
-        f"{eng.n_prefill_shapes}; prefill chunks {steps['prefill']}, decode "
+        f"{eng.n_prefill_shapes}{pgs}; prefill chunks {steps['prefill']}, "
+        f"decode "
         f"steps {steps['decode']}, interleaved "
         f"{eng.interleaved_decode_steps}; launches {counts}")
     return counts, dict(tok_s=ntok / dt, ttft_p50=res.p50("ttft"),
@@ -1605,9 +1720,9 @@ def serve_phase(torch):
     log("serve", f"cache length {cfg.max_seq_len} (the config's 32768 cut "
         f"to fit the batch prefill cache and the pool beside the weights)")
 
-    def engine(paged, slots, pool_tokens=None, decode_graph=None):
+    def engine(paged, slots, pool_tokens=None, **graphs):
         return make_engine(torch, cfg, model, wbytes, paged, slots,
-                           pool_tokens, decode_graph=decode_graph)
+                           pool_tokens, **graphs)
 
     # warm-up: cuBLAS handles and the first launch of each kernel
     warm = engine(paged=True, slots=2, pool_tokens=2 * cfg.max_seq_len,
@@ -1625,11 +1740,13 @@ def serve_phase(torch):
         f"{pool_tokens} tokens ({pool_tokens * per_tok / 2**30:.1f} GiB, "
         f"40% of free)")
     paged_counts, paged_stats, _ = serve_pair(
-        torch, cfg, lambda flag: engine(True, 8, pool_tokens, flag),
-        SERVE_LENGTHS, 32, "paged pool, chunk 512, page 128")
+        torch, cfg, lambda **g: engine(True, 8, pool_tokens, **g),
+        SERVE_LENGTHS, 32, "paged pool, chunk 512, page 128",
+        modes=("eager", "decode graph", "graph"), want_replays=True)
     contig_counts, contig_stats, _ = serve_pair(
-        torch, cfg, lambda flag: engine(False, 4, None, flag),
-        [200, 900, 64, 1500], 16, "contiguous pool, chunk 512")
+        torch, cfg, lambda **g: engine(False, 4, None, **g),
+        [200, 900, 64, 1500], 16, "contiguous pool, chunk 512",
+        want_replays=True)
 
     for name in ("flash_prefill", "paged_flash_decode"):
         if paged_counts[name] <= 0:
@@ -1680,9 +1797,8 @@ def rwkv_serve_phase(torch):
     serve_run(torch, cfg, warm, requests([96, 700], 4), "rwkv warm-up")
     del warm
     counts, stats, steps = serve_pair(
-        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
-                                             paged=False, slots=8,
-                                             decode_graph=flag),
+        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
+                                            paged=False, slots=8, **g),
         SERVE_LENGTHS, 32, "rwkv6-3b contiguous pool, chunk 512")
     want = cfg.n_layers * (steps["prefill"] + steps["decode"])
     if counts["wkv6"] != want or want == 0:
@@ -1850,33 +1966,24 @@ def session_requests(cfg, seed=0):
 
 def capture_first_logits(be, store):
     """Record each request's first-token logits (f32, on the host) as the
-    engine's prefill produces them; returns the function that undoes the
-    wrapping."""
-    from repro_torch.models import transformer as tfm
-    originals = (tfm.prefill, tfm.prefill_chunk, be.prefill_chunk)
-    last = {}
-
-    def keep(fn):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
-            last["logits"] = out[0]
-            return out
-        return call
+    engine's prefill produces them: each prefill call, eager or a graph
+    replay, leaves its logits in the engine's logits buffer.  Returns the
+    function that undoes the wrapping."""
+    original = be.prefill_chunk
 
     def chunk(job, idx):
         start, clen = job.chunks[idx]
         whole = len(job.chunks) == 1 and start == 0
-        out = originals[2](job, idx)
-        logits = last.pop("logits")
+        out = original(job, idx)
+        logits = be._pf_logits[:len(job.batch.requests)]
         for i, r in enumerate(job.batch.requests):
             if whole or start <= r.prompt_len - 1 < start + clen:
                 store[r.rid] = logits[i].float().cpu()
         return out
-    tfm.prefill, tfm.prefill_chunk = keep(tfm.prefill), keep(tfm.prefill_chunk)
     be.prefill_chunk = chunk
 
     def undo():
-        tfm.prefill, tfm.prefill_chunk, be.prefill_chunk = originals
+        be.prefill_chunk = original
     return undo
 
 
@@ -2521,9 +2628,9 @@ def int8_serve(torch, cfg8, model, wbytes, pool_tokens, bf16_pages):
     from repro_torch.core import paging
     want = paging.device_pool_pages(cfg8, pool_tokens, 128) - 1
 
-    def paged_engine(flag):
+    def paged_engine(**graphs):
         eng = make_engine(torch, cfg8, model, wbytes, True, 8, pool_tokens,
-                          decode_graph=flag)
+                          **graphs)
         if eng.backend.alloc.n_pages != want:
             raise AssertionError(f"int8 pool: {eng.backend.alloc.n_pages} "
                                  f"pages, want {want}")
@@ -2534,8 +2641,8 @@ def int8_serve(torch, cfg8, model, wbytes, pool_tokens, bf16_pages):
         torch, cfg8, paged_engine, SERVE_LENGTHS, 32,
         "int8 paged pool, chunk 512, page 128")
     contig, contig_stats, csteps = serve_pair(
-        torch, cfg8, lambda flag: make_engine(torch, cfg8, model, wbytes,
-                                              False, 4, decode_graph=flag),
+        torch, cfg8, lambda **g: make_engine(torch, cfg8, model, wbytes,
+                                             False, 4, **g),
         [200, 900, 64, 1500], 16, "int8 contiguous pool, chunk 512")
     errs = []
     for label, c, kernel, st in (("paged", paged, "paged_flash_decode_int8",
@@ -2824,6 +2931,110 @@ def profile_pair(torch, label, step, kernel, match):
     return {"eager": eager, "graph": graph}
 
 
+# (Tc, B, q_offset): the serve chunk at 8 and 1 rows, a short chunk, and
+# a resumed session turn's chunk off the 64-row tile
+PREFILL_PROFILE = ((512, 8, 1536), (512, 1, 1536), (128, 4, 1536),
+                   (45, 4, 1037))
+
+
+def prefill_profile_phase(torch, cfg, model, wbytes):
+    """Where a full-width Qwen3-14B prefill chunk spends its time, eager
+    and as a prefill-graph replay: for each ``PREFILL_PROFILE`` shape,
+    the paged engine's ``prefill_chunk`` (its input copies, the chunk
+    over the engine's batch cache of 8 rows and cache length 4096, the
+    argmax read back) at that offset, under ``profile_steps``: wall,
+    device busy, idle share and kernels a chunk.  The graph engine's
+    first call of the shape runs it eagerly, its second runs it eagerly
+    and captures it; the profiled calls are replays."""
+    from repro_torch.core.batcher import FormedBatch
+    from repro_torch.core.serving_loop import PrefillJob
+    from repro_torch.kernels import runtime
+    out, launched = {}, {}
+    for mode in ("eager", "graph"):
+        eng = make_engine(torch, cfg, model, wbytes, True, 8,
+                          34 * 128, decode_graph=False,
+                          prefill_graph=None if mode == "graph" else False)
+        be = eng.backend
+        for Tc, B, off in PREFILL_PROFILE:
+            reqs = requests([off + Tc + 8] * B, 2)
+            be.begin(reqs)
+            job = PrefillJob(FormedBatch(reqs, pad_to=off + Tc + 8),
+                             [(0, off), (off, Tc), (off + Tc, 8)])
+            label = (f"qwen3-14b full-width prefill chunk Tc={Tc}, B={B}, "
+                     f"q_offset {off}, batch cache 8 x {cfg.max_seq_len}, "
+                     f"{mode}")
+            # the shape's first three calls, each to its end on the
+            # card: with the graph, an eager run, an eager run and the
+            # capture, then the first replay
+            pg = be.prefill_graph
+            cap0 = pg.capture_seconds if pg is not None else 0.0
+            first = []
+            runtime.reset_launch_counts()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                be.prefill_chunk(job, 1)
+                torch.cuda.synchronize()
+                first.append((time.perf_counter() - t0) * 1e3)
+            launched[mode, Tc, B, off] = (
+                runtime.launch_counts["flash_prefill"],
+                dict(runtime.prefill_body_counts),
+                dict(runtime.prefill_unaligned_counts))
+            cap = (pg.capture_seconds - cap0) * 1e3 if pg is not None else 0.0
+            log("prefill", f"{label}: first call {first[0]:.2f} ms, "
+                f"second call {first[1]:.2f} ms (of it the capture's host "
+                f"time {cap:.2f} ms), third call {first[2]:.2f} ms")
+            row = profile_steps(torch, label, lambda: be.prefill_chunk(job, 1),
+                                "flash_prefill", "flash_prefill", steps=3)
+            out[f"Tc={Tc} B={B} off={off} {mode}"] = dict(
+                row, first_ms=first[0], second_ms=first[1],
+                third_ms=first[2], capture_ms=cap)
+            be._job = None
+        pg = be.prefill_graph
+        if pg is not None:
+            if not prefill_graph_ok(pg, len(PREFILL_PROFILE)) \
+                    or not pg.replays:
+                raise AssertionError(f"prefill profile: {pg.captures} "
+                                     f"captures, {pg.replays} replays")
+            out["graph pool bytes"] = pg.pool_bytes
+            out["graph capture s"] = pg.capture_seconds
+            log("prefill", f"prefill graphs: {pg.captures} captured in "
+                f"{pg.capture_seconds:.3f} s, {pg.replays} replays, pool "
+                f"{pg.pool_bytes} B")
+        del eng, be
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the first three calls of each shape (with the graph: two eager
+    # runs, the second captured, then a replay) launch what the eager
+    # engine's do, every one on the tensor-core body, the unaligned ones
+    # counted from each call's own offset
+    L = cfg.n_layers
+    for Tc, B, off in PREFILL_PROFILE:
+        want = (3 * L, {"tensor_core": 3 * L, "cuda_core": 0},
+                {"tensor_core": 3 * L if off % runtime.PREFILL_TILE else 0,
+                 "cuda_core": 0})
+        for mode in ("eager", "graph"):
+            if launched[mode, Tc, B, off] != want:
+                raise AssertionError(
+                    f"prefill profile Tc={Tc} B={B} q_offset {off} {mode}: "
+                    f"flash_prefill launches, by body, unaligned by body "
+                    f"{launched[mode, Tc, B, off]}, want {want}")
+    log("prefill", f"the first three calls of each shape launched "
+        f"flash_prefill {3 * L} times on the tensor-core body in both "
+        f"modes, unaligned {3 * L} at q_offset 1037 and 0 at 1536 (a "
+        f"replay's counted from its own offset)")
+    for Tc, B, off in PREFILL_PROFILE:
+        e = out[f"Tc={Tc} B={B} off={off} eager"]
+        g = out[f"Tc={Tc} B={B} off={off} graph"]
+        log("prefill", f"Tc={Tc} B={B} q_offset {off}: wall eager "
+            f"{e['wall_ms']:.2f} ms, graph {g['wall_ms']:.2f} ms; device "
+            f"busy {e.get('busy_ms', float('nan')):.2f} / "
+            f"{g.get('busy_ms', float('nan')):.2f} ms; idle share "
+            f"{e.get('idle_share', float('nan')):.3f} / "
+            f"{g.get('idle_share', float('nan')):.3f}; kernels a chunk "
+            f"{e.get('launches')} / {g.get('launches')}")
+    return out
+
+
 def profile_phase(torch, cfg, model):
     """Qwen3-14B decode step: 8 rows at context 1024 on the paged pool."""
     from repro_torch.models import transformer as tfm
@@ -3024,7 +3235,9 @@ def paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm, dev="cuda",
     requests with their arrivals: the launcher's ``make_requests`` rules
     (the mixed dataset at 8 req/s, prompts clipped at ``max_seq_len -
     16``, generated tokens capped at ``max_new``), each system on a fresh
-    engine with the decode graph in the disagg loop that
+    engine with the decode graph alone and then on another with the
+    decode and the prefill graphs (its prefill graphs must replay), in
+    the disagg loop that
     ``SIM_MODE`` gives both, each budgeted from the one reading ``hbm``;
     and the cost model on the same requests beside each run.  Gates: every
     request finished in both runs and in both predictions, and every page
@@ -3048,16 +3261,30 @@ def paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm, dev="cuda",
     for name in ("bucketserve", "distserve"):
         if SIM_MODE[name] != "disagg":
             raise AssertionError(f"{name}: mode {SIM_MODE[name]}")
-        sched = record_formed(paper_scheduler(cfg, name, budget))
-        eng = make_engine(torch, cfg, model, wbytes, True, PAPER_SLOTS,
-                          pool_tokens, dev=dev, chunk=chunk, page=page,
-                          sched=sched)
-        counts, stats, steps = serve_run(torch, cfg, eng, copy.deepcopy(base),
-                                         f"llama2-13b {name}")
-        be, res = eng.backend, eng.result
-        if be.free_blocks() != be.alloc.n_pages:
-            raise AssertionError(f"paper {name}: {be.free_blocks()} of "
-                                 f"{be.alloc.n_pages} pages free")
+        alone = {}
+        for mode in ("decode graph", "graph"):
+            sched = record_formed(paper_scheduler(cfg, name, budget))
+            eng = make_engine(torch, cfg, model, wbytes, True, PAPER_SLOTS,
+                              pool_tokens, dev=dev, chunk=chunk, page=page,
+                              sched=sched, batch=PAPER_SLOTS,
+                              **GRAPH_MODES[mode])
+            counts, stats, steps = serve_run(
+                torch, cfg, eng, copy.deepcopy(base),
+                f"llama2-13b {name}, {mode}")
+            be, res = eng.backend, eng.result
+            if be.free_blocks() != be.alloc.n_pages:
+                raise AssertionError(f"paper {name} {mode}: "
+                                     f"{be.free_blocks()} of "
+                                     f"{be.alloc.n_pages} pages free")
+            if mode == "graph":
+                stats.update(prefill_graph_stats(eng, f"paper {name}",
+                                                 want_replays=True))
+                break
+            alone = dict(stats)
+            del eng, be, res
+            gc.collect()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
         sim_sched = record_formed(paper_scheduler(cfg, name, budget))
         _, pred = paper_sim(cfg, sim_sched, copy.deepcopy(base), pool_tokens,
                             chunk, page)
@@ -3066,7 +3293,7 @@ def paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm, dev="cuda",
                                  f"{len(pred.finished())}/{len(base)}")
         buckets = [(b.low, b.up) for b in sched.buckets.buckets] \
             if hasattr(sched, "buckets") else None
-        row = dict(stats, slo=res.slo_attainment(),
+        row = dict(stats, decode_graph_alone=alone, slo=res.slo_attainment(),
                    padding_waste=res.padding_waste_ratio(),
                    kv_util=res.kv_util_time_weighted,
                    preemptions=res.preempt_events, buckets=buckets,
@@ -3087,7 +3314,14 @@ def paper_compare(torch, cfg, model, wbytes, pool_tokens, hbm, dev="cuda",
         pr = row["predicted"]
         log("paper", f"{name}: {row['tok_s']:.1f} tok/s, TTFT p50/p99 "
             f"{row['ttft_p50']:.3f}/{row['ttft_p99']:.3f} s, TPOT p50 "
-            f"{row['tpot_p50'] * 1e3:.1f} ms, SLO {row['slo']:.3f}, padding "
+            f"{row['tpot_p50'] * 1e3:.1f} ms with both graphs (decode graph "
+            f"alone: {alone['tok_s']:.1f} tok/s, TTFT p50/p99 "
+            f"{alone['ttft_p50']:.3f}/{alone['ttft_p99']:.3f} s, TPOT p50 "
+            f"{alone['tpot_p50'] * 1e3:.1f} ms); prefill graphs "
+            f"{row['prefill_captures']} captured for "
+            f"{row['prefill_shapes']} shapes, {row['prefill_replays']} "
+            f"replays, pool {row['prefill_pool_bytes']} B, capture "
+            f"{row['prefill_capture_s']:.3f} s; SLO {row['slo']:.3f}, padding "
             f"waste {row['padding_waste']:.3f}, kv util "
             f"{row['kv_util']:.3f}, preemptions {row['preemptions']}, "
             f"buckets {buckets}, {row['batches']} batches formed "
@@ -3153,11 +3387,12 @@ def paper_phase(torch):
                           weight_bytes=wbytes)
     formed = {}
 
-    def pair_engine(flag):
+    def pair_engine(**graphs):
         sched = record_formed(paper_scheduler(cfg, "bucketserve", budget))
-        formed[flag] = sched.formed
+        formed[graphs["prefill_graph"]] = sched.formed
         return make_engine(torch, cfg, model, wbytes, True, 3 * PAPER_SLOTS,
-                           pool_tokens, sched=sched, decode_graph=flag)
+                           pool_tokens, sched=sched, batch=PAPER_SLOTS,
+                           **graphs)
     counts, stats, steps = serve_pair(
         torch, cfg, pair_engine, SERVE_LENGTHS, 32,
         f"llama2-13b paged pool, chunk 512, page 128, "
@@ -3461,16 +3696,15 @@ def rg_phase(torch):
     pool_tokens = default_pool_tokens(cfg, model, dev)
     label = "recurrentgemma-2b paged pool, page 128, 8 slots"
     paged_counts, paged_stats, paged_steps = serve_pair(
-        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes, True,
-                                             8, pool_tokens,
-                                             decode_graph=flag),
+        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes, True,
+                                            8, pool_tokens, **g),
         RG_SERVE_LENGTHS, 32, label)
     rg_check_launches(label, cfg, paged_counts, paged_steps,
                       "paged_flash_decode")
     label = "recurrentgemma-2b contiguous pool, 4 slots"
     contig_counts, contig_stats, contig_steps = serve_pair(
-        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
-                                             False, 4, decode_graph=flag),
+        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
+                                            False, 4, **g),
         RG_CONTIG_LENGTHS, 16, label)
     rg_check_launches(label, cfg, contig_counts, contig_steps,
                       "flash_decode")
@@ -3777,17 +4011,16 @@ def moe_phase(torch):
     label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) paged pool, chunk "
              f"512, page 128, 8 slots")
     paged_counts, paged_stats, paged_steps = serve_pair(
-        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes, True,
-                                             8, pool_tokens,
-                                             decode_graph=flag),
+        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes, True,
+                                            8, pool_tokens, **g),
         SERVE_LENGTHS, 32, label)
     moe_check_launches(label, cfg, paged_counts, paged_steps,
                        "paged_flash_decode")
     label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) contiguous pool, "
              f"chunk 512, 4 slots")
     contig_counts, contig_stats, contig_steps = serve_pair(
-        torch, cfg, lambda flag: make_engine(torch, cfg, model, wbytes,
-                                             False, 4, decode_graph=flag),
+        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
+                                            False, 4, **g),
         [200, 900, 64, 1500], 16, label)
     moe_check_launches(label, cfg, contig_counts, contig_steps,
                        "flash_decode")
@@ -3841,7 +4074,9 @@ def main() -> int:
     int8_smoke(torch)
     launches, paged_stats, contig_stats, cfg, model, wbytes, pool_tokens = \
         serve_phase(torch)
-    profile = {"qwen3-14b": profile_phase(torch, cfg, model)}
+    profile = {"qwen3-14b": profile_phase(torch, cfg, model),
+               "qwen3-14b prefill": prefill_profile_phase(torch, cfg, model,
+                                                          wbytes)}
     retention = retention_phase(torch, cfg, model, wbytes)
     recovery = recovery_phase(torch, cfg, model, wbytes)
     int8 = int8_phase(torch, cfg, model, wbytes, pool_tokens)

@@ -37,7 +37,13 @@ their masked garbage writes never touch a live request's pages.
 
 Chunked prefill: long prompts are split into ``chunk_tokens``-sized
 spans and the loop interleaves decode iterations between spans.  The
-batch's prefill cache is allocated on the device once per job.
+engine holds one batch prefill cache for its life, ``prefill_rows``
+rows (the scheduler's batch cap, given at construction; else the first
+batch's, grown if a larger one comes), and a batch of B rows uses its
+first B; each job zeroes its rows first, as a
+fresh cache would be, so nothing of one job reaches the next.  Token
+ids, lengths, the chunk's ``start`` (a 0-d int32 tensor) and the logits
+live in fixed buffers beside it.
 
 KV retention (``prefix_cache``, ``session_ttl``, ``host_pool_tokens``;
 paged pool and a ``prefix_cacheable`` config only):
@@ -64,7 +70,8 @@ engine's hooks, driven by the copied ``ServingLoop``): with
 generated tokens up to the last multiple of ``slice_tokens``
 (``on_slice_yield`` truncates the outputs there; ``begin`` re-seeds them
 for a request resumed cold from a checkpoint); ``abort_prefill`` frees
-an abandoned prefill job's pages and its device batch cache, and
+an abandoned prefill job's pages and drops the job (its rows of the
+batch cache are zeroed when the next job starts), and
 ``evict_request`` tears a pooled request down without registering its
 K/V with the retention layer, its block-table row pointed at the trash
 page before the next in-place decode step.  ``fault_plan``,
@@ -79,7 +86,16 @@ at construction, over the engine's own pool, and ``decode_iter``
 replays it.  The slot count, cache length, page size and pool are fixed
 for the engine's life, and every step reads and writes the same
 tensors in place (the pool's leaves, ``pos``, the block tables and
-``next_tok``), so one capture serves every step.  Prefill stays eager.
+``next_tok``), so one capture serves every step.
+
+Compiled prefill (``prefill_graph``): the reference ``jax.jit``s one
+prefill executable per ``("prefill", pad_to, B)`` and one chunk
+executable per ``("chunk", Tc, B)``, its chunk ``start`` traced.  Here
+:class:`PrefillGraph` runs a shape key's first prefill eagerly, captures
+a CUDA graph at its second and replays it for every later prefill of
+that shape: the graph reads the fixed input buffers, writes the batch
+cache's first B rows and the logits buffer, and takes the chunk offset
+from the device, so one graph serves every offset.
 
 int8 KV caches (``cfg.kv_cache_dtype == "int8"``): every pool, batch
 cache and page carries four leaves a block, int8 ``k``/``v`` codes and
@@ -308,6 +324,44 @@ class _EngineCopier:
         self._pending.append((hslot, page))
 
 
+def _on(stream):
+    """Run on ``stream`` (None: the CPU's stand-in runs, no streams)."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def _capture(graph, step: Callable[[], object], device: torch.device,
+             side, pool=None) -> Tuple[tuple, float, int]:
+    """Capture ``step`` into ``graph`` on the stream ``side`` (into the
+    memory pool ``pool`` when given).  Returns the launch counts the
+    capture made (``runtime.count_state``), the host seconds it took and
+    the bytes the device's reserved memory grew by; the live counts are
+    put back as they were.  A failed capture raises, after ending it.
+    Work already queued on ``side`` keeps running during the capture,
+    which records without running anything."""
+    saved = runtime.count_state()
+    try:
+        if side is not None:
+            reserved = torch.cuda.memory_reserved(device)
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _on(side):
+            if pool is None:
+                graph.capture_begin()
+            else:
+                graph.capture_begin(pool=pool)
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        grown = 0
+        if side is not None:
+            grown = torch.cuda.memory_reserved(device) - reserved
+        return runtime.count_state(), time.perf_counter() - t0, grown
+    finally:
+        runtime.set_count_state(saved)
+
+
 class DecodeGraph:
     """One decode step captured as a CUDA graph and replayed: the port's
     counterpart of the reference engine's ``jax.jit`` of ``decode_step``
@@ -315,8 +369,9 @@ class DecodeGraph:
 
     ``step`` is a function of no arguments that runs one step on tensors
     it keeps (a replay writes the storage the capture saw).  At
-    construction ``WARMUP`` eager steps run on a side stream, as
-    ``torch.cuda.graphs`` requires (they build and load the kernel
+    construction ``WARMUP`` eager steps run on the side stream ``stream``
+    (the engine's, shared with its prefill graphs; a new one by default),
+    as ``torch.cuda.graphs`` requires (they build and load the kernel
     library and set up cuBLAS and the allocator), then one step is
     captured on the same stream into the graph's private memory pool;
     ``replay`` runs it on the current stream.  A failed capture raises;
@@ -337,7 +392,8 @@ class DecodeGraph:
 
     WARMUP = 2
 
-    def __init__(self, step: Callable[[], object], device, *, graph=None):
+    def __init__(self, step: Callable[[], object], device, *, graph=None,
+                 stream=None):
         device = torch.device(device)
         cuda = device.type == "cuda"
         if graph is None:
@@ -348,47 +404,145 @@ class DecodeGraph:
         self.graph = graph
         self.replays = 0
         self._arrivals: dict = {}
-        self.pool_bytes = 0
+        side = None
+        if cuda:
+            side = stream if stream is not None else torch.cuda.Stream(device)
         saved = runtime.count_state()
         try:
             with runtime.own_arrivals(self._arrivals):
-                self._capture(step, device)
+                if cuda:
+                    side.wait_stream(torch.cuda.current_stream(device))
+                with _on(side):
+                    for _ in range(self.WARMUP):
+                        step()
+                if cuda:
+                    torch.cuda.synchronize(device)
+                self._captured, self.capture_seconds, self.pool_bytes = \
+                    _capture(graph, step, device, side)
+                if cuda:
+                    torch.cuda.synchronize(device)
         finally:
             runtime.set_count_state(saved)
-
-    def _capture(self, step, device: torch.device) -> None:
-        cuda = device.type == "cuda"
-        side = torch.cuda.Stream(device) if cuda else None
-
-        def on_side():
-            return (torch.cuda.stream(side) if cuda
-                    else contextlib.nullcontext())
-        if cuda:
-            side.wait_stream(torch.cuda.current_stream(device))
-        with on_side():
-            for _ in range(self.WARMUP):
-                step()
-        if cuda:
-            torch.cuda.synchronize(device)
-            reserved = torch.cuda.memory_reserved(device)
-        runtime.reset_launch_counts()
-        t0 = time.perf_counter()
-        with on_side():
-            self.graph.capture_begin()
-            try:
-                step()
-            finally:
-                self.graph.capture_end()
-        if cuda:
-            torch.cuda.synchronize(device)
-            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.capture_seconds = time.perf_counter() - t0
-        self._captured = runtime.count_state()
 
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
         runtime.add_counts(self._captured)
+
+
+def _eager_bodies(step: Callable[[], object]) -> Dict[str, int]:
+    """Run ``step`` eagerly; returns its ``flash_prefill`` launches by
+    body (``runtime.prefill_body_counts``)."""
+    before = dict(runtime.prefill_body_counts)
+    step()
+    return {b: n - before[b] for b, n in runtime.prefill_body_counts.items()}
+
+
+class PrefillGraph:
+    """Prefill captured as CUDA graphs, one per shape key, and replayed:
+    the port's counterpart of the reference engine's ``jax.jit`` of its
+    prefill (one executable per ``("prefill", pad_to, B)``) and of its
+    chunk (one per ``("chunk", Tc, B)``, ``start`` traced).
+
+    ``run(key, step)`` runs one prefill of shape ``key``; ``step`` is a
+    function of no arguments over storage the engine keeps for its life
+    (the fixed input buffers, the batch cache and the logits buffer).
+    The first call of a key runs ``step`` eagerly, as an engine without
+    graphs does: a key met once (a job's odd tail, a resumed chunk of a
+    length no other job forms) costs no capture, whose host time
+    (about one eager run's) would land on that request's TTFT.  The
+    second call runs ``step`` eagerly on the side stream, the warm-up
+    ``torch.cuda.graphs`` asks for and this call's own prefill (so the
+    job's cache and recurrent carries end as a replay would leave them;
+    a second run would advance the RWKV and RG-LRU carries twice), then
+    captures it on the same stream, which runs nothing, while the card
+    still runs the eager step.  Every later call replays.  A failed
+    capture or replay raises; nothing falls back to eager prefill.
+
+    All graphs capture into one memory pool (``pool``): their replays
+    never overlap and each call's logits are read before the next
+    prefill, so the pool holds about the largest shape's activations
+    however many graphs share it.  Every graph is held for the engine's
+    life, as the reference's jit cache holds its executables; ``clear``
+    drops them all when the storage they captured is replaced.
+    ``captures``, ``replays``, ``eager_runs`` (first calls),
+    ``capture_seconds`` (the captures' time, not the eager runs') and
+    ``pool_bytes`` (what the captures added to the device's reserved
+    memory) are the bookkeeping; ``met`` counts the calls of each key
+    since the last ``clear``.  A replay adds the launches its capture
+    made (``runtime.add_counts``); ``run`` returns the ``flash_prefill``
+    launches of one call by body, from which the caller counts the
+    unaligned ones at its host ``start`` (``runtime.count_unaligned``).
+
+    ``graph`` stands in for ``torch.cuda.CUDAGraph``: a function of the
+    key returning an object with ``capture_begin(pool=...)``,
+    ``capture_end`` and ``replay``; with one given, ``device`` may be the
+    CPU."""
+
+    def __init__(self, device, *, graph=None, stream=None,
+                 dtype=torch.float32):
+        device = torch.device(device)
+        self.cuda = device.type == "cuda"
+        if graph is None and not self.cuda:
+            raise ValueError(f"PrefillGraph: CUDA graphs are captured on a "
+                             f"CUDA device, not {device}")
+        self.device = device
+        self._new = graph or (lambda key: torch.cuda.CUDAGraph())
+        self._side = None
+        self.pool = None
+        if self.cuda:
+            self._side = stream if stream is not None \
+                else torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+            # cuBLAS's workspace of the side stream, allocated before
+            # the first job rather than during it
+            with _on(self._side):
+                torch.ones((8, 8), dtype=dtype, device=device).matmul(
+                    torch.ones((8, 8), dtype=dtype, device=device))
+            torch.cuda.synchronize(device)
+        self._graphs: Dict[tuple, tuple] = {}
+        self.met: Dict[tuple, int] = {}
+        self.captures = self.replays = self.eager_runs = 0
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key: tuple, step: Callable[[], object]) -> Dict[str, int]:
+        n = self.met[key] = self.met.get(key, 0) + 1
+        entry = self._graphs.get(key)
+        if entry is not None:
+            entry[0].replay()
+            self.replays += 1
+            runtime.add_counts(entry[1])
+        elif n == 1:
+            self.eager_runs += 1
+            return _eager_bodies(step)
+        else:
+            entry = self._capture(key, step)
+        return dict(entry[1][0][1])     # the capture's prefill_body_counts
+
+    def _capture(self, key: tuple, step) -> tuple:
+        graph = self._new(key)
+        if self.cuda:
+            self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with _on(self._side):
+            step()
+        captured, seconds, grown = _capture(graph, step, self.device,
+                                            self._side, self.pool)
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self._side)
+        self.captures += 1
+        self.capture_seconds += seconds
+        self.pool_bytes += grown
+        entry = self._graphs[key] = (graph, captured)
+        return entry
+
+    def clear(self) -> None:
+        """Drop every graph (the storage they captured is going away)."""
+        self._graphs.clear()
+        self.met.clear()
 
 
 class TorchEngineBackend:
@@ -398,7 +552,15 @@ class TorchEngineBackend:
     (:class:`DecodeGraph`) on a CUDA device and runs it eagerly on the
     CPU; True asks for the graph and raises on the CPU; False runs the
     step eagerly on the card too (the graph-against-eager comparisons).
-    The reference engine has no such option: it always compiles.
+    ``prefill_graph`` is the same choice for the prefill graphs
+    (:class:`PrefillGraph`).  The reference engine has no such options:
+    it always compiles.
+
+    ``prefill_rows``: the rows of the batch prefill cache, allocated at
+    construction (pass the scheduler's batch cap, as the launcher does);
+    None allocates it at the first job, with that batch's rows.  A
+    larger batch grows the cache and drops the prefill graphs captured
+    over the old one.
 
     ``moe_impl`` is the reference engine's: the MoE blocks' path in
     prefill, the chunk and the decode step, ``"local"`` (grouped, the
@@ -420,6 +582,8 @@ class TorchEngineBackend:
                  spill_bw: float = 16e9, spill_dtype: str = "",
                  time_scale: float = 1.0, device="cuda",
                  decode_graph: Optional[bool] = None,
+                 prefill_graph: Optional[bool] = None,
+                 prefill_rows: Optional[int] = None,
                  moe_impl: str = "local"):
         tfm.check_supported(cfg)
         moe.check_impl(moe_impl)
@@ -429,9 +593,11 @@ class TorchEngineBackend:
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {device}")
-        if decode_graph and model.device.type != "cuda":
-            raise ValueError(f"decode_graph=True: a CUDA graph needs the "
-                             f"card, the engine runs on {model.device}")
+        for name, flag in (("decode_graph", decode_graph),
+                           ("prefill_graph", prefill_graph)):
+            if flag and model.device.type != "cuda":
+                raise ValueError(f"{name}=True: a CUDA graph needs the "
+                                 f"card, the engine runs on {model.device}")
         self.device = model.device
         self.dtype = model.dtype
         self.cfg = cfg
@@ -513,16 +679,54 @@ class TorchEngineBackend:
                                     device=self.device)
         self.outputs: Dict[int, List[int]] = {}
         self._prefill_shapes: set = set()
-        # the job whose device batch cache (``job.handle``) is live, so
-        # that ``abort_prefill`` can drop it
+        # the job whose inputs and batch-cache rows are live
         self._job: Optional[PrefillJob] = None
+        self.prefill_rows = 0
+        if prefill_rows:
+            self._alloc_prefill(prefill_rows)
+        cuda = self.device.type == "cuda"
+        decode_graph = cuda if decode_graph is None else decode_graph
+        decode_graph = decode_graph and cfg.has_decode
+        prefill_graph = cuda if prefill_graph is None else prefill_graph
+        # one side stream for every capture: its cuBLAS workspace is
+        # allocated once, at construction
+        side = torch.cuda.Stream(self.device) \
+            if cuda and (decode_graph or prefill_graph) else None
         self._step = self._decode_step_fn()
         self.decode_graph: Optional[DecodeGraph] = None
-        if decode_graph is None:
-            decode_graph = self.device.type == "cuda"
-        if decode_graph and cfg.has_decode:
-            self.decode_graph = DecodeGraph(self._step, self.device)
+        if decode_graph:
+            self.decode_graph = DecodeGraph(self._step, self.device,
+                                            stream=side)
             self._reset_pool()
+        self.prefill_graph: Optional[PrefillGraph] = None
+        if prefill_graph:
+            self.prefill_graph = PrefillGraph(self.device, stream=side,
+                                              dtype=self.dtype)
+
+    def _alloc_prefill(self, rows: int) -> None:
+        """The batch prefill cache of ``rows`` rows and the fixed buffers
+        a prefill reads and writes: token ids (room for ``rows`` full
+        prompts), lengths, the chunk's ``start`` and the logits."""
+        dev = dict(device=self.device)
+        self.prefill_rows = rows
+        self._batch_cache = tfm.init_cache(self.cfg, rows, self.cache_len,
+                                           self.dtype, self.device)
+        self._pf_toks = torch.zeros((rows * self.cache_len,),
+                                    dtype=torch.int32, **dev)
+        self._pf_lens = torch.zeros((rows,), dtype=torch.int32, **dev)
+        self._pf_start = torch.zeros((), dtype=torch.int32, **dev)
+        self._pf_logits = torch.zeros((rows, self.cfg.vocab_size),
+                                      dtype=torch.float32, **dev)
+
+    def _batch_view(self, B: int):
+        """The batch cache's first ``B`` rows (each leaf's ``[:, :B]`` is
+        contiguous a rep, as the kernels need)."""
+        bc = self._batch_cache
+        return {"pos": bc["pos"][:B],
+                "groups": tuple(tuple({k: leaf[:, :B]
+                                       for k, leaf in slot.items()}
+                                      for slot in slots)
+                                for slots in bc["groups"])}
 
     def _decode_step_fn(self) -> Callable[[], None]:
         """One decode step over the pool, the argmax written into
@@ -556,11 +760,14 @@ class TorchEngineBackend:
         return self.retention.prefix if self.retention is not None else None
 
     # ------------------------------------------------------- shapes -----
-    def _note_shape(self, kind: str, length: int, bsz: int) -> None:
+    def _note_shape(self, kind: str, length: int, bsz: int) -> tuple:
         """The reference compiles one executable per (pad_to, bsz) shape
-        and counts them; eager PyTorch needs none, but the count is kept
-        (serve.py prints it, the tests compare it)."""
-        self._prefill_shapes.add((kind, length, bsz))
+        and counts them; the port captures one prefill graph per shape
+        key (:class:`PrefillGraph`).  The count is kept either way
+        (serve.py prints it, the tests compare it).  Returns the key."""
+        key = (kind, length, bsz)
+        self._prefill_shapes.add(key)
+        return key
 
     @property
     def n_prefill_shapes(self) -> int:
@@ -650,9 +857,11 @@ class TorchEngineBackend:
     def abort_prefill(self, req: Request) -> None:
         """A request leaves mid-prefill (job abandoned after its retry
         budget, or a drain): free the pages reserved at admission and
-        drop the job's device batch cache, which at full width is
-        several GB and must not outlive the job.  No slot was taken yet
-        (slots are assigned in ``_finish_prefill``)."""
+        drop the job.  The batch cache is the engine's for its life (its
+        storage is what the prefill graphs captured); the job's rows of
+        it keep what the job wrote until the next job zeroes its rows
+        before its first chunk, so nothing of this job reaches it.  No
+        slot was taken yet (slots are assigned in ``_finish_prefill``)."""
         job = self._job
         if job is not None and any(r is req for r in job.batch.requests):
             job.handle = None
@@ -699,47 +908,102 @@ class TorchEngineBackend:
         chunked = len(job.chunks) > 1 or job.chunks[0][0] > 0
         h = job.handle
         if h is None:
-            total = job.chunks[-1][0] + job.chunks[-1][1]
-            toks = np.zeros((B, total), np.int32)
-            lens = np.zeros((B,), np.int32)
-            for i, r in enumerate(reqs):
-                L = min(r.prompt_len, total)
-                toks[i, :L] = r.tokens[:L]
-                lens[i] = L
-            h = job.handle = {
-                "toks": torch.from_numpy(toks).to(self.device),
-                "lens": torch.from_numpy(lens).to(self.device),
-                "np_lens": lens,
-                # allocated on the device, once per job
-                "cache": (tfm.init_cache(self.cfg, B, self.cache_len,
-                                         self.dtype, self.device)
-                          if chunked else None),
-                "first": np.zeros((B,), np.int64),
-            }
-            self._job = job
-            if job.chunks[0][0] > 0:
-                self._seed_prefix(h, reqs)
-        if not chunked:
-            self._note_shape("prefill", clen, B)
-            logits, cache = tfm.prefill(self.cfg, self.model, h["toks"],
-                                        h["lens"], cache_len=self.cache_len,
-                                        moe_impl=self.moe_impl)
-            h["first"][:] = torch.argmax(logits, -1).cpu().numpy()
-            h["cache"] = cache
+            h = job.handle = self._begin_job(job)
+        if chunked and not 0 <= start < start + clen <= self.cache_len:
+            # the graph reads start on the device: checked here
+            raise ValueError(f"chunk [{start}, {start + clen}) outside the "
+                             f"cache of {self.cache_len} slots")
+        if B * clen > self._pf_toks.numel():
+            # a prompt past cache_len: room for it, and the graphs
+            # captured over the old buffer go
+            self._drop_prefill_graphs()
+            self._pf_toks = torch.zeros((B * clen,), dtype=torch.int32,
+                                        device=self.device)
+        self._pf_toks[:B * clen].view(B, clen).copy_(
+            h["toks"][:, start:start + clen])
+        self._pf_start.fill_(start)
+        key = self._note_shape("chunk" if chunked else "prefill", clen, B)
+        step = self._prefill_step(key)
+        if self.prefill_graph is not None:
+            bodies = self.prefill_graph.run(key, step)
         else:
-            self._note_shape("chunk", clen, B)
-            logits, h["cache"] = tfm.prefill_chunk(
-                self.cfg, self.model, h["toks"][:, start:start + clen],
-                h["cache"], start, h["lens"], moe_impl=self.moe_impl)
-            last = h["np_lens"] - 1
-            fin = (last >= start) & (last < start + clen)
-            if fin.any():
-                h["first"][fin] = torch.argmax(logits, -1).cpu().numpy()[fin]
+            bodies = _eager_bodies(step)
+        runtime.count_unaligned(start, bodies)
+        first = torch.argmax(self._pf_logits[:B], -1).cpu().numpy()
+        last = h["np_lens"] - 1
+        fin = (last >= start) & (last < start + clen)
+        h["first"][fin] = first[fin]
         if idx == len(job.chunks) - 1:
             if chunked:
-                h["cache"]["pos"] = h["lens"].to(torch.int32)
+                h["cache"]["pos"].copy_(self._pf_lens[:B])
             self._finish_prefill(job)
         return 0.0            # wall backend: the loop reads the clock
+
+    def _begin_job(self, job: PrefillJob) -> dict:
+        """A job's first chunk: its rows of the batch cache zeroed (a
+        fresh cache, whatever earlier jobs left there), its token ids on
+        the device once, its lengths in the fixed buffer, and a cached
+        prefix copied in."""
+        reqs = job.batch.requests
+        B = len(reqs)
+        total = job.chunks[-1][0] + job.chunks[-1][1]
+        toks = np.zeros((B, total), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, r in enumerate(reqs):
+            L = min(r.prompt_len, total)
+            toks[i, :L] = r.tokens[:L]
+            lens[i] = L
+        if B > self.prefill_rows:
+            # the first job, or a batch above the rows held: a larger
+            # cache, and the graphs captured over the old one go
+            self._drop_prefill_graphs()
+            self._batch_cache = None
+            self._alloc_prefill(B)
+        cache = self._batch_view(B)
+        cache["pos"].zero_()
+        for slots in cache["groups"]:
+            for slot in slots:
+                for leaf in slot.values():
+                    leaf.zero_()
+        self._pf_lens[:B].copy_(torch.from_numpy(lens))
+        h = {"toks": torch.from_numpy(toks).to(self.device),
+             "np_lens": lens, "cache": cache,
+             "first": np.zeros((B,), np.int64)}
+        self._job = job
+        if job.chunks[0][0] > 0:
+            self._seed_prefix(h, reqs)
+        return h
+
+    def _drop_prefill_graphs(self) -> None:
+        if self.prefill_graph is not None:
+            self.prefill_graph.clear()
+
+    def _prefill_step(self, key: tuple) -> Callable[[], None]:
+        """The prefill of shape ``key`` over the engine's fixed storage,
+        its logits into the logits buffer: what a ``PrefillGraph``
+        captures.  It reads the token, length and ``start`` buffers and
+        writes the batch cache's first B rows, as every later prefill of
+        the key does."""
+        kind, T, B = key
+        cfg, model, moe_impl = self.cfg, self.model, self.moe_impl
+        toks = self._pf_toks[:B * T].view(B, T)
+        lens, start = self._pf_lens[:B], self._pf_start
+        out = self._pf_logits[:B]
+        cache = self._batch_view(B)
+        if kind == "chunk":
+            def step() -> None:
+                logits, _ = tfm.prefill_chunk(cfg, model, toks, cache, start,
+                                              lens, moe_impl=moe_impl)
+                out.copy_(logits)
+        else:
+            cache_len = self.cache_len
+
+            def step() -> None:
+                logits, _ = tfm.prefill(cfg, model, toks, lens,
+                                        cache_len=cache_len,
+                                        moe_impl=moe_impl, cache=cache)
+                out.copy_(logits)
+        return step
 
     def _seed_prefix(self, h, reqs: Sequence[Request]) -> None:
         """Copy each row's cached prefix K/V out of the page pool into
@@ -942,8 +1206,9 @@ class ServingEngine:
     and defaults are the reference engine's; a ``FaultInjector`` is
     built only for a plan with an armed site (``self.faults``).
     ``device`` defaults to ``"cuda"`` and raises when no card is
-    present; ``decode_graph`` and ``moe_impl`` are
-    ``TorchEngineBackend``'s."""
+    present; ``decode_graph``, ``prefill_graph``, ``prefill_rows`` and
+    ``moe_impl`` are ``TorchEngineBackend``'s (``prefill_rows`` above
+    ``max_slots`` is cut to it: no batch holds more)."""
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
@@ -960,6 +1225,8 @@ class ServingEngine:
                  fault_plan=None, recovery=None,
                  restore_timeout: float = 30.0,
                  device="cuda", decode_graph: Optional[bool] = None,
+                 prefill_graph: Optional[bool] = None,
+                 prefill_rows: Optional[int] = None,
                  moe_impl: str = "local"):
         self.cfg = cfg
         self.model = model
@@ -971,7 +1238,10 @@ class ServingEngine:
             prefix_cache=prefix_cache, session_ttl=session_ttl,
             host_pool_tokens=host_pool_tokens, spill_bw=spill_bw,
             spill_dtype=spill_dtype, time_scale=time_scale, device=device,
-            decode_graph=decode_graph, moe_impl=moe_impl)
+            decode_graph=decode_graph, prefill_graph=prefill_graph,
+            prefill_rows=None if prefill_rows is None
+            else min(max_slots, prefill_rows),
+            moe_impl=moe_impl)
         self.faults = FaultInjector(fault_plan) \
             if fault_plan is not None and fault_plan.any_armed else None
         self.loop = ServingLoop(scheduler, self.backend, LoopConfig(

@@ -4,6 +4,9 @@
 // generalised to Tq != Tk with a query offset: Tq queries at absolute
 // positions q_offset + i attend over Tk keys at positions 0..Tk-1, which
 // is what chunked prefill runs (a chunk of Tc queries over the cache).
+// q_offset is an int32 in device memory (null: 0) that every block reads
+// first (the reference traces a chunk's `start`, so one executable serves
+// every offset; here one captured CUDA graph does).
 // Causal, sliding-window and non-causal masks, per-row key `lengths`,
 // the reference's finite mask value (kNegInf) and its l >= 1e-30 clamp;
 // f32 online softmax and accumulation, the output rounded once.
@@ -69,8 +72,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lengths,
                      T* __restrict__ out, int Tq, int Tk, int H, int Hkv,
-                     int G, int BQ, int causal, int window, int q_offset,
-                     float scale) {
+                     int G, int BQ, int causal, int window,
+                     const int* __restrict__ q_offset_ptr, float scale) {
+  const int q_offset = q_offset_ptr ? *q_offset_ptr : 0;
   constexpr int NCH = DH / 4;     // float4 chunks per row
   constexpr int CPL = NCH / TPR;  // chunks per lane
   static_assert(NCH % TPR == 0, "Dh/4 must divide by lanes per row");
@@ -222,7 +226,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH, int TPR>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
-           int window, int q_offset, cudaStream_t stream) {
+           int window, const int* q_offset_ptr, cudaStream_t stream) {
   const int rows = kThreads / TPR;
   if (Hkv < 1 || H % Hkv != 0 || H / Hkv > rows) return cudaErrorInvalidValue;
   const int G = H / Hkv;
@@ -235,28 +239,29 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Tq, Tk, H, Hkv, G, BQ, causal, window, q_offset,
-      1.0f / sqrtf(static_cast<float>(DH)));
+      static_cast<T*>(out), Tq, Tk, H, Hkv, G, BQ, causal, window,
+      q_offset_ptr, 1.0f / sqrtf(static_cast<float>(DH)));
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
              void* out, int B, int Tq, int Tk, int H, int Hkv, int Dh,
-             int causal, int window, int q_offset, cudaStream_t stream) {
+             int causal, int window, const int* q_offset_ptr,
+             cudaStream_t stream) {
   switch (Dh) {
     case 64:
       return launch<T, 64, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                              causal, window, q_offset, stream);
+                              causal, window, q_offset_ptr, stream);
     case 80:
       return launch<T, 80, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                              causal, window, q_offset, stream);
+                              causal, window, q_offset_ptr, stream);
     case 128:
       return launch<T, 128, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                               causal, window, q_offset, stream);
+                               causal, window, q_offset_ptr, stream);
     case 256:
       return launch<T, 256, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                               causal, window, q_offset, stream);
+                               causal, window, q_offset_ptr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -333,8 +338,10 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ v,
                            const int* __restrict__ lengths,
                            bf16* __restrict__ out, int Tq, int Tk, int H,
-                           int Hkv, int causal, int window, int q_offset,
+                           int Hkv, int causal, int window,
+                           const int* __restrict__ q_offset_ptr,
                            float scale_log2) {
+  const int q_offset = q_offset_ptr ? *q_offset_ptr : 0;
   constexpr int NO = DH / 2;       // O accumulators a thread
   constexpr int T = Smem<DH>::kTile;
   extern __shared__ uint8_t smem_raw[];
@@ -554,7 +561,7 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
-           int window, int q_offset, cudaStream_t stream) {
+           int window, const int* q_offset_ptr, cudaStream_t stream) {
   if (Hkv < 1 || H % Hkv != 0) return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<DH>::kBytes;
   auto kern = flash_prefill_wgmma_kernel<DH>;
@@ -564,7 +571,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), Tq, Tk, H, Hkv, causal, window, q_offset,
+      static_cast<bf16*>(out), Tq, Tk, H, Hkv, causal, window, q_offset_ptr,
       1.4426950408889634f / sqrtf(static_cast<float>(DH)));
   return cudaGetLastError();
 }
@@ -592,23 +599,28 @@ extern "C" int rt_flash_prefill_body(int dtype, int Dh) {
 }
 
 // q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) int32 or null;
-// out: (B,Tq,H,Dh).  All contiguous, one dtype.  Returns a cudaError_t.
+// out: (B,Tq,H,Dh).  All contiguous, one dtype.  The query offset is the
+// int32 `q_offset_ptr` points to in device memory, read by every block,
+// or 0 when it is null: a CUDA graph captured once then serves every
+// chunk offset.  The grid depends on B, Tq and Tk only.
+// Returns a cudaError_t.
 extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v,
                                 const void* lengths, void* out, int B, int Tq,
                                 int Tk, int H, int Hkv, int Dh, int causal,
-                                int window, int q_offset, int dtype,
-                                void* stream) {
+                                int window, const void* q_offset_ptr,
+                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qo = static_cast<const int*>(q_offset_ptr);
   if (dtype == rt::kFloat32)
     return dispatch<float>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh,
-                           causal, window, q_offset, s);
+                           causal, window, qo, s);
   if (rt_flash_prefill_body(dtype, Dh))
     return Dh == 64 ? tc::launch<64>(q, k, v, lengths, out, B, Tq, Tk, H,
-                                     Hkv, causal, window, q_offset, s)
+                                     Hkv, causal, window, qo, s)
                     : tc::launch<128>(q, k, v, lengths, out, B, Tq, Tk, H,
-                                      Hkv, causal, window, q_offset, s);
+                                      Hkv, causal, window, qo, s);
   if (dtype == rt::kBFloat16)
     return dispatch<__nv_bfloat16>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                                   Dh, causal, window, q_offset, s);
+                                   Dh, causal, window, qo, s);
   return cudaErrorInvalidValue;
 }

@@ -12,9 +12,10 @@ from . import wkv6 as _wkv6
 
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
-                  window: int = 0, q_offset: int = 0):
+                  window: int = 0, q_offset=0):
     """GQA flash attention of (B,Tq,H,Dh) queries at positions
-    ``q_offset + i`` over (B,Tk,Hkv,Dh) keys."""
+    ``q_offset + i`` (an int, or a 0-d int32 tensor on q's device) over
+    (B,Tk,Hkv,Dh) keys."""
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, lengths, causal=causal,
                                      window=window, q_offset=q_offset)

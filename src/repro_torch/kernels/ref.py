@@ -32,13 +32,15 @@ def _gqa_out(p, v):
 
 
 def flash_prefill_ref(q, k, v, lengths=None, *, causal: bool = True,
-                      window: int = 0, q_offset: int = 0):
+                      window: int = 0, q_offset=0):
     """Exact GQA attention of Tq queries at positions ``q_offset + i``
     over Tk keys at positions ``0..Tk-1``.
 
-    q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) valid key counts.
-    Generalises the reference ``flash_prefill`` (Tq == Tk, offset 0) to
-    chunked prefill, where a chunk attends over the whole cache."""
+    q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) valid key counts;
+    ``q_offset``: an int or a 0-d integer tensor (the kernel's offset
+    read from device memory), the same masks either way.  Generalises
+    the reference ``flash_prefill`` (Tq == Tk, offset 0) to chunked
+    prefill, where a chunk attends over the whole cache."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     s = _gqa_scores(q, k)

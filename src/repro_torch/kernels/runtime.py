@@ -15,13 +15,14 @@ of their own, ``flash_decode_int8`` and ``paged_flash_decode_int8``); the prefil
 (``kernels/flash_prefill.py:body``), and to
 ``prefill_unaligned_counts[<body>]`` when the launch's ``q_offset`` is
 positive and not a multiple of ``PREFILL_TILE`` (a chunk resumed inside
-a query tile, as after a session hit).  ``grouped_counts`` counts the
-MoE's grouped products on the card by route (``models/moe.py:
-grouped_mm``: the library's grouped GEMM for bf16, the plain masked loop
-for f32); they are no kernels of the port, so they stay out of
-``launch_counts``.  ``reset_launch_counts`` zeroes all four.
-``decode_plans`` holds the grid and body of each decode kernel's last
-launch (``kernels/decode_attn.py:plan``); the reset
+a query tile, as after a session hit; ``count_unaligned``: at an offset
+held in a device tensor the engine counts it from the host ``start``).
+``grouped_counts`` counts the MoE's grouped products on the card by
+route (``models/moe.py:grouped_mm``: the library's grouped GEMM for
+bf16, the plain masked loop for f32); they are no kernels of the port,
+so they stay out of ``launch_counts``.  ``reset_launch_counts`` zeroes
+all four.  ``decode_plans`` holds the grid and body of each decode
+kernel's last launch (``kernels/decode_attn.py:plan``); the reset
 clears it.  A replayed CUDA graph runs no wrapper:
 ``core/engine.py:DecodeGraph`` reads what its capture added to the
 counts and plans (``count_state``), puts them back as they were, and
@@ -77,6 +78,14 @@ grouped_counts = {"grouped_mm": 0, "masked_loop": 0}
 
 COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts,
             grouped_counts)
+
+
+def count_unaligned(q_offset: int, bodies) -> None:
+    """Add ``bodies`` ({body: launches}) to ``prefill_unaligned_counts``
+    when ``q_offset`` is positive and off the ``PREFILL_TILE`` grid."""
+    if q_offset > 0 and q_offset % PREFILL_TILE:
+        for b, n in bodies.items():
+            prefill_unaligned_counts[b] += n
 
 
 def reset_launch_counts() -> None:
@@ -172,8 +181,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh, causal, window,
-    # q_offset, dtype, stream
-    "rt_flash_prefill": [_P] * 5 + [_I] * 10 + [_P],
+    # q_offset (device int32; null: 0), dtype, stream
+    "rt_flash_prefill": [_P] * 5 + [_I] * 8 + [_P, _I, _P],
     # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
     "rt_flash_prefill_body": [_I] * 2,
     # q, k, v, pos, out, part, arrivals, B, S, H, Hkv, Dh, ring, L,

@@ -338,7 +338,7 @@ def serve(cfg, model, reqs, args, device: torch.device):
                            slice_tokens=args.slice_tokens,
                            recorder=recorder, tracer=tracer,
                            fault_plan=plan, device=device,
-                           moe_impl="local")
+                           prefill_rows=args.slots, moe_impl="local")
     runtime.reset_launch_counts()
     engine.submit(reqs)
     t0 = time.perf_counter()
@@ -355,8 +355,11 @@ def serve(cfg, model, reqs, args, device: torch.device):
                       f"peak pool {engine.result.peak_pool}; "
                       f"preemptions {engine.result.preempt_events}; ")
         paged_info += retention_info(engine.result, args)
+    pg = engine.backend.prefill_graph
     print(f"served {len(done)}/{len(reqs)} requests, {toks} tokens in "
-          f"{dt:.1f}s; prefill shapes: {engine.n_prefill_shapes}; "
+          f"{dt:.1f}s; prefill shapes: {engine.n_prefill_shapes} (prefill "
+          f"graphs: {len(pg) if pg else 0}, pool "
+          f"{pg.pool_bytes if pg else 0} B); "
           f"decode steps interleaved between prefill chunks: "
           f"{engine.interleaved_decode_steps}; {paged_info}"
           f"buckets: {[(b.low, b.up) for b in sched.buckets.buckets]}")

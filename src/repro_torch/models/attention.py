@@ -20,8 +20,10 @@ k_s, v_s)``: int8 codes and one f32 scale per (token, kv head), from
 :func:`quantize_kv`, with the reference's arithmetic.  The three paths
 attend over what the reference's do: whole-prompt prefill over the
 unquantized K/V (it only stores codes), a prefill chunk over the
-dequantized cache prefix (the chunk's own codes included; the port
-dequantizes ``[0, start + Tc)`` and calls the prefill kernel unchanged),
+dequantized cache (the chunk's own codes included; the port dequantizes
+the whole cache, a fixed size as in the reference, so that a CUDA graph
+of the chunk serves every offset, and calls the prefill kernel
+unchanged),
 and decode through the int8 decode kernels, which dequantize in
 registers (the reference gathers and dequantizes the whole cache in jnp
 first).
@@ -43,8 +45,9 @@ from .config import ModelConfig
 
 
 def full_attention(q, k, v, *, causal: bool, lengths=None, window: int = 0,
-                   q_offset: int = 0):
-    """Exact GQA attention; q_offset is the position of q[0].
+                   q_offset=0):
+    """Exact GQA attention; q_offset (an int or a 0-d int32 tensor) is
+    the position of q[0].
 
     q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) valid keys."""
     return ops.flash_prefill(q, k, v, lengths, causal=causal, window=window,
@@ -174,34 +177,36 @@ def _ring_from_prefill(k, v, lengths, W: int):
     return torch.where(m, kr, 0), torch.where(m, vr, 0)
 
 
-def self_attn_chunk(cfg: ModelConfig, p, x, start: int, cache, active=None):
+def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None):
     """Chunked-prefill self-attention: Tc new tokens at absolute positions
     [start, start+Tc) attend causally over the cache prefix written by
     earlier chunks plus themselves.
 
-    cache: (k_cache, v_cache) (B,S,Hkv,Dh), positional (non-ring),
-    written in place.  ``active`` (B,) bool freezes rows whose prompt
-    ended before ``start``: their cache span is left as it was, which is
-    what the reference's freeze of finished rows restores.  An int8 cache
-    ``(k, v, k_s, v_s)`` takes the chunk's codes and scales, and the
-    chunk attends over slots ``[0, start + Tc)`` dequantized to q's dtype
-    (the reference dequantizes the whole cache; the causal mask hides the
-    rest)."""
+    ``start`` is an int or a 0-d int32 tensor on x's device (the
+    reference traces it): the positions, the K/V write and the kernel's
+    query offset all read it on the device, so one CUDA graph of a chunk
+    serves every offset.  An int is range-checked here; a tensor's range
+    is the caller's to check (it knows the host value).  cache: (k_cache,
+    v_cache) (B,S,Hkv,Dh), positional (non-ring), written in place at
+    slots ``start + arange(Tc)``.  ``active`` (B,) bool freezes rows
+    whose prompt ended before ``start``: their cache span is left as it
+    was, which is what the reference's freeze of finished rows restores.
+    An int8 cache ``(k, v, k_s, v_s)`` takes the chunk's codes and scales,
+    and the chunk attends over the whole cache dequantized to q's dtype,
+    as the reference does: a fixed size, whatever ``start``; the causal
+    mask hides the slots past ``start + Tc``."""
     B, Tc, _ = x.shape
     S = cache[0].shape[1]
-    if start < 0 or start + Tc > S:
+    if not torch.is_tensor(start) and (start < 0 or start + Tc > S):
         raise ValueError(f"chunk [{start}, {start + Tc}) outside the "
                          f"cache of {S} slots")
-    positions = (start + torch.arange(Tc, device=x.device))[None].expand(
-        B, Tc)
-    q, k, v = _qkv_roped(cfg, p, x, positions)
-    span = (slice(None), slice(start, start + Tc))
-    _store(cache, span, k, v,
+    idx = start + torch.arange(Tc, device=x.device)
+    q, k, v = _qkv_roped(cfg, p, x, idx[None].expand(B, Tc))
+    _store(cache, (slice(None), idx), k, v,
            None if active is None else active[:, None, None, None])
     if _quantized(cache):
-        live = (slice(None), slice(0, start + Tc))
-        kd = dequantize_kv(cache[0][live], cache[2][live], q.dtype)
-        vd = dequantize_kv(cache[1][live], cache[3][live], q.dtype)
+        kd = dequantize_kv(cache[0], cache[2], q.dtype)
+        vd = dequantize_kv(cache[1], cache[3], q.dtype)
     else:
         kd, vd = cache
     # every slot past start+Tc is causally hidden (the kernel stops at

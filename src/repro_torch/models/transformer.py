@@ -25,7 +25,7 @@ Public API (functions of ``(cfg, model, ...)``):
     init_params(cfg, seed, dtype, device)   -> Transformer
     init_cache(cfg, batch, cache_len, ...)  -> zeroed cache pytree
     init_paged_cache(cfg, batch, cache_len, n_pages, page_size, ...)
-    prefill(cfg, model, tokens, lengths, cache_len, moe_impl)
+    prefill(cfg, model, tokens, lengths, cache_len, moe_impl, cache=None)
         -> (last logits, cache)
     prefill_chunk(cfg, model, tokens, cache, start, lengths, moe_impl)
     decode_step(cfg, model, token, cache, page_size, paged_len, moe_impl)
@@ -126,7 +126,7 @@ class AttnBlock(nn.Module):
             window=window, cache=self._kv(c), cache_len=cache_len)
         return self._mlp_residual(x + a, **kw)
 
-    def chunk(self, x, c, *, start: int, active, **kw):
+    def chunk(self, x, c, *, start, active, **kw):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
                                       start, self._kv(c), active)
         return self._mlp_residual(x + a, **kw)
@@ -441,18 +441,29 @@ def _slot(cache, gi: int, j: int, rep: int):
 # -------------------------------------------------------------- drivers ---
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
-            cache_len: Optional[int] = None, moe_impl: str = "local"):
+            cache_len: Optional[int] = None, moe_impl: str = "local",
+            cache=None):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
     tokens: (B,T) int; lengths: (B,) prompt lengths (default T);
     moe_impl: the MoE blocks' path, ``"local"`` (grouped) or ``"ref"``
-    (the dense oracle)."""
+    (the dense oracle).  ``cache``: a cache of ``init_cache``'s layout
+    for B rows and ``cache_len`` to write into, in place, its ``pos``
+    included: it must be zero where a fresh ``init_cache`` is (a CUDA
+    graph of the prefill keeps its storage,
+    ``core/engine.py:PrefillGraph``); by default a new one."""
     x = layers.embed_apply(model.embed, tokens)
     B, T, _ = x.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len
-    cache = init_cache(cfg, B, cache_len, x.dtype, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, cache_len, x.dtype, x.device)
+        # a copy: decode_step advances pos in place, never the caller's
+        # lengths
+        cache["pos"] = lengths.to(torch.int32, copy=True)
+    else:
+        cache["pos"].copy_(lengths)
     positions = torch.arange(T, device=x.device)
     win = effective_window(cfg)
     for gi, j, rep, blk in model.blocks():
@@ -462,17 +473,21 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(B, device=x.device), idx]
-    # a copy: decode_step advances pos in place, never the caller's lengths
-    cache["pos"] = lengths.to(torch.int32, copy=True)
     return layers.unembed_apply(model.head, last), cache
 
 
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
-                  start: int, lengths, moe_impl: str = "local"):
+                  start, lengths, moe_impl: str = "local"):
     """One chunked-prefill step: prompt tokens at absolute positions
     [start, start+Tc) against ``cache`` (from ``init_cache``), written in
-    place.  lengths: (B,) FULL prompt lengths.
+    place.  lengths: (B,) FULL prompt lengths.  ``start`` is an int or a
+    0-d int32 tensor on the model's device, as the reference traces it:
+    every use of it (the active rows, the rows' valid tokens, the K/V
+    write, the positions, the kernel's query offset, the last-token
+    index) is a device op, so one CUDA graph of the chunk serves every
+    offset (``core/engine.py:PrefillGraph``); the caller checks a
+    tensor's range.
 
     Returns (last_logits (B,V), cache); ``last_logits[b]`` is row b's
     next-token distribution only when its last prompt position lies in

@@ -64,9 +64,10 @@ def _model(cfg, arch="qwen3-14b"):
 
 
 def _run(side, cfg, params, reqs, *, slots, paged=False, page_size=128,
-         pool_tokens=None, chunk=None, max_batch=None):
+         pool_tokens=None, chunk=None, max_batch=None, **torch_only):
     """Serve ``reqs`` on one side ("jax" or "torch"); returns (formed
-    batches, {rid: token ids}, engine)."""
+    batches, {rid: token ids}, engine).  ``torch_only`` goes to the
+    port's engine alone."""
     core = jcore if side == "jax" else tcore
     sched_cls = JaxRecording if side == "jax" else TorchRecording
     budget = core.MemoryBudget(hbm_bytes_per_device=2 ** 30, n_devices=1,
@@ -80,7 +81,8 @@ def _run(side, cfg, params, reqs, *, slots, paged=False, page_size=128,
     if side == "jax":
         eng = JaxEngine(cfg, params, sched, **kw)
     else:
-        eng = TorchEngine(cfg, params, sched, device="cpu", **kw)
+        eng = TorchEngine(cfg, params, sched, device="cpu", **kw,
+                          **torch_only)
     eng.submit(reqs)
     done = eng.run(max_wall_s=300)
     assert len(done) == len(reqs)
@@ -268,9 +270,13 @@ def test_retention_refusals_and_int8_pool():
     assert slot["k_s"].dtype == torch.float32
 
 
-def test_chunked_prefill_cache_allocated_once_per_job(monkeypatch):
-    """The batch prefill cache of a chunked job is made once, on the
-    engine's device, and threaded through every chunk of the job."""
+@pytest.mark.parametrize("rows", [None, 4])
+def test_chunked_prefill_cache_allocated_once_per_job(monkeypatch, rows):
+    """The batch prefill cache is made once, on the engine's device: at
+    construction with ``prefill_rows`` rows (the scheduler's cap, 4
+    here), or with None at the first job, with that batch's rows (here
+    the only batch: every request at once); never once per job or per
+    chunk.  Every chunk of every job writes into its first rows."""
     cfg = get_smoke_config("qwen3-14b", max_seq_len=128)
     model = _model(cfg)
     made = []
@@ -285,8 +291,19 @@ def test_chunked_prefill_cache_allocated_once_per_job(monkeypatch):
     reqs = [tcore.Request(rid=i, prompt_len=100, max_new_tokens=3,
                           arrival=0.0, task_type=tcore.TaskType.OFFLINE)
             for i in range(3)]
-    _, _, eng = _run("torch", cfg, model, reqs, slots=4, chunk=16)
-    # made[0] is the slot pool; then one cache per job, never one per
-    # chunk (the 100-token prompts are 7 chunks of 16)
-    assert made[0] == (4, "cpu")
-    assert made[1:] == [(len(b), "cpu") for b in eng.sched.formed]
+    base = ttfm.prefill_chunk
+    written = []
+
+    def chunk(cfg_, model_, tokens, cache, *a, **kw):
+        written.append(cache["groups"][0][0]["k"].data_ptr())
+        return base(cfg_, model_, tokens, cache, *a, **kw)
+    monkeypatch.setattr(ttfm, "prefill_chunk", chunk)
+    formed, _, eng = _run("torch", cfg, model, reqs, slots=4, chunk=16,
+                          prefill_rows=rows)
+    # made[0] is the slot pool, made[1] the batch cache; then none (the
+    # 100-token prompts are 7 chunks of 16 or more)
+    assert [len(b) for b in formed] == [3]
+    assert made == [(4, "cpu"), (rows or 3, "cpu")]
+    assert eng.sched.formed and len(written) >= 7 * len(eng.sched.formed)
+    bc = eng.backend._batch_cache["groups"][0][0]["k"]
+    assert set(written) == {bc.data_ptr()}

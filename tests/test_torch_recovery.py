@@ -9,18 +9,17 @@ the reference's assertions; ``TestGoodputBackendParity`` and
 the place of the cost model (the same workload, plan and weights, f32:
 the same dispatched batches, victims, slice yields, fired fault counters
 and token ids).  Then the three places where a torch engine differs
-from a JAX one: an abandoned prefill job's device batch cache must die
-with the job, an evicted slot must not write through its old block-table
-row, and a restore's queued copy must land before its page changes
-owner.  Last, the launcher: a trace the JAX package wrote replays with
-the same batch log, the fault line and the validated timeline print,
-and ``--drain-after`` is refused.
+from a JAX one: an abandoned prefill job must leave nothing in the
+engine's batch cache for the next job, an evicted slot must not write
+through its old block-table row, and a restore's queued copy must
+land before its page changes owner.  Last, the launcher: a trace the
+JAX package wrote replays with the same batch log, the fault line and
+the validated timeline print, and ``--drain-after`` is refused.
 """
 import dataclasses
 import json
 import math
 import re
-import weakref
 
 import numpy as np
 import pytest
@@ -50,7 +49,8 @@ def engine(side, cfg, *, sched="bucket", slots=4, max_batch=None,
            paged=False, page=32, pool_tokens=None, fault_plan=None, **kw):
     """One engine ("jax" or "torch", the port on the CPU) on the
     reference's test weights, its batches capped at ``max_batch`` (by
-    default ``slots``)."""
+    default ``slots``); the port's batch prefill cache has that many
+    rows from construction."""
     core = CORE[side]
     cls = core.GoodputScheduler if sched == "goodput" \
         else core.BucketServeScheduler
@@ -66,7 +66,8 @@ def engine(side, cfg, *, sched="bucket", slots=4, max_batch=None,
                 fault_plan=fault_plan, **kw)
     if side == "jax":
         return JaxEngine(cfg, jax_params(), s, **opts)
-    return TorchEngine(cfg, torch_model(), s, device="cpu", **opts)
+    return TorchEngine(cfg, torch_model(), s, device="cpu",
+                       prefill_rows=max_batch or slots, **opts)
 
 
 def record_dispatch(eng, log, victims=None):
@@ -294,41 +295,60 @@ def test_drain_resume_ids_equal_uninterrupted_and_jax(where, after):
 # ----------------------------------------- the port's own three traps ----
 def test_abandoned_prefill_job_leaves_no_pages_and_no_live_cache(
         monkeypatch):
-    """A prefill-chunk storm past the retry budget: every abandoned job's
-    batch cache is gone the moment the loop drops the job (the job
-    object itself is still on the caller's frame then), its pages are
-    free, and every request finishes or is quarantined."""
+    """A prefill-chunk storm past the retry budget: every abandoned job
+    is dropped the moment the loop drops it (the job object itself is
+    still on the caller's frame then) and its pages are free; the batch
+    cache is the engine's one, made once, and the rows an abandoned job
+    wrote are zero again when the next job starts, so nothing of it is
+    live for the next job; every request finishes or is quarantined."""
     cfg = smoke_cfg("torch", max_seq_len=128)
     caches = []
     real = ttfm.init_cache
 
     def tracked(*args, **kw):
         cache = real(*args, **kw)
-        caches.append(weakref.ref(cache["groups"][0][0]["k"]))
+        caches.append(cache["groups"][0][0]["k"])
         return cache
     monkeypatch.setattr(ttfm, "init_cache", tracked)
     eng = engine("torch", cfg, paged=True, page=16, chunk_tokens=8,
                  fault_plan=dict(seed=3, rates={"prefill_chunk": 0.35}),
                  recovery=RecoveryPolicy(max_retries=0))
     loop, be = eng.loop, eng.backend
-    abandon, checked = loop._abandon_job, []
+    assert len(caches) == 1                    # the batch cache, once
+    leaf = caches[0]
+    abandon, checked, dirty = loop._abandon_job, [], []
 
     def abandoned(job, now):
-        held = [w for w in caches if w() is not None]
+        wrote = job.handle is not None and bool(leaf.any())
         abandon(job, now)
-        if held:
+        assert be._job is None and job.handle is None
+        if wrote:
             checked.append(job)
-            assert all(w() is None for w in held)
-            assert be._job is None and job.handle is None
+            dirty.append(len(job.batch.requests))
     loop._abandon_job = abandoned
+    begin, zeroed = be._begin_job, []
+
+    def begin_job(job):
+        h = begin(job)
+        if dirty:
+            B = len(job.batch.requests)
+            for slots in h["cache"]["groups"]:
+                for slot in slots:
+                    assert all(not t.any() for t in slot.values())
+            assert not h["cache"]["pos"].any()
+            zeroed.append(B)
+            dirty.clear()
+        return h
+    be._begin_job = begin_job
     reqs = fault_workload("torch")
     eng.submit(reqs)
     eng.run(max_wall_s=300)
-    assert checked, "no job was abandoned with a live batch cache"
+    assert checked, "no job was abandoned after writing the batch cache"
+    assert zeroed, "no job started after an abandoned one"
     for r in reqs:
         assert (r.finished >= 0) != r.quarantined, r.rid
     assert be.free_blocks() == be.alloc.n_pages
-    assert all(w() is None for w in caches)
+    assert len(caches) == 1 and be._batch_cache["groups"][0][0]["k"] is leaf
 
 
 def pool_pages(be):
