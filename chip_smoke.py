@@ -187,17 +187,43 @@ goes through these phases, each printing its own lines:
    one decode kernel a layer a step, three grouped GEMM calls a layer
    a step), and a decode step profiled eager and as a graph replay with
    the MoE functions' share of an eager step and of a prefill;
-13. the kernel table as one JSON line (launches from the serve runs:
+13. encoder and VLM (hubert-xlarge, llama-3.2-vision-90b, nemotron-4-340b):
+   the qwen3-moe model is freed; hubert's non-causal ``flash_prefill``
+   (B = 8, T = 1500 frames, H = Hkv = 16, Dh 80, lengths 1500/1200/900/
+   600: the CUDA-core body), the VLM's cross-attention ``flash_prefill``
+   (B = 8, Tq = 1024 over Tk = 1600 vision keys, H = 64, Hkv = 8, no
+   mask), its cross decode through ``flash_decode`` over the 1600 keys
+   (every row's pos 1599; two calls, same bits; the split the rule
+   picks) and its self-attention decode on both kernels at context 2048,
+   each against its plain version and in bf16 timed beside its bound and
+   SDPA, the first three also in f32 at a smoke shape; smoke f32 of the
+   three configs (cross gates 1.0): ``forward``, ``prefill`` and 4
+   ``decode_step``s on the card against the CPU (atol 1e-4), the VLM
+   also on the paged pool with the contiguous ids; hubert-xlarge at full
+   width and depth (bf16, seeded weights): ``forward`` on 8 x 1500
+   frames (48 ``flash_prefill`` launches, all CUDA-core; wall, device
+   busy, the kernel's share) and ``prefill(embeds=...)``'s last-token
+   logits against ``forward``'s; then llama-3.2-vision-90b at full
+   width with its depth cut from 100 to 20 layers (38.4 GB, every cross
+   gate set to 1.0, cache 4096): 8 prompts of 256-1024 tokens, each
+   with its own vision embeddings, prefilled whole and decoded 32
+   greedy steps on the contiguous cache and on the paged pool (page
+   128) after a warm-up: ids equal, launches one a layer a prefill or
+   step, prefill and step wall, the first tokens ``forward``'s argmax;
+14. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
    from the int8 runs; the three attention kernels once more at
    recurrentgemma-2b's and at qwen3-moe's widths with those runs'
-   launches, each entry naming its ``path``), the ``nvidia-smi`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   launches, and at hubert-xlarge's and llama-3.2-vision's shapes with
+   the launches of its forward and of its two runs, each entry naming
+   its ``path``), the ``nvidia-smi`` line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import gc
@@ -1277,12 +1303,16 @@ def parity_phase(torch, kv_dtype=""):
 def to_paged(torch, tfm, cfg, cache, page=16, s_len=None):
     """A contiguous prefill cache moved into a paged pool (identity page
     order plus a trash page), on the cache's device; recurrent carries
-    (a hybrid's RG-LRU state) stay per slot.  With ``s_len`` past the
-    cache's length the block tables span ``s_len`` slots, and their
-    entries past the cache point at the trash page."""
+    (a hybrid's RG-LRU state) and a VLM's cross K/V stay per slot.  With
+    ``s_len`` past the cache's length the block tables span ``s_len``
+    slots, and their entries past the cache point at the trash page."""
+    from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE
     dev = cache["pos"].device
     B = cache["pos"].shape[0]
-    k0 = next(s["k"] for g in cache["groups"] for s in g if "k" in s)
+    kinds = [[b in (BLOCK_ATTN, BLOCK_MOE) for b in pat]
+             for pat, _ in cfg.block_groups()]
+    k0 = next(s["k"] for g, kg in zip(cache["groups"], kinds)
+              for s, paged_kv in zip(g, kg) if paged_kv)
     S = k0.shape[2]
     n_p = S // page
     s_len = s_len or S
@@ -1294,10 +1324,10 @@ def to_paged(torch, tfm, cfg, cache, page=16, s_len=None):
     bt[:, :n_p] = torch.arange(B * n_p, dtype=torch.int32,
                                device=dev).reshape(B, n_p)
     paged["block_tables"] = bt
-    for src_g, dst_g in zip(cache["groups"], paged["groups"]):
-        for src_s, dst_s in zip(src_g, dst_g):
+    for src_g, dst_g, kg in zip(cache["groups"], paged["groups"], kinds):
+        for src_s, dst_s, paged_kv in zip(src_g, dst_g, kg):
             for key, src in src_s.items():
-                if "k" not in src_s:                 # a per-slot carry
+                if not paged_kv:                     # a per-slot leaf
                     dst_s[key].copy_(src)
                     continue
                 # K/V and int8 scales: (reps, B, S, Hkv[, Dh])
@@ -1672,9 +1702,7 @@ def serve_run(torch, cfg, eng, reqs, label):
     done = eng.run(max_wall_s=600)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    counts = dict(runtime.launch_counts)
-    counts.update({f"flash_prefill/{b}": n
-                   for b, n in runtime.prefill_body_counts.items()})
+    counts = launch_counts()
     counts.update({f"flash_prefill/unaligned/{b}": n
                    for b, n in runtime.prefill_unaligned_counts.items()})
     counts.update({f"{k}/last plan": p for k, p in runtime.decode_plans.items()
@@ -4034,6 +4062,642 @@ def moe_phase(torch):
         profile=profile, pool_tokens=pool_tokens)
 
 
+# ------------------------------------------------- encoder and VLM ---
+HUBERT_ARCH = "hubert-xlarge"
+VLM_ARCH = "llama-3.2-vision-90b"
+NEMOTRON_ARCH = "nemotron-4-340b"
+# hubert-xlarge's self-attention: 30 s of audio at its 50 Hz frame rate,
+# H = Hkv = 16 at Dh 80 (the CUDA-core prefill body), non-causal, ragged
+HUBERT_ATTN = dict(B=8, T=1500, H=16, Hkv=16, Dh=80)
+HUBERT_LENGTHS = [1500, 1200, 900, 600] * 2
+# the VLM's cross-attention: prompts of up to 1024 tokens over 1600
+# vision keys (Tk off the 64-key tile), G = 8 at Dh 128; its decode
+# reads the same keys through the decode kernel (pos 1599 every row)
+VLM_CROSS = dict(B=8, Tq=1024, Tk=1600, H=64, Hkv=8, Dh=128)
+# the VLM's self-attention decode at its widths over a 4096-slot cache
+VLM_SELF = dict(B=8, H=64, Hkv=8, Dh=128, S=4096)
+# the full-width run: the depth cut from 100 layers to 20 (four of its
+# (4 self + 1 cross) patterns, 19.22 B parameters, 38.4 GB in bf16) and
+# the cache to 4096; every width as published
+VLM_LAYERS = 20
+VLM_MAX_SEQ = 4096
+VLM_PROMPTS = [256, 1024, 512, 768, 384, 900, 640, 1000]
+VLM_STEPS = 32
+VLM_GATE = 1.0            # every cross gate (zero at the seeded init)
+VLM_PATH = f"{VLM_ARCH} ({VLM_LAYERS} of 100 layers)"
+# smoke parity, card against CPU (f32): tests/test_torch_model.py's logit
+# tolerance
+SMOKE_LOGIT_TOL = dict(atol=1e-4, rtol=0)
+# hubert's prefill last-token logits against its forward's (bf16, full
+# width): the same kernels on the same activations; only the head's
+# product differs in its row count (8 rows against 8 x 1500), which may
+# take another GEMM and another f32 summation order over d = 1280
+HUBERT_LAST_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+def set_cross_gates(torch, model, value):
+    """Every cross layer's gate (a 0-d leaf) set to ``value``; returns
+    how many were set."""
+    n = 0
+    with torch.no_grad():
+        for _, _, _, blk in model.blocks():
+            if hasattr(blk.attn, "gate"):
+                blk.attn.gate.fill_(value)
+                n += 1
+    return n
+
+
+@contextlib.contextmanager
+def cross_launches():
+    """Each kernel's launches made inside the cross layers' attention:
+    ``attention.cross_attn_forward`` and ``cross_attn_decode``, which the
+    cross block calls through its module, are wrapped for the block's
+    duration, and the wrappers' own counts are read before and after
+    each call.  Yields {kernel: launches}."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import attention
+    tally = dict.fromkeys(runtime.launch_counts, 0)
+    saved = attention.cross_attn_forward, attention.cross_attn_decode
+
+    def counted(fn):
+        def call(*args, **kw):
+            before = dict(runtime.launch_counts)
+            out = fn(*args, **kw)
+            for name, n in runtime.launch_counts.items():
+                tally[name] += n - before[name]
+            return out
+        return call
+    attention.cross_attn_forward, attention.cross_attn_decode = (
+        counted(fn) for fn in saved)
+    try:
+        yield tally
+    finally:
+        attention.cross_attn_forward, attention.cross_attn_decode = saved
+
+
+def vision_kernels(torch):
+    """The attention kernels at the shapes the encoder and the VLM give
+    them, each against its plain version on the card: hubert's
+    non-causal ``flash_prefill`` (B = 8, T = 1500, H = Hkv = 16, Dh 80,
+    lengths 1500/1200/900/600: the CUDA-core body), the VLM's causal
+    self-attention ``flash_prefill`` (B = 8, T = 1024 with the
+    ``VLM_PROMPTS`` lengths, H = 64, Hkv = 8: the tensor-core body), its
+    cross-attention ``flash_prefill`` (B = 8, Tq = 1024 over Tk = 1600
+    vision keys, no mask), its cross decode through ``flash_decode`` (B =
+    8 over the 1600 keys, pos 1599), and its self-attention decode on
+    both kernels (B = 8 over 4096 slots at context 2048); in bf16 each
+    timed beside its plain version, its bound and SDPA under the same
+    mask; the f32 body of the first four at a smoke shape."""
+    from repro_torch.kernels import ops, ref, runtime
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        esz, tol, full = (4 if dt == "float32" else 2), MAIN_TOL[dt], \
+            dt == "bfloat16"
+
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(getattr(torch, dt))
+        # hubert: non-causal, ragged lengths, Dh 80
+        B, T, H, Hkv, Dh = ((HUBERT_ATTN[k] for k in ("B", "T", "H", "Hkv",
+                                                       "Dh")) if full
+                            else (2, 300, 4, 4, 80))
+        lens_l = HUBERT_LENGTHS if full else [300, 170]
+        q, k, v = rnd((B, T, H, Dh)), rnd((B, T, Hkv, Dh)), \
+            rnd((B, T, Hkv, Dh))
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        key = f"flash_prefill B={B} T={T} H={H} Dh={Dh} non-causal ragged"
+        err = assert_close(torch, f"hubert {key} {dt}",
+                           prefill(q, k, v, lens, causal=False),
+                           ref.flash_prefill_ref(q, k, v, lens,
+                                                 causal=False), tol)
+        worst[f"{key} {dt}"] = err
+        if full:
+            pairs = T * sum(lens_l)
+            b_ms, b_by = bound_ms(esz * (2 * B * T * H * Dh
+                                         + 2 * sum(lens_l) * Hkv * Dh)
+                                  + 4 * B, 4.0 * pairs * H * Dh, dt)
+            kmask = (torch.arange(T, device=dev)[None] < lens[:, None])[
+                :, None, None]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows[key] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(
+                    q, k, v, lens, causal=False), 10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, lens, causal=False), 3, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, attn_mask=kmask), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q, k, v
+        # the VLM's self-attention prefill: causal, the prompts padded to
+        # the longest with their own key lengths, G = 8 at Dh 128; padded
+        # query rows are garbage in both, so only the valid rows compare
+        B, T, H, Hkv, Dh = ((len(VLM_PROMPTS), max(VLM_PROMPTS),
+                             VLM_CROSS["H"], VLM_CROSS["Hkv"],
+                             VLM_CROSS["Dh"]) if full
+                            else (2, 200, 8, 1, 128))
+        lens_l = VLM_PROMPTS if full else [200, 77]
+        q, k, v = rnd((B, T, H, Dh)), rnd((B, T, Hkv, Dh)), \
+            rnd((B, T, Hkv, Dh))
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        valid = torch.arange(T, device=dev)[None] < lens[:, None]
+        key = f"flash_prefill self B={B} T={T} H={H} Hkv={Hkv} causal ragged"
+        err = assert_close(torch, f"vlm {key} {dt}", prefill(q, k, v, lens),
+                           ref.flash_prefill_ref(q, k, v, lens), tol, valid)
+        worst[f"{key} {dt}"] = err
+        if full:
+            # every query row's live keys: row t of a prompt of L tokens
+            # reads min(t, L - 1) + 1 of them
+            pairs = sum(L * (L + 1) // 2 + (T - L) * L for L in lens_l)
+            b_ms, b_by = bound_ms(esz * (2 * B * T * H * Dh
+                                         + 2 * sum(lens_l) * Hkv * Dh)
+                                  + 4 * B, 4.0 * pairs * H * Dh, dt)
+            G = H // Hkv
+            smask = (torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+                     & valid[:, None, :])[:, None]
+            qt = q.transpose(1, 2)
+            kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2)
+                      for x in (k, v))
+            rows[key] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, lens),
+                           10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, lens), 3, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, attn_mask=smask), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            del kt, vt, smask
+        del q, k, v
+        # the VLM's cross-attention prefill: Tq != Tk, no mask
+        B, Tq, Tk, H, Hkv, Dh = ((VLM_CROSS[k] for k in (
+            "B", "Tq", "Tk", "H", "Hkv", "Dh")) if full
+            else (2, 100, 160, 8, 1, 128))
+        q, k, v = rnd((B, Tq, H, Dh)), rnd((B, Tk, Hkv, Dh)), \
+            rnd((B, Tk, Hkv, Dh))
+        key = f"flash_prefill cross B={B} Tq={Tq} Tk={Tk} H={H} Hkv={Hkv}"
+        err = assert_close(torch, f"vlm {key} {dt}",
+                           prefill(q, k, v, causal=False),
+                           ref.flash_prefill_ref(q, k, v, causal=False), tol)
+        worst[f"{key} {dt}"] = err
+        if full:
+            b_ms, b_by = bound_ms(esz * (2 * B * Tq * H * Dh
+                                         + 2 * B * Tk * Hkv * Dh),
+                                  4.0 * B * Tq * Tk * H * Dh, dt)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows[key] = dict(
+                ms=time_ms(torch, lambda: ops.flash_prefill(
+                    q, k, v, causal=False), 10),
+                plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
+                    q, k, v, causal=False), 3, 1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, enable_gqa=True), 10),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        del q
+        # its cross decode: one query a row over all Tk keys
+        qd = rnd((B, H, Dh))
+        pos = torch.full((B,), Tk - 1, dtype=torch.int32, device=dev)
+        key = f"flash_decode cross B={B} H={H} Hkv={Hkv} over {Tk} keys"
+        got, again = (ops.flash_decode(qd, k, v, pos) for _ in range(2))
+        err = max(assert_close(torch, f"vlm {key} {dt}", got,
+                               ref.flash_decode_ref(qd, k, v, pos), tol),
+                  assert_close(torch, f"vlm {key} {dt} against the "
+                               f"unmasked prefill", got[:, None],
+                               ref.flash_prefill_ref(qd[:, None], k, v,
+                                                     causal=False), tol))
+        if not torch.equal(got, again):
+            raise AssertionError(f"vlm {key} {dt}: two calls differ")
+        plan = runtime.decode_plans["flash_decode"]
+        worst[f"{key} {dt}"] = err
+        log("vlm", f"{key} {dt}: n_split {plan.n_split}, L {plan.L} (the "
+            f"last split {Tk - (plan.n_split - 1) * plan.L} slots), "
+            f"{B * Hkv * plan.n_split} blocks, {plan.body} body")
+        if full:
+            b_ms, b_by = bound_ms(esz * (2 * B * H * Dh
+                                         + 2 * B * Tk * Hkv * Dh) + 4 * B,
+                                  4.0 * B * H * Tk * Dh, dt)
+            q4, kt, vt = qd[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            rows[key] = dict(
+                ms=time_ms(torch, lambda: ops.flash_decode(qd, k, v, pos),
+                           50),
+                plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
+                    qd, k, v, pos), 10),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    q4, kt, vt, enable_gqa=True), 20),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, plan=plan)
+        del qd, k, v
+        if full:
+            # the VLM's self-attention decode at its widths
+            B, H, Hkv, Dh, S = (VLM_SELF[k] for k in ("B", "H", "Hkv", "Dh",
+                                                      "S"))
+            q = rnd((B, H, Dh))
+            kc, vc = rnd((B, S, Hkv, Dh)), rnd((B, S, Hkv, Dh))
+            kp, vp, bt = paged_copy(torch, kc, vc, 128, gen)
+            pos = torch.full((B,), 2047, dtype=torch.int32, device=dev)
+            for name, row in decode_case(torch, q, kc, vc, kp, vp, bt, pos,
+                                         tol, f"vlm self {dt}", True).items():
+                key = f"{name} B=8 H={H} Hkv={Hkv} ctx=2048" + (
+                    " page=128" if "paged" in name else "")
+                worst[f"{key} {dt}"] = row["max_abs_err"]
+                rows[key] = row
+            del q, kc, vc, kp, vp
+        torch.cuda.empty_cache()
+    log("vlm", "kernels at hubert-xlarge's and llama-3.2-vision's shapes "
+        "agree with the plain versions (f32 atol 1e-4 rtol 1e-3; bf16 atol "
+        "2e-3 rtol 1e-2); max abs err: " + "; ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    log_rows("vlm", rows)
+    return rows
+
+
+def smoke_inputs(torch, cfg, B, T, seed):
+    """CPU inputs from a seeded generator: token ids, and an encoder's
+    frame embeddings or a VLM's vision embeddings (normal x 0.02, as the
+    reference's ``data/tokens.py``)."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         dtype=torch.int32)
+    kw = {}
+    if cfg.arch_type == "audio":
+        kw["embeds"] = torch.randn((B, T, cfg.d_model), generator=gen) * 0.02
+    if cfg.arch_type == "vlm":
+        kw["vision_embeds"] = torch.randn(
+            (B, cfg.n_vision_tokens, cfg.d_vision), generator=gen) * 0.02
+    return toks, kw
+
+
+def vision_smoke(torch):
+    """Smoke f32 hubert-xlarge, llama-3.2-vision-90b (cross gates set to
+    ``VLM_GATE``) and nemotron-4-340b (squared-ReLU MLP): ``forward``,
+    ``prefill`` and 4 ``decode_step``s on the card against the same calls
+    on the CPU within ``SMOKE_LOGIT_TOL``; the VLM's decode also on the
+    paged pool, its ids the contiguous cache's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    res = []
+    for arch in (HUBERT_ARCH, VLM_ARCH, NEMOTRON_ARCH):
+        cfg = get_smoke_config(arch, max_seq_len=64)
+        cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                    device="cpu")
+        set_cross_gates(torch, cpu_model, VLM_GATE)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        B, T = 3, 40
+        toks, kw = smoke_inputs(torch, cfg, B, T, seed=5)
+        gkw = {n: t.cuda() for n, t in kw.items()}
+        lens = torch.tensor([40, 23, 31], dtype=torch.int32)
+        tin = None if cfg.arch_type == "audio" else toks
+        worst = 0.0
+
+        def check(what, got, want):
+            nonlocal worst
+            torch.testing.assert_close(got.cpu(), want, **SMOKE_LOGIT_TOL,
+                                       msg=lambda m: f"{arch} {what}: {m}")
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+        fc = tfm.forward(cfg, cpu_model, tin, lengths=lens, **kw)
+        fg = tfm.forward(cfg, gpu_model, None if tin is None else tin.cuda(),
+                         lengths=lens.cuda(), **gkw)
+        for b, L in enumerate(lens.tolist()):
+            check("forward", fg[b, :L], fc[b, :L])
+        if not cfg.has_decode:
+            lc, _ = tfm.prefill(cfg, cpu_model, None, lens, cache_len=T,
+                                **kw)
+            lg, _ = tfm.prefill(cfg, gpu_model, None, lens.cuda(),
+                                cache_len=T, **gkw)
+            check("prefill", lg, lc)
+            check("prefill against forward", lg,
+                  fc[torch.arange(B), lens.long() - 1])
+            res.append(f"{arch} forward + prefill")
+            continue
+        plens = torch.tensor([24, 9, 17], dtype=torch.int32)
+        ids = {}
+        for paged in ((False, True) if cfg.arch_type == "vlm" else (False,)):
+            lc, cc = tfm.prefill(cfg, cpu_model, toks[:, :24], plens,
+                                 cache_len=64, **kw)
+            lg, cg = tfm.prefill(cfg, gpu_model, toks[:, :24].cuda(),
+                                 plens.cuda(), cache_len=64, **gkw)
+            dkw = {}
+            if paged:
+                cc, cg = to_paged(torch, tfm, cfg, cc), \
+                    to_paged(torch, tfm, cfg, cg)
+                dkw = dict(page_size=16, paged_len=64)
+            got = []
+            pos = plens.clone()
+            for step in range(5):
+                check(f"{'paged' if paged else 'contiguous'} step {step}",
+                      lg, lc)
+                got.append(lg.argmax(-1).tolist())
+                if step == 4:
+                    break
+                nxt = toks[torch.arange(B), pos]
+                pos += 1
+                lc, cc = tfm.decode_step(cfg, cpu_model, nxt, cc, **dkw)
+                lg, cg = tfm.decode_step(cfg, gpu_model, nxt.cuda(), cg,
+                                         **dkw)
+            ids[paged] = got
+        if cfg.arch_type == "vlm" and ids[True] != ids[False]:
+            raise AssertionError(f"{arch} smoke: paged ids {ids[True]}, "
+                                 f"contiguous {ids[False]}")
+        res.append(f"{arch} forward + prefill + 4 decode steps"
+                   + (" on both caches, paged ids == contiguous"
+                      if cfg.arch_type == "vlm" else ""))
+        res[-1] += f" (max abs {worst:.3g})"
+    torch.cuda.synchronize()
+    log("vlm", f"smoke f32, card against CPU within atol "
+        f"{SMOKE_LOGIT_TOL['atol']:g}, cross gates {VLM_GATE}: "
+        + "; ".join(res))
+
+
+def build_model(torch, arch, cfg, full):
+    """Seeded random bf16 weights on the card; logs the depth cut against
+    the full config ``full``."""
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    model = tfm.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                            device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("vlm", f"{arch}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, Dh "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{cfg.param_count() / 1e9:.2f} B parameters of the full config's "
+        f"{full.param_count() / 1e9:.2f} B, {wbytes / 1e9:.2f} GB made on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def launch_counts():
+    """Each kernel's launches since the last reset, and
+    ``flash_prefill``'s by body."""
+    from repro_torch.kernels import runtime
+    counts = dict(runtime.launch_counts)
+    counts.update({f"flash_prefill/{b}": n
+                   for b, n in runtime.prefill_body_counts.items()})
+    return counts
+
+
+def hubert_run(torch):
+    """hubert-xlarge at full width and depth (bf16): ``forward`` on B = 8
+    frames of 1500 with ``HUBERT_LENGTHS``, its wall, device busy and
+    ``flash_prefill``'s share (``profile_steps``) and launches (one a
+    layer, the CUDA-core body); ``prefill(embeds=...)``'s last-token
+    logits against ``forward``'s at each row's last position within
+    ``HUBERT_LAST_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    cfg = get_config(HUBERT_ARCH)
+    model = build_model(torch, HUBERT_ARCH, cfg, cfg)
+    B, T = HUBERT_ATTN["B"], HUBERT_ATTN["T"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    embeds = (torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+    lens = torch.tensor(HUBERT_LENGTHS, dtype=torch.int32, device=dev)
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = tfm.forward(cfg, model, embeds=embeds, lengths=lens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {"flash_prefill": cfg.n_layers,
+            "flash_prefill/cuda_core": cfg.n_layers}
+    if any(counts[k] != n for k, n in want.items()) or any(
+            counts[k] for k in ("flash_decode", "paged_flash_decode",
+                                "wkv6")):
+        raise AssertionError(f"hubert forward: launches {counts}, want "
+                             f"{want} and no other")
+    if logits.shape != (B, T, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"hubert forward: logits {tuple(logits.shape)}"
+                             f" not finite / wrong shape")
+    last, cache = tfm.prefill(cfg, model, lengths=lens, cache_len=T,
+                              embeds=embeds)
+    ref_last = logits[torch.arange(B, device=dev), lens.long() - 1]
+    err = assert_close(torch, "hubert prefill last logits vs forward", last,
+                       ref_last, HUBERT_LAST_TOL)
+    del cache, logits
+    prof = profile_steps(torch, f"{HUBERT_ARCH} full width and depth, "
+                         f"forward B={B} T={T}", lambda: tfm.forward(
+                             cfg, model, embeds=embeds, lengths=lens),
+                         "flash_prefill", "flash_prefill", steps=3)
+    log("vlm", f"{HUBERT_ARCH} forward: first call {first_s:.3f} s; "
+        f"flash_prefill {counts['flash_prefill']} launches = "
+        f"{cfg.n_layers} layers, all on the CUDA-core body (Dh 80); "
+        f"prefill(embeds=...) last-token logits against forward's at each "
+        f"row's last position: max abs {err:.3g} (atol "
+        f"{HUBERT_LAST_TOL['atol']:g}, rtol {HUBERT_LAST_TOL['rtol']:g})")
+    del model
+    return dict(launches=counts["flash_prefill"], profile=prof,
+                last_logit_err=err, first_call_s=first_s)
+
+
+def vlm_prompts(torch, cfg):
+    """Token ids (padded to the longest prompt), lengths and each
+    request's own vision embeddings (1600 x 1280, normal x 0.02)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, T = len(VLM_PROMPTS), max(VLM_PROMPTS)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lens = torch.tensor(VLM_PROMPTS, dtype=torch.int32, device=dev)
+    vis = (torch.randn((B, cfg.n_vision_tokens, cfg.d_vision),
+                       generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    return toks, lens, vis
+
+
+def vlm_serve(torch, cfg, model, toks, lens, vis, paged, steps=None):
+    """Whole-prompt prefill of the 8 prompts, then ``steps`` (default
+    ``VLM_STEPS``) greedy steps on the contiguous cache or on the paged
+    pool (page 128; the prefill cache moved into it, the cross K/V per
+    slot).  Returns (ids, counts, the cross layers' share of the counts,
+    first logits, prefill wall s, step wall ms)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tfm
+    S = cfg.max_seq_len
+    runtime.reset_launch_counts()
+    torch.cuda.synchronize()
+    with cross_launches() as cross:
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(cfg, model, toks, lens, cache_len=S,
+                                    vision_embeds=vis)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first = logits
+        kw = {}
+        if paged:
+            cache = to_paged(torch, tfm, cfg, cache, 128)
+            kw = dict(page_size=128, paged_len=S)
+        tok = logits.argmax(-1).to(torch.int32)
+        ids = [tok.tolist()]
+        steps = steps or VLM_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = tfm.decode_step(cfg, model, tok, cache, **kw)
+            tok = logits.argmax(-1).to(torch.int32)
+            ids.append(tok.tolist())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not torch.isfinite(logits).all():
+        raise AssertionError("vlm: non-finite logits")
+    del cache
+    return ids, launch_counts(), dict(cross), first, prefill_s, step_ms
+
+
+def vlm_step_profile(torch, cfg, model, toks, lens, vis, paged):
+    """``profile_steps`` of an eager decode step of the 8 prompts, right
+    after their whole-prompt prefill, on the contiguous cache or the
+    paged pool (page 128)."""
+    from repro_torch.models import transformer as tfm
+    S = cfg.max_seq_len
+    logits, cache = tfm.prefill(cfg, model, toks, lens, cache_len=S,
+                                vision_embeds=vis)
+    kw = {}
+    if paged:
+        cache = to_paged(torch, tfm, cfg, cache, 128)
+        kw = dict(page_size=128, paged_len=S)
+    tok = logits.argmax(-1).to(torch.int32)
+    del logits
+    which = "paged, page 128" if paged else "contiguous"
+    return profile_steps(torch, f"{VLM_PATH} decode step, B=8, {which}, "
+                         f"eager", lambda: tfm.decode_step(
+                             cfg, model, tok, cache, **kw),
+                         "decode attention", "flash_decode", steps=8)
+
+
+def vlm_run(torch):
+    """llama-3.2-vision-90b at full width with ``VLM_LAYERS`` of its 100
+    layers (bf16, seeded random weights, every cross gate set to
+    ``VLM_GATE``, cache ``VLM_MAX_SEQ``): 8 prompts of 256-1024 tokens,
+    each with its own vision embeddings, prefilled whole, then
+    ``VLM_STEPS`` greedy steps on the contiguous cache and on the paged
+    pool: ids equal, each kernel's launches exactly one a layer a
+    prefill or step (the cross layers' decode on ``flash_decode`` on
+    both; the cross layers' own launches counted apart), the first token
+    ``forward``'s argmax at each row's last position; then the eager
+    decode step of each cache profiled three times in alternating
+    order."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    import dataclasses
+    dev = torch.device("cuda")
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS,
+                              max_seq_len=VLM_MAX_SEQ)
+    model = build_model(torch, VLM_ARCH, cfg, full)
+    n_gates = set_cross_gates(torch, model, VLM_GATE)
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers - n_cross
+    log("vlm", f"{VLM_ARCH}: depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers ({n_self} self-attention, {n_cross} "
+        f"cross-attention), cache length {cfg.max_seq_len} (the config's "
+        f"{full.max_seq_len} cut); {n_gates} cross gates set to {VLM_GATE} "
+        f"after the seeded init (zero there, as the reference's)")
+    toks, lens, vis = vlm_prompts(torch, cfg)
+    B = len(VLM_PROMPTS)
+    # a warm-up on both caches (the first calls' allocations and GEMM
+    # choices stay out of the timed runs)
+    for paged in (False, True):
+        vlm_serve(torch, cfg, model, toks[:, :64].contiguous(),
+                  lens.clamp(max=64), vis, paged, steps=2)
+    runs = {}
+    for paged in (False, True):
+        runs[paged] = vlm_serve(torch, cfg, model, toks, lens, vis, paged)
+    (ids_c, cnt_c, x_c, first_c, pf_c, st_c), \
+        (ids_p, cnt_p, x_p, first_p, pf_p, st_p) = runs[False], runs[True]
+    if ids_c != ids_p:
+        raise AssertionError(f"vlm: paged ids {ids_p} differ from "
+                             f"contiguous {ids_c}")
+    want_c = {"flash_prefill": cfg.n_layers,
+              "flash_prefill/tensor_core": cfg.n_layers,
+              "flash_decode": cfg.n_layers * VLM_STEPS,
+              "paged_flash_decode": 0}
+    want_p = dict(want_c, flash_decode=n_cross * VLM_STEPS,
+                  paged_flash_decode=n_self * VLM_STEPS)
+    # the cross layers' own launches, on either cache: one prefill a
+    # layer, one flash_decode a layer a step (the vision K/V stay per slot)
+    want_x = {"flash_prefill": n_cross, "flash_decode": n_cross * VLM_STEPS,
+              "paged_flash_decode": 0, "wkv6": 0}
+    for label, counts, want, cross in (("contiguous", cnt_c, want_c, x_c),
+                                       ("paged", cnt_p, want_p, x_p)):
+        if any(counts[k] != n for k, n in want.items()) or counts["wkv6"]:
+            raise AssertionError(f"vlm {label}: launches {counts}, want "
+                                 f"{want}")
+        if any(cross[k] != n for k, n in want_x.items()):
+            raise AssertionError(f"vlm {label}: cross-layer launches "
+                                 f"{cross}, want {want_x}")
+    logits = tfm.forward(cfg, model, toks, vision_embeds=vis, lengths=lens)
+    at_last = logits[torch.arange(B, device=dev), lens.long() - 1]
+    del logits
+    fwd_ids = at_last.argmax(-1).tolist()
+    if fwd_ids != ids_c[0]:
+        raise AssertionError(f"vlm: first tokens {ids_c[0]}, forward's "
+                             f"argmax {fwd_ids}")
+    gap = float((first_c - at_last).abs().max())
+    # launches over both runs, the self-attention layers' apart from the
+    # cross layers'
+    launches = {}
+    for name in ("flash_prefill", "flash_decode", "paged_flash_decode"):
+        cross = x_c[name] + x_p[name]
+        launches[f"{name} cross"] = cross
+        launches[f"{name} self"] = cnt_c[name] + cnt_p[name] - cross
+    log("vlm", f"{VLM_PATH}: 8 prompts {VLM_PROMPTS}, each with its own "
+        f"{cfg.n_vision_tokens} x {cfg.d_vision} vision embeddings; "
+        f"whole-prompt prefill {pf_c:.3f} s contiguous, {pf_p:.3f} s "
+        f"paged; {VLM_STEPS} greedy steps at {st_c:.2f} ms (contiguous) "
+        f"and {st_p:.2f} ms a step (paged, page 128): ids equal; first "
+        f"tokens equal forward's argmax at each row's last position (max "
+        f"abs logit gap {gap:.3g}); launches contiguous "
+        f"{ {k: cnt_c[k] for k in want_c} } (cross layers "
+        f"{ {k: x_c[k] for k in want_x} }), paged "
+        f"{ {k: cnt_p[k] for k in want_p} } (cross layers "
+        f"{ {k: x_p[k] for k in want_x} }); both runs, self / cross: "
+        f"{launches}")
+    # the eager step's wall, device busy and idle share on each cache,
+    # three profiles each in alternating order (one reading says nothing
+    # of the spread)
+    prof = {False: [], True: []}
+    for order in ((False, True), (True, False), (False, True)):
+        for paged in order:
+            prof[paged].append(vlm_step_profile(torch, cfg, model, toks,
+                                                lens, vis, paged))
+    steps = {}
+    for paged, label in ((False, "contiguous"), (True, "paged")):
+        walls = [r["wall_ms"] for r in prof[paged]]
+        busy = [r.get("busy_ms") for r in prof[paged]]
+        idle = [r.get("idle_share") for r in prof[paged]]
+        steps[label] = dict(wall_ms=walls, busy_ms=busy, idle_share=idle,
+                            serve_step_ms=st_c if not paged else st_p)
+        log("vlm", f"{VLM_PATH} eager decode step, {label}: wall {walls} "
+            f"ms (spread {max(walls) - min(walls):.2f}), device busy "
+            f"{busy} ms, idle share {idle}; the serve run's 32-step mean "
+            f"{steps[label]['serve_step_ms']:.2f} ms")
+    del model
+    return dict(launches=launches,
+                prefill_s={"contiguous": pf_c, "paged": pf_p},
+                step_ms={"contiguous": st_c, "paged": st_p},
+                step_profiles=steps, first_logit_gap=gap)
+
+
+def vision_phase(torch):
+    """The encoder and the VLM: the kernels at their shapes, the smoke
+    parity of the three new configs, hubert-xlarge at full width and
+    depth, then llama-3.2-vision-90b at full width with its depth cut.
+    Each model is freed before the next is made."""
+    t0 = time.perf_counter()
+    rows = vision_kernels(torch)
+    vision_smoke(torch)
+    hubert = hubert_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = vlm_run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("vlm", f"done in {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, hubert=hubert, vlm=vlm)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4099,6 +4763,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(torch)
     profile["qwen3-moe-235b-a22b"] = moe.pop("profile")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision = vision_phase(torch)
+    profile[HUBERT_ARCH] = vision["hubert"].pop("profile")
+    vrows, vlm_n = vision["rows"], vision["vlm"]["launches"]
 
     def entry(name, source, replaces, row, path="qwen3-14b", n=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -4183,6 +4852,49 @@ def main() -> int:
                      "src/repro/kernels/decode_attn.py:67",
                      moe["rows"]["flash_decode B=8 H=64 Hkv=4 ctx=2048"],
                      path=MOE_PATH, n=moe["launches"]["flash_decode"]),
+        # hubert-xlarge's forward: non-causal, Dh 80, ragged lengths
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   vrows["flash_prefill B=8 T=1500 H=16 Dh=80 non-causal "
+                         "ragged"],
+                   path=HUBERT_ARCH, n=vision["hubert"]["launches"]),
+             body="cuda_core (Dh 80, non-causal, key lengths)"),
+        # llama-3.2-vision-90b (20 of 100 layers): each kernel of the
+        # self-attention layers and of the cross layers on its own row,
+        # with the launches of its layers over the contiguous and paged
+        # runs
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   vrows["flash_prefill self B=8 T=1024 H=64 Hkv=8 causal "
+                         "ragged"],
+                   path=VLM_PATH, n=vlm_n["flash_prefill self"]),
+             role="self-attention",
+             body="tensor_core (wgmma; bf16, Dh 128, causal, key lengths)"),
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   vrows["flash_prefill cross B=8 Tq=1024 Tk=1600 H=64 "
+                         "Hkv=8"],
+                   path=VLM_PATH, n=vlm_n["flash_prefill cross"]),
+             role="cross-attention",
+             body="tensor_core (wgmma; bf16, Dh 128, non-causal, Tq != Tk)"),
+        dict(decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:67",
+                          vrows["flash_decode B=8 H=64 Hkv=8 ctx=2048"],
+                          path=VLM_PATH, n=vlm_n["flash_decode self"]),
+             role="self-attention"),
+        dict(decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:67",
+                          vrows["flash_decode cross B=8 H=64 Hkv=8 over 1600 "
+                                "keys"],
+                          path=VLM_PATH, n=vlm_n["flash_decode cross"]),
+             role="cross-attention"),
+        dict(decode_entry("paged_flash_decode",
+                          "src/repro_torch/csrc/paged_decode_attn.cu",
+                          "src/repro/kernels/paged_decode_attn.py:80",
+                          vrows["paged_flash_decode B=8 H=64 Hkv=8 ctx=2048 "
+                                "page=128"],
+                          path=VLM_PATH, n=vlm_n["paged_flash_decode self"]),
+             role="self-attention"),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
@@ -4193,6 +4905,7 @@ def main() -> int:
     log("paper", json.dumps(paper))
     log("rg", json.dumps(rg, default=str))
     log("moe", json.dumps(moe, default=str))
+    log("vlm", json.dumps(vision, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ and ``h`` (RG-LRU), which are float32 in a bf16 model too, as in the
 reference.  The MoE experts (``moe/w_gate``, ``moe/w_up`` (E, d, f),
 ``moe/w_down`` (E, f, d)) and the shared expert (``moe/shared/{gate,
 up,down}``) land once, at load, in the reference's layout, which is the
-one the grouped product takes (``models/moe.py:grouped_mm``).
+one the grouped product takes (``models/moe.py:grouped_mm``).  A VLM's
+``vis_proj`` (d_vision, d_model) is a top-level leaf; each cross layer's
+``attn/gate`` is stacked ``(reps,)`` and lands as a 0-d leaf a block; a
+squared-ReLU MLP (nemotron) has ``up`` and ``down`` only.
 """
 from __future__ import annotations
 

@@ -13,17 +13,16 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-# The port's registry holds the configs whose blocks are ported: the
-# dense-GQA decoders, rwkv6-3b, the two MoE configs and
-# recurrentgemma-2b, in the reference's order; the VLM and encoder
-# configs join with their slice.
 _MODULES = {
     "yi-6b": "yi_6b",
     "rwkv6-3b": "rwkv6_3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "hubert-xlarge": "hubert_xlarge",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "nemotron-4-340b": "nemotron_4_340b",
     "qwen3-14b": "qwen3_14b",
     "llama2-13b": "llama2_13b",          # the paper's own model
 }

@@ -545,6 +545,24 @@ class PrefillGraph:
         self.met.clear()
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ValueError for a config the engine cannot serve, as the
+    reference's engine cannot: an encoder has no decode step (the
+    reference's launcher refuses it with this message), and a VLM's
+    prefill needs the request's vision embeddings, which the reference's
+    engine never passes (its ``_prefill_fn`` prefills token ids only, so
+    its first VLM prefill fails in ``cross_kv``)."""
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only; serve prefill-only "
+                         "workloads via max_new_tokens=1")
+    if cfg.arch_type == "vlm":
+        raise ValueError(
+            f"{cfg.name}: the engine prefills token ids only, as the "
+            f"reference's engine does (its prefill passes no "
+            f"vision_embeds); run transformer.prefill / decode_step with "
+            f"vision_embeds instead")
+
+
 class TorchEngineBackend:
     """ExecutionBackend over PyTorch prefill/decode on one device.
 
@@ -585,7 +603,7 @@ class TorchEngineBackend:
                  prefill_graph: Optional[bool] = None,
                  prefill_rows: Optional[int] = None,
                  moe_impl: str = "local"):
-        tfm.check_supported(cfg)
+        check_servable(cfg)
         moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "

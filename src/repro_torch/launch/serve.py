@@ -30,7 +30,12 @@ to page, so ``--paged`` is refused), through the hand-written WKV6
 kernel on the card.  The MoE configs (``--arch qwen3-moe-235b-a22b``,
 ``--arch llama4-scout-17b-a16e``) are served with ``moe_impl="local"``,
 as the reference launcher serves them; at full depth neither fits one
-80 GB card.
+80 GB card.  ``--arch hubert-xlarge`` (an encoder, no decode step) exits
+on either backend with the reference launcher's message; the engine
+cannot serve ``--arch llama-3.2-vision-90b`` (its prefill takes token
+ids only, as the reference engine's, and a VLM needs its image), so
+``--backend torch`` refuses it before building a model, while ``--backend
+sim`` runs it and ``nemotron-4-340b`` as the reference's does.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -93,7 +98,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                               MemoryBudget, SchedulerConfig)
-from repro_torch.core.engine import ServingEngine
+from repro_torch.core.engine import ServingEngine, check_servable
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.recovery import LoopCheckpoint
 from repro_torch.core.simulator import A100X4, CostModel, Simulator
@@ -606,6 +611,13 @@ def main(argv=None):
                          or args.kv_spill)
     args.paged = args.paged or args.prefix_cache
     cfg = make_config(args)
+    # an encoder is refused on either backend, as the reference's launcher
+    # refuses it; a VLM on the engine only (the cost model runs it)
+    if not cfg.has_decode or args.backend != "sim":
+        try:
+            check_servable(cfg)
+        except ValueError as e:     # before a model is built for nothing
+            raise SystemExit(str(e)) from None
     if args.paged and not tfm.supports_paged_decode(cfg):
         ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
                  f"serve it on the contiguous slot pool (without --paged)")

@@ -1,8 +1,10 @@
 """Attention: dense GQA self-attention for prefill, chunked prefill and
-decode over a contiguous or a paged KV cache.
+decode over a contiguous or a paged KV cache, and the VLM's tanh-gated
+cross-attention over a request's vision K/V.
 
-PyTorch counterpart of the dense-GQA subset of
-``repro/models/attention.py``.  Every attention product goes through
+PyTorch counterpart of ``repro/models/attention.py`` on one card (its
+sequence-sharded ``distributed_decode_attention`` waits for the
+distribution slice).  Every attention product goes through
 ``kernels/ops.py``: the plain PyTorch version for tensors on the CPU,
 the hand-written CUDA kernel for tensors on the card.  On the card the
 prefill kernel covers every T, so the reference's ``blocked_attention``
@@ -263,6 +265,42 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
         out = paged_decode_attention(q, *cache, block_tables, pos,
                                      s_len=s_len, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+def cross_kv(cfg: ModelConfig, p, vis):
+    """The vision K/V of a cross layer, once a request: ``vis`` (B, Nv,
+    d_model), already through ``vis_proj``, projected by ``wk``/``wv``
+    (and k-normed where the config has qk-norm); no RoPE."""
+    return _project_kv(cfg, p, vis)
+
+
+def _gated(p, out):
+    """``tanh(gate)`` in f32, cast to the output's dtype, times out."""
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out
+
+
+def cross_attn_forward(cfg: ModelConfig, p, x, vis_kv):
+    """Cross-attention of (B,T,d) over fixed vision K/V ``vis_kv`` (k, v)
+    (B,Nv,Hkv,Dh): every query sees every vision key (no mask, so query
+    rows past a row's length are garbage, as in the reference)."""
+    B, T, _ = x.shape
+    q = _project_q(cfg, p, x)
+    out = full_attention(q, *vis_kv, causal=False)
+    return _gated(p, out.reshape(B, T, cfg.q_dim) @ p["wo"])
+
+
+def cross_attn_decode(cfg: ModelConfig, p, x, vis_kv):
+    """``cross_attn_forward`` for one query token a row (x: (B,1,d)),
+    through the decode kernel: with every row's ``pos`` the last vision
+    slot and no ring, its live keys are all Nv of them, which is the
+    reference's ``full_attention(causal=False)``."""
+    B = x.shape[0]
+    k, v = vis_kv
+    q = _project_q(cfg, p, x)
+    pos = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
+                     device=x.device)
+    out = decode_attention(q, k, v, pos)
+    return _gated(p, out.reshape(B, 1, cfg.q_dim) @ p["wo"])
 
 
 # ------------------------------------------- int4 spill-tier compression --

@@ -96,23 +96,30 @@ def apply_rope(x, cos, sin):
 
 # ----------------------------------------------------------------- MLP ----
 class MLP(Params):
-    """Gated MLP weights ``gate``, ``up`` (d, d_ff) and ``down`` (d_ff,
-    d)."""
+    """MLP weights ``up`` (d, d_ff) and ``down`` (d_ff, d), and for a
+    gated activation (``silu``, ``gelu``) also ``gate`` (d, d_ff); the
+    squared-ReLU MLP (``sq_relu``) has no gate, as the reference's
+    ``mlp_init``."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, act: str, dtype, device):
         super().__init__()
         e = dict(dtype=dtype, device=device)
-        self.gate = frozen_param(torch.empty(cfg.d_model, cfg.d_ff, **e))
+        if act != "sq_relu":
+            self.gate = frozen_param(torch.empty(cfg.d_model, cfg.d_ff, **e))
         self.up = frozen_param(torch.empty(cfg.d_model, cfg.d_ff, **e))
         self.down = frozen_param(torch.empty(cfg.d_ff, cfg.d_model, **e))
 
     def init_(self, gen: torch.Generator) -> None:
-        for w in (self.gate, self.up, self.down):
+        for _, w in self.named_parameters():
             w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
 
 
 def mlp_apply(p, x, act: str):
-    """Gated MLP; ``p`` holds ``gate``, ``up`` and ``down`` weights."""
+    """``relu(x @ up)² @ down`` for ``sq_relu``; otherwise the gated
+    ``(act(x @ gate) * (x @ up)) @ down``."""
+    if act == "sq_relu":
+        h = torch.relu(x @ p["up"])
+        return (h * h) @ p["down"]
     h = x @ p["up"]
     g = x @ p["gate"]
     if act == "silu":
@@ -120,8 +127,7 @@ def mlp_apply(p, x, act: str):
     elif act == "gelu":
         g = F.gelu(g, approximate="tanh")    # jax.nn.gelu's default
     else:
-        raise NotImplementedError(
-            f"activation {act!r} arrives with its model family's slice")
+        raise ValueError(act)
     return (g * h) @ p["down"]
 
 

@@ -68,7 +68,7 @@ class Moe(KeepsF32):
         self.w_up = _param(torch.empty(E, d, f, **e))
         self.w_down = _param(torch.empty(E, f, d, **e))
         if cfg.shared_expert:
-            self.shared = layers.MLP(cfg, dtype, device)
+            self.shared = layers.MLP(cfg, "silu", dtype, device)
 
     def init_(self, gen: torch.Generator) -> None:
         """``moe_init``'s scales: ``dense_init`` for the router, normal

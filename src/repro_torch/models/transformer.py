@@ -1,32 +1,39 @@
-"""Model assembly: prefill, chunked prefill and decode over a contiguous
-or a paged cache, for dense attention decoders, MoE decoders, RWKV6 and
-the RG-LRU / local-attention hybrid.
+"""Model assembly: the full-sequence forward, prefill, chunked prefill
+and decode over a contiguous or a paged cache, for every block type of
+the reference.
 
-PyTorch counterpart of ``repro/models/transformer.py`` for configs whose
-blocks are ``BLOCK_ATTN`` (dense GQA decoders such as qwen3-14b and
-llama2-13b), ``BLOCK_MOE`` (qwen3-moe-235b-a22b, llama4-scout-17b-a16e:
-the same attention, a MoE FFN run by ``moe_impl``), ``BLOCK_RWKV``
-(rwkv6-3b) or ``BLOCK_REC`` with ``BLOCK_ATTN`` (recurrentgemma-2b, whose
-attention layers are local: ring caches of ``local_window`` slots).  The
-reference stacks each block group's parameters on a ``reps`` axis and
-runs ``lax.scan``; here each block is an :class:`AttnBlock`,
-:class:`MoeBlock`, :class:`RwkvBlock` or :class:`RecBlock` module in
+PyTorch counterpart of ``repro/models/transformer.py``: ``BLOCK_ATTN``
+(dense GQA decoders such as qwen3-14b, llama2-13b and nemotron-4-340b,
+and the bidirectional encoder hubert-xlarge), ``BLOCK_MOE``
+(qwen3-moe-235b-a22b, llama4-scout-17b-a16e: the same attention, a MoE
+FFN run by ``moe_impl``), ``BLOCK_RWKV`` (rwkv6-3b), ``BLOCK_REC`` with
+``BLOCK_ATTN`` (recurrentgemma-2b, whose attention layers are local:
+ring caches of ``local_window`` slots) and ``BLOCK_CROSS`` with
+``BLOCK_ATTN`` (llama-3.2-vision-90b: tanh-gated cross-attention over
+the request's projected vision embeddings).  The reference stacks each
+block group's parameters on a ``reps`` axis and runs ``lax.scan``; here
+each block is an :class:`AttnBlock`, :class:`MoeBlock`,
+:class:`CrossBlock`, :class:`RwkvBlock` or :class:`RecBlock` module in
 ``Transformer.groups[gi][j][rep]`` and a Python loop over reps replaces
 the scan.  Caches keep the reference's pytree layout —
 ``{"pos", "block_tables", "groups"}`` with ``(reps, ...)`` leaves per
 pattern slot: ``k``/``v`` for attention (and ``k_s``/``v_s``, the f32
-scale planes of an int8 cache), ``s``/``x_tm``/``x_cm`` for RWKV,
-``h``/``conv`` for RG-LRU — so the engine's gather/scatter code ports
-line for line; they are preallocated and updated in place.  Each block
-reads its own views of its slot's leaves (``_slot``).
+scale planes of an int8 cache), ``k``/``v`` of the vision tokens for
+cross-attention (always in the model's dtype, a per-slot leaf on the
+paged pool too), ``s``/``x_tm``/``x_cm`` for RWKV, ``h``/``conv`` for
+RG-LRU — so the engine's gather/scatter code ports line for line; they
+are preallocated and updated in place.  Each block reads its own views
+of its slot's leaves (``_slot``).
 
 Public API (functions of ``(cfg, model, ...)``):
 
     init_params(cfg, seed, dtype, device)   -> Transformer
     init_cache(cfg, batch, cache_len, ...)  -> zeroed cache pytree
     init_paged_cache(cfg, batch, cache_len, n_pages, page_size, ...)
-    prefill(cfg, model, tokens, lengths, cache_len, moe_impl, cache=None)
-        -> (last logits, cache)
+    forward(cfg, model, tokens, embeds, vision_embeds, lengths, moe_impl)
+        -> logits (B,T,V)   [encoder inference; training]
+    prefill(cfg, model, tokens, lengths, cache_len, moe_impl, cache=None,
+            embeds=None, vision_embeds=None) -> (last logits, cache)
     prefill_chunk(cfg, model, tokens, cache, start, lengths, moe_impl)
     decode_step(cfg, model, token, cache, page_size, paged_len, moe_impl)
 """
@@ -44,26 +51,12 @@ from .layers import MLP, Params, frozen_param as _param
 from .config import (BLOCK_ATTN, BLOCK_CROSS, BLOCK_MOE, BLOCK_REC,
                      BLOCK_RWKV, ModelConfig)
 
-_LATER_SLICE = {
-    BLOCK_CROSS: "the VLM/encoder slice of the port",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    for pattern, _ in cfg.block_groups():
-        for btype in pattern:
-            if btype not in _BLOCKS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {btype!r} blocks arrive with "
-                    f"{_LATER_SLICE.get(btype, 'a later slice')}")
-    if cfg.is_encoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders arrive with the VLM/encoder slice")
-
-
 class Attention(Params):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """Projections ``wq``, ``wk``, ``wv``, ``wo``, the qk-norm scales
+    where the config has them, and a cross layer's 0-d ``gate`` (zero at
+    init, as the reference's ``attn_init(cross=True)``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, cross: bool = False):
         super().__init__()
         d = cfg.d_model
         e = dict(dtype=dtype, device=device)
@@ -74,12 +67,21 @@ class Attention(Params):
         if cfg.qk_norm:
             self.q_norm = _param(torch.zeros(cfg.d_head, **e))
             self.k_norm = _param(torch.zeros(cfg.d_head, **e))
+        if cross:
+            self.gate = _param(torch.zeros((), **e))
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm self-attention + gated MLP (``BLOCK_ATTN``).
+    """Pre-norm self-attention + MLP (``BLOCK_ATTN``).
     :class:`MoeBlock` keeps the attention and swaps the FFN
-    (``_add_ffn``, ``_init_ffn``, ``_ffn``)."""
+    (``_add_ffn``, ``_init_ffn``, ``_ffn``); :class:`CrossBlock` keeps the
+    FFN and swaps the attention.
+
+    Every block type's ``prefill`` with the cache views ``c`` None is
+    its part of :func:`forward`: it writes no cache, and a recurrent
+    block starts from a zero carry."""
+
+    CROSS = False
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -87,11 +89,11 @@ class AttnBlock(nn.Module):
         e = dict(dtype=dtype, device=device)
         self.ln1 = _param(torch.zeros(cfg.d_model, **e))
         self.ln2 = _param(torch.zeros(cfg.d_model, **e))
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device, cross=self.CROSS)
         self._add_ffn(cfg, dtype, device)
 
     def _add_ffn(self, cfg: ModelConfig, dtype, device) -> None:
-        self.mlp = MLP(cfg, dtype, device)
+        self.mlp = MLP(cfg, cfg.act, dtype, device)
 
     def _init_ffn(self, gen: torch.Generator) -> None:
         self.mlp.init_(gen)
@@ -123,7 +125,8 @@ class AttnBlock(nn.Module):
                 cache_len: int, **kw):
         a = attention.self_attn_forward(
             self.cfg, self.attn, self._norm1(x), positions, lengths,
-            window=window, cache=self._kv(c), cache_len=cache_len)
+            window=window, cache=None if c is None else self._kv(c),
+            cache_len=cache_len)
         return self._mlp_residual(x + a, **kw)
 
     def chunk(self, x, c, *, start, active, **kw):
@@ -159,6 +162,46 @@ class MoeBlock(AttnBlock):
 
     def _ffn(self, h, *, moe_impl: str = "local", **_):
         return moe.apply(self.cfg, self.moe, h, moe_impl)
+
+
+class CrossBlock(AttnBlock):
+    """Pre-norm tanh-gated cross-attention over the request's vision
+    K/V + MLP (``BLOCK_CROSS``, the reference's ``_apply_block``).  Its
+    cache views ``k``/``v`` (B, n_vision_tokens, Hkv, Dh) are written
+    once, by ``prefill``, and read by every decode step.  A cross cache
+    is not positional, so the config never prefills in chunks
+    (``ModelConfig.chunkable_prefill``)."""
+
+    CROSS = True
+
+    def _vision_kv(self, vis):
+        if vis is None:
+            raise ValueError(f"{self.cfg.name}: a cross-attention block "
+                             f"needs vision_embeds")
+        return attention.cross_kv(self.cfg, self.attn, vis)
+
+    def prefill(self, x, c, *, vis, **kw):
+        kv = self._vision_kv(vis)
+        if c is not None:
+            c["k"].copy_(kv[0])
+            c["v"].copy_(kv[1])
+        a = attention.cross_attn_forward(self.cfg, self.attn,
+                                         self._norm1(x), kv)
+        return self._mlp_residual(x + a, **kw)
+
+    def chunk(self, x, c, **_):
+        raise ValueError(f"{self.cfg.name}: cross-attention prefills whole "
+                         f"prompts only (chunkable_prefill is False)")
+
+    def decode(self, x, c, **kw):
+        a = attention.cross_attn_decode(self.cfg, self.attn, self._norm1(x),
+                                        (c["k"], c["v"]))
+        return self._mlp_residual(x + a, **kw)
+
+
+def _zero_carry(btype: str, cfg: ModelConfig, x):
+    """A recurrent block's zero carry for x's rows (``forward``)."""
+    return _STATE_INIT[btype](cfg, x.shape[0], x.dtype, x.device)
 
 
 def _write_carry(c, new, active=None) -> None:
@@ -210,6 +253,9 @@ class RwkvBlock(nn.Module):
         return x
 
     def prefill(self, x, c, *, lengths, **_):
+        if c is None:
+            return self._forward(x, _zero_carry(BLOCK_RWKV, self.cfg, x),
+                                 lengths, state_out=None)[0]
         return self._carry(x, c, lengths)
 
     def chunk(self, x, c, *, lengths, active, **_):
@@ -236,7 +282,7 @@ class RecBlock(nn.Module):
         self.ln1 = _param(torch.zeros(cfg.d_model, **e))
         self.ln2 = _param(torch.zeros(cfg.d_model, **e))
         self.rec = rglru.RecParams(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        self.mlp = MLP(cfg, "gelu", dtype, device)
 
     def init_(self, gen: torch.Generator) -> None:
         self.rec.init_(gen)
@@ -254,6 +300,9 @@ class RecBlock(nn.Module):
         return self._mlp_residual(x + r), new
 
     def prefill(self, x, c, *, lengths, **_):
+        if c is None:
+            return self._forward(x, _zero_carry(BLOCK_REC, self.cfg, x),
+                                 lengths)[0]
         x, new = self._forward(x, c, lengths)
         _write_carry(c, new)
         return x
@@ -271,19 +320,20 @@ class RecBlock(nn.Module):
         return self._mlp_residual(x + r)
 
 
-_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_MOE: MoeBlock, BLOCK_RWKV: RwkvBlock,
+_BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_MOE: MoeBlock,
+           BLOCK_CROSS: CrossBlock, BLOCK_RWKV: RwkvBlock,
            BLOCK_REC: RecBlock}
 
 
 class Transformer(Params):
-    """Embedding, block groups and head.  ``groups[gi][j][rep]`` is the
+    """Embedding, block groups and head, and a VLM's vision projector
+    ``vis_proj`` (d_vision, d_model).  ``groups[gi][j][rep]`` is the
     block at pattern slot ``j`` of repetition ``rep`` in group ``gi`` —
     the reference's stacked ``params["groups"][gi][j]`` unstacked."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         e = dict(dtype=dtype, device=device)
@@ -292,6 +342,9 @@ class Transformer(Params):
         if not cfg.tie_embeddings:
             self.unembed = _param(torch.empty(cfg.vocab_size, cfg.d_model,
                                               **e))
+        if cfg.arch_type == "vlm":
+            self.vis_proj = _param(torch.empty(cfg.d_vision, cfg.d_model,
+                                               **e))
         self.groups = nn.ModuleList(
             nn.ModuleList(nn.ModuleList(_BLOCKS[btype](cfg, dtype, device)
                                         for _ in range(reps))
@@ -328,8 +381,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     RWKV leaves as ``rwkv_init``, its decay path and bonus in f32; the
     RG-LRU leaves as ``rglru_init``, its gates and ``lam`` in f32; the
     MoE leaves as ``moe_init``, its router in f32, drawn expert by
-    expert).  The numbers differ from the reference's ``jax.random`` ones; parity
-    tests convert the reference's weights through ``bridge.py``."""
+    expert; a VLM's ``vis_proj`` as ``dense_init`` and its cross gates
+    zero, so that a cross layer adds nothing until a gate is set).  The
+    numbers differ from the reference's ``jax.random`` ones; parity tests
+    convert the reference's weights through ``bridge.py``."""
     model = Transformer(cfg, dtype, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     model.embed.copy_(layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
@@ -337,6 +392,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_embeddings:
         model.unembed.copy_(layers.embed_init(gen, cfg.vocab_size,
                                               cfg.d_model, dtype))
+    if cfg.arch_type == "vlm":
+        model.vis_proj.copy_(layers.dense_init(gen, cfg.d_vision,
+                                               cfg.d_model, dtype))
     for _, _, _, blk in model.blocks():
         blk.init_(gen)
     return model
@@ -368,8 +426,15 @@ _STATE_INIT = {BLOCK_RWKV: rwkv.init_state, BLOCK_REC: rglru.init_state}
 
 def _state_slot(btype: str, reps: int, batch: int, cfg: ModelConfig, dtype,
                 device):
-    """A per-slot recurrent carry (RWKV's or RG-LRU's, its f32 leaves
-    f32) with a leading ``reps`` axis."""
+    """A per-slot leaf with a leading ``reps`` axis: a recurrent carry
+    (RWKV's or RG-LRU's, its f32 leaves f32), or the vision K/V of a
+    cross layer ``(reps, batch, n_vision_tokens, Hkv, Dh)`` in ``dtype``
+    (never int8, as the reference keeps them)."""
+    if btype == BLOCK_CROSS:
+        shape = (reps, batch, cfg.n_vision_tokens, cfg.n_kv_heads,
+                 cfg.d_head)
+        return {k: torch.zeros(shape, dtype=dtype, device=device)
+                for k in ("k", "v")}
     st = _STATE_INIT[btype](cfg, batch, dtype, device)
     return {k: v.new_zeros((reps,) + v.shape) for k, v in st.items()}
 
@@ -378,7 +443,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.float32, device="cuda"):
     """Zeroed contiguous cache on ``device``; attention caches sized
     ``cfg.attn_cache_len(cache_len)`` (window-capped)."""
-    check_supported(cfg)
     device = resolve_device(device)
     S = cfg.attn_cache_len(cache_len)
     groups = tuple(
@@ -398,9 +462,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
     ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot (an int8
     pool adds its scale planes ``(reps, n_pages, page_size, Hkv)``), indexed
     through ``block_tables`` (batch, ceil(attn_cache_len / page_size));
-    the caller owns the table contents.  A recurrent carry stays a
-    per-slot tensor, as in ``init_cache``."""
-    check_supported(cfg)
+    the caller owns the table contents.  A recurrent carry and a cross
+    layer's vision K/V stay per-slot tensors, as in ``init_cache``."""
     device = resolve_device(device)
     S = cfg.attn_cache_len(cache_len)
     n_p = -(-S // page_size)
@@ -439,21 +502,64 @@ def _slot(cache, gi: int, j: int, rep: int):
 
 
 # -------------------------------------------------------------- drivers ---
+def _embed_input(model: Transformer, tokens, embeds):
+    """(B,T,d) inputs: ``embeds`` as given (an encoder's frame
+    embeddings), else the embedding rows of ``tokens``."""
+    if embeds is not None:
+        return embeds
+    return layers.embed_apply(model.embed, tokens)
+
+
+def _project_vision(model: Transformer, vision_embeds):
+    """(B, n_vision_tokens, d_vision) -> (B, n_vision_tokens, d_model)."""
+    if vision_embeds is None:
+        return None
+    return vision_embeds @ model.vis_proj
+
+
 @torch.no_grad()
-def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
+def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
+            vision_embeds=None, lengths=None, moe_impl: str = "local"):
+    """Full-sequence forward with no cache (encoder inference; the
+    training forward): logits (B,T,V) in f32.
+
+    tokens: (B,T) int, or ``embeds`` (B,T,d) in the model's dtype (an
+    encoder's frames); ``vision_embeds`` (B, n_vision_tokens, d_vision)
+    for a VLM; lengths: (B,) valid tokens (keys past a row's length are
+    masked; its query rows past it are garbage, as in the reference).
+    Positions are ``arange(T)``; recurrent blocks start from a zero carry
+    and keep nothing; window configs attend through their window."""
+    x = _embed_input(model, tokens, embeds)
+    T = x.shape[1]
+    vis = _project_vision(model, vision_embeds)
+    positions = torch.arange(T, device=x.device)
+    win = effective_window(cfg)
+    for _, _, _, blk in model.blocks():
+        x = blk.prefill(x, None, positions=positions, lengths=lengths,
+                        window=win, cache_len=0, vis=vis, moe_impl=moe_impl)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    return layers.unembed_apply(model.head, x)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
             cache_len: Optional[int] = None, moe_impl: str = "local",
-            cache=None):
+            cache=None, *, embeds=None, vision_embeds=None):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
-    tokens: (B,T) int; lengths: (B,) prompt lengths (default T);
-    moe_impl: the MoE blocks' path, ``"local"`` (grouped) or ``"ref"``
-    (the dense oracle).  ``cache``: a cache of ``init_cache``'s layout
-    for B rows and ``cache_len`` to write into, in place, its ``pos``
-    included: it must be zero where a fresh ``init_cache`` is (a CUDA
-    graph of the prefill keeps its storage,
-    ``core/engine.py:PrefillGraph``); by default a new one."""
-    x = layers.embed_apply(model.embed, tokens)
+    tokens: (B,T) int, or ``embeds`` (B,T,d) (an encoder's frames);
+    ``vision_embeds`` (B, n_vision_tokens, d_vision): a VLM's image,
+    projected by ``vis_proj`` and written as each cross layer's K/V;
+    lengths: (B,) prompt lengths (default T); moe_impl: the MoE blocks'
+    path, ``"local"`` (grouped) or ``"ref"`` (the dense oracle).
+    ``cache``: a cache of ``init_cache``'s layout for B rows and
+    ``cache_len`` to write into, in place, its ``pos`` included: it must
+    be zero where a fresh ``init_cache`` is (a CUDA graph of the prefill
+    keeps its storage, ``core/engine.py:PrefillGraph``); by default a
+    new one."""
+    x = _embed_input(model, tokens, embeds)
     B, T, _ = x.shape
+    vis = _project_vision(model, vision_embeds)
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len
@@ -469,7 +575,7 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens, lengths=None,
     for gi, j, rep, blk in model.blocks():
         x = blk.prefill(x, _slot(cache, gi, j, rep), positions=positions,
                         lengths=lengths, window=win, cache_len=cache_len,
-                        moe_impl=moe_impl)
+                        vis=vis, moe_impl=moe_impl)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(B, device=x.device), idx]

@@ -234,9 +234,13 @@ def test_bridge_round_trip_and_unported_blocks():
     assert "groups/0/0/attn/wq" in flat
     wq = flat["groups/0/0/attn/wq"]
     assert np.array_equal(model.groups[0][0][1].attn.wq.numpy(), wq[1])
-    with pytest.raises(NotImplementedError, match="VLM"):
-        ttfm.check_supported(
-            jax_smoke_config("llama-3.2-vision-90b"))
+    # what the port still lacks: expert parallelism (the distribution
+    # slice), here through the full-sequence forward
+    cfg = get_smoke_config("qwen3-moe-235b-a22b", max_seq_len=32)
+    moe_model = ttfm.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        ttfm.forward(cfg, moe_model, torch.zeros((1, 4), dtype=torch.int32),
+                     moe_impl="ep")
 
 
 def test_logits_f32_and_argmax_ties_take_the_first_index():

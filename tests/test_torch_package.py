@@ -60,10 +60,13 @@ COPIED = [f"core/{m}.py" for m in (
     "paging", "prefix_cache", "retention", "telemetry", "faults",
     "recovery", "simulator", "baselines", "analysis")] \
     + ["models/config.py", "data/workload.py", "data/trace.py"] \
-    + [f"configs/{m}.py" for m in ("yi_6b", "stablelm_1_6b", "llama2_13b",
-                                   "rwkv6_3b", "recurrentgemma_2b",
+    + [f"configs/{m}.py" for m in ("__init__", "yi_6b", "stablelm_1_6b",
+                                   "llama2_13b", "rwkv6_3b",
+                                   "recurrentgemma_2b",
                                    "qwen3_moe_235b_a22b",
-                                   "llama4_scout_17b_a16e")]
+                                   "llama4_scout_17b_a16e", "hubert_xlarge",
+                                   "llama_3_2_vision_90b",
+                                   "nemotron_4_340b")]
 
 
 @pytest.mark.parametrize("rel", COPIED)

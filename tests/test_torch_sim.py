@@ -77,7 +77,19 @@ LAUNCHER_FLAGS = {
     # a hybrid: ring caches of the local window, RG-LRU state per request
     "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--requests",
                           "12"],
+    # the full VLM and nemotron: their weights leave no pool on the cost
+    # model's chips, so every request is refused (OOM), as the
+    # reference's launcher prints; the VLM at smoke size is served
+    "llama-3.2-vision-90b": ["--arch", "llama-3.2-vision-90b", "--requests",
+                             "32"],
+    "nemotron-4-340b": ["--arch", "nemotron-4-340b", "--requests", "32"],
+    "llama-3.2-vision-90b-smoke": ["--smoke", "--arch",
+                                   "llama-3.2-vision-90b", "--requests",
+                                   "12"],
+    # an encoder: both launchers exit before serving, with one message
+    "hubert-xlarge": ["--arch", "hubert-xlarge", "--requests", "12"],
 }
+OOM_CASES = ("llama-3.2-vision-90b", "nemotron-4-340b")
 
 
 def _launch(main, flags, monkeypatch, capsys):
@@ -101,18 +113,31 @@ def test_launchers_print_the_same_sim_lines_and_record_the_same_requests(
     for side, main in (("jax", jserve.main), ("torch", tserve.main)):
         path = tmp_path / f"{side}.jsonl"
         rec = [] if case == "drain-after" else ["--trace-record", str(path)]
+        if case == "hubert-xlarge":
+            with pytest.raises(SystemExit) as exit_:
+                _launch(main, base + flags + rec, monkeypatch, capsys)
+            out[side], traces[side] = str(exit_.value), b""
+            continue
         text = _launch(main, base + flags + rec, monkeypatch, capsys)
         out[side] = text.replace(str(path), "TRACE")
         traces[side] = path.read_bytes() if rec else b""
     assert out["torch"] == out["jax"]
     assert traces["torch"] == traces["jax"]
+    if case == "hubert-xlarge":
+        assert out["torch"] == ("hubert-xlarge is encoder-only; serve "
+                                "prefill-only workloads via max_new_tokens=1")
+        return
     lines = out["torch"].splitlines()
     if case == "drain-after":
         assert any("drain-resume token ids identical" in x for x in lines)
         return
-    served = re.search(r"^\[sim\] served (\d+)/(\d+) requests", out["torch"],
-                       re.MULTILINE)
-    assert served and served[1] == served[2], out["torch"]
+    served = re.search(r"^\[sim\] served (\d+)/(\d+) requests.*; OOM (\d+);",
+                       out["torch"], re.MULTILINE)
+    assert served, out["torch"]
+    if case in OOM_CASES:
+        assert served[1] == "0" and served[3] == served[2], out["torch"]
+    else:
+        assert served[1] == served[2], out["torch"]
     for head in ("[sim] tails: TTFT p50/p95/p99", "[sim] kv util "
                  "(time-weighted)", "recorded "):
         assert any(x.startswith(head) for x in lines), (head, lines)
