@@ -210,14 +210,48 @@ goes through these phases, each printing its own lines:
    greedy steps on the contiguous cache and on the paged pool (page
    128) after a warm-up: ids equal, launches one a layer a prefill or
    step, prefill and step wall, the first tokens ``forward``'s argmax;
-14. the kernel table as one JSON line (launches from the serve runs:
+14. nemotron-4-340b (head dim 192): the VLM is freed; the three
+   attention kernels at its widths (H = 96, Hkv = 8: G = 12 at Dh 192):
+   a 512-token chunk at offset 1536 over 4096 slots through the
+   CUDA-core body, both decode kernels at context 2048 and on rows of
+   every length and wrapped rings (two calls, same bits) and both int8
+   decode kernels (the float kernel's bits over the dequantized cache),
+   f32 and bf16, each against its plain version and in bf16 timed
+   beside its bound and SDPA; then the model at every published width
+   with its depth cut from 96 to 4 layers (46.5 GB, cache 4096): 8
+   prompts of 256-1024 tokens, 32 new tokens each, chunk 512, served
+   through the engine on the paged pool and then on the contiguous
+   pool, eagerly and with both graphs (ids and launches identical,
+   every page free, one ``flash_prefill`` a layer a chunk on the
+   CUDA-core body, one decode kernel a layer a step), paged ids ==
+   contiguous ids;
+15. training: the kernels under autograd at smoke shapes (f32):
+   ``flash_prefill`` causal, windowed and non-causal with Tq != Tk, and
+   ``wkv6``, each launching its kernel once with its plain version's
+   backward, against autograd through the plain versions; the bf16
+   grouped product's backward (``moe.GroupedMM``) at a full-width
+   qwen3-moe layer's shapes against autograd through the plain loop,
+   timed; ``flash_prefill`` at the training step's attention shape
+   (B = 4, T = 511), forward and forward + backward, timed beside its
+   plain version, SDPA and the bound; one f32 train step at smoke size
+   for qwen3-14b, rwkv6-3b, recurrentgemma-2b and qwen3-moe on the card
+   against the CPU (loss, grad_norm, every updated parameter); then
+   Qwen3-14B at every published width with 8 of its 40 layers (bf16,
+   4.20 B parameters, AdamW state 33.6 GB), 10 steps of 4 x 512 tokens
+   with remat (loss finite at every step and falling, 16
+   ``flash_prefill`` launches a step: 8 forward and 8 recomputed, 8
+   plain backward passes, peak memory under 75 GB), one step split by
+   CUDA events into forward, backward and update, and one profiled
+   (device busy, idle share, the plain attention backward's time);
+16. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
    from the int8 runs; the three attention kernels once more at
-   recurrentgemma-2b's and at qwen3-moe's widths with those runs'
-   launches, and at hubert-xlarge's and llama-3.2-vision's shapes with
-   the launches of its forward and of its two runs, each entry naming
-   its ``path``), the ``nvidia-smi`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   recurrentgemma-2b's, qwen3-moe's and nemotron-4-340b's widths with
+   those runs' launches, at hubert-xlarge's and llama-3.2-vision's
+   shapes with the launches of its forward and of its two runs, and
+   ``flash_prefill`` at the training shape with the training run's
+   launches, each entry naming its ``path``), the ``nvidia-smi`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -409,7 +443,7 @@ def check_body_rule() -> None:
     from repro_torch.kernels import flash_prefill as fp, runtime
     lib = runtime.library()
     for dtype, code in runtime.DTYPE_CODES.items():
-        for Dh in (64, 80, 128, 256):
+        for Dh in (64, 80, 128, 192, 256):
             c_body = ("tensor_core" if lib.rt_flash_prefill_body(code, Dh)
                       else "cuda_core")
             if c_body != fp.body(dtype, Dh):
@@ -418,7 +452,7 @@ def check_body_rule() -> None:
 
 
 def assert_close(torch, name, got, want, tol, valid=None) -> float:
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     if valid is not None:
         g, w = g[valid], w[valid]
     if not torch.isfinite(g).all():
@@ -1533,7 +1567,7 @@ def prefill_graph_stats(eng, label, want_replays=False):
 
 
 def serve_pair(torch, cfg, make_eng, lengths, max_new, label,
-               modes=("eager", "graph"), want_replays=False):
+               modes=("eager", "graph"), want_replays=False, ids_out=None):
     """The same requests served by engines in each of ``modes``
     (``GRAPH_MODES``: eager, with the decode graph alone, with the decode
     and the prefill graphs), in turn; ``make_eng(**graphs)`` builds one.
@@ -1542,7 +1576,8 @@ def serve_pair(torch, cfg, make_eng, lengths, max_new, label,
     every run's stats (with the decode graph's capture seconds and
     private pool bytes, and the prefill graphs' captures, replays, pool
     bytes and capture seconds beside the prefill shapes) and the last
-    run's prefill chunks and decode steps."""
+    run's prefill chunks and decode steps; ``ids_out`` (a dict) receives
+    the token ids by request."""
     runs = {}
     for mode in modes:
         eng = make_eng(**GRAPH_MODES[mode])
@@ -1585,6 +1620,8 @@ def serve_pair(torch, cfg, make_eng, lengths, max_new, label,
             raise AssertionError(f"{label}: {mode} launches {cg} steps "
                                  f"{stg}, {modes[0]} {ce} {ste}")
     cg, sg, stg, idg = runs[modes[-1]]
+    if ids_out is not None:
+        ids_out.update(idg)
     pre = ""
     if "prefill_captures" in sg:
         pre = (f"; prefill graphs {sg['prefill_captures']} captured for "
@@ -4408,7 +4445,7 @@ def vision_smoke(torch):
         + "; ".join(res))
 
 
-def build_model(torch, arch, cfg, full):
+def build_model(torch, arch, cfg, full, phase="vlm"):
     """Seeded random bf16 weights on the card; logs the depth cut against
     the full config ``full``."""
     from repro_torch.models import transformer as tfm
@@ -4417,7 +4454,7 @@ def build_model(torch, arch, cfg, full):
                             device="cuda")
     torch.cuda.synchronize()
     wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log("vlm", f"{arch}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+    log(phase, f"{arch}: {cfg.n_layers} of {full.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, Dh "
         f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
         f"{cfg.param_count() / 1e9:.2f} B parameters of the full config's "
@@ -4698,6 +4735,716 @@ def vision_phase(torch):
     return dict(rows=rows, hubert=hubert, vlm=vlm)
 
 
+# ------------------------------------------- nemotron at head dim 192 ---
+# nemotron-4-340b's attention: G = 12 at Dh 192 (the CUDA-core prefill
+# body; G * Dh 2304 in the decode body), decode over 4096 slots
+NEMOTRON_ATTN = dict(B=8, H=96, Hkv=8, Dh=192, S=4096)
+# the full-width run: every width as published, the depth cut from 96
+# layers to 4 (46.5 GB of bf16 weights), the cache to 4096
+NEMOTRON_LAYERS = 4
+NEMOTRON_MAX_SEQ = 4096
+NEMOTRON_PROMPTS = [256, 1024, 512, 768, 384, 900, 640, 1000]
+NEMOTRON_NEW = 32
+NEMOTRON_PATH = f"{NEMOTRON_ARCH} ({NEMOTRON_LAYERS} of 96 layers)"
+
+
+def dh192_kernels(torch):
+    """The three attention kernels at nemotron-4-340b's widths (H = 96,
+    Hkv = 8: G = 12 at Dh 192), f32 and bf16: a 512-token chunk at offset
+    1536 over 4096 slots through the CUDA-core body, both decode kernels
+    over 4096 slots at context 2048 and at rows of every length and
+    wrapped rings (two calls, same bits), and both int8 decode kernels
+    at context 2048 (bit for bit the float kernel over the dequantized
+    cache); each against its plain version, and in bf16 timed beside its
+    bound and SDPA.  Returns the bf16 rows."""
+    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.models.attention import quantize_kv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, H, Hkv, Dh, S = (NEMOTRON_ATTN[k] for k in ("B", "H", "Hkv", "Dh",
+                                                   "S"))
+    ctx, page = 2048, 128
+    deq = ref.dequantize_kv
+    rows, worst = {}, {}
+    for dt in ("float32", "bfloat16"):
+        tol, timed = MAIN_TOL[dt], dt == "bfloat16"
+
+        def rnd(shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(getattr(torch, dt))
+        Tc, off = 512, 1536
+        q, k, v = rnd((1, Tc, H, Dh)), rnd((1, S, Hkv, Dh)), \
+            rnd((1, S, Hkv, Dh))
+        row = chunk_case(torch, q, k, v, off, tol, f"Dh 192 chunk {dt}",
+                         timed)
+        key = f"flash_prefill H={H} Hkv={Hkv} Dh={Dh} chunk 512@1536/4096"
+        worst[f"{key} {dt}"] = row["max_abs_err"]
+        if timed:
+            rows[key] = row
+        del q, k, v
+        q = rnd((B, H, Dh))
+        kc, vc = rnd((B, S, Hkv, Dh)), rnd((B, S, Hkv, Dh))
+        kp, vp, bt = paged_copy(torch, kc, vc, page, gen)
+        pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+        case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
+                           f"Dh 192 {dt}", timed)
+        for kname, r in case.items():
+            key = f"{kname} B=8 H={H} Hkv={Hkv} Dh={Dh} ctx=2048" + (
+                " page=128" if "paged" in kname else "")
+            worst[f"{key} {dt}"] = r["max_abs_err"]
+            if timed:
+                rows[key] = r
+        for label, posl, ring in DECODE_MIXED:
+            pm = torch.tensor(posl, dtype=torch.int32, device=dev)
+            (a, b), (a2, b2) = [
+                (ops.flash_decode(q, kc, vc, pm, ring=ring),
+                 ops.paged_flash_decode(q, kp, vp, bt, pm, s_len=S,
+                                        ring=ring)) for _ in range(2)]
+            worst[f"Dh 192 decode {label} {dt}"] = max(
+                assert_close(torch, f"Dh 192 flash_decode {label} {dt}", a,
+                             ref.flash_decode_ref(q, kc, vc, pm, ring=ring),
+                             tol),
+                assert_close(torch, f"Dh 192 paged_flash_decode {label} "
+                             f"{dt}", b, ref.paged_flash_decode_ref(
+                                 q, kp, vp, bt, pm, s_len=S, ring=ring), tol))
+            if not (torch.equal(a, a2) and torch.equal(b, b2)):
+                raise AssertionError(f"Dh 192 decode {label} {dt}: two "
+                                     f"calls on the same inputs differ")
+        # int8: codes and scales of the same cache, paged the same way
+        kc8, ks = quantize_kv(kc)
+        vc8, vs = quantize_kv(vc)
+        pools = []
+        for t in (kc8, vc8, ks, vs):
+            pl = t.new_zeros((kp.shape[0], page) + tuple(t.shape[2:]))
+            pl[bt.reshape(-1).long()] = t.reshape(
+                (B * (S // page), page) + tuple(t.shape[2:]))
+            pools.append(pl)
+        want8 = ref.flash_decode_int8_ref(q, kc8, vc8, ks, vs, pos)
+        calls8 = {
+            "flash_decode_int8": (
+                lambda: ops.flash_decode_int8(q, kc8, vc8, ks, vs, pos),
+                lambda: ref.flash_decode_int8_ref(q, kc8, vc8, ks, vs, pos),
+                lambda: ops.flash_decode(q, deq(kc8, ks, q.dtype),
+                                         deq(vc8, vs, q.dtype), pos), 0),
+            "paged_flash_decode_int8": (
+                lambda: ops.paged_flash_decode_int8(q, *pools, bt, pos,
+                                                    s_len=S),
+                lambda: ref.paged_flash_decode_int8_ref(q, *pools, bt, pos,
+                                                        s_len=S),
+                lambda: ops.paged_flash_decode(
+                    q, deq(pools[0], pools[2], q.dtype),
+                    deq(pools[1], pools[3], q.dtype), bt, pos, s_len=S),
+                4 * B * (ctx // page))}
+        for kname, (call, plain, dq, tables) in calls8.items():
+            key = f"{kname} B=8 H={H} Hkv={Hkv} Dh={Dh} ctx=2048" + (
+                " page=128" if "paged" in kname else "")
+            got = call()
+            err = assert_close(torch, f"{key} {dt}", got, want8, tol)
+            if not torch.equal(got, dq()):
+                raise AssertionError(f"{key} {dt}: differs from the float "
+                                     f"kernel over the dequantized cache")
+            worst[f"{key} {dt}"] = err
+            if timed:
+                code_bytes = 2 * B * ctx * Hkv * Dh
+                scale_bytes = 2 * 4 * B * ctx * Hkv
+                b_ms, b_by = bound_ms(
+                    code_bytes + scale_bytes + 2 * 2 * B * H * Dh + 4 * B
+                    + tables, 4.0 * B * H * ctx * Dh
+                    + 2.0 * B * ctx * Hkv * Dh, dt)
+                dmask = (torch.arange(S, device=dev)[None]
+                         <= pos[:, None])[:, None, None]
+                kd, vd = deq(kc8, ks, q.dtype), deq(vc8, vs, q.dtype)
+                sdpa_ms = time_ms(torch, lambda: sdpa(
+                    q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                    attn_mask=dmask, enable_gqa=True), 20)
+                rows[key] = dict(
+                    ms=time_ms(torch, call, 50),
+                    plain_ms=time_ms(torch, plain, 10),
+                    library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err, plan=runtime.decode_plans[kname])
+                del kd, vd
+        del q, kc, vc, kp, vp, kc8, vc8, ks, vs, pools
+        torch.cuda.empty_cache()
+    log("nemotron", f"kernels at nemotron-4-340b's widths (H = {H}, Hkv = "
+        f"{Hkv}: G = {H // Hkv} at Dh {Dh}) agree with the plain versions "
+        f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2), the prefill "
+        f"through the CUDA-core body, decode two calls the same bits, "
+        f"int8 the float kernel's bits over the dequantized cache; max abs "
+        f"err: " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    log_rows("nemotron", rows)
+    return rows
+
+
+def nemotron_check_launches(label, cfg, counts, steps, decode_kernel):
+    """Each layer launches ``flash_prefill`` once a prefill chunk (the
+    CUDA-core body, Dh 192) and ``decode_kernel`` once a decode step;
+    nothing else of the kernels runs."""
+    L = cfg.n_layers
+    other = "flash_decode" if decode_kernel == "paged_flash_decode" else \
+        "paged_flash_decode"
+    if counts[decode_kernel] != L * steps["decode"] or \
+            counts["flash_prefill"] != L * steps["prefill"] or \
+            counts["flash_prefill/cuda_core"] != counts["flash_prefill"] or \
+            not steps["decode"] or counts[other] or counts["wkv6"]:
+        raise AssertionError(f"{label}: launches {counts} for "
+                             f"{steps['prefill']} prefill chunks and "
+                             f"{steps['decode']} decode steps of {L} layers")
+    plan = counts[f"{decode_kernel}/last plan"]
+    log("nemotron", f"{label}: flash_prefill {counts['flash_prefill']} = "
+        f"{L} x {steps['prefill']} chunks, all on the CUDA-core body; "
+        f"{decode_kernel} {counts[decode_kernel]} = {L} x {steps['decode']} "
+        f"steps (last plan n_split {plan.n_split}, L {plan.L}, {plan.body} "
+        f"body)")
+
+
+def nemotron_phase(torch):
+    """nemotron-4-340b: the kernels at its attention widths
+    (``dh192_kernels``), then the model at every published width with its
+    depth cut to ``NEMOTRON_LAYERS`` (bf16, seeded random weights, cache
+    ``NEMOTRON_MAX_SEQ``): ``NEMOTRON_PROMPTS`` served through the engine
+    with chunked prefill (512) on the paged pool and then on the
+    contiguous pool, each eagerly and with both graphs (ids and launches
+    identical, every page free), the paged ids equal to the contiguous
+    ones.  Returns the kernel rows, the launches and the serve stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import default_pool_tokens
+    import dataclasses
+    t0 = time.perf_counter()
+    rows = dh192_kernels(torch)
+    dev = torch.device("cuda")
+    full = get_config(NEMOTRON_ARCH)
+    cfg = dataclasses.replace(full, n_layers=NEMOTRON_LAYERS,
+                              max_seq_len=NEMOTRON_MAX_SEQ)
+    model, wbytes = make_model(torch, NEMOTRON_ARCH, cfg)
+    log("nemotron", f"depth cut from {full.n_layers} to {cfg.n_layers} "
+        f"layers ({cfg.param_count() / 1e9:.2f} B of "
+        f"{full.param_count() / 1e9:.1f} B parameters, {wbytes / 1e9:.2f} "
+        f"GB), cache length {cfg.max_seq_len} (the config's "
+        f"{full.max_seq_len} cut); every width as published: d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} at Dh "
+        f"{cfg.d_head}, d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab_size}")
+    warm = make_engine(torch, cfg, model, wbytes, True, 2,
+                       2 * cfg.max_seq_len, decode_graph=False)
+    serve_run(torch, cfg, warm, requests([96, 700], 4), "nemotron warm-up")
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_tokens = default_pool_tokens(cfg, model, dev)
+    n = len(NEMOTRON_PROMPTS)
+    ids, counts, stats = {}, {}, {}
+    for paged, kernel in ((True, "paged_flash_decode"),
+                          (False, "flash_decode")):
+        pool = "paged" if paged else "contiguous"
+        label = (f"{NEMOTRON_PATH} {pool} pool, chunk 512"
+                 + (", page 128" if paged else "") + f", {n} slots")
+        ids[pool] = {}
+        counts[pool], stats[pool], steps = serve_pair(
+            torch, cfg, lambda **g: make_engine(
+                torch, cfg, model, wbytes, paged, n,
+                pool_tokens if paged else None, **g),
+            NEMOTRON_PROMPTS, NEMOTRON_NEW, label, ids_out=ids[pool])
+        nemotron_check_launches(label, cfg, counts[pool], steps, kernel)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if ids["paged"] != ids["contiguous"]:
+        bad = sorted(r for r in ids["paged"]
+                     if ids["paged"][r] != ids["contiguous"].get(r))
+        raise AssertionError(f"nemotron: paged ids differ from contiguous "
+                             f"for requests {bad}")
+    log("nemotron", f"{NEMOTRON_PATH}: {n} requests of "
+        f"{NEMOTRON_PROMPTS} prompt tokens, {NEMOTRON_NEW} new each, on "
+        f"both pools: paged ids == contiguous ids; no ValueError; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model
+    return dict(rows=rows, launches={
+        "flash_prefill": counts["paged"]["flash_prefill"],
+        "paged_flash_decode": counts["paged"]["paged_flash_decode"],
+        "flash_decode": counts["contiguous"]["flash_decode"]},
+        serve=stats, pool_tokens=pool_tokens)
+
+
+# ------------------------------------------------------------ training ---
+TRAIN_ARCH = "qwen3-14b"
+# Qwen3-14B at every published width with its depth cut from 40 to 8
+# layers (4.20 B parameters: 8.4 GB of bf16 weights, 8.4 GB of gradients
+# and 33.6 GB of f32 moments), batch 4 x 512 tokens of data/tokens.py's
+# stream, remat on, 10 AdamW steps with a 2-step warm-up to a peak lr of
+# 1e-4 (at the launcher's smoke default 1e-3 the loss rose from 12.49 to
+# 16.10 at the second step, grad norm 211, and ended above its start)
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 10, 2, 1e-4
+TRAIN_PATH = f"{TRAIN_ARCH} training ({TRAIN_LAYERS} of 40 layers)"
+# the training step's attention: the forward sees seq - 1 tokens
+TRAIN_ATTN = dict(B=TRAIN_BATCH, T=TRAIN_SEQ - 1, H=40, Hkv=8, Dh=128)
+# smoke f32 train steps, card against CPU
+TRAIN_SMOKE_ARCHS = ("qwen3-14b", "rwkv6-3b", "recurrentgemma-2b",
+                     MOE_ARCH)
+# the kernels' autograd Functions against autograd through the plain
+# versions (f32, smoke shapes): (B, Tq, Tk, H, Hkv, Dh, causal, window,
+# lengths)
+AUTOGRAD_PREFILL = {
+    "causal": (2, 40, 40, 4, 2, 64, True, 0, (40, 29)),
+    "windowed": (2, 48, 48, 4, 2, 64, True, 16, None),
+    "non-causal Tq 24 over Tk 40": (2, 24, 40, 4, 2, 64, False, 0,
+                                    (40, 31)),
+}
+AUTOGRAD_WKV = (2, 37, 2, 64)     # (B, T, H, hs): T off the 16-step tile
+MAX_TRAIN_PEAK = 75e9             # bytes: cut the depth to 6 above this
+
+
+def grads_with(torch, out, inputs, cot):
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(outs, [x for x in inputs if x is not None
+                                      and x.requires_grad], cot)
+
+
+def autograd_checks(torch):
+    """The kernels under autograd at smoke shapes, f32: ``flash_prefill``
+    (causal, windowed, non-causal with Tq != Tk) and ``wkv6`` recorded on
+    the card, each launching its kernel once (counted) with its plain
+    version's backward (one pass counted), output and gradients against
+    autograd through the plain version on the same inputs; then the bf16
+    grouped product's backward (``moe.GroupedMM``) at one full-width
+    qwen3-moe layer's shapes (512 tokens x top 8) against autograd
+    through ``grouped_mm_plain``, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def rnd(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype).requires_grad_(True)
+    worst = {}
+    tol = TOL["float32"]
+    for label, (B, Tq, Tk, H, Hkv, Dh, causal, window, lens) in \
+            AUTOGRAD_PREFILL.items():
+        q, k, v = rnd((B, Tq, H, Dh)), rnd((B, Tk, Hkv, Dh)), \
+            rnd((B, Tk, Hkv, Dh))
+        lt = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=dev)
+        kw = dict(causal=causal, window=window)
+        runtime.reset_launch_counts()
+        out = ops.flash_prefill(q, k, v, lt, **kw)
+        cot = torch.randn(out.shape, generator=gen, device=dev)
+        got = grads_with(torch, out, (q, k, v), [cot])
+        if runtime.launch_counts["flash_prefill"] != 1 or \
+                runtime.autograd_counts["flash_prefill"] != 1:
+            raise AssertionError(f"flash_prefill under autograd {label}: "
+                                 f"launches {runtime.launch_counts}, "
+                                 f"backward {runtime.autograd_counts}")
+        want_out = ref.flash_prefill_ref(q, k, v, lt, **kw)
+        want = grads_with(torch, want_out, (q, k, v), [cot])
+        worst[f"flash_prefill {label}"] = max(
+            [assert_close(torch, f"flash_prefill autograd {label} out", out,
+                          want_out, tol)]
+            + [assert_close(torch, f"flash_prefill autograd {label} d{n}",
+                            g, w, tol) for n, g, w in zip("qkv", got, want)])
+    B, T, H, hs = AUTOGRAD_WKV
+    r, k, v = (rnd((B, T, H, hs)) for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, T, H, hs), generator=gen,
+                                  device=dev)).requires_grad_(True)
+    u, s0 = rnd((H, hs), scale=0.1), rnd((B, H, hs, hs), scale=0.1)
+    args = (r, k, v, w, u, s0)
+    runtime.reset_launch_counts()
+    y, sT = ops.wkv6(*args)
+    cots = [torch.randn(y.shape, generator=gen, device=dev),
+            torch.randn(sT.shape, generator=gen, device=dev)]
+    got = grads_with(torch, (y, sT), args, cots)
+    if runtime.launch_counts["wkv6"] != 1 or \
+            runtime.autograd_counts["wkv6"] != 1:
+        raise AssertionError(f"wkv6 under autograd: launches "
+                             f"{runtime.launch_counts}, backward "
+                             f"{runtime.autograd_counts}")
+    want_out = ref.wkv6_ref(*args)
+    want = grads_with(torch, want_out, args, cots)
+    worst["wkv6"] = max(
+        [assert_close(torch, "wkv6 autograd y", y, want_out[0], tol),
+         assert_close(torch, "wkv6 autograd sT", sT, want_out[1], tol)]
+        + [assert_close(torch, f"wkv6 autograd d{n}", g, wt, tol)
+           for n, g, wt in zip(("r", "k", "v", "w", "u", "s0"), got, want)])
+
+    # the grouped product's backward at a full-width qwen3-moe layer
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    rows = 512 * cfg.top_k
+    cpu_gen = torch.Generator().manual_seed(31)
+    ids = torch.sort(torch.randint(0, E, (rows,), generator=cpu_gen))[0]
+    offs = moe.group_offsets(ids, E).to(dev)
+    grouped = {}
+    for proj, (K, N) in (("gate/up d -> f", (d, f)),
+                         ("down f -> d", (f, d))):
+        x = rnd((rows, K), torch.bfloat16)
+        wt = rnd((E, K, N), torch.bfloat16, scale=K ** -0.5)
+        dy = torch.randn((rows, N), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def fused():
+            return torch.autograd.grad(moe.grouped_mm(x, wt, offs), (x, wt),
+                                       dy)
+
+        def plain():
+            xf = x.detach().float().requires_grad_(True)
+            wf = wt.detach().float().requires_grad_(True)
+            return torch.autograd.grad(moe.grouped_mm_plain(xf, wf, offs),
+                                       (xf, wf), dy.float())
+        runtime.reset_launch_counts()
+        dx, dw = fused()
+        if runtime.grouped_counts["grouped_mm"] != 1 or \
+                runtime.autograd_counts["grouped_mm"] != 1:
+            raise AssertionError(f"grouped product under autograd {proj}: "
+                                 f"{runtime.grouped_counts}, "
+                                 f"{runtime.autograd_counts}")
+        pdx, pdw = plain()
+        gtol = dict(atol=1e-1, rtol=2e-2)
+        err = max(assert_close(torch, f"GroupedMM {proj} dx", dx, pdx, gtol),
+                  assert_close(torch, f"GroupedMM {proj} dw", dw, pdw, gtol))
+        # forward + backward: 3 products of 2 rows K N flops each; bytes:
+        # x, w, dy read, y, dx, dw written once, bf16
+        flops = 3 * 2.0 * rows * K * N
+        nbytes = 2 * (2 * rows * K + 2 * E * K * N + 2 * rows * N)
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        grouped[proj] = dict(
+            max_abs_err=err, ms=time_ms(torch, fused, 10),
+            plain_ms=time_ms(torch, plain, 3, 1), bound_ms=b_ms,
+            bound_by=b_by, experts_hit=int((torch.diff(torch.cat(
+                [offs.new_zeros(1), offs])) > 0).sum()))
+        del x, wt, dy, dx, dw, pdx, pdw
+        torch.cuda.empty_cache()
+    log("train", f"autograd on the card, f32, against autograd through the "
+        f"plain versions (atol 1e-4 rtol 1e-3): each call one kernel "
+        f"launch and one plain backward pass; max abs err: "
+        + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    for proj, g in grouped.items():
+        log("train", f"qwen3-moe grouped product {proj}, {rows} rows over "
+            f"{E} experts ({g['experts_hit']} hit), bf16, forward + "
+            f"backward (GroupedMM: dx grouped with w^T, dw the 2-D x 2-D "
+            f"grouped form): {g['ms']:.4f} ms, plain masked loop in f32 "
+            f"{g['plain_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms "
+            f"({g['bound_by']}); against autograd through grouped_mm_plain "
+            f"max abs err {g['max_abs_err']:.3g} (atol 0.1 rtol 2e-2)")
+    return dict(worst=worst, grouped=grouped)
+
+
+def train_attention_row(torch):
+    """``flash_prefill`` at the training step's attention shape (bf16,
+    B = 4, T = 511, H = 40, Hkv = 8, causal): the kernel's forward
+    against its plain version, timed beside its bound and SDPA's; then
+    forward + backward under autograd (the kernel, then the plain
+    version's backward) beside the plain version's and SDPA's forward +
+    backward and their bound (12 pair-products of H Dh: 4 forward, 8
+    backward)."""
+    from repro_torch.kernels import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    B, T, H, Hkv, Dh = (TRAIN_ATTN[k] for k in ("B", "T", "H", "Hkv", "Dh"))
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_(True)
+    q, k, v = rnd((B, T, H, Dh)), rnd((B, T, Hkv, Dh)), rnd((B, T, Hkv, Dh))
+    dout = torch.randn((B, T, H, Dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        err = assert_close(torch, "flash_prefill training shape",
+                           prefill(q, k, v), ref.flash_prefill_ref(q, k, v),
+                           MAIN_TOL["bfloat16"])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = B * T * (T + 1) // 2
+    b_ms, b_by = bound_ms(2 * (2 * B * T * H * Dh + 2 * B * T * Hkv * Dh),
+                          4.0 * pairs * H * Dh, "bfloat16")
+    fb_ms, fb_by = bound_ms(2 * 2 * (2 * B * T * H * Dh + 2 * B * T * Hkv
+                                     * Dh), 12.0 * pairs * H * Dh, "bfloat16")
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(), (q, k, v), dout)
+    with torch.no_grad():
+        row = dict(
+            ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v), 20),
+            plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(q, k, v),
+                             5, 1),
+            library_ms=time_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20))
+    row.update(
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        fwd_bwd_ms=time_ms(torch, fwd_bwd(lambda: ops.flash_prefill(
+            q, k, v)), 5, 1),
+        plain_fwd_bwd_ms=time_ms(torch, fwd_bwd(
+            lambda: ref.flash_prefill_ref(q, k, v)), 5, 1),
+        sdpa_fwd_bwd_ms=time_ms(torch, fwd_bwd(lambda: sdpa(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)),
+            10),
+        fwd_bwd_bound_ms=fb_ms, fwd_bwd_bound_by=fb_by)
+    log("train", f"flash_prefill at the training shape (bf16, B={B} T={T} "
+        f"H={H} Hkv={Hkv} Dh={Dh}, causal): forward {row['ms']:.4f} ms "
+        f"(plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, "
+        f"bound {b_ms:.4f} {b_by}); forward + backward under autograd "
+        f"{row['fwd_bwd_ms']:.4f} ms (plain {row['plain_fwd_bwd_ms']:.4f}, "
+        f"sdpa {row['sdpa_fwd_bwd_ms']:.4f}, bound {fb_ms:.4f} {fb_by}); "
+        f"max abs err {err:.3g}")
+    return row
+
+
+def train_smoke(torch):
+    """One train step at f32, smoke size, for ``TRAIN_SMOKE_ARCHS`` on the
+    card (the kernels under autograd; the MoE's f32 grouped products on
+    the plain route) against the same step on the CPU from the same
+    weights and batch: loss (rtol 1e-5), grad_norm (rtol 1e-4) and every
+    updated parameter (atol 1e-5).  AdamW runs with eps 1e-3: the first
+    step moves an element by lr g / (|g| + eps), and at the default eps
+    1e-8 an element whose gradient is near eps moves by a fraction of lr
+    that the gradient's last bits decide (the card's and the CPU's sums
+    differ there); at 1e-3 the update is a smooth function of the
+    gradient, and a missing or wrong update still moves an element by
+    about lr |g| / eps, ~1e-4 and more."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer, train_loop
+    res = []
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                    total_steps=10)
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        cpu_model = tfm.init_params(cfg, seed=0, dtype=torch.float32,
+                                    device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        batch = next(data_tokens.batches(cfg, 2, 33, seed=3, device="cpu"))
+        out = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            step = train_loop.make_train_step(cfg, opt_cfg)
+            state = optimizer.init(bridge.leaves(model))
+            runtime.reset_launch_counts()
+            _, _, metrics = step(model, state, {
+                k: t.to(dev) for k, t in batch.items()})
+            torch.cuda.synchronize()
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        dict(runtime.launch_counts),
+                        dict(runtime.autograd_counts))
+        (mc, _, _), (mg, lg, ag) = out["cpu"], out["cuda"]
+        if not math.isclose(mg["loss"], mc["loss"], rel_tol=1e-5) or \
+                not math.isclose(mg["grad_norm"], mc["grad_norm"],
+                                 rel_tol=1e-4):
+            raise AssertionError(f"{arch} smoke train step: card {mg}, CPU "
+                                 f"{mc}")
+        worst = 0.0
+        for (name, a), b in zip(cpu_model.named_parameters(),
+                                gpu_model.parameters()):
+            worst = max(worst, assert_close(
+                torch, f"{arch} updated {name}", b.detach().cpu(),
+                a.detach(), dict(atol=1e-5, rtol=0)))
+        n_attn = sum(b in ("attn", "moe") for pat, reps in cfg.block_groups()
+                     for b in pat for _ in range(reps))
+        n_rwkv = sum(b == "rwkv" for pat, reps in cfg.block_groups()
+                     for b in pat for _ in range(reps))
+        if lg["flash_prefill"] != n_attn or lg["wkv6"] != n_rwkv or \
+                ag["flash_prefill"] != n_attn or ag["wkv6"] != n_rwkv:
+            raise AssertionError(f"{arch} smoke train step: launches {lg}, "
+                                 f"backward passes {ag}; want "
+                                 f"{n_attn} flash_prefill, {n_rwkv} wkv6")
+        res.append(f"{arch} loss {mg['loss']:.6f} (CPU {mc['loss']:.6f}), "
+                   f"grad_norm {mg['grad_norm']:.6f} ({mc['grad_norm']:.6f}),"
+                   f" params max abs {worst:.3g}; flash_prefill "
+                   f"{lg['flash_prefill']}, wkv6 {lg['wkv6']} launches, as "
+                   f"many plain backward passes")
+        del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    log("train", "smoke f32 train step, card against CPU: " + "; ".join(res))
+    return res
+
+
+def train_full(torch):
+    """Qwen3-14B at every published width with ``TRAIN_LAYERS`` of its 40
+    layers (bf16, seeded random weights), trained ``TRAIN_STEPS`` steps
+    through ``train_loop.make_train_step`` (remat on) on batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens of ``data/tokens.py``'s
+    stream: the loss finite at every step and the last below the first;
+    step wall, tok/s, peak ``max_memory_allocated`` and the
+    ``flash_prefill`` launches a step (forward and remat's recompute)
+    and plain backward passes; then one step split by CUDA events into
+    forward (``lm_loss``), backward and the AdamW update, and one under
+    ``torch.profiler``: device busy, idle share, the attention kernel's
+    and its plain backward's device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.kernels import ops, runtime
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer, train_loop
+    import dataclasses
+    dev = torch.device("cuda")
+    full = get_config(TRAIN_ARCH)
+    layers = TRAIN_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(full, n_layers=layers)
+    model = build_model(torch, TRAIN_ARCH, cfg, full, phase="train")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = optimizer.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS)
+    state = optimizer.init(bridge.leaves(model))
+    step_fn = train_loop.make_train_step(cfg, opt_cfg, remat=True)
+    it = data_tokens.batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    losses, walls, launches, backs = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(it)
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, state, metrics = step_fn(model, state, batch)
+        loss = float(metrics["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(runtime.launch_counts["flash_prefill"])
+        backs.append(runtime.autograd_counts["flash_prefill"])
+        losses.append(loss)
+        log("train", f"{TRAIN_PATH} step {i}: loss={loss:.4f} "
+            f"lr={float(metrics['lr']):.2e} grad_norm="
+            f"{float(metrics['grad_norm']):.3f}, {walls[-1]:.1f} ms, "
+            f"flash_prefill launches {launches[-1]}, plain backward passes "
+            f"{backs[-1]}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{TRAIN_PATH}: loss {loss} at step {i}")
+    peak = torch.cuda.max_memory_allocated()
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"{TRAIN_PATH}: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall")
+    if any(n != 2 * layers for n in launches) or \
+            any(n != layers for n in backs):
+        raise AssertionError(f"{TRAIN_PATH}: flash_prefill launches "
+                             f"{launches}, plain backward passes {backs}; "
+                             f"want {2 * layers} (forward + remat) and "
+                             f"{layers} a step")
+    if peak > MAX_TRAIN_PEAK:
+        raise AssertionError(f"{TRAIN_PATH}: peak {peak / 1e9:.1f} GB over "
+                             f"{MAX_TRAIN_PEAK / 1e9:.0f} GB")
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    later = walls[1:]
+    step_ms = sorted(later)[len(later) // 2]
+
+    # one step split by CUDA events: forward (the loss), backward, update
+    ev = {}
+    saved_loss, saved_apply = train_loop.lm_loss, optimizer.apply
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev[name] = e
+
+    def timed_loss(*a, **kw):
+        mark("start")
+        out = saved_loss(*a, **kw)
+        mark("loss")
+        return out
+
+    def timed_apply(*a, **kw):
+        mark("backward")
+        out = saved_apply(*a, **kw)
+        mark("update")
+        return out
+    batch = next(it)
+    try:
+        train_loop.lm_loss, optimizer.apply = timed_loss, timed_apply
+        model, state, _ = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+    finally:
+        train_loop.lm_loss, optimizer.apply = saved_loss, saved_apply
+    split = {"forward": ev["start"].elapsed_time(ev["loss"]),
+             "backward": ev["loss"].elapsed_time(ev["backward"]),
+             "update": ev["backward"].elapsed_time(ev["update"])}
+    total = sum(split.values())
+
+    # one step under the profiler, the plain attention backward in a range
+    plain = ops._PREFILL_GRAD.plain
+
+    def ranged_plain(*a, **kw):
+        with record_function("train/plain attention backward"):
+            return plain(*a, **kw)
+    batch = next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, state, _ = step_fn(model, state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    batch = next(it)
+    try:
+        ops._PREFILL_GRAD.plain = ranged_plain
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model, state, _ = step_fn(model, state, batch)
+            torch.cuda.synchronize()
+    finally:
+        ops._PREFILL_GRAD.plain = plain
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == cuda
+               and not e.name.startswith("train/")]
+    prof_out = {}
+    if kernels:
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+        def launched_us(e):
+            return sum(kk.duration for kk in e.kernels) + sum(
+                launched_us(c) for c in e.cpu_children)
+        plain_bwd = sum(launched_us(e) for e in events
+                        if e.device_type != cuda and e.name ==
+                        "train/plain attention backward") / 1e3
+        attn_fwd = sum(e.time_range.elapsed_us() for e in kernels
+                       if "flash_prefill" in e.name) / 1e3
+        prof_out = dict(busy_ms=busy, idle_share=1 - busy / wall_ms,
+                        wall_ms=wall_ms, plain_attention_backward_ms=plain_bwd,
+                        flash_prefill_ms=attn_fwd, launches=len(kernels))
+        log("train", f"{TRAIN_PATH} profiled step: {wall_ms:.1f} ms wall "
+            f"(unprofiled), {busy:.1f} ms device busy (idle share "
+            f"{1 - busy / wall_ms:.3f}), {len(kernels)} kernel launches; "
+            f"flash_prefill kernels {attn_fwd:.2f} ms (forward and remat's "
+            f"recompute), the plain attention backward {plain_bwd:.2f} ms "
+            f"({plain_bwd / busy:.3f} of busy)")
+    else:
+        log("train", f"{TRAIN_PATH}: the profiler saw no device events "
+            f"(device busy and idle share not measured)")
+    log("train", f"{TRAIN_PATH}: {n_params / 1e9:.3f} B parameters, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat on; {TRAIN_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (finite at every step); step "
+        f"wall first {walls[0]:.1f} ms, median of the rest {step_ms:.1f} ms "
+        f"({tokens / step_ms * 1e3:.0f} tok/s); peak max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; flash_prefill {launches[0]} launches a step "
+        f"({layers} forward + {layers} remat recompute), {backs[0]} plain "
+        f"backward passes; a step split by CUDA events: forward "
+        f"{split['forward']:.1f} ms ({split['forward'] / total:.3f}), "
+        f"backward {split['backward']:.1f} ms "
+        f"({split['backward'] / total:.3f}), AdamW update "
+        f"{split['update']:.1f} ms ({split['update'] / total:.3f})")
+    del model, state
+    return dict(losses=losses, step_ms=walls, median_step_ms=step_ms,
+                tok_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                launches_per_step=launches[0], plain_backward_per_step=backs[0],
+                split_ms=split, profile=prof_out, n_params=n_params,
+                launches=sum(launches))
+
+
+def train_phase(torch):
+    """Training on the card: the autograd checks, the attention kernel at
+    the training shape, the smoke f32 train steps against the CPU, then
+    full-width Qwen3-14B with its depth cut (``train_full``)."""
+    t0 = time.perf_counter()
+    checks = autograd_checks(torch)
+    row = train_attention_row(torch)
+    smoke = train_smoke(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = train_full(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", f"done in {time.perf_counter() - t0:.1f} s")
+    return dict(checks=checks, row=row, smoke=smoke, run=run)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4725,7 +5472,7 @@ def main() -> int:
     log("build", f"cuobjdump -sass: {n_hgmma} HGMMA instructions in the "
         f"prefill tensor-core kernels (Dh 64 and 128); the wrapper's body "
         f"rule matches rt_flash_prefill_body for f32/bf16 x Dh "
-        f"64/80/128/256")
+        f"64/80/128/192/256")
 
     rows = kernel_phase(torch)
     rows.update(int8_kernel_phase(torch))
@@ -4768,6 +5515,13 @@ def main() -> int:
     vision = vision_phase(torch)
     profile[HUBERT_ARCH] = vision["hubert"].pop("profile")
     vrows, vlm_n = vision["rows"], vision["vlm"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    nemo = nemotron_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(torch)
+    profile[TRAIN_PATH] = train["run"]["profile"]
 
     def entry(name, source, replaces, row, path="qwen3-14b", n=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -4895,6 +5649,36 @@ def main() -> int:
                                 "page=128"],
                           path=VLM_PATH, n=vlm_n["paged_flash_decode self"]),
              role="self-attention"),
+        # nemotron-4-340b (4 of 96 layers): G = 12 at Dh 192
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   nemo["rows"]["flash_prefill H=96 Hkv=8 Dh=192 chunk "
+                                "512@1536/4096"],
+                   path=NEMOTRON_PATH, n=nemo["launches"]["flash_prefill"]),
+             body="cuda_core (Dh 192, G = 12)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     nemo["rows"]["paged_flash_decode B=8 H=96 Hkv=8 Dh=192 "
+                                  "ctx=2048 page=128"],
+                     path=NEMOTRON_PATH,
+                     n=nemo["launches"]["paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     nemo["rows"]["flash_decode B=8 H=96 Hkv=8 Dh=192 "
+                                  "ctx=2048"],
+                     path=NEMOTRON_PATH, n=nemo["launches"]["flash_decode"]),
+        # the training step: the forward kernel under autograd (its
+        # backward is the plain version's), launches over the 10 steps
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84", train["row"],
+                   path=TRAIN_PATH, n=train["run"]["launches"]),
+             role="training forward (backward: the plain version)",
+             body="tensor_core (wgmma; bf16, Dh 128, causal)",
+             fwd_bwd_ms=train["row"]["fwd_bwd_ms"],
+             plain_fwd_bwd_ms=train["row"]["plain_fwd_bwd_ms"],
+             library_fwd_bwd_ms=train["row"]["sdpa_fwd_bwd_ms"],
+             fwd_bwd_bound_ms=train["row"]["fwd_bwd_bound_ms"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}")
@@ -4906,6 +5690,8 @@ def main() -> int:
     log("rg", json.dumps(rg, default=str))
     log("moe", json.dumps(moe, default=str))
     log("vlm", json.dumps(vision, default=str))
+    log("nemotron", json.dumps(nemo, default=str))
+    log("train", json.dumps(train, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

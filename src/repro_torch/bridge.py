@@ -1,5 +1,5 @@
 """Convert the reference's parameter and cache pytrees to the port, and
-caches back, through numpy.
+back, through numpy.
 
 The caller turns the reference's JAX arrays into numpy first (for
 example ``jax.tree.map(np.asarray, params)``), so this module never sees
@@ -21,6 +21,12 @@ one the grouped product takes (``models/moe.py:grouped_mm``).  A VLM's
 ``vis_proj`` (d_vision, d_model) is a top-level leaf; each cross layer's
 ``attn/gate`` is stacked ``(reps,)`` and lands as a 0-d leaf a block; a
 squared-ReLU MLP (nemotron) has ``up`` and ``down`` only.
+
+The way back: :func:`leaves` names each of a model's parameters by its
+reference key path, a block leaf as the list of its per-repetition
+tensors (what the trainer's optimizer state mirrors), and
+:func:`params_to_numpy` stacks those lists into the reference's
+``(reps, ...)`` tree, which ``train/checkpoint.py`` writes.
 """
 from __future__ import annotations
 
@@ -113,3 +119,70 @@ def cache_to_numpy(tree):
     if tree.is_floating_point():
         tree = tree.float()
     return tree.detach().cpu().numpy()
+
+
+def leaves(model: Transformer) -> Dict[str, object]:
+    """Each parameter of ``model`` by its reference key path: a top-level
+    leaf (``embed``, ``unembed``, ``ln_f``, ``vis_proj``) as its tensor,
+    a block leaf (``groups/<g>/<j>/...``) as the list of its tensors, one
+    a repetition, in repetition order (the reference stacks them on a
+    leading axis).  Sorted by key, as :func:`flatten` orders them."""
+    out: Dict[str, object] = {}
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "groups":
+            gi, j, rep = parts[1:4]
+            key = "/".join(["groups", gi, j] + parts[4:])
+            out.setdefault(key, []).append((int(rep), param))
+        else:
+            out["/".join(parts)] = param
+    return {k: [p for _, p in sorted(v)] if isinstance(v, list) else v
+            for k, v in sorted(out.items())}
+
+
+def reference_ndim(leaf) -> int:
+    """The rank of a leaf of :func:`leaves` in the reference's tree: a
+    block leaf's own rank plus its stacked repetition axis."""
+    if isinstance(leaf, list):
+        return leaf[0].dim() + 1
+    return leaf.dim()
+
+
+def stack(leaf) -> np.ndarray:
+    """A leaf of :func:`leaves` (or of a tree shaped like it) as the
+    reference's numpy array: a list stacked on a leading axis; float
+    leaves as float32 (numpy has no bfloat16; f32 holds a bf16 value
+    exactly, and the reference's restore casts to its template's
+    dtype)."""
+    if isinstance(leaf, list):
+        return np.stack([stack(x) for x in leaf])
+    t = leaf.detach()
+    if t.is_floating_point():
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def unflatten(flat: Dict[str, np.ndarray]):
+    """The nested tree of :func:`flatten`'s key paths: dicts, with the
+    reference's ``groups`` as a tuple (groups) of tuples (pattern slots)
+    of dicts."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    if "groups" in tree:
+        g = tree["groups"]
+        tree["groups"] = tuple(tuple(g[str(gi)][str(j)]
+                                     for j in range(len(g[str(gi)])))
+                               for gi in range(len(g)))
+    return tree
+
+
+def params_to_numpy(model: Transformer):
+    """The reference's parameter tree (numpy leaves, block leaves stacked
+    ``(reps, ...)``) of ``model``: the inverse of
+    :func:`params_from_numpy`."""
+    return unflatten({k: stack(v) for k, v in leaves(model).items()})

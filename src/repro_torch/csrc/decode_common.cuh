@@ -35,8 +35,8 @@
 // l_i, 1e-30), M = max_i m_i; a row with no live slot (pos < 0) gets 0.
 //
 // Bodies (rt_decode_body, kernels/decode_attn.py:body).  bf16, every Dh
-// the kernels take (64, 80, 128, 256, all multiples of 16), runs on the
-// tensor cores: a warp tile is 16 slots of K and V, copied by cp.async
+// the kernels take (64, 80, 128, 192, 256, all multiples of 16), runs on
+// the tensor cores: a warp tile is 16 slots of K and V, copied by cp.async
 // (zero-filled past n) into a kDecStages-deep ring of the warp's own
 // shared memory, rows padded by 16 bytes so ldmatrix is free of bank
 // conflicts.  S = Q·Kᵀ and P·V are mma.sync.m16n8k16 with the G query
@@ -96,11 +96,13 @@ namespace rt {
 
 constexpr int kDecThreads = 128;  // four warps
 constexpr int kDecWarps = kDecThreads / 32;
-// most G * Dh a kv head's query heads span: 2048, and 4096 at Dh 256
-// (G <= 16: recurrentgemma's G = 10).  Per head dim, so the f32 body's
-// register arrays stay the size they were at Dh 64, 80 and 128.
+// most G * Dh a kv head's query heads span: 2048, and G <= 16 at Dh 192
+// and 256 (3072 and 4096: nemotron-4-340b's G = 12, recurrentgemma's
+// G = 10).  Per head dim, so the f32 body's register arrays stay the size
+// they were at Dh 64, 80 and 128.  A multiple of 128: the f32 body gives
+// each lane dec_max_gd / 128 (head, chunk) pairs.
 __host__ __device__ constexpr int dec_max_gd(int DH) {
-  return DH == 256 ? 4096 : 2048;
+  return DH == 256 ? 4096 : DH == 192 ? 3072 : 2048;
 }
 constexpr int kDecQuantum = 128;  // L is a multiple of this
 constexpr int kDecMaxSplit = 64;
@@ -615,10 +617,14 @@ constexpr size_t cc_smem_bytes(int DH, int G) {
 // Both bodies fit the 227 KB of shared memory a block may opt into at the
 // largest G each head dim takes (the rings do not depend on G; the merge
 // area and the f32 body's Q and P do): 206 KB for the bf16 ring at Dh 256,
-// 172 KB for its int8 ring, 94 KB for the f32 body at G = 16.
+// 172 KB for its int8 ring, 94 KB for the f32 body at G = 16; at Dh 192
+// 156 KB, 130 KB and 74 KB.
 constexpr size_t kSmemOptIn = 227 * 1024;
 static_assert(tc_smem_bytes<256, false>(1, 16) <= kSmemOptIn &&
                   tc_smem_bytes<256, true>(1, 16) <= kSmemOptIn &&
+                  tc_smem_bytes<192, false>(1, 16) <= kSmemOptIn &&
+                  tc_smem_bytes<192, true>(1, 16) <= kSmemOptIn &&
+                  cc_smem_bytes(192, 16) <= kSmemOptIn &&
                   tc_smem_bytes<128, false>(1, 16) <= kSmemOptIn &&
                   tc_smem_bytes<64, false>(2, 32) <= kSmemOptIn &&
                   tc_smem_bytes<80, false>(2, 25) <= kSmemOptIn &&
@@ -794,10 +800,11 @@ inline int with_instance(int Dh, int G, F&& f) {
     if (G > 16 && Dh == 64) return f(Inst<64, 2>{});
     if (G > 16 && Dh == 80) return f(Inst<80, 2>{});
   }
-  switch (Dh) {  // G * Dh <= dec_max_gd: G <= 16 at Dh 128 and at Dh 256
+  switch (Dh) {  // G * Dh <= dec_max_gd: G <= 16 at Dh 128, 192 and 256
     case 64: return f(Inst<64, 1>{});
     case 80: return f(Inst<80, 1>{});
     case 128: return f(Inst<128, 1>{});
+    case 192: return f(Inst<192, 1>{});
     case 256: return f(Inst<256, 1>{});
     default: return cudaErrorInvalidValue;
   }

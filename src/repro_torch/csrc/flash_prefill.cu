@@ -47,9 +47,9 @@
 //   S of tile t and P·V of tile t - 1 are issued together.  No TMA, warp
 //   specialisation, clusters or persistent blocks yet.
 //
-// * f32 (any supported Dh) and bf16 with Dh in {80, 256}: the CUDA-core
-//   body, in f32.  One block of 256 threads per (q tile, kv head, batch
-//   row).  The q tile holds 256/TPR rows: BQ = rows/G query positions
+// * f32 (any supported Dh: 64, 80, 128, 192, 256) and bf16 with Dh in
+//   {80, 192, 256}: the CUDA-core body, in f32.  One block of 256
+//   threads per (q tile, kv head, batch row).  The q tile holds 256/TPR rows: BQ = rows/G query positions
 //   times the G query heads of that kv head, so each K/V tile loaded into
 //   shared memory is shared by all G heads.  Each row is owned by TPR
 //   consecutive lanes, each holding Dh/TPR dims of q and of the f32
@@ -258,6 +258,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths,
                               causal, window, q_offset_ptr, stream);
     case 128:
       return launch<T, 128, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                               causal, window, q_offset_ptr, stream);
+    case 192:  // 24 dims a lane, six 16-byte loads
+      return launch<T, 192, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
                                causal, window, q_offset_ptr, stream);
     case 256:
       return launch<T, 256, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,

@@ -51,8 +51,8 @@ class DecodePlan(NamedTuple):
 def body(dtype: torch.dtype, Dh: int) -> str:
     """The body of the decode kernels that takes a call, as their C
     dispatch (``rt_decode_body``) decides: bf16 at every head dim the
-    kernels take (64, 80, 128, 256, all multiples of the mma's 16) on the
-    tensor cores, f32 on the CUDA cores."""
+    kernels take (64, 80, 128, 192, 256, all multiples of the mma's 16)
+    on the tensor cores, f32 on the CUDA cores."""
     return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 

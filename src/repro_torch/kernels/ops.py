@@ -3,12 +3,22 @@
 A tensor on the CPU goes to the plain PyTorch version (``ref.py``); a
 tensor on the card goes to the hand-written kernel, whose wrapper raises
 on what it cannot take.  There is no switch and no fallback: the device
-of the operands decides.
+of the operands decides.  On the card a ``flash_prefill`` or ``wkv6``
+call that autograd records (training) launches the same kernel inside a
+``KernelFunction`` whose backward is the plain version's
+(``kernels/autograd.py``); on the CPU autograd runs through the plain
+version itself.
 """
 from __future__ import annotations
 
 from . import decode_attn, flash_prefill as _prefill, paged_decode_attn, ref
 from . import wkv6 as _wkv6
+from .autograd import KernelFunction, needs_grad
+
+# the card's kernels with the plain versions' gradients
+_PREFILL_GRAD = KernelFunction("flash_prefill", _prefill.flash_prefill,
+                               ref.flash_prefill_ref)
+_WKV6_GRAD = KernelFunction("wkv6", _wkv6.wkv6, ref.wkv6_ref)
 
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
@@ -19,6 +29,9 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, lengths, causal=causal,
                                      window=window, q_offset=q_offset)
+    if needs_grad(q, k, v):
+        return _PREFILL_GRAD(q, k, v, lengths, causal=causal, window=window,
+                             q_offset=q_offset)
     return _prefill.flash_prefill(q, k, v, lengths, causal=causal,
                                   window=window, q_offset=q_offset)
 
@@ -65,7 +78,13 @@ def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
 
 
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
-    """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0."""
+    """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0.  A call
+    that autograd records writes no ``state_out`` (it returns sT)."""
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0, state_out=state_out)
+    if needs_grad(r, k, v, w, u, s0):
+        if state_out is not None:
+            raise ValueError("wkv6: state_out is written in place, which "
+                             "autograd cannot record")
+        return _WKV6_GRAD(r, k, v, w, u, s0)
     return _wkv6.wkv6(r, k, v, w, u, s0, state_out=state_out)

@@ -16,18 +16,24 @@ import torch
 NEG_INF = -1e30
 
 
+def _compute(x):
+    """f32, or f64 for f64 operands (a yardstick for the tests'
+    ``gradcheck``)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _gqa_scores(q, k):
     """q: (B,Tq,H,Dh), k: (B,Tk,Hkv,Dh) -> (B,Hkv,G,Tq,Tk) f32."""
     B, Tq, H, Dh = q.shape
     Hkv = k.shape[2]
-    qg = q.reshape(B, Tq, Hkv, H // Hkv, Dh).float()
-    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (Dh ** -0.5)
+    qg = _compute(q.reshape(B, Tq, Hkv, H // Hkv, Dh))
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg, _compute(k)) * (Dh ** -0.5)
 
 
 def _gqa_out(p, v):
     """p: (B,Hkv,G,Tq,Tk) f32, v: (B,Tk,Hkv,Dh) -> (B,Tq,H,Dh) f32."""
     B, Hkv, G, Tq, Tk = p.shape
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, _compute(v))
     return out.reshape(B, Tq, Hkv * G, v.shape[-1])
 
 
@@ -40,7 +46,8 @@ def flash_prefill_ref(q, k, v, lengths=None, *, causal: bool = True,
     ``q_offset``: an int or a 0-d integer tensor (the kernel's offset
     read from device memory), the same masks either way.  Generalises
     the reference ``flash_prefill`` (Tq == Tk, offset 0) to chunked
-    prefill, where a chunk attends over the whole cache."""
+    prefill, where a chunk attends over the whole cache.  f64 operands
+    are computed in f64, everything else in f32."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     s = _gqa_scores(q, k)

@@ -20,8 +20,11 @@ held in a device tensor the engine counts it from the host ``start``).
 ``grouped_counts`` counts the MoE's grouped products on the card by
 route (``models/moe.py:grouped_mm``: the library's grouped GEMM for
 bf16, the plain masked loop for f32); they are no kernels of the port,
-so they stay out of ``launch_counts``.  ``reset_launch_counts`` zeroes
-all four.  ``decode_plans`` holds the grid and body of each decode
+so they stay out of ``launch_counts``.  ``autograd_counts`` counts the
+backward passes of calls made under autograd (``kernels/autograd.py``:
+the kernels' plain versions re-run; ``models/moe.py``: the bf16 grouped
+product's own backward); the forward launches count in ``launch_counts``
+as in serving.  ``reset_launch_counts`` zeroes all five.  ``decode_plans`` holds the grid and body of each decode
 kernel's last launch (``kernels/decode_attn.py:plan``); the reset
 clears it.  A replayed CUDA graph runs no wrapper:
 ``core/engine.py:DecodeGraph`` reads what its capture added to the
@@ -76,8 +79,14 @@ decode_plans = {name: None for name in DECODE_KERNELS}
 grouped_counts = {"grouped_mm": 0, "masked_loop": 0}
 
 
+# backward passes through the plain versions of the kernels launched
+# under autograd (kernels/autograd.py), and of the bf16 grouped product
+# (models/moe.py)
+autograd_counts = {"flash_prefill": 0, "wkv6": 0, "grouped_mm": 0}
+
+
 COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts,
-            grouped_counts)
+            grouped_counts, autograd_counts)
 
 
 def count_unaligned(q_offset: int, bodies) -> None:
@@ -261,9 +270,9 @@ CUDA_ERROR_INVALID_VALUE = 1
 
 def check(err: int, kernel: str, shape: str) -> None:
     """Raise if the launch returned a CUDA error code.  The C launch is
-    the one place that holds each kernel's limits (supported Dh; for the
-    decode kernels G * Dh at most 2048, or 4096 at Dh 256, that is G <= 16
-    there; table coverage): it returns cudaErrorInvalidValue for a shape
+    the one place that holds each kernel's limits (supported Dh: 64, 80,
+    128, 192 and 256; for the decode kernels G * Dh at most 2048, or 3072
+    at Dh 192 and 4096 at Dh 256, that is G <= 16 there; table coverage): it returns cudaErrorInvalidValue for a shape
     outside them without launching."""
     if err == CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"{kernel}: shape not supported by the kernel "

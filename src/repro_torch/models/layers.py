@@ -139,14 +139,38 @@ def embed_apply(emb, tokens):
     return F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
 
 
+class _HeadMM(torch.autograd.Function):
+    """``x @ wᵀ`` of two low-precision operands with an f32 result;
+    torch gives this product no derivative, so the backward is written
+    out: the f32 gradient rounded to the operands' dtype, then
+    ``dx = g w`` and ``dw = gᵀ x``."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w = ctx.saved_tensors
+        g = grad.to(w.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ x2 if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def unembed_apply(w, x):
     """w: (vocab, d) head; returns f32 logits.
 
     On the card a low-precision head is multiplied in its own dtype with
     an f32 output, so no f32 copy of the (vocab, d) head is made per
-    step; elsewhere the product runs in f32, as the reference does."""
+    step (under autograd through :class:`_HeadMM`); elsewhere the
+    product runs in f32, as the reference does."""
     if w.is_cuda and w.dtype != torch.float32:
         x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            out = _HeadMM.apply(x2, w)
+        else:
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[0],))
     return x.float() @ w.float().t()

@@ -29,6 +29,14 @@ chosen by the operands, never by catching a failure:
 ``runtime.grouped_counts`` counts the card's calls by route, as the
 kernel wrappers count their launches.
 
+Under autograd the bf16 route is :class:`GroupedMM`, the reference's
+custom VJP of its grouped product (``ragged_matmul``): ``dx`` is the
+grouped product of ``dy`` with each group's ``wᵀ``, ``dw`` the product
+contracted over each group's rows, ``xᵀ dy`` a group, which
+``grouped_mm`` computes in its 2-D x 2-D form with the same offsets
+(``runtime.autograd_counts["grouped_mm"]`` counts these backward
+passes).  The plain masked loop is plain autograd.
+
 Routing is a top-k softmax over f32 router logits, re-normalized over
 the k chosen (qwen3), with an always-on shared expert where the config
 has one (llama4-scout).  The router stays f32 in a bf16 model.
@@ -170,6 +178,29 @@ def grouped_mm_plain(x, w, offs):
     return out
 
 
+class GroupedMM(torch.autograd.Function):
+    """``F.grouped_mm(x, w, offs=offs)`` with the reference's backward:
+    ``dx = grouped(dy, wᵀ)``, ``dw[e] = x[rows of e]ᵀ dy[rows of e]``
+    (zero for an empty group)."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return F.grouped_mm(x, w, offs=offs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        dy = dy.contiguous()
+        runtime.autograd_counts["grouped_mm"] += 1
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = F.grouped_mm(dy, w.transpose(1, 2), offs=offs)
+        if ctx.needs_input_grad[1]:
+            dw = F.grouped_mm(x.t(), dy, offs=offs)
+        return dx, dw, None
+
+
 def grouped_mm(x, w, offs):
     """x (M, K) rows sorted by group; w (E, K, N); offs (E,) int32 row
     ends, offs[-1] == M.  Returns (M, N) in x's dtype."""
@@ -177,6 +208,8 @@ def grouped_mm(x, w, offs):
         return grouped_mm_plain(x, w, offs)
     if x.dtype == torch.bfloat16:
         runtime.grouped_counts["grouped_mm"] += 1
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return GroupedMM.apply(x, w, offs)
         return F.grouped_mm(x, w, offs=offs)
     runtime.grouped_counts["masked_loop"] += 1
     return grouped_mm_plain(x, w, offs)

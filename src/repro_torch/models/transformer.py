@@ -30,8 +30,8 @@ Public API (functions of ``(cfg, model, ...)``):
     init_params(cfg, seed, dtype, device)   -> Transformer
     init_cache(cfg, batch, cache_len, ...)  -> zeroed cache pytree
     init_paged_cache(cfg, batch, cache_len, n_pages, page_size, ...)
-    forward(cfg, model, tokens, embeds, vision_embeds, lengths, moe_impl)
-        -> logits (B,T,V)   [encoder inference; training]
+    forward(cfg, model, tokens, embeds, vision_embeds, lengths, moe_impl,
+            remat)          -> logits (B,T,V)   [encoder inference; training]
     prefill(cfg, model, tokens, lengths, cache_len, moe_impl, cache=None,
             embeds=None, vision_embeds=None) -> (last logits, cache)
     prefill_chunk(cfg, model, tokens, cache, start, lengths, moe_impl)
@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -517,9 +518,9 @@ def _project_vision(model: Transformer, vision_embeds):
     return vision_embeds @ model.vis_proj
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
-            vision_embeds=None, lengths=None, moe_impl: str = "local"):
+            vision_embeds=None, lengths=None, moe_impl: str = "local",
+            remat: bool = False):
     """Full-sequence forward with no cache (encoder inference; the
     training forward): logits (B,T,V) in f32.
 
@@ -528,15 +529,32 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
     for a VLM; lengths: (B,) valid tokens (keys past a row's length are
     masked; its query rows past it are garbage, as in the reference).
     Positions are ``arange(T)``; recurrent blocks start from a zero carry
-    and keep nothing; window configs attend through their window."""
+    and keep nothing; window configs attend through their window.
+
+    Unlike the serving entry points this one records a graph when a
+    parameter requires a gradient (the trainer's ``requires_grad_``); a
+    frozen model (``init_params``' default) records none.  ``remat``
+    wraps each repetition of a block group's pattern in
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body,
+    nothing_saveable)`` per scan body): the backward recomputes it from
+    its input, so the kernels of its forward launch again there."""
     x = _embed_input(model, tokens, embeds)
     T = x.shape[1]
     vis = _project_vision(model, vision_embeds)
     positions = torch.arange(T, device=x.device)
-    win = effective_window(cfg)
-    for _, _, _, blk in model.blocks():
-        x = blk.prefill(x, None, positions=positions, lengths=lengths,
-                        window=win, cache_len=0, vis=vis, moe_impl=moe_impl)
+    kw = dict(positions=positions, lengths=lengths,
+              window=effective_window(cfg), cache_len=0, vis=vis,
+              moe_impl=moe_impl)
+    for group in model.groups:
+        for rep in range(len(group[0])):
+            blocks = [slot[rep] for slot in group]
+
+            def body(x, blocks=blocks):
+                for blk in blocks:
+                    x = blk.prefill(x, None, **kw)
+                return x
+            x = checkpoint(body, x, use_reentrant=False) if remat \
+                else body(x)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     return layers.unembed_apply(model.head, x)
 

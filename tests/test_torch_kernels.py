@@ -17,6 +17,14 @@ the hoisted bonus, row-group partials folded halves first), also for
 its weak-decay accuracy against float64, and its tile rule
 (``wkv6.plan``, ``wkv6.valid``).
 
+The kernels under autograd (``kernels/autograd.py``): a
+``KernelFunction`` built with the plain version as its forward has the
+plain version's gradients, and ``gradcheck`` holds it at f64 (causal,
+windowed and non-causal attention with Tq != Tk and key lengths;
+``wkv6``); on the card the kernels' own ``KernelFunction``s launch the
+kernel once (counted) with the plain version's backward (counted),
+against autograd through the plain versions.
+
 CUDA cases (skipped without a card): each hand-written kernel against
 its plain version on the card, at the same sweeps and at the main
 path's widths (decode also at rows of every length, on wrapped rings,
@@ -42,6 +50,7 @@ from repro_torch.kernels import flash_prefill as prefill_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import runtime
 from repro_torch.kernels import wkv6 as wkv6_kernel
+from repro_torch.kernels.autograd import KernelFunction
 
 needs_cuda = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -115,6 +124,26 @@ TENSOR_CORE_CASES = {
     "noncausal_lengths": (2, 96, 200, 4, 4, False, 0, 0, (200, 75)),
 }
 DTYPES = ["float32", "bfloat16"]
+# nemotron-4-340b's attention: H 96, Hkv 8 (G = 12) at Dh 192, the
+# CUDA-core prefill body and G * Dh 2304 in the decode body; added to
+# the card sweeps (the int8 decode kernels' too), held on the CPU against
+# the reference's oracle by test_dh192_plain_versions_match_oracle
+DH192_PREFILL = [
+    # (B, T, H, Hkv, Dh, window, causal)
+    (2, 150, 96, 8, 192, 0, True),
+    (1, 200, 96, 8, 192, 64, True),
+    (2, 96, 96, 8, 192, 0, False),
+]
+DH192_DECODE = [
+    # (B, S, H, Hkv, Dh, ring)
+    (2, 300, 96, 8, 192, False),
+    (2, 256, 96, 8, 192, True),
+]
+DH192_PAGED = [
+    # (B, S, H, Hkv, Dh, page, ring)
+    (2, 300, 96, 8, 192, 128, False),
+    (2, 256, 96, 8, 192, 64, True),
+]
 
 
 def _tol(dtype):
@@ -322,6 +351,48 @@ def test_paged_flash_decode_ref_matches_pallas(shape, dtype):
                                   interpret=True))
     for want in wants:
         np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dh192_plain_versions_match_oracle(kind, dtype):
+    """The plain versions at nemotron-4-340b's attention shape (H 96, Hkv
+    8, Dh 192) against the reference's jnp oracle
+    (``repro/kernels/ref.py``), as the card sweeps run them."""
+    from repro.kernels import ref as jref
+    import jax.numpy as jnp
+    if kind == "prefill":
+        shape = DH192_PREFILL[0]
+        B, T, H, Hkv, Dh, window, causal = shape
+        q, k, v, lens = _prefill_inputs(shape, dtype)
+        got = ref.flash_prefill_ref(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                    torch.from_numpy(lens), causal=causal,
+                                    window=window)
+        want = jref.flash_prefill_ref(_j(q, dtype), _j(k, dtype),
+                                      _j(v, dtype), jnp.asarray(lens),
+                                      causal=causal, window=window)
+        valid = _valid_rows(T, lens)
+        got, want = np.where(valid, _f32(got), 0), np.where(valid,
+                                                             _f32(want), 0)
+    elif kind == "decode":
+        B, S, H, Hkv, Dh, ring = DH192_DECODE[1]
+        q, kc, vc, pos = _decode_inputs(DH192_DECODE[1], dtype)
+        got = ref.flash_decode_ref(_t(q, dtype), _t(kc, dtype), _t(vc, dtype),
+                                   torch.from_numpy(pos), ring=ring)
+        want = jref.flash_decode_ref(_j(q, dtype), _j(kc, dtype),
+                                     _j(vc, dtype), jnp.asarray(pos),
+                                     ring=ring)
+    else:
+        B, S, H, Hkv, Dh, page, ring = DH192_PAGED[0]
+        q, kc, vc, pos, kp, vp, bt = _paged_inputs(DH192_PAGED[0], dtype)
+        got = ref.paged_flash_decode_ref(
+            _t(q, dtype), _t(kp, dtype), _t(vp, dtype), torch.from_numpy(bt),
+            torch.from_numpy(pos), s_len=S, ring=ring)
+        want = jref.paged_flash_decode_ref(
+            _j(q, dtype), _j(kp, dtype), _j(vp, dtype), jnp.asarray(bt),
+            jnp.asarray(pos), s_len=S, ring=ring)
+    assert H // Hkv == 12 and Dh == 192
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
 # split lengths of the split-KV algebra, from a cache of S slots: one
@@ -737,7 +808,7 @@ def cuda_exact_f32():
 
 
 @needs_cuda
-@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+@pytest.mark.parametrize("shape", PREFILL_SHAPES + DH192_PREFILL)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_prefill(shape, dtype, cuda_exact_f32):
     dev = cuda_exact_f32
@@ -809,14 +880,14 @@ def test_cuda_flash_prefill_body_rule_matches_c(cuda_exact_f32):
     """The wrapper's body rule is the one the C launch applies."""
     lib = runtime.library()
     for dtype, code in runtime.DTYPE_CODES.items():
-        for Dh in (64, 80, 128, 256):
+        for Dh in (64, 80, 128, 192, 256):
             c_body = ("tensor_core" if lib.rt_flash_prefill_body(code, Dh)
                       else "cuda_core")
             assert c_body == prefill_kernel.body(dtype, Dh)
 
 
 @needs_cuda
-@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("shape", DECODE_SHAPES + DH192_DECODE)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_decode(shape, dtype, cuda_exact_f32):
     dev = cuda_exact_f32
@@ -832,7 +903,7 @@ def test_cuda_flash_decode(shape, dtype, cuda_exact_f32):
 
 
 @needs_cuda
-@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("shape", PAGED_SHAPES + DH192_PAGED)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_paged_flash_decode(shape, dtype, cuda_exact_f32):
     dev = cuda_exact_f32
@@ -1001,7 +1072,7 @@ def _int8(rng, shape, dev):
 
 
 @needs_cuda
-@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("shape", DECODE_SHAPES + DH192_DECODE)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_decode_int8(shape, dtype, cuda_exact_f32):
     """The int8 contiguous kernel against its plain version, and bit for
@@ -1028,7 +1099,7 @@ def test_cuda_flash_decode_int8(shape, dtype, cuda_exact_f32):
 
 
 @needs_cuda
-@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("shape", PAGED_SHAPES + DH192_PAGED)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_paged_flash_decode_int8(shape, dtype, cuda_exact_f32):
     """The int8 paged kernel against its plain version, bit for bit
@@ -1140,7 +1211,7 @@ def test_cuda_decode_body_rule_matches_c(cuda_exact_f32):
     """The wrapper's decode body rule is the one the C launch applies."""
     lib = runtime.library()
     for dtype, code in runtime.DTYPE_CODES.items():
-        for Dh in (64, 80, 128, 256):
+        for Dh in (64, 80, 128, 192, 256):
             c_body = ("tensor_core" if lib.rt_decode_body(code, Dh)
                       else "cuda_core")
             assert c_body == decode_kernel.body(dtype, Dh)
@@ -1336,3 +1407,125 @@ def test_cuda_wkv6_every_tile(tile, dtype, cuda_exact_f32):
     for bad in ((16, 4, 64), (4, 8, 48), (4, 8, 8)):
         assert _wkv_tile_call(args, bad, y, sT) == \
             runtime.CUDA_ERROR_INVALID_VALUE
+
+
+# ------------------------------------------- the kernels under autograd --
+PREFILL_GRAD_CASES = {
+    # (B, Tq, Tk, H, Hkv, Dh, causal, window, q_offset, lengths)
+    "causal": (2, 6, 6, 4, 2, 8, True, 0, 0, (6, 4)),
+    "windowed": (1, 7, 7, 2, 1, 8, True, 3, 0, None),
+    "non-causal Tq != Tk": (2, 5, 9, 4, 2, 8, False, 0, 0, (9, 6)),
+    "causal offset Tq != Tk": (1, 4, 9, 2, 2, 8, True, 0, 5, None),
+}
+
+
+def _prefill_grad_inputs(case, dtype, device="cpu", Dh=None):
+    """A case's inputs; ``Dh`` overrides its head dim (the kernel takes
+    64, 80, 128, 192 and 256)."""
+    B, Tq, Tk, H, Hkv, case_dh, causal, window, off, lens = \
+        PREFILL_GRAD_CASES[case]
+    Dh = Dh or case_dh
+    gen = torch.Generator().manual_seed(len(case))
+    q, k, v = (torch.randn(shape, generator=gen, dtype=torch.float64)
+               .to(device=device, dtype=dtype).requires_grad_(True)
+               for shape in ((B, Tq, H, Dh), (B, Tk, Hkv, Dh),
+                             (B, Tk, Hkv, Dh)))
+    lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                  device=device)
+    return (q, k, v, lens), dict(causal=causal, window=window,
+                                 q_offset=off)
+
+
+def _wkv_grad_inputs(dtype, device="cpu", B=1, T=5, H=2, hs=4):
+    gen = torch.Generator().manual_seed(9)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, dtype=torch.float64)
+                * scale).to(device=device, dtype=dtype).requires_grad_(True)
+    r, k, v = rnd(B, T, H, hs), rnd(B, T, H, hs), rnd(B, T, H, hs)
+    w = torch.sigmoid(torch.randn((B, T, H, hs), generator=gen,
+                                  dtype=torch.float64)).to(
+        device=device, dtype=dtype).requires_grad_(True)
+    return r, k, v, w, rnd(H, hs, scale=0.1), rnd(B, H, hs, hs, scale=0.1)
+
+
+def _grads_of(out, inputs, seed=2):
+    outs = out if isinstance(out, tuple) else (out,)
+    gen = torch.Generator().manual_seed(seed)
+    cot = [torch.randn(o.shape, generator=gen, dtype=torch.float64).to(o)
+           for o in outs]
+    wrt = [x for x in inputs if x is not None and x.requires_grad]
+    return torch.autograd.grad(outs, wrt, cot)
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_GRAD_CASES))
+def test_kernel_function_prefill_grads_equal_plain_autograd(case):
+    """A ``KernelFunction`` built with ``flash_prefill_ref`` as its
+    forward: its gradients are autograd's through the plain version
+    (f32), and ``gradcheck`` holds it at f64."""
+    fn = KernelFunction("test_prefill", ref.flash_prefill_ref,
+                        ref.flash_prefill_ref)
+    args, kw = _prefill_grad_inputs(case, torch.float32)
+    got = _grads_of(fn(*args, **kw), args)
+    want = _grads_of(ref.flash_prefill_ref(*args, **kw), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    args, kw = _prefill_grad_inputs(case, torch.float64)
+    assert torch.autograd.gradcheck(lambda q, k, v: fn(q, k, v, args[3],
+                                                       **kw), args[:3])
+
+
+def test_kernel_function_wkv6_grads_equal_plain_autograd():
+    fn = KernelFunction("test_wkv6", ref.wkv6_ref, ref.wkv6_ref)
+    args = _wkv_grad_inputs(torch.float32)
+    got = _grads_of(fn(*args), args)
+    want = _grads_of(ref.wkv6_ref(*args), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    assert torch.autograd.gradcheck(fn, _wkv_grad_inputs(torch.float64))
+
+
+def test_kernel_function_counts_its_backward_passes():
+    fn = KernelFunction("flash_prefill", ref.flash_prefill_ref,
+                        ref.flash_prefill_ref)
+    args, kw = _prefill_grad_inputs("causal", torch.float32)
+    runtime.reset_launch_counts()
+    _grads_of(fn(*args, **kw), args)
+    assert runtime.autograd_counts["flash_prefill"] == 1
+    with torch.no_grad():
+        out = ops.flash_prefill(*args, **kw)    # the CPU: plain, no graph
+    assert out.grad_fn is None
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_GRAD_CASES))
+def test_cuda_flash_prefill_under_autograd(case):
+    """On the card a recorded ``flash_prefill`` launches the kernel once
+    (counted) and its gradients are autograd's through the plain version
+    on the same inputs."""
+    args, kw = _prefill_grad_inputs(case, torch.float32, "cuda", Dh=64)
+    runtime.reset_launch_counts()
+    out = ops.flash_prefill(*args, **kw)
+    assert runtime.launch_counts["flash_prefill"] == 1
+    got = _grads_of(out, args)
+    assert runtime.autograd_counts["flash_prefill"] == 1
+    torch.testing.assert_close(out, ref.flash_prefill_ref(*args, **kw),
+                               atol=1e-4, rtol=1e-3)
+    want = _grads_of(ref.flash_prefill_ref(*args, **kw), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+@needs_cuda
+def test_cuda_wkv6_under_autograd():
+    args = _wkv_grad_inputs(torch.float32, "cuda", B=2, T=37, H=2, hs=64)
+    runtime.reset_launch_counts()
+    out = ops.wkv6(*args)
+    assert runtime.launch_counts["wkv6"] == 1
+    got = _grads_of(out, args)
+    assert runtime.autograd_counts["wkv6"] == 1
+    want = _grads_of(ref.wkv6_ref(*args), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+    with pytest.raises(ValueError, match="state_out"):
+        ops.wkv6(*args, state_out=torch.empty_like(args[5]))

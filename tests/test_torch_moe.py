@@ -442,3 +442,69 @@ def test_cuda_grouped_mm_routes(rows):
         assert runtime.grouped_counts[route] == 1
         assert got.dtype == dtype
         torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+def _grouped_backward_case(rows, E, K, N, seed, device):
+    """bf16 x (rows, K) sorted into E groups (four empty), w (E, K, N)
+    and a cotangent dy, on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.sort(torch.randint(0, E - 4, (rows,), generator=gen))[0]
+    offs = moe.group_offsets(ids, E)
+    x = torch.randn(rows, K, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=gen) * K ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(rows, N, generator=gen).to(torch.bfloat16)
+    return (t.to(device) for t in (x, w, offs, dy))
+
+
+def _plain_grads(x, w, offs, dy):
+    """dx, dw by autograd through ``grouped_mm_plain`` in f32."""
+    xf = x.float().requires_grad_(True)
+    wf = w.float().requires_grad_(True)
+    y = moe.grouped_mm_plain(xf, wf, offs)
+    return torch.autograd.grad(y, (xf, wf), dy.float())
+
+
+def test_grouped_mm_backward_matches_plain_autograd():
+    """``GroupedMM``'s backward (the reference's custom VJP of
+    ``ragged_matmul``: dx by the grouped product with wᵀ, dw by the
+    product contracted over each group's rows) against autograd through
+    the plain masked loop, empty groups included (their dw is zero).
+    The library's grouped product runs on the CPU too at these aligned
+    widths."""
+    x, w, offs, dy = _grouped_backward_case(96, 12, 64, 48, 3, "cpu")
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    runtime.reset_launch_counts()
+    dx, dw = torch.autograd.grad(moe.GroupedMM.apply(x, w, offs), (x, w),
+                                 dy)
+    assert runtime.autograd_counts["grouped_mm"] == 1
+    want_dx, want_dw = _plain_grads(x.detach(), w.detach(), offs, dy)
+    tol = dict(atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    torch.testing.assert_close(dw.float(), want_dw, **tol)
+    empty = torch.diff(torch.cat([offs.new_zeros(1), offs])) == 0
+    assert empty.any() and not dw[empty].any()
+
+
+@needs_cuda
+def test_cuda_grouped_mm_backward_under_autograd():
+    """On the card a bf16 grouped product that autograd records goes
+    through ``GroupedMM`` (one forward call counted by route, one
+    backward pass counted in ``autograd_counts``), at one full-width
+    qwen3-moe layer's down projection (512 tokens x top 8, d_ff_expert
+    1536 -> d 4096, 128 experts), against autograd through the plain
+    version."""
+    cfg = get_config("qwen3-moe-235b-a22b")
+    x, w, offs, dy = _grouped_backward_case(
+        512 * cfg.top_k, cfg.n_experts, cfg.d_ff_expert, cfg.d_model, 5,
+        "cuda")
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    runtime.reset_launch_counts()
+    y = moe.grouped_mm(x, w, offs)
+    assert runtime.grouped_counts["grouped_mm"] == 1
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert runtime.autograd_counts["grouped_mm"] == 1
+    want_dx, want_dw = _plain_grads(x.detach(), w.detach(), offs, dy)
+    torch.testing.assert_close(dx.float(), want_dx, atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(dw.float(), want_dw, atol=1e-1, rtol=2e-2)

@@ -107,6 +107,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         serve.main(["--smoke", "--requests", "1"])
 
 
+TRAINING_MODULES = ("repro_torch.train.optimizer",
+                    "repro_torch.train.train_loop",
+                    "repro_torch.train.checkpoint",
+                    "repro_torch.data.tokens", "repro_torch.launch.train",
+                    "repro_torch.kernels.autograd",
+                    "repro_torch.examples.train_tiny")
+
+
+def test_training_modules_are_in_the_import_check():
+    """The training slice's modules are among those the no-JAX import
+    check imports."""
+    assert set(TRAINING_MODULES) <= set(_modules())
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import tokens
+    from repro_torch.examples import train_tiny
+    from repro_torch.launch import train
+    from repro_torch.train import train_loop
+
+    cfg = get_smoke_config("qwen3-14b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        next(tokens.batches(cfg, 1, 8))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train_loop.train(cfg, 1, iter(()))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train_tiny.main(["--steps", "1"])
+
+
 def test_cpu_serve_launcher_prints_the_summary(capsys):
     from repro_torch.launch import serve
     serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",
