@@ -117,6 +117,29 @@ goes through these phases, each printing its own lines:
    against 66 int8 pages; and an int8 pool with an int8 spill tier
    (spills and restores, a page of codes and scales byte-identical
    through the tier);
+8b. distribution (on the same model, about 30 s): both contiguous decode
+   kernels' ``lse_out`` (each (row, head)'s log-sum-exp) at Qwen3-14B's
+   decode shape (B = 8 over 4096 slots), bf16 and f32, float and int8
+   caches, at context 2048, at rows of every length (three inside the
+   first 512-slot range, one with its only live slot 0) and on wrapped
+   rings: output and log-sum-exp against the plain version, the output
+   the same bits with and without ``lse_out``, and the cache cut into
+   m = 2, 4, 8 slot ranges, each through the kernel at its local
+   positions and combined (``attention.combine_decode_partials``)
+   against the unsharded kernel and the plain version (f32 atol 1e-5);
+   the bf16 kernels timed without and with ``lse_out`` beside the bound,
+   the plain version and the library's flash-attention forward with its
+   log-sum-exp (per-row key lengths, GQA native); then a one-rank NCCL process group and the (1, 1)
+   host mesh: one full-width qwen3-moe layer through ``moe_ep`` (the
+   all-to-all and the f32 all-reduce) against ``moe_local`` at 8 and 512
+   tokens, timed; smoke f32 yi-6b ``forward`` and one qwen3-moe EP train
+   step on the card under the mesh against the CPU; and the main path:
+   the full-width Qwen3-14B prefilling 8 prompts and decoding 8 greedy
+   steps with no mesh, under the mesh, under the mesh with its cache
+   marked cut along the sequence into one shard (each decode through
+   ``distributed_decode_attention``), and the int8 pair, every mesh
+   run's ids equal to the no-mesh run's, its launches one a layer a
+   prefill or step, the ``lse_out`` ones counted apart;
 9. paper (the paper's own model): the Qwen3-14B model is freed and
    full-width, full-depth llama2-13b (bf16, seeded random weights, its
    native 4096-token cache) is built; both decode kernels at its widths
@@ -250,6 +273,8 @@ goes through these phases, each printing its own lines:
    those runs' launches, at hubert-xlarge's and llama-3.2-vision's
    shapes with the launches of its forward and of its two runs, and
    ``flash_prefill`` at the training shape with the training run's
+   launches, the two contiguous decode kernels with ``lse_out`` at the
+   distribution phase's shape with the sequence-cut mesh runs'
    launches, each entry naming its ``path``), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -777,7 +802,8 @@ def decode_split_sweep(torch, q, kc, vc, L0, scales=()):
                 err = entry(
                     q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                     *(t.data_ptr() for t in scales), pos.data_ptr(),
-                    out.data_ptr(), part.data_ptr(), arrivals.data_ptr(), B,
+                    out.data_ptr(), None, part.data_ptr(),
+                    arrivals.data_ptr(), B,
                     S, H, Hkv, Dh, 0, L, n_split,
                     runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(dev))
                 if err:
@@ -5445,6 +5471,404 @@ def train_phase(torch):
     return dict(checks=checks, row=row, smoke=smoke, run=run)
 
 
+# ------------------------------------------------------- distribution ---
+DIST_ATTN = dict(B=8, H=40, Hkv=8, Dh=128, S=4096)  # Qwen3-14B decode rows
+DIST_POS = {       # (positions, ring): rows of one shard and rows across
+    "ctx 2048": ([2047] * 8, False),
+    "mixed": ([0, 100, 511, 512, 1500, 2047, 3000, 4095], False),
+    "ring": ([5000, 100, 4096, 8191, 0, 4095, 9000, 2047], True),
+}
+DIST_SHARDS = (2, 4, 8)
+DIST_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+            "bfloat16": TOL["bfloat16"]}
+LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5),
+           "bfloat16": TOL["bfloat16"]}
+DIST_PROMPTS = [256, 2048, 512, 1024, 100, 1800, 700, 1300]
+DIST_STEPS = 8
+DIST_SMOKE_EPS = 1e-3      # AdamW eps of the smoke EP step (train_smoke)
+
+
+def lse_kernel_case(torch, q, kv, pos, ring, label, int8):
+    """One contiguous decode kernel with ``lse_out`` against its plain
+    version (output and log-sum-exp), its output bit for bit against the
+    call without ``lse_out``, and the cache cut into m slot ranges, each
+    through the kernel at its local positions, combined over the shard
+    axis (``attention.combine_decode_partials``) against the unsharded
+    kernel and the plain version.  Returns the largest errors."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    dt = str(q.dtype).split(".")[-1]
+    fn = ops.flash_decode_int8 if int8 else ops.flash_decode
+    plain = ref.flash_decode_int8_ref if int8 else ref.flash_decode_ref
+    B, H, _ = q.shape
+    S = kv[0].shape[1]
+    lse = torch.empty((B, H), device=q.device)
+    out = fn(q, *kv, pos, ring=ring, lse_out=lse)
+    if not torch.equal(out, fn(q, *kv, pos, ring=ring)):
+        raise AssertionError(f"{label}: output bits differ with lse_out")
+    want_lse = torch.empty_like(lse)
+    want = plain(q, *kv, pos, ring=ring, lse_out=want_lse)
+    err = assert_close(torch, f"{label} out", out, want, DIST_TOL[dt])
+    lse_err = assert_close(torch, f"{label} lse", lse, want_lse,
+                           LSE_TOL[dt])
+    comb_err = 0.0
+    for m in DIST_SHARDS:
+        Sl = S // m
+        outs, lses = [], []
+        for r in range(m):
+            part = tuple(t[:, r * Sl:(r + 1) * Sl].contiguous() for t in kv)
+            lr = torch.empty((B, H), device=q.device)
+            outs.append(fn(q, *part, attention.seq_local_pos(
+                pos, r * Sl, S, ring), ring=ring, lse_out=lr))
+            lses.append(lr)
+        comb = attention.combine_decode_partials(
+            torch.stack(outs), torch.stack(lses), lambda t: t.amax(0),
+            lambda t: t.sum(0)).to(q.dtype)
+        comb_err = max(comb_err, assert_close(
+            torch, f"{label} {m} shards vs kernel", comb, out, DIST_TOL[dt]),
+            assert_close(torch, f"{label} {m} shards vs plain", comb, want,
+                         DIST_TOL[dt]))
+    return err, lse_err, comb_err
+
+
+def lse_library(torch, q, kv, pos, want):
+    """The library's attention that returns a log-sum-exp and reads each
+    K/V slot once (GQA without copying the cache to every query head),
+    timed on the kernel's inputs: the flash-attention forward over the
+    cache as B sequences of S slots, each row's live length in
+    ``seqused_k``.  Its output is held against the kernel's first;
+    returns (ms or None, note)."""
+    B, H, Dh = q.shape
+    S, Hkv = kv[0].shape[1], kv[0].shape[2]
+    n = torch.clamp(pos.long() + 1, max=S).to(torch.int32)   # no ring
+    cu_q = torch.arange(B + 1, dtype=torch.int32, device=q.device)
+    kf, vf = (t.reshape(B * S, Hkv, Dh) for t in kv)
+    label = "flash-attention forward, varlen, seqused_k, softmax_lse"
+
+    def call():
+        return torch.ops.aten._flash_attention_forward(
+            q, kf, vf, cu_q, cu_q * S, 1, S, 0.0, False, False,
+            seqused_k=n)[0]
+    try:
+        err = float((call().float() - want).abs().max())
+    except (RuntimeError, TypeError) as e:   # no such kernel here
+        return None, f" ({label} refused: {str(e)[:120]})"
+    if err > 2e-2:
+        return None, f" ({label} disagrees with the kernel by {err:.3g})"
+    return time_ms(torch, call, 50), f" ({label})"
+
+
+def lse_timing(torch, q, kv, pos, int8):
+    """The kernel at the main shape timed without and with ``lse_out``
+    (in turns: without, with, with, without), its plain version with the
+    log-sum-exp, the bound of the work (K/V or codes and scales of the
+    live context read once, q read, the output and the log-sum-exp
+    written) and the library's attention with its log-sum-exp on the
+    same cache (``lse_library``)."""
+    from repro_torch.kernels import ops, ref
+    fn = ops.flash_decode_int8 if int8 else ops.flash_decode
+    plain = ref.flash_decode_int8_ref if int8 else ref.flash_decode_ref
+    B, H, Dh = q.shape
+    Hkv = kv[0].shape[2]
+    lse = torch.empty((B, H), device=q.device)
+    times = {"without": [], "with": []}
+    for mode in ("without", "with", "with", "without"):
+        extra = dict(lse_out=lse) if mode == "with" else {}
+        times[mode].append(time_ms(torch, lambda: fn(q, *kv, pos,
+                                                     **extra), 50))
+    ctx = int(pos.max()) + 1
+    kv_bytes = (2 * B * ctx * Hkv * (Dh + 4) if int8
+                else q.element_size() * 2 * B * ctx * Hkv * Dh)
+    nbytes = kv_bytes + 2 * q.element_size() * B * H * Dh + 4 * B + \
+        4 * B * H
+    b_ms, b_by = bound_ms(nbytes, 4.0 * B * H * ctx * Dh,
+                          str(q.dtype).split(".")[-1])
+    plain_ms = time_ms(torch, lambda: plain(q, *kv, pos, lse_out=lse), 10)
+    library_ms, why = None, ""
+    if not int8:
+        library_ms, why = lse_library(torch, q, kv, pos,
+                                      fn(q, *kv, pos).float())
+    return dict(ms=min(times["with"]), ms_without=min(times["without"]),
+                times=times, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, library_note=why, bytes=nbytes)
+
+
+def dist_kernels(torch):
+    """``lse_out`` of both contiguous decode kernels at Qwen3-14B's decode
+    shape (B = 8 over 4096 slots, H 40, Hkv 8, Dh 128) in bf16 and f32,
+    float and int8 caches, at context 2048, at rows of every length
+    (three of them inside the first 512-slot shard) and on wrapped rings;
+    the m-shard combine for m in 2, 4, 8; then the bf16 kernels timed
+    without and with it."""
+    from repro_torch.kernels import runtime
+    dev = torch.device("cuda")
+    B, H, Hkv, Dh, S = (DIST_ATTN[k] for k in ("B", "H", "Hkv", "Dh", "S"))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn((B, S, Hkv, Dh), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        codes = [torch.randint(-127, 128, (B, S, Hkv, Dh), generator=gen,
+                               device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand((B, S, Hkv), generator=gen, device=dev) * 0.05
+                  + 1e-3 for _ in range(2)]
+        caches = {"flash_decode": (kc, vc),
+                  "flash_decode_int8": (codes[0], codes[1], scales[0],
+                                        scales[1])}
+        for name, kv in caches.items():
+            errs = [0.0, 0.0, 0.0]
+            for case, (plist, ring) in DIST_POS.items():
+                pos = torch.tensor(plist, dtype=torch.int32, device=dev)
+                got = lse_kernel_case(torch, q, kv, pos, ring,
+                                      f"{name} {dt} {case}",
+                                      name.endswith("int8"))
+                errs = [max(a, b) for a, b in zip(errs, got)]
+            row = dict(max_abs_err=errs[0], lse_err=errs[1],
+                       combine_err=errs[2])
+            if dtype == torch.bfloat16:
+                pos = torch.tensor(DIST_POS["ctx 2048"][0], dtype=torch.int32,
+                                   device=dev)
+                row.update(lse_timing(torch, q, kv, pos,
+                                      name.endswith("int8")),
+                           plan=runtime.decode_plans[name])
+                log("dist", f"{name} bf16 B=8 ctx=2048 over {S} slots: "
+                    f"{row['ms_without']:.4f} ms without lse_out, "
+                    f"{row['ms']:.4f} ms with it (turns "
+                    f"{row['times']}), bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}), plain {row['plain_ms']:.4f} "
+                    f"ms, library {row['library_ms']}{row['library_note']}")
+            rows[f"{name} {dt}"] = row
+            log("dist", f"{name} {dt} lse_out over {list(DIST_POS)}: out "
+                f"max abs err {errs[0]:.3g} (bits equal without lse_out), "
+                f"lse {errs[1]:.3g}, {DIST_SHARDS}-shard combine "
+                f"{errs[2]:.3g} against the unsharded kernel and the plain "
+                f"version")
+        del q, kc, vc, codes, scales, caches
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_ep_full(torch, mesh):
+    """One qwen3-moe-235b-a22b layer at full width (bf16, 128 experts,
+    top-8) through ``moe_ep`` over the one-rank NCCL group (its experts
+    cut as ``shard_model`` cuts them: over ``data``, d_ff over ``model``,
+    so the all-to-all and the f32 all-reduce run) against ``moe_local``
+    at 8 and 512 tokens, both timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = moe.Moe(cfg, torch.bfloat16, dev)
+    with torch.no_grad():
+        p.init_(gen)
+    for name in ("w_gate", "w_up", "w_down", "router"):
+        leaf = f"groups/0/0/moe/{name}"
+        p[name].spec = partition.port_spec(leaf, partition.param_rule(
+            name, (1,) + tuple(p[name].shape), mesh))
+    res = {}
+    for label, (B, T) in MOE_FFN_SHAPES.items():
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        got = moe.moe_ep(cfg, p, x, mesh)
+        err = assert_close(torch, f"moe_ep {label}", got,
+                           moe.moe_local(cfg, p, x), TOL["bfloat16"])
+        ep_ms = time_ms(torch, lambda: moe.moe_ep(cfg, p, x, mesh), 10)
+        local_ms = time_ms(torch, lambda: moe.moe_local(cfg, p, x), 10)
+        res[label] = dict(ep_ms=ep_ms, local_ms=local_ms, max_abs_err=err)
+        log("dist", f"{MOE_ARCH} layer {label}: moe_ep over the one-rank "
+            f"NCCL group (all-to-all, f32 all-reduce) {ep_ms:.4f} ms, "
+            f"moe_local {local_ms:.4f} ms; against moe_local max abs err "
+            f"{err:.3g}")
+    del p
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_smoke(torch, mesh):
+    """Smoke f32 through the one-rank group on the card against the CPU
+    without a mesh: yi-6b's forward; qwen3-moe's forward and one train
+    step, EP on the card (capacity 4: nothing dropped) against the local
+    path on the CPU (loss, grad norm, every parameter; AdamW eps 1e-3 as
+    in ``train_smoke``)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer, train_loop
+    cfg = get_smoke_config("yi-6b")
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    gpu = partition.shard_model(cfg, copy.deepcopy(cpu).to("cuda"), mesh)
+    tok = torch.randint(0, cfg.vocab_size, (4, 48),
+                        generator=torch.Generator().manual_seed(5))
+    fwd_err = assert_close(torch, "yi-6b smoke forward under the mesh",
+                           tfm.forward(cfg, gpu, tok.cuda(),
+                                       mesh=mesh).cpu(),
+                           tfm.forward(cfg, cpu, tok), SMOKE_LOGIT_TOL)
+    cfg = get_smoke_config(MOE_ARCH, capacity_factor=4.0)
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, eps=DIST_SMOKE_EPS,
+                                    warmup_steps=1, total_steps=10)
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    gpu = partition.shard_model(cfg, copy.deepcopy(cpu).to("cuda"), mesh)
+    moe_err = assert_close(torch, "qwen3-moe smoke EP forward under the "
+                           "mesh", tfm.forward(cfg, gpu, tok.cuda(),
+                                               moe_impl="ep",
+                                               mesh=mesh).cpu(),
+                           tfm.forward(cfg, cpu, tok), SMOKE_LOGIT_TOL)
+    batch = next(data_tokens.batches(cfg, 2, 33, seed=3, device="cpu"))
+    _, _, mc = train_loop.make_train_step(cfg, opt_cfg)(
+        cpu, optimizer.init(bridge.leaves(cpu)), batch)
+    _, _, mg = train_loop.make_train_step(cfg, opt_cfg, moe_impl="ep",
+                                          mesh=mesh)(
+        gpu, optimizer.init(bridge.leaves(gpu)),
+        {k: t.cuda() for k, t in batch.items()})
+    mc = {k: float(v) for k, v in mc.items()}
+    mg = {k: float(v) for k, v in mg.items()}
+    if not math.isclose(mg["loss"], mc["loss"], rel_tol=1e-5) or \
+            not math.isclose(mg["grad_norm"], mc["grad_norm"], rel_tol=1e-4):
+        raise AssertionError(f"EP smoke train step: card {mg}, CPU {mc}")
+    worst = 0.0
+    for (name, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+        worst = max(worst, assert_close(
+            torch, f"EP step updated {name}", b.detach().cpu(), a.detach(),
+            dict(atol=1e-5, rtol=0)))
+    log("dist", f"smoke f32 under the one-rank mesh: yi-6b forward, card "
+        f"against CPU max abs err {fwd_err:.3g}; qwen3-moe EP forward "
+        f"against the CPU's local {moe_err:.3g}; qwen3-moe EP train step "
+        f"loss {mg['loss']:.6f} (CPU local {mc['loss']:.6f}), grad_norm "
+        f"{mg['grad_norm']:.6f} ({mc['grad_norm']:.6f}), params max abs "
+        f"{worst:.3g}")
+    return dict(forward_err=fwd_err, moe_forward_err=moe_err,
+                loss=mg["loss"], cpu_loss=mc["loss"], params_err=worst)
+
+
+def dist_generate(torch, cfg, model, toks, lens, mesh=None, seq=False,
+                  label=""):
+    """Prefill and ``DIST_STEPS`` greedy steps; the ids (B, 1 + steps),
+    the launches of the run and the mean eager step wall; with a
+    ``label``, then four more steps profiled (``profile_steps``, the
+    NCCL kernels reported on their own)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tfm
+    runtime.reset_launch_counts()
+    cache = None
+    if mesh is not None:
+        cache = tfm.init_cache(cfg, toks.shape[0], cfg.max_seq_len,
+                               model.dtype, "cuda", mesh)
+        cache["seq_sharded"] = seq     # one shard: every slot on this rank
+    logits, cache = tfm.prefill(cfg, model, toks, lens, cfg.max_seq_len,
+                                cache=cache, mesh=mesh)
+    ids = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        logits, cache = tfm.decode_step(cfg, model, ids[-1].to(torch.int32),
+                                        cache, mesh=mesh)
+        ids.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    counts = dict(runtime.launch_counts, **{
+        f"{k} (lse_out)": v for k, v in runtime.lse_counts.items()})
+    prof = None
+    if label:
+        tok = ids[-1].to(torch.int32)
+        prof = profile_steps(torch, f"Qwen3-14B {label} decode step",
+                             lambda: tfm.decode_step(cfg, model, tok, cache,
+                                                     mesh=mesh),
+                             "NCCL kernels", "nccl")
+    del cache
+    torch.cuda.empty_cache()
+    return torch.stack(ids, 1).cpu(), counts, step_ms, prof
+
+
+def dist_mesh_path(torch, cfg, model, mesh):
+    """Qwen3-14B at full width (the serve phases' model) through the mesh
+    (1, 1) code path: 8 prompts of 100-2048 tokens, prefill and 8 greedy
+    steps with no mesh, then under the mesh (the vocab-sharded embedding
+    and head, the column / row-parallel projections, every all-reduce and
+    all-gather over the one-rank NCCL groups), then under the mesh with
+    the cache marked cut along the sequence into one shard (each decode
+    through ``distributed_decode_attention``: the kernel with
+    ``lse_out`` and the NCCL max and sum combine); the same with an int8
+    cache.  The ids of each run equal the no-mesh run's; each run
+    launches one ``flash_prefill`` a layer and one decode kernel a layer
+    a step, the sequence-cut runs each with its ``lse_out``."""
+    import dataclasses
+    from repro_torch.sharding import partition
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, T = len(DIST_PROMPTS), max(DIST_PROMPTS)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lens = torch.tensor(DIST_PROMPTS, dtype=torch.int32, device=dev)
+    L = cfg.n_layers
+    res, launches = {}, {}
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    want = {"bf16": dist_generate(torch, cfg, model, toks, lens,
+                                  label="bf16 no mesh"),
+            "int8": dist_generate(torch, cfg8, model, toks, lens)}
+    partition.shard_model(cfg, model, mesh)
+    runs = (("bf16 mesh", cfg, False), ("bf16 mesh, sequence-cut", cfg, True),
+            ("int8 mesh, sequence-cut", cfg8, True))
+    for label, c, seq in runs:
+        ids, counts, step_ms, prof = dist_generate(torch, c, model, toks,
+                                                   lens, mesh, seq, label)
+        kind = label.split()[0]
+        kernel = "flash_decode_int8" if kind == "int8" else "flash_decode"
+        if not torch.equal(ids, want[kind][0]):
+            raise AssertionError(f"Qwen3-14B {label}: ids {ids.tolist()} "
+                                 f"!= no mesh {want[kind][0].tolist()}")
+        lse = counts[f"{kernel} (lse_out)"]
+        if counts["flash_prefill"] != L or \
+                counts[kernel] != L * DIST_STEPS or \
+                lse != (L * DIST_STEPS if seq else 0):
+            raise AssertionError(f"Qwen3-14B {label}: launches {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        res[label] = dict(step_ms=step_ms, no_mesh_step_ms=want[kind][2],
+                          launches=counts, profile=prof)
+        log("dist", f"Qwen3-14B full width {label}: ids of 8 prompts x "
+            f"(prefill + {DIST_STEPS} steps) equal the no-mesh run's; "
+            f"eager step {step_ms:.1f} ms (no mesh {want[kind][2]:.1f} ms); "
+            f"launches flash_prefill {counts['flash_prefill']}, {kernel} "
+            f"{counts[kernel]}, with lse_out {lse}")
+    res["bf16 no mesh"] = dict(step_ms=want["bf16"][2],
+                               profile=want["bf16"][3])
+    return res, launches
+
+
+def dist_phase(torch, cfg, model):
+    """The distribution phase: a one-rank NCCL process group and the
+    (1, 1) host mesh over it; the decode kernels' ``lse_out`` and the
+    m-shard combine; ``moe_ep`` at full width; smoke f32 card against
+    CPU; then the main path, Qwen3-14B at full width through the mesh.
+    The process group is destroyed at the end."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    rows = dist_kernels(torch)
+    with tempfile.TemporaryDirectory() as d:
+        mesh_mod.init_distributed(1, 1, "cuda", rank=0, world_size=1,
+                                  init_method=f"file://{d}/store")
+        try:
+            mesh = mesh_mod.make_host_mesh(1, 1)
+            moe_res = moe_ep_full(torch, mesh)
+            gc.collect()
+            smoke = dist_smoke(torch, mesh)
+            path, launches = dist_mesh_path(torch, cfg, model, mesh)
+        finally:
+            dist.destroy_process_group()
+    log("dist", f"phase took {time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, moe_ep=moe_res, smoke=smoke, path=path,
+                launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5493,6 +5917,9 @@ def main() -> int:
     int8 = int8_phase(torch, cfg, model, wbytes, pool_tokens)
     launches.update(int8["serve"]["launches"])
     profile["qwen3-14b int8"] = int8["drift"].pop("profile")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = dist_phase(torch, cfg, model)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5668,6 +6095,30 @@ def main() -> int:
                      nemo["rows"]["flash_decode B=8 H=96 Hkv=8 Dh=192 "
                                   "ctx=2048"],
                      path=NEMOTRON_PATH, n=nemo["launches"]["flash_decode"]),
+        # the distribution slice: the contiguous decode kernels with
+        # their log-sum-exp output, the local body of the
+        # sequence-sharded decode (full-width Qwen3-14B through the
+        # mesh path, its cache marked cut into one shard)
+        dict(decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:67",
+                          dist["rows"]["flash_decode bfloat16"],
+                          path="qwen3-14b mesh (1, 1), sequence-cut cache",
+                          n=dist["launches"]["flash_decode (lse_out)"]),
+             role="lse_out (models/attention.py:"
+                  "distributed_decode_attention)",
+             ms_without_lse=dist["rows"]["flash_decode bfloat16"][
+                 "ms_without"]),
+        dict(decode_entry("flash_decode_int8",
+                          "src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/models/attention.py:597",
+                          dist["rows"]["flash_decode_int8 bfloat16"],
+                          path="qwen3-14b mesh (1, 1), sequence-cut int8 "
+                               "cache",
+                          n=dist["launches"]["flash_decode_int8 (lse_out)"]),
+             role="lse_out (models/attention.py:"
+                  "distributed_decode_attention)",
+             ms_without_lse=dist["rows"]["flash_decode_int8 bfloat16"][
+                 "ms_without"]),
         # the training step: the forward kernel under autograd (its
         # backward is the plain version's), launches over the 10 steps
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
@@ -5692,6 +6143,7 @@ def main() -> int:
     log("vlm", json.dumps(vision, default=str))
     log("nemotron", json.dumps(nemo, default=str))
     log("train", json.dumps(train, default=str))
+    log("dist", json.dumps(dist, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

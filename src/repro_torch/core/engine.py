@@ -604,6 +604,11 @@ class TorchEngineBackend:
                  prefill_rows: Optional[int] = None,
                  moe_impl: str = "local"):
         check_servable(cfg)
+        if moe_impl == "ep":
+            raise NotImplementedError(
+                "moe_impl='ep' runs under a mesh; the engine under a mesh "
+                "(a driver rank broadcasting each model call) is a later "
+                "slice of the port")
         moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "

@@ -33,57 +33,60 @@ struct Kernels {
 
 template <typename T, typename KV>
 int launch(const void* q, const void* kc, const void* vc, const void* ks,
-           const void* vs, const void* pos, void* out, void* part,
+           const void* vs, const void* pos, void* out, void* lse, void* part,
            void* arrivals, int B, int S, int H, int Hkv, int Dh, int ring,
            int L, int n_split, cudaStream_t stream) {
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
   const auto a = rt::decode_args<T, KV>(q, kc, vc, ks, vs, pos, out, part,
                                         arrivals, H, Hkv, Dh, S, ring, L,
-                                        n_split);
+                                        n_split, lse);
   return rt::launch_decode<T, KV, Kernels>(a, rt::ContiguousSlots{S}, B, Dh,
                                            stream);
 }
 
 }  // namespace
 
-// q: (B,H,Dh); k, v: (B,S,Hkv,Dh); pos: (B,) int32; out: (B,H,Dh); part:
-// (B,H,n_split,Dh+2) f32 scratch (may be null when n_split == 1);
-// arrivals: >= B*Hkv int32, zero.  All contiguous, one dtype; L and
-// n_split from kernels/decode_attn.py:plan.  Returns a cudaError_t.
+// q: (B,H,Dh); k, v: (B,S,Hkv,Dh); pos: (B,) int32; out: (B,H,Dh); lse:
+// (B,H) f32, each (row, head)'s log-sum-exp of its scaled scores (null:
+// not written); part: (B,H,n_split,Dh+2) f32 scratch (may be null when
+// n_split == 1); arrivals: >= B*Hkv int32, zero.  All contiguous, one
+// dtype; L and n_split from kernels/decode_attn.py:plan.  Returns a
+// cudaError_t.
 extern "C" int rt_flash_decode(const void* q, const void* kc, const void* vc,
-                               const void* pos, void* out, void* part,
-                               void* arrivals, int B, int S, int H, int Hkv,
-                               int Dh, int ring, int L, int n_split,
-                               int dtype, void* stream) {
+                               const void* pos, void* out, void* lse,
+                               void* part, void* arrivals, int B, int S,
+                               int H, int Hkv, int Dh, int ring, int L,
+                               int n_split, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return launch<float, float>(q, kc, vc, nullptr, nullptr, pos, out, part,
-                                arrivals, B, S, H, Hkv, Dh, ring, L, n_split,
-                                s);
+    return launch<float, float>(q, kc, vc, nullptr, nullptr, pos, out, lse,
+                                part, arrivals, B, S, H, Hkv, Dh, ring, L,
+                                n_split, s);
   if (dtype == rt::kBFloat16)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, kc, vc, nullptr, nullptr, pos, out, part, arrivals, B, S, H, Hkv,
-        Dh, ring, L, n_split, s);
+        q, kc, vc, nullptr, nullptr, pos, out, lse, part, arrivals, B, S, H,
+        Hkv, Dh, ring, L, n_split, s);
   return cudaErrorInvalidValue;
 }
 
 // The same over an int8 cache: kc, vc (B,S,Hkv,Dh) int8 codes; ks, vs
-// (B,S,Hkv) f32 scales; q and out in dtype (f32 or bf16).
+// (B,S,Hkv) f32 scales; q and out in dtype (f32 or bf16); lse as above.
 extern "C" int rt_flash_decode_int8(const void* q, const void* kc,
                                     const void* vc, const void* ks,
                                     const void* vs, const void* pos,
-                                    void* out, void* part, void* arrivals,
-                                    int B, int S, int H, int Hkv, int Dh,
-                                    int ring, int L, int n_split, int dtype,
-                                    void* stream) {
+                                    void* out, void* lse, void* part,
+                                    void* arrivals, int B, int S, int H,
+                                    int Hkv, int Dh, int ring, int L,
+                                    int n_split, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kFloat32)
-    return launch<float, int8_t>(q, kc, vc, ks, vs, pos, out, part, arrivals,
-                                 B, S, H, Hkv, Dh, ring, L, n_split, s);
+    return launch<float, int8_t>(q, kc, vc, ks, vs, pos, out, lse, part,
+                                 arrivals, B, S, H, Hkv, Dh, ring, L, n_split,
+                                 s);
   if (dtype == rt::kBFloat16)
-    return launch<__nv_bfloat16, int8_t>(q, kc, vc, ks, vs, pos, out, part,
-                                         arrivals, B, S, H, Hkv, Dh, ring, L,
-                                         n_split, s);
+    return launch<__nv_bfloat16, int8_t>(q, kc, vc, ks, vs, pos, out, lse,
+                                         part, arrivals, B, S, H, Hkv, Dh,
+                                         ring, L, n_split, s);
   return cudaErrorInvalidValue;
 }
 

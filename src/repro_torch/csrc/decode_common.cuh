@@ -33,6 +33,12 @@
 // sums in the same order whichever block comes last, so two calls give
 // the same bits.  out = sum_i 2^(m_i - M) acc_i / max(sum_i 2^(m_i - M)
 // l_i, 1e-30), M = max_i m_i; a row with no live slot (pos < 0) gets 0.
+// With a non-null lse (B, H) f32, the block that writes a (row, head)'s
+// output also writes ln 2 (M + log2 l), the natural-log log-sum-exp of its
+// scaled scores over the live slots (-inf for a row with none): what a
+// caller holding the cache cut along the sequence needs to combine the
+// shards' outputs (models/attention.py:distributed_decode_attention).
+// The output's arithmetic is the same with or without it.
 //
 // Bodies (rt_decode_body, kernels/decode_attn.py:body).  bf16, every Dh
 // the kernels take (64, 80, 128, 192, 256, all multiples of 16), runs on
@@ -147,6 +153,7 @@ struct DecodeArgs {
   const float* v_scale;
   const int* pos;
   T* out;
+  float* lse;  // (B, H) f32, natural log; null: not written
   float* part;
   int* arrivals;
   int H, Hkv, G, s_len, ring, L, n_split;
@@ -184,11 +191,22 @@ __device__ __forceinline__ bool block_is_empty(const DecodeArgs<T, KV>& a,
                                                const BlockRange& r, int DH) {
   if (r.split < r.n_live) return false;
   if (r.n_live == 0 && r.split == 0) {
-    T* ob = a.out + ((size_t)r.b * a.H + (size_t)r.kvh * a.G) * DH;
+    const size_t head0 = (size_t)r.b * a.H + (size_t)r.kvh * a.G;
+    T* ob = a.out + head0 * DH;
     for (int idx = threadIdx.x; idx < a.G * DH; idx += kDecThreads)
       ob[idx] = from_f<T>(0.f);
+    if (a.lse != nullptr)
+      for (int g = threadIdx.x; g < a.G; g += kDecThreads)
+        a.lse[head0 + g] = -INFINITY;
   }
   return true;
+}
+
+// The log-sum-exp of a (row, head)'s scaled scores in natural-log units,
+// from the merged max M (log2 units, the scores times log2(e) / sqrt(Dh))
+// and the sum l of 2^(s - M) over the live slots: ln 2 (M + log2 l).
+__device__ __forceinline__ float lse_of(float M, float l) {
+  return 0.6931471805599453f * (M + log2f(l));
 }
 
 // floats of the merge area: the warps' acc, m and l, and the cross-split
@@ -227,6 +245,7 @@ __device__ void finish_block(float* ws, const DecodeArgs<T, KV>& a,
     }
     if (r.n_live == 1) {
       ob[idx] = from_f<T>(acc / fmaxf(l, 1e-30f));
+      if (a.lse != nullptr && d == 0) a.lse[head0 + g] = lse_of(M, l);
     } else {
       float* pp = a.part + ((head0 + g) * a.n_split + r.split) * DP;
       pp[d] = acc;
@@ -257,6 +276,7 @@ __device__ void finish_block(float* ws, const DecodeArgs<T, KV>& a,
     for (int i = 0; i < r.n_live; ++i)
       l += exp2f(__ldcg(pg + i * DP + DH) - M) * __ldcg(pg + i * DP + DH + 1);
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    if (a.lse != nullptr) a.lse[head0 + g] = lse_of(M, l);
     for (int i = 0; i < r.n_live; ++i)
       Wt[i * G + g] = exp2f(__ldcg(pg + i * DP + DH) - M) * inv;
   }
@@ -824,7 +844,8 @@ inline DecodeArgs<T, KV> decode_args(const void* q, const void* k,
                                      const void* v_scale, const void* pos,
                                      void* out, void* part, void* arrivals,
                                      int H, int Hkv, int Dh, int s_len,
-                                     int ring, int L, int n_split) {
+                                     int ring, int L, int n_split,
+                                     void* lse = nullptr) {
   DecodeArgs<T, KV> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const KV*>(k);
@@ -833,6 +854,7 @@ inline DecodeArgs<T, KV> decode_args(const void* q, const void* k,
   a.v_scale = static_cast<const float*>(v_scale);
   a.pos = static_cast<const int*>(pos);
   a.out = static_cast<T*>(out);
+  a.lse = static_cast<float*>(lse);
   a.part = static_cast<float*>(part);
   a.arrivals = static_cast<int*>(arrivals);
   a.H = H;

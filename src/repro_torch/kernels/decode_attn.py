@@ -16,6 +16,12 @@ the scope ``vmem_fused:flash_decode_int8`` (``repro/models/
 attention.py:self_attn_decode``); its plain version is
 ``ref.flash_decode_int8_ref``.
 
+Both take an optional ``lse_out`` (B, H) f32: the natural-log
+log-sum-exp of each (row, head)'s scaled scores, which the kernel holds
+anyway (in log2 units) when it writes the output.  The sequence-sharded
+decode combines its shards' outputs with it
+(``models/attention.py:distributed_decode_attention``).
+
 The kernel is split-KV: block (i, kvh, b) streams slots ``[i L, (i+1)
 L)`` of row b and the last live block of each (b, kvh) merges the
 partials in split order, in the same launch.  ``plan`` picks ``L`` and
@@ -103,9 +109,31 @@ def check_int8_kv(kernel: str, q, k_codes, v_codes, k_scale, v_scale,
                              f"{tuple(shape[:-1])} on {q.device}")
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
+def check_lse_out(kernel: str, lse_out, q) -> None:
+    """``lse_out``: a contiguous (B, H) float32 tensor on q's card."""
+    B, H = q.shape[:2]
+    if (tuple(lse_out.shape) != (B, H) or lse_out.dtype != torch.float32
+            or lse_out.device != q.device or not lse_out.is_contiguous()):
+        raise ValueError(f"{kernel}: lse_out {tuple(lse_out.shape)} "
+                         f"{lse_out.dtype} on {lse_out.device}, want "
+                         f"contiguous float32 {(B, H)} on {q.device}")
+
+
+def _lse(kernel: str, lse_out, q):
+    """The lse pointer of a launch (None: not written)."""
+    if lse_out is None:
+        return None
+    check_lse_out(kernel, lse_out, q)
+    return lse_out.data_ptr()
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
+                 lse_out=None):
     """q: (B,H,Dh) or (B,1,H,Dh); caches: (B,S,Hkv,Dh) on the card;
-    pos: (B,).  Returns q's shape."""
+    pos: (B,).  Returns q's shape.  ``lse_out`` (B, H) f32, when given,
+    takes each (row, head)'s natural-log log-sum-exp of its scaled scores
+    over the live slots (-inf for a row with none); the output is the
+    same bits with or without it."""
     squeeze = q.ndim == 4
     if squeeze:
         q = q[:, 0]
@@ -119,23 +147,25 @@ def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
         raise ValueError("flash_decode: cache shapes/dtypes do not match q")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = _lse("flash_decode", lse_out, q)
     p, part, arrivals = scratch(q, Hkv, S)
     err = runtime.library().rt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
+        out.data_ptr(), lse, None if part is None else part.data_ptr(),
         arrivals.data_ptr(), B, S, H, Hkv, Dh, int(ring), p.L, p.n_split,
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
     runtime.check(err, "flash_decode", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_decode"] += 1
+    runtime.lse_counts["flash_decode"] += lse is not None
     runtime.decode_plans["flash_decode"] = p
     return out[:, None] if squeeze else out
 
 
 def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
-                      ring: bool = False):
+                      ring: bool = False, lse_out=None):
     """q: (B,H,Dh) or (B,1,H,Dh), f32 or bf16; codes: (B,S,Hkv,Dh) int8
     and scales (B,S,Hkv) f32 on the card; pos: (B,).  Returns q's
-    shape."""
+    shape; ``lse_out`` as for ``flash_decode``."""
     squeeze = q.ndim == 4
     if squeeze:
         q = q[:, 0]
@@ -146,14 +176,16 @@ def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
                   v_scale, (B, S, Hkv, Dh))
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = _lse("flash_decode_int8", lse_out, q)
     p, part, arrivals = scratch(q, Hkv, S)
     err = runtime.library().rt_flash_decode_int8(
         q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
+        out.data_ptr(), lse, None if part is None else part.data_ptr(),
         arrivals.data_ptr(), B, S, H, Hkv, Dh, int(ring), p.L, p.n_split,
         runtime.DTYPE_CODES[q.dtype], runtime.stream_ptr(q.device))
     runtime.check(err, "flash_decode_int8", f"Dh={Dh}, H={H}, Hkv={Hkv}")
     runtime.launch_counts["flash_decode_int8"] += 1
+    runtime.lse_counts["flash_decode_int8"] += lse is not None
     runtime.decode_plans["flash_decode_int8"] = p
     return out[:, None] if squeeze else out

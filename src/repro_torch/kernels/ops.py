@@ -36,11 +36,15 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
                                   window=window, q_offset=q_offset)
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False):
-    """One-token decode attention over a contiguous cache."""
+def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
+                 lse_out=None):
+    """One-token decode attention over a contiguous cache; ``lse_out``
+    (B, H) f32 takes each (row, head)'s log-sum-exp."""
     if q.device.type == "cpu":
-        return ref.flash_decode_ref(q, k_cache, v_cache, pos, ring=ring)
-    return decode_attn.flash_decode(q, k_cache, v_cache, pos, ring=ring)
+        return ref.flash_decode_ref(q, k_cache, v_cache, pos, ring=ring,
+                                    lse_out=lse_out)
+    return decode_attn.flash_decode(q, k_cache, v_cache, pos, ring=ring,
+                                    lse_out=lse_out)
 
 
 def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
@@ -54,14 +58,16 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
 
 
 def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
-                      ring: bool = False):
+                      ring: bool = False, lse_out=None):
     """One-token decode attention over a contiguous int8 cache (codes
     and per-(slot, kv head) f32 scales)."""
     if q.device.type == "cpu":
         return ref.flash_decode_int8_ref(q, k_codes, v_codes, k_scale,
-                                         v_scale, pos, ring=ring)
+                                         v_scale, pos, ring=ring,
+                                         lse_out=lse_out)
     return decode_attn.flash_decode_int8(q, k_codes, v_codes, k_scale,
-                                         v_scale, pos, ring=ring)
+                                         v_scale, pos, ring=ring,
+                                         lse_out=lse_out)
 
 
 def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,

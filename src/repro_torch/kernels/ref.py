@@ -78,19 +78,27 @@ def decode_valid(pos, S: int, ring: bool):
     return valid
 
 
-def flash_decode_ref(q, k_cache, v_cache, pos, *, ring: bool = False):
+def flash_decode_ref(q, k_cache, v_cache, pos, *, ring: bool = False,
+                     lse_out=None):
     """One query token per row over a contiguous cache.
 
     q: (B,H,Dh) or (B,1,H,Dh); caches: (B,S,Hkv,Dh); pos: (B,) index of
-    the newest token (already written).  Returns q's shape."""
+    the newest token (already written).  Returns q's shape.  ``lse_out``
+    (B, H) f32, when given, takes the natural-log log-sum-exp of each
+    (row, head)'s scaled scores over its live slots, -inf for a row with
+    none (the kernel's ``lse_out``)."""
     squeeze = q.ndim == 3
     if squeeze:
         q = q[:, None]
     S = k_cache.shape[1]
     s = _gqa_scores(q, k_cache)                         # (B,Hkv,G,1,S)
-    valid = decode_valid(pos.to(q.device), S, ring)
+    valid = decode_valid(pos.to(q.device), S, ring)[:, None, None, None, :]
+    if lse_out is not None:
+        B, Hkv, G = s.shape[:3]
+        lse = torch.logsumexp(s.masked_fill(~valid, float("-inf")), -1)
+        lse_out.copy_(lse.reshape(B, Hkv * G))
     zero = torch.zeros((), device=q.device)
-    s = s + torch.where(valid, zero, NEG_INF)[:, None, None, None, :]
+    s = s + torch.where(valid, zero, NEG_INF)
     out = _gqa_out(torch.softmax(s, dim=-1), v_cache).to(q.dtype)
     return out[:, 0] if squeeze else out
 
@@ -164,13 +172,13 @@ def dequantize_kv(codes, scale, dtype=torch.float32):
 
 
 def flash_decode_int8_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *,
-                          ring: bool = False):
+                          ring: bool = False, lse_out=None):
     """``flash_decode_ref`` over an int8 cache: codes (B,S,Hkv,Dh) and
     scales (B,S,Hkv) dequantized to q's dtype, then the plain decode (the
     reference's ``vmem_fused:flash_decode_int8`` scope)."""
     return flash_decode_ref(q, dequantize_kv(k_codes, k_scale, q.dtype),
                             dequantize_kv(v_codes, v_scale, q.dtype), pos,
-                            ring=ring)
+                            ring=ring, lse_out=lse_out)
 
 
 def paged_flash_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale,

@@ -24,7 +24,9 @@ so they stay out of ``launch_counts``.  ``autograd_counts`` counts the
 backward passes of calls made under autograd (``kernels/autograd.py``:
 the kernels' plain versions re-run; ``models/moe.py``: the bf16 grouped
 product's own backward); the forward launches count in ``launch_counts``
-as in serving.  ``reset_launch_counts`` zeroes all five.  ``decode_plans`` holds the grid and body of each decode
+as in serving.  ``lse_counts`` counts the contiguous decode launches that
+also wrote their log-sum-exp output (``lse_out``, the local body of the
+sequence-sharded decode).  ``reset_launch_counts`` zeroes all six.  ``decode_plans`` holds the grid and body of each decode
 kernel's last launch (``kernels/decode_attn.py:plan``); the reset
 clears it.  A replayed CUDA graph runs no wrapper:
 ``core/engine.py:DecodeGraph`` reads what its capture added to the
@@ -79,6 +81,11 @@ decode_plans = {name: None for name in DECODE_KERNELS}
 grouped_counts = {"grouped_mm": 0, "masked_loop": 0}
 
 
+# the contiguous decode kernels' launches that also wrote the
+# log-sum-exp output (lse_out; counted in launch_counts as well)
+lse_counts = {"flash_decode": 0, "flash_decode_int8": 0}
+
+
 # backward passes through the plain versions of the kernels launched
 # under autograd (kernels/autograd.py), and of the bf16 grouped product
 # (models/moe.py)
@@ -86,7 +93,7 @@ autograd_counts = {"flash_prefill": 0, "wkv6": 0, "grouped_mm": 0}
 
 
 COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts,
-            grouped_counts, autograd_counts)
+            grouped_counts, autograd_counts, lse_counts)
 
 
 def count_unaligned(q_offset: int, bodies) -> None:
@@ -194,15 +201,15 @@ _SIGNATURES = {
     "rt_flash_prefill": [_P] * 5 + [_I] * 8 + [_P, _I, _P],
     # dtype, Dh -> 1 for the tensor-core body, 0 for the CUDA-core body
     "rt_flash_prefill_body": [_I] * 2,
-    # q, k, v, pos, out, part, arrivals, B, S, H, Hkv, Dh, ring, L,
-    # n_split, dtype, stream
-    "rt_flash_decode": [_P] * 7 + [_I] * 9 + [_P],
+    # q, k, v, pos, out, lse (null: none), part, arrivals, B, S, H, Hkv,
+    # Dh, ring, L, n_split, dtype, stream
+    "rt_flash_decode": [_P] * 8 + [_I] * 9 + [_P],
     # q, kp, vp, block_tables, pos, out, part, arrivals, B, n_pages, page,
     # n_p, s_len, H, Hkv, Dh, ring, L, n_split, dtype, stream
     "rt_paged_flash_decode": [_P] * 8 + [_I] * 12 + [_P],
-    # q, k codes, v codes, k scales, v scales, pos, out, part, arrivals,
-    # then as rt_flash_decode
-    "rt_flash_decode_int8": [_P] * 9 + [_I] * 9 + [_P],
+    # q, k codes, v codes, k scales, v scales, pos, out, lse, part,
+    # arrivals, then as rt_flash_decode
+    "rt_flash_decode_int8": [_P] * 10 + [_I] * 9 + [_P],
     # q, kp, vp, k scales, v scales, block_tables, pos, out, part,
     # arrivals, then as rt_paged_flash_decode
     "rt_paged_flash_decode_int8": [_P] * 10 + [_I] * 12 + [_P],

@@ -11,7 +11,7 @@ backend or the analytic cost model.
         [--kv-spill --host-pool-tokens N --spill-dtype bf16|int8|int4] \\
         [--sched goodput --slice-tokens 16] [--fault-plan SPEC] \\
         [--trace-record PATH | --trace-replay PATH] [--trace-out PATH] \\
-        [--burst-factor F] [--drain-after T]
+        [--burst-factor F] [--drain-after T] [--data D --model M]
 
 ``--backend torch`` runs the real engine (``core/engine.py``): eager
 prefill and decode with slot-pool continuous batching, the attention
@@ -36,6 +36,11 @@ cannot serve ``--arch llama-3.2-vision-90b`` (its prefill takes token
 ids only, as the reference engine's, and a VLM needs its image), so
 ``--backend torch`` refuses it before building a model, while ``--backend
 sim`` runs it and ``nemotron-4-340b`` as the reference's does.
+
+``--data``/``--model`` are the reference launcher's mesh axes: the cost
+model never reads them (as in the reference), and ``--backend torch``
+refuses a product above 1 (exit 2): the engine under a mesh is a later
+slice of the port.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -173,6 +178,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rps", type=float, default=8.0,
                     help="mean arrival rate in requests per second")
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--data", type=int, default=1,
+                    help="mesh axes, as the reference launcher's: no "
+                         "effect on --backend sim; --backend torch serves "
+                         "on one device (the engine under a mesh is a "
+                         "later slice)")
+    ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--trigger", default="waste",
                     choices=["majority", "waste"],
                     help="bucket split rule: the paper's padding-waste "
@@ -618,6 +629,11 @@ def main(argv=None):
             check_servable(cfg)
         except ValueError as e:     # before a model is built for nothing
             raise SystemExit(str(e)) from None
+    if args.backend != "sim" and args.data * args.model > 1:
+        ap.error(f"--data {args.data} --model {args.model}: the engine "
+                 f"under a mesh (a driver rank broadcasting each model "
+                 f"call) is a later slice of the port; --backend torch "
+                 f"serves on one device")
     if args.paged and not tfm.supports_paged_decode(cfg):
         ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
                  f"serve it on the contiguous slot pool (without --paged)")

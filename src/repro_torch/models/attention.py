@@ -2,9 +2,8 @@
 decode over a contiguous or a paged KV cache, and the VLM's tanh-gated
 cross-attention over a request's vision K/V.
 
-PyTorch counterpart of ``repro/models/attention.py`` on one card (its
-sequence-sharded ``distributed_decode_attention`` waits for the
-distribution slice).  Every attention product goes through
+PyTorch counterpart of ``repro/models/attention.py``.  Every attention
+product goes through
 ``kernels/ops.py``: the plain PyTorch version for tensors on the CPU,
 the hand-written CUDA kernel for tensors on the card.  On the card the
 prefill kernel covers every T, so the reference's ``blocked_attention``
@@ -30,6 +29,19 @@ and decode through the int8 decode kernels, which dequantize in
 registers (the reference gathers and dequantizes the whole cache in jnp
 first).
 
+Under a mesh (``sharding/partition.py:shard_model``), the projections
+run tensor-parallel over ``model``.  ``wq/wk/wv`` are column-parallel:
+when H and Hkv both divide over ``model`` each rank attends over its own
+heads (its own GQA groups, its own kv heads of the cache); otherwise a
+cut projection's output is all-gathered before the reshape and qk-norm
+and every rank attends over all heads.  ``wo`` is row-parallel on this
+rank's heads (or its slice of the replicated output), followed by an
+all-reduce.  A decode cache cut along the sequence (Hkv does not divide,
+S >= 2048: ``partition.cache_rule``) holds slots [r S/m, (r+1) S/m) on
+model rank r; :func:`distributed_decode_attention` runs the decode kernel
+over them with its log-sum-exp output and combines the shards
+(:func:`combine_decode_partials`).
+
 The int4 codecs of the host spill tier (``pack_int4`` ...
 ``dequantize_kv_int4``) are numpy, as in the reference: they run on the
 host around the device-to-host copy of a spilled page.
@@ -41,6 +53,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import dequantize_kv
+from repro_torch.sharding import collectives
 
 from . import layers
 from .config import ModelConfig
@@ -81,29 +94,77 @@ def quantize_kv(x):
     return codes.to(torch.int8), scale
 
 
-def _project_q(cfg: ModelConfig, p, x):
+def local_heads(cfg: ModelConfig, mesh) -> bool:
+    """Whether each ``model`` rank attends over its own heads: H and Hkv
+    both divide over the axis (always true without a mesh)."""
+    m = mesh.size("model") if mesh is not None else 1
+    return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
+def _column(cfg: ModelConfig, x, w, mesh):
+    """``x @ w``; a column-parallel ``w`` gives this rank's columns, made
+    whole by an all-gather unless the heads are local."""
+    g = layers.model_group(mesh, w, -1)
+    if g is None:
+        return x @ w
+    y = collectives.copy_to(x, g) @ w
+    return y if local_heads(cfg, mesh) else collectives.gather_from(y, g, -1)
+
+
+def _head_norm(cfg: ModelConfig, x, w, proj, mesh):
+    """qk-norm; over this rank's heads, the replicated scale's gradient
+    is all-reduced over ``model`` (its heads are a part of the sum)."""
+    g = layers.model_group(mesh, proj, -1)
+    if g is not None and local_heads(cfg, mesh):
+        w = collectives.copy_to(w, g)
+    return layers.head_rms_norm(x, w, cfg.norm_eps)
+
+
+def _project_q(cfg: ModelConfig, p, x, mesh=None):
     B, T, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
+    q = _column(cfg, x, p["wq"], mesh).reshape(B, T, -1, cfg.d_head)
     if cfg.qk_norm:
-        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q = _head_norm(cfg, q, p["q_norm"], p["wq"], mesh)
     return q
 
 
-def _project_kv(cfg: ModelConfig, p, x):
+def _project_kv(cfg: ModelConfig, p, x, mesh=None):
     B, T, _ = x.shape
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    k = _column(cfg, x, p["wk"], mesh).reshape(B, T, -1, cfg.d_head)
+    v = _column(cfg, x, p["wv"], mesh).reshape(B, T, -1, cfg.d_head)
     if cfg.qk_norm:
-        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+        k = _head_norm(cfg, k, p["k_norm"], p["wk"], mesh)
     return k, v
 
 
-def _qkv_roped(cfg: ModelConfig, p, x, positions):
+def _project_out(cfg: ModelConfig, p, out, mesh=None):
+    """(B,T,heads,Dh) attention output through ``wo``: row-parallel on
+    this rank's heads (or its slice of all heads), then all-reduced."""
+    B, T = out.shape[:2]
+    o = out.reshape(B, T, -1)
+    g = layers.model_group(mesh, p["wo"], 0)
+    if g is None:
+        return o @ p["wo"]
+    if not local_heads(cfg, mesh):
+        o = collectives.scatter_to(o, g, -1)
+    return collectives.reduce_from(o @ p["wo"], g)
+
+
+def _qkv_roped(cfg: ModelConfig, p, x, positions, mesh=None):
     """Projected, qk-normed and RoPE'd q, k, v; positions: (B,T)."""
-    q = _project_q(cfg, p, x)
-    k, v = _project_kv(cfg, p, x)
+    q = _project_q(cfg, p, x, mesh)
+    k, v = _project_kv(cfg, p, x, mesh)
     cos, sin = layers.rope_angles(positions, cfg.d_head, cfg.rope_theta)
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
+
+
+def _seq_base(cache, mesh, seq_sharded: bool):
+    """(first global slot of this rank's cache, global slots): (0, S)
+    unless the cache is cut along the sequence over ``model``."""
+    S = cache[0].shape[1]
+    if not seq_sharded:
+        return 0, S
+    return mesh.coord("model") * S, S * mesh.size("model")
 
 
 def _quantized(cache) -> bool:
@@ -126,7 +187,8 @@ def _store(cache, index, k, v, where=None) -> None:
 
 
 def self_attn_forward(cfg: ModelConfig, p, x, positions, lengths=None, *,
-                      window: int = 0, cache=None, cache_len: int = 0):
+                      window: int = 0, cache=None, cache_len: int = 0,
+                      mesh=None, seq_sharded: bool = False):
     """Full-sequence self-attention (prefill).
 
     positions: (T,) or (B,T) absolute positions for RoPE.  With
@@ -138,22 +200,26 @@ def self_attn_forward(cfg: ModelConfig, p, x, positions, lengths=None, *,
     ``(k, v, k_s, v_s)`` stores codes and scales and is written whole:
     the reference quantizes the zero padding past T too, so those slots
     get scale 1e-8.  Attention runs over the unquantized K/V either way.
-    Returns the attention output (B,T,d)."""
+    A cache cut along the sequence (``seq_sharded``) takes its own slots
+    of that layout.  Returns the attention output (B,T,d)."""
     B, T, _ = x.shape
     if positions.ndim == 1:
         positions = positions[None].expand(B, T)
-    q, k, v = _qkv_roped(cfg, p, x, positions)
+    q, k, v = _qkv_roped(cfg, p, x, positions, mesh)
     out = full_attention(q, k, v, causal=cfg.causal, lengths=lengths,
                          window=window)
-    out = out.reshape(B, T, cfg.q_dim) @ p["wo"]
+    out = _project_out(cfg, p, out, mesh)
     if cache is not None:
         S = cache[0].shape[1]
+        base, S_all = _seq_base(cache, mesh, seq_sharded)
         if window and window < (cache_len or T):
-            _store(cache, slice(None), *_ring_from_prefill(k, v, lengths,
-                                                           window))
+            kr, vr = _ring_from_prefill(k, v, lengths, window)
+            _store(cache, slice(None), kr[:, base:base + S],
+                   vr[:, base:base + S])
         else:
-            n = min(T, S)
-            _store(cache, (slice(None), slice(0, n)), k[:, :n], v[:, :n])
+            n = max(0, min(T, S_all, base + S) - base)     # slots written
+            _store(cache, (slice(None), slice(0, n)), k[:, base:base + n],
+                   v[:, base:base + n])
             if _quantized(cache) and n < S:
                 for leaf in cache[2:]:
                     leaf[:, n:] = 1e-8          # quantize_kv of the zeros
@@ -179,7 +245,8 @@ def _ring_from_prefill(k, v, lengths, W: int):
     return torch.where(m, kr, 0), torch.where(m, vr, 0)
 
 
-def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None):
+def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None,
+                    mesh=None):
     """Chunked-prefill self-attention: Tc new tokens at absolute positions
     [start, start+Tc) attend causally over the cache prefix written by
     earlier chunks plus themselves.
@@ -203,7 +270,7 @@ def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None):
         raise ValueError(f"chunk [{start}, {start + Tc}) outside the "
                          f"cache of {S} slots")
     idx = start + torch.arange(Tc, device=x.device)
-    q, k, v = _qkv_roped(cfg, p, x, idx[None].expand(B, Tc))
+    q, k, v = _qkv_roped(cfg, p, x, idx[None].expand(B, Tc), mesh)
     _store(cache, (slice(None), idx), k, v,
            None if active is None else active[:, None, None, None])
     if _quantized(cache):
@@ -214,29 +281,98 @@ def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None):
     # every slot past start+Tc is causally hidden (the kernel stops at
     # the last live tile), so no validity bookkeeping is needed
     out = full_attention(q, kd, vd, causal=True, q_offset=start)
-    return out.reshape(B, Tc, cfg.q_dim) @ p["wo"]
+    return _project_out(cfg, p, out, mesh)
 
 
-def self_attn_decode(cfg: ModelConfig, p, x, pos, cache, *, window: int = 0):
+def self_attn_decode(cfg: ModelConfig, p, x, pos, cache, *, window: int = 0,
+                     mesh=None, seq_sharded: bool = False):
     """One-token decode over a contiguous cache. x: (B,1,d); pos: (B,)
     position of this token.  The new K/V are written in place; a slot
     past the cache (a dead row whose position ran on) is not written,
     as JAX drops that scatter.  An int8 cache ``(k, v, k_s, v_s)`` takes
     the token's codes and scales under the same mask, and the int8 decode
-    kernel reads it."""
+    kernel reads it.  A cache cut along the sequence (``seq_sharded``)
+    takes the token only on the rank whose slots hold it, and attends
+    through :func:`distributed_decode_attention`."""
     B = x.shape[0]
-    q, k, v = _qkv_roped(cfg, p, x, pos[:, None])
+    q, k, v = _qkv_roped(cfg, p, x, pos[:, None], mesh)
     S = cache[0].shape[1]
-    slot = torch.remainder(pos, S) if window else pos
-    live = (slot < S)[:, None, None]
-    slot_c = slot.clamp(max=S - 1).long()
+    if seq_sharded:
+        base, S_all = _seq_base(cache, mesh, seq_sharded)
+        slot = (torch.remainder(pos, S_all) if window else pos) - base
+        live = ((slot >= 0) & (slot < S))[:, None, None]
+    else:
+        slot = torch.remainder(pos, S) if window else pos
+        live = (slot < S)[:, None, None]
+    slot_c = slot.clamp(0, S - 1).long()
     bidx = torch.arange(B, device=x.device)
     _store(cache, (bidx, slot_c), k[:, 0], v[:, 0], live)
-    if _quantized(cache):
+    if seq_sharded:
+        out = distributed_decode_attention(
+            q, cache[0], cache[1], pos, mesh, window=window,
+            scales=cache[2:] if _quantized(cache) else None)
+    elif _quantized(cache):
         out = ops.flash_decode_int8(q, *cache, pos, ring=bool(window))
     else:
         out = decode_attention(q, *cache, pos, window=window)
-    return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+    return _project_out(cfg, p, out, mesh)
+
+
+def combine_decode_partials(out, lse, reduce_max, reduce_sum):
+    """The attention output over every shard of the keys from each
+    shard's normalized output ``out`` (..., H, Dh) and log-sum-exp
+    ``lse`` (..., H) f32 (-inf: no live key): with ``M = max lse`` and
+    ``w = exp(lse - M)`` (0 where lse is -inf), ``sum(w out) /
+    max(sum w, 1e-30)`` in f32 — the reference's pmax and two psums
+    (``repro/models/attention.py:distributed_decode_attention``) in
+    normalized form.  ``reduce_max`` / ``reduce_sum`` reduce over the
+    shards: all-reduces over the ``model`` group, or over a leading shard
+    axis of partials held in one process."""
+    M = reduce_max(lse)
+    w = torch.where(lse == float("-inf"), 0.0, torch.exp(lse - M))
+    num = reduce_sum(w[..., None] * out.float())
+    return num / reduce_sum(w).clamp_min(1e-30)[..., None]
+
+
+def seq_local_pos(pos, base: int, S_all: int, ring: bool):
+    """The position a shard holding global slots [base, base + S/m) gives
+    the decode kernel, so that its own validity rule (``slot <= pos``, or
+    every slot once a ring has wrapped) marks the shard's live slots:
+    ``pos - base``, or ``pos`` for a wrapped ring (``pos >= S``)."""
+    local = pos - base
+    return torch.where(pos >= S_all, pos, local) if ring else local
+
+
+def distributed_decode_attention(q, k_cache, v_cache, pos, mesh, *,
+                                 window: int = 0, scales=None):
+    """Flash-decode over a SEQUENCE-sharded KV cache (the reference's
+    distributed segmented softmax).  Each ``model`` rank holds slots
+    [r S/m, (r+1) S/m) of the (B_loc, S, Hkv, Dh) cache as ``k_cache`` /
+    ``v_cache`` (int8 codes with ``scales`` (k_s, v_s) for an int8
+    cache); q: (B_loc,1,H,Dh), every head; pos: (B_loc,) global
+    positions.  The local call is the decode kernel (the int8 one for an
+    int8 cache) at the shard's local positions (:func:`seq_local_pos`)
+    with its log-sum-exp output; one max and two sums over ``model``
+    combine the shards (:func:`combine_decode_partials`).  Returns
+    (B_loc,1,H,Dh) in q's dtype, the same on every rank of the group."""
+    S = k_cache.shape[1]
+    m = mesh.size("model")
+    base = mesh.coord("model") * S
+    ring = bool(window)
+    lpos = seq_local_pos(pos, base, S * m, ring)
+    lse = torch.empty(q.shape[0], q.shape[2], dtype=torch.float32,
+                      device=q.device)
+    if scales is not None:
+        out = ops.flash_decode_int8(q, k_cache, v_cache, *scales, lpos,
+                                    ring=ring, lse_out=lse)
+    else:
+        out = ops.flash_decode(q, k_cache, v_cache, lpos, ring=ring,
+                               lse_out=lse)
+    g = mesh.group("model")
+    comb = combine_decode_partials(
+        out, lse[:, None], lambda t: collectives.all_reduce(t, g, "max"),
+        lambda t: collectives.all_reduce(t, g, "sum"))
+    return comb.to(q.dtype)
 
 
 def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
@@ -264,7 +400,7 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     else:
         out = paged_decode_attention(q, *cache, block_tables, pos,
                                      s_len=s_len, window=window)
-    return out.reshape(B, 1, cfg.q_dim) @ p["wo"]
+    return _project_out(cfg, p, out)
 
 
 def cross_kv(cfg: ModelConfig, p, vis):

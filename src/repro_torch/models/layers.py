@@ -3,12 +3,39 @@
 PyTorch counterpart of ``repro/models/layers.py``.  Weights keep the
 reference layout — projections are ``(d_in, d_out)`` and applied as
 ``x @ w`` — so parameters convert one to one through numpy.
+
+Under a mesh (``sharding/partition.py:shard_model``) each parameter
+holds this rank's slice and carries its spec; :func:`axis` reads it.
+The MLP, the embedding and the head then run tensor-parallel over the
+``model`` axis with the collectives of ``sharding/collectives.py``: a
+column-parallel ``gate``/``up`` and a row-parallel ``down`` followed by
+an all-reduce; a vocab-sharded embedding (a masked local lookup, then an
+all-reduce) and head (local logits, then an all-gather of the vocab).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import collectives
+
+
+def axis(w, dim: int) -> Optional[str]:
+    """The mesh axis (a name) that dim ``dim`` of parameter ``w`` is cut
+    over, None when it is whole or the model is not sharded."""
+    spec = getattr(w, "spec", None)
+    return None if spec is None else spec[dim]
+
+
+def model_group(mesh, w, dim: int):
+    """The ``model`` axis's process group when ``w``'s dim ``dim`` is cut
+    over it, else None."""
+    if mesh is None or axis(w, dim) != "model":
+        return None
+    return mesh.group("model")
 
 
 def frozen_param(t: torch.Tensor) -> nn.Parameter:
@@ -114,29 +141,48 @@ class MLP(Params):
             w.copy_(dense_init(gen, w.shape[0], w.shape[1], w.dtype))
 
 
-def mlp_apply(p, x, act: str):
+def mlp_apply(p, x, act: str, mesh=None, reduce: bool = True):
     """``relu(x @ up)² @ down`` for ``sq_relu``; otherwise the gated
-    ``(act(x @ gate) * (x @ up)) @ down``."""
+    ``(act(x @ gate) * (x @ up)) @ down``.  With d_ff cut over the mesh's
+    ``model`` axis, this rank's columns and rows, then the all-reduce of
+    the partial sums (``reduce=False`` leaves them to the caller)."""
+    g_tp = model_group(mesh, p["up"], -1)
+    if g_tp is not None:
+        x = collectives.copy_to(x, g_tp)
     if act == "sq_relu":
         h = torch.relu(x @ p["up"])
-        return (h * h) @ p["down"]
-    h = x @ p["up"]
-    g = x @ p["gate"]
-    if act == "silu":
-        g = F.silu(g)
-    elif act == "gelu":
-        g = F.gelu(g, approximate="tanh")    # jax.nn.gelu's default
+        out = (h * h) @ p["down"]
     else:
-        raise ValueError(act)
-    return (g * h) @ p["down"]
+        h = x @ p["up"]
+        g = x @ p["gate"]
+        if act == "silu":
+            g = F.silu(g)
+        elif act == "gelu":
+            g = F.gelu(g, approximate="tanh")    # jax.nn.gelu's default
+        else:
+            raise ValueError(act)
+        out = (g * h) @ p["down"]
+    if g_tp is None or not reduce:
+        return out
+    return collectives.reduce_from(out, g_tp)
 
 
 # ----------------------------------------------------------- embedding ----
-def embed_apply(emb, tokens):
+def embed_apply(emb, tokens, mesh=None):
     """Row gather.  Out-of-range ids are clamped into the vocabulary
     here; the reference's ``jnp.take`` (JAX's default ``mode="fill"``)
-    gives NaN rows for them instead.  No serving path feeds such ids."""
-    return F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
+    gives NaN rows for them instead.  No serving path feeds such ids.
+    A vocab-sharded table looks up the ids in this rank's rows (zero
+    elsewhere) and all-reduces over ``model``."""
+    g = model_group(mesh, emb, 0)
+    if g is None:
+        return F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
+    v_loc = emb.shape[0]
+    vocab = v_loc * mesh.size("model")
+    local = tokens.clamp(0, vocab - 1) - mesh.coord("model") * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    rows = F.embedding(local.clamp(0, v_loc - 1), emb)
+    return collectives.reduce_from(torch.where(mine[..., None], rows, 0), g)
 
 
 class _HeadMM(torch.autograd.Function):
@@ -159,13 +205,22 @@ class _HeadMM(torch.autograd.Function):
         return dx, dw
 
 
-def unembed_apply(w, x):
+def unembed_apply(w, x, mesh=None):
     """w: (vocab, d) head; returns f32 logits.
 
     On the card a low-precision head is multiplied in its own dtype with
     an f32 output, so no f32 copy of the (vocab, d) head is made per
     step (under autograd through :class:`_HeadMM`); elsewhere the
-    product runs in f32, as the reference does."""
+    product runs in f32, as the reference does.  A vocab-sharded head
+    gives this rank's logits, all-gathered over ``model``."""
+    g = model_group(mesh, w, 0)
+    if g is not None:
+        x = collectives.copy_to(x, g)
+        return collectives.gather_from(_unembed(w, x), g, -1)
+    return _unembed(w, x)
+
+
+def _unembed(w, x):
     if w.is_cuda and w.dtype != torch.float32:
         x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
         if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):

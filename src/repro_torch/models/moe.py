@@ -10,8 +10,14 @@ PyTorch counterpart of ``repro/models/moe.py``:
   three projections as grouped products over the sorted rows, the
   inverse permutation, then the gate-weighted sum over k in f32.  Active
   FLOPs only (``moe_impl="local"``, the default).
-* ``moe_ep`` — the reference's expert-parallel all-to-all path arrives
-  with the distribution slice of the port; here it raises.
+* ``moe_ep`` — expert parallel under a mesh (``moe_impl="ep"``): the
+  experts cut over the ``data`` axis, each expert's d_ff over ``model``
+  (``sharding/partition.py``).  The (token, expert) pairs go to the rank
+  owning their expert in fixed-capacity buckets by an all-to-all over
+  ``data``, through the grouped FFN of that rank's experts, partial sums
+  all-reduced over ``model`` in f32, and back by the return all-to-all;
+  the reference's arithmetic (capacity, stable order, dropped overflow,
+  empty slots on expert 0 with zero input, the f32 combine).
 
 The grouped product (``grouped_mm``) is where the reference calls
 ``jax.lax.ragged_dot``, an XLA op and not a Pallas kernel.  Its route is
@@ -49,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import collectives
 
 from . import layers
 from .config import ModelConfig
@@ -95,15 +102,15 @@ class Moe(KeepsF32):
             self.shared.init_(gen)
 
 
-def check_impl(impl: str) -> None:
-    """Refuse what the port does not run: ``"ep"`` needs the
-    distribution slice."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "moe_impl='ep' (expert parallelism over an all-to-all) arrives "
-            "with the distribution slice of the port")
+def check_impl(impl: str, mesh=None) -> None:
+    """Refuse what the port does not run: an unknown path, or ``"ep"``
+    (expert parallelism over an all-to-all) without a mesh."""
     if impl not in IMPLS:
         raise ValueError(f"moe_impl {impl!r}: one of {IMPLS}")
+    if impl == "ep" and mesh is None:
+        raise ValueError("moe_impl='ep' runs under a mesh (its experts cut "
+                         "over the 'data' axis): pass mesh= or register "
+                         "one with sharding.context.set_mesh")
 
 
 def router_topk(cfg: ModelConfig, p, x):
@@ -242,13 +249,95 @@ def moe_local(cfg: ModelConfig, p, x):
     return out.reshape(B, T, d)
 
 
-def moe_ep(cfg: ModelConfig, p, x, **_):
-    check_impl("ep")
+def moe_ep(cfg: ModelConfig, p, x, mesh):
+    """Expert-parallel MoE FFN on this rank's shards (the reference's
+    ``moe_ep`` body under ``shard_map``).
+
+    x: (B_loc, T, d), this rank's rows (every row when the batch is not
+    cut over ``data``); router (d, E) whole; ``w_gate``/``w_up`` (E_loc,
+    d, f_loc) and ``w_down`` (E_loc, f_loc, d): experts [r E_loc, (r+1)
+    E_loc) of data rank r, each expert's d_ff cut over ``model`` when
+    the spec says so.  Each destination rank takes at most ``cap`` pairs
+    from each source; overflow pairs are dropped, as in the reference."""
+    dp = mesh.size("data")
+    g_ep = mesh.group("data")
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = p["w_gate"].shape[0]
+    if E_loc * dp != E:
+        raise ValueError(f"moe_ep: {E} experts do not split over {dp} "
+                         f"'data' ranks ({E_loc} held here)")
+    xt = x.reshape(B * T, d)
+    N = xt.shape[0]
+    gates, idx, _ = router_topk(cfg, p, xt)
+
+    # dispatch: fixed capacity per destination rank
+    flat_e = idx.reshape(-1)                                  # (N*k,)
+    dest = torch.div(flat_e, E_loc, rounding_mode="floor")    # owner
+    cap = int(max(8, round(cfg.capacity_factor * N * k / dp)))
+    order = torch.argsort(dest, stable=True)
+    dest_s = dest[order]
+    tok_of = torch.div(order, k, rounding_mode="floor")
+    eloc_s = torch.remainder(flat_e, E_loc)[order]
+    ar = torch.arange(N * k, device=x.device)
+    pos_in_dest = ar - torch.searchsorted(dest_s, dest_s, side="left")
+    keep = pos_in_dest < cap                                  # else dropped
+    slot = torch.where(keep, dest_s * cap + pos_in_dest, dp * cap)
+    send_x = xt.new_zeros((dp * cap + 1, d)).index_copy(
+        0, slot, xt.index_select(0, tok_of))[:-1]
+    # unused slots: expert 0, zero input, no source (dropped at combine)
+    send_e = flat_e.new_zeros(dp * cap + 1).index_copy(0, slot, eloc_s)
+    send_src = flat_e.new_full((dp * cap + 1,), -1).index_copy(0, slot,
+                                                               order)
+    recv_x = collectives.all_to_all(send_x.reshape(dp, cap, d), g_ep)
+    recv_e = collectives.all_to_all(send_e[:-1].reshape(dp, cap), g_ep)
+
+    # the grouped FFN of this rank's experts over every received slot
+    es_all = recv_e.reshape(dp * cap)
+    o2 = torch.argsort(es_all, stable=True)
+    xs = recv_x.reshape(dp * cap, d).index_select(0, o2)
+    g_tp = layers.model_group(mesh, p["w_gate"], -1)
+    if g_tp is not None:
+        xs = collectives.copy_to(xs, g_tp)
+    ys = grouped_ffn(p, xs, group_offsets(es_all, E_loc))
+    ys = torch.empty_like(ys).index_copy(0, o2, ys)           # unsort
+    if g_tp is not None:                  # partial sums over d_ff shards
+        ys = collectives.reduce_from(ys.float(), g_tp).to(xt.dtype)
+    back = collectives.all_to_all(ys.reshape(dp, cap, d), g_ep)
+
+    # combine: back[s, c] answers this rank's send slot (s, c)
+    src = send_src[:-1]
+    flat_out = torch.zeros((N * k + 1, d), dtype=torch.float32,
+                           device=x.device).index_add(
+        0, torch.where(src >= 0, src, N * k),
+        back.reshape(dp * cap, d).float())[:-1]
+    out = (flat_out.reshape(N, k, d) * gates[..., None]).sum(1).to(x.dtype)
+    if cfg.shared_expert:
+        shared = layers.mlp_apply(p["shared"], xt, "silu", mesh,
+                                  reduce=False)
+        g_sh = layers.model_group(mesh, p["shared"]["up"], -1)
+        if g_sh is not None:
+            shared = collectives.reduce_from(shared.float(), g_sh)
+        out = out + shared.to(x.dtype)
+    return out.reshape(B, T, d)
 
 
-def apply(cfg: ModelConfig, p, x, impl: str = "local"):
-    """The MoE FFN by ``impl`` (the reference's ``_apply_moe``)."""
-    check_impl(impl)
+def _experts_cut(p, mesh) -> bool:
+    """Whether this rank holds a part of the experts only."""
+    return any(mesh.size(a) > 1 for a in (
+        layers.axis(p[n], dim) for n in ("w_gate", "w_up", "w_down")
+        for dim in range(3)) if a is not None)
+
+
+def apply(cfg: ModelConfig, p, x, impl: str = "local", mesh=None):
+    """The MoE FFN by ``impl`` (the reference's ``_apply_moe``).  Under a
+    mesh whose shards cut the experts only ``"ep"`` runs them."""
+    check_impl(impl, mesh)
+    if impl == "ep":
+        return moe_ep(cfg, p, x, mesh)
+    if mesh is not None and _experts_cut(p, mesh):
+        raise ValueError(f"moe_impl={impl!r} needs every expert whole; "
+                         f"under a mesh that cuts them use 'ep'")
     if impl == "ref":
         return moe_dense_ref(cfg, p, x)
     return moe_local(cfg, p, x)

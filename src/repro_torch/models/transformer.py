@@ -25,6 +25,20 @@ RG-LRU — so the engine's gather/scatter code ports line for line; they
 are preallocated and updated in place.  Each block reads its own views
 of its slot's leaves (``_slot``).
 
+Under a mesh (``launch/mesh.py``; passed as ``mesh=`` or registered with
+``sharding.context.set_mesh``) the model is explicit SPMD: each rank
+holds the shard ``sharding.partition.shard_model`` cut for it, and the
+entry points take the GLOBAL batch (the same inputs on every rank), run
+this rank's rows (cut over ``data`` where ``sharding.rows`` says) and
+return the global logits, as the reference's global arrays are; caches
+are this rank's slice (its rows, and its kv heads or its sequence
+slots: ``init_cache(mesh=...)``, ``partition.shard_cache``).
+Dense and MoE blocks run tensor-parallel (``layers.py``,
+``attention.py``; MoE experts through ``moe_impl="ep"``).  RWKV, RG-LRU,
+cross-attention and encoder configs run only under meshes with
+``model`` = 1; paged pools and prefill chunks over a sequence-cut cache
+are the engine's (a later slice).
+
 Public API (functions of ``(cfg, model, ...)``):
 
     init_params(cfg, seed, dtype, device)   -> Transformer
@@ -46,6 +60,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import context
+from repro_torch.sharding.rows import gather_rows, local_rows
 
 from . import attention, layers, moe, rglru, rwkv
 from .layers import MLP, Params, frozen_param as _param
@@ -99,8 +115,8 @@ class AttnBlock(nn.Module):
     def _init_ffn(self, gen: torch.Generator) -> None:
         self.mlp.init_(gen)
 
-    def _ffn(self, h, **_):
-        return layers.mlp_apply(self.mlp, h, self.cfg.act)
+    def _ffn(self, h, *, mesh=None, **_):
+        return layers.mlp_apply(self.mlp, h, self.cfg.act, mesh)
 
     def _norm1(self, x):
         return layers.rms_norm(x, self.ln1, self.cfg.norm_eps)
@@ -123,20 +139,21 @@ class AttnBlock(nn.Module):
         return tuple(c[k] for k in _KV_KEYS if k in c)
 
     def prefill(self, x, c, *, positions, lengths, window: int,
-                cache_len: int, **kw):
+                cache_len: int, mesh=None, seq_sharded: bool = False, **kw):
         a = attention.self_attn_forward(
             self.cfg, self.attn, self._norm1(x), positions, lengths,
             window=window, cache=None if c is None else self._kv(c),
-            cache_len=cache_len)
-        return self._mlp_residual(x + a, **kw)
+            cache_len=cache_len, mesh=mesh, seq_sharded=seq_sharded)
+        return self._mlp_residual(x + a, mesh=mesh, **kw)
 
-    def chunk(self, x, c, *, start, active, **kw):
+    def chunk(self, x, c, *, start, active, mesh=None, **kw):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
-                                      start, self._kv(c), active)
-        return self._mlp_residual(x + a, **kw)
+                                      start, self._kv(c), active, mesh)
+        return self._mlp_residual(x + a, mesh=mesh, **kw)
 
     def decode(self, x, c, *, pos, window: int, block_tables=None,
-               page_size: int = 0, paged_len: int = 0, **kw):
+               page_size: int = 0, paged_len: int = 0, mesh=None,
+               seq_sharded: bool = False, **kw):
         h = self._norm1(x)
         kv = self._kv(c)
         if block_tables is not None:
@@ -145,8 +162,9 @@ class AttnBlock(nn.Module):
                 page_size=page_size, s_len=paged_len, window=window)
         else:
             a = attention.self_attn_decode(self.cfg, self.attn, h, pos, kv,
-                                           window=window)
-        return self._mlp_residual(x + a, **kw)
+                                           window=window, mesh=mesh,
+                                           seq_sharded=seq_sharded)
+        return self._mlp_residual(x + a, mesh=mesh, **kw)
 
 
 class MoeBlock(AttnBlock):
@@ -161,8 +179,8 @@ class MoeBlock(AttnBlock):
     def _init_ffn(self, gen: torch.Generator) -> None:
         self.moe.init_(gen)
 
-    def _ffn(self, h, *, moe_impl: str = "local", **_):
-        return moe.apply(self.cfg, self.moe, h, moe_impl)
+    def _ffn(self, h, *, moe_impl: str = "local", mesh=None, **_):
+        return moe.apply(self.cfg, self.moe, h, moe_impl, mesh)
 
 
 class CrossBlock(AttnBlock):
@@ -441,9 +459,23 @@ def _state_slot(btype: str, reps: int, batch: int, cfg: ModelConfig, dtype,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.float32, device="cuda"):
+               dtype=torch.float32, device="cuda", mesh=None):
     """Zeroed contiguous cache on ``device``; attention caches sized
-    ``cfg.attn_cache_len(cache_len)`` (window-capped)."""
+    ``cfg.attn_cache_len(cache_len)`` (window-capped).  Under ``mesh``,
+    this rank's slice of the cache of ``batch`` rows
+    (``sharding.partition.cache_specs``), marked ``seq_sharded`` when its
+    attention leaves are cut along the sequence."""
+    if mesh is not None:
+        from repro_torch.sharding import partition
+        whole = init_cache(cfg, batch, cache_len, dtype, "meta")
+        specs = partition.cache_specs(cfg, whole, mesh, batch)
+        dev = resolve_device(device)
+        cache = partition.map_leaves(
+            lambda t, spec: torch.zeros(
+                partition.local_shape(t.shape, spec, mesh), dtype=t.dtype,
+                device=dev), whole, specs)
+        cache["seq_sharded"] = partition.cache_is_seq_sharded(specs)
+        return cache
     device = resolve_device(device)
     S = cfg.attn_cache_len(cache_len)
     groups = tuple(
@@ -503,12 +535,55 @@ def _slot(cache, gi: int, j: int, rep: int):
 
 
 # -------------------------------------------------------------- drivers ---
-def _embed_input(model: Transformer, tokens, embeds):
+def _embed_input(model: Transformer, tokens, embeds, mesh=None):
     """(B,T,d) inputs: ``embeds`` as given (an encoder's frame
     embeddings), else the embedding rows of ``tokens``."""
     if embeds is not None:
         return embeds
-    return layers.embed_apply(model.embed, tokens)
+    return layers.embed_apply(model.embed, tokens, mesh)
+
+
+_MESH_LATER = {BLOCK_RWKV: "RWKV", BLOCK_REC: "RG-LRU",
+               BLOCK_CROSS: "cross-attention"}
+
+
+def resolve_mesh(cfg: ModelConfig, model: Transformer, mesh=None):
+    """The mesh an entry point runs under: ``mesh``, else the context's
+    (``sharding.context.get_mesh``), else None.  The model must have been
+    cut for it (``partition.shard_model``), and a sharded model needs
+    its mesh.  Under ``model`` > 1, RWKV, RG-LRU, cross-attention and
+    encoder configs are refused: a later slice of the port."""
+    mesh = mesh if mesh is not None else context.get_mesh()
+    cut = getattr(model, "mesh_shape", None)
+    if mesh is None:
+        if cut is not None:
+            raise ValueError(f"the model is sharded for mesh {cut}: run it "
+                             f"under that mesh")
+        return None
+    if mesh.size("model") > 1:
+        later = sorted({_MESH_LATER[b] for pat, _ in cfg.block_groups()
+                        for b in pat if b in _MESH_LATER}
+                       | ({"encoder"} if cfg.is_encoder else set()))
+        if later:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(later)} blocks under a mesh with "
+                f"model > 1 are a later slice of the port (tensor "
+                f"parallelism of the recurrent, cross and encoder blocks)")
+    if cut != mesh.shape:
+        raise ValueError(f"the model is not sharded for mesh {mesh.shape}: "
+                         f"call sharding.partition.shard_model first")
+    return mesh
+
+
+def _rows(mesh, B: int, *xs):
+    """This rank's rows of each global batch tensor (None passes)."""
+    if mesh is None:
+        return xs
+    return tuple(local_rows(x, mesh, B) for x in xs)
+
+
+def _global_rows(mesh, B: int, x):
+    return x if mesh is None else gather_rows(x, mesh, B)
 
 
 def _project_vision(model: Transformer, vision_embeds):
@@ -520,7 +595,7 @@ def _project_vision(model: Transformer, vision_embeds):
 
 def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
             vision_embeds=None, lengths=None, moe_impl: str = "local",
-            remat: bool = False):
+            remat: bool = False, mesh=None, local_batch: bool = False):
     """Full-sequence forward with no cache (encoder inference; the
     training forward): logits (B,T,V) in f32.
 
@@ -537,14 +612,23 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
     wraps each repetition of a block group's pattern in
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(body,
     nothing_saveable)`` per scan body): the backward recomputes it from
-    its input, so the kernels of its forward launch again there."""
-    x = _embed_input(model, tokens, embeds)
+    its input, so the kernels of its forward launch again there.
+
+    Under a mesh the inputs and logits are the global batch, unless
+    ``local_batch`` (the trainer's): the inputs are then this rank's rows
+    and so are the logits."""
+    mesh = resolve_mesh(cfg, model, mesh)
+    B = (tokens if tokens is not None else embeds).shape[0]
+    if not local_batch:
+        tokens, embeds, vision_embeds, lengths = _rows(
+            mesh, B, tokens, embeds, vision_embeds, lengths)
+    x = _embed_input(model, tokens, embeds, mesh)
     T = x.shape[1]
     vis = _project_vision(model, vision_embeds)
     positions = torch.arange(T, device=x.device)
     kw = dict(positions=positions, lengths=lengths,
               window=effective_window(cfg), cache_len=0, vis=vis,
-              moe_impl=moe_impl)
+              moe_impl=moe_impl, mesh=mesh)
     for group in model.groups:
         for rep in range(len(group[0])):
             blocks = [slot[rep] for slot in group]
@@ -556,13 +640,14 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
             x = checkpoint(body, x, use_reentrant=False) if remat \
                 else body(x)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
-    return layers.unembed_apply(model.head, x)
+    logits = layers.unembed_apply(model.head, x, mesh)
+    return logits if local_batch else _global_rows(mesh, B, logits)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
             cache_len: Optional[int] = None, moe_impl: str = "local",
-            cache=None, *, embeds=None, vision_embeds=None):
+            cache=None, *, embeds=None, vision_embeds=None, mesh=None):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
     tokens: (B,T) int, or ``embeds`` (B,T,d) (an encoder's frames);
@@ -574,15 +659,20 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     ``cache_len`` to write into, in place, its ``pos`` included: it must
     be zero where a fresh ``init_cache`` is (a CUDA graph of the prefill
     keeps its storage, ``core/engine.py:PrefillGraph``); by default a
-    new one."""
-    x = _embed_input(model, tokens, embeds)
-    B, T, _ = x.shape
+    new one.  Under a mesh the inputs and logits are global and the
+    cache is this rank's slice (``init_cache(mesh=...)``)."""
+    mesh = resolve_mesh(cfg, model, mesh)
+    B = (tokens if tokens is not None else embeds).shape[0]
+    tokens, embeds, vision_embeds, lengths = _rows(
+        mesh, B, tokens, embeds, vision_embeds, lengths)
+    x = _embed_input(model, tokens, embeds, mesh)
+    Bl, T, _ = x.shape
     vis = _project_vision(model, vision_embeds)
     if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        lengths = torch.full((Bl,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len
     if cache is None:
-        cache = init_cache(cfg, B, cache_len, x.dtype, x.device)
+        cache = init_cache(cfg, B, cache_len, x.dtype, x.device, mesh)
         # a copy: decode_step advances pos in place, never the caller's
         # lengths
         cache["pos"] = lengths.to(torch.int32, copy=True)
@@ -593,16 +683,18 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     for gi, j, rep, blk in model.blocks():
         x = blk.prefill(x, _slot(cache, gi, j, rep), positions=positions,
                         lengths=lengths, window=win, cache_len=cache_len,
-                        vis=vis, moe_impl=moe_impl)
+                        vis=vis, moe_impl=moe_impl, mesh=mesh,
+                        seq_sharded=cache.get("seq_sharded", False))
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, T - 1)
-    last = x[torch.arange(B, device=x.device), idx]
-    return layers.unembed_apply(model.head, last), cache
+    last = x[torch.arange(Bl, device=x.device), idx]
+    logits = layers.unembed_apply(model.head, last, mesh)
+    return _global_rows(mesh, B, logits), cache
 
 
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
-                  start, lengths, moe_impl: str = "local"):
+                  start, lengths, moe_impl: str = "local", mesh=None):
     """One chunked-prefill step: prompt tokens at absolute positions
     [start, start+Tc) against ``cache`` (from ``init_cache``), written in
     place.  lengths: (B,) FULL prompt lengths.  ``start`` is an int or a
@@ -617,25 +709,35 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     next-token distribution only when its last prompt position lies in
     this chunk.  Rows already finished (length <= start) keep their
     cache bit for bit (K/V writes masked, recurrent carries frozen).  The
-    caller sets ``cache['pos']`` to ``lengths`` after the final chunk."""
-    x = layers.embed_apply(model.embed, tokens)
-    B, Tc, _ = x.shape
+    caller sets ``cache['pos']`` to ``lengths`` after the final chunk.
+    Under a mesh, as ``prefill``; a cache cut along the sequence is
+    refused (its chunks attend over every shard: the engine's slice)."""
+    mesh = resolve_mesh(cfg, model, mesh)
+    if cache.get("seq_sharded", False):
+        raise NotImplementedError("prefill_chunk over a sequence-sharded "
+                                  "cache: a later slice of the port")
+    B = tokens.shape[0]
+    tokens, lengths = _rows(mesh, B, tokens, lengths)
+    x = layers.embed_apply(model.embed, tokens, mesh)
+    Bl, Tc, _ = x.shape
     lengths = lengths.to(x.device)
     active = lengths > start
     rel_len = (lengths - start).clamp(0, Tc)     # valid tokens per row
     for gi, j, rep, blk in model.blocks():
         x = blk.chunk(x, _slot(cache, gi, j, rep), start=start,
-                      active=active, lengths=rel_len, moe_impl=moe_impl)
+                      active=active, lengths=rel_len, moe_impl=moe_impl,
+                      mesh=mesh)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1 - start).clamp(0, Tc - 1)
-    last = x[torch.arange(B, device=x.device), idx]
-    return layers.unembed_apply(model.head, last), cache
+    last = x[torch.arange(Bl, device=x.device), idx]
+    logits = layers.unembed_apply(model.head, last, mesh)
+    return _global_rows(mesh, B, logits), cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
                 page_size: int = 0, paged_len: int = 0,
-                moe_impl: str = "local"):
+                moe_impl: str = "local", mesh=None):
     """token: (B,) int.  Returns (logits (B,V) f32, cache): the same
     dict, its K/V and carries written in place and ``pos`` advanced in
     place for every row (dead rows too, as in the reference).  Every
@@ -646,19 +748,33 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
     Caches from ``init_paged_cache`` (they carry ``block_tables``)
     decode against the page pool; ``page_size`` is then the pool's page
     size and ``paged_len`` the request-level cache length (default: the
-    tables' full span)."""
-    x = layers.embed_apply(model.embed, token[:, None])
-    pos = cache["pos"]
+    tables' full span).
+
+    Under a mesh ``token`` and the logits are global and ``cache`` is
+    this rank's slice; paged pools under a mesh are the engine's (a later
+    slice) and are refused."""
+    mesh = resolve_mesh(cfg, model, mesh)
+    B = token.shape[0]
     bt = cache.get("block_tables")
+    if mesh is not None:
+        if bt is not None:
+            raise NotImplementedError("paged decode under a mesh: the "
+                                      "engine under a mesh, a later slice")
+        token, = _rows(mesh, B, token)
+    x = layers.embed_apply(model.embed, token[:, None], mesh)
+    pos = cache["pos"]
     if bt is not None:
         if page_size <= 0:
             raise ValueError("paged decode_step needs page_size")
         paged_len = paged_len or bt.shape[1] * page_size
     win = effective_window(cfg)
+    seq = cache.get("seq_sharded", False)
     for gi, j, rep, blk in model.blocks():
         x = blk.decode(x, _slot(cache, gi, j, rep), pos=pos, window=win,
                        block_tables=bt, page_size=page_size,
-                       paged_len=paged_len, moe_impl=moe_impl)
+                       paged_len=paged_len, moe_impl=moe_impl, mesh=mesh,
+                       seq_sharded=seq)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     pos.add_(1)
-    return layers.unembed_apply(model.head, x[:, 0]), cache
+    logits = layers.unembed_apply(model.head, x[:, 0], mesh)
+    return _global_rows(mesh, B, logits), cache

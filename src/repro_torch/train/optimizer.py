@@ -28,6 +28,7 @@ import math
 import torch
 
 from repro_torch.bridge import reference_ndim
+from repro_torch.sharding import collectives
 
 CHUNK = 1 << 25        # elements of a leaf updated at once
 
@@ -87,27 +88,40 @@ def _chunks(t: torch.Tensor):
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, cut=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every element's square, in f32 (a leaf's
-    gradient None counts as zeros)."""
-    total = None
-    for leaf in tree.values():
+    gradient None counts as zeros).  Under a mesh, ``cut`` maps a leaf's
+    key to the axes its tensors are cut over (``partition.shard_model``'s
+    specs): their squares are summed over those axes' groups, so each
+    shard counts once and each replicated leaf once."""
+    sums = {}
+    for key, leaf in tree.items():
+        axes = tuple(sorted(cut.get(key, ()))) if cut else ()
         for t in _tensors(leaf):
             if t is None:
                 continue
             for c in _chunks(t):
                 sq = torch.sum(torch.square(c.float()))
-                total = sq if total is None else total + sq
+                sums[axes] = sq if axes not in sums else sums[axes] + sq
+    total = None
+    for axes in sorted(sums):
+        sq = sums[axes]
+        for a in axes:
+            sq = collectives.all_reduce(sq, mesh.group(a))
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, grads, state):
+def apply(cfg: AdamWConfig, params, grads, state, cut=None, mesh=None):
     """One AdamW step: ``params`` updated in place from ``grads`` (a tree
     of the same keys; a None gradient is zeros).  Returns (params, new
-    state, {"grad_norm", "lr"})."""
+    state, {"grad_norm", "lr"}).  Under a mesh the tensors are this
+    rank's shards and ``cut``/``mesh`` make the clipping norm global
+    (``global_norm``); the update is elementwise and needs nothing
+    else."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, cut, mesh)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -14,8 +14,20 @@ On the card the attention and ``wkv6`` forwards are the hand-written
 kernels and their backward the plain versions'
 (``kernels/autograd.py``); the MoE's bf16 grouped products carry the
 reference's backward (``models/moe.py:GroupedMM``).  ``moe_impl`` is
-``"local"`` or ``"ref"``; the expert-parallel ``"ep"`` waits for the
-distribution slice.
+``"local"``, ``"ref"`` or, under a mesh, the expert-parallel ``"ep"``.
+
+Under a mesh (data-parallel over ``data``, tensor-parallel over
+``model``, experts over ``data``; the model cut by
+``sharding.partition.shard_model``) every rank is given the same global
+batch and takes its own rows (``sharding.rows``).  Its loss is
+its rows' summed token losses over the batch's whole token count
+(all-reduced over ``data``), so the ranks' losses sum to the global
+token mean.  After the backward, the gradient of each leaf not cut over
+``data`` is all-reduced (summed) over ``data``; an expert leaf, owned by
+its data rank, already holds its whole gradient (the all-to-all's
+backward brings it every rank's share).  The clipping norm counts each
+shard once and each replicated leaf once; the AdamW arithmetic is the
+reference's, on each rank's shards.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from repro_torch import bridge
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives, rows
 
 from . import optimizer
 
@@ -33,15 +46,25 @@ def _in_dtype(model, x):
     return None if x is None else x.to(model.dtype)
 
 
-def lm_loss(cfg: ModelConfig, model, batch, moe_impl="local", remat=False):
+def lm_loss(cfg: ModelConfig, model, batch, moe_impl="local", remat=False,
+            mesh=None):
     """Next-token cross entropy (frame cross entropy for encoders), in
     f32: returns (loss, {"loss", "tokens"}).  The correct-class logit is
     gathered, not summed against a one-hot: the same sum, without a
-    (B,T,V) one-hot."""
+    (B,T,V) one-hot.  Under a mesh ``batch`` is the global batch and the
+    returned loss this rank's share of the global token mean (the
+    metrics hold the global mean and token count)."""
+    mesh = tfm.resolve_mesh(cfg, model, mesh)
+    cut = False
+    if mesh is not None:
+        B = next(iter(batch.values())).shape[0]
+        cut = bool(rows.batch_tuple(mesh, B))
+        batch = {k: rows.local_rows(v, mesh, B) for k, v in batch.items()}
     if cfg.is_encoder:
         logits = tfm.forward(cfg, model,
                              embeds=_in_dtype(model, batch["embeds"]),
-                             moe_impl=moe_impl, remat=remat)
+                             moe_impl=moe_impl, remat=remat, mesh=mesh,
+                             local_batch=True)
         labels = batch["labels"]
         mask = batch.get("loss_mask")
     else:
@@ -49,7 +72,7 @@ def lm_loss(cfg: ModelConfig, model, batch, moe_impl="local", remat=False):
         logits = tfm.forward(
             cfg, model, tokens=tokens[:, :-1],
             vision_embeds=_in_dtype(model, batch.get("vision_embeds")),
-            moe_impl=moe_impl, remat=remat)
+            moe_impl=moe_impl, remat=remat, mesh=mesh, local_batch=True)
         labels = tokens[:, 1:]
         mask = batch.get("loss_mask")
         mask = mask[:, 1:] if mask is not None else None
@@ -58,30 +81,58 @@ def lm_loss(cfg: ModelConfig, model, batch, moe_impl="local", remat=False):
     correct = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - correct
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"loss": loss.detach(), "tokens": mask.sum()}
+    if mesh is None:
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
+    g = mesh.group("data")
+    count = collectives.all_reduce(mask.sum(), g)
+    loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    return loss, {"loss": collectives.all_reduce(loss.detach(), g),
+                  "tokens": count if cut else mask.sum()}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optimizer.AdamWConfig,
-                    moe_impl="local", remat=False):
+                    moe_impl="local", remat=False, mesh=None):
     """The step ``(model, opt_state, batch) -> (model, opt_state,
     metrics)``; ``metrics`` holds ``loss``, ``tokens``, ``grad_norm`` and
-    ``lr`` as 0-d tensors (nothing is read back to the host)."""
-    moe_mod.check_impl(moe_impl)
+    ``lr`` as 0-d tensors (nothing is read back to the host).  Under
+    ``mesh`` the model is this rank's shard, ``batch`` the global batch,
+    and the gradient of every leaf not cut over ``data`` is summed over
+    the ``data`` group."""
+    moe_mod.check_impl(moe_impl, mesh)
 
     def train_step(model, opt_state, batch):
         model.requires_grad_(True)
-        loss, metrics = lm_loss(cfg, model, batch, moe_impl, remat)
+        loss, metrics = lm_loss(cfg, model, batch, moe_impl, remat, mesh)
         loss.backward()
         params = bridge.leaves(model)
         grads = {k: [p.grad for p in v] if isinstance(v, list) else v.grad
                  for k, v in params.items()}
-        _, opt_state, opt_metrics = optimizer.apply(opt_cfg, params, grads,
-                                                    opt_state)
+        cut = None
+        if mesh is not None:
+            cut = {k: {a for e in spec if e is not None
+                       for a in ((e,) if isinstance(e, str) else e)}
+                   for k, spec in model.shard_specs.items()}
+            _sum_over_data(grads, cut, mesh)
+        _, opt_state, opt_metrics = optimizer.apply(
+            opt_cfg, params, grads, opt_state, cut, mesh)
         model.zero_grad(set_to_none=True)
         return model, opt_state, dict(metrics, **opt_metrics)
 
     return train_step
+
+
+@torch.no_grad()
+def _sum_over_data(grads, cut, mesh) -> None:
+    """Sum, in place, each gradient of a leaf not cut over ``data`` over
+    the ``data`` group (an expert leaf is its data rank's own)."""
+    g = mesh.group("data")
+    for key, leaf in grads.items():
+        if "data" in cut[key]:
+            continue
+        for t in (leaf if isinstance(leaf, list) else [leaf]):
+            if t is not None:
+                t.copy_(collectives.all_reduce(t, g))
 
 
 def train(cfg: ModelConfig, steps: int, batch_iter, seed: int = 0,

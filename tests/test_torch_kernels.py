@@ -903,6 +903,47 @@ def test_cuda_flash_decode(shape, dtype, cuda_exact_f32):
 
 
 @needs_cuda
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES + DH192_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_decode_lse_out(shape, dtype, kind, cuda_exact_f32):
+    """``lse_out`` of the contiguous decode kernels (f32 and bf16, float
+    and int8 caches, rings, a row with no live slot: -inf) against the
+    plain version's log-sum-exp; the output the same bits with and
+    without it, and the launch counted in ``lse_counts`` too."""
+    dev = cuda_exact_f32
+    B, S, H, Hkv, Dh, ring = shape
+    rng = np.random.default_rng(S + Dh + 7)
+    q = _t(_normal(rng, (B, H, Dh), dtype), dtype, dev)
+    if kind == "int8":
+        kc, ks = _int8(rng, (B, S, Hkv, Dh), dev)
+        vc, vs = _int8(rng, (B, S, Hkv, Dh), dev)
+        kv, name = (kc, vc, ks, vs), "flash_decode_int8"
+        fn, plain = ops.flash_decode_int8, ref.flash_decode_int8_ref
+    else:
+        kv = tuple(_t(_normal(rng, (B, S, Hkv, Dh), dtype), dtype, dev)
+                   for _ in range(2))
+        name, fn, plain = "flash_decode", ops.flash_decode, \
+            ref.flash_decode_ref
+    rows = [2 * S + 5, -1] if ring else [S // 2, -1]
+    pos = torch.tensor(rows[:B], dtype=torch.int32, device=dev)
+    lse = torch.full((B, H), 7.0, device=dev)
+    n0, l0 = runtime.launch_counts[name], runtime.lse_counts[name]
+    got = fn(q, *kv, pos, ring=ring, lse_out=lse)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts[name] == n0 + 1
+    assert runtime.lse_counts[name] == l0 + 1
+    assert torch.equal(got, fn(q, *kv, pos, ring=ring))
+    want = torch.empty_like(lse)
+    plain(q, *kv, pos, ring=ring, lse_out=want)
+    if B > 1:
+        assert torch.isneginf(lse[1]).all()
+        assert not got[1].any()
+    np.testing.assert_allclose(lse[0].cpu().numpy(), want[0].cpu().numpy(),
+                               **_cuda_tol(dtype))
+
+
+@needs_cuda
 @pytest.mark.parametrize("shape", PAGED_SHAPES + DH192_PAGED)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_paged_flash_decode(shape, dtype, cuda_exact_f32):

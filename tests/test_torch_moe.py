@@ -180,18 +180,36 @@ def test_grouped_product_with_empty_groups_matches_ragged_dot():
     np.testing.assert_allclose(got.numpy(), want, **OP_TOL)
 
 
-def test_moe_ep_is_refused():
+def test_moe_ep_is_refused(tmp_path):
+    """``moe_impl="ep"`` is refused without a mesh and by the engine (the
+    engine under a mesh is a later slice); under a one-rank gloo mesh it
+    runs ``moe_ep`` (its all-to-all over one rank) and gives the local
+    path's logits.  ``tests/test_torch_distributed.py`` runs it on 8."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.sharding import partition
     cfg = get_smoke_config(ARCHS[0], max_seq_len=32)
     model = ttfm.init_params(cfg, seed=0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="runs under a mesh"):
         ttfm.prefill(cfg, model, toks, cache_len=32, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        moe.moe_ep(cfg, model.groups[0][0][0].moe, torch.zeros(1, 1, 256))
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(NotImplementedError, match="engine under a mesh"):
         TorchEngineBackend(cfg, model, device="cpu", moe_impl="ep")
     with pytest.raises(ValueError, match="moe_impl"):
         ttfm.prefill(cfg, model, toks, cache_len=32, moe_impl="dense")
+    want, _ = ttfm.prefill(cfg, model, toks, cache_len=32)
+    tmesh.init_distributed(1, 1, "cpu", rank=0, world_size=1,
+                           init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, device="cpu")
+        partition.shard_model(cfg, model, mesh)
+        got, _ = ttfm.prefill(cfg, model, toks, cache_len=32,
+                              moe_impl="ep", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
 
 
 def test_bridge_router_stays_f32_and_budget_counts_every_expert():

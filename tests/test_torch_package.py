@@ -141,6 +141,35 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
         train_tiny.main(["--steps", "1"])
 
 
+DISTRIBUTION_MODULES = ("repro_torch.launch.mesh",
+                        "repro_torch.sharding.context",
+                        "repro_torch.sharding.partition",
+                        "repro_torch.sharding.collectives",
+                        "repro_torch.sharding.rows")
+
+
+@pytest.mark.parametrize("module", DISTRIBUTION_MODULES)
+def test_distribution_modules_are_in_the_import_check(module):
+    """The distribution slice's modules are among those the no-JAX import
+    check imports."""
+    assert module in _modules()
+
+
+def test_distribution_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, capsys):
+    from repro_torch.launch import mesh, serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mesh.init_distributed(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mesh.make_host_mesh(1, 1)
+    # the engine under a mesh is a later slice: refused before a model
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--smoke", "--data", "2", "--model", "2"])
+    assert exc.value.code == 2
+    assert "engine under a mesh" in capsys.readouterr().err
+
+
 def test_cpu_serve_launcher_prints_the_summary(capsys):
     from repro_torch.launch import serve
     serve.main(["--smoke", "--device", "cpu", "--dtype", "f32",

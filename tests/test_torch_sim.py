@@ -71,6 +71,8 @@ LAUNCHER_FLAGS = {
     "burst": ["--burst-factor", "3"],
     "sessions": ["--sessions", "2"],
     "drain-after": ["--drain-after", "2"],
+    # the mesh axes: accepted, and never read by the cost model
+    "mesh": ["--data", "2", "--model", "2"],
     # the full config (the cost model builds no model): its buckets
     # split, and the split rule decides where
     "llama2-13b": ["--arch", "llama2-13b", "--requests", "64"],

@@ -263,10 +263,22 @@ def test_cpu_train_launcher_drops_the_loss_and_writes_a_checkpoint(
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(p))
 
 
-def test_train_launcher_refuses_a_mesh(capsys):
+def test_train_launcher_refuses_a_mesh(capfd):
+    """``--data/--model`` train on a mesh: on the CPU the launcher spawns
+    gloo ranks itself (rank 0 prints the lines, once); on the card it
+    needs a card a rank and exits 2 with that reason otherwise."""
     from repro_torch.launch import train
-    assert train.main(["--smoke", "--device", "cpu", "--data", "2"]) == 2
-    assert "distribution slice" in capsys.readouterr().err
+    assert train.main(["--smoke", "--device", "cpu", "--data", "2",
+                       "--steps", "2", "--batch", "4", "--seq", "16"]) == 0
+    out = capfd.readouterr().out
+    assert out.count("mesh: {'data': 2, 'model': 1}; params sharded") == 1
+    assert re.search(r"2 steps in [\d.]+s \(\d+ tok/s\); loss", out), out
+    n = torch.cuda.device_count()
+    if n < 2:
+        assert train.main(["--smoke", "--device", "cuda", "--data",
+                           "2"]) == 2
+        assert f"2 ranks need a CUDA card each; {n} found" in \
+            capfd.readouterr().err
 
 
 def test_train_tiny_example_runs_on_the_cpu(capsys, tmp_path):

@@ -1,0 +1,307 @@
+"""Rank bodies of the port's multi-rank tests: each rank of a (data,
+model) mesh runs the port's sharded paths on inputs the parent wrote
+(numpy, from a seed) and rank 0 writes the results back as ``.npy``
+files.  ``tests/test_torch_distributed.py`` runs them on 8 CPU gloo
+ranks (2, 4) against the JAX package; ``tests/test_torch_distributed_
+cuda.py`` on 4 cards (2, 2) over NCCL against the port's own unsharded
+runs.  This module imports the port and torch only (never JAX or the
+reference package): the spawned ranks import it by name."""
+from __future__ import annotations
+
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+
+def _load(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _cfg(arch, **kw):
+    from repro_torch.configs import get_smoke_config
+    return get_smoke_config(arch, **kw)
+
+
+class Rank:
+    """One rank's view: its mesh, its device and the inputs' directory."""
+
+    def __init__(self, d, mesh, dev):
+        self.d, self.mesh, self.dev = d, mesh, dev
+        self.model_size = mesh.size("model")
+
+    def t(self, a):
+        return torch.from_numpy(np.array(a)).to(self.dev)
+
+    def npy(self, name):
+        return self.t(np.load(os.path.join(self.d, name)))
+
+    def model(self, cfg, name):
+        from repro_torch import bridge
+        flat = _load(os.path.join(self.d, name))
+        return bridge.params_from_numpy(bridge.unflatten(flat), cfg,
+                                        device=self.dev)
+
+
+def forward_cfg(model_size):
+    """yi-6b with Hkv not dividing over ``model`` but its projection
+    cut (a kv head split across two ranks: the gather path)."""
+    return _cfg("yi-6b", n_kv_heads=model_size // 2, n_heads=4)
+
+
+def kv_cfg(model_size):
+    """yi-6b with one kv head a ``model`` rank (a cache cut by head)."""
+    return _cfg("yi-6b", n_kv_heads=model_size, n_heads=4, max_seq_len=64)
+
+
+def seq_cfg(model_size):
+    """yi-6b whose Hkv does not divide over ``model``, 2048 slots (a
+    cache cut along the sequence)."""
+    return _cfg("yi-6b", n_kv_heads=model_size // 2, max_seq_len=2048)
+
+
+EP_CFG = dict(n_experts=4, top_k=2, capacity_factor=4.0)
+
+
+def case_forward(r, out):
+    """The gather path's forward, batch 4 over ``data``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = forward_cfg(r.model_size)
+    model = r.model(cfg, "forward_params.npz")
+    tok = r.npy("forward_tok.npy")
+    whole = tfm.forward(cfg, model, tok)
+    partition.shard_model(cfg, model, r.mesh)
+    out["forward"] = tfm.forward(cfg, model, tok, mesh=r.mesh)
+    out["forward_port"] = whole
+
+
+def _stacked(tree):
+    from repro_torch import bridge
+    return {k: bridge.stack(v) for k, v in tree.items()}
+
+
+def case_ep_train(r, out):
+    """qwen3-moe (4 experts, top 2, capacity 4): one EP train step under
+    the mesh against the port's local step."""
+    from repro_torch import bridge
+    from repro_torch.sharding import partition
+    from repro_torch.train import optimizer, train_loop
+    cfg = _cfg("qwen3-moe-235b-a22b", **EP_CFG)
+    batch = {"tokens": r.npy("ep_tok.npy")}
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, total_steps=4)
+
+    local = r.model(cfg, "ep_params.npz")
+    step = train_loop.make_train_step(cfg, opt_cfg, moe_impl="local")
+    local, _, m_local = step(local, optimizer.init(bridge.leaves(local)),
+                             batch)
+
+    model = partition.shard_model(cfg, r.model(cfg, "ep_params.npz"),
+                                  r.mesh)
+    step = train_loop.make_train_step(cfg, opt_cfg, moe_impl="ep",
+                                      mesh=r.mesh)
+    model, _, m_ep = step(model, optimizer.init(bridge.leaves(model)),
+                          batch)
+    whole = partition.unshard_leaves(bridge.leaves(model),
+                                     model.shard_specs, r.mesh)
+    out["ep_loss"] = torch.stack([m_ep["loss"], m_local["loss"]])
+    out["ep_params"] = _stacked(whole)
+    out["ep_params_port"] = _stacked(bridge.leaves(local))
+
+
+def case_decode_kv(r, out):
+    """A whole prefill's cache cut by kv head (``shard_cache``), one
+    decode step under the mesh; and the mesh's own prefill (its cache
+    the same slice)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = kv_cfg(r.model_size)
+    tok = r.npy("kv_tok.npy")
+    whole = r.model(cfg, "kv_params.npz")
+    logits, cache = tfm.prefill(cfg, whole, tok, cache_len=64)
+    nt = logits.argmax(-1).to(torch.int32)
+    model = partition.shard_model(cfg, r.model(cfg, "kv_params.npz"),
+                                  r.mesh)
+    scache = partition.shard_cache(cfg, cache, r.mesh, tok.shape[0])
+    plog, pcache = tfm.prefill(cfg, model, tok, cache_len=64, mesh=r.mesh)
+    out["kv_cache_diff"] = torch.stack([
+        (pcache["groups"][0][0][n] - scache["groups"][0][0][n]).abs().max()
+        for n in ("k", "v")])
+    out["kv_prefill"] = plog
+    out["kv_prefill_port"] = logits
+    out["kv_decode"] = tfm.decode_step(cfg, model, nt, scache,
+                                       mesh=r.mesh)[0]
+    out["kv_decode_port"] = tfm.decode_step(cfg, whole, nt, cache)[0]
+
+
+def case_dist_decode(r, out):
+    """``distributed_decode_attention`` over a sequence-cut (B 2, S 64)
+    cache, pos [40, 17], and a ring with pos [130, 31]; the port's
+    unsharded decode beside it."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.rows import gather_rows, local_rows
+    from repro_torch.models import attention
+    from repro_torch.sharding import partition
+    z = _load(os.path.join(r.d, "dd.npz"))
+    q, kc, vc = (r.t(z[n]) for n in ("q", "kc", "vc"))
+    B, S = q.shape[0], kc.shape[1]
+    mesh = r.mesh
+    spec = (partition.batch_axes(mesh, B), "model", None, None)
+    k_loc, v_loc = (partition.shard(t, spec, mesh) for t in (kc, vc))
+    for name, pos, window in (("dd", z["pos"], 0), ("dd_ring", z["pos2"], S)):
+        pos = r.t(pos)
+        got = attention.distributed_decode_attention(
+            local_rows(q, mesh, B), k_loc, v_loc, local_rows(pos, mesh, B),
+            mesh, window=window)
+        out[name] = gather_rows(got, mesh, B)
+        out[name + "_port"] = ops.flash_decode(q, kc, vc, pos,
+                                               ring=bool(window))
+
+
+def case_seq_decode(r, out):
+    """A 2048-slot cache cut along the sequence (2048 / model slots a
+    model rank); prefill and three decode steps under the mesh (fed the
+    ids of ``seq_next.npy``), f32 and int8, and the port's unsharded
+    runs."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = seq_cfg(r.model_size)
+    tok, lens = r.npy("seq_tok.npy"), r.npy("seq_lens.npy")
+    nexts = r.npy("seq_next.npy")
+    for tag, c in (("seq", cfg),
+                   ("seq_int8", dataclasses.replace(cfg,
+                                                    kv_cache_dtype="int8"))):
+        model = partition.shard_model(c, r.model(c, "seq_params.npz"),
+                                      r.mesh)
+        logits, cache = tfm.prefill(c, model, tok, lens, cache_len=2048,
+                                    mesh=r.mesh)
+        assert cache["seq_sharded"], "the 2048-slot cache is not seq-cut"
+        assert cache["groups"][0][0]["k"].shape[2] == 2048 // r.model_size
+        steps = [logits]
+        for nt in nexts:
+            lg, cache = tfm.decode_step(c, model, nt, cache, mesh=r.mesh)
+            steps.append(lg)
+        out[tag] = torch.stack(steps)
+        whole = r.model(c, "seq_params.npz")
+        logits, cache = tfm.prefill(c, whole, tok, lens, cache_len=2048)
+        steps = [logits]
+        for nt in nexts:
+            lg, cache = tfm.decode_step(c, whole, nt, cache)
+            steps.append(lg)
+        out[tag + "_port"] = torch.stack(steps)
+
+
+CASES = {"forward": case_forward, "ep_train": case_ep_train,
+         "decode_kv": case_decode_kv, "dist_decode": case_dist_decode,
+         "seq_decode": case_seq_decode}
+
+
+def write_port_inputs(d, model_size: int) -> None:
+    """The cases' inputs made by the port alone (seeded ``init_params``
+    weights, numpy tokens), for runs where JAX is not installed."""
+    from repro_torch import bridge
+    from repro_torch.models import transformer as tfm
+    rng = np.random.default_rng(0)
+
+    def params(cfg, name, seed=0):
+        flat = bridge.flatten(bridge.params_to_numpy(
+            tfm.init_params(cfg, seed, device="cpu")))
+        np.savez(os.path.join(d, name), **flat)
+
+    def tokens(name, shape):
+        np.save(os.path.join(d, name),
+                rng.integers(0, 512, shape).astype(np.int32))
+    params(forward_cfg(model_size), "forward_params.npz")
+    tokens("forward_tok.npy", (4, 32))
+    params(_cfg("qwen3-moe-235b-a22b", **EP_CFG), "ep_params.npz")
+    tokens("ep_tok.npy", (4, 24))
+    params(kv_cfg(model_size), "kv_params.npz")
+    tokens("kv_tok.npy", (4, 16))
+    B, S, H, Hkv, Dh = 2, 64, 8, 2, 64     # a head dim the kernels take
+    np.savez(os.path.join(d, "dd.npz"),
+             q=rng.standard_normal((B, 1, H, Dh)).astype(np.float32),
+             kc=rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32),
+             vc=rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32),
+             pos=np.array([40, 17], np.int32),
+             pos2=np.array([130, 31], np.int32))
+    params(seq_cfg(model_size), "seq_params.npz", seed=1)
+    tokens("seq_tok.npy", (4, 600))
+    np.save(os.path.join(d, "seq_lens.npy"),
+            np.array([600, 100, 530, 20], np.int32))
+    tokens("seq_next.npy", (3, 4))
+
+
+def spawn(d, cases, data: int, model: int, device: str,
+          seconds: float) -> str:
+    """Run ``main`` on ``data * model`` spawned ranks; returns the error
+    text of a failed or hung run ("" when every rank finished)."""
+    ctx = torch.multiprocessing.start_processes(
+        main, args=(d, cases, data, model, device), nprocs=data * model,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + seconds
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after {seconds} s")
+    except Exception as e:          # a rank failed or hung: every rank ends
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        errs = [open(os.path.join(d, f)).read() for f in sorted(os.listdir(d))
+                if f.startswith("error_")]
+        return f"{e}\n" + "\n".join(errs)
+    return ""
+
+
+def load_output(d, name, err=""):
+    """Rank 0's result ``name`` (an array, or a dict of arrays)."""
+    path = os.path.join(d, f"out_{name}")
+    if os.path.exists(path + ".npz"):
+        return _load(path + ".npz")
+    assert os.path.exists(path + ".npy"), f"no {name} from the ranks:\n{err}"
+    return np.load(path + ".npy")
+
+
+def _save(d, name, val):
+    if isinstance(val, dict):
+        np.savez(os.path.join(d, f"out_{name}.npz"), **val)
+    else:
+        np.save(os.path.join(d, f"out_{name}.npy"),
+                val.detach().float().cpu().numpy())
+
+
+def main(rank: int, d: str, cases, data: int = 2, model: int = 4,
+         device: str = "cpu") -> None:
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    dev = init_distributed(data, model, device, rank=rank,
+                           world_size=data * model,
+                           init_method="file://" + os.path.join(d, "store"))
+    mesh = make_host_mesh(data, model, device=device)
+    r = Rank(d, mesh, dev)
+    try:
+        for name in cases:
+            out = {}
+            try:
+                CASES[name](r, out)
+            except Exception:
+                with open(os.path.join(d, f"error_{name}_{rank}.txt"),
+                          "w") as f:
+                    f.write(traceback.format_exc())
+                raise
+            if rank == 0:
+                for key, val in out.items():
+                    _save(d, key, val)
+        bad = sorted(m for m in sys.modules if m == "jax"
+                     or m.startswith("jax.") or m == "repro"
+                     or m.startswith("repro."))
+        if bad:
+            raise AssertionError(f"rank {rank} imported {bad}")
+    finally:
+        dist.destroy_process_group()
