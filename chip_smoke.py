@@ -117,7 +117,7 @@ goes through these phases, each printing its own lines:
    against 66 int8 pages; and an int8 pool with an int8 spill tier
    (spills and restores, a page of codes and scales byte-identical
    through the tier);
-8b. distribution (on the same model, about 30 s): both contiguous decode
+8b. distribution (on the same model, about 100 s): both contiguous decode
    kernels' ``lse_out`` (each (row, head)'s log-sum-exp) at Qwen3-14B's
    decode shape (B = 8 over 4096 slots), bf16 and f32, float and int8
    caches, at context 2048, at rows of every length (three inside the
@@ -129,7 +129,10 @@ goes through these phases, each printing its own lines:
    against the unsharded kernel and the plain version (f32 atol 1e-5);
    the bf16 kernels timed without and with ``lse_out`` beside the bound,
    the plain version and the library's flash-attention forward with its
-   log-sum-exp (per-row key lengths, GQA native); then a one-rank NCCL process group and the (1, 1)
+   log-sum-exp (per-row key lengths, GQA native); the serve phase's 12
+   requests at t = 0 served eagerly by the engine without a mesh on the
+   paged and the contiguous pool (8 slots each); then a one-rank NCCL
+   process group and the (1, 1)
    host mesh: one full-width qwen3-moe layer through ``moe_ep`` (the
    all-to-all and the f32 all-reduce) against ``moe_local`` at 8 and 512
    tokens, timed; smoke f32 yi-6b ``forward`` and one qwen3-moe EP train
@@ -139,7 +142,16 @@ goes through these phases, each printing its own lines:
    marked cut along the sequence into one shard (each decode through
    ``distributed_decode_attention``), and the int8 pair, every mesh
    run's ids equal to the no-mesh run's, its launches one a layer a
-   prefill or step, the ``lse_out`` ones counted apart;
+   prefill or step, the ``lse_out`` ones counted apart; smoke f32
+   qwen3-14b through the engine under the mesh on the card against the
+   engine without a mesh on the CPU, both pools, ids equal; then the
+   same 12 requests through ``ServingEngine(mesh=...)`` (rank 0 driving,
+   each device call a command over the gloo channel) on both pools,
+   eagerly: ids equal to the no-mesh runs', one ``flash_prefill`` a
+   layer a chunk and one decode kernel a layer a step, every page back,
+   TPOT and TTFT p50 both ways beside the card's name and power limit,
+   the decode command's host time a step, and a decode step of the
+   mesh engine profiled (the NCCL kernels' share);
 9. paper (the paper's own model): the Qwen3-14B model is freed and
    full-width, full-depth llama2-13b (bf16, seeded random weights, its
    native 4096-token cache) is built; both decode kernels at its widths
@@ -275,7 +287,9 @@ goes through these phases, each printing its own lines:
    ``flash_prefill`` at the training shape with the training run's
    launches, the two contiguous decode kernels with ``lse_out`` at the
    distribution phase's shape with the sequence-cut mesh runs'
-   launches, each entry naming its ``path``), the ``nvidia-smi`` line,
+   launches, and the three attention kernels at the serve shapes with
+   the mesh engine runs' launches, each entry naming its ``path``), the
+   ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; there is no CPU fallback.
@@ -5842,17 +5856,139 @@ def dist_mesh_path(torch, cfg, model, mesh):
     return res, launches
 
 
-def dist_phase(torch, cfg, model):
+MESH_ENGINE_SLOTS = {"paged": 8, "contiguous": 8}
+
+
+def mesh_engine_smoke(torch, mesh):
+    """Smoke f32 qwen3-14b through the engine under the one-rank NCCL mesh
+    on the card against the engine without a mesh on the CPU, on both
+    pools, chunk 32, 4 slots, the graph smoke's 8 requests: ids equal,
+    and every command's device half counted on the driver."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=128)
+    cpu = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gpu = partition.shard_model(cfg, copy.deepcopy(cpu).to("cuda"), mesh)
+    out = {}
+    for paged in (True, False):
+        ids = {}
+        for label, model, dev, m in (("cpu", cpu, "cpu", None),
+                                     ("mesh", gpu, "cuda", mesh)):
+            eng = make_engine(torch, cfg, model, 0, paged, 4, dev=dev,
+                              chunk=32, hbm_bytes=2 ** 30, page=16,
+                              decode_graph=False, mesh=m)
+            reqs = requests(GRAPH_SMOKE_LENGTHS, 8)
+            eng.submit(reqs)
+            if len(eng.run(max_wall_s=600)) != len(reqs):
+                raise AssertionError(f"mesh engine smoke {label}: not all "
+                                     f"served")
+            ids[label] = finished_ids(eng, reqs)
+            if m is not None:
+                sent = dict(eng.backend.channel.sent)
+        pool = "paged" if paged else "contiguous"
+        if ids["mesh"] != ids["cpu"]:
+            raise AssertionError(f"mesh engine smoke {pool}: card under the "
+                                 f"mesh {ids['mesh']} != CPU {ids['cpu']}")
+        out[pool] = sent
+    log("dist", f"smoke f32 qwen3-14b through the engine under the one-rank "
+        f"NCCL mesh on the card == the engine without a mesh on the CPU, "
+        f"{len(GRAPH_SMOKE_LENGTHS)} requests on each pool: ids equal; "
+        f"commands {out}")
+    return out
+
+
+def mesh_engine_runs(torch, cfg, model, wbytes, mesh=None, pool_tokens=None):
+    """The serve phase's 12 requests at t = 0 (32 new tokens) on the
+    paged pool (8 slots, ``pool_tokens``) and the contiguous pool (8
+    slots), eagerly, through ``ServingEngine(mesh=mesh)`` or without a
+    mesh; each run's ids, launches, steps and stats, the decode command's
+    host time under the mesh, every page back on the paged pool, and
+    the gates: one ``flash_prefill`` a layer a chunk, one decode kernel a
+    layer a step.  Under the mesh the paged engine's decode step is
+    then profiled (the NCCL kernels' share)."""
+    label = "mesh engine (1, 1)" if mesh is not None else "no mesh"
+    L = cfg.n_layers
+    res = {}
+    for pool in ("paged", "contiguous"):
+        paged = pool == "paged"
+        eng = make_engine(torch, cfg, model, wbytes, paged,
+                          MESH_ENGINE_SLOTS[pool],
+                          pool_tokens if paged else None,
+                          decode_graph=False, mesh=mesh)
+        reqs = requests(SERVE_LENGTHS, 32)
+        counts, stats, steps = serve_run(torch, cfg, eng, reqs,
+                                         f"Qwen3-14B {label}, {pool}")
+        be = eng.backend
+        kernel = "paged_flash_decode" if paged else "flash_decode"
+        other = "flash_decode" if paged else "paged_flash_decode"
+        if counts["flash_prefill"] != L * steps["prefill"] or \
+                counts[kernel] != L * steps["decode"] or counts[other]:
+            raise AssertionError(f"Qwen3-14B {label} {pool}: launches "
+                                 f"{counts} for {steps}")
+        if paged and be.free_blocks() != be.alloc.n_pages:
+            raise AssertionError(f"Qwen3-14B {label} paged: pages leaked")
+        run = dict(ids=finished_ids(eng, reqs), stats=stats, steps=steps,
+                   launches={k: counts[k] for k in ATTENTION_KERNELS})
+        if mesh is not None:
+            ch = be.channel
+            run.update(command_ms=ch.host_ms("decode"),
+                       commands=dict(ch.sent),
+                       command_s={k: v for k, v in ch.seconds.items()})
+            if paged:
+                run["profile"] = profile_steps(
+                    torch, "Qwen3-14B engine decode step under the (1, 1) "
+                    "mesh, 8 slots", be._step, "NCCL kernels", "nccl")
+        res[pool] = run
+        del eng, be
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_engine_compare(want, got):
+    """Ids of the mesh runs equal the no-mesh runs'; the TTFT / TPOT
+    lines both ways."""
+    smi = nvidia_smi_line()
+    for pool in ("paged", "contiguous"):
+        a, b = want[pool], got[pool]
+        if a["ids"] != b["ids"]:
+            bad = [rid for rid in a["ids"] if a["ids"][rid] != b["ids"][rid]]
+            raise AssertionError(f"Qwen3-14B engine under the mesh, {pool}: "
+                                 f"ids differ from the no-mesh run for rids "
+                                 f"{bad}")
+        if a["steps"] != b["steps"]:
+            raise AssertionError(f"Qwen3-14B {pool}: steps {b['steps']} "
+                                 f"under the mesh, {a['steps']} without")
+        log("dist", f"[{smi}] Qwen3-14B full width, engine, {pool} pool, "
+            f"12 requests at t = 0, eager both: ids equal; TPOT p50 "
+            f"{b['stats']['tpot_p50'] * 1e3:.2f} ms under the (1, 1) mesh, "
+            f"{a['stats']['tpot_p50'] * 1e3:.2f} ms without; TTFT p50 "
+            f"{b['stats']['ttft_p50']:.4f} s, {a['stats']['ttft_p50']:.4f} "
+            f"s; {b['steps']['prefill']} chunks, {b['steps']['decode']} "
+            f"decode steps; launches {b['launches']}; the decode command's "
+            f"host time {b['command_ms']:.4f} ms a step (gloo broadcast), "
+            f"commands {b['commands']}")
+
+
+def dist_phase(torch, cfg, model, wbytes, pool_tokens):
     """The distribution phase: a one-rank NCCL process group and the
     (1, 1) host mesh over it; the decode kernels' ``lse_out`` and the
     m-shard combine; ``moe_ep`` at full width; smoke f32 card against
-    CPU; then the main path, Qwen3-14B at full width through the mesh.
-    The process group is destroyed at the end."""
+    CPU, the model and the engine; then the main path, Qwen3-14B at full
+    width through the mesh, its prefill and decode steps and then the
+    engine under the mesh (rank 0 driving, on both pools) against the
+    engine without a mesh, whose runs come first (the model is not yet
+    cut).  The process group is destroyed at the end."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
     t0 = time.perf_counter()
     rows = dist_kernels(torch)
+    t1 = time.perf_counter()
+    engine_want = mesh_engine_runs(torch, cfg, model, wbytes,
+                                   pool_tokens=pool_tokens)
+    engine_s = time.perf_counter() - t1
     with tempfile.TemporaryDirectory() as d:
         mesh_mod.init_distributed(1, 1, "cuda", rank=0, world_size=1,
                                   init_method=f"file://{d}/store")
@@ -5861,12 +5997,30 @@ def dist_phase(torch, cfg, model):
             moe_res = moe_ep_full(torch, mesh)
             gc.collect()
             smoke = dist_smoke(torch, mesh)
+            t1 = time.perf_counter()
+            smoke["engine_commands"] = mesh_engine_smoke(torch, mesh)
+            engine_s += time.perf_counter() - t1
             path, launches = dist_mesh_path(torch, cfg, model, mesh)
+            t1 = time.perf_counter()
+            engine = mesh_engine_runs(torch, cfg, model, wbytes, mesh,
+                                      pool_tokens)
+            mesh_engine_compare(engine_want, engine)
+            engine_s += time.perf_counter() - t1
         finally:
             dist.destroy_process_group()
-    log("dist", f"phase took {time.perf_counter() - t0:.1f} s")
+    for pool in engine:
+        engine[pool]["no_mesh_stats"] = engine_want[pool]["stats"]
+        engine[pool].pop("ids")
+    launches.update({f"engine {k}": v for k, v in {
+        "flash_prefill": engine["paged"]["launches"]["flash_prefill"],
+        "paged_flash_decode": engine["paged"]["launches"][
+            "paged_flash_decode"],
+        "flash_decode": engine["contiguous"]["launches"][
+            "flash_decode"]}.items()})
+    log("dist", f"phase took {time.perf_counter() - t0:.1f} s (the engine "
+        f"runs and the engine smoke {engine_s:.1f} s)")
     return dict(rows=rows, moe_ep=moe_res, smoke=smoke, path=path,
-                launches=launches)
+                launches=launches, engine=engine)
 
 
 def main() -> int:
@@ -5919,7 +6073,7 @@ def main() -> int:
     profile["qwen3-14b int8"] = int8["drift"].pop("profile")
     gc.collect()
     torch.cuda.empty_cache()
-    dist = dist_phase(torch, cfg, model)
+    dist = dist_phase(torch, cfg, model, wbytes, pool_tokens)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6119,6 +6273,27 @@ def main() -> int:
                   "distributed_decode_attention)",
              ms_without_lse=dist["rows"]["flash_decode_int8 bfloat16"][
                  "ms_without"]),
+        # the engine under a mesh: full-width Qwen3-14B's 12 requests
+        # served through ServingEngine(mesh=...) on the one-rank NCCL
+        # mesh, rank 0 driving (paged and contiguous pools, eager); the
+        # kernels at the serve phase's widths and shapes
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rows["flash_prefill chunk 512@1536/4096"],
+                   path="qwen3-14b engine under the (1, 1) mesh",
+                   n=dist["launches"]["engine flash_prefill"]),
+             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     rows["paged_flash_decode B=8 ctx=2048 page=128"],
+                     path="qwen3-14b engine under the (1, 1) mesh",
+                     n=dist["launches"]["engine paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     rows["flash_decode B=8 ctx=2048"],
+                     path="qwen3-14b engine under the (1, 1) mesh",
+                     n=dist["launches"]["engine flash_decode"]),
         # the training step: the forward kernel under autograd (its
         # backward is the plain version's), launches over the 10 steps
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",

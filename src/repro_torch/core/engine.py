@@ -104,6 +104,30 @@ insertion, the page scatter, ``_seed_prefix``, the spill copier and the
 decode graph treat them as they treat any leaf.  Pool sizing is in
 bytes (``paging.device_pool_pages``), so the same ``kv_pool_tokens``
 buys about twice the pages of a bf16 pool.
+
+Under a mesh (``mesh``, ``launch/mesh.py``; the model cut for it by
+``sharding.partition.shard_model``): a single controller.  Rank 0 runs
+the loop, the scheduler, the allocator and the retention layer; every
+method here that writes device memory is a host half, which decides,
+and a device half ``_d_<op>`` of explicit arguments, which rank 0
+broadcasts (``core/driver.py``) and every rank runs on its own shards
+(``_run``).  Without a mesh ``_run`` calls the device half directly: the
+one-device path is the same code.  A worker rank builds the backend with
+the same arguments, holds no allocator and no retention layer, and runs
+``driver.serve_worker`` (``ServingEngine.run`` does on a worker rank).
+The contiguous pool is ``init_cache(mesh=...)``: slots cut over
+``data`` (each data rank inserts only the rows whose slot it holds),
+K/V by kv head over ``model``, or along the sequence when Hkv does not
+divide and S >= 2048.  The paged pool is cut by kv head over ``model``
+where Hkv divides, whole on every rank where it does not; under ``data
+> 1`` it is refused (a prefix page written on one data rank would be
+read stale on another).  A prefill job's rows are whole on every rank
+(``init_cache(rows_cut=False)``, ``prefill(local_batch=True)``).
+``next_tok`` is the argmax of the gathered logits on every rank; only
+rank 0 reads it.  The spill tier is a rank's: each rank spills its shard
+of a page into its own host slot.  ``moe_impl="ep"``, the decode graph
+and the prefill graphs are refused under a mesh (both graphs default to
+off there).
 """
 from __future__ import annotations
 
@@ -121,7 +145,8 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
-from . import paging
+from repro_torch.sharding.rows import axes_index, batch_tuple
+from . import driver, paging
 from .batcher import FormedBatch
 from .faults import FaultInjector
 from .prefix_cache import PrefixCache
@@ -191,6 +216,13 @@ class _EngineCopier:
     back into its reserved pool page with one index-put a leaf on the
     compute stream, so it lands before the held request's
     ``_seed_prefix`` reads it.
+
+    Under a mesh the copier is a rank's: ``spill``, ``poll`` and
+    ``drop`` are host halves that send their device halves (``_spill``,
+    ``_poll``, ``_drop``) to every rank, each copying its shard of the
+    page to its own host slot; ``restore`` only queues, and ``poll``
+    carries the queue.  A poll with nothing staged and nothing queued
+    sends nothing (every rank stages the same spills).
 
     Host leaves are allocated at the first spill of each leaf and left
     uninitialised (a host slot is read only after it was written).  Raw
@@ -299,25 +331,36 @@ class _EngineCopier:
         return torch.from_numpy(x).to(leaf.dtype)
 
     def spill(self, page: int, hslot: int) -> None:
+        self.be._run("spill", page=page, hslot=hslot)
+
+    def _spill(self, page: int, hslot: int) -> None:
         self._staged[hslot] = [(lk, leaf[:, page].clone())
                                for lk, leaf in self._attn_leaves()]
 
     def poll(self) -> None:
         """Drain both directions: staged spills to host memory, then the
         pending restores into the pool."""
+        if not self._staged and not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        self.be._run("poll", pending=pending)
+
+    def _poll(self, pending: List[Tuple[int, int]]) -> None:
         for hslot, pages in self._staged.items():
             for lk, page in pages:
                 self._materialize(hslot, lk, page)
         self._staged.clear()
-        if not self._pending:
+        if not pending:
             return
-        hslots = [h for h, _ in self._pending]
-        dst = self.be._index([p for _, p in self._pending])
-        self._pending = []
+        hslots = [h for h, _ in pending]
+        dst = self.be._index([p for _, p in pending])
         for lk, leaf in self._attn_leaves():
             leaf[:, dst] = self._decompress(lk, hslots, leaf).to(leaf.device)
 
     def drop(self, hslot: int) -> None:
+        self.be._run("drop", hslot=hslot)
+
+    def _drop(self, hslot: int) -> None:
         self._staged.pop(hslot, None)   # host cells just become garbage
 
     def restore(self, hslot: int, page: int) -> None:
@@ -563,8 +606,62 @@ def check_servable(cfg: ModelConfig) -> None:
             f"vision_embeds instead")
 
 
+def kv_shards(cfg: ModelConfig, mesh) -> int:
+    """The ranks a pool's K/V is cut over by kv head: ``model`` when the
+    kv heads divide over it, else 1 (no mesh, or a pool whole on every
+    rank or cut along the sequence)."""
+    m = 1 if mesh is None else mesh.size("model")
+    return m if cfg.n_kv_heads % m == 0 else 1
+
+
+def mesh_refusal(cfg: ModelConfig, mesh, *, paged: bool = False
+                 ) -> Optional[str]:
+    """Why the engine cannot serve ``cfg`` under ``mesh`` (a host mesh or
+    one of shape only), or None: the recurrent, cross-attention and
+    encoder configs under ``model`` > 1 (``transformer.mesh_refusal``);
+    the paged pool, and so KV retention, under ``data`` > 1; MoE experts
+    cut over ``data``, which ``moe_impl="local"`` does not run."""
+    why = tfm.mesh_refusal(cfg, mesh.size("model"))
+    if why:
+        return why
+    if paged and mesh.size("data") > 1:
+        return ("the paged pool (and so KV retention) under data > 1: "
+                "each data rank would hold a pool of its own slots, and a "
+                "prefix page written on one data rank would be read stale "
+                "on another; serve the paged pool with data = 1")
+    if cfg.n_experts:
+        from repro_torch.sharding import partition
+        spec = partition.param_rule("w_gate", (1, cfg.n_experts, cfg.d_model,
+                                               cfg.d_ff_expert), mesh)
+        if spec[1] is not None and mesh.size(spec[1]) > 1:
+            return (f"{cfg.name} under data > 1: the experts are cut over "
+                    f"data, which moe_impl='local' (the engine's) does not "
+                    f"run; moe_ep in the engine is a later slice")
+    return None
+
+
+def check_mesh(cfg: ModelConfig, model: tfm.Transformer, mesh, *,
+               paged: bool = False, decode_graph: Optional[bool] = None,
+               prefill_graph: Optional[bool] = None) -> None:
+    """Raise for what the engine does not serve under ``mesh``
+    (``mesh_refusal``; a model not cut for the mesh), and for a graph
+    asked for: a CUDA graph of the mesh step would capture its NCCL
+    calls, a later item."""
+    tfm.resolve_mesh(cfg, model, mesh)
+    why = mesh_refusal(cfg, mesh, paged=paged)
+    if why:
+        raise ValueError(why)
+    for name, flag in (("decode_graph", decode_graph),
+                       ("prefill_graph", prefill_graph)):
+        if flag:
+            raise ValueError(f"{name}=True under a mesh: the engine runs "
+                             f"its steps eagerly there (a captured step "
+                             f"would hold its NCCL calls)")
+
+
 class TorchEngineBackend:
-    """ExecutionBackend over PyTorch prefill/decode on one device.
+    """ExecutionBackend over PyTorch prefill/decode on one device, or on
+    every rank of a mesh (``mesh``; module docstring).
 
     ``decode_graph``: None captures the decode step as a CUDA graph
     (:class:`DecodeGraph`) on a CUDA device and runs it eagerly on the
@@ -572,7 +669,8 @@ class TorchEngineBackend:
     step eagerly on the card too (the graph-against-eager comparisons).
     ``prefill_graph`` is the same choice for the prefill graphs
     (:class:`PrefillGraph`).  The reference engine has no such options:
-    it always compiles.
+    it always compiles.  Under a mesh both default to False and True is
+    refused: a captured step would hold its NCCL calls.
 
     ``prefill_rows``: the rows of the batch prefill cache, allocated at
     construction (pass the scheduler's batch cap, as the launcher does);
@@ -582,12 +680,20 @@ class TorchEngineBackend:
 
     ``moe_impl`` is the reference engine's: the MoE blocks' path in
     prefill, the chunk and the decode step, ``"local"`` (grouped, the
-    default) or ``"ref"`` (the dense oracle); ``"ep"`` is refused here,
-    as the port has no expert parallelism yet."""
+    default) or ``"ref"`` (the dense oracle); ``"ep"`` is refused, as
+    the reference's launcher serves ``"local"``.
+
+    ``mesh``: the mesh the model was cut for; rank 0 drives, the other
+    ranks are workers (``worker``), which answer the driver's commands
+    through ``driver.serve_worker``."""
 
     prefill_needs_slots = True
     # armed by the ServingLoop when the scheduler is slack-aware
     slack_of = None
+
+    # the device halves a command may name (``command``)
+    DEVICE_OPS = ("hello", "begin_job", "chunk", "insert", "decode",
+                  "spill", "poll", "drop")
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, *,
                  max_slots: int = 8, cache_len: Optional[int] = None,
@@ -602,13 +708,14 @@ class TorchEngineBackend:
                  decode_graph: Optional[bool] = None,
                  prefill_graph: Optional[bool] = None,
                  prefill_rows: Optional[int] = None,
-                 moe_impl: str = "local"):
+                 moe_impl: str = "local", mesh=None):
         check_servable(cfg)
         if moe_impl == "ep":
             raise NotImplementedError(
-                "moe_impl='ep' runs under a mesh; the engine under a mesh "
-                "(a driver rank broadcasting each model call) is a later "
-                "slice of the port")
+                "moe_impl='ep': the engine serves moe_impl='local', as the "
+                "reference's launcher does; a prefill job's tokens are "
+                "whole on every data rank, which moe_ep's dispatch (each "
+                "data rank sending its own rows) does not expect")
         moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
@@ -616,11 +723,20 @@ class TorchEngineBackend:
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {device}")
+        self.mesh = mesh
+        self.channel = None
+        if mesh is not None:
+            check_mesh(cfg, model, mesh, paged=paged,
+                       decode_graph=decode_graph,
+                       prefill_graph=prefill_graph)
+            decode_graph = prefill_graph = False
+            self.channel = driver.channel(mesh)
         for name, flag in (("decode_graph", decode_graph),
                            ("prefill_graph", prefill_graph)):
             if flag and model.device.type != "cuda":
                 raise ValueError(f"{name}=True: a CUDA graph needs the "
                                  f"card, the engine runs on {model.device}")
+        self.worker = self.channel is not None and not self.channel.is_driver
         self.device = model.device
         self.dtype = model.dtype
         self.cfg = cfg
@@ -635,13 +751,18 @@ class TorchEngineBackend:
         self.paged = paged
         self.spill_dtype = spill_dtype
         like_model = dict(dtype=self.dtype, device=self.device)
+        if mesh is not None:
+            like_model["mesh"] = mesh
         # the retention layer: the radix prefix index, TTL'd sessions
         # when session_ttl is set, and the host spill tier beneath when
         # host_pool_tokens is; host slots and the per-page transfer price
-        # are counted in the spill dtype's bytes (paging.host_tier_geometry)
+        # are counted in the spill dtype's bytes (paging.host_tier_geometry),
+        # a rank's share of a page under a mesh that cuts the pool
         self.retention: Optional[KvRetention] = None
+        self.copier: Optional[_EngineCopier] = None
         host_pages, slot_bytes = paging.host_tier_geometry(
             cfg, host_pool_tokens, page_size, spill_dtype)
+        slot_bytes //= kv_shards(cfg, mesh)
         if prefix_cache or session_ttl is not None:
             if not paged:
                 raise ValueError("KV retention rides on the paged KV pool: "
@@ -651,15 +772,17 @@ class TorchEngineBackend:
                     f"{cfg.name}: KV retention needs chunk-resumable "
                     f"prefill and purely attention-paged state (no "
                     f"recurrent carries)")
-            self.retention = KvRetention(
-                page_size, session_ttl=session_ttl,
-                host_pool_pages=host_pages,
-                spill_seconds_per_page=slot_bytes / spill_bw,
-                spill_page_bytes=slot_bytes)
+            if not self.worker:
+                self.retention = KvRetention(
+                    page_size, session_ttl=session_ttl,
+                    host_pool_pages=host_pages,
+                    spill_seconds_per_page=slot_bytes / spill_bw,
+                    spill_page_bytes=slot_bytes)
         elif host_pages:
             raise ValueError("the host spill tier rides on the retention "
                              "layer: pass prefix_cache or session_ttl")
 
+        self.n_pages = 0
         if paged:
             if not tfm.supports_paged_decode(cfg):
                 raise ValueError(f"{cfg.name}: paged KV needs "
@@ -678,32 +801,40 @@ class TorchEngineBackend:
                     f"full request of {self.pages_per_seq} pages + the "
                     f"trash page)")
             n_pages = max(n_pages, self.pages_per_seq)
-            self.alloc = paging.BlockAllocator(
-                n_pages, page_size, host_pages=host_pages,
-                page_bytes=page_size * max(cfg.cache_bytes_per_token(), 1),
-                host_slot_bytes=slot_bytes)
+            self.n_pages = n_pages
             self.trash_page = n_pages            # pool index n_pages
             self.pool_cache = tfm.init_paged_cache(
                 cfg, max_slots, self.cache_len, n_pages + 1, page_size,
                 **like_model)
-            self._bt = _BlockTableMirror(max_slots, self.pages_per_seq,
-                                         self.trash_page)
-            self.pool_cache["block_tables"].copy_(
-                torch.from_numpy(self._bt.host))
+            if not self.worker:
+                self.alloc = paging.BlockAllocator(
+                    n_pages, page_size, host_pages=host_pages,
+                    page_bytes=page_size * max(cfg.cache_bytes_per_token(),
+                                               1),
+                    host_slot_bytes=slot_bytes)
+                self._bt = _BlockTableMirror(max_slots, self.pages_per_seq,
+                                             self.trash_page)
+            self.pool_cache["block_tables"].fill_(self.trash_page)
             if host_pages:
-                self.retention.copier = _EngineCopier(self, host_pages,
-                                                      spill_dtype)
+                self.copier = _EngineCopier(self, host_pages, spill_dtype)
+                if self.retention is not None:
+                    self.retention.copier = self.copier
         else:
             self.pool_cache = tfm.init_cache(cfg, max_slots, self.cache_len,
                                              **like_model)
+        self.host_pages = host_pages
+        self._slot_lo, self._slot_n = self._slot_range()
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self._slot_of: Dict[int, int] = {}
+        # every slot's next token, on every rank (the step's argmax of
+        # the gathered logits)
         self.next_tok = torch.zeros((max_slots,), dtype=torch.int32,
                                     device=self.device)
         self.outputs: Dict[int, List[int]] = {}
         self._prefill_shapes: set = set()
         # the job whose inputs and batch-cache rows are live
         self._job: Optional[PrefillJob] = None
+        self._job_toks: Optional[torch.Tensor] = None
         self.prefill_rows = 0
         if prefill_rows:
             self._alloc_prefill(prefill_rows)
@@ -726,14 +857,80 @@ class TorchEngineBackend:
             self.prefill_graph = PrefillGraph(self.device, stream=side,
                                               dtype=self.dtype)
 
+    # ---------------------------------------------------- the channel ----
+    def _run(self, op: str, **args):
+        """Run the device half ``op`` with ``args``: under a mesh rank 0
+        first sends it to every rank (``core/driver.py``); here in any
+        case.  Returns the device half's result (rank 0 reads it)."""
+        if self.channel is not None:
+            self.channel.send(op, args)
+        return getattr(self, "_d_" + op)(**args)
+
+    def command(self, op: str, args: dict):
+        """A worker's run of one command of the driver."""
+        if op not in self.DEVICE_OPS:
+            raise ValueError(f"unknown engine command {op!r}")
+        return getattr(self, "_d_" + op)(**args)
+
+    def geometry(self) -> dict:
+        """What every rank's backend must agree on: the pool, the batch
+        prefill cache and the paths the device halves take."""
+        return dict(arch=self.cfg.name, layers=self.cfg.n_layers,
+                    dtype=str(self.dtype), max_slots=self.max_slots,
+                    cache_len=self.cache_len, paged=self.paged,
+                    n_pages=self.n_pages,
+                    page_size=self.page_size if self.paged else 0,
+                    host_pages=self.host_pages,
+                    spill_dtype=self.spill_dtype,
+                    prefill_rows=self.prefill_rows, moe_impl=self.moe_impl,
+                    mesh=None if self.mesh is None else dict(
+                        self.mesh.shape))
+
+    def hello(self) -> None:
+        """The driver's first command of a run: every worker checks its
+        geometry against the driver's."""
+        self._run("hello", geometry=self.geometry())
+
+    def _d_hello(self, geometry: dict) -> None:
+        mine = self.geometry()
+        if mine != geometry:
+            raise ValueError(f"engine geometry differs from the driver "
+                             f"rank's: {mine} != {geometry}")
+
+    def close(self, reason: Optional[str] = None) -> None:
+        """End a run under a mesh: ``stop`` every worker, or ``abort``
+        them with ``reason``."""
+        if self.channel is not None and not self.worker:
+            self.channel.send("abort" if reason else "stop",
+                              {"reason": reason})
+
+    def _slot_range(self) -> Tuple[int, int]:
+        """(first slot, slots) of the pool this rank holds: its cut of
+        the slots over ``data`` (``sharding.rows``), all of them without
+        a mesh or when no axis divides them."""
+        if self.mesh is None:
+            return 0, self.max_slots
+        axes = batch_tuple(self.mesh, self.max_slots)
+        n = math.prod(self.mesh.shape[a] for a in axes)
+        per = self.max_slots // n
+        return axes_index(self.mesh, axes) * per, per
+
+    # ------------------------------------------------------ prefill ----
     def _alloc_prefill(self, rows: int) -> None:
         """The batch prefill cache of ``rows`` rows and the fixed buffers
         a prefill reads and writes: token ids (room for ``rows`` full
-        prompts), lengths, the chunk's ``start`` and the logits."""
+        prompts), lengths, the chunk's ``start`` and the logits.  Under a
+        mesh every rank holds every row, with the pool's cut of the K/V
+        (never along the sequence over a paged pool, which is not)."""
         dev = dict(device=self.device)
         self.prefill_rows = rows
-        self._batch_cache = tfm.init_cache(self.cfg, rows, self.cache_len,
-                                           self.dtype, self.device)
+        if self.mesh is None:
+            self._batch_cache = tfm.init_cache(self.cfg, rows, self.cache_len,
+                                               self.dtype, self.device)
+        else:
+            self._batch_cache = tfm.init_cache(
+                self.cfg, rows, self.cache_len, self.dtype, self.device,
+                self.mesh, rows_cut=False, seq_cut=not self.paged)
         self._pf_toks = torch.zeros((rows * self.cache_len,),
                                     dtype=torch.int32, **dev)
         self._pf_lens = torch.zeros((rows,), dtype=torch.int32, **dev)
@@ -745,11 +942,14 @@ class TorchEngineBackend:
         """The batch cache's first ``B`` rows (each leaf's ``[:, :B]`` is
         contiguous a rep, as the kernels need)."""
         bc = self._batch_cache
-        return {"pos": bc["pos"][:B],
+        view = {"pos": bc["pos"][:B],
                 "groups": tuple(tuple({k: leaf[:, :B]
                                        for k, leaf in slot.items()}
                                       for slot in slots)
                                 for slots in bc["groups"])}
+        if "seq_sharded" in bc:
+            view["seq_sharded"] = bc["seq_sharded"]
+        return view
 
     def _decode_step_fn(self) -> Callable[[], None]:
         """One decode step over the pool, the argmax written into
@@ -761,6 +961,8 @@ class TorchEngineBackend:
         kw = dict(page_size=self.page_size,
                   paged_len=self.s_attn) if self.paged else {}
         kw["moe_impl"] = self.moe_impl
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
 
         def step() -> None:
             logits, _ = tfm.decode_step(cfg, model, nxt, cache, **kw)
@@ -936,6 +1138,26 @@ class TorchEngineBackend:
             # the graph reads start on the device: checked here
             raise ValueError(f"chunk [{start}, {start + clen}) outside the "
                              f"cache of {self.cache_len} slots")
+        self._note_shape("chunk" if chunked else "prefill", clen, B)
+        last = idx == len(job.chunks) - 1
+        bodies = self._run("chunk", B=B, start=start, clen=clen,
+                           chunked=chunked, last=last)
+        runtime.count_unaligned(start, bodies)
+        first = torch.argmax(self._pf_logits[:B], -1).cpu().numpy()
+        lens = h["np_lens"] - 1
+        fin = (lens >= start) & (lens < start + clen)
+        h["first"][fin] = first[fin]
+        if last:
+            self._finish_prefill(job)
+        return 0.0            # wall backend: the loop reads the clock
+
+    def _d_chunk(self, B: int, start: int, clen: int, chunked: bool,
+                 last: bool) -> Dict[str, int]:
+        """Device half of a prefill chunk: the job's token ids of [start,
+        start + clen) into the fixed buffer, the prefill of its shape
+        (eager, or a prefill graph), and after a chunked job's last chunk
+        the rows' positions.  Returns the ``flash_prefill`` launches by
+        body."""
         if B * clen > self._pf_toks.numel():
             # a prompt past cache_len: room for it, and the graphs
             # captured over the old buffer go
@@ -943,30 +1165,23 @@ class TorchEngineBackend:
             self._pf_toks = torch.zeros((B * clen,), dtype=torch.int32,
                                         device=self.device)
         self._pf_toks[:B * clen].view(B, clen).copy_(
-            h["toks"][:, start:start + clen])
+            self._job_toks[:, start:start + clen])
         self._pf_start.fill_(start)
-        key = self._note_shape("chunk" if chunked else "prefill", clen, B)
+        key = ("chunk" if chunked else "prefill", clen, B)
         step = self._prefill_step(key)
         if self.prefill_graph is not None:
             bodies = self.prefill_graph.run(key, step)
         else:
             bodies = _eager_bodies(step)
-        runtime.count_unaligned(start, bodies)
-        first = torch.argmax(self._pf_logits[:B], -1).cpu().numpy()
-        last = h["np_lens"] - 1
-        fin = (last >= start) & (last < start + clen)
-        h["first"][fin] = first[fin]
-        if idx == len(job.chunks) - 1:
-            if chunked:
-                h["cache"]["pos"].copy_(self._pf_lens[:B])
-            self._finish_prefill(job)
-        return 0.0            # wall backend: the loop reads the clock
+        if last and chunked:
+            self._batch_view(B)["pos"].copy_(self._pf_lens[:B])
+        return bodies
 
     def _begin_job(self, job: PrefillJob) -> dict:
         """A job's first chunk: its rows of the batch cache zeroed (a
         fresh cache, whatever earlier jobs left there), its token ids on
         the device once, its lengths in the fixed buffer, and a cached
-        prefix copied in."""
+        prefix copied in (``_d_begin_job``)."""
         reqs = job.batch.requests
         B = len(reqs)
         total = job.chunks[-1][0] + job.chunks[-1][1]
@@ -976,6 +1191,16 @@ class TorchEngineBackend:
             L = min(r.prompt_len, total)
             toks[i, :L] = r.tokens[:L]
             lens[i] = L
+        seed = self._prefix_rows(reqs) if job.chunks[0][0] > 0 else []
+        self._job = job
+        dev_toks = self._run("begin_job", toks=toks, lens=lens, seed=seed)
+        return {"toks": dev_toks, "np_lens": lens,
+                "cache": self._batch_view(B),
+                "first": np.zeros((B,), np.int64)}
+
+    def _d_begin_job(self, toks: np.ndarray, lens: np.ndarray,
+                     seed: list) -> torch.Tensor:
+        B = toks.shape[0]
         if B > self.prefill_rows:
             # the first job, or a batch above the rows held: a larger
             # cache, and the graphs captured over the old one go
@@ -989,13 +1214,10 @@ class TorchEngineBackend:
                 for leaf in slot.values():
                     leaf.zero_()
         self._pf_lens[:B].copy_(torch.from_numpy(lens))
-        h = {"toks": torch.from_numpy(toks).to(self.device),
-             "np_lens": lens, "cache": cache,
-             "first": np.zeros((B,), np.int64)}
-        self._job = job
-        if job.chunks[0][0] > 0:
-            self._seed_prefix(h, reqs)
-        return h
+        self._job_toks = torch.from_numpy(toks).to(self.device)
+        if seed:
+            self._copy_prefix(cache, seed)
+        return self._job_toks
 
     def _drop_prefill_graphs(self) -> None:
         if self.prefill_graph is not None:
@@ -1006,17 +1228,20 @@ class TorchEngineBackend:
         its logits into the logits buffer: what a ``PrefillGraph``
         captures.  It reads the token, length and ``start`` buffers and
         writes the batch cache's first B rows, as every later prefill of
-        the key does."""
+        the key does.  Under a mesh every rank runs every row
+        (``local_batch``)."""
         kind, T, B = key
         cfg, model, moe_impl = self.cfg, self.model, self.moe_impl
         toks = self._pf_toks[:B * T].view(B, T)
         lens, start = self._pf_lens[:B], self._pf_start
         out = self._pf_logits[:B]
         cache = self._batch_view(B)
+        mkw = {} if self.mesh is None else dict(mesh=self.mesh,
+                                                local_batch=True)
         if kind == "chunk":
             def step() -> None:
                 logits, _ = tfm.prefill_chunk(cfg, model, toks, cache, start,
-                                              lens, moe_impl=moe_impl)
+                                              lens, moe_impl=moe_impl, **mkw)
                 out.copy_(logits)
         else:
             cache_len = self.cache_len
@@ -1024,31 +1249,39 @@ class TorchEngineBackend:
             def step() -> None:
                 logits, _ = tfm.prefill(cfg, model, toks, lens,
                                         cache_len=cache_len,
-                                        moe_impl=moe_impl, cache=cache)
+                                        moe_impl=moe_impl, cache=cache, **mkw)
                 out.copy_(logits)
         return step
 
-    def _seed_prefix(self, h, reqs: Sequence[Request]) -> None:
-        """Copy each row's cached prefix K/V out of the page pool into
-        the batch prefill cache, so chunked prefill resumes past it: for
-        each row and attention leaf, one gather of the row's hit pages
-        and an in-place copy of positions [0, prefix_hit_tokens).  A
-        session-resumed row's hit ends inside its partial tail page; the
-        copy stops at that exact token.  The values are the pool's bits.
-        """
+    def _prefix_rows(self, reqs: Sequence[Request]) -> list:
+        """(row, hit tokens, hit pages) of each row with a cached prefix."""
         page = self.page_size
         rows = []
         for i, r in enumerate(reqs):
             n = r.prefix_hit_tokens
             if n:
-                pages = self.alloc.table(r.rid)[:-(-n // page)]
-                rows.append((i, n, self._index(pages)))
+                rows.append((i, n, list(self.alloc.table(r.rid)[:-(-n // page)])))
+        return rows
+
+    def _seed_prefix(self, h, reqs: Sequence[Request]) -> None:
+        """Copy each row's cached prefix K/V out of the page pool into
+        the batch prefill cache ``h["cache"]``, so chunked prefill
+        resumes past it (``_copy_prefix``)."""
+        self._copy_prefix(h["cache"], self._prefix_rows(reqs))
+
+    def _copy_prefix(self, cache, rows: list) -> None:
+        """For each (row, hit tokens n, hit pages) and attention leaf,
+        one gather of the row's hit pages and an in-place copy of
+        positions [0, n).  A session-resumed row's hit ends inside its
+        partial tail page; the copy stops at that exact token.  The
+        values are the pool's bits."""
+        rows = [(i, n, self._index(pages)) for i, n, pages in rows]
         for gi, (pattern, _) in enumerate(self.cfg.block_groups()):
             for j, btype in enumerate(pattern):
                 if btype not in (BLOCK_ATTN, BLOCK_MOE):
                     continue        # unreachable under prefix_cacheable
                 pool_slot = self.pool_cache["groups"][gi][j]
-                for k, leaf in h["cache"]["groups"][gi][j].items():
+                for k, leaf in cache["groups"][gi][j].items():
                     for i, n, pages in rows:
                         g = pool_slot[k][:, pages]   # (reps, np, page, ...)
                         leaf[:, i, :n] = g.flatten(1, 2)[:, :n]
@@ -1078,7 +1311,7 @@ class TorchEngineBackend:
             if self.paged:
                 t = self.alloc.table(r.rid)      # reserved at admission
                 self._bt.insert(slot, r.rid, t)
-                tables.append(t)
+                tables.append(list(t))
                 # shared prefix pages already hold this K/V and may be
                 # read by other live requests: never written again
                 if self.retention is not None:
@@ -1088,10 +1321,13 @@ class TorchEngineBackend:
                     shared.append(0)
         if slots:
             if self.paged:
-                self._insert_slots_paged(h["cache"], slots, rows, firsts,
-                                         tables, shared)
+                self._run("insert", B=len(job.batch.requests), slots=slots,
+                          rows=rows, firsts=firsts, tables=tables,
+                          shared=shared, bt=self._bt.host)
+                self._bt.dirty = False
             else:
-                self._insert_slots(h["cache"], slots, rows, firsts)
+                self._run("insert", B=len(job.batch.requests), slots=slots,
+                          rows=rows, firsts=firsts)
         # index full prompt pages only once their K/V is in the pool: a
         # later batch may hit them at once
         for r, t in to_register:
@@ -1103,31 +1339,58 @@ class TorchEngineBackend:
         return torch.as_tensor(np.asarray(values, np.int64),
                                device=self.device)
 
+    def _d_insert(self, B: int, slots: List[int], rows: List[int],
+                  firsts: List[int], tables=None, shared=None,
+                  bt=None) -> None:
+        """Device half of the slot insertion: the job's rows of the
+        batch cache into the pool (``_insert_slots`` or
+        ``_insert_slots_paged``, which also pushes the block tables
+        ``bt``) and each slot's first token into ``next_tok``."""
+        cache = self._batch_view(B)
+        if self.paged:
+            self._insert_slots_paged(cache, slots, rows, firsts, tables,
+                                     shared, bt)
+        else:
+            self._insert_slots(cache, slots, rows, firsts)
+
+    def _held(self, slots: List[int], rows: List[int]):
+        """This rank's pool indices of ``slots`` (global) and the batch
+        rows that go to them: the slots it holds (all of them without a
+        mesh or when the slots are not cut)."""
+        lo, n = self._slot_lo, self._slot_n
+        kept = [(s - lo, r) for s, r in zip(slots, rows) if lo <= s < lo + n]
+        return [s for s, _ in kept], [r for _, r in kept]
+
     def _insert_slots(self, batch_cache, slots: List[int], rows: List[int],
                       firsts: List[int]) -> None:
         """Scatter batch rows into pool slots, in place: one index-put
-        per cache leaf (K/V, or the RWKV carry) for the whole batch."""
-        sl, rw = self._index(slots), self._index(rows)
-        self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
-        for gi, pattern_slots in enumerate(self.pool_cache["groups"]):
-            for j, pool_slot in enumerate(pattern_slots):
-                bc_slot = batch_cache["groups"][gi][j]
-                for k, leaf in pool_slot.items():
-                    leaf[:, sl] = bc_slot[k][:, rw]
-        self.next_tok[sl] = torch.as_tensor(firsts, dtype=torch.int32,
-                                            device=self.device)
+        per cache leaf (K/V, or the RWKV carry) for the whole batch.  A
+        rank whose pool holds a cut of the slots writes the rows of the
+        slots it holds."""
+        local, held_rows = self._held(slots, rows)
+        if local:
+            sl, rw = self._index(local), self._index(held_rows)
+            self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
+            for gi, pattern_slots in enumerate(self.pool_cache["groups"]):
+                for j, pool_slot in enumerate(pattern_slots):
+                    bc_slot = batch_cache["groups"][gi][j]
+                    for k, leaf in pool_slot.items():
+                        leaf[:, sl] = bc_slot[k][:, rw]
+        self.next_tok[self._index(slots)] = torch.as_tensor(
+            firsts, dtype=torch.int32, device=self.device)
 
     def _insert_slots_paged(self, batch_cache, slots: List[int],
                             rows: List[int], firsts: List[int],
                             tables: List[List[int]],
-                            shared: Sequence[int]) -> None:
+                            shared: Sequence[int], bt) -> None:
         """Scatter prefilled caches into the page pool, in place:
         attention K/V rows are chopped into page-sized spans and written
         to each request's allocated pages (one index-put per leaf for the
         whole batch); per-slot leaves (a recurrent carry) take the
         contiguous slot scatter.  The first ``shared[i]`` pages of a
         table are a cached prefix that already lives in the pool:
-        skipped, so a shared page is written once, by its first owner."""
+        skipped, so a shared page is written once, by its first owner.
+        ``bt``, the host block tables, is pushed after."""
         sl, rw = self._index(slots), self._index(rows)
         self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
         dst, srow, spg = [], [], []
@@ -1157,28 +1420,35 @@ class TorchEngineBackend:
                     bp = bl.reshape(bl.shape[:2] + (maxp, page)
                                     + bl.shape[3:])
                     pool_leaf[:, dst] = bp[:, srow, spg]
-        self.pool_cache["block_tables"].copy_(torch.from_numpy(self._bt.host))
-        self._bt.dirty = False
+        self.pool_cache["block_tables"].copy_(torch.from_numpy(bt))
         self.next_tok[sl] = torch.as_tensor(firsts, dtype=torch.int32,
                                             device=self.device)
 
     def decode_iter(self, pool: Sequence[Request],
                     context_tokens: int) -> float:
+        bt = None
         if self.paged and self._bt.dirty:
             # tables changed (extend/preempt/release): push the small host
             # mirror; steady-state iterations skip the transfer
-            self.pool_cache["block_tables"].copy_(
-                torch.from_numpy(self._bt.host))
+            bt = self._bt.host
             self._bt.dirty = False
-        if self.decode_graph is not None:
-            self.decode_graph.replay()
-        else:
-            self._step()
+        self._run("decode", bt=bt)
         toks = self.next_tok.cpu().numpy()
         for slot, r in enumerate(self.slot_req):
             if r is not None:
                 self.outputs[r.rid].append(int(toks[slot]))
         return 0.0
+
+    def _d_decode(self, bt=None) -> None:
+        """Device half of a decode step: the block tables ``bt`` pushed
+        when given, then the step (a replay of the decode graph, or
+        eager)."""
+        if bt is not None:
+            self.pool_cache["block_tables"].copy_(torch.from_numpy(bt))
+        if self.decode_graph is not None:
+            self.decode_graph.replay()
+        else:
+            self._step()
 
     def release(self, req: Request) -> None:
         slot = self._slot_of.pop(req.rid, None)
@@ -1220,6 +1490,16 @@ class TorchEngineBackend:
     def maintain(self, now: float) -> None:
         maintain_backend(self, now)
 
+    # the spill tier's device halves (``_EngineCopier``)
+    def _d_spill(self, page: int, hslot: int) -> None:
+        self.copier._spill(page, hslot)
+
+    def _d_poll(self, pending: List[Tuple[int, int]]) -> None:
+        self.copier._poll(pending)
+
+    def _d_drop(self, hslot: int) -> None:
+        self.copier._drop(hslot)
+
 
 class ServingEngine:
     """Facade: schedule and serve a request set on the PyTorch backend.
@@ -1229,9 +1509,18 @@ class ServingEngine:
     and defaults are the reference engine's; a ``FaultInjector`` is
     built only for a plan with an armed site (``self.faults``).
     ``device`` defaults to ``"cuda"`` and raises when no card is
-    present; ``decode_graph``, ``prefill_graph``, ``prefill_rows`` and
-    ``moe_impl`` are ``TorchEngineBackend``'s (``prefill_rows`` above
-    ``max_slots`` is cut to it: no batch holds more)."""
+    present; ``decode_graph``, ``prefill_graph``, ``prefill_rows``,
+    ``moe_impl`` and ``mesh`` are ``TorchEngineBackend``'s
+    (``prefill_rows`` above ``max_slots`` is cut to it: no batch holds
+    more).
+
+    Under a mesh every rank builds the engine with the same arguments
+    and calls ``run``: rank 0 (the driver) runs the loop with
+    ``scheduler`` and ends the run by stopping the workers (or aborting
+    them when it raises); on any other rank (a worker: ``scheduler`` is
+    not used and may be None, and the loop's options are ignored)
+    ``run`` answers the driver's commands until it stops and returns
+    no request."""
 
     def __init__(self, cfg: ModelConfig, model: tfm.Transformer, scheduler,
                  *, max_slots: int = 8, cache_len: Optional[int] = None,
@@ -1250,10 +1539,9 @@ class ServingEngine:
                  device="cuda", decode_graph: Optional[bool] = None,
                  prefill_graph: Optional[bool] = None,
                  prefill_rows: Optional[int] = None,
-                 moe_impl: str = "local"):
+                 moe_impl: str = "local", mesh=None):
         self.cfg = cfg
         self.model = model
-        self.sched = scheduler
         self.backend = TorchEngineBackend(
             cfg, model, max_slots=max_slots, cache_len=cache_len,
             chunk_tokens=chunk_tokens, paged=paged,
@@ -1264,14 +1552,18 @@ class ServingEngine:
             decode_graph=decode_graph, prefill_graph=prefill_graph,
             prefill_rows=None if prefill_rows is None
             else min(max_slots, prefill_rows),
-            moe_impl=moe_impl)
-        self.faults = FaultInjector(fault_plan) \
-            if fault_plan is not None and fault_plan.any_armed else None
-        self.loop = ServingLoop(scheduler, self.backend, LoopConfig(
-            mode="disagg", decode_slot_cap=max_slots,
-            slice_tokens=slice_tokens, restore_timeout=restore_timeout),
-            recorder=recorder, tracer=tracer, faults=self.faults,
-            recovery=recovery)
+            moe_impl=moe_impl, mesh=mesh)
+        self.sched = None if self.backend.worker else scheduler
+        self.faults = None
+        self.loop = None
+        if not self.backend.worker:
+            self.faults = FaultInjector(fault_plan) \
+                if fault_plan is not None and fault_plan.any_armed else None
+            self.loop = ServingLoop(scheduler, self.backend, LoopConfig(
+                mode="disagg", decode_slot_cap=max_slots,
+                slice_tokens=slice_tokens, restore_timeout=restore_timeout),
+                recorder=recorder, tracer=tracer, faults=self.faults,
+                recovery=recovery)
         self.result: Optional[ServeResult] = None
         self._pending: List[Request] = []
 
@@ -1291,7 +1583,19 @@ class ServingEngine:
         self._pending = list(requests)
 
     def run(self, max_wall_s: float = 600.0) -> List[Request]:
-        self.result = self.loop.run(self._pending, time_limit=math.inf,
-                                    max_wall_s=max_wall_s)
+        be = self.backend
+        if be.worker:
+            driver.serve_worker(be)
+            return []
+        if be.channel is not None:
+            be.channel.reset_counts()       # the counts are this run's
+            be.hello()
+        try:
+            self.result = self.loop.run(self._pending, time_limit=math.inf,
+                                        max_wall_s=max_wall_s)
+        except BaseException as e:
+            be.close(reason=f"{type(e).__name__}: {e}")
+            raise
+        be.close()
         return [r for r in self._pending
                 if r.finished >= 0 and not r.dropped]

@@ -22,6 +22,7 @@ when asked.
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 from typing import Dict, Optional
 
 import torch
@@ -97,13 +98,16 @@ def make_host_mesh(data: int = 1, model: int = 1,
 def init_distributed(data: int = 1, model: int = 1, device="cuda", *,
                      rank: Optional[int] = None,
                      world_size: Optional[int] = None,
-                     init_method: Optional[str] = None) -> torch.device:
+                     init_method: Optional[str] = None,
+                     timeout: Optional[float] = None) -> torch.device:
     """Start the default process group for a ``data x model`` mesh and
     return this rank's device.  ``rank`` / ``world_size`` default to
     torchrun's ``RANK`` / ``WORLD_SIZE`` (``init_method`` then to its
     ``env://``).  On the card the rank binds ``cuda:LOCAL_RANK`` and
-    uses NCCL; the CPU uses gloo.  Raises when the world size is not
-    ``data * model`` or the card count is below the ranks on this host."""
+    uses NCCL; the CPU uses gloo.  ``timeout`` (seconds) bounds the
+    group's collectives (the backend's default when None).  Raises when
+    the world size is not ``data * model`` or the card count is below
+    the ranks on this host."""
     dev = resolve_device(device)
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank
     world = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None \
@@ -121,9 +125,11 @@ def init_distributed(data: int = 1, model: int = 1, device="cuda", *,
         dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
+        kw = {} if timeout is None else dict(timeout=timedelta(
+            seconds=timeout))
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method=init_method or "env://",
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world, **kw)
     return dev
 
 

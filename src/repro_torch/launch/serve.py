@@ -38,9 +38,26 @@ ids only, as the reference engine's, and a VLM needs its image), so
 sim`` runs it and ``nemotron-4-340b`` as the reference's does.
 
 ``--data``/``--model`` are the reference launcher's mesh axes: the cost
-model never reads them (as in the reference), and ``--backend torch``
-refuses a product above 1 (exit 2): the engine under a mesh is a later
-slice of the port.
+model never reads them (as in the reference); ``--backend torch`` serves
+on a D x M mesh of ranks (``launch/mesh.py``) through the engine under a
+mesh (``core/driver.py``): rank 0 runs the loop and sends each device
+call to every rank.  Each rank builds the seeded whole model and cuts
+its shard (``sharding.partition.shard_model``); rank 0 prints the
+reference's ``mesh: {...}; params sharded`` line, the usual summary
+lines and a ``mesh ...`` line (the steps run eagerly: both CUDA graphs
+are off under a mesh; the command channel's host time a decode step),
+and the other ranks print nothing but errors.  The scheduler's budget
+counts D x M devices, each of this card's memory, as the reference's
+launcher counts its devices; the default paged pool counts a rank's
+share of each page.  Under ``torchrun --nproc-per-node D*M`` the ranks
+come from torchrun's environment; without it the launcher spawns D*M
+local ranks itself (a ``file://`` store in a temporary directory; gloo
+ranks of one torch thread each with ``--device cpu``, one rank a card on
+the card, where fewer cards than ranks exit 2).  Refused, exit 2 with
+the reason: ``--paged`` (so ``--prefix-cache``, ``--sessions``,
+``--kv-spill``) with ``--data`` > 1, an MoE config whose experts
+``--data`` cuts, and the recurrent, cross-attention and encoder configs
+with ``--model`` > 1.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -94,8 +111,13 @@ line) and adds one line with each kernel's launch count.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import json
+import os
+import sys
+import tempfile
 import time
 
 import torch
@@ -103,7 +125,9 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                               MemoryBudget, SchedulerConfig)
-from repro_torch.core.engine import ServingEngine, check_servable
+from repro_torch.core import driver
+from repro_torch.core.engine import (ServingEngine, check_servable, kv_shards,
+                                     mesh_refusal)
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.recovery import LoopCheckpoint
 from repro_torch.core.simulator import A100X4, CostModel, Simulator
@@ -112,7 +136,9 @@ from repro_torch.data.trace import TraceRecorder, TraceWorkload
 from repro_torch.data.workload import DEFAULT_CLASS_MIX, WorkloadSpec, generate
 from repro_torch.device import resolve_device
 from repro_torch.kernels import runtime
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import context, partition
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -140,16 +166,17 @@ def device_memory_bytes(device: torch.device) -> int:
     return free + torch.cuda.memory_allocated(device)
 
 
-def default_pool_tokens(cfg, model, device: torch.device):
+def default_pool_tokens(cfg, model, device: torch.device, mesh=None):
     """Paged pool size when none is given: 40% of the device memory still
-    free after the weights, the rest left to the per-job prefill cache
-    and activations.  None on the CPU, where the engine's default (slots
-    x cache length) stands."""
+    free after the weights (a rank's shard of them under a mesh), the
+    rest left to the per-job prefill cache and activations, at a rank's
+    share of each token's K/V (``engine.kv_shards``).  None on the CPU,
+    where the engine's default (slots x cache length) stands."""
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
-    return int(0.4 * free) // cfg.kv_bytes_per_token(
-        model.embed.element_size())
+    per_tok = cfg.kv_bytes_per_token(model.embed.element_size())
+    return int(0.4 * free) * kv_shards(cfg, mesh) // per_tok
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -181,8 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1,
                     help="mesh axes, as the reference launcher's: no "
                          "effect on --backend sim; --backend torch serves "
-                         "on one device (the engine under a mesh is a "
-                         "later slice)")
+                         "on data x model ranks (spawned here, or "
+                         "torchrun's)")
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--trigger", default="waste",
                     choices=["majority", "waste"],
@@ -261,6 +288,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fault-plan", default=None, metavar="SPEC",
                     help="arm the seeded fault injector (core/faults.py), "
                          "e.g. 'seed=7,decode_step=0.02,prefill_chunk=0.05'")
+    ap.add_argument("--ids-out", default=None, metavar="PATH",
+                    help="write every served request's generated token "
+                         "ids as JSON ({rid: [ids]})")
     ap.add_argument("--drain-after", type=float, default=None, metavar="T",
                     help="drain/resume smoke on --backend sim: checkpoint "
                          "a run at T virtual seconds, JSON round trip, "
@@ -319,17 +349,24 @@ def make_requests(cfg, args, max_new: int = 8):
     return reqs
 
 
-def serve(cfg, model, reqs, args, device: torch.device):
+def serve(cfg, model, reqs, args, device: torch.device, mesh=None):
     """Serve ``reqs`` and print the launcher's summary lines; returns
-    (engine, finished requests, seconds)."""
+    (engine, finished requests, seconds).  Under ``mesh`` every rank
+    calls it; a worker rank (its ``reqs`` unused) answers the driver's
+    commands and returns (engine, [], 0.0)."""
+    n_dev = 1 if mesh is None else args.data * args.model
+    driving = mesh is None or torch.distributed.get_rank() == 0
     budget = MemoryBudget(hbm_bytes_per_device=device_memory_bytes(device),
-                          n_devices=1,
+                          n_devices=n_dev,
                           weight_bytes=cfg.param_count()
                           * model.embed.element_size())
-    sched = _make_sched(cfg, budget, args)
+    sched = _make_sched(cfg, budget, args) if driving else None
     pool_tokens = args.pool_tokens
     if args.paged and pool_tokens is None:
-        pool_tokens = default_pool_tokens(cfg, model, device)
+        pool_tokens = default_pool_tokens(cfg, model, device, mesh)
+        if mesh is not None and pool_tokens is not None:
+            # each rank's free memory differs: the pool every rank holds
+            pool_tokens = driver.channel(mesh).agree_min(pool_tokens)
     plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
     # the recorder doubles as the replay checker: a recorded run and its
     # replay both print the formed-batch log
@@ -354,8 +391,12 @@ def serve(cfg, model, reqs, args, device: torch.device):
                            slice_tokens=args.slice_tokens,
                            recorder=recorder, tracer=tracer,
                            fault_plan=plan, device=device,
-                           prefill_rows=args.slots, moe_impl="local")
+                           prefill_rows=args.slots, moe_impl="local",
+                           mesh=mesh)
     runtime.reset_launch_counts()
+    if not driving:
+        engine.run()
+        return engine, [], 0.0
     engine.submit(reqs)
     t0 = time.perf_counter()
     done = engine.run(max_wall_s=900)
@@ -386,8 +427,19 @@ def serve(cfg, model, reqs, args, device: torch.device):
         print(f"slice yields {res.slice_yields}")
     print("kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in runtime.launch_counts.items()))
+    if mesh is not None:
+        ch = engine.backend.channel
+        ms = ch.host_ms("decode")
+        print(f"mesh {mesh.shape}: eager steps (the decode and prefill "
+              f"graphs are off under a mesh); {sum(ch.sent.values())} "
+              f"commands, host time a decode step's "
+              f"{'-' if ms is None else f'{ms:.3f}'} ms")
     if plan is not None:
         print(_fault_line(res, plan))
+    if args.ids_out:
+        with open(args.ids_out, "w") as f:
+            json.dump({str(r.rid): [int(t) for t in engine.outputs[r.rid]]
+                       for r in done}, f)
     _finish_trace(args, recorder)
     _finish_timeline(args, tracer)
     return engine, done, dt
@@ -609,18 +661,22 @@ def retention_info(r, args) -> str:
     return out
 
 
+def _flags(args) -> None:
+    """The implied flags: an explicit host budget turns the tier on;
+    spill rides on the prefix cache, which rides on the paged pool."""
+    args.kv_spill = args.kv_spill or args.host_pool_tokens is not None
+    args.prefix_cache = (args.prefix_cache or args.sessions > 0
+                         or args.kv_spill)
+    args.paged = args.paged or args.prefix_cache
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.drain_after is not None and args.backend != "sim":
         raise SystemExit("--drain-after is a cost-model smoke: "
                          "use --backend sim")
-    # an explicit host budget turns the tier on; spill rides on the
-    # prefix cache, which rides on the paged pool
-    args.kv_spill = args.kv_spill or args.host_pool_tokens is not None
-    args.prefix_cache = (args.prefix_cache or args.sessions > 0
-                         or args.kv_spill)
-    args.paged = args.paged or args.prefix_cache
+    _flags(args)
     cfg = make_config(args)
     # an encoder is refused on either backend, as the reference's launcher
     # refuses it; a VLM on the engine only (the cost model runs it)
@@ -629,11 +685,13 @@ def main(argv=None):
             check_servable(cfg)
         except ValueError as e:     # before a model is built for nothing
             raise SystemExit(str(e)) from None
-    if args.backend != "sim" and args.data * args.model > 1:
-        ap.error(f"--data {args.data} --model {args.model}: the engine "
-                 f"under a mesh (a driver rank broadcasting each model "
-                 f"call) is a later slice of the port; --backend torch "
-                 f"serves on one device")
+    world = args.data * args.model
+    if args.backend != "sim" and world > 1:
+        why = mesh_refusal(cfg, mesh_mod.Mesh({"data": args.data,
+                                               "model": args.model}),
+                           paged=args.paged)
+        if why:
+            ap.error(f"--data {args.data} --model {args.model}: {why}")
     if args.paged and not tfm.supports_paged_decode(cfg):
         ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
                  f"serve it on the contiguous slot pool (without --paged)")
@@ -641,9 +699,68 @@ def main(argv=None):
         main_sim(cfg, args)
         return
     device = resolve_device(args.device)
+    if world > 1:
+        if "RANK" in os.environ:              # under torchrun
+            return serve_rank(cfg, args)
+        if device.type == "cuda" and torch.cuda.device_count() < world:
+            print(f"--data {args.data} --model {args.model}: {world} ranks "
+                  f"need a CUDA card each; {torch.cuda.device_count()} "
+                  f"found", file=sys.stderr)
+            raise SystemExit(2)
+        argv = sys.argv[1:] if argv is None else argv
+        with tempfile.TemporaryDirectory() as d:
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(argv, world, os.path.join(d, "store")),
+                nprocs=world, start_method="spawn")
+        return
     model = tfm.init_params(cfg, seed=0, dtype=DTYPES[args.dtype],
                             device=device)
     serve(cfg, model, make_requests(cfg, args), args, device)
+
+
+def _rank_main(rank: int, argv, world: int, store: str) -> None:
+    """A spawned rank of ``--data D --model M``: one torch thread on the
+    CPU, then ``serve_rank``."""
+    args = build_parser().parse_args(argv)
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    _flags(args)
+    serve_rank(make_config(args), args, rank=rank, world=world,
+               init_method="file://" + store)
+
+
+def serve_rank(cfg, args, rank=None, world=None, init_method=None) -> None:
+    """One rank of a mesh run: its place in the mesh, the seeded whole
+    model cut to its shard, then ``serve`` (rank 0 drives and prints;
+    the other ranks answer its commands and print nothing but errors)."""
+    device = resolve_device(args.device)
+    if rank is not None and device.type == "cuda":
+        os.environ["LOCAL_RANK"] = str(rank)
+    device = mesh_mod.init_distributed(
+        args.data, args.model, device.type, rank=rank, world_size=world,
+        init_method=init_method, timeout=driver.TIMEOUT)
+    quiet = torch.distributed.get_rank() != 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if quiet:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            _serve_on_mesh(cfg, args, device, quiet)
+    finally:
+        context.set_mesh(None)
+        torch.distributed.destroy_process_group()
+
+
+def _serve_on_mesh(cfg, args, device, quiet: bool) -> None:
+    mesh = mesh_mod.make_host_mesh(args.data, args.model, device.type)
+    context.set_mesh(mesh)
+    model = tfm.init_params(cfg, seed=0, dtype=DTYPES[args.dtype],
+                            device=device)
+    partition.shard_model(cfg, model, mesh)
+    print(f"mesh: {mesh.shape}; params sharded", flush=True)
+    serve(cfg, model, [] if quiet else make_requests(cfg, args), args,
+          device, mesh)
+    sys.stdout.flush()
 
 
 def main_sim(cfg, args) -> None:

@@ -40,7 +40,11 @@ all-reduce.  A decode cache cut along the sequence (Hkv does not divide,
 S >= 2048: ``partition.cache_rule``) holds slots [r S/m, (r+1) S/m) on
 model rank r; :func:`distributed_decode_attention` runs the decode kernel
 over them with its log-sum-exp output and combines the shards
-(:func:`combine_decode_partials`).
+(:func:`combine_decode_partials`); a prefill chunk over such a cache
+all-gathers it over ``model``, attends over the whole prefix and keeps
+its own slots of the result (:func:`self_attn_chunk`).  A paged pool
+under a mesh holds this rank's kv heads when they are local, else all of
+them (:func:`self_attn_decode_paged`).
 
 The int4 codecs of the host spill tier (``pack_int4`` ...
 ``dequantize_kv_int4``) are numpy, as in the reference: they run on the
@@ -246,7 +250,7 @@ def _ring_from_prefill(k, v, lengths, W: int):
 
 
 def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None,
-                    mesh=None):
+                    mesh=None, seq_sharded: bool = False):
     """Chunked-prefill self-attention: Tc new tokens at absolute positions
     [start, start+Tc) attend causally over the cache prefix written by
     earlier chunks plus themselves.
@@ -263,7 +267,21 @@ def self_attn_chunk(cfg: ModelConfig, p, x, start, cache, active=None,
     An int8 cache ``(k, v, k_s, v_s)`` takes the chunk's codes and scales,
     and the chunk attends over the whole cache dequantized to q's dtype,
     as the reference does: a fixed size, whatever ``start``; the causal
-    mask hides the slots past ``start + Tc``."""
+    mask hides the slots past ``start + Tc``.  A cache cut along the
+    sequence over ``model`` (``seq_sharded``; the heads are then not
+    local) is all-gathered into the whole cache, the chunk runs over it
+    as over an uncut one on every rank, and each rank keeps its slots of
+    the result (the chunk's K/V that fall in its range, the rest as it
+    was)."""
+    if seq_sharded:
+        g = mesh.group("model")
+        S = cache[0].shape[1]
+        base = mesh.coord("model") * S
+        whole = tuple(collectives.all_gather(leaf, g, 1) for leaf in cache)
+        out = self_attn_chunk(cfg, p, x, start, whole, active, mesh)
+        for leaf, w in zip(cache, whole):
+            leaf.copy_(w[:, base:base + S])
+        return out
     B, Tc, _ = x.shape
     S = cache[0].shape[1]
     if not torch.is_tensor(start) and (start < 0 or start + Tc > S):
@@ -376,16 +394,19 @@ def distributed_decode_attention(q, k_cache, v_cache, pos, mesh, *,
 
 
 def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
-                           *, page_size: int, s_len: int, window: int = 0):
+                           *, page_size: int, s_len: int, window: int = 0,
+                           mesh=None):
     """One-token decode against the shared page pool: virtual slot
     ``pos`` (``pos % s_len`` for ring caches) lands in page
     ``block_tables[b, slot // page]`` offset ``slot % page``, written in
     place.  Dead slots walk past their table; the clip keeps their write
     in range (their tables point at the trash page).  An int8 pool
     ``(k, v, k_s, v_s)`` takes the token's codes and scales at the same
-    place, and the int8 paged decode kernel reads it."""
+    place, and the int8 paged decode kernel reads it.  Under a mesh the
+    pool holds this rank's kv heads (all of them when the heads are not
+    local) and the projections run tensor-parallel."""
     B = x.shape[0]
-    q, k, v = _qkv_roped(cfg, p, x, pos[:, None])
+    q, k, v = _qkv_roped(cfg, p, x, pos[:, None], mesh)
     n_p = block_tables.shape[1]
     slot = torch.remainder(pos, s_len) if window else pos
     col = torch.clamp(torch.div(slot, page_size, rounding_mode="floor"),
@@ -400,7 +421,7 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     else:
         out = paged_decode_attention(q, *cache, block_tables, pos,
                                      s_len=s_len, window=window)
-    return _project_out(cfg, p, out)
+    return _project_out(cfg, p, out, mesh)
 
 
 def cross_kv(cfg: ModelConfig, p, vis):

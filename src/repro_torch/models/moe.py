@@ -231,8 +231,12 @@ def grouped_ffn(p, xs, offs):
     return grouped_mm(h, p["w_down"], offs)
 
 
-def moe_local(cfg: ModelConfig, p, x):
-    """Sort + grouped product path (active FLOPs only). x: (B,T,d)."""
+def moe_local(cfg: ModelConfig, p, x, mesh=None):
+    """Sort + grouped product path (active FLOPs only). x: (B,T,d).
+    Under a mesh that cuts each expert's d_ff over ``model`` (every
+    expert held), the grouped FFN runs on this rank's d_ff columns and
+    its partial sums are all-reduced over ``model`` in f32, as
+    ``moe_ep``'s are."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(B * T, d)
@@ -240,12 +244,17 @@ def moe_local(cfg: ModelConfig, p, x):
     flat_e = idx.reshape(-1)                                  # (N*k,)
     order = torch.argsort(flat_e, stable=True)      # jnp.argsort is stable
     xs = xt.index_select(0, order // k)                       # (N*k, d)
+    g_tp = layers.model_group(mesh, p["w_gate"], -1)
+    if g_tp is not None:
+        xs = collectives.copy_to(xs, g_tp)
     ys = grouped_ffn(p, xs, group_offsets(flat_e, E))
+    if g_tp is not None:                  # partial sums over d_ff shards
+        ys = collectives.reduce_from(ys.float(), g_tp).to(xt.dtype)
     ys = torch.empty_like(ys).index_copy_(0, order, ys)       # unsort
     ys = ys.reshape(-1, k, d).float()
     out = (ys * gates[..., None]).sum(1).to(x.dtype)
     if cfg.shared_expert:
-        out = out + layers.mlp_apply(p["shared"], xt, "silu")
+        out = out + layers.mlp_apply(p["shared"], xt, "silu", mesh)
     return out.reshape(B, T, d)
 
 
@@ -323,21 +332,30 @@ def moe_ep(cfg: ModelConfig, p, x, mesh):
 
 
 def _experts_cut(p, mesh) -> bool:
-    """Whether this rank holds a part of the experts only."""
-    return any(mesh.size(a) > 1 for a in (
-        layers.axis(p[n], dim) for n in ("w_gate", "w_up", "w_down")
-        for dim in range(3)) if a is not None)
+    """Whether this rank holds a part of the experts only (their expert
+    axis cut over a mesh axis of more than one rank)."""
+    a = layers.axis(p["w_gate"], 0)
+    return mesh is not None and a is not None and mesh.size(a) > 1
+
+
+def _d_ff_cut(p, mesh) -> bool:
+    return mesh is not None and any(
+        mesh.size(a) > 1 for a in (layers.axis(p[n], dim)
+                                   for n in ("w_gate", "w_up", "w_down")
+                                   for dim in range(3)) if a is not None)
 
 
 def apply(cfg: ModelConfig, p, x, impl: str = "local", mesh=None):
     """The MoE FFN by ``impl`` (the reference's ``_apply_moe``).  Under a
-    mesh whose shards cut the experts only ``"ep"`` runs them."""
+    mesh whose shards cut the experts only ``"ep"`` runs them; experts
+    whole with their d_ff cut over ``model`` run ``"local"``
+    tensor-parallel (the dense oracle ``"ref"`` needs them whole)."""
     check_impl(impl, mesh)
     if impl == "ep":
         return moe_ep(cfg, p, x, mesh)
-    if mesh is not None and _experts_cut(p, mesh):
+    if _experts_cut(p, mesh) or (impl == "ref" and _d_ff_cut(p, mesh)):
         raise ValueError(f"moe_impl={impl!r} needs every expert whole; "
                          f"under a mesh that cuts them use 'ep'")
     if impl == "ref":
         return moe_dense_ref(cfg, p, x)
-    return moe_local(cfg, p, x)
+    return moe_local(cfg, p, x, mesh)

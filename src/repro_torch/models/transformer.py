@@ -34,10 +34,17 @@ return the global logits, as the reference's global arrays are; caches
 are this rank's slice (its rows, and its kv heads or its sequence
 slots: ``init_cache(mesh=...)``, ``partition.shard_cache``).
 Dense and MoE blocks run tensor-parallel (``layers.py``,
-``attention.py``; MoE experts through ``moe_impl="ep"``).  RWKV, RG-LRU,
-cross-attention and encoder configs run only under meshes with
-``model`` = 1; paged pools and prefill chunks over a sequence-cut cache
-are the engine's (a later slice).
+``attention.py``; MoE experts cut over ``data`` through
+``moe_impl="ep"``, their d_ff cut over ``model`` through either path).
+RWKV, RG-LRU, cross-attention and encoder configs run only under meshes
+with ``model`` = 1.  A paged pool under a mesh is cut by kv head over
+``model`` where Hkv divides and whole otherwise
+(``init_paged_cache(mesh=...)``); a prefill chunk over a cache cut along
+the sequence attends over the whole prefix, all-gathered.  The serving
+engine's batch prefill cache keeps every row on every ``data`` rank
+(``init_cache(rows_cut=False)``): ``prefill`` and ``prefill_chunk`` with
+``local_batch`` run all the rows they are given and return their logits
+without a gather.
 
 Public API (functions of ``(cfg, model, ...)``):
 
@@ -146,9 +153,11 @@ class AttnBlock(nn.Module):
             cache_len=cache_len, mesh=mesh, seq_sharded=seq_sharded)
         return self._mlp_residual(x + a, mesh=mesh, **kw)
 
-    def chunk(self, x, c, *, start, active, mesh=None, **kw):
+    def chunk(self, x, c, *, start, active, mesh=None,
+              seq_sharded: bool = False, **kw):
         a = attention.self_attn_chunk(self.cfg, self.attn, self._norm1(x),
-                                      start, self._kv(c), active, mesh)
+                                      start, self._kv(c), active, mesh,
+                                      seq_sharded)
         return self._mlp_residual(x + a, mesh=mesh, **kw)
 
     def decode(self, x, c, *, pos, window: int, block_tables=None,
@@ -159,7 +168,8 @@ class AttnBlock(nn.Module):
         if block_tables is not None:
             a = attention.self_attn_decode_paged(
                 self.cfg, self.attn, h, pos, kv, block_tables,
-                page_size=page_size, s_len=paged_len, window=window)
+                page_size=page_size, s_len=paged_len, window=window,
+                mesh=mesh)
         else:
             a = attention.self_attn_decode(self.cfg, self.attn, h, pos, kv,
                                            window=window, mesh=mesh,
@@ -458,22 +468,32 @@ def _state_slot(btype: str, reps: int, batch: int, cfg: ModelConfig, dtype,
     return {k: v.new_zeros((reps,) + v.shape) for k, v in st.items()}
 
 
+def _local_zeros(whole, specs, mesh, device):
+    """Zeroed leaves of this rank's slice of the ``meta`` tree ``whole``
+    by ``specs``."""
+    from repro_torch.sharding import partition
+    dev = resolve_device(device)
+    return partition.map_leaves(
+        lambda t, spec: torch.zeros(partition.local_shape(t.shape, spec,
+                                                          mesh),
+                                    dtype=t.dtype, device=dev), whole, specs)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.float32, device="cuda", mesh=None):
+               dtype=torch.float32, device="cuda", mesh=None, *,
+               rows_cut: bool = True, seq_cut: bool = True):
     """Zeroed contiguous cache on ``device``; attention caches sized
     ``cfg.attn_cache_len(cache_len)`` (window-capped).  Under ``mesh``,
     this rank's slice of the cache of ``batch`` rows
-    (``sharding.partition.cache_specs``), marked ``seq_sharded`` when its
-    attention leaves are cut along the sequence."""
+    (``sharding.partition.cache_specs``, which ``rows_cut`` and
+    ``seq_cut`` pass to), marked ``seq_sharded`` when its attention
+    leaves are cut along the sequence."""
     if mesh is not None:
         from repro_torch.sharding import partition
         whole = init_cache(cfg, batch, cache_len, dtype, "meta")
-        specs = partition.cache_specs(cfg, whole, mesh, batch)
-        dev = resolve_device(device)
-        cache = partition.map_leaves(
-            lambda t, spec: torch.zeros(
-                partition.local_shape(t.shape, spec, mesh), dtype=t.dtype,
-                device=dev), whole, specs)
+        specs = partition.cache_specs(cfg, whole, mesh, batch,
+                                      rows_cut=rows_cut, seq_cut=seq_cut)
+        cache = _local_zeros(whole, specs, mesh, device)
         cache["seq_sharded"] = partition.cache_is_seq_sharded(specs)
         return cache
     device = resolve_device(device)
@@ -490,13 +510,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, cache_len: int,
                      n_pages: int, page_size: int, dtype=torch.float32,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """Paged decode-pool cache: K/V live in a shared page pool
     ``(reps, n_pages, page_size, Hkv, Dh)`` per pattern slot (an int8
     pool adds its scale planes ``(reps, n_pages, page_size, Hkv)``), indexed
     through ``block_tables`` (batch, ceil(attn_cache_len / page_size));
     the caller owns the table contents.  A recurrent carry and a cross
-    layer's vision K/V stay per-slot tensors, as in ``init_cache``."""
+    layer's vision K/V stay per-slot tensors, as in ``init_cache``.
+    Under ``mesh``, this rank's slice (``partition.paged_cache_specs``:
+    the pool by kv head over ``model`` where Hkv divides, else whole)."""
+    if mesh is not None:
+        from repro_torch.sharding import partition
+        whole = init_paged_cache(cfg, batch, cache_len, n_pages, page_size,
+                                 dtype, "meta")
+        specs = partition.paged_cache_specs(cfg, whole, mesh, batch)
+        return _local_zeros(whole, specs, mesh, device)
     device = resolve_device(device)
     S = cfg.attn_cache_len(cache_len)
     n_p = -(-S // page_size)
@@ -547,12 +575,28 @@ _MESH_LATER = {BLOCK_RWKV: "RWKV", BLOCK_REC: "RG-LRU",
                BLOCK_CROSS: "cross-attention"}
 
 
+def mesh_refusal(cfg: ModelConfig, model_size: int) -> Optional[str]:
+    """Why ``cfg`` cannot run under a mesh with ``model_size`` ranks on
+    ``model`` (RWKV, RG-LRU, cross-attention and encoder configs above 1:
+    a later slice of the port), or None."""
+    if model_size <= 1:
+        return None
+    later = sorted({_MESH_LATER[b] for pat, _ in cfg.block_groups()
+                    for b in pat if b in _MESH_LATER}
+                   | ({"encoder"} if cfg.is_encoder else set()))
+    if not later:
+        return None
+    return (f"{cfg.name}: {', '.join(later)} blocks under a mesh with "
+            f"model > 1 are a later slice of the port (tensor "
+            f"parallelism of the recurrent, cross and encoder blocks)")
+
+
 def resolve_mesh(cfg: ModelConfig, model: Transformer, mesh=None):
     """The mesh an entry point runs under: ``mesh``, else the context's
     (``sharding.context.get_mesh``), else None.  The model must have been
     cut for it (``partition.shard_model``), and a sharded model needs
     its mesh.  Under ``model`` > 1, RWKV, RG-LRU, cross-attention and
-    encoder configs are refused: a later slice of the port."""
+    encoder configs are refused (``mesh_refusal``)."""
     mesh = mesh if mesh is not None else context.get_mesh()
     cut = getattr(model, "mesh_shape", None)
     if mesh is None:
@@ -560,15 +604,9 @@ def resolve_mesh(cfg: ModelConfig, model: Transformer, mesh=None):
             raise ValueError(f"the model is sharded for mesh {cut}: run it "
                              f"under that mesh")
         return None
-    if mesh.size("model") > 1:
-        later = sorted({_MESH_LATER[b] for pat, _ in cfg.block_groups()
-                        for b in pat if b in _MESH_LATER}
-                       | ({"encoder"} if cfg.is_encoder else set()))
-        if later:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(later)} blocks under a mesh with "
-                f"model > 1 are a later slice of the port (tensor "
-                f"parallelism of the recurrent, cross and encoder blocks)")
+    why = mesh_refusal(cfg, mesh.size("model"))
+    if why:
+        raise NotImplementedError(why)
     if cut != mesh.shape:
         raise ValueError(f"the model is not sharded for mesh {mesh.shape}: "
                          f"call sharding.partition.shard_model first")
@@ -647,7 +685,8 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
             cache_len: Optional[int] = None, moe_impl: str = "local",
-            cache=None, *, embeds=None, vision_embeds=None, mesh=None):
+            cache=None, *, embeds=None, vision_embeds=None, mesh=None,
+            local_batch: bool = False):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
     tokens: (B,T) int, or ``embeds`` (B,T,d) (an encoder's frames);
@@ -660,11 +699,15 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     be zero where a fresh ``init_cache`` is (a CUDA graph of the prefill
     keeps its storage, ``core/engine.py:PrefillGraph``); by default a
     new one.  Under a mesh the inputs and logits are global and the
-    cache is this rank's slice (``init_cache(mesh=...)``)."""
+    cache is this rank's slice (``init_cache(mesh=...)``); with
+    ``local_batch`` every rank runs every row it is given, its cache
+    holds them all (``init_cache(rows_cut=False)``) and the logits are
+    its own."""
     mesh = resolve_mesh(cfg, model, mesh)
     B = (tokens if tokens is not None else embeds).shape[0]
-    tokens, embeds, vision_embeds, lengths = _rows(
-        mesh, B, tokens, embeds, vision_embeds, lengths)
+    if not local_batch:
+        tokens, embeds, vision_embeds, lengths = _rows(
+            mesh, B, tokens, embeds, vision_embeds, lengths)
     x = _embed_input(model, tokens, embeds, mesh)
     Bl, T, _ = x.shape
     vis = _project_vision(model, vision_embeds)
@@ -672,7 +715,8 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
         lengths = torch.full((Bl,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len
     if cache is None:
-        cache = init_cache(cfg, B, cache_len, x.dtype, x.device, mesh)
+        cache = init_cache(cfg, B, cache_len, x.dtype, x.device, mesh,
+                           rows_cut=not local_batch)
         # a copy: decode_step advances pos in place, never the caller's
         # lengths
         cache["pos"] = lengths.to(torch.int32, copy=True)
@@ -689,12 +733,13 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(Bl, device=x.device), idx]
     logits = layers.unembed_apply(model.head, last, mesh)
-    return _global_rows(mesh, B, logits), cache
+    return (logits if local_batch else _global_rows(mesh, B, logits)), cache
 
 
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
-                  start, lengths, moe_impl: str = "local", mesh=None):
+                  start, lengths, moe_impl: str = "local", mesh=None,
+                  local_batch: bool = False):
     """One chunked-prefill step: prompt tokens at absolute positions
     [start, start+Tc) against ``cache`` (from ``init_cache``), written in
     place.  lengths: (B,) FULL prompt lengths.  ``start`` is an int or a
@@ -710,28 +755,29 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     this chunk.  Rows already finished (length <= start) keep their
     cache bit for bit (K/V writes masked, recurrent carries frozen).  The
     caller sets ``cache['pos']`` to ``lengths`` after the final chunk.
-    Under a mesh, as ``prefill``; a cache cut along the sequence is
-    refused (its chunks attend over every shard: the engine's slice)."""
+    Under a mesh, as ``prefill`` (``local_batch`` too); over a cache cut
+    along the sequence each rank writes the chunk's slots it holds and
+    attends over the whole prefix, all-gathered over ``model``
+    (``attention.self_attn_chunk``)."""
     mesh = resolve_mesh(cfg, model, mesh)
-    if cache.get("seq_sharded", False):
-        raise NotImplementedError("prefill_chunk over a sequence-sharded "
-                                  "cache: a later slice of the port")
     B = tokens.shape[0]
-    tokens, lengths = _rows(mesh, B, tokens, lengths)
+    if not local_batch:
+        tokens, lengths = _rows(mesh, B, tokens, lengths)
     x = layers.embed_apply(model.embed, tokens, mesh)
     Bl, Tc, _ = x.shape
     lengths = lengths.to(x.device)
     active = lengths > start
     rel_len = (lengths - start).clamp(0, Tc)     # valid tokens per row
+    seq = cache.get("seq_sharded", False)
     for gi, j, rep, blk in model.blocks():
         x = blk.chunk(x, _slot(cache, gi, j, rep), start=start,
                       active=active, lengths=rel_len, moe_impl=moe_impl,
-                      mesh=mesh)
+                      mesh=mesh, seq_sharded=seq)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     idx = (lengths.long() - 1 - start).clamp(0, Tc - 1)
     last = x[torch.arange(Bl, device=x.device), idx]
     logits = layers.unembed_apply(model.head, last, mesh)
-    return _global_rows(mesh, B, logits), cache
+    return (logits if local_batch else _global_rows(mesh, B, logits)), cache
 
 
 @torch.no_grad()
@@ -751,16 +797,13 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
     tables' full span).
 
     Under a mesh ``token`` and the logits are global and ``cache`` is
-    this rank's slice; paged pools under a mesh are the engine's (a later
-    slice) and are refused."""
+    this rank's slice (``init_cache(mesh=...)`` or
+    ``init_paged_cache(mesh=...)``, whose tables hold this rank's
+    rows)."""
     mesh = resolve_mesh(cfg, model, mesh)
     B = token.shape[0]
     bt = cache.get("block_tables")
-    if mesh is not None:
-        if bt is not None:
-            raise NotImplementedError("paged decode under a mesh: the "
-                                      "engine under a mesh, a later slice")
-        token, = _rows(mesh, B, token)
+    token, = _rows(mesh, B, token)
     x = layers.embed_apply(model.embed, token[:, None], mesh)
     pos = cache["pos"]
     if bt is not None:

@@ -11,6 +11,8 @@ the reference's, rule for rule (its module docstring has the strategy):
   * the batch over (pod, data) whenever it divides;
   * decode KV caches by kv head over ``model`` when Hkv divides, else
     by SEQUENCE when S >= 2048;
+  * a paged pool's pages by kv head over ``model`` when Hkv divides,
+    else whole on every rank (its page axis is never cut);
   * everything falls back to replication when a dim does not divide.
 
 A spec is a tuple with one entry a dim: an axis name, a tuple of axis
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.launch.mesh import batch_axes
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
 
 from . import collectives
 from .rows import axes_index
@@ -151,21 +153,23 @@ def _tree_map(fn, tree, name=""):
     return fn(name, tree)
 
 
-def cache_rule(name: str, shape, mesh, baxes):
-    """The spec of a cache leaf named ``name`` of ``shape``."""
+def cache_rule(name: str, shape, mesh, baxes, seq_cut: bool = True):
+    """The spec of a cache leaf named ``name`` of ``shape``; without
+    ``seq_cut`` an attention leaf whose kv heads do not divide stays
+    whole rather than cut along the sequence."""
     ndim = len(shape)
     if name == "pos":
         return P(baxes)
     if name in ("k", "v"):                    # (R, B, S, Hkv, Dh)
         if _div(shape[3], mesh, "model"):
             return P(None, baxes, None, "model", None)
-        if shape[2] >= 2048 and _div(shape[2], mesh, "model"):
+        if seq_cut and shape[2] >= 2048 and _div(shape[2], mesh, "model"):
             return P(None, baxes, "model", None, None)
         return P(None, baxes, None, None, None)
     if name in ("k_s", "v_s"):                # int8 scales (R, B, S, Hkv)
         if _div(shape[3], mesh, "model"):
             return P(None, baxes, None, "model")
-        if shape[2] >= 2048 and _div(shape[2], mesh, "model"):
+        if seq_cut and shape[2] >= 2048 and _div(shape[2], mesh, "model"):
             return P(None, baxes, "model", None)
         return P(None, baxes, None, None)
     if name == "s":                           # rwkv state (R, B, H, hs, hs)
@@ -181,13 +185,39 @@ def cache_rule(name: str, shape, mesh, baxes):
     return _none(ndim)
 
 
-def cache_specs(cfg: ModelConfig, cache, mesh, batch: int):
+def cache_specs(cfg: ModelConfig, cache, mesh, batch: int, *,
+                rows_cut: bool = True, seq_cut: bool = True):
     """Spec tree of a decode cache (leaves: tensors or anything with a
-    ``shape``; the ``seq_sharded`` mark is not a leaf)."""
-    baxes = batch_axes(mesh, batch)
+    ``shape``; the ``seq_sharded`` mark is not a leaf).  ``rows_cut``
+    False keeps every row on every ``data`` rank (the serving engine's
+    batch prefill cache); ``seq_cut`` False never cuts the sequence
+    (``cache_rule``)."""
+    baxes = batch_axes(mesh, batch) if rows_cut else None
     tree = {k: v for k, v in cache.items() if k != "seq_sharded"}
-    return _tree_map(lambda name, leaf: cache_rule(name, tuple(leaf.shape),
-                                                   mesh, baxes), tree)
+    return _tree_map(lambda name, leaf: cache_rule(
+        name, tuple(leaf.shape), mesh, baxes, seq_cut), tree)
+
+
+def paged_cache_specs(cfg: ModelConfig, cache, mesh, batch: int):
+    """Spec tree of a paged decode cache (``init_paged_cache``): each
+    attention leaf ``(R, n_pages, page, Hkv[, Dh])`` by kv head over
+    ``model`` when Hkv divides, else whole, its page axis never cut;
+    ``pos``, ``block_tables`` and the per-slot leaves (a recurrent
+    carry) follow the slots, as ``cache_rule`` cuts them."""
+    baxes = batch_axes(mesh, batch)
+
+    def pool(shape):
+        heads = "model" if _div(shape[3], mesh, "model") else None
+        return P(None, None, None, heads, *(None,) * (len(shape) - 4))
+
+    groups = tuple(
+        tuple({k: pool(tuple(leaf.shape)) if btype in (BLOCK_ATTN, BLOCK_MOE)
+               else cache_rule(k, tuple(leaf.shape), mesh, baxes)
+               for k, leaf in slot.items()}
+              for btype, slot in zip(pattern, slots))
+        for (pattern, _), slots in zip(cfg.block_groups(), cache["groups"]))
+    return {"pos": P(baxes), "block_tables": P(baxes, None),
+            "groups": groups}
 
 
 def map_leaves(fn, tree, specs):

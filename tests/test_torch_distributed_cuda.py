@@ -2,8 +2,15 @@
 ``tests/torch_dist_ranks.py`` on a (2, 2) (data, model) mesh, one card
 a rank, each sharded result against the port's own unsharded run on
 the same card (the CPU twins hold the same paths against the JAX
-package on 8 gloo ranks).  Card-only: it skips with fewer than four
-cards, and imports no JAX.  Run it on a machine with four cards:
+package on 8 gloo ranks).  The engine under a mesh serves on the same
+ranks: the paged pool cut by kv head on a (1, 4) mesh (the paged pool
+is refused under data > 1) and a 2048-slot contiguous pool cut along
+the sequence on the (2, 2) mesh, its slots over data; each run's ids
+and formed batches against the engine without a mesh on one card,
+served in this process after the ranks end (``tests/test_torch_serve_
+mesh.py`` holds the same cases against the JAX engine on 4 gloo
+ranks).  Card-only: it skips with fewer than four cards, and imports no
+JAX.  Run it on a machine with four cards:
 
     PYTHONPATH=src python -m pytest tests/test_torch_distributed_cuda.py
 """
@@ -29,8 +36,13 @@ def run(tmp_path_factory):
     runtime.library()               # built once, before the ranks load it
     d = str(tmp_path_factory.mktemp("ranks"))
     ranks.write_port_inputs(d, MODEL)
-    err = ranks.spawn(d, list(ranks.CASES), DATA, MODEL, "cuda", 600)
-    return lambda name: ranks.load_output(d, name, err)
+    err = ranks.spawn(d, list(ranks.CASES) + ranks.CUDA_ENGINE_CASES, DATA,
+                      MODEL, "cuda", 600)
+    torch.set_num_threads(1)
+    ref = {case: ranks.port_engine_reference(d, case, device="cuda")
+           for case in ranks.CUDA_ENGINE_CASES}
+    return lambda name: ref[name[:-5]] if name.endswith("_port") and \
+        name[:-5] in ref else ranks.load_output(d, name, err)
 
 
 @pytest.mark.parametrize("name", ["forward", "kv_prefill", "kv_decode",
@@ -59,3 +71,16 @@ def test_cuda_four_card_cache_slice_and_ep_train_step(run):
     for k in ep:
         np.testing.assert_allclose(ep[k], local[k], atol=5e-4, rtol=5e-3,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("case", ranks.CUDA_ENGINE_CASES)
+def test_cuda_four_card_engine_under_a_mesh(run, case):
+    """The engine under a mesh over NCCL (rank 0 driving, commands over
+    gloo) == the engine without a mesh on one card: ids and formed
+    batches; a paged run gets every page back."""
+    got, want = run(case), run(case + "_port")
+    assert got["ids"] == want["ids"]
+    assert got["formed"] == want["formed"]
+    if "pages" in got:
+        free, live, total = got["pages"]
+        assert free == total and live == 0

@@ -145,7 +145,8 @@ DISTRIBUTION_MODULES = ("repro_torch.launch.mesh",
                         "repro_torch.sharding.context",
                         "repro_torch.sharding.partition",
                         "repro_torch.sharding.collectives",
-                        "repro_torch.sharding.rows")
+                        "repro_torch.sharding.rows",
+                        "repro_torch.core.driver")
 
 
 @pytest.mark.parametrize("module", DISTRIBUTION_MODULES)
@@ -163,11 +164,9 @@ def test_distribution_entry_points_default_to_cuda_and_raise_without_it(
         mesh.init_distributed(1, 1)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         mesh.make_host_mesh(1, 1)
-    # the engine under a mesh is a later slice: refused before a model
-    with pytest.raises(SystemExit) as exc:
+    # the serve launcher under a mesh defaults to the card too
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--smoke", "--data", "2", "--model", "2"])
-    assert exc.value.code == 2
-    assert "engine under a mesh" in capsys.readouterr().err
 
 
 def test_cpu_serve_launcher_prints_the_summary(capsys):

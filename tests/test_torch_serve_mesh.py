@@ -1,0 +1,282 @@
+"""The port's engine under a mesh against the JAX engine and the port's
+engine without a mesh.
+
+The reference serves under a mesh through the same ``ServingEngine``
+(GSPMD keeps the unsharded engine's semantics), so the parent computes
+the JAX package's engine on the unsharded smoke weights and the port's
+engine without a mesh, f32, with the same scheduler and budget, while 4
+gloo ranks of ``tests/torch_dist_ranks.py`` (spawned once for the
+module, a ``file://`` store, one torch thread a rank, no JAX imported)
+serve the same workloads through the port's engine under meshes (1, 4)
+and (2, 2): rank 0 drives and the other ranks answer its commands.  The
+cases make each layout occur: a paged pool cut by kv head, a paged pool
+whole on every ``model`` rank, a contiguous pool with its slots over
+``data``, a contiguous pool of 2048 slots cut along the sequence under
+chunked prefill, prefix hits, session resumes, the spill tier, an int8
+paged pool and qwen3-moe.  Token ids must be equal, and the formed
+batches where batch formation does not follow the wall clock (every
+request at t = 0, bound by 4 slots, no page pressure).  Also: the
+launcher at ``--data 2 --model 2``, its refusals, and the engine's.
+"""
+import json
+import os
+import re
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+import torch_dist_ranks as ranks
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core.engine import ServingEngine as JaxEngine
+from repro.models import transformer as jtfm
+from repro_torch import bridge
+from repro_torch.core import driver
+from repro_torch.core.engine import TorchEngineBackend, mesh_refusal
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import serve
+from repro_torch.sharding import partition
+
+SPAWN_SECONDS = 240
+# the cases held against the JAX engine: config, workload, engine options
+# (the JAX engine's ids do not depend on the pool kind)
+JAX_RUNS = {"kv4": "short", "kv2": "short", "kv1": "long", "moe": "short"}
+JAX_CHUNK = {"kv1": 256}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory, one_torch_thread):
+    d = str(tmp_path_factory.mktemp("ranks"))
+    params = {}
+    for name in ranks.ENGINE_CFGS:
+        params[name] = jtfm.init_params(
+            ranks.engine_cfg(name, jax_smoke_config), jax.random.PRNGKey(0))
+        np.savez(os.path.join(d, f"engine_{name}.npz"),
+                 **bridge.flatten(jax.tree.map(np.asarray, params[name])))
+    ctx = ranks.start(d, ranks.CPU_ENGINE_CASES, 1, 4, "cpu")
+    jax_out = {}
+    # the JAX engines (mostly compilation, outside the GIL) in a thread
+    # beside the port's runs: the file's time is the longer of the two
+    jax_runs = threading.Thread(target=_jax_runs, args=(params, jax_out))
+    jax_runs.start()
+    try:
+        port = {case: ranks.port_engine_reference(d, case)
+                for case in ranks.CPU_ENGINE_CASES}
+    finally:
+        jax_runs.join()
+        err = ranks.wait(ctx, d, SPAWN_SECONDS)
+    return port, jax_out, lambda name: ranks.load_output(d, name, err)
+
+
+def _jax_runs(params, out):
+    for cname, load in JAX_RUNS.items():
+        cfg = ranks.engine_cfg(cname, jax_smoke_config)
+        reqs = ranks.load_requests(jcore, load)
+        eng, formed = ranks.serve_engine(
+            jcore, JaxEngine, cfg, params[cname], reqs, device=None,
+            chunk_tokens=JAX_CHUNK.get(cname, 64))
+        out[cname] = {"formed": formed, "ids": {
+            str(r.rid): [int(t) for t in eng.outputs[r.rid]]
+            for r in reqs}}
+
+
+MESH_VS_JAX = ["engine_paged_kv_cut", "engine_paged_whole",
+               "engine_contig_data", "engine_seq_cut", "engine_moe"]
+
+
+@pytest.mark.parametrize("case", MESH_VS_JAX)
+def test_mesh_engine_ids_and_batches_equal_jax_and_no_mesh(run, case):
+    """Token ids and formed batches of the engine under the mesh equal
+    the port's engine without a mesh and the JAX engine's (slot-bound,
+    every request at t = 0, no page pressure)."""
+    port, jax_out, got = run
+    mesh = got(case)
+    cname, load = ranks.ENGINE_CASES[case][:2]
+    want = jax_out[cname]
+    assert mesh["ids"] == port[case]["ids"] == want["ids"]
+    assert mesh["formed"] == port[case]["formed"] == want["formed"]
+
+
+def test_mesh_engine_pools_have_the_layout_of_their_case(run):
+    """Each case's pool is cut as its case names: by kv head (one a rank
+    of 4), whole on every ``model`` rank, slots over ``data`` (2 of 4 a
+    rank) with the kv heads over ``model`` (2 of 4), and 2048 slots
+    along the sequence (512 a rank); the batch prefill cache holds every
+    row on every rank, with the pool's cut of the K/V; one decode command
+    a decode step, every command counted on the driver."""
+    _, _, got = run
+    kv, whole = got("engine_paged_kv_cut"), got("engine_paged_whole")
+    assert kv["layout"]["k"][3] == 1 and whole["layout"]["k"][3] == 2
+    assert kv["layout"]["batch_k"][1] == 4 and kv["layout"]["batch_k"][3] == 1
+    assert whole["layout"]["batch_k"][3] == 2
+    contig = got("engine_contig_data")["layout"]
+    assert contig["slots"][1] == 2 and contig["k"][1] == 2
+    assert contig["k"][3] == 2 and contig["batch_k"][1] == 4
+    seq = got("engine_seq_cut")["layout"]
+    assert seq["seq_sharded"] and seq["k"][2] == 2048 // 4
+    assert seq["batch_k"][2] == 2048 // 4
+    for case in ranks.CPU_ENGINE_CASES:
+        c = got(case)["commands"]
+        assert c["hello"] == 1 and c["decode"] > 0 and c["chunk"] > 0
+
+
+@pytest.mark.parametrize("case", ["engine_paged_kv_cut",
+                                  "engine_paged_whole", "engine_moe",
+                                  "engine_int8"])
+def test_mesh_engine_paged_runs_return_every_page(run, case):
+    _, _, got = run
+    free, live, total = got(case)["pages"]
+    assert free == total and live == 0
+
+
+@pytest.mark.parametrize("case", ["engine_prefix", "engine_sessions"])
+def test_mesh_retention_hit_equals_cold(run, case):
+    """Prefix hits and session resumes under (1, 4): ids equal the cold
+    run's (the port's engine without a mesh or retention), with hits;
+    the pool balances and ``clear`` frees every page."""
+    port, _, got = run
+    mesh = got(case)
+    assert mesh["ids"] == port[case]["ids"]
+    hits = "prefix_hits" if case == "engine_prefix" else "session_hits"
+    assert mesh["counts"][hits] > 0
+    free, total = mesh["pages_after_clear"][:2]
+    assert free == total
+
+
+def test_mesh_spill_equals_no_spill(run):
+    """Session tails expired at once (TTL 0) go to each rank's host tier
+    and come back: ids equal the run without spill (the mesh's own
+    session run) and the cold run; pages spilled and restored; after
+    ``clear`` every page and host slot is free."""
+    port, _, got = run
+    spill = got("engine_spill")
+    assert spill["ids"] == got("engine_sessions")["ids"] == \
+        port["engine_spill"]["ids"]
+    assert spill["counts"]["spilled_pages"] > 0
+    assert spill["counts"]["restored_pages"] > 0
+    free, total, hfree, htotal = spill["pages_after_clear"]
+    assert free == total and hfree == htotal > 0
+
+
+def test_mesh_int8_paged_pool_equals_no_mesh_int8(run):
+    port, _, got = run
+    assert got("engine_int8")["ids"] == port["engine_int8"]["ids"]
+
+
+def _ids(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_launcher_serves_under_data_2_model_2(tmp_path, capsys):
+    """``--data 2 --model 2`` on the CPU spawns 4 gloo ranks: rank 0
+    prints the reference's mesh line and serves every request, with ids
+    equal to the one-device run's."""
+    flags = ["--backend", "torch", "--smoke", "--device", "cpu", "--dtype",
+             "f32", "--requests", "6", "--chunk", "64"]
+    serve.main(flags + ["--ids-out", str(tmp_path / "one.json")])
+    one = capsys.readouterr().out
+    serve.main(flags + ["--data", "2", "--model", "2", "--ids-out",
+                        str(tmp_path / "mesh.json")])
+    # the spawned ranks print to the inherited descriptor: read the ids
+    assert re.search(r"served 6/6 requests", one), one
+    mesh, base = _ids(tmp_path / "mesh.json"), _ids(tmp_path / "one.json")
+    assert len(base) == 6 and mesh == base
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--paged", "--data", "2"], "paged pool"),
+    (["--sessions", "2", "--data", "2"], "paged pool"),
+    (["--arch", "rwkv6-3b", "--model", "2"], "RWKV blocks under a mesh"),
+    (["--arch", "qwen3-moe-235b-a22b", "--data", "2"],
+     "experts are cut over data")])
+def test_launcher_refuses_what_the_mesh_engine_does_not_serve(flags, why,
+                                                             capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--smoke", "--device", "cpu"] + flags)
+    assert exc.value.code == 2
+    assert why in capsys.readouterr().err
+
+
+def test_engine_refusals_under_a_mesh(tmp_path):
+    """Under a one-rank gloo mesh: a graph asked for is refused, and the
+    paged pool under ``data`` > 1 is refused by the rule the engine and
+    the launcher share; ``moe_impl="ep"`` is refused with or without a
+    mesh."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as ttfm
+    cfg = get_smoke_config("qwen3-14b")
+    model = ttfm.init_params(cfg, seed=0, device="cpu")
+    assert "stale" in mesh_refusal(cfg, tmesh.Mesh({"data": 2, "model": 1}),
+                                   paged=True)
+    assert mesh_refusal(cfg, tmesh.Mesh({"data": 2, "model": 2})) is None
+    tmesh.init_distributed(1, 1, "cpu", rank=0, world_size=1,
+                           init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, device="cpu")
+        with pytest.raises(ValueError, match="not sharded for mesh"):
+            TorchEngineBackend(cfg, model, device="cpu", mesh=mesh)
+        partition.shard_model(cfg, model, mesh)
+        for flag in ("decode_graph", "prefill_graph"):
+            with pytest.raises(ValueError, match="under a mesh"):
+                TorchEngineBackend(cfg, model, device="cpu", mesh=mesh,
+                                   **{flag: True})
+        with pytest.raises(NotImplementedError, match="whole on every data"):
+            TorchEngineBackend(cfg, model, device="cpu", mesh=mesh,
+                               moe_impl="ep")
+        be = TorchEngineBackend(cfg, model, device="cpu", mesh=mesh,
+                                paged=True, page_size=32)
+        assert be.decode_graph is None and be.prefill_graph is None
+        assert not be.worker and be.channel.is_driver
+    finally:
+        dist.destroy_process_group()
+
+
+class _Channel:
+    def __init__(self, commands):
+        self.commands, self.rank = list(commands), 1
+
+    def recv(self):
+        return self.commands.pop(0)
+
+
+class _Worker:
+    """A backend stand-in whose device halves record their calls; its
+    ``command`` is the backend's."""
+    DEVICE_OPS = TorchEngineBackend.DEVICE_OPS
+    command = TorchEngineBackend.command
+
+    def __init__(self, commands):
+        self.channel, self.ran = _Channel(commands), []
+
+    def _d_decode(self, bt=None):
+        self.ran.append("decode")
+
+    def _d_poll(self, pending):
+        self.ran.append(("poll", pending))
+
+
+def test_worker_loop_stops_and_aborts():
+    """``serve_worker`` runs each command until ``stop``; ``abort`` (the
+    driver raised) and an unknown command raise on the worker, so no
+    rank waits on a run that has failed."""
+    w = _Worker([("decode", {"bt": None}), ("poll", {"pending": [(0, 3)]}),
+                 ("stop", {})])
+    assert driver.serve_worker(w) == 2
+    assert w.ran == ["decode", ("poll", [(0, 3)])]
+    with pytest.raises(RuntimeError, match="aborted the run: boom"):
+        driver.serve_worker(_Worker([("abort", {"reason": "boom"})]))
+    with pytest.raises(ValueError, match="unknown engine command"):
+        driver.serve_worker(_Worker([("format_disk", {})]))

@@ -4,10 +4,16 @@ model) mesh runs the port's sharded paths on inputs the parent wrote
 files.  ``tests/test_torch_distributed.py`` runs them on 8 CPU gloo
 ranks (2, 4) against the JAX package; ``tests/test_torch_distributed_
 cuda.py`` on 4 cards (2, 2) over NCCL against the port's own unsharded
-runs.  This module imports the port and torch only (never JAX or the
-reference package): the spawned ranks import it by name."""
+runs.  The ``engine_*`` cases serve a workload through the engine under
+a mesh (rank 0 drives, the other ranks answer its commands) on a mesh of
+the case's own shape over the same ranks, and rank 0 writes the token
+ids, the formed batches and the run's counters as JSON;
+``tests/test_torch_serve_mesh.py`` runs them on 4 CPU gloo ranks.  This
+module imports the port and torch only (never JAX or the reference
+package): the spawned ranks import it by name."""
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -27,12 +33,27 @@ def _cfg(arch, **kw):
     return get_smoke_config(arch, **kw)
 
 
+class Json(dict):
+    """A case's result written as JSON (token ids, batches, counters)."""
+
+
 class Rank:
     """One rank's view: its mesh, its device and the inputs' directory."""
 
     def __init__(self, d, mesh, dev):
         self.d, self.mesh, self.dev = d, mesh, dev
         self.model_size = mesh.size("model")
+        self._meshes = {tuple(mesh.shape.values()): mesh}
+
+    def mesh_of(self, data, model):
+        """A (data, model) host mesh over this run's ranks, made at its
+        first use (every rank runs the cases in the same order)."""
+        from repro_torch.launch.mesh import make_host_mesh
+        key = (data, model)
+        if key not in self._meshes:
+            self._meshes[key] = make_host_mesh(data, model,
+                                               device=self.dev.type)
+        return self._meshes[key]
 
     def t(self, a):
         return torch.from_numpy(np.array(a)).to(self.dev)
@@ -201,6 +222,228 @@ CASES = {"forward": case_forward, "ep_train": case_ep_train,
          "seq_decode": case_seq_decode}
 
 
+# ------------------------------------------------- the engine under a mesh --
+# the engine cases' smoke configs: ``kv4`` has one kv head a rank of a
+# 4-wide ``model`` axis (kv-head-cut pools), ``kv2`` two kv heads (the
+# paged pool whole on each of 4 ``model`` ranks), ``kv1`` one kv head over
+# 2048 slots (a contiguous pool cut along the sequence), ``moe``
+# qwen3-moe with four kv heads
+ENGINE_CFGS = {"kv4": ("qwen3-14b", dict(n_kv_heads=4, max_seq_len=256)),
+               "kv2": ("qwen3-14b", dict(n_kv_heads=2, max_seq_len=256)),
+               "kv1": ("qwen3-14b", dict(n_kv_heads=1, max_seq_len=2048)),
+               "moe": ("qwen3-moe-235b-a22b",
+                       dict(n_kv_heads=4, max_seq_len=256))}
+
+
+def engine_cfg(name, get_smoke_config=None):
+    """An engine case's config from ``get_smoke_config`` (the port's by
+    default; the parent passes the JAX package's)."""
+    arch, kw = ENGINE_CFGS[name]
+    if get_smoke_config is None:
+        return _cfg(arch, **kw)
+    return get_smoke_config(arch, **kw)
+
+
+def _uniform(n, seed, lo, hi, new_lo, new_hi):
+    rng = np.random.default_rng(seed)
+    return [(i, int(rng.integers(lo, hi)), int(rng.integers(new_lo, new_hi)))
+            for i in range(n)]
+
+
+# (rid, prompt tokens, new tokens) at t = 0, slot-bound on 4 slots; the
+# long prompts cross the 512-slot shards of a 2048-slot cache cut four
+# ways
+ENGINE_LOADS = {"short": _uniform(8, 0, 20, 200, 3, 7),
+                "long": [(0, 1100, 4), (1, 340, 5), (2, 760, 3),
+                         (3, 560, 4)]}
+
+
+def load_requests(core, name):
+    return [core.Request(rid=rid, prompt_len=p, max_new_tokens=n,
+                         arrival=0.0, task_type=core.TaskType.OFFLINE)
+            for rid, p, n in ENGINE_LOADS[name]]
+
+
+def retention_requests(core, generate, spec_cls, cfg, kind):
+    """The retention cases' workloads (the reference tests' shapes, cut
+    to the smoke window): two shared 96-token system prompts over 8
+    requests, or 2 sessions x 3 turns."""
+    if kind == "prefix":
+        reqs = generate(spec_cls(dataset="alpaca", rps=1e6, n_requests=8,
+                                 seed=3, max_model_len=cfg.max_seq_len,
+                                 task_type=core.TaskType.OFFLINE,
+                                 prefix_groups=2, prefix_tokens=96,
+                                 vocab_size=cfg.vocab_size))
+        for r in reqs:
+            r.max_new_tokens = min(r.max_new_tokens, 4)
+            r.prompt_len = min(r.prompt_len, cfg.max_seq_len - 16)
+    else:
+        reqs = generate(spec_cls(dataset="alpaca", rps=1e6, sessions=2,
+                                 turns=3, utterance_tokens=32,
+                                 max_new_tokens=4, seed=7,
+                                 task_type=core.TaskType.OFFLINE,
+                                 max_model_len=cfg.max_seq_len,
+                                 vocab_size=cfg.vocab_size))
+    for r in reqs:
+        r.arrival = 0.0
+    return reqs
+
+
+# case -> (config, workload, mesh, engine options); every case serves on
+# 4 slots with the scheduler's batch cap 4 and no page pressure
+ENGINE_CASES = {
+    "engine_paged_kv_cut": ("kv4", "short", (1, 4),
+                            dict(paged=True, page_size=32, chunk_tokens=64)),
+    "engine_paged_whole": ("kv2", "short", (1, 4),
+                           dict(paged=True, page_size=32, chunk_tokens=64)),
+    "engine_contig_data": ("kv4", "short", (2, 2), dict(chunk_tokens=64)),
+    "engine_seq_cut": ("kv1", "long", (1, 4), dict(chunk_tokens=256)),
+    "engine_prefix": ("kv4", "prefix", (1, 4),
+                      dict(paged=True, page_size=32, chunk_tokens=64,
+                           prefix_cache=True)),
+    "engine_sessions": ("kv4", "sessions", (1, 4),
+                        dict(paged=True, page_size=32, chunk_tokens=64,
+                             session_ttl=1000.0)),
+    "engine_spill": ("kv4", "sessions", (1, 4),
+                     dict(paged=True, page_size=32, chunk_tokens=64,
+                          session_ttl=0.0, host_pool_tokens=64 * 32)),
+    "engine_int8": ("kv4", "short", (1, 4),
+                    dict(paged=True, page_size=32, chunk_tokens=64,
+                         int8=True)),
+    "engine_moe": ("moe", "short", (1, 4),
+                   dict(paged=True, page_size=32, chunk_tokens=64)),
+    # four cards: the sequence-cut pool with its slots over data too
+    "engine_seq_cut_22": ("kv1", "long", (2, 2), dict(chunk_tokens=256)),
+}
+# the 4 CPU gloo ranks' cases (tests/test_torch_serve_mesh.py) and the
+# four cards' (tests/test_torch_distributed_cuda.py: the paged pool
+# under data = 1, as the engine requires, and the sequence-cut pool)
+CPU_ENGINE_CASES = [c for c in ENGINE_CASES if c != "engine_seq_cut_22"]
+CUDA_ENGINE_CASES = ["engine_paged_kv_cut", "engine_seq_cut_22"]
+
+
+def engine_requests(core, cfg, load, generate=None, spec_cls=None):
+    if load in ENGINE_LOADS:
+        return load_requests(core, load)
+    return retention_requests(core, generate, spec_cls, cfg, load)
+
+
+def serve_engine(core, engine_cls, cfg, model, reqs, *, mesh=None,
+                 device="cpu", slots=4, **opts):
+    """Serve ``reqs`` through ``engine_cls`` (the port's or, in the
+    parent, the JAX package's) under the BucketServe scheduler, recording
+    its formed batches.  Returns (engine, formed) on the driver (or
+    without a mesh), (engine, None) on a worker rank."""
+    paged = opts.get("paged", False)
+    opts = {k: v for k, v in opts.items() if k != "int8"}
+
+    class Recording(core.BucketServeScheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.formed = []
+
+        def next_prefill_batch(self, now):
+            batch = super().next_prefill_batch(now)
+            if batch is not None:
+                self.formed.append([r.rid for r in batch.requests])
+            return batch
+    sched = Recording(cfg, core.MemoryBudget(
+        hbm_bytes_per_device=2 ** 30, n_devices=1, weight_bytes=0),
+        core.SchedulerConfig(max_batch=slots,
+                             memory_model="paged" if paged else "sum",
+                             page_size=opts.get("page_size", 128)))
+    kw = dict(max_slots=slots, cache_len=cfg.max_seq_len, **opts)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    if device is not None:
+        kw["device"] = device
+    eng = engine_cls(cfg, model, sched, **kw)
+    eng.submit(reqs)
+    done = eng.run(max_wall_s=120)
+    if getattr(eng.backend, "worker", False):
+        return eng, None
+    assert len(done) == len(reqs), f"served {len(done)}/{len(reqs)}"
+    return eng, sched.formed
+
+
+def engine_summary(eng, reqs, formed) -> dict:
+    """What the tests hold: ids, formed batches, retention counters and
+    the pool's balance."""
+    be, res = eng.backend, eng.result
+    out = {"ids": {str(r.rid): [int(t) for t in eng.outputs[r.rid]]
+                   for r in reqs},
+           "formed": formed,
+           "counts": {k: getattr(res, k) for k in (
+               "prefix_hits", "session_hits", "spilled_pages",
+               "restored_pages", "preempt_events")}}
+    if be.paged:
+        a = be.alloc
+        out["pages"] = [a.free_pages(), a.live_pages(), a.n_pages]
+        if be.retention is not None:
+            be.retention.clear(a)
+        out["pages_after_clear"] = [a.free_pages(), a.n_pages,
+                                    a.free_host_slots(), a.host_pages]
+    return out
+
+
+def case_engine(name):
+    def run(r, out):
+        import dataclasses
+        import repro_torch.core as tcore
+        from repro_torch.core.engine import ServingEngine
+        from repro_torch.data.workload import WorkloadSpec, generate
+        from repro_torch.sharding import partition
+        cname, load, shape, opts = ENGINE_CASES[name]
+        cfg = engine_cfg(cname)
+        if opts.get("int8"):
+            cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        mesh = r.mesh_of(*shape)
+        model = partition.shard_model(
+            cfg, r.model(cfg, f"engine_{cname}.npz"), mesh)
+        reqs = engine_requests(tcore, cfg, load, generate, WorkloadSpec)
+        eng, formed = serve_engine(tcore, ServingEngine, cfg, model, reqs,
+                                   mesh=mesh, device=r.dev, **opts)
+        if formed is not None:
+            be = eng.backend
+            summary = engine_summary(eng, reqs, formed)
+            summary["layout"] = {
+                "k": list(be.pool_cache["groups"][0][0]["k"].shape),
+                "batch_k": list(be._batch_cache["groups"][0][0]["k"].shape),
+                "seq_sharded": bool(be.pool_cache.get("seq_sharded")),
+                "slots": [be._slot_lo, be._slot_n]}
+            summary["commands"] = dict(be.channel.sent)
+            out[name] = Json(summary)
+    return run
+
+
+ENGINE = {name: case_engine(name) for name in ENGINE_CASES}
+
+
+def port_engine_reference(d, case, device="cpu") -> dict:
+    """The port's engine without a mesh on ``case``'s config, weights
+    (``engine_<config>.npz`` in ``d``) and workload, its retention off
+    where the case compares against a cold run."""
+    import dataclasses
+    import repro_torch.core as tcore
+    from repro_torch import bridge
+    from repro_torch.core.engine import ServingEngine
+    from repro_torch.data.workload import WorkloadSpec, generate
+    cname, load, _, opts = ENGINE_CASES[case]
+    cfg = engine_cfg(cname)
+    if opts.get("int8"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model = bridge.params_from_numpy(
+        bridge.unflatten(_load(os.path.join(d, f"engine_{cname}.npz"))),
+        cfg, device=device)
+    if load in ("prefix", "sessions"):
+        opts = {k: v for k, v in opts.items() if k not in (
+            "prefix_cache", "session_ttl", "host_pool_tokens")}
+    reqs = engine_requests(tcore, cfg, load, generate, WorkloadSpec)
+    eng, formed = serve_engine(tcore, ServingEngine, cfg, model, reqs,
+                               device=device, **opts)
+    return engine_summary(eng, reqs, formed)
+
+
 def write_port_inputs(d, model_size: int) -> None:
     """The cases' inputs made by the port alone (seeded ``init_params``
     weights, numpy tokens), for runs where JAX is not installed."""
@@ -234,15 +477,28 @@ def write_port_inputs(d, model_size: int) -> None:
     np.save(os.path.join(d, "seq_lens.npy"),
             np.array([600, 100, 530, 20], np.int32))
     tokens("seq_next.npy", (3, 4))
+    for name in ENGINE_CFGS:
+        params(engine_cfg(name), f"engine_{name}.npz")
 
 
 def spawn(d, cases, data: int, model: int, device: str,
           seconds: float) -> str:
     """Run ``main`` on ``data * model`` spawned ranks; returns the error
     text of a failed or hung run ("" when every rank finished)."""
-    ctx = torch.multiprocessing.start_processes(
+    return wait(start(d, cases, data, model, device), d, seconds)
+
+
+def start(d, cases, data: int, model: int, device: str):
+    """Start ``main`` on ``data * model`` spawned ranks (``wait`` joins
+    them), so that the parent can work meanwhile."""
+    return torch.multiprocessing.start_processes(
         main, args=(d, cases, data, model, device), nprocs=data * model,
         join=False, start_method="spawn")
+
+
+def wait(ctx, d, seconds: float) -> str:
+    """Join the ranks ``start`` spawned; returns the error text of a
+    failed or hung run ("" when every rank finished)."""
     deadline = time.monotonic() + seconds
     try:
         while not ctx.join(timeout=2):
@@ -261,6 +517,9 @@ def spawn(d, cases, data: int, model: int, device: str,
 def load_output(d, name, err=""):
     """Rank 0's result ``name`` (an array, or a dict of arrays)."""
     path = os.path.join(d, f"out_{name}")
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            return json.load(f)
     if os.path.exists(path + ".npz"):
         return _load(path + ".npz")
     assert os.path.exists(path + ".npy"), f"no {name} from the ranks:\n{err}"
@@ -268,7 +527,10 @@ def load_output(d, name, err=""):
 
 
 def _save(d, name, val):
-    if isinstance(val, dict):
+    if isinstance(val, Json):
+        with open(os.path.join(d, f"out_{name}.json"), "w") as f:
+            json.dump(val, f)
+    elif isinstance(val, dict):
         np.savez(os.path.join(d, f"out_{name}.npz"), **val)
     else:
         np.save(os.path.join(d, f"out_{name}.npy"),
@@ -289,7 +551,7 @@ def main(rank: int, d: str, cases, data: int = 2, model: int = 4,
         for name in cases:
             out = {}
             try:
-                CASES[name](r, out)
+                (CASES.get(name) or ENGINE[name])(r, out)
             except Exception:
                 with open(os.path.join(d, f"error_{name}_{rank}.txt"),
                           "w") as f:
