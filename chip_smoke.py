@@ -92,7 +92,7 @@ goes through these phases, each printing its own lines:
    buffers, the timeline valid,
    ``paged_flash_decode`` 40 launches a decode step, every
    ``flash_prefill`` launch on the tensor-core body); then the same
-   workload without faults drained at half that time, the first
+   workload without faults drained at the faulted run's TTFT p50, the first
    engine's pool freed and the checkpoint resumed on a cold engine
    (nothing lost or duplicated, kept slices equal, pages balanced in
    both engines);
@@ -117,7 +117,7 @@ goes through these phases, each printing its own lines:
    against 66 int8 pages; and an int8 pool with an int8 spill tier
    (spills and restores, a page of codes and scales byte-identical
    through the tier);
-8b. distribution (on the same model, about 100 s): both contiguous decode
+8b. distribution (on the same model, about 150 s): both contiguous decode
    kernels' ``lse_out`` (each (row, head)'s log-sum-exp) at Qwen3-14B's
    decode shape (B = 8 over 4096 slots), bf16 and f32, float and int8
    caches, at context 2048, at rows of every length (three inside the
@@ -151,7 +151,23 @@ goes through these phases, each printing its own lines:
    layer a chunk and one decode kernel a layer a step, every page back,
    TPOT and TTFT p50 both ways beside the card's name and power limit,
    the decode command's host time a step, and a decode step of the
-   mesh engine profiled (the NCCL kernels' share);
+   mesh engine profiled (the NCCL kernels' share); and the paged pool
+   under the data axis (one replica a data rank, every decode write
+   gathered over data, prefill rows cut over data): smoke f32 qwen3-14b
+   through the engine under the mesh with the prefix cache, sessions
+   and the spill tier (TTL 0) on the card against the engine without a
+   mesh on the CPU, ids equal, every page and host slot back; then the
+   retention phase's 4 sessions x 3 turns (every first turn at t = 0)
+   and its 48-page spill run at full width with 10 of the 40 layers
+   (the same weights), eagerly, without a mesh and
+   through ``ServingEngine(mesh=...)``: ids equal (and the sessions'
+   formed batches; the spill run's follow the wall clock),
+   session hits, pages spilled and restored, one ``flash_prefill`` a
+   layer a chunk and one paged decode kernel a layer a step, every page
+   and host slot back after ``clear``, later-turn TTFT p50 both ways,
+   restore holds, preemptions and each later turn's TTFT phases from
+   its latency ledger (``chip_mesh_retention.py`` serves the same two
+   runs at all 40 layers);
 9. paper (the paper's own model): the Qwen3-14B model is freed and
    full-width, full-depth llama2-13b (bf16, seeded random weights, its
    native 4096-token cache) is built; both decode kernels at its widths
@@ -287,8 +303,10 @@ goes through these phases, each printing its own lines:
    ``flash_prefill`` at the training shape with the training run's
    launches, the two contiguous decode kernels with ``lse_out`` at the
    distribution phase's shape with the sequence-cut mesh runs'
-   launches, and the three attention kernels at the serve shapes with
-   the mesh engine runs' launches, each entry naming its ``path``), the
+   launches, the three attention kernels at the serve shapes with
+   the mesh engine runs' launches, and ``flash_prefill`` and
+   ``paged_flash_decode`` at the serve shapes with the mesh session and
+   spill runs' launches, each entry naming its ``path``), the
    ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -2692,7 +2710,11 @@ def recovery_phase(torch, cfg, model, wbytes):
     faults, final = recovery_faults(torch, cfg, model, wbytes)
     gc.collect()
     torch.cuda.empty_cache()
-    drain = recovery_drain(torch, cfg, model, wbytes, faults["seconds"] / 2,
+    # the drain run has no faults: drained at the faulted run's TTFT p50,
+    # which the faults barely move, it still has requests in flight; half
+    # the faulted run's wall (9-18 s with the same steps, as its fault
+    # backoffs fall) can come after the clean run's end
+    drain = recovery_drain(torch, cfg, model, wbytes, faults["ttft_p50"],
                            final)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5898,6 +5920,212 @@ def mesh_engine_smoke(torch, mesh):
     return out
 
 
+def mesh_retention_smoke(torch, mesh):
+    """Smoke f32 qwen3-14b through the engine under the one-rank NCCL mesh
+    on the card, with the prefix cache, with sessions and with the spill
+    tier, against the engine without a mesh on the CPU with the same
+    retention: the retention smoke's two workloads, then its sessions
+    with TTL 0 over a host tier of 64 pages, so every finished turn's
+    tail is spilled and restored.  Ids equal; hits, spills and restores
+    where the run has them; every page and host slot back after
+    ``clear``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = get_smoke_config("qwen3-14b", max_seq_len=1024)
+    cpu = tfm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gpu = partition.shard_model(cfg, copy.deepcopy(cpu).to("cuda"), mesh)
+    runs = smoke_retention_workloads(cfg)
+    sessions = runs[1][1]
+    runs.append(("spill", sessions, dict(pool_tokens=64 * 128),
+                 dict(session_ttl=0.0, host_pool_tokens=64 * 128)))
+    out = {}
+    for name, make, pool, ret in runs:
+        ids = {}
+        for label, model, dev, m in (("cpu", cpu, "cpu", None),
+                                     ("mesh", gpu, "cuda", mesh)):
+            reqs = make()
+            eng = make_engine(torch, cfg, model, 0, True, 4, dev=dev,
+                              hbm_bytes=2 ** 30, decode_graph=False, mesh=m,
+                              **pool, **ret)
+            eng.submit(reqs)
+            if len(eng.run(max_wall_s=600)) != len(reqs):
+                raise AssertionError(f"mesh retention smoke {name} {label}: "
+                                     f"not all served")
+            res, a = eng.result, eng.backend.alloc
+            hits = res.prefix_hits if name == "prefix" else res.session_hits
+            spilled = (res.spilled_pages, res.restored_pages)
+            if hits <= 0 or (name == "spill" and min(spilled) <= 0):
+                raise AssertionError(f"mesh retention smoke {name} {label}: "
+                                     f"hits {hits}, spilled and restored "
+                                     f"{spilled}")
+            eng.backend.retention.clear(a)
+            if a.free_pages() != a.n_pages or \
+                    a.free_host_slots() != a.host_pages:
+                raise AssertionError(f"mesh retention smoke {name} {label}: "
+                                     f"pages or host slots left after clear")
+            ids[label] = finished_ids(eng, reqs)
+        if ids["mesh"] != ids["cpu"]:
+            raise AssertionError(f"mesh retention smoke {name}: card under "
+                                 f"the mesh {ids['mesh']} != CPU "
+                                 f"{ids['cpu']}")
+        out[name] = dict(requests=len(ids["cpu"]), hits=hits,
+                         spilled_restored=spilled)
+    log("dist", f"smoke f32 qwen3-14b through the engine under the one-rank "
+        f"NCCL mesh on the card with the prefix cache, sessions and the "
+        f"spill tier == the engine without a mesh on the CPU: ids equal, "
+        f"every page and host slot back after clear; {out}")
+    return out
+
+
+# the mesh session and spill runs: Qwen3-14B at full width with its depth
+# cut from 40 layers to 10, to keep the script short (the eager step under
+# the mesh is host-bound; chip_mesh_retention.py runs all 40 layers)
+RET_MESH_LAYERS = 10
+
+
+def depth_view(torch, cfg, model, n):
+    """The first ``n`` layers of a one-group ``model`` as a model of its
+    own over the same weights (embedding, head and the first ``n``
+    blocks; nothing copied), with ``cfg`` cut to ``n`` layers."""
+    import dataclasses
+    view = copy.copy(model)
+    view._parameters = dict(model._parameters)
+    view._buffers = dict(model._buffers)
+    view._modules = dict(model._modules)
+    view.groups = torch.nn.ModuleList(
+        torch.nn.ModuleList(torch.nn.ModuleList(list(slot)[:n])
+                            for slot in group) for group in model.groups)
+    view.cfg = dataclasses.replace(cfg, n_layers=n)
+    return view.cfg, view
+
+
+def mesh_session_requests(cfg):
+    """The retention phase's 4 sessions x 3 turns with every first turn
+    at t = 0: a turn then arrives when the one before it ends, so the
+    batches follow the run's events and not the wall clock, and a run
+    with a mesh forms the batches of a run without."""
+    reqs = session_requests(cfg)
+    for r in reqs:
+        if r.turn == 0:
+            r.arrival = 0.0
+    return reqs
+
+
+def mesh_retention_runs(torch, cfg, model, wbytes, pool_tokens, mesh=None):
+    """Full-width Qwen3-14B, bf16, eager: the retention phase's sessions
+    (4 x 3 turns, session TTL 1000 s, on ``pool_tokens``) and its spill
+    run (the same workload over a 48-page pool with a 128-page host
+    tier), every first turn at t = 0 (``mesh_session_requests``),
+    through ``ServingEngine(mesh=mesh)`` or without a mesh; each run's
+    ids, formed batches, steps, stats, launches and later-turn TTFT p50,
+    with the gates: session hits, pages spilled and restored in the
+    spill run, one ``flash_prefill`` a layer a chunk and one paged
+    decode kernel a layer a step, every page (and host slot) back after
+    ``clear``."""
+    label = "mesh engine (1, 1)" if mesh is not None else "no mesh"
+    L = cfg.n_layers
+    label += f", {L} layers"
+    out = {}
+    for name, pool, kw in (
+            ("sessions", pool_tokens, dict(session_ttl=1000.0)),
+            ("spill", (RET_SPILL_PAGES + 1) * 128,
+             dict(session_ttl=1000.0,
+                  host_pool_tokens=RET_HOST_PAGES * 128))):
+        eng = make_engine(torch, cfg, model, wbytes, True, 8, pool,
+                          dev=model.device, decode_graph=False, mesh=mesh,
+                          **kw)
+        formed = record_formed(eng.sched).formed
+        reqs = mesh_session_requests(cfg)
+        counts, stats, steps = serve_run(
+            torch, cfg, eng, reqs, f"Qwen3-14B {label}, {name} "
+            f"({RET_SESSIONS} x {RET_TURNS} turns)")
+        res, a = eng.result, eng.backend.alloc
+        if res.session_hits <= 0 or (name == "spill" and not (
+                res.spilled_pages > 0 and res.restored_pages > 0)):
+            raise AssertionError(f"Qwen3-14B {label} {name}: session hits "
+                                 f"{res.session_hits}, spilled "
+                                 f"{res.spilled_pages}, restored "
+                                 f"{res.restored_pages}")
+        if counts["flash_prefill"] != L * steps["prefill"] or \
+                counts["paged_flash_decode"] != L * steps["decode"] or \
+                counts["flash_decode"]:
+            raise AssertionError(f"Qwen3-14B {label} {name}: launches "
+                                 f"{counts} for {steps}")
+        if a.free_pages() + a.live_pages() != a.n_pages:
+            raise AssertionError(f"Qwen3-14B {label} {name}: free + live "
+                                 f"!= total pages")
+        eng.backend.retention.clear(a)
+        if a.free_pages() != a.n_pages or \
+                a.free_host_slots() != a.host_pages:
+            raise AssertionError(f"Qwen3-14B {label} {name}: pages or host "
+                                 f"slots left after clear")
+        run = dict(ids=finished_ids(eng, reqs), formed=formed, steps=steps,
+                   stats=stats, launches={k: counts[k] for k in (
+                       "flash_prefill", "paged_flash_decode")},
+                   ttft_later={t: p50([r.ttft() for r in later(reqs, t)])
+                               for t in (1, 2)},
+                   turns=turn_records(reqs),
+                   hits=(res.session_hits, res.session_lookups),
+                   spilled=(res.spilled_pages, res.restored_pages),
+                   holds=res.spill_hold_events,
+                   preemptions=res.preempt_events, layers=L)
+        if mesh is not None:
+            run["commands"] = dict(eng.backend.channel.sent)
+        out[name] = run
+        del eng, a
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def turn_records(reqs):
+    """Each later turn's (session, turn, TTFT s, the TTFT's phases from
+    its latency ledger that took over 1 ms, the ledger's phase
+    transitions): where a long TTFT waited."""
+    return [(r.session_id, r.turn, round(r.ttft(), 4),
+             {k: round(v, 4) for k, v in (r.ledger.ttft_phases or {}).items()
+              if v > 1e-3}, "/".join(r.ledger.seq))
+            for r in later(reqs, 1)]
+
+
+def mesh_retention_compare(want, got):
+    """The mesh runs' ids equal the no-mesh runs', and so do the session
+    runs' formed batches (the spill run's 48-page pool is under page
+    pressure: its restore holds and restart penalties end on the wall
+    clock, so its batches may differ); the later-turn TTFT p50 both
+    ways."""
+    smi = nvidia_smi_line()
+    for name in ("sessions", "spill"):
+        a, b = want[name], got[name]
+        for what in ("formed", "ids") if name == "sessions" else ("ids",):
+            if a[what] != b[what]:
+                raise AssertionError(f"Qwen3-14B {name} under the mesh: "
+                                     f"{what} differ from the no-mesh run: "
+                                     f"{b[what]} != {a[what]}")
+        log("dist", f"[{smi}] Qwen3-14B full width, engine, paged pool, "
+            f"{name}, {b['layers']} of 40 layers, {RET_SESSIONS} x "
+            f"{RET_TURNS} turns, eager both: ids "
+            f"equal, formed batches "
+            f"{'equal' if a['formed'] == b['formed'] else 'not equal'} "
+            f"({len(b['formed'])} batches); session hits {b['hits']}, pages "
+            f"spilled / restored {b['spilled']}, restore holds "
+            f"{b['holds']} ({a['holds']} without), preemptions "
+            f"{b['preemptions']} ({a['preemptions']} without); TTFT p50 "
+            f"turns >= 1 "
+            f"{b['ttft_later'][1]:.4f} s under the (1, 1) mesh, "
+            f"{a['ttft_later'][1]:.4f} s without; turns >= 2 "
+            f"{b['ttft_later'][2]:.4f} s, {a['ttft_later'][2]:.4f} s; TPOT "
+            f"p50 {b['stats']['tpot_p50'] * 1e3:.2f} ms, "
+            f"{a['stats']['tpot_p50'] * 1e3:.2f} ms; {b['steps']['prefill']} "
+            f"chunks, {b['steps']['decode']} decode steps; launches "
+            f"{b['launches']}; commands {b['commands']}")
+        for who, run in (("no mesh", a), ("(1, 1) mesh", b)):
+            log("dist", f"Qwen3-14B {name}, {run['layers']} layers, {who}: "
+                f"later turns (session, turn, TTFT s, TTFT phases, "
+                f"ledger) {run['turns']}")
+
+
 def mesh_engine_runs(torch, cfg, model, wbytes, mesh=None, pool_tokens=None):
     """The serve phase's 12 requests at t = 0 (32 new tokens) on the
     paged pool (8 slots, ``pool_tokens``) and the contiguous pool (8
@@ -5983,11 +6211,16 @@ def dist_phase(torch, cfg, model, wbytes, pool_tokens):
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import partition
     t0 = time.perf_counter()
     rows = dist_kernels(torch)
     t1 = time.perf_counter()
     engine_want = mesh_engine_runs(torch, cfg, model, wbytes,
                                    pool_tokens=pool_tokens)
+    vcfg, view = depth_view(torch, cfg, model, RET_MESH_LAYERS)
+    vbytes = sum(p.numel() * p.element_size() for p in view.parameters())
+    retention_want = mesh_retention_runs(torch, vcfg, view, vbytes,
+                                         pool_tokens)
     engine_s = time.perf_counter() - t1
     with tempfile.TemporaryDirectory() as d:
         mesh_mod.init_distributed(1, 1, "cuda", rank=0, world_size=1,
@@ -5999,28 +6232,42 @@ def dist_phase(torch, cfg, model, wbytes, pool_tokens):
             smoke = dist_smoke(torch, mesh)
             t1 = time.perf_counter()
             smoke["engine_commands"] = mesh_engine_smoke(torch, mesh)
+            smoke["engine_retention"] = mesh_retention_smoke(torch, mesh)
             engine_s += time.perf_counter() - t1
             path, launches = dist_mesh_path(torch, cfg, model, mesh)
             t1 = time.perf_counter()
             engine = mesh_engine_runs(torch, cfg, model, wbytes, mesh,
                                       pool_tokens)
             mesh_engine_compare(engine_want, engine)
+            partition.shard_model(vcfg, view, mesh)
+            retention = mesh_retention_runs(torch, vcfg, view, vbytes,
+                                            pool_tokens, mesh)
+            mesh_retention_compare(retention_want, retention)
             engine_s += time.perf_counter() - t1
         finally:
             dist.destroy_process_group()
     for pool in engine:
         engine[pool]["no_mesh_stats"] = engine_want[pool]["stats"]
         engine[pool].pop("ids")
+    for name in retention:
+        retention[name]["no_mesh_ttft_later"] = \
+            retention_want[name]["ttft_later"]
+        retention[name]["no_mesh_stats"] = retention_want[name]["stats"]
+        for k in ("ids", "formed"):
+            retention[name].pop(k)
     launches.update({f"engine {k}": v for k, v in {
         "flash_prefill": engine["paged"]["launches"]["flash_prefill"],
         "paged_flash_decode": engine["paged"]["launches"][
             "paged_flash_decode"],
         "flash_decode": engine["contiguous"]["launches"][
             "flash_decode"]}.items()})
+    launches.update({f"retention {k}": sum(
+        r["launches"][k] for r in retention.values())
+        for k in ("flash_prefill", "paged_flash_decode")})
     log("dist", f"phase took {time.perf_counter() - t0:.1f} s (the engine "
         f"runs and the engine smoke {engine_s:.1f} s)")
     return dict(rows=rows, moe_ep=moe_res, smoke=smoke, path=path,
-                launches=launches, engine=engine)
+                launches=launches, engine=engine, retention=retention)
 
 
 def main() -> int:
@@ -6294,6 +6541,24 @@ def main() -> int:
                      rows["flash_decode B=8 ctx=2048"],
                      path="qwen3-14b engine under the (1, 1) mesh",
                      n=dist["launches"]["engine flash_decode"]),
+        # the paged pool replicated over data with KV retention: the
+        # session and spill runs through ServingEngine(mesh=...) on the
+        # one-rank NCCL mesh (every decode write gathered over data,
+        # prefill rows cut over data)
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rows["flash_prefill chunk 512@1536/4096"],
+                   path="qwen3-14b (10 of 40 layers) engine under the "
+                        "(1, 1) mesh, sessions and spill",
+                   n=dist["launches"]["retention flash_prefill"]),
+             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     rows["paged_flash_decode B=8 ctx=2048 page=128"],
+                     path="qwen3-14b (10 of 40 layers) engine under the "
+                          "(1, 1) mesh, sessions and spill",
+                     n=dist["launches"]["retention paged_flash_decode"]),
         # the training step: the forward kernel under autograd (its
         # backward is the plain version's), launches over the 10 steps
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",

@@ -118,11 +118,24 @@ the same arguments, holds no allocator and no retention layer, and runs
 The contiguous pool is ``init_cache(mesh=...)``: slots cut over
 ``data`` (each data rank inserts only the rows whose slot it holds),
 K/V by kv head over ``model``, or along the sequence when Hkv does not
-divide and S >= 2048.  The paged pool is cut by kv head over ``model``
-where Hkv divides, whole on every rank where it does not; under ``data
-> 1`` it is refused (a prefix page written on one data rank would be
-read stale on another).  A prefill job's rows are whole on every rank
-(``init_cache(rows_cut=False)``, ``prefill(local_batch=True)``).
+divide and S >= 2048.  The paged pool is one pool replicated over
+``data``: every data rank holds every page, cut by kv head over
+``model`` where Hkv divides, whole where it does not, with ``pos`` and
+the block tables whole.  So the one allocator, radix index and
+retention layer on rank 0 decide for every replica, and admission,
+preemption and hits are those of the pool without a mesh.  Every
+writer keeps the replicas equal: the insertion writes every row's
+pages on every rank, a decode step gathers its rows' K/V over the batch
+axes and writes every row's token
+(``attention.self_attn_decode_paged``), and a restore writes each
+rank's own spilled copy of a page that was equal when it left.  A
+prefill job's rows are cut over the batch axes where they divide its B
+(each data rank prefills its share, ``_job_rows``; the model's entry
+points cut the global token ids and lengths and gather the logits),
+whole on every rank where they do not; the insertion gathers the job's
+rows of the batch cache over the batch axes one leaf at a time.  A
+batch axis of one rank gathers nothing (``sharding.rows.gather_rows``),
+so a (1, M) mesh pays for none of these gathers.
 ``next_tok`` is the argmax of the gathered logits on every rank; only
 rank 0 reads it.  The spill tier is a rank's: each rank spills its shard
 of a page into its own host slot.  ``moe_impl="ep"``, the decode graph
@@ -145,7 +158,7 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import dequantize_kv_int4, quantize_kv_int4
 from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE, ModelConfig
-from repro_torch.sharding.rows import axes_index, batch_tuple
+from repro_torch.sharding.rows import axes_index, batch_tuple, gather_rows
 from . import driver, paging
 from .batcher import FormedBatch
 from .faults import FaultInjector
@@ -222,7 +235,10 @@ class _EngineCopier:
     ``_poll``, ``_drop``) to every rank, each copying its shard of the
     page to its own host slot; ``restore`` only queues, and ``poll``
     carries the queue.  A poll with nothing staged and nothing queued
-    sends nothing (every rank stages the same spills).
+    sends nothing (every rank stages the same spills).  The replicas of
+    a page over ``data`` are equal when it is spilled, so each rank's
+    restore of its own copy leaves them equal; the host tier is thus
+    held once a data rank.
 
     Host leaves are allocated at the first spill of each leaf and left
     uninitialised (a host slot is read only after it was written).  Raw
@@ -614,21 +630,15 @@ def kv_shards(cfg: ModelConfig, mesh) -> int:
     return m if cfg.n_kv_heads % m == 0 else 1
 
 
-def mesh_refusal(cfg: ModelConfig, mesh, *, paged: bool = False
-                 ) -> Optional[str]:
+def mesh_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     """Why the engine cannot serve ``cfg`` under ``mesh`` (a host mesh or
     one of shape only), or None: the recurrent, cross-attention and
     encoder configs under ``model`` > 1 (``transformer.mesh_refusal``);
-    the paged pool, and so KV retention, under ``data`` > 1; MoE experts
-    cut over ``data``, which ``moe_impl="local"`` does not run."""
+    MoE experts cut over ``data``, which ``moe_impl="local"`` does not
+    run.  Both pools are served under every other mesh."""
     why = tfm.mesh_refusal(cfg, mesh.size("model"))
     if why:
         return why
-    if paged and mesh.size("data") > 1:
-        return ("the paged pool (and so KV retention) under data > 1: "
-                "each data rank would hold a pool of its own slots, and a "
-                "prefix page written on one data rank would be read stale "
-                "on another; serve the paged pool with data = 1")
     if cfg.n_experts:
         from repro_torch.sharding import partition
         spec = partition.param_rule("w_gate", (1, cfg.n_experts, cfg.d_model,
@@ -641,14 +651,14 @@ def mesh_refusal(cfg: ModelConfig, mesh, *, paged: bool = False
 
 
 def check_mesh(cfg: ModelConfig, model: tfm.Transformer, mesh, *,
-               paged: bool = False, decode_graph: Optional[bool] = None,
+               decode_graph: Optional[bool] = None,
                prefill_graph: Optional[bool] = None) -> None:
     """Raise for what the engine does not serve under ``mesh``
     (``mesh_refusal``; a model not cut for the mesh), and for a graph
     asked for: a CUDA graph of the mesh step would capture its NCCL
     calls, a later item."""
     tfm.resolve_mesh(cfg, model, mesh)
-    why = mesh_refusal(cfg, mesh, paged=paged)
+    why = mesh_refusal(cfg, mesh)
     if why:
         raise ValueError(why)
     for name, flag in (("decode_graph", decode_graph),
@@ -713,9 +723,10 @@ class TorchEngineBackend:
         if moe_impl == "ep":
             raise NotImplementedError(
                 "moe_impl='ep': the engine serves moe_impl='local', as the "
-                "reference's launcher does; a prefill job's tokens are "
-                "whole on every data rank, which moe_ep's dispatch (each "
-                "data rank sending its own rows) does not expect")
+                "reference's launcher does; a prefill job whose rows data "
+                "does not divide is whole on every data rank, which "
+                "moe_ep's dispatch (each data rank sending its own rows) "
+                "does not expect")
         moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "
@@ -726,8 +737,7 @@ class TorchEngineBackend:
         self.mesh = mesh
         self.channel = None
         if mesh is not None:
-            check_mesh(cfg, model, mesh, paged=paged,
-                       decode_graph=decode_graph,
+            check_mesh(cfg, model, mesh, decode_graph=decode_graph,
                        prefill_graph=prefill_graph)
             decode_graph = prefill_graph = False
             self.channel = driver.channel(mesh)
@@ -835,7 +845,7 @@ class TorchEngineBackend:
         # the job whose inputs and batch-cache rows are live
         self._job: Optional[PrefillJob] = None
         self._job_toks: Optional[torch.Tensor] = None
-        self.prefill_rows = 0
+        self.prefill_rows = self._pf_held = 0
         if prefill_rows:
             self._alloc_prefill(prefill_rows)
         cuda = self.device.type == "cuda"
@@ -906,31 +916,40 @@ class TorchEngineBackend:
 
     def _slot_range(self) -> Tuple[int, int]:
         """(first slot, slots) of the pool this rank holds: its cut of
-        the slots over ``data`` (``sharding.rows``), all of them without
-        a mesh or when no axis divides them."""
+        the slots over ``data``."""
+        return self._job_rows(self.max_slots)
+
+    def _job_rows(self, B: int) -> Tuple[int, int]:
+        """(first row, rows) of a batch of ``B`` rows this rank holds:
+        its cut over the batch axes (``sharding.rows``), all of them
+        without a mesh or when no axis divides ``B``."""
         if self.mesh is None:
-            return 0, self.max_slots
-        axes = batch_tuple(self.mesh, self.max_slots)
+            return 0, B
+        axes = batch_tuple(self.mesh, B)
         n = math.prod(self.mesh.shape[a] for a in axes)
-        per = self.max_slots // n
-        return axes_index(self.mesh, axes) * per, per
+        return axes_index(self.mesh, axes) * (B // n), B // n
 
     # ------------------------------------------------------ prefill ----
-    def _alloc_prefill(self, rows: int) -> None:
-        """The batch prefill cache of ``rows`` rows and the fixed buffers
-        a prefill reads and writes: token ids (room for ``rows`` full
-        prompts), lengths, the chunk's ``start`` and the logits.  Under a
-        mesh every rank holds every row, with the pool's cut of the K/V
-        (never along the sequence over a paged pool, which is not)."""
+    def _alloc_prefill(self, rows: int, held: int = 0) -> None:
+        """The batch prefill cache for jobs of up to ``rows`` rows and the
+        fixed buffers a prefill reads and writes: token ids (room for
+        ``rows`` full prompts), lengths, the chunk's ``start`` and the
+        logits, all global.  Under a mesh the cache holds this rank's
+        rows of a job (``_job_rows``): the cut of ``rows``, or ``held``
+        rows when more (a job whose rows no axis divides is whole on
+        every rank), with the pool's cut of the K/V (never along the
+        sequence over a paged pool, which is not)."""
         dev = dict(device=self.device)
         self.prefill_rows = rows
+        self._pf_held = max(held, self._job_rows(rows)[1])
         if self.mesh is None:
             self._batch_cache = tfm.init_cache(self.cfg, rows, self.cache_len,
                                                self.dtype, self.device)
         else:
             self._batch_cache = tfm.init_cache(
-                self.cfg, rows, self.cache_len, self.dtype, self.device,
-                self.mesh, rows_cut=False, seq_cut=not self.paged)
+                self.cfg, self._pf_held, self.cache_len, self.dtype,
+                self.device, self.mesh, rows_cut=False,
+                seq_cut=not self.paged)
         self._pf_toks = torch.zeros((rows * self.cache_len,),
                                     dtype=torch.int32, **dev)
         self._pf_lens = torch.zeros((rows,), dtype=torch.int32, **dev)
@@ -939,11 +958,14 @@ class TorchEngineBackend:
                                       dtype=torch.float32, **dev)
 
     def _batch_view(self, B: int):
-        """The batch cache's first ``B`` rows (each leaf's ``[:, :B]`` is
-        contiguous a rep, as the kernels need)."""
+        """The batch cache's rows of a job of ``B`` rows: the first ``B``,
+        or under a mesh the first of this rank's share (``_job_rows``;
+        each leaf's ``[:, :n]`` is contiguous a rep, as the kernels
+        need)."""
         bc = self._batch_cache
-        view = {"pos": bc["pos"][:B],
-                "groups": tuple(tuple({k: leaf[:, :B]
+        n = self._job_rows(B)[1]
+        view = {"pos": bc["pos"][:n],
+                "groups": tuple(tuple({k: leaf[:, :n]
                                        for k, leaf in slot.items()}
                                       for slot in slots)
                                 for slots in bc["groups"])}
@@ -1174,7 +1196,8 @@ class TorchEngineBackend:
         else:
             bodies = _eager_bodies(step)
         if last and chunked:
-            self._batch_view(B)["pos"].copy_(self._pf_lens[:B])
+            lo, n = self._job_rows(B)
+            self._batch_view(B)["pos"].copy_(self._pf_lens[lo:lo + n])
         return bodies
 
     def _begin_job(self, job: PrefillJob) -> dict:
@@ -1200,13 +1223,17 @@ class TorchEngineBackend:
 
     def _d_begin_job(self, toks: np.ndarray, lens: np.ndarray,
                      seed: list) -> torch.Tensor:
+        """Every rank takes the job's token ids and lengths whole (the
+        model cuts its rows) and copies in the cached prefix of its own
+        rows only."""
         B = toks.shape[0]
-        if B > self.prefill_rows:
+        lo, n = self._job_rows(B)
+        if B > self.prefill_rows or n > self._pf_held:
             # the first job, or a batch above the rows held: a larger
             # cache, and the graphs captured over the old one go
             self._drop_prefill_graphs()
             self._batch_cache = None
-            self._alloc_prefill(B)
+            self._alloc_prefill(max(B, self.prefill_rows), n)
         cache = self._batch_view(B)
         cache["pos"].zero_()
         for slots in cache["groups"]:
@@ -1215,6 +1242,8 @@ class TorchEngineBackend:
                     leaf.zero_()
         self._pf_lens[:B].copy_(torch.from_numpy(lens))
         self._job_toks = torch.from_numpy(toks).to(self.device)
+        seed = [(i - lo, hit, pages) for i, hit, pages in seed
+                if lo <= i < lo + n]
         if seed:
             self._copy_prefix(cache, seed)
         return self._job_toks
@@ -1227,17 +1256,16 @@ class TorchEngineBackend:
         """The prefill of shape ``key`` over the engine's fixed storage,
         its logits into the logits buffer: what a ``PrefillGraph``
         captures.  It reads the token, length and ``start`` buffers and
-        writes the batch cache's first B rows, as every later prefill of
-        the key does.  Under a mesh every rank runs every row
-        (``local_batch``)."""
+        writes the batch cache's rows of the job, as every later prefill
+        of the key does.  Under a mesh the model takes this rank's rows
+        of the global token ids and lengths, and gathers the logits."""
         kind, T, B = key
         cfg, model, moe_impl = self.cfg, self.model, self.moe_impl
         toks = self._pf_toks[:B * T].view(B, T)
         lens, start = self._pf_lens[:B], self._pf_start
         out = self._pf_logits[:B]
         cache = self._batch_view(B)
-        mkw = {} if self.mesh is None else dict(mesh=self.mesh,
-                                                local_batch=True)
+        mkw = {} if self.mesh is None else dict(mesh=self.mesh)
         if kind == "chunk":
             def step() -> None:
                 logits, _ = tfm.prefill_chunk(cfg, model, toks, cache, start,
@@ -1342,16 +1370,52 @@ class TorchEngineBackend:
     def _d_insert(self, B: int, slots: List[int], rows: List[int],
                   firsts: List[int], tables=None, shared=None,
                   bt=None) -> None:
-        """Device half of the slot insertion: the job's rows of the
-        batch cache into the pool (``_insert_slots`` or
-        ``_insert_slots_paged``, which also pushes the block tables
-        ``bt``) and each slot's first token into ``next_tok``."""
+        """Device half of the slot insertion, in place, one cache leaf at
+        a time: the leaf's job rows (gathered over the batch axes under a
+        mesh, ``_job_leaf``) into the pool with one index-put for the
+        whole batch.  A per-slot leaf (the contiguous pool's K/V, a
+        recurrent carry) takes the rows of the slots this rank holds
+        (``_held``).  On the paged pool the attention K/V rows are
+        chopped into page-sized spans and written to each row's pages
+        ``tables`` on every rank (every replica), and ``pos`` is every
+        slot's; the first ``shared[i]`` pages of a table are a cached
+        prefix that already lives in the pool: skipped, so a shared page
+        is written once, by its first owner.  ``bt``, the host block
+        tables, is pushed after, and every slot's first token goes into
+        ``next_tok``."""
         cache = self._batch_view(B)
+        local, held_rows = self._held(slots, rows)
+        sl, rw = self._index(local), self._index(held_rows)
+        pos = self._job_leaf(cache["pos"], B, 0)
         if self.paged:
-            self._insert_slots_paged(cache, slots, rows, firsts, tables,
-                                     shared, bt)
-        else:
-            self._insert_slots(cache, slots, rows, firsts)
+            self.pool_cache["pos"][self._index(slots)] = \
+                pos[self._index(rows)]
+            dst, srow, spg = self._page_spans(rows, tables, shared)
+        elif local:
+            self.pool_cache["pos"][sl] = pos[rw]
+        for gi, (pattern, _) in enumerate(self.cfg.block_groups()):
+            for j, btype in enumerate(pattern):
+                pool_slot = self.pool_cache["groups"][gi][j]
+                bc_slot = cache["groups"][gi][j]
+                paged = self.paged and btype in (BLOCK_ATTN, BLOCK_MOE)
+                for k, pool_leaf in pool_slot.items():
+                    leaf = self._job_leaf(bc_slot[k], B, 1)
+                    if paged:
+                        pool_leaf[:, dst] = self._in_pages(leaf)[:, srow,
+                                                                 spg]
+                    elif local:
+                        pool_leaf[:, sl] = leaf[:, rw]
+        if self.paged:
+            self.pool_cache["block_tables"].copy_(torch.from_numpy(bt))
+        self.next_tok[self._index(slots)] = torch.as_tensor(
+            firsts, dtype=torch.int32, device=self.device)
+
+    def _job_leaf(self, x: torch.Tensor, B: int, dim: int) -> torch.Tensor:
+        """A batch-cache leaf's rows of a job of ``B`` rows, all of them:
+        this rank's own without a mesh, else all-gathered over the batch
+        axes along ``dim`` (a no-op where the rows are not cut, or cut
+        over axes of one rank)."""
+        return x if self.mesh is None else gather_rows(x, self.mesh, B, dim)
 
     def _held(self, slots: List[int], rows: List[int]):
         """This rank's pool indices of ``slots`` (global) and the batch
@@ -1361,68 +1425,27 @@ class TorchEngineBackend:
         kept = [(s - lo, r) for s, r in zip(slots, rows) if lo <= s < lo + n]
         return [s for s, _ in kept], [r for _, r in kept]
 
-    def _insert_slots(self, batch_cache, slots: List[int], rows: List[int],
-                      firsts: List[int]) -> None:
-        """Scatter batch rows into pool slots, in place: one index-put
-        per cache leaf (K/V, or the RWKV carry) for the whole batch.  A
-        rank whose pool holds a cut of the slots writes the rows of the
-        slots it holds."""
-        local, held_rows = self._held(slots, rows)
-        if local:
-            sl, rw = self._index(local), self._index(held_rows)
-            self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
-            for gi, pattern_slots in enumerate(self.pool_cache["groups"]):
-                for j, pool_slot in enumerate(pattern_slots):
-                    bc_slot = batch_cache["groups"][gi][j]
-                    for k, leaf in pool_slot.items():
-                        leaf[:, sl] = bc_slot[k][:, rw]
-        self.next_tok[self._index(slots)] = torch.as_tensor(
-            firsts, dtype=torch.int32, device=self.device)
-
-    def _insert_slots_paged(self, batch_cache, slots: List[int],
-                            rows: List[int], firsts: List[int],
-                            tables: List[List[int]],
-                            shared: Sequence[int], bt) -> None:
-        """Scatter prefilled caches into the page pool, in place:
-        attention K/V rows are chopped into page-sized spans and written
-        to each request's allocated pages (one index-put per leaf for the
-        whole batch); per-slot leaves (a recurrent carry) take the
-        contiguous slot scatter.  The first ``shared[i]`` pages of a
-        table are a cached prefix that already lives in the pool:
-        skipped, so a shared page is written once, by its first owner.
-        ``bt``, the host block tables, is pushed after."""
-        sl, rw = self._index(slots), self._index(rows)
-        self.pool_cache["pos"][sl] = batch_cache["pos"][rw]
+    def _page_spans(self, rows: List[int], tables: List[List[int]],
+                    shared: Sequence[int]):
+        """(pool page, batch row, page of the row) of every page a row
+        writes: its table past the ``shared`` prefix pages."""
         dst, srow, spg = [], [], []
         for row, t, skip in zip(rows, tables, shared):
             for j, pg in enumerate(t[skip:], skip):
                 dst.append(pg)
                 srow.append(row)
                 spg.append(j)
-        dst, srow, spg = self._index(dst), self._index(srow), \
-            self._index(spg)
-        page, maxp = self.page_size, self.pages_per_seq
+        return self._index(dst), self._index(srow), self._index(spg)
 
-        for gi, (pattern, _) in enumerate(self.cfg.block_groups()):
-            for j, btype in enumerate(pattern):
-                pool_slot = self.pool_cache["groups"][gi][j]
-                bc_slot = batch_cache["groups"][gi][j]
-                if btype not in (BLOCK_ATTN, BLOCK_MOE):
-                    for k, pool_leaf in pool_slot.items():
-                        pool_leaf[:, sl] = bc_slot[k][:, rw]
-                    continue
-                for k, pool_leaf in pool_slot.items():
-                    bl = bc_slot[k]
-                    pad = maxp * page - bl.shape[2]
-                    if pad:
-                        bl = torch.nn.functional.pad(
-                            bl, (0, 0) * (bl.ndim - 3) + (0, pad))
-                    bp = bl.reshape(bl.shape[:2] + (maxp, page)
-                                    + bl.shape[3:])
-                    pool_leaf[:, dst] = bp[:, srow, spg]
-        self.pool_cache["block_tables"].copy_(torch.from_numpy(bt))
-        self.next_tok[sl] = torch.as_tensor(firsts, dtype=torch.int32,
-                                            device=self.device)
+    def _in_pages(self, leaf: torch.Tensor) -> torch.Tensor:
+        """A batch-cache K/V leaf (reps, B, S, ...) as (reps, B, pages a
+        sequence, page, ...), its sequence padded to whole pages."""
+        page, maxp = self.page_size, self.pages_per_seq
+        pad = maxp * page - leaf.shape[2]
+        if pad:
+            leaf = torch.nn.functional.pad(
+                leaf, (0, 0) * (leaf.ndim - 3) + (0, pad))
+        return leaf.reshape(leaf.shape[:2] + (maxp, page) + leaf.shape[3:])
 
     def decode_iter(self, pool: Sequence[Request],
                     context_tokens: int) -> float:

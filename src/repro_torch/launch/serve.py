@@ -49,15 +49,18 @@ are off under a mesh; the command channel's host time a decode step),
 and the other ranks print nothing but errors.  The scheduler's budget
 counts D x M devices, each of this card's memory, as the reference's
 launcher counts its devices; the default paged pool counts a rank's
-share of each page.  Under ``torchrun --nproc-per-node D*M`` the ranks
+share of each page (its kv heads, every page: the pool is replicated
+over ``--data``, so it does not shrink as D grows, and with
+``--kv-spill`` each data rank holds its own copy of the host tier).
+``--paged``, ``--prefix-cache``, ``--sessions`` and ``--kv-spill`` are
+served under any D x M, prefill rows cut over ``--data`` where it
+divides a batch.  Under ``torchrun --nproc-per-node D*M`` the ranks
 come from torchrun's environment; without it the launcher spawns D*M
 local ranks itself (a ``file://`` store in a temporary directory; gloo
 ranks of one torch thread each with ``--device cpu``, one rank a card on
 the card, where fewer cards than ranks exit 2).  Refused, exit 2 with
-the reason: ``--paged`` (so ``--prefix-cache``, ``--sessions``,
-``--kv-spill``) with ``--data`` > 1, an MoE config whose experts
-``--data`` cuts, and the recurrent, cross-attention and encoder configs
-with ``--model`` > 1.
+the reason: an MoE config whose experts ``--data`` cuts, and the
+recurrent, cross-attention and encoder configs with ``--model`` > 1.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -688,8 +691,7 @@ def main(argv=None):
     world = args.data * args.model
     if args.backend != "sim" and world > 1:
         why = mesh_refusal(cfg, mesh_mod.Mesh({"data": args.data,
-                                               "model": args.model}),
-                           paged=args.paged)
+                                               "model": args.model}))
         if why:
             ap.error(f"--data {args.data} --model {args.model}: {why}")
     if args.paged and not tfm.supports_paged_decode(cfg):

@@ -43,8 +43,10 @@ over them with its log-sum-exp output and combines the shards
 (:func:`combine_decode_partials`); a prefill chunk over such a cache
 all-gathers it over ``model``, attends over the whole prefix and keeps
 its own slots of the result (:func:`self_attn_chunk`).  A paged pool
-under a mesh holds this rank's kv heads when they are local, else all of
-them (:func:`self_attn_decode_paged`).
+under a mesh is one replica a data rank, of this rank's kv heads when
+they are local, else of all of them: each rank decodes its own slots'
+rows and writes every row's token, gathered over the batch axes, into
+its replica (:func:`self_attn_decode_paged`).
 
 The int4 codecs of the host spill tier (``pack_int4`` ...
 ``dequantize_kv_int4``) are numpy, as in the reference: they run on the
@@ -58,6 +60,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import dequantize_kv
 from repro_torch.sharding import collectives
+from repro_torch.sharding.rows import gather_rows, local_rows
 
 from . import layers
 from .config import ModelConfig
@@ -402,24 +405,44 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     place.  Dead slots walk past their table; the clip keeps their write
     in range (their tables point at the trash page).  An int8 pool
     ``(k, v, k_s, v_s)`` takes the token's codes and scales at the same
-    place, and the int8 paged decode kernel reads it.  Under a mesh the
-    pool holds this rank's kv heads (all of them when the heads are not
-    local) and the projections run tensor-parallel."""
-    B = x.shape[0]
-    q, k, v = _qkv_roped(cfg, p, x, pos[:, None], mesh)
+    place, and the int8 paged decode kernel reads it.
+
+    Under a mesh the pool is one replica a data rank (this rank's kv
+    heads over ``model``, all of them when the heads are not local), and
+    ``pos`` and ``block_tables`` hold every slot on every rank (whole,
+    not cut over ``data``: ``partition.paged_cache_specs``).  ``x`` is
+    this rank's rows (its slots' cut over the batch axes), which the
+    projections and the decode kernel run over; their K/V are
+    all-gathered over the batch axes (``sharding.rows.gather_rows``, one
+    gather of K and V together, in float: an int8 pool quantizes after,
+    deterministically; none where ``data`` has one rank, whose rows are
+    already every row), and every rank writes every row's token into
+    its replica at the place the whole ``pos`` and tables give.  So the
+    replicas hold the same bits after every step, except the trash page:
+    two dead rows that write one place there are a duplicate index,
+    whose winner the card does not fix, and no live row reads it."""
+    n = block_tables.shape[0]
+    lpos, lbt = pos, block_tables
+    if mesh is not None:
+        lpos, lbt = (local_rows(t, mesh, n) for t in (pos, block_tables))
+    q, k, v = _qkv_roped(cfg, p, x, lpos[:, None], mesh)
+    k, v = k[:, 0], v[:, 0]
+    if mesh is not None:
+        kv = gather_rows(torch.stack((k, v), 1), mesh, n)
+        k, v = kv[:, 0], kv[:, 1]
     n_p = block_tables.shape[1]
     slot = torch.remainder(pos, s_len) if window else pos
     col = torch.clamp(torch.div(slot, page_size, rounding_mode="floor"),
                       0, n_p - 1).long()
-    bidx = torch.arange(B, device=x.device)
+    bidx = torch.arange(n, device=x.device)
     entry = block_tables[bidx, col].long().clamp(0, cache[0].shape[0] - 1)
     off = torch.remainder(slot, page_size).long()
-    _store(cache, (entry, off), k[:, 0], v[:, 0])
+    _store(cache, (entry, off), k, v)
     if _quantized(cache):
-        out = ops.paged_flash_decode_int8(q, *cache, block_tables, pos,
+        out = ops.paged_flash_decode_int8(q, *cache, lbt, lpos,
                                           s_len=s_len, ring=bool(window))
     else:
-        out = paged_decode_attention(q, *cache, block_tables, pos,
+        out = paged_decode_attention(q, *cache, lbt, lpos,
                                      s_len=s_len, window=window)
     return _project_out(cfg, p, out, mesh)
 

@@ -39,12 +39,11 @@ Dense and MoE blocks run tensor-parallel (``layers.py``,
 RWKV, RG-LRU, cross-attention and encoder configs run only under meshes
 with ``model`` = 1.  A paged pool under a mesh is cut by kv head over
 ``model`` where Hkv divides and whole otherwise
-(``init_paged_cache(mesh=...)``); a prefill chunk over a cache cut along
-the sequence attends over the whole prefix, all-gathered.  The serving
-engine's batch prefill cache keeps every row on every ``data`` rank
-(``init_cache(rows_cut=False)``): ``prefill`` and ``prefill_chunk`` with
-``local_batch`` run all the rows they are given and return their logits
-without a gather.
+(``init_paged_cache(mesh=...)``), its pages never cut: one replica a
+data rank, its ``pos`` and block tables whole on every rank, each rank
+decoding its own slots and writing every slot's token; a prefill chunk
+over a cache cut along the sequence attends over the whole prefix,
+all-gathered.
 
 Public API (functions of ``(cfg, model, ...)``):
 
@@ -685,8 +684,7 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
             cache_len: Optional[int] = None, moe_impl: str = "local",
-            cache=None, *, embeds=None, vision_embeds=None, mesh=None,
-            local_batch: bool = False):
+            cache=None, *, embeds=None, vision_embeds=None, mesh=None):
     """Process full prompts; returns (last-token logits (B,V) f32, cache).
 
     tokens: (B,T) int, or ``embeds`` (B,T,d) (an encoder's frames);
@@ -699,15 +697,12 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     be zero where a fresh ``init_cache`` is (a CUDA graph of the prefill
     keeps its storage, ``core/engine.py:PrefillGraph``); by default a
     new one.  Under a mesh the inputs and logits are global and the
-    cache is this rank's slice (``init_cache(mesh=...)``); with
-    ``local_batch`` every rank runs every row it is given, its cache
-    holds them all (``init_cache(rows_cut=False)``) and the logits are
-    its own."""
+    cache is this rank's slice (``init_cache(mesh=...)``: its rows of
+    the batch where an axis divides it, all of them where none does)."""
     mesh = resolve_mesh(cfg, model, mesh)
     B = (tokens if tokens is not None else embeds).shape[0]
-    if not local_batch:
-        tokens, embeds, vision_embeds, lengths = _rows(
-            mesh, B, tokens, embeds, vision_embeds, lengths)
+    tokens, embeds, vision_embeds, lengths = _rows(
+        mesh, B, tokens, embeds, vision_embeds, lengths)
     x = _embed_input(model, tokens, embeds, mesh)
     Bl, T, _ = x.shape
     vis = _project_vision(model, vision_embeds)
@@ -715,8 +710,7 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
         lengths = torch.full((Bl,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len
     if cache is None:
-        cache = init_cache(cfg, B, cache_len, x.dtype, x.device, mesh,
-                           rows_cut=not local_batch)
+        cache = init_cache(cfg, B, cache_len, x.dtype, x.device, mesh)
         # a copy: decode_step advances pos in place, never the caller's
         # lengths
         cache["pos"] = lengths.to(torch.int32, copy=True)
@@ -733,13 +727,12 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
     idx = (lengths.long() - 1).clamp(0, T - 1)
     last = x[torch.arange(Bl, device=x.device), idx]
     logits = layers.unembed_apply(model.head, last, mesh)
-    return (logits if local_batch else _global_rows(mesh, B, logits)), cache
+    return _global_rows(mesh, B, logits), cache
 
 
 @torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
-                  start, lengths, moe_impl: str = "local", mesh=None,
-                  local_batch: bool = False):
+                  start, lengths, moe_impl: str = "local", mesh=None):
     """One chunked-prefill step: prompt tokens at absolute positions
     [start, start+Tc) against ``cache`` (from ``init_cache``), written in
     place.  lengths: (B,) FULL prompt lengths.  ``start`` is an int or a
@@ -755,14 +748,13 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     this chunk.  Rows already finished (length <= start) keep their
     cache bit for bit (K/V writes masked, recurrent carries frozen).  The
     caller sets ``cache['pos']`` to ``lengths`` after the final chunk.
-    Under a mesh, as ``prefill`` (``local_batch`` too); over a cache cut
-    along the sequence each rank writes the chunk's slots it holds and
-    attends over the whole prefix, all-gathered over ``model``
+    Under a mesh, as ``prefill``; over a cache cut along the sequence
+    each rank writes the chunk's slots it holds and attends over the
+    whole prefix, all-gathered over ``model``
     (``attention.self_attn_chunk``)."""
     mesh = resolve_mesh(cfg, model, mesh)
     B = tokens.shape[0]
-    if not local_batch:
-        tokens, lengths = _rows(mesh, B, tokens, lengths)
+    tokens, lengths = _rows(mesh, B, tokens, lengths)
     x = layers.embed_apply(model.embed, tokens, mesh)
     Bl, Tc, _ = x.shape
     lengths = lengths.to(x.device)
@@ -777,7 +769,7 @@ def prefill_chunk(cfg: ModelConfig, model: Transformer, tokens, cache,
     idx = (lengths.long() - 1 - start).clamp(0, Tc - 1)
     last = x[torch.arange(Bl, device=x.device), idx]
     logits = layers.unembed_apply(model.head, last, mesh)
-    return (logits if local_batch else _global_rows(mesh, B, logits)), cache
+    return _global_rows(mesh, B, logits), cache
 
 
 @torch.no_grad()
@@ -797,9 +789,9 @@ def decode_step(cfg: ModelConfig, model: Transformer, token, cache,
     tables' full span).
 
     Under a mesh ``token`` and the logits are global and ``cache`` is
-    this rank's slice (``init_cache(mesh=...)`` or
-    ``init_paged_cache(mesh=...)``, whose tables hold this rank's
-    rows)."""
+    this rank's slice (``init_cache(mesh=...)``, or
+    ``init_paged_cache(mesh=...)``: a replica of the pool whose ``pos``
+    and tables hold every row, ``attention.self_attn_decode_paged``)."""
     mesh = resolve_mesh(cfg, model, mesh)
     B = token.shape[0]
     bt = cache.get("block_tables")

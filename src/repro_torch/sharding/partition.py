@@ -201,9 +201,11 @@ def cache_specs(cfg: ModelConfig, cache, mesh, batch: int, *,
 def paged_cache_specs(cfg: ModelConfig, cache, mesh, batch: int):
     """Spec tree of a paged decode cache (``init_paged_cache``): each
     attention leaf ``(R, n_pages, page, Hkv[, Dh])`` by kv head over
-    ``model`` when Hkv divides, else whole, its page axis never cut;
-    ``pos``, ``block_tables`` and the per-slot leaves (a recurrent
-    carry) follow the slots, as ``cache_rule`` cuts them."""
+    ``model`` when Hkv divides, else whole, its page axis never cut (one
+    replica a data rank); ``pos`` and ``block_tables`` whole on every
+    rank (every rank writes every slot's token into its replica,
+    ``attention.self_attn_decode_paged``); the per-slot leaves (a
+    recurrent carry) follow the slots, as ``cache_rule`` cuts them."""
     baxes = batch_axes(mesh, batch)
 
     def pool(shape):
@@ -216,8 +218,7 @@ def paged_cache_specs(cfg: ModelConfig, cache, mesh, batch: int):
                for k, leaf in slot.items()}
               for btype, slot in zip(pattern, slots))
         for (pattern, _), slots in zip(cfg.block_groups(), cache["groups"]))
-    return {"pos": P(baxes), "block_tables": P(baxes, None),
-            "groups": groups}
+    return {"pos": P(None), "block_tables": P(None, None), "groups": groups}
 
 
 def map_leaves(fn, tree, specs):

@@ -39,9 +39,13 @@ def local_rows(x, mesh, batch_size: int):
     return x.chunk(n, dim=0)[axes_index(mesh, axes)]
 
 
-def gather_rows(x, mesh, batch_size: int):
-    """The global batch whose rows ``local_rows`` gave this rank: an
-    all-gather over the batch axes (no gradient)."""
+def gather_rows(x, mesh, batch_size: int, dim: int = 0):
+    """The global batch whose rows ``local_rows`` gave this rank, its
+    rows along ``dim``: an all-gather over the batch axes of more than
+    one rank (no gradient).  An axis of one rank cuts no rows, so ``x``
+    is already whole over it, and no gather is issued: a (1, M) mesh
+    gathers nothing."""
     for a in reversed(batch_tuple(mesh, batch_size)):
-        x = collectives.all_gather(x, mesh.group(a), 0)
+        if mesh.shape[a] > 1:
+            x = collectives.all_gather(x, mesh.group(a), dim)
     return x

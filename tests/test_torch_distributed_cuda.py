@@ -3,13 +3,15 @@
 a rank, each sharded result against the port's own unsharded run on
 the same card (the CPU twins hold the same paths against the JAX
 package on 8 gloo ranks).  The engine under a mesh serves on the same
-ranks: the paged pool cut by kv head on a (1, 4) mesh (the paged pool
-is refused under data > 1) and a 2048-slot contiguous pool cut along
-the sequence on the (2, 2) mesh, its slots over data; each run's ids
-and formed batches against the engine without a mesh on one card,
-served in this process after the ranks end (``tests/test_torch_serve_
-mesh.py`` holds the same cases against the JAX engine on 4 gloo
-ranks).  Card-only: it skips with fewer than four cards, and imports no
+ranks: the paged pool cut by kv head on a (1, 4) mesh, a 2048-slot
+contiguous pool cut along the sequence on the (2, 2) mesh, its slots
+over data, the contiguous pool on (2, 2) with prefill rows cut over
+data, and the paged pool replicated over data on (2, 2) with session
+resumes; each run's ids (and formed batches where formation does not
+follow the wall clock) against the engine without a mesh on one card,
+served in this process after the ranks end, and the replicas of the
+paged pool holding the same bits (``tests/test_torch_serve_mesh.py``
+holds the same cases against the JAX engine on 4 gloo ranks).  Card-only: it skips with fewer than four cards, and imports no
 JAX.  Run it on a machine with four cards:
 
     PYTHONPATH=src python -m pytest tests/test_torch_distributed_cuda.py
@@ -76,11 +78,24 @@ def test_cuda_four_card_cache_slice_and_ep_train_step(run):
 @pytest.mark.parametrize("case", ranks.CUDA_ENGINE_CASES)
 def test_cuda_four_card_engine_under_a_mesh(run, case):
     """The engine under a mesh over NCCL (rank 0 driving, commands over
-    gloo) == the engine without a mesh on one card: ids and formed
-    batches; a paged run gets every page back."""
+    gloo) == the engine without a mesh on one card: ids, and formed
+    batches where every request comes at t = 0 (a session's later turns
+    come when the turn before ends); a paged run gets every page back
+    (after ``clear`` with retention), a pool replicated over data holds
+    the same bits on every data rank, and each job whose rows data
+    divides is cut over it."""
     got, want = run(case), run(case + "_port")
+    _, load, (data, _), _ = ranks.ENGINE_CASES[case]
     assert got["ids"] == want["ids"]
-    assert got["formed"] == want["formed"]
-    if "pages" in got:
+    if load != "sessions":
+        assert got["formed"] == want["formed"]
+    if load == "sessions":
+        free, total = got["pages_after_clear"][:2]
+        assert free == total and got["counts"]["session_hits"] > 0
+    elif "pages" in got:
         free, live, total = got["pages"]
         assert free == total and live == 0
+    for sums in got.get("replicas", {}).values():
+        assert len(sums) == data and all(x == sums[0] for x in sums)
+    for B, rows in got["layout"]["jobs"]:
+        assert rows == (B // data if B % data == 0 else B)

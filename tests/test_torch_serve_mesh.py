@@ -7,16 +7,21 @@ the JAX package's engine on the unsharded smoke weights and the port's
 engine without a mesh, f32, with the same scheduler and budget, while 4
 gloo ranks of ``tests/torch_dist_ranks.py`` (spawned once for the
 module, a ``file://`` store, one torch thread a rank, no JAX imported)
-serve the same workloads through the port's engine under meshes (1, 4)
-and (2, 2): rank 0 drives and the other ranks answer its commands.  The
-cases make each layout occur: a paged pool cut by kv head, a paged pool
-whole on every ``model`` rank, a contiguous pool with its slots over
-``data``, a contiguous pool of 2048 slots cut along the sequence under
-chunked prefill, prefix hits, session resumes, the spill tier, an int8
-paged pool and qwen3-moe.  Token ids must be equal, and the formed
-batches where batch formation does not follow the wall clock (every
-request at t = 0, bound by 4 slots, no page pressure).  Also: the
-launcher at ``--data 2 --model 2``, its refusals, and the engine's.
+serve the same workloads through the port's engine under meshes (1, 4),
+(2, 2) and (4, 1): rank 0 drives and the other ranks answer its
+commands.  The cases make each layout occur: a paged pool cut by kv
+head, a paged pool whole on every ``model`` rank, a contiguous pool with
+its slots over ``data``, a contiguous pool of 2048 slots cut along the
+sequence under chunked prefill, prefix hits, session resumes, the spill
+tier, an int8 paged pool and qwen3-moe; and the paged pool replicated
+over ``data`` (plain at (2, 2) and (4, 1), with prefix hits, session
+resumes, the spill tier and int8 at (2, 2)), whose replicas must hold
+the same bits after the run, with prefill rows cut over ``data``.
+Token ids must be equal, and the formed batches where batch formation
+does not follow the wall clock (every request at t = 0, bound by 4
+slots, no page pressure).  Also: the launcher at ``--data 2 --model 2``
+on both pools and with sessions at ``--data 2``, its refusals, and the
+engine's.
 """
 import json
 import os
@@ -41,10 +46,18 @@ from repro_torch.launch import serve
 from repro_torch.sharding import partition
 
 SPAWN_SECONDS = 240
-# the cases held against the JAX engine: config, workload, engine options
-# (the JAX engine's ids do not depend on the pool kind)
-JAX_RUNS = {"kv4": "short", "kv2": "short", "kv1": "long", "moe": "short"}
+# the JAX engine's runs, by (config, workload, int8): without retention
+# (the port's retention cases are held to equal cold runs) and on the
+# contiguous pool (its ids do not depend on the pool kind)
 JAX_CHUNK = {"kv1": 256}
+
+
+def _jax_key(case):
+    cname, load, _, opts = ranks.ENGINE_CASES[case]
+    return cname, load, bool(opts.get("int8"))
+
+
+JAX_RUNS = sorted({_jax_key(c) for c in ranks.CPU_ENGINE_CASES})
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,33 +79,49 @@ def run(tmp_path_factory, one_torch_thread):
                  **bridge.flatten(jax.tree.map(np.asarray, params[name])))
     ctx = ranks.start(d, ranks.CPU_ENGINE_CASES, 1, 4, "cpu")
     jax_out = {}
-    # the JAX engines (mostly compilation, outside the GIL) in a thread
-    # beside the port's runs: the file's time is the longer of the two
-    jax_runs = threading.Thread(target=_jax_runs, args=(params, jax_out))
-    jax_runs.start()
+    # the JAX engines (mostly compilation, outside the GIL) in two
+    # threads beside the port's runs: the file's time is the longest
+    jax_runs = [threading.Thread(target=_jax_runs,
+                                 args=(params, jax_out, JAX_RUNS[i::2]))
+                for i in range(2)]
+    for t in jax_runs:
+        t.start()
     try:
-        port = {case: ranks.port_engine_reference(d, case)
-                for case in ranks.CPU_ENGINE_CASES}
+        port = {}
+        for case in ranks.CPU_ENGINE_CASES:
+            key = ranks.port_reference_key(case)
+            same = [c for c in port if ranks.port_reference_key(c) == key]
+            port[case] = port[same[0]] if same else \
+                ranks.port_engine_reference(d, case)
     finally:
-        jax_runs.join()
+        for t in jax_runs:
+            t.join()
         err = ranks.wait(ctx, d, SPAWN_SECONDS)
     return port, jax_out, lambda name: ranks.load_output(d, name, err)
 
 
-def _jax_runs(params, out):
-    for cname, load in JAX_RUNS.items():
+def _jax_runs(params, out, keys):
+    import dataclasses
+    from repro.data.workload import WorkloadSpec, generate
+    for key in keys:
+        cname, load, int8 = key
         cfg = ranks.engine_cfg(cname, jax_smoke_config)
-        reqs = ranks.load_requests(jcore, load)
+        if int8:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        reqs = ranks.engine_requests(jcore, cfg, load, generate,
+                                     WorkloadSpec)
         eng, formed = ranks.serve_engine(
             jcore, JaxEngine, cfg, params[cname], reqs, device=None,
             chunk_tokens=JAX_CHUNK.get(cname, 64))
-        out[cname] = {"formed": formed, "ids": {
+        out[key] = {"formed": formed, "ids": {
             str(r.rid): [int(t) for t in eng.outputs[r.rid]]
             for r in reqs}}
 
 
 MESH_VS_JAX = ["engine_paged_kv_cut", "engine_paged_whole",
-               "engine_contig_data", "engine_seq_cut", "engine_moe"]
+               "engine_contig_data", "engine_seq_cut", "engine_moe",
+               "engine_paged_data", "engine_paged_data4",
+               "engine_int8_data"]
 
 
 @pytest.mark.parametrize("case", MESH_VS_JAX)
@@ -102,19 +131,75 @@ def test_mesh_engine_ids_and_batches_equal_jax_and_no_mesh(run, case):
     every request at t = 0, no page pressure)."""
     port, jax_out, got = run
     mesh = got(case)
-    cname, load = ranks.ENGINE_CASES[case][:2]
-    want = jax_out[cname]
+    want = jax_out[_jax_key(case)]
     assert mesh["ids"] == port[case]["ids"] == want["ids"]
     assert mesh["formed"] == port[case]["formed"] == want["formed"]
+
+
+@pytest.mark.parametrize("case", ["engine_prefix_data",
+                                  "engine_sessions_data",
+                                  "engine_spill_data"])
+def test_mesh_data_retention_ids_equal_jax_and_cold(run, case):
+    """Prefix hits, session resumes and the spill tier on the paged pool
+    replicated over data (2, 2): ids equal the port's cold run without a
+    mesh and the JAX engine's cold run, with the case's hits, spills and
+    restores; ``clear`` frees every page and host slot."""
+    port, jax_out, got = run
+    mesh = got(case)
+    assert mesh["ids"] == port[case]["ids"] == jax_out[_jax_key(case)]["ids"]
+    c = mesh["counts"]
+    if case == "engine_prefix_data":
+        assert c["prefix_hits"] > 0
+    else:
+        assert c["session_hits"] > 0
+    if case == "engine_spill_data":
+        assert c["spilled_pages"] > 0 and c["restored_pages"] > 0
+        assert mesh["ids"] == got("engine_sessions_data")["ids"]
+    free, total, hfree, htotal = mesh["pages_after_clear"]
+    assert free == total and hfree == htotal
+
+
+@pytest.mark.parametrize("case", ranks.DATA_PAGED_CASES)
+def test_mesh_data_pool_replicas_hold_the_same_bits(run, case):
+    """After the run, each leaf of the paged pool has the same checksum
+    on every data rank that shares a ``model`` coordinate (every page
+    but the trash page), and every page and host slot is back after
+    ``clear``."""
+    _, _, got = run
+    mesh = got(case)
+    data, model = ranks.ENGINE_CASES[case][2]
+    reps = mesh["replicas"]
+    assert sorted(reps) == [str(m) for m in range(model)]
+    for m, sums in reps.items():
+        assert len(sums) == data and len(sums[0]) > 0
+        assert all(s == sums[0] for s in sums), (m, sums)
+    free, live, total = mesh["pages"]
+    assert free + live == total
+    free, total, hfree, htotal = mesh["pages_after_clear"]
+    assert free == total and hfree == htotal
+
+
+@pytest.mark.parametrize("case", ranks.DATA_PAGED_CASES
+                         + ["engine_contig_data"])
+def test_mesh_data_prefill_rows_cut_over_data(run, case):
+    """Each prefill job whose rows ``data`` divides writes B / data rows
+    of the batch cache on each rank (all B where it does not divide)."""
+    _, _, got = run
+    data = ranks.ENGINE_CASES[case][2][0]
+    jobs = got(case)["layout"]["jobs"]
+    assert jobs and any(B % data == 0 for B, _ in jobs)
+    for B, rows in jobs:
+        assert rows == (B // data if B % data == 0 else B), jobs
 
 
 def test_mesh_engine_pools_have_the_layout_of_their_case(run):
     """Each case's pool is cut as its case names: by kv head (one a rank
     of 4), whole on every ``model`` rank, slots over ``data`` (2 of 4 a
     rank) with the kv heads over ``model`` (2 of 4), and 2048 slots
-    along the sequence (512 a rank); the batch prefill cache holds every
-    row on every rank, with the pool's cut of the K/V; one decode command
-    a decode step, every command counted on the driver."""
+    along the sequence (512 a rank); the batch prefill cache holds a
+    job's rows (its cut over ``data``: half of each even job under (2,
+    2)), with the pool's cut of the K/V; one decode command a decode
+    step, every command counted on the driver."""
     _, _, got = run
     kv, whole = got("engine_paged_kv_cut"), got("engine_paged_whole")
     assert kv["layout"]["k"][3] == 1 and whole["layout"]["k"][3] == 2
@@ -122,7 +207,9 @@ def test_mesh_engine_pools_have_the_layout_of_their_case(run):
     assert whole["layout"]["batch_k"][3] == 2
     contig = got("engine_contig_data")["layout"]
     assert contig["slots"][1] == 2 and contig["k"][1] == 2
-    assert contig["k"][3] == 2 and contig["batch_k"][1] == 4
+    assert contig["k"][3] == 2 and contig["batch_k"][3] == 2
+    assert contig["jobs"] and all(
+        n == (B // 2 if B % 2 == 0 else B) for B, n in contig["jobs"])
     seq = got("engine_seq_cut")["layout"]
     assert seq["seq_sharded"] and seq["k"][2] == 2048 // 4
     assert seq["batch_k"][2] == 2048 // 4
@@ -195,9 +282,24 @@ def test_launcher_serves_under_data_2_model_2(tmp_path, capsys):
     assert len(base) == 6 and mesh == base
 
 
+@pytest.mark.parametrize("flags,mesh_flags", [
+    (["--paged", "--chunk", "64"], ["--data", "2", "--model", "2"]),
+    (["--sessions", "2"], ["--data", "2"])])
+def test_launcher_serves_the_paged_pool_under_data_2(tmp_path, flags,
+                                                     mesh_flags):
+    """The paged pool, and with ``--sessions`` KV retention, under
+    ``--data 2``: all 6 requests served (2 sessions of 3 turns), ids
+    equal to the one-device run's."""
+    flags = ["--backend", "torch", "--smoke", "--device", "cpu", "--dtype",
+             "f32", "--requests", "6"] + flags
+    serve.main(flags + ["--ids-out", str(tmp_path / "one.json")])
+    serve.main(flags + mesh_flags + ["--ids-out",
+                                     str(tmp_path / "mesh.json")])
+    mesh, base = _ids(tmp_path / "mesh.json"), _ids(tmp_path / "one.json")
+    assert len(base) == 6 and mesh == base
+
+
 @pytest.mark.parametrize("flags,why", [
-    (["--paged", "--data", "2"], "paged pool"),
-    (["--sessions", "2", "--data", "2"], "paged pool"),
     (["--arch", "rwkv6-3b", "--model", "2"], "RWKV blocks under a mesh"),
     (["--arch", "qwen3-moe-235b-a22b", "--data", "2"],
      "experts are cut over data")])
@@ -211,16 +313,15 @@ def test_launcher_refuses_what_the_mesh_engine_does_not_serve(flags, why,
 
 def test_engine_refusals_under_a_mesh(tmp_path):
     """Under a one-rank gloo mesh: a graph asked for is refused, and the
-    paged pool under ``data`` > 1 is refused by the rule the engine and
-    the launcher share; ``moe_impl="ep"`` is refused with or without a
+    paged pool under ``data`` > 1 is not (the rule the engine and the
+    launcher share); ``moe_impl="ep"`` is refused with or without a
     mesh."""
     import torch.distributed as dist
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as ttfm
     cfg = get_smoke_config("qwen3-14b")
     model = ttfm.init_params(cfg, seed=0, device="cpu")
-    assert "stale" in mesh_refusal(cfg, tmesh.Mesh({"data": 2, "model": 1}),
-                                   paged=True)
+    assert mesh_refusal(cfg, tmesh.Mesh({"data": 2, "model": 1})) is None
     assert mesh_refusal(cfg, tmesh.Mesh({"data": 2, "model": 2})) is None
     tmesh.init_distributed(1, 1, "cpu", rank=0, world_size=1,
                            init_method=f"file://{tmp_path / 'store'}")
@@ -266,6 +367,23 @@ class _Worker:
 
     def _d_poll(self, pending):
         self.ran.append(("poll", pending))
+
+
+def test_row_gathers_skip_axes_of_one_rank(monkeypatch):
+    """A batch axis of one rank cuts no rows, so ``gather_rows`` returns
+    its input and issues no collective: a (1, M) mesh's decode step and
+    slot insertion gather nothing over ``data``."""
+    from repro_torch.sharding import collectives, rows
+    calls = []
+    monkeypatch.setattr(collectives, "all_gather",
+                        lambda *a, **k: calls.append(a))
+    x = torch.arange(24.).reshape(4, 3, 2)
+    for shape in ({"data": 1, "model": 4}, {"data": 1, "model": 1}):
+        mesh = tmesh.Mesh(shape)
+        assert rows.batch_tuple(mesh, 4) == ("data",)
+        assert rows.gather_rows(x, mesh, 4) is x
+        assert rows.gather_rows(x, mesh, 4, dim=1) is x
+    assert calls == []
 
 
 def test_worker_loop_stops_and_aborts():

@@ -312,14 +312,36 @@ ENGINE_CASES = {
                          int8=True)),
     "engine_moe": ("moe", "short", (1, 4),
                    dict(paged=True, page_size=32, chunk_tokens=64)),
+    # the paged pool replicated over data, prefill rows cut over data
+    "engine_paged_data": ("kv4", "short", (2, 2),
+                          dict(paged=True, page_size=32, chunk_tokens=64)),
+    "engine_paged_data4": ("kv2", "short", (4, 1),
+                           dict(paged=True, page_size=32, chunk_tokens=64)),
+    "engine_prefix_data": ("kv4", "prefix", (2, 2),
+                           dict(paged=True, page_size=32, chunk_tokens=64,
+                                prefix_cache=True)),
+    "engine_sessions_data": ("kv4", "sessions", (2, 2),
+                             dict(paged=True, page_size=32, chunk_tokens=64,
+                                  session_ttl=1000.0)),
+    "engine_spill_data": ("kv4", "sessions", (2, 2),
+                          dict(paged=True, page_size=32, chunk_tokens=64,
+                               session_ttl=0.0, host_pool_tokens=64 * 32)),
+    "engine_int8_data": ("kv4", "short", (2, 2),
+                         dict(paged=True, page_size=32, chunk_tokens=64,
+                              int8=True)),
     # four cards: the sequence-cut pool with its slots over data too
     "engine_seq_cut_22": ("kv1", "long", (2, 2), dict(chunk_tokens=256)),
 }
 # the 4 CPU gloo ranks' cases (tests/test_torch_serve_mesh.py) and the
-# four cards' (tests/test_torch_distributed_cuda.py: the paged pool
-# under data = 1, as the engine requires, and the sequence-cut pool)
+# four cards' (tests/test_torch_distributed_cuda.py: the kv-head-cut
+# paged pool, the sequence-cut pool, the contiguous pool and the paged
+# pool with sessions, both with prefill rows cut over data)
 CPU_ENGINE_CASES = [c for c in ENGINE_CASES if c != "engine_seq_cut_22"]
-CUDA_ENGINE_CASES = ["engine_paged_kv_cut", "engine_seq_cut_22"]
+CUDA_ENGINE_CASES = ["engine_paged_kv_cut", "engine_seq_cut_22",
+                     "engine_contig_data", "engine_sessions_data"]
+# the cases whose paged pool is replicated over data > 1
+DATA_PAGED_CASES = [c for c, (_, _, shape, opts) in ENGINE_CASES.items()
+                    if shape[0] > 1 and opts.get("paged")]
 
 
 def engine_requests(core, cfg, load, generate=None, spec_cls=None):
@@ -329,11 +351,12 @@ def engine_requests(core, cfg, load, generate=None, spec_cls=None):
 
 
 def serve_engine(core, engine_cls, cfg, model, reqs, *, mesh=None,
-                 device="cpu", slots=4, **opts):
+                 device="cpu", slots=4, on_engine=None, **opts):
     """Serve ``reqs`` through ``engine_cls`` (the port's or, in the
     parent, the JAX package's) under the BucketServe scheduler, recording
-    its formed batches.  Returns (engine, formed) on the driver (or
-    without a mesh), (engine, None) on a worker rank."""
+    its formed batches; ``on_engine`` is called with the engine before
+    it runs.  Returns (engine, formed) on the driver (or without a
+    mesh), (engine, None) on a worker rank."""
     paged = opts.get("paged", False)
     opts = {k: v for k, v in opts.items() if k != "int8"}
 
@@ -358,6 +381,8 @@ def serve_engine(core, engine_cls, cfg, model, reqs, *, mesh=None,
     if device is not None:
         kw["device"] = device
     eng = engine_cls(cfg, model, sched, **kw)
+    if on_engine is not None:
+        on_engine(eng)
     eng.submit(reqs)
     done = eng.run(max_wall_s=120)
     if getattr(eng.backend, "worker", False):
@@ -386,6 +411,54 @@ def engine_summary(eng, reqs, formed) -> dict:
     return out
 
 
+def record_job_rows(be, log):
+    """Append (B, rows of the batch cache the job's prefill writes on
+    this rank) to ``log`` at each job's start (``_d_begin_job``, which
+    every rank runs)."""
+    begin = be._d_begin_job
+
+    def wrapped(toks, lens, seed):
+        got = begin(toks, lens, seed)
+        B = toks.shape[0]
+        log.append([B, be._batch_view(B)["groups"][0][0]["k"].shape[1]])
+        return got
+    be._d_begin_job = wrapped
+
+
+def pool_checksums(be):
+    """A checksum of each attention leaf of the paged pool over every
+    page but the trash page (two dead rows may write one place of it,
+    whose winner a card does not fix): its bits as integers, weighted by
+    position, summed in int64."""
+    from repro_torch.models.config import BLOCK_ATTN, BLOCK_MOE
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    sums = []
+    for (pattern, _), slots in zip(be.cfg.block_groups(),
+                                   be.pool_cache["groups"]):
+        for btype, slot in zip(pattern, slots):
+            if btype not in (BLOCK_ATTN, BLOCK_MOE):
+                continue
+            for k in sorted(slot):
+                x = slot[k][:, :be.n_pages].contiguous()
+                x = x.view(bits[x.element_size()]).flatten().long().cpu()
+                w = torch.arange(x.numel()) % 65521 + 1
+                sums.append(int((x * w).sum()))
+    return sums
+
+
+def replica_checksums(be, mesh):
+    """Every rank's pool checksums (``pool_checksums``) by its ``model``
+    coordinate, in ``data`` order: all-gathered over the run's ranks."""
+    import torch.distributed as dist
+    mine = (mesh.coord("data"), mesh.coord("model"), pool_checksums(be))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    by_model = {}
+    for d, m, sums in sorted(every):
+        by_model.setdefault(str(m), []).append(sums)
+    return by_model
+
+
 def case_engine(name):
     def run(r, out):
         import dataclasses
@@ -401,8 +474,12 @@ def case_engine(name):
         model = partition.shard_model(
             cfg, r.model(cfg, f"engine_{cname}.npz"), mesh)
         reqs = engine_requests(tcore, cfg, load, generate, WorkloadSpec)
-        eng, formed = serve_engine(tcore, ServingEngine, cfg, model, reqs,
-                                   mesh=mesh, device=r.dev, **opts)
+        jobs = []
+        eng, formed = serve_engine(
+            tcore, ServingEngine, cfg, model, reqs, mesh=mesh, device=r.dev,
+            on_engine=lambda e: record_job_rows(e.backend, jobs), **opts)
+        replicas = replica_checksums(eng.backend, mesh) \
+            if name in DATA_PAGED_CASES else None
         if formed is not None:
             be = eng.backend
             summary = engine_summary(eng, reqs, formed)
@@ -410,13 +487,32 @@ def case_engine(name):
                 "k": list(be.pool_cache["groups"][0][0]["k"].shape),
                 "batch_k": list(be._batch_cache["groups"][0][0]["k"].shape),
                 "seq_sharded": bool(be.pool_cache.get("seq_sharded")),
-                "slots": [be._slot_lo, be._slot_n]}
+                "slots": [be._slot_lo, be._slot_n], "jobs": jobs}
             summary["commands"] = dict(be.channel.sent)
+            if replicas is not None:
+                summary["replicas"] = replicas
             out[name] = Json(summary)
     return run
 
 
 ENGINE = {name: case_engine(name) for name in ENGINE_CASES}
+
+
+def _reference_opts(case) -> dict:
+    """The engine options of ``case``'s run without a mesh: its own,
+    its retention off where the case compares against a cold run."""
+    _, load, _, opts = ENGINE_CASES[case]
+    if load in ("prefix", "sessions"):
+        opts = {k: v for k, v in opts.items() if k not in (
+            "prefix_cache", "session_ttl", "host_pool_tokens")}
+    return opts
+
+
+def port_reference_key(case) -> tuple:
+    """What ``port_engine_reference`` runs for ``case``: cases with the
+    same key share one run."""
+    cname, load = ENGINE_CASES[case][:2]
+    return cname, load, sorted(_reference_opts(case).items())
 
 
 def port_engine_reference(d, case, device="cpu") -> dict:
@@ -428,16 +524,14 @@ def port_engine_reference(d, case, device="cpu") -> dict:
     from repro_torch import bridge
     from repro_torch.core.engine import ServingEngine
     from repro_torch.data.workload import WorkloadSpec, generate
-    cname, load, _, opts = ENGINE_CASES[case]
+    cname, load = ENGINE_CASES[case][:2]
+    opts = _reference_opts(case)
     cfg = engine_cfg(cname)
     if opts.get("int8"):
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     model = bridge.params_from_numpy(
         bridge.unflatten(_load(os.path.join(d, f"engine_{cname}.npz"))),
         cfg, device=device)
-    if load in ("prefix", "sessions"):
-        opts = {k: v for k, v in opts.items() if k not in (
-            "prefix_cache", "session_ttl", "host_pool_tokens")}
     reqs = engine_requests(tcore, cfg, load, generate, WorkloadSpec)
     eng, formed = serve_engine(tcore, ServingEngine, cfg, model, reqs,
                                device=device, **opts)
