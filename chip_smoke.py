@@ -189,7 +189,11 @@ goes through these phases, each printing its own lines:
    requests (TTFT, TPOT, makespan) beside the measurement;
 10. rwkv6-3b: the llama2-13b model is freed and full-width, full-depth
    rwkv6-3b is served the same way on the contiguous pool (eager, then
-   with the graph), and profiled (eager and graph).
+   with the graph), profiled (eager and graph), and served again,
+   eagerly, through ``ServingEngine(mesh=...)`` on a one-rank NCCL mesh
+   with the model cut by ``shard_model`` (the tensor-parallel time and
+   channel mix on the rank's own heads): ids and steps equal to the
+   eager run, the same ``wkv6`` gate.
    Launch counts are zeroed before each serve run and read after it (a
    graph replay counts the launches its capture made; a prefill replay's
    unaligned ``flash_prefill`` launches are counted from its own
@@ -215,7 +219,12 @@ goes through these phases, each printing its own lines:
    ``flash_prefill`` a local-attention layer a prefill and one decode
    kernel a layer a step), and a decode step of 8 wrapped rows profiled
    eager and as a graph replay, with the RG-LRU functions' share of an
-   eager step and of a 6144-token prefill;
+   eager step and of a 6144-token prefill; then both pools' requests
+   again, eagerly, through ``ServingEngine(mesh=...)`` on a one-rank
+   NCCL mesh with the model cut (the RG-LRU branch's column and row
+   products and gathered gates, the local attention on its own query
+   heads): ids and steps equal to the eager runs, the same launch gates,
+   every page back;
 12. MoE (qwen3-moe-235b-a22b, llama4-scout-17b-a16e): the
    recurrentgemma-2b model is freed; both decode kernels at qwen3-moe's
    widths (B = 8, H = 64, Hkv = 4: G = 16 at Dh 128, the decode body's
@@ -304,7 +313,10 @@ goes through these phases, each printing its own lines:
    launches, the two contiguous decode kernels with ``lse_out`` at the
    distribution phase's shape with the sequence-cut mesh runs'
    launches, the three attention kernels at the serve shapes with
-   the mesh engine runs' launches, and ``flash_prefill`` and
+   the mesh engine runs' launches, at recurrentgemma-2b's and
+   qwen3-moe's widths with their mesh runs' launches, ``wkv6`` with
+   rwkv6-3b's mesh run's, the kernels at a rank's shapes under
+   ``model`` > 1 with launches 0 (no one-card run reaches them), and ``flash_prefill`` and
    ``paged_flash_decode`` at the serve shapes with the mesh session and
    spill runs' launches, each entry naming its ``path``), the
    ``nvidia-smi`` line,
@@ -348,6 +360,7 @@ INT8_SMOKE_ATOL = 5e-3          # one flipped code measured 2.5e-3
 # TestInt4LogitDrift), which int8 must meet a fortiori
 INT8_DRIFT_MAX = 1.5
 WKV_MAIN = dict(B=8, T=512, H=40, hs=64)              # rwkv6-3b chunk
+WKV_RANK_H = WKV_MAIN["H"] // 4    # a --model 4 rank's heads (10 of 40)
 # wkv6: kernel and plain version both compute in f32 from exactly cast
 # inputs (another summation order), so the f32 tolerance holds for bf16
 # r/k/v too
@@ -396,6 +409,11 @@ PAGED_SHAPES = [     # (B, S, H, Hkv, Dh, page, ring)
 RG_ATTN = dict(B=8, H=10, Hkv=1, Dh=256, S=2048)
 RG_DECODE_POS = [0, 700, 2046, 2047, 2048, 3000, 5000, 9000]
 RG_PREFILL_T = 4096
+RG_RANK_H = RG_ATTN["H"] // 2   # a --model 2 rank's query heads (G = 5)
+RG_RANK_ROLE = ("a --model 2 rank's query heads (5 of 10 over the one kv "
+                "head: G = 5): timed and checked here; no run on one card "
+                "launches it at this shape")
+RG_MESH_PATH = "recurrentgemma-2b engine under the (1, 1) mesh"
 # the full-width serve: the cache cut from 32768 to 8192 (the ring is
 # 2048 slots either way; the cut bounds the prompt), 12 prompts of
 # 256-6144 tokens, 7 of them past the window, 32 new tokens each
@@ -403,6 +421,9 @@ RG_MAX_SEQ = 8192
 RG_SERVE_LENGTHS = [256, 6144, 1024, 4096, 512, 3000, 2500, 768, 5000, 1500,
                     3500, 2200]
 RG_CONTIG_LENGTHS = [300, 2500, 700, 4000]
+# the full-width serve runs: (prompt lengths, new tokens, slots) a pool
+RG_SERVE = {"paged": (RG_SERVE_LENGTHS, 32, 8),
+            "contiguous": (RG_CONTIG_LENGTHS, 16, 4)}
 RG_PROFILE_CTX = 2560       # the decode step's rows: their rings wrapped
 RG_RANGES = ("rec_block_forward", "rec_block_decode", "linear_scan",
              "_rglru_gates", "_conv1d", "rglru_step")
@@ -1146,7 +1167,8 @@ def wkv6_phase(torch):
     """wkv6 against its plain version on the card: the reference sweep
     and the two decay extremes in f32 and bf16, a ragged T (off the
     16-step tile), then rwkv6-3b's chunk of 512 and decode step (8 rows,
-    40 heads of 64), checked with f32 and bf16 r/k/v (the state written
+    40 heads of 64) and the chunk at a ``--model 4`` rank's 10 heads,
+    checked with f32 and bf16 r/k/v (the state written
     over s0, as the model does), the chunk bit-identical over two calls,
     and timed in bf16; then the tile sweep (``wkv6_tile_sweep``).  The
     wrapper's split rule must be the C launch's."""
@@ -1222,10 +1244,12 @@ def wkv6_phase(torch):
             assert_close(torch, f"wkv6 ragged T={T} y", y, want_y, WKV_TOL),
             assert_close(torch, f"wkv6 ragged T={T} sT", state, want_s,
                          WKV_TOL))
-    B, T, H, hs = (WKV_MAIN[k] for k in ("B", "T", "H", "hs"))
+    B, T, hs = (WKV_MAIN[k] for k in ("B", "T", "hs"))
+    cases = ((f"wkv6 chunk B={B} T={T}", T, WKV_MAIN["H"]),
+             (f"wkv6 decode B={B}", 1, WKV_MAIN["H"]),
+             (f"wkv6 chunk B={B} T={T} H={WKV_RANK_H}", T, WKV_RANK_H))
     for dtype in (torch.float32, torch.bfloat16):
-        for label, TT in ((f"wkv6 chunk B={B} T={T}", T),
-                          (f"wkv6 decode B={B}", 1)):
+        for label, TT, H in cases:
             # the model's decay: exp(-exp(w0 + lora)), w0 = -0.5
             w = torch.exp(-torch.exp(rnd((B, TT, H, hs)) - 0.5))
             r, k, v, w, u, s0 = inputs(B, TT, H, hs, dtype, w)
@@ -1261,7 +1285,8 @@ def wkv6_phase(torch):
                     r, k, v, w, u, s0), 3 if TT > 1 else 20, 1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err, plan=wk.plan(B, H, hs, TT))
-            wkv6_tile_sweep(torch, label, (r, k, v, w, u, s0), want_y)
+            if H == WKV_MAIN["H"]:
+                wkv6_tile_sweep(torch, label, (r, k, v, w, u, s0), want_y)
     log("kernels", "wkv6 main-path shapes and the ragged T agree with the "
         "plain version (atol 1e-4 rtol 1e-3), the chunk bit-identical over "
         "two calls; max abs err: " + "; ".join(
@@ -1919,23 +1944,46 @@ def rwkv_serve_phase(torch):
                        decode_graph=False)
     serve_run(torch, cfg, warm, requests([96, 700], 4), "rwkv warm-up")
     del warm
+    ids = {}
     counts, stats, steps = serve_pair(
         torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
                                             paged=False, slots=8, **g),
-        SERVE_LENGTHS, 32, "rwkv6-3b contiguous pool, chunk 512")
+        SERVE_LENGTHS, 32, "rwkv6-3b contiguous pool, chunk 512",
+        ids_out=ids)
+    rwkv_check_launches("rwkv6-3b", cfg, counts, steps)
+    want = dict(ids=ids, steps=steps, stats=stats["eager"], wbytes=wbytes)
+    return counts["wkv6"], stats, cfg, model, want
+
+
+def rwkv_check_launches(label, cfg, counts, steps):
+    """``wkv6`` once a layer a prefill chunk and a decode step; no
+    attention kernel."""
     want = cfg.n_layers * (steps["prefill"] + steps["decode"])
     if counts["wkv6"] != want or want == 0:
-        raise AssertionError(f"rwkv6-3b: wkv6 launched {counts['wkv6']} "
+        raise AssertionError(f"{label}: wkv6 launched {counts['wkv6']} "
                              f"times, expected {cfg.n_layers} x "
                              f"({steps['prefill']} prefill chunks + "
                              f"{steps['decode']} decode steps) = {want}")
     ran = {k: counts[k] for k in ATTENTION_KERNELS if counts[k]}
     if ran:
-        raise AssertionError(f"rwkv6-3b: attention kernels ran: {ran}")
-    log("serve", f"rwkv6-3b: wkv6 launched {counts['wkv6']} = "
+        raise AssertionError(f"{label}: attention kernels ran: {ran}")
+    log("serve", f"{label}: wkv6 launched {counts['wkv6']} = "
         f"{cfg.n_layers} x ({steps['prefill']} prefill chunks + "
         f"{steps['decode']} decode steps); no attention kernel ran")
-    return counts["wkv6"], stats, cfg, model
+
+
+def rwkv_mesh_engine(torch, cfg, model, want):
+    """The rwkv6-3b serve run again through ``mesh_serve``: ``wr, wk,
+    wv, wg, cr, ck`` column-cut, ``wo, cv`` row-cut, the recurrence on
+    the rank's own heads (all 40 on one rank), the token-shift carries
+    gathered over the group; the same launch gate."""
+    label = ("rwkv6-3b engine under the (1, 1) mesh, contiguous pool, "
+             "8 slots, eager")
+    return mesh_serve(torch, "serve", cfg, model, want["wbytes"], {
+        "contiguous": (label, SERVE_LENGTHS, 32, 8, None)},
+        {"contiguous": want},
+        lambda label, counts, steps, _: rwkv_check_launches(
+            label, cfg, counts, steps))["contiguous"]
 
 
 # ---------------------------------------------------------- retention ---
@@ -3566,21 +3614,36 @@ def paper_phase(torch):
 # ------------------------------------------------------ recurrentgemma ---
 def rg_kernels(torch):
     """The attention kernels at recurrentgemma-2b's widths (H = 10, Hkv =
-    1, G = 10 at Dh 256), f32 and bf16: both decode kernels at B = 8 over
-    the 2048-slot ring, on rows not yet wrapped and wrapped (two calls
-    giving the same bits) and with every slot of the ring live, and a
-    4096-token prompt under the 2048-token window through the CUDA-core
-    prefill body; each against its plain version, and in bf16 timed
-    beside its bound and SDPA (on the gathered cache for decode, under
-    the band mask for prefill), with the decode split the rule picks."""
+    1, G = 10 at Dh 256), f32 and bf16, and at a ``--model 2`` rank's (5
+    of the 10 query heads over the one kv head: G = 5), bf16: both
+    decode kernels at B = 8 over the 2048-slot ring, on rows not yet
+    wrapped and wrapped (two calls giving the same bits) and with every
+    slot of the ring live, and a 4096-token prompt under the 2048-token
+    window through the CUDA-core prefill body; each against its plain
+    version, and in bf16 timed beside its bound and SDPA (on the gathered
+    cache for decode, under the band mask for prefill), with the decode
+    split the rule picks."""
+    rows, worst = {}, {}
+    for H, dts in ((RG_ATTN["H"], ("float32", "bfloat16")),
+                   (RG_RANK_H, ("bfloat16",))):
+        rg_kernel_rows(torch, H, dts, rows, worst)
+    log("rg", "kernels at recurrentgemma's widths agree with the plain "
+        "versions (f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2); max "
+        "abs err: " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    log_rows("rg", rows)
+    return rows
+
+
+def rg_kernel_rows(torch, H, dts, rows, worst):
+    """``rg_kernels``' cases at ``H`` query heads in each of ``dts``,
+    into ``rows`` (timed, bf16) and ``worst`` (max abs errors)."""
     from repro_torch.kernels import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    B, H, Hkv, Dh, S = (RG_ATTN[k] for k in ("B", "H", "Hkv", "Dh", "S"))
+    B, Hkv, Dh, S = (RG_ATTN[k] for k in ("B", "Hkv", "Dh", "S"))
     T = RG_PREFILL_T
-    rows, worst = {}, {}
-    for dt in ("float32", "bfloat16"):
+    for dt in dts:
         esz, tol, timed = (4 if dt == "float32" else 2), MAIN_TOL[dt], \
             dt == "bfloat16"
 
@@ -3595,8 +3658,9 @@ def rg_kernels(torch):
                   ops.paged_flash_decode(q, kp, vp, bt, pm, s_len=S,
                                          ring=True)) for _ in range(2)]
         (a, b), (a2, b2) = calls
-        worst[f"decode ring rows {dt}"] = max(
-            assert_close(torch, f"recurrentgemma flash_decode ring {dt}", a,
+        worst[f"decode ring rows H={H} {dt}"] = max(
+            assert_close(torch, f"recurrentgemma H={H} flash_decode ring "
+                         f"{dt}", a,
                          ref.flash_decode_ref(q, kc, vc, pm, ring=True), tol),
             assert_close(torch, f"recurrentgemma paged_flash_decode ring "
                          f"{dt}", b, ref.paged_flash_decode_ref(
@@ -3609,15 +3673,15 @@ def rg_kernels(torch):
         # every slot of the ring live: the steady state of a served row
         pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
         case = decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol,
-                           f"recurrentgemma {dt}", timed)
+                           f"recurrentgemma H={H} {dt}", timed)
         for name, row in case.items():
-            key = f"{name} B=8 H=10 Hkv=1 Dh=256 ring 2048" + (
+            key = f"{name} B=8 H={H} Hkv=1 Dh=256 ring 2048" + (
                 " page=128" if "paged" in name else "")
             worst[f"{key} {dt}"] = row["max_abs_err"]
             plan = row["plan"]
-            log("rg", f"{name} at recurrentgemma's widths {dt}: n_split "
-                f"{plan.n_split}, L {plan.L}, {B * Hkv * plan.n_split} "
-                f"blocks, {plan.body} body")
+            log("rg", f"{name} at recurrentgemma's widths, H={H} {dt}: "
+                f"n_split {plan.n_split}, L {plan.L}, "
+                f"{B * Hkv * plan.n_split} blocks, {plan.body} body")
             if timed:
                 rows[key] = row
         del q, kc, vc, kp, vp
@@ -3625,11 +3689,11 @@ def rg_kernels(torch):
         q, k, v = rnd((1, T, H, Dh)), rnd((1, T, Hkv, Dh)), \
             rnd((1, T, Hkv, Dh))
         lens = torch.tensor([T], dtype=torch.int32, device=dev)
-        err = assert_close(torch, f"recurrentgemma flash_prefill {dt}",
+        err = assert_close(torch, f"recurrentgemma H={H} flash_prefill {dt}",
                            prefill(q, k, v, lens, window=S),
                            ref.flash_prefill_ref(q, k, v, lens, window=S),
                            tol)
-        worst[f"flash_prefill T={T} window {S} {dt}"] = err
+        worst[f"flash_prefill H={H} T={T} window {S} {dt}"] = err
         if timed:
             pairs = S * (S + 1) // 2 + (T - S) * S
             b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
@@ -3637,7 +3701,8 @@ def rg_kernels(torch):
             i = torch.arange(T, device=dev)
             band = (i[:, None] >= i[None]) & (i[:, None] - i[None] < S)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            rows[f"flash_prefill H=10 Hkv=1 Dh=256 T={T} window {S}"] = dict(
+            key = f"flash_prefill H={H} Hkv=1 Dh=256 T={T} window {S}"
+            rows[key] = dict(
                 ms=time_ms(torch, lambda: ops.flash_prefill(
                     q, k, v, lens, window=S), 10),
                 plain_ms=time_ms(torch, lambda: ref.flash_prefill_ref(
@@ -3647,11 +3712,6 @@ def rg_kernels(torch):
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         del q, k, v
         torch.cuda.empty_cache()
-    log("rg", "kernels at recurrentgemma's widths agree with the plain "
-        "versions (f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2); max "
-        "abs err: " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
-    log_rows("rg", rows)
-    return rows
 
 
 def rg_smoke(torch):
@@ -3821,28 +3881,40 @@ def rg_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     pool_tokens = default_pool_tokens(cfg, model, dev)
-    label = "recurrentgemma-2b paged pool, page 128, 8 slots"
-    paged_counts, paged_stats, paged_steps = serve_pair(
-        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes, True,
-                                            8, pool_tokens, **g),
-        RG_SERVE_LENGTHS, 32, label)
-    rg_check_launches(label, cfg, paged_counts, paged_steps,
-                      "paged_flash_decode")
-    label = "recurrentgemma-2b contiguous pool, 4 slots"
-    contig_counts, contig_stats, contig_steps = serve_pair(
-        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
-                                            False, 4, **g),
-        RG_CONTIG_LENGTHS, 16, label)
-    rg_check_launches(label, cfg, contig_counts, contig_steps,
-                      "flash_decode")
+    counts, stats, want, runs = {}, {}, {}, {}
+    for pool, (lengths, new, slots) in RG_SERVE.items():
+        paged = pool == "paged"
+        label = (f"recurrentgemma-2b {pool} pool, "
+                 f"{'page 128, ' if paged else ''}{slots} slots")
+        ids = {}
+        counts[pool], stats[pool], steps = serve_pair(
+            torch, cfg, lambda **g: make_engine(
+                torch, cfg, model, wbytes, paged, slots,
+                pool_tokens if paged else None, **g),
+            lengths, new, label, ids_out=ids)
+        rg_check_launches(label, cfg, counts[pool], steps,
+                          _decode_kernel(pool))
+        want[pool] = dict(ids=ids, steps=steps, stats=stats[pool]["eager"])
+        runs[pool] = (f"recurrentgemma-2b engine under the (1, 1) mesh, "
+                      f"{pool} pool, {slots} slots, eager", lengths, new,
+                      slots, pool_tokens if paged else None)
     profile = rg_profile(torch, cfg, model)
+    # the same requests under the one-rank mesh: wx, wg, wr, wi and the
+    # conv cut over the width, the gates' input gathered, wo row-cut, the
+    # local attention on its own query heads over the one kv head
+    mesh = mesh_serve(torch, "rg", cfg, model, wbytes, runs, want,
+                      lambda label, c, steps, pool: rg_check_launches(
+                          label, cfg, c, steps, _decode_kernel(pool)))
     log("rg", f"done in {time.perf_counter() - t0:.1f} s")
     return dict(rows=rows, launches={
-        "flash_prefill": paged_counts["flash_prefill"],
-        "paged_flash_decode": paged_counts["paged_flash_decode"],
-        "flash_decode": contig_counts["flash_decode"]},
-        serve={"paged": paged_stats, "contiguous": contig_stats},
-        profile=profile, pool_tokens=pool_tokens)
+        "flash_prefill": counts["paged"]["flash_prefill"],
+        "paged_flash_decode": counts["paged"]["paged_flash_decode"],
+        "flash_decode": counts["contiguous"]["flash_decode"]},
+        serve=stats, mesh=mesh, profile=profile, pool_tokens=pool_tokens)
+
+
+def _decode_kernel(pool):
+    return "paged_flash_decode" if pool == "paged" else "flash_decode"
 
 
 # ------------------------------------------------------------------ moe ---
@@ -3861,6 +3933,10 @@ MOE_MAX_SEQ = 4096
 MOE_FFN_SHAPES = {"decode 8 tokens": (8, 1), "chunk 512 tokens": (1, 512)}
 MOE_RANGES = ("moe_local", "router_topk", "grouped_ffn")
 MOE_PATH = "qwen3-moe-235b-a22b (8 of 94 layers)"
+MOE_MESH_PATH = f"{MOE_PATH} engine under the (1, 1) mesh"
+# the full-width serve runs: (prompt lengths, new tokens, slots) a pool
+MOE_SERVE = {"paged": (SERVE_LENGTHS, 32, 8),
+             "contiguous": ([200, 900, 64, 1500], 16, 4)}
 
 
 def moe_kernels(torch):
@@ -4135,30 +4211,103 @@ def moe_phase(torch):
     gc.collect()
     torch.cuda.empty_cache()
     pool_tokens = default_pool_tokens(cfg, model, dev)
-    label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) paged pool, chunk "
-             f"512, page 128, 8 slots")
-    paged_counts, paged_stats, paged_steps = serve_pair(
-        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes, True,
-                                            8, pool_tokens, **g),
-        SERVE_LENGTHS, 32, label)
-    moe_check_launches(label, cfg, paged_counts, paged_steps,
-                       "paged_flash_decode")
-    label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) contiguous pool, "
-             f"chunk 512, 4 slots")
-    contig_counts, contig_stats, contig_steps = serve_pair(
-        torch, cfg, lambda **g: make_engine(torch, cfg, model, wbytes,
-                                            False, 4, **g),
-        [200, 900, 64, 1500], 16, label)
-    moe_check_launches(label, cfg, contig_counts, contig_steps,
-                       "flash_decode")
+    counts, stats, want = {}, {}, {}
+    for pool, (lengths, new, slots) in MOE_SERVE.items():
+        paged = pool == "paged"
+        label = (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) {pool} pool, "
+                 f"chunk 512{', page 128' if paged else ''}, {slots} slots")
+        ids = {}
+        counts[pool], stats[pool], steps = serve_pair(
+            torch, cfg, lambda **g: make_engine(
+                torch, cfg, model, wbytes, paged, slots,
+                pool_tokens if paged else None, **g),
+            lengths, new, label, ids_out=ids)
+        moe_check_launches(label, cfg, counts[pool], steps,
+                           "paged_flash_decode" if paged else "flash_decode")
+        want[pool] = dict(ids=ids, steps=steps, stats=stats[pool]["eager"])
     profile = moe_profile(torch, cfg, model)
+    mesh = moe_mesh_engine(torch, cfg, model, wbytes, pool_tokens, want)
     log("moe", f"done in {time.perf_counter() - t0:.1f} s")
     return dict(rows=rows, ffn=ffn, launches={
-        "flash_prefill": paged_counts["flash_prefill"],
-        "paged_flash_decode": paged_counts["paged_flash_decode"],
-        "flash_decode": contig_counts["flash_decode"]},
-        serve={"paged": paged_stats, "contiguous": contig_stats},
-        profile=profile, pool_tokens=pool_tokens)
+        "flash_prefill": counts["paged"]["flash_prefill"],
+        "paged_flash_decode": counts["paged"]["paged_flash_decode"],
+        "flash_decode": counts["contiguous"]["flash_decode"]},
+        serve=stats, mesh=mesh, profile=profile, pool_tokens=pool_tokens)
+
+
+def moe_mesh_engine(torch, cfg, model, wbytes, pool_tokens, want):
+    """The MoE phase's requests (``MOE_SERVE``) through ``mesh_serve``:
+    each expert's d_ff cut over ``model``, so the MoE runs
+    tensor-parallel with its f32 all-reduce over the group; every launch
+    gate of ``moe_check_launches``."""
+    runs = {pool: (f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) engine under "
+                   f"the (1, 1) mesh, {pool} pool, {slots} slots, eager",
+                   lengths, new, slots,
+                   pool_tokens if pool == "paged" else None)
+            for pool, (lengths, new, slots) in MOE_SERVE.items()}
+    return mesh_serve(torch, "moe", cfg, model, wbytes, runs, want,
+                      lambda label, counts, steps, pool: moe_check_launches(
+                          label, cfg, counts, steps, "paged_flash_decode"
+                          if pool == "paged" else "flash_decode"))
+
+
+def mesh_serve(torch, phase, cfg, model, wbytes, runs, want, check):
+    """Each of ``runs`` ({pool: (label, prompt lengths, new tokens, slots,
+    pool tokens)}) served through ``ServingEngine(mesh=...)`` on a
+    one-rank NCCL mesh, rank 0 driving, eagerly.  The model is cut by
+    ``shard_model`` first, so every cut leaf takes its column-, row- or
+    own-part path with its one-rank collectives.  ``check(label, counts,
+    steps, pool)`` holds each run's launch gates; every page comes back;
+    ids and steps must equal the eager run without a mesh (``want[pool]``:
+    ids, steps, stats); TPOT / TTFT p50 both ways.  The model stays cut:
+    this is the phase's last use of it."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import partition
+    smi = nvidia_smi_line()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        mesh_mod.init_distributed(1, 1, "cuda", rank=0, world_size=1,
+                                  init_method=f"file://{d}/store")
+        try:
+            mesh = mesh_mod.make_host_mesh(1, 1)
+            partition.shard_model(cfg, model, mesh)
+            for pool, (label, lengths, new, slots, tokens) in runs.items():
+                paged = pool == "paged"
+                eng = make_engine(torch, cfg, model, wbytes, paged, slots,
+                                  tokens, decode_graph=False, mesh=mesh)
+                reqs = requests(lengths, new)
+                counts, stats, steps = serve_run(torch, cfg, eng, reqs,
+                                                 label)
+                check(label, counts, steps, pool)
+                be, w = eng.backend, want[pool]
+                if paged and be.free_blocks() != be.alloc.n_pages:
+                    raise AssertionError(f"{label}: pages leaked")
+                ids = finished_ids(eng, reqs)
+                if ids != w["ids"] or steps != w["steps"]:
+                    bad = [rid for rid in ids if ids[rid] != w["ids"][rid]]
+                    raise AssertionError(f"{label}: ids differ from the run "
+                                         f"without a mesh for rids {bad}; "
+                                         f"steps {steps}, {w['steps']}")
+                log(phase, f"[{smi}] {label}: ids equal to the eager run "
+                    f"without a mesh for {len(ids)} requests; TPOT p50 "
+                    f"{stats['tpot_p50'] * 1e3:.2f} ms under the mesh, "
+                    f"{w['stats']['tpot_p50'] * 1e3:.2f} ms without; TTFT "
+                    f"p50 {stats['ttft_p50']:.4f} s, "
+                    f"{w['stats']['ttft_p50']:.4f} s; decode command host "
+                    f"time {be.channel.host_ms('decode'):.4f} ms a step")
+                res[pool] = dict(stats=stats, no_mesh_stats=w["stats"],
+                                 steps=steps, launches={
+                                     k: counts[k] for k in
+                                     ATTENTION_KERNELS + ("wkv6",)},
+                                 grouped_mm=counts["grouped/grouped_mm"])
+                del eng, be
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return res
 
 
 # ------------------------------------------------- encoder and VLM ---
@@ -5692,7 +5841,12 @@ def moe_ep_full(torch, mesh):
     top-8) through ``moe_ep`` over the one-rank NCCL group (its experts
     cut as ``shard_model`` cuts them: over ``data``, d_ff over ``model``,
     so the all-to-all and the f32 all-reduce run) against ``moe_local``
-    at 8 and 512 tokens, both timed."""
+    at 8 and 512 tokens, both timed; and the dropless route (``moe_ep``'s
+    dispatch at capacity N k, which ``moe.apply`` runs for
+    ``moe_impl="local"`` on experts cut over data) against
+    ``moe_local`` on the same inputs, timed.  On one rank the dispatch
+    sends N k rows for N k pairs; over dp data ranks it sends dp N k
+    rows, of which the grouped product computes the real ones only."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     from repro_torch.sharding import partition
@@ -5713,13 +5867,24 @@ def moe_ep_full(torch, mesh):
         got = moe.moe_ep(cfg, p, x, mesh)
         err = assert_close(torch, f"moe_ep {label}", got,
                            moe.moe_local(cfg, p, x), TOL["bfloat16"])
+        cap = B * T * cfg.top_k                 # N k: no pair dropped
+        dl_err = assert_close(torch, f"moe_ep dropless {label}",
+                              moe.moe_ep(cfg, p, x, mesh, capacity=cap),
+                              moe.moe_local(cfg, p, x), TOL["bfloat16"])
         ep_ms = time_ms(torch, lambda: moe.moe_ep(cfg, p, x, mesh), 10)
         local_ms = time_ms(torch, lambda: moe.moe_local(cfg, p, x), 10)
-        res[label] = dict(ep_ms=ep_ms, local_ms=local_ms, max_abs_err=err)
-        log("dist", f"{MOE_ARCH} layer {label}: moe_ep over the one-rank "
-            f"NCCL group (all-to-all, f32 all-reduce) {ep_ms:.4f} ms, "
+        dl_ms = time_ms(torch, lambda: moe.moe_ep(cfg, p, x, mesh,
+                                                  capacity=cap), 10)
+        res[label] = dict(ep_ms=ep_ms, local_ms=local_ms, max_abs_err=err,
+                          dropless_ms=dl_ms, dropless_max_abs_err=dl_err,
+                          dropless_rows_sent=cap, pairs=cap)
+        log("dist", f"[{nvidia_smi_line()}] {MOE_ARCH} layer {label}: "
+            f"moe_ep over the one-rank NCCL group (all-to-all, f32 "
+            f"all-reduce) {ep_ms:.4f} ms, the dropless route (capacity "
+            f"{cap}: {cap} rows sent for {cap} pairs) {dl_ms:.4f} ms, "
             f"moe_local {local_ms:.4f} ms; against moe_local max abs err "
-            f"{err:.3g}")
+            f"{err:.3g} (capacity factor {cfg.capacity_factor}), "
+            f"{dl_err:.3g} (dropless)")
     del p
     torch.cuda.empty_cache()
     return res
@@ -6327,8 +6492,9 @@ def main() -> int:
     paper = paper_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    launches["wkv6"], rwkv_stats, cfg, model = rwkv_serve_phase(torch)
+    launches["wkv6"], rwkv_stats, cfg, model, want = rwkv_serve_phase(torch)
     profile["rwkv6-3b"] = rwkv_profile_phase(torch, cfg, model)
+    rwkv_mesh = rwkv_mesh_engine(torch, cfg, model, want)
     del cfg, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6363,13 +6529,13 @@ def main() -> int:
         p = row["plan"]
         return dict(entry(name, source, replaces, row, **kw),
                     body=f"{p.body} (split-KV, n_split {p.n_split}, L {p.L})")
-    def wkv6_entry(row):
+    def wkv6_entry(row, H=WKV_MAIN["H"], **kw):
         from repro_torch.kernels import wkv6 as wk
         p = row["plan"]
-        H, hs = WKV_MAIN["H"], WKV_MAIN["hs"]
+        hs = WKV_MAIN["hs"]
+        kw.setdefault("path", "rwkv6-3b")
         return dict(entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
-                          "src/repro/kernels/wkv6.py:58", row,
-                          path="rwkv6-3b"),
+                          "src/repro/kernels/wkv6.py:58", row, **kw),
                     body=f"cuda_core (state split: {p.kr} rows x {p.vc} "
                          f"columns a thread, {p.cols} columns a block, "
                          f"{p.threads(hs)} threads, "
@@ -6417,6 +6583,63 @@ def main() -> int:
                                 "2048"],
                      path="recurrentgemma-2b",
                      n=rg["launches"]["flash_decode"]),
+        # the same requests through ServingEngine(mesh=...) on the
+        # one-rank NCCL mesh (eager), launches of those runs
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rg["rows"][f"flash_prefill H=10 Hkv=1 Dh=256 "
+                              f"T={RG_PREFILL_T} window 2048"],
+                   path=RG_MESH_PATH,
+                   n=rg["mesh"]["paged"]["launches"]["flash_prefill"]
+                   + rg["mesh"]["contiguous"]["launches"]["flash_prefill"]),
+             body="cuda_core (Dh 256, window 2048)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     rg["rows"]["paged_flash_decode B=8 H=10 Hkv=1 Dh=256 "
+                                "ring 2048 page=128"],
+                     path=RG_MESH_PATH,
+                     n=rg["mesh"]["paged"]["launches"]["paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     rg["rows"]["flash_decode B=8 H=10 Hkv=1 Dh=256 ring "
+                                "2048"],
+                     path=RG_MESH_PATH,
+                     n=rg["mesh"]["contiguous"]["launches"]["flash_decode"]),
+        # the same kernels at a --model 2 rank's shapes (5 of the 10
+        # query heads over the one kv head, G = 5): timed and checked
+        # here; no run on one card launches them at these shapes
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rg["rows"][f"flash_prefill H={RG_RANK_H} Hkv=1 Dh=256 "
+                              f"T={RG_PREFILL_T} window 2048"],
+                   path="recurrentgemma-2b", n=0),
+             role=RG_RANK_ROLE, body="cuda_core (Dh 256, window 2048)"),
+        dict(decode_entry("paged_flash_decode",
+                          "src/repro_torch/csrc/paged_decode_attn.cu",
+                          "src/repro/kernels/paged_decode_attn.py:80",
+                          rg["rows"][f"paged_flash_decode B=8 H={RG_RANK_H} "
+                                     f"Hkv=1 Dh=256 ring 2048 page=128"],
+                          path="recurrentgemma-2b", n=0),
+             role=RG_RANK_ROLE),
+        dict(decode_entry("flash_decode",
+                          "src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:67",
+                          rg["rows"][f"flash_decode B=8 H={RG_RANK_H} Hkv=1 "
+                                     f"Dh=256 ring 2048"],
+                          path="recurrentgemma-2b", n=0),
+             role=RG_RANK_ROLE),
+        # wkv6 on rwkv6-3b's serve run under the one-rank NCCL mesh
+        dict(wkv6_entry(rows[f"wkv6 chunk B={WKV_MAIN['B']} "
+                             f"T={WKV_MAIN['T']}"],
+                        path="rwkv6-3b engine under the (1, 1) mesh",
+                        n=rwkv_mesh["launches"]["wkv6"])),
+        # wkv6 at a --model 4 rank's heads (10 of 40), as above
+        dict(wkv6_entry(rows[f"wkv6 chunk B={WKV_MAIN['B']} "
+                             f"T={WKV_MAIN['T']} H={WKV_RANK_H}"],
+                        WKV_RANK_H, n=0),
+             role="a --model 4 rank's heads (10 of 40): timed and checked "
+                  "here; no run on one card launches it at this shape"),
         # qwen3-moe-235b-a22b's path (8 of its 94 layers): G = 16 at Dh 128
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill.py:84",
@@ -6434,6 +6657,28 @@ def main() -> int:
                      "src/repro/kernels/decode_attn.py:67",
                      moe["rows"]["flash_decode B=8 H=64 Hkv=4 ctx=2048"],
                      path=MOE_PATH, n=moe["launches"]["flash_decode"]),
+        # the same requests through ServingEngine(mesh=...) on the
+        # one-rank NCCL mesh (eager), launches of those runs
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   moe["rows"]["flash_prefill H=64 Hkv=4 chunk "
+                               "512@1536/4096"],
+                   path=MOE_MESH_PATH,
+                   n=moe["mesh"]["paged"]["launches"]["flash_prefill"]
+                   + moe["mesh"]["contiguous"]["launches"]["flash_prefill"]),
+             body="tensor_core (wgmma; bf16, Dh 128, G = 16)"),
+        decode_entry("paged_flash_decode",
+                     "src/repro_torch/csrc/paged_decode_attn.cu",
+                     "src/repro/kernels/paged_decode_attn.py:80",
+                     moe["rows"]["paged_flash_decode B=8 H=64 Hkv=4 "
+                                 "ctx=2048 page=128"],
+                     path=MOE_MESH_PATH,
+                     n=moe["mesh"]["paged"]["launches"]["paged_flash_decode"]),
+        decode_entry("flash_decode", "src/repro_torch/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67",
+                     moe["rows"]["flash_decode B=8 H=64 Hkv=4 ctx=2048"],
+                     path=MOE_MESH_PATH,
+                     n=moe["mesh"]["contiguous"]["launches"]["flash_decode"]),
         # hubert-xlarge's forward: non-causal, Dh 80, ragged lengths
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill.py:84",
@@ -6572,7 +6817,8 @@ def main() -> int:
              fwd_bwd_bound_ms=train["row"]["fwd_bwd_bound_ms"]),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
-        f"{contig_stats}; rwkv6-3b {rwkv_stats}")
+        f"{contig_stats}; rwkv6-3b {rwkv_stats}; rwkv6-3b under the "
+        f"(1, 1) mesh {rwkv_mesh}")
     log("profile", json.dumps(profile))
     log("retention", f"{retention}")
     log("recovery", f"{recovery}")

@@ -138,9 +138,16 @@ batch axis of one rank gathers nothing (``sharding.rows.gather_rows``),
 so a (1, M) mesh pays for none of these gathers.
 ``next_tok`` is the argmax of the gathered logits on every rank; only
 rank 0 reads it.  The spill tier is a rank's: each rank spills its shard
-of a page into its own host slot.  ``moe_impl="ep"``, the decode graph
-and the prefill graphs are refused under a mesh (both graphs default to
-off there).
+of a page into its own host slot.  Every config the engine serves
+without a mesh it serves under one: MoE experts cut over ``data`` run
+``moe_impl="local"`` through ``moe_ep``'s dispatch at a capacity that
+drops nothing (``moe.apply``), on a job's rows cut over ``data`` or
+whole on every data rank alike; the recurrent blocks run
+tensor-parallel over ``model``.  The decode graph and the prefill
+graphs are refused under a mesh (both graphs default to off there).
+``moe_impl="ep"`` is refused with or without a mesh, as the reference's
+engine cannot serve it (its model calls pass no mesh, which its
+``_apply_moe("ep")`` needs).
 """
 from __future__ import annotations
 
@@ -630,37 +637,13 @@ def kv_shards(cfg: ModelConfig, mesh) -> int:
     return m if cfg.n_kv_heads % m == 0 else 1
 
 
-def mesh_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
-    """Why the engine cannot serve ``cfg`` under ``mesh`` (a host mesh or
-    one of shape only), or None: the recurrent, cross-attention and
-    encoder configs under ``model`` > 1 (``transformer.mesh_refusal``);
-    MoE experts cut over ``data``, which ``moe_impl="local"`` does not
-    run.  Both pools are served under every other mesh."""
-    why = tfm.mesh_refusal(cfg, mesh.size("model"))
-    if why:
-        return why
-    if cfg.n_experts:
-        from repro_torch.sharding import partition
-        spec = partition.param_rule("w_gate", (1, cfg.n_experts, cfg.d_model,
-                                               cfg.d_ff_expert), mesh)
-        if spec[1] is not None and mesh.size(spec[1]) > 1:
-            return (f"{cfg.name} under data > 1: the experts are cut over "
-                    f"data, which moe_impl='local' (the engine's) does not "
-                    f"run; moe_ep in the engine is a later slice")
-    return None
-
-
 def check_mesh(cfg: ModelConfig, model: tfm.Transformer, mesh, *,
                decode_graph: Optional[bool] = None,
                prefill_graph: Optional[bool] = None) -> None:
-    """Raise for what the engine does not serve under ``mesh``
-    (``mesh_refusal``; a model not cut for the mesh), and for a graph
-    asked for: a CUDA graph of the mesh step would capture its NCCL
-    calls, a later item."""
+    """Raise for a model not cut for ``mesh``, and for a graph asked
+    for: a CUDA graph of the mesh step would capture its NCCL calls, a
+    later item."""
     tfm.resolve_mesh(cfg, model, mesh)
-    why = mesh_refusal(cfg, mesh)
-    if why:
-        raise ValueError(why)
     for name, flag in (("decode_graph", decode_graph),
                        ("prefill_graph", prefill_graph)):
         if flag:
@@ -690,8 +673,10 @@ class TorchEngineBackend:
 
     ``moe_impl`` is the reference engine's: the MoE blocks' path in
     prefill, the chunk and the decode step, ``"local"`` (grouped, the
-    default) or ``"ref"`` (the dense oracle); ``"ep"`` is refused, as
-    the reference's launcher serves ``"local"``.
+    default; on experts cut over ``data``, through ``moe_ep``'s dispatch
+    at a capacity that drops nothing) or ``"ref"`` (the dense oracle);
+    ``"ep"`` is refused: the reference's engine passes no mesh to its
+    model, which its ``_apply_moe("ep")`` needs.
 
     ``mesh``: the mesh the model was cut for; rank 0 drives, the other
     ranks are workers (``worker``), which answer the driver's commands
@@ -722,11 +707,10 @@ class TorchEngineBackend:
         check_servable(cfg)
         if moe_impl == "ep":
             raise NotImplementedError(
-                "moe_impl='ep': the engine serves moe_impl='local', as the "
-                "reference's launcher does; a prefill job whose rows data "
-                "does not divide is whole on every data rank, which "
-                "moe_ep's dispatch (each data rank sending its own rows) "
-                "does not expect")
+                "moe_impl='ep': the engine serves moe_impl='local' (on "
+                "experts cut over data too), as the reference's engine "
+                "does: its prefill, chunk and decode calls pass no mesh "
+                "to the model, which its _apply_moe('ep') needs")
         moe.check_impl(moe_impl)
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype {spill_dtype!r}: one of "

@@ -58,9 +58,11 @@ divides a batch.  Under ``torchrun --nproc-per-node D*M`` the ranks
 come from torchrun's environment; without it the launcher spawns D*M
 local ranks itself (a ``file://`` store in a temporary directory; gloo
 ranks of one torch thread each with ``--device cpu``, one rank a card on
-the card, where fewer cards than ranks exit 2).  Refused, exit 2 with
-the reason: an MoE config whose experts ``--data`` cuts, and the
-recurrent, cross-attention and encoder configs with ``--model`` > 1.
+the card, where fewer cards than ranks exit 2).  Every config the
+engine serves on one device it serves under any D x M: an MoE config
+whose experts ``--data`` cuts runs ``moe_impl="local"`` through the
+expert dispatch at a capacity that drops nothing (``models/moe.py``),
+and RWKV6 and recurrentgemma run tensor-parallel over ``--model``.
 
 ``--backend sim`` drives the same scheduler through the analytic cost
 model (``core/simulator.py``, the reference's, on its ``A100X4`` spec)
@@ -129,8 +131,7 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import (BucketServeScheduler, GoodputScheduler,
                               MemoryBudget, SchedulerConfig)
 from repro_torch.core import driver
-from repro_torch.core.engine import (ServingEngine, check_servable, kv_shards,
-                                     mesh_refusal)
+from repro_torch.core.engine import ServingEngine, check_servable, kv_shards
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.recovery import LoopCheckpoint
 from repro_torch.core.simulator import A100X4, CostModel, Simulator
@@ -689,11 +690,6 @@ def main(argv=None):
         except ValueError as e:     # before a model is built for nothing
             raise SystemExit(str(e)) from None
     world = args.data * args.model
-    if args.backend != "sim" and world > 1:
-        why = mesh_refusal(cfg, mesh_mod.Mesh({"data": args.data,
-                                               "model": args.model}))
-        if why:
-            ap.error(f"--data {args.data} --model {args.model}: {why}")
     if args.paged and not tfm.supports_paged_decode(cfg):
         ap.error(f"--paged: {cfg.name} has no self-attention KV to page; "
                  f"serve it on the contiguous slot pool (without --paged)")

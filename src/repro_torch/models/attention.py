@@ -32,14 +32,20 @@ first).
 Under a mesh (``sharding/partition.py:shard_model``), the projections
 run tensor-parallel over ``model``.  ``wq/wk/wv`` are column-parallel:
 when H and Hkv both divide over ``model`` each rank attends over its own
-heads (its own GQA groups, its own kv heads of the cache); otherwise a
-cut projection's output is all-gathered before the reshape and qk-norm
-and every rank attends over all heads.  ``wo`` is row-parallel on this
-rank's heads (or its slice of the replicated output), followed by an
-all-reduce.  A decode cache cut along the sequence (Hkv does not divide,
-S >= 2048: ``partition.cache_rule``) holds slots [r S/m, (r+1) S/m) on
-model rank r; :func:`distributed_decode_attention` runs the decode kernel
-over them with its log-sum-exp output and combines the shards
+heads (its own GQA groups, its own kv heads of the cache); with one kv
+head (Hkv = 1, recurrentgemma) and H dividing, each rank attends with
+its own query heads over the one kv head, whole on every rank;
+otherwise a cut projection's output is all-gathered before the reshape
+and qk-norm and every rank attends over all heads.  ``wo`` is
+row-parallel on this rank's heads (or its slice of the replicated
+output), followed by an all-reduce.  The VLM's cross-attention takes
+the same projections, its vision K/V cut by kv head where Hkv divides
+(``partition.cache_rule``), as the self-attention K/V are.  A decode
+cache cut along the sequence (Hkv does not divide, S >= 2048:
+``partition.cache_rule``) holds slots [r S/m, (r+1) S/m) on model rank
+r; :func:`distributed_decode_attention` runs the decode kernel over
+them (every query head) with its log-sum-exp output and combines the
+shards
 (:func:`combine_decode_partials`); a prefill chunk over such a cache
 all-gathers it over ``model``, attends over the whole prefix and keeps
 its own slots of the result (:func:`self_attn_chunk`).  A paged pool
@@ -108,39 +114,53 @@ def local_heads(cfg: ModelConfig, mesh) -> bool:
     return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
 
 
-def _column(cfg: ModelConfig, x, w, mesh):
+def local_q_heads(cfg: ModelConfig, mesh) -> bool:
+    """Whether each ``model`` rank attends with its own query heads: the
+    heads are local (:func:`local_heads`), or H divides and one kv head
+    serves them all (Hkv = 1), which every rank then holds whole."""
+    m = mesh.size("model") if mesh is not None else 1
+    return local_heads(cfg, mesh) or (cfg.n_heads % m == 0
+                                      and cfg.n_kv_heads == 1)
+
+
+def _column(x, w, mesh, local: bool):
     """``x @ w``; a column-parallel ``w`` gives this rank's columns, made
-    whole by an all-gather unless the heads are local."""
-    g = layers.model_group(mesh, w, -1)
-    if g is None:
-        return x @ w
-    y = collectives.copy_to(x, g) @ w
-    return y if local_heads(cfg, mesh) else collectives.gather_from(y, g, -1)
+    whole by an all-gather unless its heads are ``local``."""
+    y = layers.column(x, w, mesh)
+    return y if local else layers.whole(y, w, mesh)
 
 
-def _head_norm(cfg: ModelConfig, x, w, proj, mesh):
-    """qk-norm; over this rank's heads, the replicated scale's gradient
-    is all-reduced over ``model`` (its heads are a part of the sum)."""
+def _head_norm(cfg: ModelConfig, x, w, proj, mesh, local: bool):
+    """qk-norm; over this rank's heads (``local``), the replicated
+    scale's gradient is all-reduced over ``model`` (its heads are a part
+    of the sum)."""
     g = layers.model_group(mesh, proj, -1)
-    if g is not None and local_heads(cfg, mesh):
+    if g is not None and local:
         w = collectives.copy_to(w, g)
     return layers.head_rms_norm(x, w, cfg.norm_eps)
 
 
 def _project_q(cfg: ModelConfig, p, x, mesh=None):
     B, T, _ = x.shape
-    q = _column(cfg, x, p["wq"], mesh).reshape(B, T, -1, cfg.d_head)
+    local = local_q_heads(cfg, mesh)
+    q = _column(x, p["wq"], mesh, local).reshape(B, T, -1, cfg.d_head)
     if cfg.qk_norm:
-        q = _head_norm(cfg, q, p["q_norm"], p["wq"], mesh)
+        q = _head_norm(cfg, q, p["q_norm"], p["wq"], mesh, local)
     return q
 
 
 def _project_kv(cfg: ModelConfig, p, x, mesh=None):
     B, T, _ = x.shape
-    k = _column(cfg, x, p["wk"], mesh).reshape(B, T, -1, cfg.d_head)
-    v = _column(cfg, x, p["wv"], mesh).reshape(B, T, -1, cfg.d_head)
+    local = local_heads(cfg, mesh)
+    k = _column(x, p["wk"], mesh, local).reshape(B, T, -1, cfg.d_head)
+    v = _column(x, p["wv"], mesh, local).reshape(B, T, -1, cfg.d_head)
     if cfg.qk_norm:
-        k = _head_norm(cfg, k, p["k_norm"], p["wk"], mesh)
+        k = _head_norm(cfg, k, p["k_norm"], p["wk"], mesh, local)
+    if not local and local_q_heads(cfg, mesh) and mesh.size("model") > 1:
+        # whole K/V that this rank's query heads alone read: their
+        # gradients are parts of a sum over ``model``
+        g = mesh.group("model")
+        k, v = collectives.copy_to(k, g), collectives.copy_to(v, g)
     return k, v
 
 
@@ -152,7 +172,7 @@ def _project_out(cfg: ModelConfig, p, out, mesh=None):
     g = layers.model_group(mesh, p["wo"], 0)
     if g is None:
         return o @ p["wo"]
-    if not local_heads(cfg, mesh):
+    if not local_q_heads(cfg, mesh):
         o = collectives.scatter_to(o, g, -1)
     return collectives.reduce_from(o @ p["wo"], g)
 
@@ -329,9 +349,16 @@ def self_attn_decode(cfg: ModelConfig, p, x, pos, cache, *, window: int = 0,
     bidx = torch.arange(B, device=x.device)
     _store(cache, (bidx, slot_c), k[:, 0], v[:, 0], live)
     if seq_sharded:
+        # every query head over this rank's slots (gathered where the
+        # rank holds its own), then this rank's heads of the combine
+        m = mesh.size("model")
+        own = m > 1 and local_q_heads(cfg, mesh)
+        qa = collectives.all_gather(q, mesh.group("model"), 2) if own else q
         out = distributed_decode_attention(
-            q, cache[0], cache[1], pos, mesh, window=window,
+            qa, cache[0], cache[1], pos, mesh, window=window,
             scales=cache[2:] if _quantized(cache) else None)
+        if own:
+            out = out.chunk(m, 2)[mesh.coord("model")]
     elif _quantized(cache):
         out = ops.flash_decode_int8(q, *cache, pos, ring=bool(window))
     else:
@@ -447,11 +474,12 @@ def self_attn_decode_paged(cfg: ModelConfig, p, x, pos, cache, block_tables,
     return _project_out(cfg, p, out, mesh)
 
 
-def cross_kv(cfg: ModelConfig, p, vis):
+def cross_kv(cfg: ModelConfig, p, vis, mesh=None):
     """The vision K/V of a cross layer, once a request: ``vis`` (B, Nv,
     d_model), already through ``vis_proj``, projected by ``wk``/``wv``
-    (and k-normed where the config has qk-norm); no RoPE."""
-    return _project_kv(cfg, p, vis)
+    (and k-normed where the config has qk-norm); no RoPE.  Under a mesh,
+    this rank's kv heads where they are local, else all of them."""
+    return _project_kv(cfg, p, vis, mesh)
 
 
 def _gated(p, out):
@@ -459,28 +487,27 @@ def _gated(p, out):
     return torch.tanh(p["gate"].float()).to(out.dtype) * out
 
 
-def cross_attn_forward(cfg: ModelConfig, p, x, vis_kv):
+def cross_attn_forward(cfg: ModelConfig, p, x, vis_kv, mesh=None):
     """Cross-attention of (B,T,d) over fixed vision K/V ``vis_kv`` (k, v)
     (B,Nv,Hkv,Dh): every query sees every vision key (no mask, so query
     rows past a row's length are garbage, as in the reference)."""
-    B, T, _ = x.shape
-    q = _project_q(cfg, p, x)
+    q = _project_q(cfg, p, x, mesh)
     out = full_attention(q, *vis_kv, causal=False)
-    return _gated(p, out.reshape(B, T, cfg.q_dim) @ p["wo"])
+    return _gated(p, _project_out(cfg, p, out, mesh))
 
 
-def cross_attn_decode(cfg: ModelConfig, p, x, vis_kv):
+def cross_attn_decode(cfg: ModelConfig, p, x, vis_kv, mesh=None):
     """``cross_attn_forward`` for one query token a row (x: (B,1,d)),
     through the decode kernel: with every row's ``pos`` the last vision
     slot and no ring, its live keys are all Nv of them, which is the
     reference's ``full_attention(causal=False)``."""
     B = x.shape[0]
     k, v = vis_kv
-    q = _project_q(cfg, p, x)
+    q = _project_q(cfg, p, x, mesh)
     pos = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
                      device=x.device)
     out = decode_attention(q, k, v, pos)
-    return _gated(p, out.reshape(B, 1, cfg.q_dim) @ p["wo"])
+    return _gated(p, _project_out(cfg, p, out, mesh))
 
 
 # ------------------------------------------- int4 spill-tier compression --

@@ -38,6 +38,40 @@ def model_group(mesh, w, dim: int):
     return mesh.group("model")
 
 
+def column(x, w, mesh):
+    """``x @ w``: this rank's columns where ``w`` is column-parallel over
+    ``model`` (its replicated input's gradient all-reduced)."""
+    g = model_group(mesh, w, -1)
+    return x @ w if g is None else collectives.copy_to(x, g) @ w
+
+
+def whole(y, w, mesh):
+    """``y``, a product with ``w``, whole: all-gathered over ``model``
+    where ``w`` is column-parallel (its gradient then this rank's
+    columns)."""
+    g = model_group(mesh, w, -1)
+    return y if g is None else collectives.gather_from(y, g, -1)
+
+
+def row(h, w, mesh):
+    """``h @ w``; where ``w`` is row-parallel over ``model``, this rank's
+    partial sums all-reduced in f32."""
+    y = h @ w
+    g = model_group(mesh, w, 0)
+    if g is None:
+        return y
+    return collectives.reduce_from(y.float(), g).to(y.dtype)
+
+
+def own(t, mesh, dim: int = -1):
+    """This rank's ``model`` part of a replicated tensor along ``dim``,
+    for a product with a cut weight; its gradient is all-reduced over
+    ``model``, so that the replicated leaf's is whole on every rank."""
+    m, r = mesh.size("model"), mesh.coord("model")
+    n = t.shape[dim] // m
+    return collectives.copy_to(t, mesh.group("model")).narrow(dim, r * n, n)
+
+
 def frozen_param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 

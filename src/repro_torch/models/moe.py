@@ -17,7 +17,17 @@ PyTorch counterpart of ``repro/models/moe.py``:
   ``data``, through the grouped FFN of that rank's experts, partial sums
   all-reduced over ``model`` in f32, and back by the return all-to-all;
   the reference's arithmetic (capacity, stable order, dropped overflow,
-  empty slots on expert 0 with zero input, the f32 combine).
+  the f32 combine).  Empty slots carry no expert: they sort after every
+  real row, past the grouped product's last offset, so no expert
+  computes them (the reference runs them through expert 0 with zero
+  input and drops the result; the real rows' results are the same).
+* ``"local"`` on experts cut over ``data`` (the engine's and the
+  launcher's path under ``data`` > 1, which the reference runs as
+  ``moe_local`` under GSPMD): ``moe_ep``'s dispatch with a capacity of
+  ``N·k`` a destination, which no destination can overflow, so no pair
+  is dropped and the result is ``moe_local``'s function.  The
+  all-to-all still sends ``dp·N·k`` rows for at most ``N·k`` real
+  pairs; only the real rows reach the grouped product.
 
 The grouped product (``grouped_mm``) is where the reference calls
 ``jax.lax.ragged_dot``, an XLA op and not a Pallas kernel.  Its route is
@@ -258,16 +268,21 @@ def moe_local(cfg: ModelConfig, p, x, mesh=None):
     return out.reshape(B, T, d)
 
 
-def moe_ep(cfg: ModelConfig, p, x, mesh):
+def moe_ep(cfg: ModelConfig, p, x, mesh, capacity=None):
     """Expert-parallel MoE FFN on this rank's shards (the reference's
     ``moe_ep`` body under ``shard_map``).
 
     x: (B_loc, T, d), this rank's rows (every row when the batch is not
-    cut over ``data``); router (d, E) whole; ``w_gate``/``w_up`` (E_loc,
-    d, f_loc) and ``w_down`` (E_loc, f_loc, d): experts [r E_loc, (r+1)
-    E_loc) of data rank r, each expert's d_ff cut over ``model`` when
-    the spec says so.  Each destination rank takes at most ``cap`` pairs
-    from each source; overflow pairs are dropped, as in the reference."""
+    cut over ``data``: each data rank then routes the same tokens and
+    combines only its own send slots, so the round trip stays correct);
+    router (d, E) whole; ``w_gate``/``w_up`` (E_loc, d, f_loc) and
+    ``w_down`` (E_loc, f_loc, d): experts [r E_loc, (r+1) E_loc) of data
+    rank r, each expert's d_ff cut over ``model`` when the spec says so.
+    Each destination rank takes at most ``capacity`` pairs from each
+    source (default the reference's ``max(8, round(capacity_factor N k /
+    dp))``); overflow pairs are dropped, as in the reference.
+    ``capacity=N*k`` drops none (:func:`apply`'s ``"local"`` route on
+    cut experts)."""
     dp = mesh.size("data")
     g_ep = mesh.group("data")
     B, T, d = x.shape
@@ -283,7 +298,8 @@ def moe_ep(cfg: ModelConfig, p, x, mesh):
     # dispatch: fixed capacity per destination rank
     flat_e = idx.reshape(-1)                                  # (N*k,)
     dest = torch.div(flat_e, E_loc, rounding_mode="floor")    # owner
-    cap = int(max(8, round(cfg.capacity_factor * N * k / dp)))
+    cap = capacity if capacity is not None else \
+        int(max(8, round(cfg.capacity_factor * N * k / dp)))
     order = torch.argsort(dest, stable=True)
     dest_s = dest[order]
     tok_of = torch.div(order, k, rounding_mode="floor")
@@ -294,21 +310,23 @@ def moe_ep(cfg: ModelConfig, p, x, mesh):
     slot = torch.where(keep, dest_s * cap + pos_in_dest, dp * cap)
     send_x = xt.new_zeros((dp * cap + 1, d)).index_copy(
         0, slot, xt.index_select(0, tok_of))[:-1]
-    # unused slots: expert 0, zero input, no source (dropped at combine)
-    send_e = flat_e.new_zeros(dp * cap + 1).index_copy(0, slot, eloc_s)
+    # unused slots: expert E_loc (none), zero input, no source
+    send_e = flat_e.new_full((dp * cap + 1,), E_loc).index_copy(0, slot,
+                                                                eloc_s)
     send_src = flat_e.new_full((dp * cap + 1,), -1).index_copy(0, slot,
                                                                order)
     recv_x = collectives.all_to_all(send_x.reshape(dp, cap, d), g_ep)
     recv_e = collectives.all_to_all(send_e[:-1].reshape(dp, cap), g_ep)
 
-    # the grouped FFN of this rank's experts over every received slot
+    # the grouped FFN of this rank's experts over the received slots:
+    # the empty ones sort last, past the last offset, and are not computed
     es_all = recv_e.reshape(dp * cap)
     o2 = torch.argsort(es_all, stable=True)
     xs = recv_x.reshape(dp * cap, d).index_select(0, o2)
     g_tp = layers.model_group(mesh, p["w_gate"], -1)
     if g_tp is not None:
         xs = collectives.copy_to(xs, g_tp)
-    ys = grouped_ffn(p, xs, group_offsets(es_all, E_loc))
+    ys = grouped_ffn(p, xs, group_offsets(es_all, E_loc + 1)[:E_loc])
     ys = torch.empty_like(ys).index_copy(0, o2, ys)           # unsort
     if g_tp is not None:                  # partial sums over d_ff shards
         ys = collectives.reduce_from(ys.float(), g_tp).to(xt.dtype)
@@ -338,7 +356,9 @@ def _experts_cut(p, mesh) -> bool:
     return mesh is not None and a is not None and mesh.size(a) > 1
 
 
-def _d_ff_cut(p, mesh) -> bool:
+def _any_cut(p, mesh) -> bool:
+    """Whether any dim of the experts' leaves is cut over a mesh axis of
+    more than one rank."""
     return mesh is not None and any(
         mesh.size(a) > 1 for a in (layers.axis(p[n], dim)
                                    for n in ("w_gate", "w_up", "w_down")
@@ -346,16 +366,22 @@ def _d_ff_cut(p, mesh) -> bool:
 
 
 def apply(cfg: ModelConfig, p, x, impl: str = "local", mesh=None):
-    """The MoE FFN by ``impl`` (the reference's ``_apply_moe``).  Under a
-    mesh whose shards cut the experts only ``"ep"`` runs them; experts
-    whole with their d_ff cut over ``model`` run ``"local"``
-    tensor-parallel (the dense oracle ``"ref"`` needs them whole)."""
+    """The MoE FFN by ``impl`` (the reference's ``_apply_moe``).  Experts
+    cut over ``data`` run ``"ep"``, or ``"local"`` through ``moe_ep``'s
+    dispatch at a capacity that drops nothing (``N·k``: ``moe_local``'s
+    function, as GSPMD runs the reference's ``moe_local`` on cut
+    experts); experts whole with their d_ff cut over ``model`` run
+    ``"local"`` tensor-parallel.  The dense oracle ``"ref"`` needs them
+    whole."""
     check_impl(impl, mesh)
     if impl == "ep":
         return moe_ep(cfg, p, x, mesh)
-    if _experts_cut(p, mesh) or (impl == "ref" and _d_ff_cut(p, mesh)):
-        raise ValueError(f"moe_impl={impl!r} needs every expert whole; "
-                         f"under a mesh that cuts them use 'ep'")
+    if impl == "ref" and _any_cut(p, mesh):
+        raise ValueError("moe_impl='ref' needs every expert whole; under "
+                         "a mesh that cuts them use 'local' or 'ep'")
+    if _experts_cut(p, mesh):
+        B, T, _ = x.shape
+        return moe_ep(cfg, p, x, mesh, capacity=B * T * cfg.top_k)
     if impl == "ref":
         return moe_dense_ref(cfg, p, x)
     return moe_local(cfg, p, x, mesh)

@@ -17,6 +17,15 @@ torch: ``ceil(log2 T)`` steps, each one elementwise pass over the whole
 another order than JAX's tree, so the two agree to rounding (the kernel
 tolerance at f32), not bit for bit.  Decode is one step.
 
+Under a mesh (``sharding/partition.py``) the branch runs
+tensor-parallel over ``model`` with the reference's specs: ``wx``,
+``wg``, ``wr``, ``wi`` and the conv kernel cut over the width
+(column-parallel), ``wo`` row-parallel (then an f32 all-reduce).  Each
+rank holds its channels of the conv output, of the carries ``h`` and
+``conv`` and of the recurrence; the gates' products read the whole conv
+output (all-gathered over ``model``) and give this rank's channels, with
+its part of ``lam``.
+
 Dtypes: ``wr``, ``wi`` and ``lam`` are float32 whatever the model's
 dtype, as ``rglru_init`` makes them (:class:`RecParams` refuses a cast
 that would change them); the gates and the carry ``h`` are f32, the conv
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import collectives
 
 from . import layers
 from .config import ModelConfig
@@ -89,13 +99,20 @@ def _conv1d(x, kernel, state):
     return out, new_state
 
 
-def _rglru_gates(p, x):
-    """Returns (a, gated x), both f32 (B,T,w)."""
+def _rglru_gates(p, x, mesh=None):
+    """Returns (a, gated x), both f32 (B,T,w) (this rank's channels of
+    both under a mesh that cuts the width)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["wr"])
-    i = torch.sigmoid(xf @ p["wi"])
+    lam = p["lam"]
+    xw = xf
+    g = layers.model_group(mesh, p["wr"], -1)
+    if g is not None:           # whole input, this rank's gate columns
+        xw = collectives.copy_to(collectives.gather_from(xf, g, -1), g)
+        lam = layers.own(lam, mesh)
+    r = torch.sigmoid(xw @ p["wr"])
+    i = torch.sigmoid(xw @ p["wi"])
     # jax.nn.softplus is logaddexp(x, 0)
-    sp = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+    sp = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -_C * sp * r
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
@@ -118,11 +135,11 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_scan(p, x, h0, lengths=None):
+def rglru_scan(p, x, h0, lengths=None, mesh=None):
     """x: (B,T,w); h0: (B,w).  Steps at or past ``lengths`` are the
     identity (a = 1, b = 0), so the last h is that of the unpadded
     sequence.  Returns (h (B,T,w), h_last (B,w)), f32."""
-    a, b = _rglru_gates(p, x)
+    a, b = _rglru_gates(p, x, mesh)
     if lengths is not None:
         valid = (torch.arange(x.shape[1], device=x.device)[None]
                  < lengths[:, None])[..., None]
@@ -135,9 +152,9 @@ def rglru_scan(p, x, h0, lengths=None):
     return h, h[:, -1]
 
 
-def rglru_step(p, x, h0):
+def rglru_step(p, x, h0, mesh=None):
     """One-token update. x: (B,1,w).  Returns (h (B,1,w), h (B,w))."""
-    a, b = _rglru_gates(p, x)
+    a, b = _rglru_gates(p, x, mesh)
     h = a[:, 0] * h0.float() + b[:, 0]
     return h[:, None], h
 
@@ -146,12 +163,13 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
 
 
-def rec_block_forward(cfg: ModelConfig, p, x, state, lengths=None):
-    """x: (B,T,d); state: {"h": (B,w), "conv": (B,cw-1,w)}.  Returns
-    (out, new state); the new conv state holds the last cw-1 *valid*
-    inputs of each row."""
-    gate = _gelu(x @ p["wg"])
-    xr = x @ p["wx"]
+def rec_block_forward(cfg: ModelConfig, p, x, state, lengths=None,
+                      mesh=None):
+    """x: (B,T,d); state: {"h": (B,w), "conv": (B,cw-1,w)} (this rank's
+    channels under a mesh).  Returns (out, new state); the new conv
+    state holds the last cw-1 *valid* inputs of each row."""
+    gate = _gelu(layers.column(x, p["wg"], mesh))
+    xr = layers.column(x, p["wx"], mesh)
     xr_conv, conv_state = _conv1d(xr, p["conv"], state["conv"])
     if lengths is not None:
         cw1 = conv_state.shape[1]
@@ -162,20 +180,20 @@ def rec_block_forward(cfg: ModelConfig, p, x, state, lengths=None):
                    0, cw1 + T - 1)
         conv_state = torch.gather(
             xp, 1, idx[..., None].expand(-1, -1, xp.shape[-1]))
-    h, h_last = rglru_scan(p, xr_conv, state["h"], lengths)
-    out = (h.to(x.dtype) * gate) @ p["wo"]
+    h, h_last = rglru_scan(p, xr_conv, state["h"], lengths, mesh)
+    out = layers.row(h.to(x.dtype) * gate, p["wo"], mesh)
     return out, {"h": h_last, "conv": conv_state}
 
 
-def rec_block_decode(cfg: ModelConfig, p, x, state):
+def rec_block_decode(cfg: ModelConfig, p, x, state, mesh=None):
     """One token, x: (B,1,d).  ``state``'s leaves are written in place
     (the step keeps its storage, so it can be captured as a CUDA graph).
     Returns (out, state)."""
-    gate = _gelu(x @ p["wg"])
-    xr = x @ p["wx"]
+    gate = _gelu(layers.column(x, p["wg"], mesh))
+    xr = layers.column(x, p["wx"], mesh)
     xr, conv_state = _conv1d(xr, p["conv"], state["conv"])
-    h, h_last = rglru_step(p, xr, state["h"])
-    out = (h.to(x.dtype) * gate) @ p["wo"]
+    h, h_last = rglru_step(p, xr, state["h"], mesh)
+    out = layers.row(h.to(x.dtype) * gate, p["wo"], mesh)
     state["h"].copy_(h_last)
     state["conv"].copy_(conv_state)
     return out, state

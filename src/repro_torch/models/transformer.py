@@ -33,12 +33,16 @@ this rank's rows (cut over ``data`` where ``sharding.rows`` says) and
 return the global logits, as the reference's global arrays are; caches
 are this rank's slice (its rows, and its kv heads or its sequence
 slots: ``init_cache(mesh=...)``, ``partition.shard_cache``).
-Dense and MoE blocks run tensor-parallel (``layers.py``,
-``attention.py``; MoE experts cut over ``data`` through
-``moe_impl="ep"``, their d_ff cut over ``model`` through either path).
-RWKV, RG-LRU, cross-attention and encoder configs run only under meshes
-with ``model`` = 1.  A paged pool under a mesh is cut by kv head over
-``model`` where Hkv divides and whole otherwise
+Every block type runs tensor-parallel over ``model`` with the
+reference's specs (``layers.py``, ``attention.py``, ``rwkv.py``,
+``rglru.py``; the encoder's non-causal attention and the VLM's cross
+layers and ``vis_proj`` too); MoE experts cut over ``data`` run
+``moe_impl="ep"``, or ``"local"`` through ``ep``'s dispatch at a
+capacity that drops nothing (``moe.apply``), their d_ff cut over
+``model`` through either path.  A recurrent block's carry is this
+rank's cut of it (``partition.cache_rule``), in a cache and as the zero
+carry of :func:`forward` alike.  A paged pool under a mesh is cut by
+kv head over ``model`` where Hkv divides and whole otherwise
 (``init_paged_cache(mesh=...)``), its pages never cut: one replica a
 data rank, its ``pos`` and block tables whole on every rank, each rank
 decoding its own slots and writing every slot's token; a prefill chunk
@@ -202,34 +206,41 @@ class CrossBlock(AttnBlock):
 
     CROSS = True
 
-    def _vision_kv(self, vis):
+    def _vision_kv(self, vis, mesh):
         if vis is None:
             raise ValueError(f"{self.cfg.name}: a cross-attention block "
                              f"needs vision_embeds")
-        return attention.cross_kv(self.cfg, self.attn, vis)
+        return attention.cross_kv(self.cfg, self.attn, vis, mesh)
 
-    def prefill(self, x, c, *, vis, **kw):
-        kv = self._vision_kv(vis)
+    def prefill(self, x, c, *, vis, mesh=None, **kw):
+        kv = self._vision_kv(vis, mesh)
         if c is not None:
             c["k"].copy_(kv[0])
             c["v"].copy_(kv[1])
         a = attention.cross_attn_forward(self.cfg, self.attn,
-                                         self._norm1(x), kv)
-        return self._mlp_residual(x + a, **kw)
+                                         self._norm1(x), kv, mesh)
+        return self._mlp_residual(x + a, mesh=mesh, **kw)
 
     def chunk(self, x, c, **_):
         raise ValueError(f"{self.cfg.name}: cross-attention prefills whole "
                          f"prompts only (chunkable_prefill is False)")
 
-    def decode(self, x, c, **kw):
+    def decode(self, x, c, *, mesh=None, **kw):
         a = attention.cross_attn_decode(self.cfg, self.attn, self._norm1(x),
-                                        (c["k"], c["v"]))
-        return self._mlp_residual(x + a, **kw)
+                                        (c["k"], c["v"]), mesh)
+        return self._mlp_residual(x + a, mesh=mesh, **kw)
 
 
-def _zero_carry(btype: str, cfg: ModelConfig, x):
-    """A recurrent block's zero carry for x's rows (``forward``)."""
-    return _STATE_INIT[btype](cfg, x.shape[0], x.dtype, x.device)
+def _zero_carry(btype: str, cfg: ModelConfig, x, mesh=None):
+    """A recurrent block's zero carry for x's rows (``forward``): under a
+    mesh this rank's cut of it, as a cache holds it."""
+    st = _STATE_INIT[btype](cfg, x.shape[0], x.dtype, x.device)
+    if mesh is None:
+        return st
+    from repro_torch.sharding import partition
+    return {k: partition.shard(v[None], partition.cache_rule(
+        k, (1,) + tuple(v.shape), mesh, None), mesh)[0]
+        for k, v in st.items()}
 
 
 def _write_carry(c, new, active=None) -> None:
@@ -258,44 +269,45 @@ class RwkvBlock(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         self.rwkv.init_(gen)
 
-    def _forward(self, x, c, lengths, state_out):
+    def _forward(self, x, c, lengths, state_out, mesh):
         """Returns (x, {s, x_tm, x_cm}); sT lands in ``state_out`` when
         given."""
         eps = self.cfg.norm_eps
         tm, x_tm, s = rwkv.time_mix(self.cfg, self.rwkv,
                                     layers.rms_norm(x, self.ln1, eps),
                                     c["x_tm"], c["s"], lengths,
-                                    state_out=state_out)
+                                    state_out=state_out, mesh=mesh)
         x = x + tm
         cm, x_cm = rwkv.channel_mix(self.cfg, self.rwkv,
                                     layers.rms_norm(x, self.ln2, eps),
-                                    c["x_cm"], lengths)
+                                    c["x_cm"], lengths, mesh)
         return x + cm, {"s": s, "x_tm": x_tm, "x_cm": x_cm}
 
-    def _carry(self, x, c, lengths):
+    def _carry(self, x, c, lengths, mesh):
         """Run the block and write its carry in place (the kernel writes
         sT over s0)."""
-        x, new = self._forward(x, c, lengths, state_out=c["s"])
+        x, new = self._forward(x, c, lengths, c["s"], mesh)
         c["x_tm"].copy_(new["x_tm"])
         c["x_cm"].copy_(new["x_cm"])
         return x
 
-    def prefill(self, x, c, *, lengths, **_):
+    def prefill(self, x, c, *, lengths, mesh=None, **_):
         if c is None:
-            return self._forward(x, _zero_carry(BLOCK_RWKV, self.cfg, x),
-                                 lengths, state_out=None)[0]
-        return self._carry(x, c, lengths)
+            return self._forward(
+                x, _zero_carry(BLOCK_RWKV, self.cfg, x, mesh), lengths,
+                None, mesh)[0]
+        return self._carry(x, c, lengths, mesh)
 
-    def chunk(self, x, c, *, lengths, active, **_):
+    def chunk(self, x, c, *, lengths, active, mesh=None, **_):
         """``lengths`` are the rows' valid tokens in this chunk; rows
         whose prompt ended in an earlier chunk (not ``active``) keep
         every carry leaf bit for bit."""
-        x, new = self._forward(x, c, lengths, state_out=None)
+        x, new = self._forward(x, c, lengths, None, mesh)
         _write_carry(c, new, active)
         return x
 
-    def decode(self, x, c, **_):
-        return self._carry(x, c, None)
+    def decode(self, x, c, *, mesh=None, **_):
+        return self._carry(x, c, None, mesh)
 
 
 class RecBlock(nn.Module):
@@ -316,36 +328,37 @@ class RecBlock(nn.Module):
         self.rec.init_(gen)
         self.mlp.init_(gen)
 
-    def _mlp_residual(self, x):
+    def _mlp_residual(self, x, mesh):
         h = layers.rms_norm(x, self.ln2, self.cfg.norm_eps)
-        return x + layers.mlp_apply(self.mlp, h, "gelu")
+        return x + layers.mlp_apply(self.mlp, h, "gelu", mesh)
 
-    def _forward(self, x, c, lengths):
+    def _forward(self, x, c, lengths, mesh):
         r, new = rglru.rec_block_forward(
             self.cfg, self.rec, layers.rms_norm(x, self.ln1,
                                                 self.cfg.norm_eps),
-            c, lengths)
-        return self._mlp_residual(x + r), new
+            c, lengths, mesh)
+        return self._mlp_residual(x + r, mesh), new
 
-    def prefill(self, x, c, *, lengths, **_):
+    def prefill(self, x, c, *, lengths, mesh=None, **_):
         if c is None:
-            return self._forward(x, _zero_carry(BLOCK_REC, self.cfg, x),
-                                 lengths)[0]
-        x, new = self._forward(x, c, lengths)
+            return self._forward(
+                x, _zero_carry(BLOCK_REC, self.cfg, x, mesh), lengths,
+                mesh)[0]
+        x, new = self._forward(x, c, lengths, mesh)
         _write_carry(c, new)
         return x
 
-    def chunk(self, x, c, *, lengths, active, **_):
+    def chunk(self, x, c, *, lengths, active, mesh=None, **_):
         """As ``RwkvBlock.chunk``: rows not ``active`` keep their carry."""
-        x, new = self._forward(x, c, lengths)
+        x, new = self._forward(x, c, lengths, mesh)
         _write_carry(c, new, active)
         return x
 
-    def decode(self, x, c, **_):
+    def decode(self, x, c, *, mesh=None, **_):
         r, _ = rglru.rec_block_decode(
             self.cfg, self.rec, layers.rms_norm(x, self.ln1,
-                                                self.cfg.norm_eps), c)
-        return self._mlp_residual(x + r)
+                                                self.cfg.norm_eps), c, mesh)
+        return self._mlp_residual(x + r, mesh)
 
 
 _BLOCKS = {BLOCK_ATTN: AttnBlock, BLOCK_MOE: MoeBlock,
@@ -570,32 +583,11 @@ def _embed_input(model: Transformer, tokens, embeds, mesh=None):
     return layers.embed_apply(model.embed, tokens, mesh)
 
 
-_MESH_LATER = {BLOCK_RWKV: "RWKV", BLOCK_REC: "RG-LRU",
-               BLOCK_CROSS: "cross-attention"}
-
-
-def mesh_refusal(cfg: ModelConfig, model_size: int) -> Optional[str]:
-    """Why ``cfg`` cannot run under a mesh with ``model_size`` ranks on
-    ``model`` (RWKV, RG-LRU, cross-attention and encoder configs above 1:
-    a later slice of the port), or None."""
-    if model_size <= 1:
-        return None
-    later = sorted({_MESH_LATER[b] for pat, _ in cfg.block_groups()
-                    for b in pat if b in _MESH_LATER}
-                   | ({"encoder"} if cfg.is_encoder else set()))
-    if not later:
-        return None
-    return (f"{cfg.name}: {', '.join(later)} blocks under a mesh with "
-            f"model > 1 are a later slice of the port (tensor "
-            f"parallelism of the recurrent, cross and encoder blocks)")
-
-
 def resolve_mesh(cfg: ModelConfig, model: Transformer, mesh=None):
     """The mesh an entry point runs under: ``mesh``, else the context's
     (``sharding.context.get_mesh``), else None.  The model must have been
     cut for it (``partition.shard_model``), and a sharded model needs
-    its mesh.  Under ``model`` > 1, RWKV, RG-LRU, cross-attention and
-    encoder configs are refused (``mesh_refusal``)."""
+    its mesh."""
     mesh = mesh if mesh is not None else context.get_mesh()
     cut = getattr(model, "mesh_shape", None)
     if mesh is None:
@@ -603,9 +595,6 @@ def resolve_mesh(cfg: ModelConfig, model: Transformer, mesh=None):
             raise ValueError(f"the model is sharded for mesh {cut}: run it "
                              f"under that mesh")
         return None
-    why = mesh_refusal(cfg, mesh.size("model"))
-    if why:
-        raise NotImplementedError(why)
     if cut != mesh.shape:
         raise ValueError(f"the model is not sharded for mesh {mesh.shape}: "
                          f"call sharding.partition.shard_model first")
@@ -623,11 +612,15 @@ def _global_rows(mesh, B: int, x):
     return x if mesh is None else gather_rows(x, mesh, B)
 
 
-def _project_vision(model: Transformer, vision_embeds):
-    """(B, n_vision_tokens, d_vision) -> (B, n_vision_tokens, d_model)."""
+def _project_vision(model: Transformer, vision_embeds, mesh=None):
+    """(B, n_vision_tokens, d_vision) -> (B, n_vision_tokens, d_model):
+    whole on every rank (all-gathered where ``vis_proj``'s columns are
+    cut over ``model``), since the cross layers' projections read it
+    whole."""
     if vision_embeds is None:
         return None
-    return vision_embeds @ model.vis_proj
+    return layers.whole(layers.column(vision_embeds, model.vis_proj, mesh),
+                        model.vis_proj, mesh)
 
 
 def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
@@ -661,7 +654,7 @@ def forward(cfg: ModelConfig, model: Transformer, tokens=None, embeds=None,
             mesh, B, tokens, embeds, vision_embeds, lengths)
     x = _embed_input(model, tokens, embeds, mesh)
     T = x.shape[1]
-    vis = _project_vision(model, vision_embeds)
+    vis = _project_vision(model, vision_embeds, mesh)
     positions = torch.arange(T, device=x.device)
     kw = dict(positions=positions, lengths=lengths,
               window=effective_window(cfg), cache_len=0, vis=vis,
@@ -705,7 +698,7 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens=None, lengths=None,
         mesh, B, tokens, embeds, vision_embeds, lengths)
     x = _embed_input(model, tokens, embeds, mesh)
     Bl, T, _ = x.shape
-    vis = _project_vision(model, vision_embeds)
+    vis = _project_vision(model, vision_embeds, mesh)
     if lengths is None:
         lengths = torch.full((Bl,), T, dtype=torch.int32, device=x.device)
     cache_len = cache_len or cfg.max_seq_len

@@ -27,7 +27,9 @@ from jax.sharding import PartitionSpec as JP
 import torch_dist_ranks as ranks
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs import list_archs
+from repro.data import tokens as jtokens
 from repro.models import attention as j_attention
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.sharding import partition as j_partition
 from repro.train import optimizer as j_opt
@@ -52,7 +54,9 @@ def _np_params(params):
 
 
 def _write_inputs(d):
-    """The ranks' inputs and the JAX package's results, by case."""
+    """The ranks' inputs and the JAX package's results, by case; and the
+    functions that compute the later cases' results (``want`` is filled
+    by them while the ranks run)."""
     want = {}
     rng = np.random.default_rng(0)
 
@@ -126,14 +130,195 @@ def _write_inputs(d):
         steps.append(np.asarray(logits))
     np.save(os.path.join(d, "seq_next.npy"), np.stack(nexts))
     want["seq"] = np.stack(steps)
-    return want
+    return want, _write_family_inputs(d, rng)
+
+
+def _write_family_inputs(d, rng):
+    """The inputs of the families', recurrentgemma's and the MoE layer's
+    cases; returns the functions that compute the JAX package's results
+    for them, each filling a dict (run while the ranks run)."""
+    refs = []
+
+    # the recurrent, cross-attention and encoder families under model 4
+    for arch in ranks.FAMILY_ARCHS:
+        cfg, name = j_smoke(arch), "family_" + arch
+        tree = _cross_gates(cfg, jax.tree.map(
+            np.array, jtfm.init_params(cfg, jax.random.PRNGKey(0))))
+        x = ranks.family_inputs(cfg, rng)
+        np.savez(os.path.join(d, name + ".npz"), **bridge.flatten(tree))
+        np.savez(os.path.join(d, name + "_in.npz"), **x)
+        refs.append(lambda want, cfg=cfg, name=name, tree=tree, x=x:
+                    want.update({name: np.asarray(jtfm.forward(
+                        cfg, jax.tree.map(jnp.asarray, tree),
+                        **{k: jnp.asarray(v) for k, v in x.items()}))}))
+
+    # recurrentgemma: prefill over a wrapped ring, three decode steps fed
+    # the same ids on both sides
+    cfg = j_smoke(ranks.REC_ARCH)
+    params = jtfm.init_params(cfg, jax.random.PRNGKey(2))
+    B = len(ranks.REC_LENS)
+    tok = rng.integers(0, cfg.vocab_size, (B, int(ranks.REC_LENS.max())))
+    nexts = rng.integers(0, cfg.vocab_size, (3, B)).astype(np.int32)
+    np.savez(os.path.join(d, "rec_params.npz"), **_np_params(params))
+    np.save(os.path.join(d, "rec_tok.npy"), tok.astype(np.int32))
+    np.save(os.path.join(d, "rec_next.npy"), nexts)
+
+    def rec(want, cfg=cfg, params=params):
+        logits, cache = jtfm.prefill(cfg, params, tokens=jnp.asarray(tok),
+                                     lengths=jnp.asarray(ranks.REC_LENS),
+                                     cache_len=ranks.REC_LEN)
+        steps = [np.asarray(logits)]
+        for nt in nexts:
+            logits, cache = jtfm.decode_step(cfg, params, jnp.asarray(nt),
+                                             cache)
+            steps.append(np.asarray(logits))
+        want["rec"] = np.stack(steps)
+    refs.append(rec)
+
+    # each family's train-step loss and gradients (norm scales set, so
+    # that their gradients are not those of zero scales; the VLM's cross
+    # gates set); a batch of the reference's token stream, masked
+    for arch in ranks.TRAIN_ARCHS:
+        cfg, name = j_smoke(arch), "train_" + arch
+        tree = _cross_gates(cfg, jax.tree.map(
+            np.array, jtfm.init_params(cfg, jax.random.PRNGKey(3))))
+        _norm_scales(tree, np.random.default_rng(7))
+        batch = {k: np.asarray(v) for k, v in
+                 next(jtokens.batches(cfg, 4, 16)).items()}
+        if not cfg.is_encoder:
+            batch["loss_mask"] = np.ones((4, 16), np.float32)
+            batch["loss_mask"][1, 11:] = 0
+        np.savez(os.path.join(d, name + ".npz"), **bridge.flatten(tree))
+        np.savez(os.path.join(d, name + "_batch.npz"), **batch)
+
+        def train(want, cfg=cfg, tree=tree, batch=batch, name=name):
+            (loss, _), grads = jax.jit(jax.value_and_grad(
+                lambda p: j_train.lm_loss(cfg, p, jax.tree.map(
+                    jnp.asarray, batch), "local"), has_aux=True))(
+                        jax.tree.map(jnp.asarray, tree))
+            want[name + "_loss"] = float(loss)
+            want[name + "_grads"] = _np_params(grads)
+        refs.append(train)
+
+    # one MoE layer at capacity 1.25: inputs leaning towards data rank
+    # 0's experts, so that moe_ep drops pairs; the reference's moe_local
+    for arch in ranks.MOE_ARCHS:
+        cfg = j_smoke(arch)
+        params = jtfm.init_params(cfg, jax.random.PRNGKey(0))
+        np.savez(os.path.join(d, f"moe_{arch}.npz"), **_np_params(params))
+        layer = _moe_layer(params)
+        lean = layer["router"][:, 0] + layer["router"][:, 1]
+        lean = lean / np.linalg.norm(lean) * 0.15 * np.sqrt(cfg.d_model)
+        for B in ranks.MOE_BS:
+            x = (rng.standard_normal((B, ranks.MOE_T, cfg.d_model))
+                 + lean).astype(np.float32)
+            name = f"moe_{arch}_{B}"
+            np.save(os.path.join(d, f"moe_{arch}_x{B}.npy"), x)
+            refs.append(lambda want, cfg=cfg, layer=layer, x=x, name=name:
+                        want.update({
+                            name + "_local": np.asarray(jmoe.moe_local(
+                                cfg, layer, jnp.asarray(x))),
+                            name + "_dropped": _ep_dropped(cfg, layer, x,
+                                                           2)}))
+    return refs
+
+
+def _cross_gates(cfg, tree):
+    """Each cross layer's gate set to ``0.5 + 0.1 * rep`` (zero at init,
+    where a cross layer adds nothing)."""
+    for gi, (pattern, reps) in enumerate(cfg.block_groups()):
+        for j, btype in enumerate(pattern):
+            if btype == "cross":
+                tree["groups"][gi][j]["attn"]["gate"] = np.asarray(
+                    0.5 + 0.1 * np.arange(reps), np.float32)
+    return tree
+
+
+def _norm_scales(tree, rng):
+    """Every norm scale set to ``0.1 * normal``, in place."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            _norm_scales(v, rng)
+        elif k in ("ln1", "ln2", "ln_f", "q_norm", "k_norm", "ln_x"):
+            tree[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+
+
+def _moe_layer(params):
+    """The first MoE block's leaves (repetition 0), numpy."""
+    return jax.tree.map(lambda a: np.asarray(a[0]),
+                        params["groups"][0][0]["moe"])
+
+
+def _ep_dropped(cfg, layer, x, dp: int) -> int:
+    """The (token, expert) pairs the reference's ``moe_ep`` drops over
+    ``dp`` data ranks: each source's pairs past the capacity of each
+    destination; every source routes the same rows where ``dp`` does
+    not divide the batch."""
+    B, T, d = x.shape
+    sources = np.split(x, dp) if B % dp == 0 else [x] * dp
+    E_loc, dropped = cfg.n_experts // dp, 0
+    for xs in sources:
+        N = xs.shape[0] * T
+        _, idx, _ = jmoe.router_topk(cfg, layer, jnp.asarray(
+            xs.reshape(N, d)))
+        dest = np.asarray(idx).reshape(-1) // E_loc
+        cap = int(max(8, round(cfg.capacity_factor * N * cfg.top_k / dp)))
+        dropped += sum(max(0, int((dest == j).sum()) - cap)
+                       for j in range(dp))
+    return dropped
+
+
+# the reference's moe_ep under shard_map on 8 fake devices, (2, 4), in a
+# subprocess (JAX fixes its device count at its first use)
+MOE_EP_REFERENCE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, numpy as np
+from repro.configs import get_smoke_config
+from repro.launch.mesh import make_host_mesh
+from repro.models import transformer as tfm
+d, archs, bs = sys.argv[1], sys.argv[2].split(","), sys.argv[3].split(",")
+mesh = make_host_mesh(2, 4)
+for arch in archs:
+    cfg = get_smoke_config(arch)
+    params = tfm.init_params(cfg, jax.random.PRNGKey(0))
+    layer = jax.tree.map(lambda a: a[0], params["groups"][0][0]["moe"])
+    fn = jax.jit(lambda p, x: tfm._apply_moe(cfg, p, x, "ep", mesh))
+    for B in bs:
+        x = np.load(os.path.join(d, f"moe_{arch}_x{B}.npy"))
+        np.save(os.path.join(d, f"moe_{arch}_{B}_ref_ep.npy"),
+                np.asarray(fn(layer, x)))
+"""
+
+
+def _start_moe_ep_reference(d):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    return subprocess.Popen(
+        [sys.executable, "-c", MOE_EP_REFERENCE, d,
+         ",".join(ranks.MOE_ARCHS), ",".join(map(str, ranks.MOE_BS))],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("ranks"))
-    want = _write_inputs(d)
-    err = ranks.spawn(d, list(ranks.CASES), 2, 4, "cpu", SPAWN_SECONDS)
+    want, refs = _write_inputs(d)
+    ctx = ranks.start(d, list(ranks.CASES), 2, 4, "cpu")
+    ref = _start_moe_ep_reference(d)
+    try:
+        for compute in refs:              # while the ranks run
+            compute(want)
+    finally:
+        err = ranks.wait(ctx, d, SPAWN_SECONDS)
+        _, ref_err = ref.communicate(timeout=SPAWN_SECONDS)
+    assert ref.returncode == 0, ref_err[-3000:]
+    for arch in ranks.MOE_ARCHS:
+        for B in ranks.MOE_BS:
+            name = f"moe_{arch}_{B}"
+            want[name + "_ep"] = np.load(os.path.join(d, name
+                                                      + "_ref_ep.npy"))
     return want, lambda name: ranks.load_output(d, name, err)
 
 
@@ -175,6 +360,120 @@ def test_decode_with_sharded_cache_matches(run):
     np.testing.assert_allclose(got("kv_prefill"), got("kv_prefill_port"),
                                **PORT_TOL)
     assert got("kv_cache_diff").max() < 1e-5
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+def test_family_forward_under_model_4_matches_single_device(run, arch):
+    """rwkv6-3b (its heads one a model rank), recurrentgemma-2b (one
+    query head a rank over the one kv head; the RG-LRU width cut four
+    ways), llama-3.2-vision (cross gates set; ``vis_proj`` cut) and
+    hubert-xlarge (non-causal, frame embeddings) under (2, 4) == the
+    JAX package's single-device forward on every valid row."""
+    want, got = run
+    name = "family_" + arch
+    valid = np.arange(ranks.FAMILY_T)[None] < ranks.FAMILY_LENS[:, None]
+    np.testing.assert_allclose(got(name)[valid], want[name][valid],
+                               atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(got(name)[valid], got(name + "_port")[valid],
+                               **PORT_TOL)
+
+
+# the leaves the reference's rules cut over ``model`` (``partition.py``),
+# by family, and each cache leaf's shape on a rank of (2, 4), batch 4:
+# (reps, rows, ...) with the rows cut over data
+FAMILY_CUT = {
+    "rwkv6-3b": {"wr", "wk", "wv", "wg", "wo", "ck", "cr", "cv"},
+    "recurrentgemma-2b": {"wx", "wg", "wr", "wi", "conv", "wo", "gate",
+                          "up", "down", "wq"},
+    "llama-3.2-vision-90b": {"vis_proj", "wq", "wk", "wv", "wo"},
+    "hubert-xlarge": {"wq", "wk", "wv", "wo", "gate", "up", "down"}}
+_REC = {"h": [1, 2, 64], "conv": [1, 2, 3, 64]}
+FAMILY_LEAVES = {      # a dict a pattern slot of the first block group
+    "rwkv6-3b": [{"s": [2, 2, 1, 64, 64], "x_tm": [2, 2, 64],
+                  "x_cm": [2, 2, 64]}],
+    "recurrentgemma-2b": [_REC, _REC, {"k": [1, 2, 32, 1, 64],
+                                       "v": [1, 2, 32, 1, 64]}],
+    "llama-3.2-vision-90b": [{"k": [1, 2, 32, 2, 64],
+                              "v": [1, 2, 32, 2, 64]},
+                             {"k": [1, 2, 16, 2, 64],
+                              "v": [1, 2, 16, 2, 64]}]}
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+def test_family_leaves_and_carries_cut_over_model(run, arch):
+    """On a rank of (2, 4) the parameters the reference's rules cut over
+    ``model`` are cut, and each cache leaf holds this rank's part: RWKV's
+    state one head of 4 and its token-shift carries 64 of 256 columns,
+    RG-LRU's carries 64 of 256 channels, the one kv head whole."""
+    _, got = run
+    layout = got(f"family_{arch}_layout")
+    cut = {k.split("/")[-1] for k in layout["cut"]}
+    assert FAMILY_CUT[arch] <= cut, FAMILY_CUT[arch] - cut
+    assert layout.get("leaves") == FAMILY_LEAVES.get(arch), layout
+
+
+def test_recurrent_prefill_and_decode_under_the_mesh(run):
+    """recurrentgemma-2b under (2, 4): the prefill over a wrapped 64-slot
+    ring and three decode steps (RG-LRU carries cut over the width, the
+    local attention's query heads over model) == the JAX package's."""
+    want, got = run
+    np.testing.assert_allclose(got("rec"), want["rec"], atol=2e-4,
+                               rtol=2e-3)
+    np.testing.assert_allclose(got("rec"), got("rec_port"), **PORT_TOL)
+
+
+def _train_step_matches(run, arch, port_tol):
+    """The loss and every gradient under the mesh against the JAX
+    package's, and against the port's unsharded step (at ``port_tol`` of
+    the leaf's scale: the mesh sums in other orders)."""
+    want, got = run
+    name = "train_" + arch
+    np.testing.assert_allclose(float(got(name + "_loss")),
+                               want[name + "_loss"], rtol=1e-5)
+    grads, port = got(name + "_grads"), got(name + "_grads_port")
+    assert sorted(grads) == sorted(want[name + "_grads"])
+    for key, w in want[name + "_grads"].items():
+        scale = float(np.abs(w).max())
+        assert grads[key].shape == w.shape, key
+        assert float(np.abs(grads[key] - w).max()) <= 1e-4 * scale + 1e-12, \
+            key
+        np.testing.assert_allclose(grads[key], port[key],
+                                   atol=port_tol * scale, rtol=0, err_msg=key)
+
+
+def test_recurrent_train_step_under_the_mesh(run):
+    """recurrentgemma-2b's train step under (2, 4): the loss and every
+    gradient (summed over data, gathered over model) == the JAX
+    package's single-device ``value_and_grad`` of ``lm_loss``."""
+    _train_step_matches(run, ranks.REC_ARCH, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ranks.TRAIN_ARCHS[1:])
+def test_family_train_step_under_the_mesh(run, arch):
+    """The same for rwkv6-3b (its own heads: the decay LoRA's gradient
+    summed over model), the VLM (cross gates set) and hubert (frame
+    labels; its embedding's gradient zero on both sides).  Against the
+    unsharded step at 5e-5 of the scale: RWKV's channel-mix gradient
+    through relu² differs by 1.4e-5 of it in f32."""
+    _train_step_matches(run, arch, 5e-5)
+
+
+@pytest.mark.parametrize("B", ranks.MOE_BS)
+@pytest.mark.parametrize("arch", ranks.MOE_ARCHS)
+def test_moe_ep_drops_pairs_as_the_reference(run, arch, B):
+    """At capacity 1.25, on rows cut over data (B 4) and whole on every
+    data rank (B 3): the reference's ``moe_ep`` drops pairs here, and the
+    port's ``moe_ep`` equals it under ``jax.shard_map``; the dropless
+    ``"local"`` route on the same cut experts equals the reference's
+    single-device ``moe_local``."""
+    want, got = run
+    name = f"moe_{arch}_{B}"
+    assert want[name + "_dropped"] > 0
+    np.testing.assert_allclose(got(name + "_ep"), want[name + "_ep"],
+                               atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(got(name + "_local"), want[name + "_local"],
+                               atol=2e-4, rtol=2e-3)
+    assert np.abs(want[name + "_ep"] - want[name + "_local"]).max() > 1e-3
 
 
 def test_production_mesh_shapes():

@@ -6,9 +6,11 @@ package on 8 gloo ranks).  The engine under a mesh serves on the same
 ranks: the paged pool cut by kv head on a (1, 4) mesh, a 2048-slot
 contiguous pool cut along the sequence on the (2, 2) mesh, its slots
 over data, the contiguous pool on (2, 2) with prefill rows cut over
-data, and the paged pool replicated over data on (2, 2) with session
-resumes; each run's ids (and formed batches where formation does not
-follow the wall clock) against the engine without a mesh on one card,
+data, the paged pool replicated over data on (2, 2) with session
+resumes, qwen3-moe with its experts cut over data on (2, 2) and
+rwkv6-3b's blocks over model on (1, 4); each run's ids (and formed
+batches where formation does not follow the wall clock) against the
+engine without a mesh on one card,
 served in this process after the ranks end, and the replicas of the
 paged pool holding the same bits (``tests/test_torch_serve_mesh.py``
 holds the same cases against the JAX engine on 4 gloo ranks).  Card-only: it skips with fewer than four cards, and imports no
@@ -38,7 +40,7 @@ def run(tmp_path_factory):
     runtime.library()               # built once, before the ranks load it
     d = str(tmp_path_factory.mktemp("ranks"))
     ranks.write_port_inputs(d, MODEL)
-    err = ranks.spawn(d, list(ranks.CASES) + ranks.CUDA_ENGINE_CASES, DATA,
+    err = ranks.spawn(d, ranks.CUDA_CASES + ranks.CUDA_ENGINE_CASES, DATA,
                       MODEL, "cuda", 600)
     torch.set_num_threads(1)
     ref = {case: ranks.port_engine_reference(d, case, device="cuda")

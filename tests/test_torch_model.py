@@ -234,14 +234,12 @@ def test_bridge_round_trip_and_unported_blocks():
     assert "groups/0/0/attn/wq" in flat
     wq = flat["groups/0/0/attn/wq"]
     assert np.array_equal(model.groups[0][0][1].attn.wq.numpy(), wq[1])
-    # what the port still lacks: tensor parallelism of the recurrent
-    # blocks (RWKV here) under a mesh with model > 1, through the
-    # full-sequence forward
+    # the recurrent blocks run under a mesh with model > 1: the forward
+    # reaches the check that the model was cut for it
     from repro_torch.launch.mesh import Mesh
     cfg = get_smoke_config("rwkv6-3b", max_seq_len=32)
     rwkv_model = ttfm.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="RWKV blocks under a "
-                                                  "mesh with model > 1"):
+    with pytest.raises(ValueError, match="not sharded for mesh"):
         ttfm.forward(cfg, rwkv_model, torch.zeros((1, 4), dtype=torch.int32),
                      mesh=Mesh({"data": 1, "model": 2}))
 

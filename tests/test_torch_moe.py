@@ -182,8 +182,8 @@ def test_grouped_product_with_empty_groups_matches_ragged_dot():
 
 def test_moe_ep_is_refused(tmp_path):
     """``moe_impl="ep"`` is refused without a mesh and by the engine (it
-    serves ``"local"``, as the reference's launcher; a prefill job's
-    tokens are whole on every data rank); under a one-rank gloo mesh it
+    serves ``"local"``, as the reference's engine, whose model calls pass
+    no mesh, which its ``"ep"`` needs); under a one-rank gloo mesh it
     runs ``moe_ep`` (its all-to-all over one rank) and gives the local
     path's logits.  ``tests/test_torch_distributed.py`` runs it on 8."""
     import torch.distributed as dist
@@ -195,7 +195,7 @@ def test_moe_ep_is_refused(tmp_path):
                          generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="runs under a mesh"):
         ttfm.prefill(cfg, model, toks, cache_len=32, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="whole on every data"):
+    with pytest.raises(NotImplementedError, match="pass no mesh"):
         TorchEngineBackend(cfg, model, device="cpu", moe_impl="ep")
     with pytest.raises(ValueError, match="moe_impl"):
         ttfm.prefill(cfg, model, toks, cache_len=32, moe_impl="dense")

@@ -217,9 +217,158 @@ def case_seq_decode(r, out):
         out[tag + "_port"] = torch.stack(steps)
 
 
+# the recurrent, cross-attention and encoder families under model > 1:
+# each one's forward (ragged lengths; the VLM with its cross gates set)
+FAMILY_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "llama-3.2-vision-90b",
+                "hubert-xlarge")
+FAMILY_B, FAMILY_T = 4, 24
+FAMILY_LENS = np.array([24, 19, 13, 22], np.int32)
+# recurrentgemma's prefill over a 96-slot cache (its 64-slot local ring
+# wrapped by the longer rows) and three decode steps
+REC_ARCH, REC_LEN = "recurrentgemma-2b", 96
+REC_LENS = np.array([80, 70, 33, 12], np.int32)
+# one train step (loss and every gradient) of each family under the mesh
+TRAIN_ARCHS = (REC_ARCH,) + tuple(a for a in FAMILY_ARCHS if a != REC_ARCH)
+# qwen3-moe (4 experts, top 2) and llama4-scout (4 experts, top 1, a
+# shared expert) at the configs' capacity factor 1.25: rows cut over
+# data (B 4) and whole on every data rank (B 3)
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+MOE_BS, MOE_T = (4, 3), 16
+
+
+def family_inputs(cfg, rng):
+    """A family case's numpy inputs, keyed as ``forward`` takes them:
+    token ids (an encoder's frame embeddings instead, normal times
+    0.02), a VLM's vision embeddings, ragged lengths."""
+    B, T = FAMILY_B, FAMILY_T
+    x = {"lengths": FAMILY_LENS}
+    if cfg.is_encoder:
+        x["embeds"] = (rng.standard_normal((B, T, cfg.d_model))
+                       * 0.02).astype(np.float32)
+    else:
+        x["tokens"] = rng.integers(0, cfg.vocab_size, (B, T)).astype(
+            np.int32)
+    if cfg.arch_type == "vlm":
+        x["vision_embeds"] = (rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_vision)) * 0.02).astype(
+                np.float32)
+    return x
+
+
+def case_families(r, out):
+    """Each family's forward under the mesh, and the port's unsharded
+    forward on the same weights and inputs."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    for arch in FAMILY_ARCHS:
+        cfg, name = _cfg(arch), "family_" + arch
+        x = {k: r.t(v) for k, v in
+             _load(os.path.join(r.d, name + "_in.npz")).items()}
+        model = r.model(cfg, name + ".npz")
+        out[name + "_port"] = tfm.forward(cfg, model, **x)
+        partition.shard_model(cfg, model, r.mesh)
+        out[name] = tfm.forward(cfg, model, mesh=r.mesh, **x)
+        layout = {"cut": sorted(k for k, spec in model.shard_specs.items()
+                                if "model" in spec)}
+        if cfg.has_decode:
+            cache = tfm.init_cache(cfg, FAMILY_B, 32, device=r.dev,
+                                   mesh=r.mesh)
+            layout["leaves"] = [{k: list(v.shape) for k, v in slot.items()}
+                                for slot in cache["groups"][0]]
+        out[name + "_layout"] = Json(layout)
+
+
+def case_rec_decode(r, out):
+    """recurrentgemma's prefill and three decode steps (fed the ids of
+    ``rec_next.npy``) under the mesh and unsharded."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import partition
+    cfg = _cfg(REC_ARCH)
+    tok, lens = r.npy("rec_tok.npy"), r.t(REC_LENS)
+    nexts = r.npy("rec_next.npy")
+    whole = r.model(cfg, "rec_params.npz")
+    model = partition.shard_model(cfg, r.model(cfg, "rec_params.npz"),
+                                  r.mesh)
+    for tag, m, mesh in (("rec", model, r.mesh), ("rec_port", whole, None)):
+        logits, cache = tfm.prefill(cfg, m, tok, lens, cache_len=REC_LEN,
+                                    mesh=mesh)
+        steps = [logits]
+        for nt in nexts:
+            logits, cache = tfm.decode_step(cfg, m, nt, cache, mesh=mesh)
+            steps.append(logits)
+        out[tag] = torch.stack(steps)
+
+
+def _loss_and_grads(cfg, model, batch, mesh=None):
+    """The train step's loss and gradients (before the optimizer): under
+    a mesh summed over ``data`` as the step sums them, and gathered
+    whole."""
+    from repro_torch import bridge
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_loop
+    model.requires_grad_(True)
+    loss, metrics = train_loop.lm_loss(cfg, model, batch, mesh=mesh)
+    loss.backward()
+
+    def grad(p):        # zeros where the loss never reached (an encoder's
+        return torch.zeros_like(p) if p.grad is None else p.grad  # embed)
+    grads = {k: [grad(p) for p in v] if isinstance(v, list) else grad(v)
+             for k, v in bridge.leaves(model).items()}
+    if mesh is not None:
+        cut = {k: {a for e in spec if e is not None
+                   for a in ((e,) if isinstance(e, str) else e)}
+               for k, spec in model.shard_specs.items()}
+        train_loop._sum_over_data(grads, cut, mesh)
+        grads = partition.unshard_leaves(grads, model.shard_specs, mesh)
+    return metrics["loss"], _stacked(grads)
+
+
+def case_train(r, out):
+    """Each family's train-step loss and every gradient under the mesh,
+    and unsharded."""
+    from repro_torch.sharding import partition
+    for arch in TRAIN_ARCHS:
+        cfg, name = _cfg(arch), "train_" + arch
+        batch = {k: r.t(v) for k, v in
+                 _load(os.path.join(r.d, name + "_batch.npz")).items()}
+        out[name + "_loss"], out[name + "_grads"] = _loss_and_grads(
+            cfg, partition.shard_model(cfg, r.model(cfg, name + ".npz"),
+                                       r.mesh), batch, r.mesh)
+        out[name + "_loss_port"], out[name + "_grads_port"] = \
+            _loss_and_grads(cfg, r.model(cfg, name + ".npz"), batch)
+
+
+def case_moe_drop(r, out):
+    """``moe_ep`` at capacity 1.25 and the dropless ``"local"`` route of
+    ``moe.apply`` on one MoE layer whose experts are cut over data, on
+    rows cut over data (B 4) and whole on every data rank (B 3)."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.rows import gather_rows, local_rows
+    for arch in MOE_ARCHS:
+        cfg = _cfg(arch)
+        model = partition.shard_model(
+            cfg, r.model(cfg, f"moe_{arch}.npz"), r.mesh)
+        p = model.groups[0][0][0].moe
+        assert p.w_gate.shape[0] * r.mesh.size("data") == cfg.n_experts
+        for B in MOE_BS:
+            x = r.npy(f"moe_{arch}_x{B}.npy")
+            xl = local_rows(x, r.mesh, B)
+            name = f"moe_{arch}_{B}"
+            out[name + "_ep"] = gather_rows(moe.moe_ep(cfg, p, xl, r.mesh),
+                                            r.mesh, B)
+            out[name + "_local"] = gather_rows(
+                moe.apply(cfg, p, xl, "local", r.mesh), r.mesh, B)
+
+
 CASES = {"forward": case_forward, "ep_train": case_ep_train,
          "decode_kv": case_decode_kv, "dist_decode": case_dist_decode,
-         "seq_decode": case_seq_decode}
+         "seq_decode": case_seq_decode, "families": case_families,
+         "rec_decode": case_rec_decode, "train": case_train,
+         "moe_drop": case_moe_drop}
+# the cases the four cards run against the port's own unsharded runs
+CUDA_CASES = ["forward", "ep_train", "decode_kv", "dist_decode",
+              "seq_decode"]
 
 
 # ------------------------------------------------- the engine under a mesh --
@@ -227,12 +376,16 @@ CASES = {"forward": case_forward, "ep_train": case_ep_train,
 # 4-wide ``model`` axis (kv-head-cut pools), ``kv2`` two kv heads (the
 # paged pool whole on each of 4 ``model`` ranks), ``kv1`` one kv head over
 # 2048 slots (a contiguous pool cut along the sequence), ``moe``
-# qwen3-moe with four kv heads
+# qwen3-moe with four kv heads (its 4 experts cut over data > 1),
+# ``rwkv`` rwkv6-3b (4 heads) and ``rglru`` recurrentgemma-2b (4 query
+# heads over one kv head, a 64-slot local ring)
 ENGINE_CFGS = {"kv4": ("qwen3-14b", dict(n_kv_heads=4, max_seq_len=256)),
                "kv2": ("qwen3-14b", dict(n_kv_heads=2, max_seq_len=256)),
                "kv1": ("qwen3-14b", dict(n_kv_heads=1, max_seq_len=2048)),
                "moe": ("qwen3-moe-235b-a22b",
-                       dict(n_kv_heads=4, max_seq_len=256))}
+                       dict(n_kv_heads=4, max_seq_len=256)),
+               "rwkv": ("rwkv6-3b", dict(max_seq_len=256)),
+               "rglru": ("recurrentgemma-2b", dict(max_seq_len=256))}
 
 
 def engine_cfg(name, get_smoke_config=None):
@@ -331,14 +484,25 @@ ENGINE_CASES = {
                               int8=True)),
     # four cards: the sequence-cut pool with its slots over data too
     "engine_seq_cut_22": ("kv1", "long", (2, 2), dict(chunk_tokens=256)),
+    # MoE experts cut over data (2 and 1 a rank), served with
+    # moe_impl="local" through the dispatch that drops nothing
+    "engine_moe_data": ("moe", "short", (2, 2),
+                        dict(paged=True, page_size=32, chunk_tokens=64)),
+    "engine_moe_data4": ("moe", "short", (4, 1), dict(chunk_tokens=64)),
+    # the recurrent blocks tensor-parallel over model
+    "engine_rwkv_model": ("rwkv", "short", (1, 4), dict(chunk_tokens=64)),
+    "engine_rglru_model": ("rglru", "short", (2, 2),
+                           dict(paged=True, page_size=32, chunk_tokens=64)),
 }
 # the 4 CPU gloo ranks' cases (tests/test_torch_serve_mesh.py) and the
 # four cards' (tests/test_torch_distributed_cuda.py: the kv-head-cut
 # paged pool, the sequence-cut pool, the contiguous pool and the paged
-# pool with sessions, both with prefill rows cut over data)
+# pool with sessions, both with prefill rows cut over data, qwen3-moe's
+# experts cut over data and rwkv6-3b over model)
 CPU_ENGINE_CASES = [c for c in ENGINE_CASES if c != "engine_seq_cut_22"]
 CUDA_ENGINE_CASES = ["engine_paged_kv_cut", "engine_seq_cut_22",
-                     "engine_contig_data", "engine_sessions_data"]
+                     "engine_contig_data", "engine_sessions_data",
+                     "engine_moe_data", "engine_rwkv_model"]
 # the cases whose paged pool is replicated over data > 1
 DATA_PAGED_CASES = [c for c, (_, _, shape, opts) in ENGINE_CASES.items()
                     if shape[0] > 1 and opts.get("paged")]
@@ -413,14 +577,15 @@ def engine_summary(eng, reqs, formed) -> dict:
 
 def record_job_rows(be, log):
     """Append (B, rows of the batch cache the job's prefill writes on
-    this rank) to ``log`` at each job's start (``_d_begin_job``, which
-    every rank runs)."""
+    this rank, read off the first block's first leaf) to ``log`` at
+    each job's start (``_d_begin_job``, which every rank runs)."""
     begin = be._d_begin_job
 
     def wrapped(toks, lens, seed):
         got = begin(toks, lens, seed)
         B = toks.shape[0]
-        log.append([B, be._batch_view(B)["groups"][0][0]["k"].shape[1]])
+        leaf = next(iter(be._batch_view(B)["groups"][0][0].values()))
+        log.append([B, leaf.shape[1]])
         return got
     be._d_begin_job = wrapped
 
@@ -459,6 +624,16 @@ def replica_checksums(be, mesh):
     return by_model
 
 
+def _kv_shape(cache):
+    """The shape of the first attention block's K leaf (None for a
+    config with none)."""
+    for slots in cache["groups"]:
+        for slot in slots:
+            if "k" in slot:
+                return list(slot["k"].shape)
+    return None
+
+
 def case_engine(name):
     def run(r, out):
         import dataclasses
@@ -484,8 +659,8 @@ def case_engine(name):
             be = eng.backend
             summary = engine_summary(eng, reqs, formed)
             summary["layout"] = {
-                "k": list(be.pool_cache["groups"][0][0]["k"].shape),
-                "batch_k": list(be._batch_cache["groups"][0][0]["k"].shape),
+                "k": _kv_shape(be.pool_cache),
+                "batch_k": _kv_shape(be._batch_cache),
                 "seq_sharded": bool(be.pool_cache.get("seq_sharded")),
                 "slots": [be._slot_lo, be._slot_n], "jobs": jobs}
             summary["commands"] = dict(be.channel.sent)
