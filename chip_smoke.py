@@ -60,6 +60,21 @@ goes through these phases, each printing its own lines:
    at offset 1536 and (45, 4) at 1037 through the engine's
    ``prefill_chunk``, eager and as prefill-graph replays (the same
    figures a chunk);
+5b. analysis (``launch/op_analysis.py``, on the same model): the
+   profile's decode step (B = 8, context 1024, paged) and a 512 x 8
+   chunk at offset 1536 counted on real tensors (each kernel launched
+   and counted by its ``kernels/cost.py`` formula) and traced again on
+   fake ``cuda`` tensors, which must count the same FLOPs, bytes,
+   collective bytes, ops and kernel calls; the step's fake ``cpu`` trace
+   beside it with the ops that differ; each count's bound at the H100
+   peaks against the CUDA-event time of the call (the step eager and as
+   a graph replay, the chunk eager), at most 1.05 x it, each count
+   taking the live keys a row from the host; one
+   ``paged_flash_decode`` (step) or ``flash_prefill`` (chunk) launch a
+   layer; an unfused count of the step on ``cuda`` tensors refused with
+   no launch; the kernel scope's host cost, 40 wrapped calls against 40
+   unwrapped; then ``launch/dryrun.py --arch qwen3-14b --all --device cuda``
+   in a subprocess (8 records, no error, each printed as counts);
 6. retention (KV retention in the engine, on the same model): smoke qwen3-14b at f32 on the
    reference tests' shared-prefix and 2-session workloads, cold and with
    retention on the card and with retention on the CPU, token ids equal;
@@ -318,7 +333,9 @@ goes through these phases, each printing its own lines:
    rwkv6-3b's mesh run's, the kernels at a rank's shapes under
    ``model`` > 1 with launches 0 (no one-card run reaches them), and ``flash_prefill`` and
    ``paged_flash_decode`` at the serve shapes with the mesh session and
-   spill runs' launches, each entry naming its ``path``), the
+   spill runs' launches, and the same two with the analysis phase's
+   counted step's and chunk's launches, each entry naming its
+   ``path``), the
    ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -332,6 +349,7 @@ import functools
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -485,9 +503,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound_ms(work, dtype: str):
+    """The card's least time for ``work`` (a ``kernels/cost.py:Cost``:
+    FLOPs and HBM bytes) and what bounds it."""
+    t_bytes = work.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = work.flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -541,7 +561,7 @@ def assert_close(torch, name, got, want, tol, valid=None) -> float:
 
 # ------------------------------------------------------------ kernels ---
 def kernel_phase(torch):
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -622,9 +642,8 @@ def kernel_phase(torch):
                            ref.flash_prefill_ref(q, k, v, lens), tol)
         worst[f"flash_prefill T=2048 {dt}"] = err
         if timed:
-            pairs = T * (T + 1) // 2
-            b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
-                                  4.0 * pairs * H * Dh, dt)
+            b_ms, b_by = bound_ms(cost.prefill(1, T, T, H, Hkv, Dh, esz,
+                                               lengths=[T]), dt)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             rows["flash_prefill T=2048"] = dict(
                 ms=time_ms(torch, lambda: ops.flash_prefill(q, k, v, lens),
@@ -742,7 +761,7 @@ def decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol, label, timed):
     beside its plain version, SDPA on the contiguous cache and the
     card's bound for the live context.  Returns {kernel: row}, each row
     with its max abs error and the split its call took."""
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dt, esz = str(q.dtype).split(".")[-1], q.element_size()
     B, H, Dh = q.shape
@@ -763,22 +782,19 @@ def decode_case(torch, q, kc, vc, kp, vp, bt, pos, tol, label, timed):
     if not timed:
         return rows
     ctx = int(pos.max()) + 1
-    kv_bytes = esz * 2 * B * ctx * Hkv * Dh
-    io_bytes = esz * 2 * B * H * Dh + 4 * B
-    flops = 4.0 * B * H * ctx * Dh
     dmask = (torch.arange(S, device=q.device)[None]
              <= pos[:, None])[:, None, None]
     q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     sdpa_ms = time_ms(torch, lambda: sdpa(q4, kt, vt, attn_mask=dmask,
                                           enable_gqa=True), 20)
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops, dt)
+    b_ms, b_by = bound_ms(cost.decode(B, H, Hkv, Dh, esz, ctx), dt)
     rows["flash_decode"].update(
         ms=time_ms(torch, lambda: ops.flash_decode(q, kc, vc, pos), 50),
         plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(
             q, kc, vc, pos), 10),
         library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes + 4 * B * (ctx // page),
-                          flops, dt)
+    b_ms, b_by = bound_ms(cost.decode(B, H, Hkv, Dh, esz, ctx, page=page),
+                          dt)
     rows["paged_flash_decode"].update(
         ms=time_ms(torch, lambda: ops.paged_flash_decode(
             q, kp, vp, bt, pos, s_len=S), 50),
@@ -795,7 +811,7 @@ def chunk_case(torch, q, k, v, off, tol, label, timed):
     against its plain version.  With ``timed`` also timed beside its
     plain version, SDPA under the same causal mask and the card's bound
     for the keys the mask reaches.  Returns the row."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dt, esz = str(q.dtype).split(".")[-1], q.element_size()
     _, Tc, H, Dh = q.shape
@@ -807,9 +823,8 @@ def chunk_case(torch, q, k, v, off, tol, label, timed):
         ref.flash_prefill_ref(q, k, v, q_offset=off), tol))
     if not timed:
         return row
-    pairs = Tc * off + Tc * (Tc + 1) // 2
-    b_ms, b_by = bound_ms(esz * (2 * Tc * H * Dh + 2 * (off + Tc) * Hkv * Dh),
-                          4.0 * pairs * H * Dh, dt)
+    b_ms, b_by = bound_ms(cost.prefill(1, Tc, S, H, Hkv, Dh, esz,
+                                       q_offset=off), dt)
     mask = (torch.arange(Tc, device=q.device)[:, None] + off
             >= torch.arange(S, device=q.device)[None])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -880,7 +895,7 @@ def int8_kernel_phase(torch):
     wrapped rings, two calls giving the same bits; then the bf16 main
     shape timed: kernel, plain version, dequantize + bf16 kernel, SDPA
     on the dequantized gathered cache, and the bound."""
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     from repro_torch.models.attention import quantize_kv
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
@@ -1000,11 +1015,8 @@ def int8_kernel_phase(torch):
             f"two calls")
         if dt == "bfloat16":
             pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
-            esz = 2
             code_bytes = 2 * B * ctx * Hkv * Dh
             scale_bytes = 2 * 4 * B * ctx * Hkv
-            io_bytes = esz * 2 * B * H * Dh + 4 * B
-            flops = 4.0 * B * H * ctx * Dh + 2.0 * B * ctx * Hkv * Dh
             dmask = (torch.arange(S, device=dev)[None]
                      <= pos[:, None])[:, None, None]
             q4, kt, vt = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
@@ -1018,7 +1030,7 @@ def int8_kernel_phase(torch):
                                                        pos),
                      lambda: ops.flash_decode(q, deq(kc, ks, q.dtype),
                                               deq(vc, vs, q.dtype), pos),
-                     0),
+                     dict()),
                     ("paged_flash_decode_int8 B=8 ctx=2048 page=128",
                      lambda: ops.paged_flash_decode_int8(q, *pools, bt, pos,
                                                          s_len=S),
@@ -1027,10 +1039,10 @@ def int8_kernel_phase(torch):
                      lambda: ops.paged_flash_decode(
                          q, deq(pools[0], pools[2], q.dtype),
                          deq(pools[1], pools[3], q.dtype), bt, pos, s_len=S),
-                     4 * B * (ctx // page))):
+                     dict(page=page))):
                 err = assert_close(torch, name, call(), want, tol)
-                b_ms, b_by = bound_ms(code_bytes + scale_bytes + io_bytes
-                                      + tables, flops, dt)
+                b_ms, b_by = bound_ms(cost.decode(B, H, Hkv, Dh, 2, ctx,
+                                                  int8=True, **tables), dt)
                 kernel = name.split()[0]
                 rows[name] = dict(
                     ms=time_ms(torch, call, 50),
@@ -1172,7 +1184,7 @@ def wkv6_phase(torch):
     over s0, as the model does), the chunk bit-identical over two calls,
     and timed in bf16; then the tile sweep (``wkv6_tile_sweep``).  The
     wrapper's split rule must be the C launch's."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.kernels import wkv6 as wk
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1269,15 +1281,7 @@ def wkv6_phase(torch):
                                          f"the same inputs differ")
             if dtype != torch.bfloat16:
                 continue
-            esz = 2
-            elems = B * TT * H * hs
-            nbytes = (3 * esz + 4 + 4) * elems + 4 * H * hs \
-                + 2 * 4 * B * H * hs * hs
-            # the work the function needs, per (b, t, h): r.S (2 flops per
-            # state element), k v^T (1) and w S + kv (2), plus the bonus
-            # term, which is rank 1: (sum_k r_k u_k k_k) v_t, 5 flops per
-            # channel
-            b_ms, b_by = bound_ms(nbytes, 5.0 * elems * (hs + 1), "float32")
+            b_ms, b_by = bound_ms(cost.wkv6(B, TT, H, hs, 2), "float32")
             rows[label] = dict(
                 ms=time_ms(torch, lambda: ops.wkv6(r, k, v, w, u, s0),
                            20 if TT > 1 else 100),
@@ -3229,6 +3233,304 @@ def profile_phase(torch, cfg, model):
                         "decode_kernel")
 
 
+# ------------------------------------------------------------ analysis ---
+ANALYSIS_CHUNK = (512, 8, 1536)     # (Tc, B, q_offset): the serve chunk
+ANALYSIS_BOUND_SLACK = 1.05         # a count's bound over the measured time
+ANALYSIS_PATH = "qwen3-14b under launch/op_analysis.count"
+DRYRUN_SECONDS = 900
+DRYRUN_JOBS = 8                     # pairs traced at once: one a pair
+
+
+def fake_like(torch, tree, device):
+    """``tree`` with each tensor replaced by an empty one of its shape,
+    strides and dtype on ``device``: a fake tensor when called under a
+    ``FakeTensorMode`` (nothing allocated)."""
+    if isinstance(tree, dict):
+        return {k: fake_like(torch, v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fake_like(torch, v, device) for v in tree)
+    if not hasattr(tree, "shape"):
+        return tree
+    return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype,
+                               device=device)
+
+
+def count_diff(a, b) -> list:
+    """The ops two counts saw differently: (op, calls, FLOPs, bytes) of
+    each side."""
+    out = []
+    for name in sorted(set(a.ops) | set(b.ops)):
+        sa, sb = a.op_stats.get(name), b.op_stats.get(name)
+        if a.ops[name] != b.ops[name] or sa != sb:
+            out.append((name, a.ops[name], b.ops[name],
+                        sa and (sa.flops, sa.bytes),
+                        sb and (sb.flops, sb.bytes)))
+    return out
+
+
+def start_dryrun(out: Path):
+    """``launch/dryrun.py --arch qwen3-14b --all --device cuda`` in a
+    subprocess (the distribution phase owns this process's default
+    process group), writing ``out`` afresh."""
+    import os
+    if out.exists():
+        out.unlink()
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-14b", "--all", "--device", "cuda", "--jobs",
+         str(DRYRUN_JOBS), "--out", str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun(proc, out: Path, t0: float) -> dict:
+    """Wait for ``start_dryrun``'s subprocess (killed past
+    ``DRYRUN_SECONDS``), check its 8 records and print their terms."""
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_SECONDS)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dryrun: not done after {DRYRUN_SECONDS} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun exited {proc.returncode}:\n"
+                             f"{text[-3000:]}")
+    recs = json.loads(out.read_text())
+    if len(recs) != 8 or any("error" in r or "skipped" in r
+                             for r in recs.values()):
+        raise AssertionError(f"dryrun: {len(recs)} records, want 8 with no "
+                             f"error or skip")
+    for key, r in recs.items():
+        for tag in ("roofline", "roofline_plain"):
+            t = r[tag]
+            log("analysis", f"dryrun {key} {tag} (counts, not times; "
+                f"traced on fake {r['device']} in {r['trace_s']} s): "
+                f"{t['flops_per_device']:.4g} FLOP, "
+                f"{t['bytes_per_device']:.4g} B, "
+                f"{t['coll_bytes_per_device']:.4g} B of collectives a rank;"
+                f" compute {t['compute_s']:.4g} s, memory "
+                f"{t['memory_s']:.4g} s, collective {t['collective_s']:.4g}"
+                f" s, {t['dominant']}, useful {t['useful_ratio']:.3f}; "
+                f"args {r['memory']['argument_bytes'] / 2 ** 30:.2f} GiB, "
+                f"temp {r['memory']['temp_bytes'] / 2 ** 30:.2f} GiB; "
+                f"kernels {r['kernels']}")
+    log("analysis", f"dryrun --arch qwen3-14b --all --device cuda: 8 "
+        f"records, 0 errors, {wall:.1f} s of wall time")
+    return dict(records=recs, wall_s=wall)
+
+
+def unfused_refused(torch, oa, runtime, call) -> str:
+    """An unfused count of the decode step on real ``cuda`` tensors must
+    raise before its first kernel call, and launch no kernel: on the
+    card the plain version never takes a kernel's place."""
+    fn, args, kw = call[:3]
+    runtime.reset_launch_counts()
+    try:
+        oa.count(fn, *args, fused_kernels=False, **kw)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("analysis: an unfused count on cuda tensors "
+                             "ran the plain versions")
+    torch.cuda.synchronize()
+    if any(runtime.launch_counts.values()):
+        raise AssertionError(f"analysis: the refused unfused count "
+                             f"launched {dict(runtime.launch_counts)}")
+    log("analysis", f"unfused count on cuda tensors refused, no launch: "
+        f"{msg}")
+    return msg
+
+
+SCOPE_CALLS = 40                    # paged decode calls a step (40 layers)
+SCOPE_ROUNDS = 200
+
+
+def scope_host_cost(torch, cfg, smi) -> dict:
+    """Host time of ``SCOPE_CALLS`` ``ops.paged_flash_decode`` calls
+    (the decode step's, B = 8 at context 1024 over 4096 slots) through
+    the ``kernels/cost.py`` scope and through the entry it wraps
+    (``__wrapped__``), outside a count, the two interleaved; the
+    median of ``SCOPE_ROUNDS`` rounds each.  The difference is what the
+    scope adds to an eager step on this host."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    B, H, Hkv, Dh, page, S, pos = 8, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.d_head, 128, 4096, 1024
+    q = torch.randn(B, H, Dh, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(B * S // page, page, Hkv, Dh, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    tables = torch.arange(B * S // page, device=dev,
+                          dtype=torch.int32).view(B, S // page)
+    posv = torch.full((B,), pos, device=dev, dtype=torch.int32)
+    fns = {"scope": ops.paged_flash_decode,
+           "entry": ops.paged_flash_decode.__wrapped__}
+    times = {name: [] for name in fns}
+    for _ in range(SCOPE_ROUNDS):
+        for name, f in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCOPE_CALLS):
+                f(q, k, v, tables, posv, s_len=S)
+            times[name].append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    med = {name: statistics.median(t) for name, t in times.items()}
+    r = dict(calls=SCOPE_CALLS, rounds=SCOPE_ROUNDS, scope_us=med["scope"],
+             entry_us=med["entry"], added_us=med["scope"] - med["entry"],
+             added_us_a_call=(med["scope"] - med["entry"]) / SCOPE_CALLS)
+    log("analysis", f"scope's host cost, {SCOPE_CALLS} paged_flash_decode "
+        f"calls outside a count (median of {SCOPE_ROUNDS} rounds): "
+        f"{r['scope_us']:.2f} us through the scope, {r['entry_us']:.2f} us "
+        f"through the entry it wraps; added {r['added_us']:.2f} us a step, "
+        f"{r['added_us_a_call']:.3f} us a call; on {smi}")
+    return r
+
+
+def analysis_phase(torch, cfg, model):
+    """``launch/op_analysis.py`` held against the card: the profile
+    phase's full-width Qwen3-14B paged decode step (B = 8, context 1024)
+    and one 512 x 8 prefill chunk at offset 1536 over an 8-row batch
+    cache, each counted on real tensors (the kernels launch and count by
+    their formulas) and traced again on fake ``cuda`` tensors: FLOPs,
+    bytes, collective bytes, per-op counts and kernel calls must be
+    equal.  The decode step is also traced on fake ``cpu`` tensors and
+    the ops where the two devices' traces differ are listed.  Each
+    count's bound at the H100 peaks (the larger of ``compute_s`` and
+    ``memory_s``) beside the CUDA-event time of the same call, eager and
+    (the step) as a graph replay, must be at most
+    ``ANALYSIS_BOUND_SLACK`` x that time.  Each count takes the live
+    keys a row from the host (``count(..., context=)``).  An unfused
+    count on the card's tensors must raise and launch nothing, and the
+    scope's host cost is timed against the entry it wraps.  Then
+    ``launch/dryrun.py
+    --arch qwen3-14b --all --device cuda`` runs in a subprocess, its
+    pairs ``DRYRUN_JOBS`` at a time."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.engine import DecodeGraph
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch.input_specs import params_shapes
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    B, ctx, page = 8, 1024, 128
+    S = cfg.max_seq_len
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), device=dev,
+                         dtype=torch.int32)
+    logits, cache = tfm.prefill(cfg, model, toks, cache_len=S)
+    paged = to_paged(torch, tfm, cfg, cache, page)
+    del cache
+    tok = logits.argmax(-1).to(torch.int32)
+    Tc, Bc, off = ANALYSIS_CHUNK
+    ctoks = torch.randint(0, cfg.vocab_size, (Bc, Tc), device=dev,
+                          dtype=torch.int32)
+    clens = torch.full((Bc,), off + Tc + 8, dtype=torch.int32,
+                       device=dev)
+    batch_cache = tfm.init_cache(cfg, Bc, S, torch.bfloat16, dev)
+    # (fn, args, kwargs, tokens, the live keys a row the host knows: the
+    # decode token at position ctx sees ctx + 1 slots, the chunk's rows
+    # their lengths)
+    calls = {
+        "decode": (tfm.decode_step, (cfg, model, tok, paged),
+                   dict(page_size=page, paged_len=S), 2.0 * B, ctx + 1),
+        "chunk": (tfm.prefill_chunk,
+                  (cfg, model, ctoks, batch_cache, off, clens), {},
+                  2.0 * Bc * Tc, off + Tc + 8)}
+    out, launched = {}, {}
+    for name, (fn, args, kw, tokens, live) in calls.items():
+        runtime.reset_launch_counts()
+        real = oa.count(fn, *args, context=live, **kw)
+        torch.cuda.synchronize()
+        launched[name] = {k: v for k, v in runtime.launch_counts.items()
+                          if v}
+        traces = {}
+        for fdev in ("cuda", "cpu") if name == "decode" else ("cuda",):
+            with FakeTensorMode():
+                fmodel = params_shapes(cfg, torch.bfloat16, fdev)
+                fargs = (cfg, fmodel) + fake_like(torch, args[2:],
+                                                  fdev)
+                traces[fdev] = oa.count(fn, *fargs, context=live, **kw)
+        fake = traces["cuda"]
+        same = (real.stats == fake.stats and real.ops == fake.ops
+                and real.kernels == fake.kernels)
+        if not same:
+            raise AssertionError(f"analysis {name}: real count "
+                                 f"{real.stats} {dict(real.kernels)} != "
+                                 f"fake cuda {fake.stats} "
+                                 f"{dict(fake.kernels)}; ops "
+                                 f"{count_diff(real, fake)}")
+        terms = oa.analyze(real, 1, cfg.active_param_count() * tokens)
+        formulas = {k: (v.flops, v.bytes)
+                    for k, v in real.kernel_stats.items()}
+        log("analysis", f"{name} (live keys a row {live}): real == fake "
+            f"cuda: {real.stats.flops:.6g} FLOP, {real.stats.bytes:.6g} B, "
+            f"{sum(real.stats.coll.values()):.6g} B of collectives, "
+            f"{sum(real.ops.values())} ops outside {dict(real.kernels)} "
+            f"kernel calls (the kernels' formulas, FLOP and B: "
+            f"{formulas}); launches in the real count {launched[name]}")
+        if "cpu" in traces:
+            cpu = traces["cpu"]
+            log("analysis", f"{name}: fake cpu trace "
+                f"{cpu.stats.flops:.6g} FLOP, {cpu.stats.bytes:.6g} B "
+                f"against fake cuda {fake.stats.flops:.6g} FLOP, "
+                f"{fake.stats.bytes:.6g} B; ops that differ (op, calls "
+                f"cuda / cpu, (FLOP, B) cuda / cpu): "
+                f"{count_diff(fake, cpu)}")
+        out[name] = dict(flops=real.stats.flops, bytes=real.stats.bytes,
+                         compute_s=terms.compute_s,
+                         memory_s=terms.memory_s,
+                         launches=launched[name],
+                         memory=real.memory)
+    # measured: CUDA-event time a call (eager: the stream's elapsed
+    # time, its idle gaps included), the step also as a graph replay
+    step = calls["decode"]
+    times = {
+        "decode eager": time_ms(torch, lambda: step[0](
+            *step[1], **step[2]), 20),
+        "chunk eager": time_ms(torch, lambda: tfm.prefill_chunk(
+            cfg, model, ctoks, batch_cache, off, clens), 5, 1)}
+    g = DecodeGraph(lambda: step[0](*step[1], **step[2]), dev)
+    times["decode graph"] = time_ms(torch, g.replay, 20)
+    del g
+    for key, ms in times.items():
+        r = out[key.split()[0]]
+        bound = max(r["compute_s"], r["memory_s"]) * 1e3
+        by = "compute" if r["compute_s"] >= r["memory_s"] else "memory"
+        r[f"{key.split()[1]}_ms"] = ms
+        log("analysis", f"{key}: count's bound {bound:.4f} ms "
+            f"({by}; compute {r['compute_s'] * 1e3:.4f} ms, memory "
+            f"{r['memory_s'] * 1e3:.4f} ms at 989e12 FLOP/s and "
+            f"3.35e12 B/s) against {ms:.4f} ms measured: share "
+            f"{bound / ms:.4f} on {smi}")
+        if bound > ANALYSIS_BOUND_SLACK * ms:
+            raise AssertionError(f"analysis {key}: bound {bound:.4f} ms "
+                                 f"> {ANALYSIS_BOUND_SLACK} x measured "
+                                 f"{ms:.4f} ms: the count is wrong")
+    want = {"decode": {"paged_flash_decode": cfg.n_layers},
+            "chunk": {"flash_prefill": cfg.n_layers}}
+    if launched != want:
+        raise AssertionError(f"analysis: launches {launched}, want "
+                             f"{want} (the profile phase's a step and "
+                             f"a chunk)")
+    out["unfused_on_card"] = unfused_refused(torch, oa, runtime,
+                                             calls["decode"])
+    out["scope_host_us"] = scope_host_cost(torch, cfg, smi)
+    del paged, batch_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_out = ROOT / "build" / "dryrun_torch.json"
+    dry_out.parent.mkdir(exist_ok=True)
+    t_dry = time.perf_counter()
+    dry = start_dryrun(dry_out)
+    try:
+        out["dryrun"] = finish_dryrun(dry, dry_out, t_dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    return out
+
+
 def rwkv_profile_phase(torch, cfg, model):
     """rwkv6-3b decode step: 8 rows after a 1024-token prefill."""
     from repro_torch.models import transformer as tfm
@@ -3637,7 +3939,7 @@ def rg_kernels(torch):
 def rg_kernel_rows(torch, H, dts, rows, worst):
     """``rg_kernels``' cases at ``H`` query heads in each of ``dts``,
     into ``rows`` (timed, bf16) and ``worst`` (max abs errors)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3695,9 +3997,8 @@ def rg_kernel_rows(torch, H, dts, rows, worst):
                            tol)
         worst[f"flash_prefill H={H} T={T} window {S} {dt}"] = err
         if timed:
-            pairs = S * (S + 1) // 2 + (T - S) * S
-            b_ms, b_by = bound_ms(esz * (2 * T * H * Dh + 2 * T * Hkv * Dh),
-                                  4.0 * pairs * H * Dh, dt)
+            b_ms, b_by = bound_ms(cost.prefill(1, T, T, H, Hkv, Dh, esz,
+                                               window=S, lengths=[T]), dt)
             i = torch.arange(T, device=dev)
             band = (i[:, None] >= i[None]) & (i[:, None] - i[None] < S)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -4034,7 +4335,7 @@ def moe_ffn(torch):
     The routing of random weights is the traffic: how many distinct
     experts a batch hits is logged."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import runtime
+    from repro_torch.kernels import cost, runtime
     from repro_torch.models import moe
     dev = torch.device("cuda")
     rows = {}
@@ -4059,12 +4360,10 @@ def moe_ffn(torch):
                                TOL["bfloat16"])
             _, idx, _ = moe.router_topk(cfg, p, x.reshape(N, d))
             hit = int(torch.unique(idx).numel())
-            nbytes = (hit * 3 * d * f * 2 + d * E * 4 + 2 * N * d * 2
-                      + (3 * d * cfg.d_ff * 2 if cfg.shared_expert else 0))
-            flops = (2.0 * N * k * 3 * d * f + 2.0 * N * d * E
-                     + (2.0 * N * 3 * d * cfg.d_ff if cfg.shared_expert
-                        else 0))
-            b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+            work = cost.moe_ffn(N, d, f, E, k, hit, cfg.d_ff
+                                if cfg.shared_expert else 0)
+            nbytes, flops = work.bytes, work.flops
+            b_ms, b_by = bound_ms(work, "bfloat16")
             ms = time_ms(torch, lambda: moe.moe_local(cfg, p, x), 10)
             dense_ms = time_ms(torch, lambda: moe.moe_dense_ref(cfg, p, x),
                                3, 1)
@@ -4396,7 +4695,7 @@ def vision_kernels(torch):
     both kernels (B = 8 over 4096 slots at context 2048); in bf16 each
     timed beside its plain version, its bound and SDPA under the same
     mask; the f32 body of the first four at a smoke shape."""
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -4423,10 +4722,9 @@ def vision_kernels(torch):
                                                  causal=False), tol)
         worst[f"{key} {dt}"] = err
         if full:
-            pairs = T * sum(lens_l)
-            b_ms, b_by = bound_ms(esz * (2 * B * T * H * Dh
-                                         + 2 * sum(lens_l) * Hkv * Dh)
-                                  + 4 * B, 4.0 * pairs * H * Dh, dt)
+            b_ms, b_by = bound_ms(cost.prefill(B, T, T, H, Hkv, Dh, esz,
+                                               causal=False, lengths=lens_l),
+                                  dt)
             kmask = (torch.arange(T, device=dev)[None] < lens[:, None])[
                 :, None, None]
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -4458,10 +4756,8 @@ def vision_kernels(torch):
         if full:
             # every query row's live keys: row t of a prompt of L tokens
             # reads min(t, L - 1) + 1 of them
-            pairs = sum(L * (L + 1) // 2 + (T - L) * L for L in lens_l)
-            b_ms, b_by = bound_ms(esz * (2 * B * T * H * Dh
-                                         + 2 * sum(lens_l) * Hkv * Dh)
-                                  + 4 * B, 4.0 * pairs * H * Dh, dt)
+            b_ms, b_by = bound_ms(cost.prefill(B, T, T, H, Hkv, Dh, esz,
+                                               lengths=lens_l), dt)
             G = H // Hkv
             smask = (torch.ones(T, T, dtype=torch.bool, device=dev).tril()
                      & valid[:, None, :])[:, None]
@@ -4490,9 +4786,8 @@ def vision_kernels(torch):
                            ref.flash_prefill_ref(q, k, v, causal=False), tol)
         worst[f"{key} {dt}"] = err
         if full:
-            b_ms, b_by = bound_ms(esz * (2 * B * Tq * H * Dh
-                                         + 2 * B * Tk * Hkv * Dh),
-                                  4.0 * B * Tq * Tk * H * Dh, dt)
+            b_ms, b_by = bound_ms(cost.prefill(B, Tq, Tk, H, Hkv, Dh, esz,
+                                               causal=False), dt)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             rows[key] = dict(
                 ms=time_ms(torch, lambda: ops.flash_prefill(
@@ -4522,9 +4817,7 @@ def vision_kernels(torch):
             f"last split {Tk - (plan.n_split - 1) * plan.L} slots), "
             f"{B * Hkv * plan.n_split} blocks, {plan.body} body")
         if full:
-            b_ms, b_by = bound_ms(esz * (2 * B * H * Dh
-                                         + 2 * B * Tk * Hkv * Dh) + 4 * B,
-                                  4.0 * B * H * Tk * Dh, dt)
+            b_ms, b_by = bound_ms(cost.decode(B, H, Hkv, Dh, esz, Tk), dt)
             q4, kt, vt = qd[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
             rows[key] = dict(
                 ms=time_ms(torch, lambda: ops.flash_decode(qd, k, v, pos),
@@ -4968,7 +5261,7 @@ def dh192_kernels(torch):
     at context 2048 (bit for bit the float kernel over the dequantized
     cache); each against its plain version, and in bf16 timed beside its
     bound and SDPA.  Returns the bf16 rows."""
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     from repro_torch.models.attention import quantize_kv
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
@@ -5037,7 +5330,8 @@ def dh192_kernels(torch):
                 lambda: ops.flash_decode_int8(q, kc8, vc8, ks, vs, pos),
                 lambda: ref.flash_decode_int8_ref(q, kc8, vc8, ks, vs, pos),
                 lambda: ops.flash_decode(q, deq(kc8, ks, q.dtype),
-                                         deq(vc8, vs, q.dtype), pos), 0),
+                                         deq(vc8, vs, q.dtype), pos),
+                dict()),
             "paged_flash_decode_int8": (
                 lambda: ops.paged_flash_decode_int8(q, *pools, bt, pos,
                                                     s_len=S),
@@ -5046,7 +5340,7 @@ def dh192_kernels(torch):
                 lambda: ops.paged_flash_decode(
                     q, deq(pools[0], pools[2], q.dtype),
                     deq(pools[1], pools[3], q.dtype), bt, pos, s_len=S),
-                4 * B * (ctx // page))}
+                dict(page=page))}
         for kname, (call, plain, dq, tables) in calls8.items():
             key = f"{kname} B=8 H={H} Hkv={Hkv} Dh={Dh} ctx=2048" + (
                 " page=128" if "paged" in kname else "")
@@ -5059,10 +5353,8 @@ def dh192_kernels(torch):
             if timed:
                 code_bytes = 2 * B * ctx * Hkv * Dh
                 scale_bytes = 2 * 4 * B * ctx * Hkv
-                b_ms, b_by = bound_ms(
-                    code_bytes + scale_bytes + 2 * 2 * B * H * Dh + 4 * B
-                    + tables, 4.0 * B * H * ctx * Dh
-                    + 2.0 * B * ctx * Hkv * Dh, dt)
+                b_ms, b_by = bound_ms(cost.decode(B, H, Hkv, Dh, 2, ctx,
+                                                  int8=True, **tables), dt)
                 dmask = (torch.arange(S, device=dev)[None]
                          <= pos[:, None])[:, None, None]
                 kd, vd = deq(kc8, ks, q.dtype), deq(vc8, vs, q.dtype)
@@ -5221,7 +5513,7 @@ def autograd_checks(torch):
     qwen3-moe layer's shapes (512 tokens x top 8) against autograd
     through ``grouped_mm_plain``, timed."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref, runtime
+    from repro_torch.kernels import cost, ops, ref, runtime
     from repro_torch.models import moe
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -5313,11 +5605,11 @@ def autograd_checks(torch):
         gtol = dict(atol=1e-1, rtol=2e-2)
         err = max(assert_close(torch, f"GroupedMM {proj} dx", dx, pdx, gtol),
                   assert_close(torch, f"GroupedMM {proj} dw", dw, pdw, gtol))
-        # forward + backward: 3 products of 2 rows K N flops each; bytes:
+        # forward + backward: 3 products of the forward's FLOPs; bytes:
         # x, w, dy read, y, dx, dw written once, bf16
-        flops = 3 * 2.0 * rows * K * N
-        nbytes = 2 * (2 * rows * K + 2 * E * K * N + 2 * rows * N)
-        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        fwd = cost.grouped_mm(rows, K, N, E, 2)
+        b_ms, b_by = bound_ms(cost.Cost(3 * fwd.flops, 2 * fwd.bytes),
+                              "bfloat16")
         grouped[proj] = dict(
             max_abs_err=err, ms=time_ms(torch, fused, 10),
             plain_ms=time_ms(torch, plain, 3, 1), bound_ms=b_ms,
@@ -5348,7 +5640,7 @@ def train_attention_row(torch):
     version's backward) beside the plain version's and SDPA's forward +
     backward and their bound (12 pair-products of H Dh: 4 forward, 8
     backward)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(37)
@@ -5365,11 +5657,12 @@ def train_attention_row(torch):
                            prefill(q, k, v), ref.flash_prefill_ref(q, k, v),
                            MAIN_TOL["bfloat16"])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = B * T * (T + 1) // 2
-    b_ms, b_by = bound_ms(2 * (2 * B * T * H * Dh + 2 * B * T * Hkv * Dh),
-                          4.0 * pairs * H * Dh, "bfloat16")
-    fb_ms, fb_by = bound_ms(2 * 2 * (2 * B * T * H * Dh + 2 * B * T * Hkv
-                                     * Dh), 12.0 * pairs * H * Dh, "bfloat16")
+    fwd = cost.prefill(B, T, T, H, Hkv, Dh, 2)
+    b_ms, b_by = bound_ms(fwd, "bfloat16")
+    # forward and backward: three times the forward's products, every
+    # input and output twice (the gradients of q, k, v and the output's)
+    fb_ms, fb_by = bound_ms(cost.Cost(3 * fwd.flops, 2 * fwd.bytes),
+                            "bfloat16")
 
     def fwd_bwd(fn):
         return lambda: torch.autograd.grad(fn(), (q, k, v), dout)
@@ -5750,7 +6043,7 @@ def lse_timing(torch, q, kv, pos, int8):
     live context read once, q read, the output and the log-sum-exp
     written) and the library's attention with its log-sum-exp on the
     same cache (``lse_library``)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     fn = ops.flash_decode_int8 if int8 else ops.flash_decode
     plain = ref.flash_decode_int8_ref if int8 else ref.flash_decode_ref
     B, H, Dh = q.shape
@@ -5762,12 +6055,10 @@ def lse_timing(torch, q, kv, pos, int8):
         times[mode].append(time_ms(torch, lambda: fn(q, *kv, pos,
                                                      **extra), 50))
     ctx = int(pos.max()) + 1
-    kv_bytes = (2 * B * ctx * Hkv * (Dh + 4) if int8
-                else q.element_size() * 2 * B * ctx * Hkv * Dh)
-    nbytes = kv_bytes + 2 * q.element_size() * B * H * Dh + 4 * B + \
-        4 * B * H
-    b_ms, b_by = bound_ms(nbytes, 4.0 * B * H * ctx * Dh,
-                          str(q.dtype).split(".")[-1])
+    work = cost.decode(B, H, Hkv, Dh, q.element_size(), ctx, int8=int8,
+                       lse=True)
+    nbytes = work.bytes
+    b_ms, b_by = bound_ms(work, str(q.dtype).split(".")[-1])
     plain_ms = time_ms(torch, lambda: plain(q, *kv, pos, lse_out=lse), 10)
     library_ms, why = None, ""
     if not int8:
@@ -6478,6 +6769,7 @@ def main() -> int:
     profile = {"qwen3-14b": profile_phase(torch, cfg, model),
                "qwen3-14b prefill": prefill_profile_phase(torch, cfg, model,
                                                           wbytes)}
+    analysis = analysis_phase(torch, cfg, model)
     retention = retention_phase(torch, cfg, model, wbytes)
     recovery = recovery_phase(torch, cfg, model, wbytes)
     int8 = int8_phase(torch, cfg, model, wbytes, pool_tokens)
@@ -6815,6 +7107,23 @@ def main() -> int:
              plain_fwd_bwd_ms=train["row"]["plain_fwd_bwd_ms"],
              library_fwd_bwd_ms=train["row"]["sdpa_fwd_bwd_ms"],
              fwd_bwd_bound_ms=train["row"]["fwd_bwd_bound_ms"]),
+        # the analysis phase's counts on real tensors: a decode step and a
+        # 512 x 8 chunk, each kernel counted by its formula as it launched
+        dict(decode_entry("paged_flash_decode",
+                          "src/repro_torch/csrc/paged_decode_attn.cu",
+                          "src/repro/kernels/paged_decode_attn.py:80",
+                          rows["paged_flash_decode B=8 ctx=2048 page=128"],
+                          path=ANALYSIS_PATH,
+                          n=analysis["decode"]["launches"][
+                              "paged_flash_decode"]),
+             role="a decode step under launch/op_analysis.count"),
+        dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:84",
+                   rows["flash_prefill chunk 512@1536/4096"],
+                   path=ANALYSIS_PATH,
+                   n=analysis["chunk"]["launches"]["flash_prefill"]),
+             role="a 512 x 8 chunk under launch/op_analysis.count",
+             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}; rwkv6-3b under the "
@@ -6830,6 +7139,8 @@ def main() -> int:
     log("nemotron", json.dumps(nemo, default=str))
     log("train", json.dumps(train, default=str))
     log("dist", json.dumps(dist, default=str))
+    log("analysis", json.dumps({k: v for k, v in analysis.items()
+                                if k != "dryrun"}, default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

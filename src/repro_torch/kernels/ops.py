@@ -8,11 +8,18 @@ call that autograd records (training) launches the same kernel inside a
 ``KernelFunction`` whose backward is the plain version's
 (``kernels/autograd.py``); on the CPU autograd runs through the plain
 version itself.
+
+Each entry is a scope of ``kernels/cost.py``: outside a count
+(``launch/op_analysis.py``) it runs as above and nothing else; under a
+count it adds its kernel's formula (``cost.*_call``), or runs its plain
+version op by op in an unfused count.
 """
 from __future__ import annotations
 
-from . import decode_attn, flash_prefill as _prefill, paged_decode_attn, ref
-from . import wkv6 as _wkv6
+import torch
+
+from . import cost, decode_attn, flash_prefill as _prefill, paged_decode_attn
+from . import ref, wkv6 as _wkv6
 from .autograd import KernelFunction, needs_grad
 
 # the card's kernels with the plain versions' gradients
@@ -21,6 +28,25 @@ _PREFILL_GRAD = KernelFunction("flash_prefill", _prefill.flash_prefill,
 _WKV6_GRAD = KernelFunction("wkv6", _wkv6.wkv6, ref.wkv6_ref)
 
 
+def _like_q(q, *args, **kwargs):
+    """The empty output of an attention kernel's fake call."""
+    return q.new_empty(q.shape)
+
+
+def _like_wkv6(r, k, v, w, u, s0, *, state_out=None):
+    """The empty outputs (y, sT) of ``wkv6``'s fake call."""
+    return (r.new_empty(r.shape, dtype=torch.float32),
+            s0.new_empty(s0.shape) if state_out is None else state_out)
+
+
+# the fake calls under a count, recorded as the card's route records them
+_PREFILL_FAKE = KernelFunction("flash_prefill", _like_q,
+                               ref.flash_prefill_ref)
+_WKV6_FAKE = KernelFunction("wkv6", _like_wkv6, ref.wkv6_ref)
+
+
+@cost.scope("flash_prefill", cost.prefill_call, ref.flash_prefill_ref,
+            _PREFILL_FAKE)
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
                   window: int = 0, q_offset=0):
     """GQA flash attention of (B,Tq,H,Dh) queries at positions
@@ -36,6 +62,8 @@ def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,
                                   window=window, q_offset=q_offset)
 
 
+@cost.scope("flash_decode", cost.decode_call, ref.flash_decode_ref,
+            _like_q)
 def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
                  lse_out=None):
     """One-token decode attention over a contiguous cache; ``lse_out``
@@ -47,6 +75,8 @@ def flash_decode(q, k_cache, v_cache, pos, *, ring: bool = False,
                                     lse_out=lse_out)
 
 
+@cost.scope("paged_flash_decode", cost.paged_decode_call,
+            ref.paged_flash_decode_ref, _like_q)
 def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
                        ring: bool = False):
     """One-token decode attention over a paged pool."""
@@ -57,6 +87,8 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, pos, *, s_len: int,
         q, k_pool, v_pool, block_tables, pos, s_len=s_len, ring=ring)
 
 
+@cost.scope("flash_decode_int8", cost.decode_int8_call,
+            ref.flash_decode_int8_ref, _like_q)
 def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
                       ring: bool = False, lse_out=None):
     """One-token decode attention over a contiguous int8 cache (codes
@@ -70,6 +102,8 @@ def flash_decode_int8(q, k_codes, v_codes, k_scale, v_scale, pos, *,
                                          lse_out=lse_out)
 
 
+@cost.scope("paged_flash_decode_int8", cost.paged_decode_int8_call,
+            ref.paged_flash_decode_int8_ref, _like_q)
 def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
                             block_tables, pos, *, s_len: int,
                             ring: bool = False):
@@ -83,6 +117,7 @@ def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
         s_len=s_len, ring=ring)
 
 
+@cost.scope("wkv6", cost.wkv6_call, ref.wkv6_ref, _WKV6_FAKE)
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
     """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0.  A call
     that autograd records writes no ``state_out`` (it returns sT)."""

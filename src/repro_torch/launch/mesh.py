@@ -30,8 +30,6 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-HOST_AXES = ("data", "model")
-
 
 class Mesh:
     """Axis names and sizes; with ``device_mesh`` (a torch
@@ -76,23 +74,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   device="cuda") -> Mesh:
-    """The (data, model) mesh over the ranks of the initialized default
-    process group (``init_distributed``), whose size must be ``data *
-    model``; rank r sits at (r // model, r % model).  ``device="cuda"``
-    (the default) needs a card a rank and NCCL; ``"cpu"`` runs on gloo."""
+                   device="cuda", pod: int = 1) -> Mesh:
+    """The (pod, data, model) mesh over the ranks of the initialized
+    default process group (``init_distributed``), whose size must be
+    ``pod * data * model``: the production axes in the reference's order,
+    ``pod`` present only when it is above 1 (a mesh of one pod is the
+    (data, model) mesh); rank r sits at (r // (data model), r // model %
+    data, r % model).  ``device="cuda"`` (the default) needs a card a
+    rank and NCCL; ``"cpu"`` runs on gloo."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh: no process group; call "
                            "launch.mesh.init_distributed first")
+    shape = ({"pod": pod} if pod > 1 else {})
+    shape.update(data=data, model=model)
     world = dist.get_world_size()
-    if world != data * model:
+    if world != pod * data * model:
         raise ValueError(f"make_host_mesh: {world} ranks for a "
-                         f"{data} x {model} mesh")
-    dm = init_device_mesh(dev.type, (data, model), mesh_dim_names=HOST_AXES)
-    return Mesh({"data": data, "model": model}, dm)
+                         f"{' x '.join(map(str, shape.values()))} mesh")
+    dm = init_device_mesh(dev.type, tuple(shape.values()),
+                          mesh_dim_names=tuple(shape))
+    return Mesh(shape, dm)
 
 
 def init_distributed(data: int = 1, model: int = 1, device="cuda", *,

@@ -64,7 +64,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import runtime
+from repro_torch.kernels import cost, runtime
 from repro_torch.sharding import collectives
 
 from . import layers
@@ -218,9 +218,25 @@ class GroupedMM(torch.autograd.Function):
         return dx, dw, None
 
 
+def _grouped_like(x, w, offs):
+    """A fake call under a count: the card's route, its forward unseen
+    (bf16: the grouped product, which allocates nothing on fake tensors,
+    with its backward's two; f32: the masked loop where autograd records
+    the call, else an empty output)."""
+    if x.dtype == torch.bfloat16:
+        return GroupedMM.apply(x, w, offs)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return grouped_mm_plain(x, w, offs)
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@cost.scope("grouped_mm", cost.grouped_mm_call, grouped_mm_plain,
+            _grouped_like, always=True)
 def grouped_mm(x, w, offs):
     """x (M, K) rows sorted by group; w (E, K, N); offs (E,) int32 row
-    ends, offs[-1] == M.  Returns (M, N) in x's dtype."""
+    ends, offs[-1] == M.  Returns (M, N) in x's dtype.  Under a count
+    (``launch/op_analysis.py``) it counts ``2 M K N`` by formula on
+    either route (``kernels/cost.py:grouped_mm``)."""
     if not x.is_cuda:
         return grouped_mm_plain(x, w, offs)
     if x.dtype == torch.bfloat16:

@@ -21,13 +21,15 @@ Under a mesh (data-parallel over ``data``, tensor-parallel over
 ``sharding.partition.shard_model``) every rank is given the same global
 batch and takes its own rows (``sharding.rows``).  Its loss is
 its rows' summed token losses over the batch's whole token count
-(all-reduced over ``data``), so the ranks' losses sum to the global
-token mean.  After the backward, the gradient of each leaf not cut over
-``data`` is all-reduced (summed) over ``data``; an expert leaf, owned by
-its data rank, already holds its whole gradient (the all-to-all's
-backward brings it every rank's share).  The clipping norm counts each
-shard once and each replicated leaf once; the AdamW arithmetic is the
-reference's, on each rank's shards.
+(all-reduced over the batch axes, ``pod`` and ``data``, as the
+reference's GSPMD sums over every batch axis), so the ranks' losses sum
+to the global token mean.  After the backward, the gradient of each leaf
+is all-reduced (summed) over each batch axis the leaf is not cut over:
+an expert leaf, cut over ``data``, already holds its pod's whole
+gradient over ``data`` (the all-to-all's backward brings it every data
+rank's share) and is summed over ``pod`` only.  The clipping norm counts
+each shard once and each replicated leaf once; the AdamW arithmetic is
+the reference's, on each rank's shards.
 """
 from __future__ import annotations
 
@@ -84,11 +86,24 @@ def lm_loss(cfg: ModelConfig, model, batch, moe_impl="local", remat=False,
     if mesh is None:
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return loss, {"loss": loss.detach(), "tokens": mask.sum()}
-    g = mesh.group("data")
-    count = collectives.all_reduce(mask.sum(), g)
+    count = _sum_over_batch_axes(mask.sum(), mesh)
     loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
-    return loss, {"loss": collectives.all_reduce(loss.detach(), g),
+    return loss, {"loss": _sum_over_batch_axes(loss.detach(), mesh),
                   "tokens": count if cut else mask.sum()}
+
+
+def _batch_axes(mesh):
+    """The batch axes of ``mesh`` (``pod``, ``data``) that it has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _sum_over_batch_axes(x, mesh, skip=()):
+    """``x`` summed over each batch axis of ``mesh`` not in ``skip``
+    (no gradient)."""
+    for a in _batch_axes(mesh):
+        if a not in skip:
+            x = collectives.all_reduce(x, mesh.group(a))
+    return x
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optimizer.AdamWConfig,
@@ -97,8 +112,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optimizer.AdamWConfig,
     metrics)``; ``metrics`` holds ``loss``, ``tokens``, ``grad_norm`` and
     ``lr`` as 0-d tensors (nothing is read back to the host).  Under
     ``mesh`` the model is this rank's shard, ``batch`` the global batch,
-    and the gradient of every leaf not cut over ``data`` is summed over
-    the ``data`` group."""
+    and each leaf's gradient is summed over the batch axes it is not cut
+    over (``sum_grads_over_batch``)."""
     moe_mod.check_impl(moe_impl, mesh)
 
     def train_step(model, opt_state, batch):
@@ -113,7 +128,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optimizer.AdamWConfig,
             cut = {k: {a for e in spec if e is not None
                        for a in ((e,) if isinstance(e, str) else e)}
                    for k, spec in model.shard_specs.items()}
-            _sum_over_data(grads, cut, mesh)
+            sum_grads_over_batch(grads, cut, mesh)
         _, opt_state, opt_metrics = optimizer.apply(
             opt_cfg, params, grads, opt_state, cut, mesh)
         model.zero_grad(set_to_none=True)
@@ -123,16 +138,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optimizer.AdamWConfig,
 
 
 @torch.no_grad()
-def _sum_over_data(grads, cut, mesh) -> None:
-    """Sum, in place, each gradient of a leaf not cut over ``data`` over
-    the ``data`` group (an expert leaf is its data rank's own)."""
-    g = mesh.group("data")
+def sum_grads_over_batch(grads, cut, mesh) -> None:
+    """Sum, in place, each leaf's gradient over the batch axes (``pod``,
+    ``data``) its tensors are not cut over (``cut``: leaf key -> axes):
+    an expert leaf, its data rank's own, over ``pod`` only."""
     for key, leaf in grads.items():
-        if "data" in cut[key]:
+        if set(_batch_axes(mesh)) <= cut[key]:
             continue
         for t in (leaf if isinstance(leaf, list) else [leaf]):
             if t is not None:
-                t.copy_(collectives.all_reduce(t, g))
+                t.copy_(_sum_over_batch_axes(t, mesh, cut[key]))
 
 
 def train(cfg: ModelConfig, steps: int, batch_iter, seed: int = 0,

@@ -422,15 +422,16 @@ def test_recurrent_prefill_and_decode_under_the_mesh(run):
     np.testing.assert_allclose(got("rec"), got("rec_port"), **PORT_TOL)
 
 
-def _train_step_matches(run, arch, port_tol):
-    """The loss and every gradient under the mesh against the JAX
+def _train_step_matches(run, arch, port_tol, mesh=""):
+    """The loss and every gradient under the mesh (the (2, 4) mesh, or
+    ``mesh`` "pod_": the (pod, data, model) one) against the JAX
     package's, and against the port's unsharded step (at ``port_tol`` of
     the leaf's scale: the mesh sums in other orders)."""
     want, got = run
     name = "train_" + arch
-    np.testing.assert_allclose(float(got(name + "_loss")),
+    np.testing.assert_allclose(float(got(mesh + name + "_loss")),
                                want[name + "_loss"], rtol=1e-5)
-    grads, port = got(name + "_grads"), got(name + "_grads_port")
+    grads, port = got(mesh + name + "_grads"), got(name + "_grads_port")
     assert sorted(grads) == sorted(want[name + "_grads"])
     for key, w in want[name + "_grads"].items():
         scale = float(np.abs(w).max())
@@ -446,6 +447,25 @@ def test_recurrent_train_step_under_the_mesh(run):
     gradient (summed over data, gathered over model) == the JAX
     package's single-device ``value_and_grad`` of ``lm_loss``."""
     _train_step_matches(run, ranks.REC_ARCH, 1e-5)
+
+
+def test_train_step_on_a_pod_mesh_sums_over_pod_and_data(run):
+    """On a (pod 2, data 2, model 2) mesh over the same 8 ranks the
+    batch is cut over (pod, data) and the train step sums the loss and
+    each gradient over both axes: recurrentgemma-2b's loss and every
+    gradient equal the JAX package's and the unsharded step's; qwen3-moe's
+    experts, cut over data and replicated over pod, are summed over pod
+    alone, and its loss and every gradient equal the unsharded step's."""
+    _train_step_matches(run, ranks.REC_ARCH, 1e-5, mesh="pod_")
+    _, got = run
+    np.testing.assert_allclose(got("pod_ep_loss"), got("pod_ep_loss_port"),
+                               **PORT_TOL)
+    grads, port = got("pod_ep_grads"), got("pod_ep_grads_port")
+    assert sorted(grads) == sorted(port)
+    for key, w in port.items():
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(grads[key], w, atol=1e-5 * scale + 1e-12,
+                                   rtol=0, err_msg=key)
 
 
 @pytest.mark.parametrize("arch", ranks.TRAIN_ARCHS[1:])

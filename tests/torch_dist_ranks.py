@@ -45,14 +45,14 @@ class Rank:
         self.model_size = mesh.size("model")
         self._meshes = {tuple(mesh.shape.values()): mesh}
 
-    def mesh_of(self, data, model):
-        """A (data, model) host mesh over this run's ranks, made at its
-        first use (every rank runs the cases in the same order)."""
+    def mesh_of(self, data, model, pod=1):
+        """A (pod, data, model) host mesh over this run's ranks, made at
+        its first use (every rank runs the cases in the same order)."""
         from repro_torch.launch.mesh import make_host_mesh
-        key = (data, model)
+        key = (data, model) if pod == 1 else (pod, data, model)
         if key not in self._meshes:
             self._meshes[key] = make_host_mesh(data, model,
-                                               device=self.dev.type)
+                                               device=self.dev.type, pod=pod)
         return self._meshes[key]
 
     def t(self, a):
@@ -301,8 +301,8 @@ def case_rec_decode(r, out):
 
 def _loss_and_grads(cfg, model, batch, mesh=None):
     """The train step's loss and gradients (before the optimizer): under
-    a mesh summed over ``data`` as the step sums them, and gathered
-    whole."""
+    a mesh summed over the batch axes as the step sums them, and
+    gathered whole."""
     from repro_torch import bridge
     from repro_torch.sharding import partition
     from repro_torch.train import train_loop
@@ -318,7 +318,7 @@ def _loss_and_grads(cfg, model, batch, mesh=None):
         cut = {k: {a for e in spec if e is not None
                    for a in ((e,) if isinstance(e, str) else e)}
                for k, spec in model.shard_specs.items()}
-        train_loop._sum_over_data(grads, cut, mesh)
+        train_loop.sum_grads_over_batch(grads, cut, mesh)
         grads = partition.unshard_leaves(grads, model.shard_specs, mesh)
     return metrics["loss"], _stacked(grads)
 
@@ -336,6 +336,31 @@ def case_train(r, out):
                                        r.mesh), batch, r.mesh)
         out[name + "_loss_port"], out[name + "_grads_port"] = \
             _loss_and_grads(cfg, r.model(cfg, name + ".npz"), batch)
+
+
+POD_MESH = dict(pod=2, data=2, model=2)
+
+
+def case_pod_train(r, out):
+    """The train step's loss and every gradient on a (pod 2, data 2,
+    model 2) mesh over the same ranks: recurrentgemma-2b, and qwen3-moe
+    (4 experts, top 2) whose experts are cut over ``data`` and replicated
+    over ``pod``; the batch of 4 rows one a (pod, data) rank."""
+    from repro_torch.sharding import partition
+    mesh = r.mesh_of(**POD_MESH)
+    cfg, name = _cfg(REC_ARCH), "train_" + REC_ARCH
+    batch = {k: r.t(v) for k, v in
+             _load(os.path.join(r.d, name + "_batch.npz")).items()}
+    out["pod_" + name + "_loss"], out["pod_" + name + "_grads"] = \
+        _loss_and_grads(cfg, partition.shard_model(
+            cfg, r.model(cfg, name + ".npz"), mesh), batch, mesh)
+    cfg = _cfg("qwen3-moe-235b-a22b", **EP_CFG)
+    batch = {"tokens": r.npy("ep_tok.npy")}
+    out["pod_ep_loss"], out["pod_ep_grads"] = _loss_and_grads(
+        cfg, partition.shard_model(cfg, r.model(cfg, "ep_params.npz"),
+                                   mesh), batch, mesh)
+    out["pod_ep_loss_port"], out["pod_ep_grads_port"] = _loss_and_grads(
+        cfg, r.model(cfg, "ep_params.npz"), batch)
 
 
 def case_moe_drop(r, out):
@@ -365,7 +390,7 @@ CASES = {"forward": case_forward, "ep_train": case_ep_train,
          "decode_kv": case_decode_kv, "dist_decode": case_dist_decode,
          "seq_decode": case_seq_decode, "families": case_families,
          "rec_decode": case_rec_decode, "train": case_train,
-         "moe_drop": case_moe_drop}
+         "pod_train": case_pod_train, "moe_drop": case_moe_drop}
 # the cases the four cards run against the port's own unsharded runs
 CUDA_CASES = ["forward", "ep_train", "decode_kv", "dist_decode",
               "seq_decode"]
