@@ -222,7 +222,8 @@ goes through these phases, each printing its own lines:
    widths (B = 8, H = 10, Hkv = 1: G = 10 at Dh 256) over the 2048-slot
    ring, on rows not yet wrapped and wrapped (two calls, same bits) and
    with every slot live, and ``flash_prefill`` on a 4096-token prompt
-   under the 2048-token window (the CUDA-core body), f32 and bf16, each
+   under the 2048-token window (bf16 on the tensor-core body: two
+   warpgroups a block at Dh 256), f32 and bf16, each
    against its plain version and in bf16 timed beside its bound and
    SDPA; smoke f32 recurrentgemma (5 layers) and qwen3-14b with a
    48-token window through ``graph_smoke`` on both pools (card ids ==
@@ -265,7 +266,8 @@ goes through these phases, each printing its own lines:
 13. encoder and VLM (hubert-xlarge, llama-3.2-vision-90b, nemotron-4-340b):
    the qwen3-moe model is freed; hubert's non-causal ``flash_prefill``
    (B = 8, T = 1500 frames, H = Hkv = 16, Dh 80, lengths 1500/1200/900/
-   600: the CUDA-core body), the VLM's cross-attention ``flash_prefill``
+   600: the tensor-core body, P·V at N 128), the VLM's cross-attention
+   ``flash_prefill``
    (B = 8, Tq = 1024 over Tk = 1600 vision keys, H = 64, Hkv = 8, no
    mask), its cross decode through ``flash_decode`` over the 1600 keys
    (every row's pos 1599; two calls, same bits; the split the rule
@@ -276,7 +278,7 @@ goes through these phases, each printing its own lines:
    ``decode_step``s on the card against the CPU (atol 1e-4), the VLM
    also on the paged pool with the contiguous ids; hubert-xlarge at full
    width and depth (bf16, seeded weights): ``forward`` on 8 x 1500
-   frames (48 ``flash_prefill`` launches, all CUDA-core; wall, device
+   frames (48 ``flash_prefill`` launches, all tensor-core; wall, device
    busy, the kernel's share) and ``prefill(embeds=...)``'s last-token
    logits against ``forward``'s; then llama-3.2-vision-90b at full
    width with its depth cut from 100 to 20 layers (38.4 GB, every cross
@@ -288,7 +290,7 @@ goes through these phases, each printing its own lines:
 14. nemotron-4-340b (head dim 192): the VLM is freed; the three
    attention kernels at its widths (H = 96, Hkv = 8: G = 12 at Dh 192):
    a 512-token chunk at offset 1536 over 4096 slots through the
-   CUDA-core body, both decode kernels at context 2048 and on rows of
+   tensor-core body, both decode kernels at context 2048 and on rows of
    every length and wrapped rings (two calls, same bits) and both int8
    decode kernels (the float kernel's bits over the dequantized cache),
    f32 and bf16, each against its plain version and in bf16 timed
@@ -298,7 +300,7 @@ goes through these phases, each printing its own lines:
    through the engine on the paged pool and then on the contiguous
    pool, eagerly and with both graphs (ids and launches identical,
    every page free, one ``flash_prefill`` a layer a chunk on the
-   CUDA-core body, one decode kernel a layer a step), paged ids ==
+   tensor-core body, one decode kernel a layer a step), paged ids ==
    contiguous ids;
 15. training: the kernels under autograd at smoke shapes (f32):
    ``flash_prefill`` causal, windowed and non-causal with Tq != Tk, and
@@ -621,8 +623,8 @@ def kernel_phase(torch):
             n_checked += 1
     log("kernels", f"{n_checked} sweep cases agree with the plain versions "
         f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-2 rtol 2e-2); prefill "
-        f"launches by body {runtime.prefill_body_counts} (f32 and bf16 Dh "
-        f"80/256 on the CUDA cores, bf16 Dh 64/128 on the tensor cores)")
+        f"launches by body {runtime.prefill_body_counts} (f32 on the CUDA "
+        f"cores, bf16 at every head dim on the tensor cores)")
 
     # main-path shapes: f32 against the tight tolerance, then bf16 (the
     # served dtype) checked and timed
@@ -3921,10 +3923,10 @@ def rg_kernels(torch):
     decode kernels at B = 8 over the 2048-slot ring, on rows not yet
     wrapped and wrapped (two calls giving the same bits) and with every
     slot of the ring live, and a 4096-token prompt under the 2048-token
-    window through the CUDA-core prefill body; each against its plain
-    version, and in bf16 timed beside its bound and SDPA (on the gathered
-    cache for decode, under the band mask for prefill), with the decode
-    split the rule picks."""
+    window through the body its dtype names (bf16: tensor-core); each
+    against its plain version, and in bf16 timed beside its bound and
+    SDPA (on the gathered cache for decode, under the band mask for
+    prefill), with the decode split the rule picks."""
     rows, worst = {}, {}
     for H, dts in ((RG_ATTN["H"], ("float32", "bfloat16")),
                    (RG_RANK_H, ("bfloat16",))):
@@ -4131,14 +4133,16 @@ def rg_profile(torch, cfg, model):
 
 def rg_check_launches(label, cfg, counts, steps, decode_kernel):
     """Each local-attention layer launches ``flash_prefill`` once a
-    prefill (the CUDA-core body: Dh 256) and ``decode_kernel`` once a
-    decode step; nothing else of the kernels runs."""
+    prefill (the tensor-core body at Dh 256, none on the CUDA-core body)
+    and ``decode_kernel`` once a decode step; nothing else of the kernels
+    runs."""
     n_attn = sum(p.count("attn") * r for p, r in cfg.block_groups())
     other = "flash_decode" if decode_kernel == "paged_flash_decode" else \
         "paged_flash_decode"
     if counts[decode_kernel] != n_attn * steps["decode"] or \
             counts["flash_prefill"] != n_attn * steps["prefill"] or \
-            counts["flash_prefill/cuda_core"] != counts["flash_prefill"] or \
+            counts["flash_prefill/tensor_core"] != counts["flash_prefill"] \
+            or counts["flash_prefill/cuda_core"] or \
             not steps["decode"] or counts[other] or counts["wkv6"]:
         raise AssertionError(f"{label}: launches {counts} for "
                              f"{steps['prefill']} prefills and "
@@ -4146,7 +4150,7 @@ def rg_check_launches(label, cfg, counts, steps, decode_kernel):
                              f"attention layers")
     plan = counts[f"{decode_kernel}/last plan"]
     log("rg", f"{label}: flash_prefill {counts['flash_prefill']} = {n_attn} "
-        f"x {steps['prefill']} prefills, all on the CUDA-core body; "
+        f"x {steps['prefill']} prefills, all on the tensor-core body; "
         f"{decode_kernel} {counts[decode_kernel]} = {n_attn} x "
         f"{steps['decode']} steps (last plan n_split {plan.n_split}, L "
         f"{plan.L}, {plan.body} body)")
@@ -4614,7 +4618,7 @@ HUBERT_ARCH = "hubert-xlarge"
 VLM_ARCH = "llama-3.2-vision-90b"
 NEMOTRON_ARCH = "nemotron-4-340b"
 # hubert-xlarge's self-attention: 30 s of audio at its 50 Hz frame rate,
-# H = Hkv = 16 at Dh 80 (the CUDA-core prefill body), non-causal, ragged
+# H = Hkv = 16 at Dh 80 (the tensor-core prefill body), non-causal, ragged
 HUBERT_ATTN = dict(B=8, T=1500, H=16, Hkv=16, Dh=80)
 HUBERT_LENGTHS = [1500, 1200, 900, 600] * 2
 # the VLM's cross-attention: prompts of up to 1024 tokens over 1600
@@ -4686,8 +4690,8 @@ def vision_kernels(torch):
     """The attention kernels at the shapes the encoder and the VLM give
     them, each against its plain version on the card: hubert's
     non-causal ``flash_prefill`` (B = 8, T = 1500, H = Hkv = 16, Dh 80,
-    lengths 1500/1200/900/600: the CUDA-core body), the VLM's causal
-    self-attention ``flash_prefill`` (B = 8, T = 1024 with the
+    lengths 1500/1200/900/600: bf16 on the tensor-core body), the VLM's
+    causal self-attention ``flash_prefill`` (B = 8, T = 1024 with the
     ``VLM_PROMPTS`` lengths, H = 64, Hkv = 8: the tensor-core body), its
     cross-attention ``flash_prefill`` (B = 8, Tq = 1024 over Tk = 1600
     vision keys, no mask), its cross decode through ``flash_decode`` (B =
@@ -4981,7 +4985,7 @@ def hubert_run(torch):
     """hubert-xlarge at full width and depth (bf16): ``forward`` on B = 8
     frames of 1500 with ``HUBERT_LENGTHS``, its wall, device busy and
     ``flash_prefill``'s share (``profile_steps``) and launches (one a
-    layer, the CUDA-core body); ``prefill(embeds=...)``'s last-token
+    layer, the tensor-core body); ``prefill(embeds=...)``'s last-token
     logits against ``forward``'s at each row's last position within
     ``HUBERT_LAST_TOL``."""
     from repro_torch.configs import get_config
@@ -5002,7 +5006,8 @@ def hubert_run(torch):
     first_s = time.perf_counter() - t0
     counts = launch_counts()
     want = {"flash_prefill": cfg.n_layers,
-            "flash_prefill/cuda_core": cfg.n_layers}
+            "flash_prefill/tensor_core": cfg.n_layers,
+            "flash_prefill/cuda_core": 0}
     if any(counts[k] != n for k, n in want.items()) or any(
             counts[k] for k in ("flash_decode", "paged_flash_decode",
                                 "wkv6")):
@@ -5024,7 +5029,7 @@ def hubert_run(torch):
                          "flash_prefill", "flash_prefill", steps=3)
     log("vlm", f"{HUBERT_ARCH} forward: first call {first_s:.3f} s; "
         f"flash_prefill {counts['flash_prefill']} launches = "
-        f"{cfg.n_layers} layers, all on the CUDA-core body (Dh 80); "
+        f"{cfg.n_layers} layers, all on the tensor-core body (Dh 80); "
         f"prefill(embeds=...) last-token logits against forward's at each "
         f"row's last position: max abs {err:.3g} (atol "
         f"{HUBERT_LAST_TOL['atol']:g}, rtol {HUBERT_LAST_TOL['rtol']:g})")
@@ -5240,7 +5245,7 @@ def vision_phase(torch):
 
 
 # ------------------------------------------- nemotron at head dim 192 ---
-# nemotron-4-340b's attention: G = 12 at Dh 192 (the CUDA-core prefill
+# nemotron-4-340b's attention: G = 12 at Dh 192 (the tensor-core prefill
 # body; G * Dh 2304 in the decode body), decode over 4096 slots
 NEMOTRON_ATTN = dict(B=8, H=96, Hkv=8, Dh=192, S=4096)
 # the full-width run: every width as published, the depth cut from 96
@@ -5255,7 +5260,7 @@ NEMOTRON_PATH = f"{NEMOTRON_ARCH} ({NEMOTRON_LAYERS} of 96 layers)"
 def dh192_kernels(torch):
     """The three attention kernels at nemotron-4-340b's widths (H = 96,
     Hkv = 8: G = 12 at Dh 192), f32 and bf16: a 512-token chunk at offset
-    1536 over 4096 slots through the CUDA-core body, both decode kernels
+    1536 over 4096 slots through the tensor-core body, both decode kernels
     over 4096 slots at context 2048 and at rows of every length and
     wrapped rings (two calls, same bits), and both int8 decode kernels
     at context 2048 (bit for bit the float kernel over the dequantized
@@ -5372,7 +5377,8 @@ def dh192_kernels(torch):
     log("nemotron", f"kernels at nemotron-4-340b's widths (H = {H}, Hkv = "
         f"{Hkv}: G = {H // Hkv} at Dh {Dh}) agree with the plain versions "
         f"(f32 atol 1e-4 rtol 1e-3; bf16 atol 2e-3 rtol 1e-2), the prefill "
-        f"through the CUDA-core body, decode two calls the same bits, "
+        f"through the body its dtype names (bf16: tensor-core), decode "
+        f"two calls the same bits, "
         f"int8 the float kernel's bits over the dequantized cache; max abs "
         f"err: " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     log_rows("nemotron", rows)
@@ -5381,21 +5387,23 @@ def dh192_kernels(torch):
 
 def nemotron_check_launches(label, cfg, counts, steps, decode_kernel):
     """Each layer launches ``flash_prefill`` once a prefill chunk (the
-    CUDA-core body, Dh 192) and ``decode_kernel`` once a decode step;
-    nothing else of the kernels runs."""
+    tensor-core body at Dh 192, none on the CUDA-core body) and
+    ``decode_kernel`` once a decode step; nothing else of the kernels
+    runs."""
     L = cfg.n_layers
     other = "flash_decode" if decode_kernel == "paged_flash_decode" else \
         "paged_flash_decode"
     if counts[decode_kernel] != L * steps["decode"] or \
             counts["flash_prefill"] != L * steps["prefill"] or \
-            counts["flash_prefill/cuda_core"] != counts["flash_prefill"] or \
+            counts["flash_prefill/tensor_core"] != counts["flash_prefill"] \
+            or counts["flash_prefill/cuda_core"] or \
             not steps["decode"] or counts[other] or counts["wkv6"]:
         raise AssertionError(f"{label}: launches {counts} for "
                              f"{steps['prefill']} prefill chunks and "
                              f"{steps['decode']} decode steps of {L} layers")
     plan = counts[f"{decode_kernel}/last plan"]
     log("nemotron", f"{label}: flash_prefill {counts['flash_prefill']} = "
-        f"{L} x {steps['prefill']} chunks, all on the CUDA-core body; "
+        f"{L} x {steps['prefill']} chunks, all on the tensor-core body; "
         f"{decode_kernel} {counts[decode_kernel]} = {L} x {steps['decode']} "
         f"steps (last plan n_split {plan.n_split}, L {plan.L}, {plan.body} "
         f"body)")
@@ -6751,8 +6759,8 @@ def main() -> int:
                              "tensor-core kernels")
     check_body_rule()
     log("build", f"cuobjdump -sass: {n_hgmma} HGMMA instructions in the "
-        f"prefill tensor-core kernels (Dh 64 and 128); the wrapper's body "
-        f"rule matches rt_flash_prefill_body for f32/bf16 x Dh "
+        f"prefill tensor-core kernels (Dh 64, 80, 128, 192, 256); the "
+        f"wrapper's body rule matches rt_flash_prefill_body for f32/bf16 x Dh "
         f"64/80/128/192/256")
 
     rows = kernel_phase(torch)
@@ -6838,7 +6846,7 @@ def main() -> int:
         dict(entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill.py:84",
                    rows["flash_prefill chunk 512@1536/4096"]),
-             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+             body="tensor_core (wgmma; bf16, Dh 128)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -6861,7 +6869,8 @@ def main() -> int:
                               f"T={RG_PREFILL_T} window 2048"],
                    path="recurrentgemma-2b",
                    n=rg["launches"]["flash_prefill"]),
-             body="cuda_core (Dh 256, window 2048)"),
+             body="tensor_core (wgmma; bf16, Dh 256 on two warpgroups, "
+                  "window 2048)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -6884,7 +6893,8 @@ def main() -> int:
                    path=RG_MESH_PATH,
                    n=rg["mesh"]["paged"]["launches"]["flash_prefill"]
                    + rg["mesh"]["contiguous"]["launches"]["flash_prefill"]),
-             body="cuda_core (Dh 256, window 2048)"),
+             body="tensor_core (wgmma; bf16, Dh 256 on two warpgroups, "
+                  "window 2048)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -6906,7 +6916,9 @@ def main() -> int:
                    rg["rows"][f"flash_prefill H={RG_RANK_H} Hkv=1 Dh=256 "
                               f"T={RG_PREFILL_T} window 2048"],
                    path="recurrentgemma-2b", n=0),
-             role=RG_RANK_ROLE, body="cuda_core (Dh 256, window 2048)"),
+             role=RG_RANK_ROLE,
+             body="tensor_core (wgmma; bf16, Dh 256 on two warpgroups, "
+                  "window 2048)"),
         dict(decode_entry("paged_flash_decode",
                           "src/repro_torch/csrc/paged_decode_attn.cu",
                           "src/repro/kernels/paged_decode_attn.py:80",
@@ -6977,7 +6989,8 @@ def main() -> int:
                    vrows["flash_prefill B=8 T=1500 H=16 Dh=80 non-causal "
                          "ragged"],
                    path=HUBERT_ARCH, n=vision["hubert"]["launches"]),
-             body="cuda_core (Dh 80, non-causal, key lengths)"),
+             body="tensor_core (wgmma; bf16, Dh 80 with P·V at N 128, "
+                  "non-causal, key lengths)"),
         # llama-3.2-vision-90b (20 of 100 layers): each kernel of the
         # self-attention layers and of the cross layers on its own row,
         # with the launches of its layers over the contiguous and paged
@@ -7020,7 +7033,8 @@ def main() -> int:
                    nemo["rows"]["flash_prefill H=96 Hkv=8 Dh=192 chunk "
                                 "512@1536/4096"],
                    path=NEMOTRON_PATH, n=nemo["launches"]["flash_prefill"]),
-             body="cuda_core (Dh 192, G = 12)"),
+             body="tensor_core (wgmma; bf16, Dh 192 on two warpgroups, "
+                  "G = 12)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -7066,7 +7080,7 @@ def main() -> int:
                    rows["flash_prefill chunk 512@1536/4096"],
                    path="qwen3-14b engine under the (1, 1) mesh",
                    n=dist["launches"]["engine flash_prefill"]),
-             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+             body="tensor_core (wgmma; bf16, Dh 128)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -7088,7 +7102,7 @@ def main() -> int:
                    path="qwen3-14b (10 of 40 layers) engine under the "
                         "(1, 1) mesh, sessions and spill",
                    n=dist["launches"]["retention flash_prefill"]),
-             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+             body="tensor_core (wgmma; bf16, Dh 128)"),
         decode_entry("paged_flash_decode",
                      "src/repro_torch/csrc/paged_decode_attn.cu",
                      "src/repro/kernels/paged_decode_attn.py:80",
@@ -7123,7 +7137,7 @@ def main() -> int:
                    path=ANALYSIS_PATH,
                    n=analysis["chunk"]["launches"]["flash_prefill"]),
              role="a 512 x 8 chunk under launch/op_analysis.count",
-             body="tensor_core (wgmma; bf16, Dh 64 and 128)"),
+             body="tensor_core (wgmma; bf16, Dh 128)"),
     ]}
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}; rwkv6-3b under the "

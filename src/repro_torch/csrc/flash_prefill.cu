@@ -15,43 +15,74 @@
 // two products (operations: 989 TFLOP/s dense bf16 on the tensor cores);
 // at short T the bytes of q, k, v and out (3.35 TB/s).
 //
-// Two bodies, chosen by dtype and head dim before the launch
+// Two bodies, chosen by dtype alone before the launch
 // (rt_flash_prefill_body, mirrored by kernels/flash_prefill.py:body):
 //
-// * bf16 with Dh in {64, 128}: the tensor-core body.  One block is one
-//   warpgroup (128 threads) and owns 64 query rows of one query head; the
-//   grid is (H, q tiles, B) with the head fastest, so the G query heads of
-//   a kv head run together and reread its K/V from L2, and the q tiles are
-//   issued last tile first (the causal tiles with the most keys start
-//   first).  Shared memory holds the Q tile, two stages of 64-key K tiles
-//   and three of V tiles (97 KB at Dh = 128, two blocks an SM), all in the
-//   128-byte-swizzled layout of hopper.cuh, filled by 16-byte cp.async
-//   copies that zero-fill rows past Tq and Tk.  At the top of each key
-//   tile the block waits for that tile's copies (cp.async.wait_group and
-//   __syncthreads) and issues the next tile's, one tile ahead.  Q is read
-//   once into registers as the A fragments of S = Q·Kᵀ: Dh/16 wgmma
-//   m64n64k16 with K read K-major from shared memory, 32 f32 accumulators
-//   a thread.  Thread t of warp w holds rows w*16 + t/4 and +8 of S,
-//   columns 8j + 2(t%4) + {0,1}: the row max and sum are shuffles among
-//   the 4 lanes of a row, the scores are scaled by scale * log2(e) for
-//   exp2, and masks are applied only on tiles that cross the diagonal, the
-//   window edge, the row's length or Tk.  P goes to the tensor cores as
-//   two bf16 terms, hi = bf16(p) and lo = bf16(p - hi): P rounded to bf16
-//   alone is off by up to 2^-9 relative a term, which at rows with a few
-//   keys exceeds the main path's tolerance against the f32 reference.
-//   The accumulator fragment of two adjacent 8-column blocks of S is the
-//   register A fragment of one k16 step, so O += P·V is eight wgmma
-//   m64n{Dh}k16 (hi and lo for four k-steps) with V read MN-major (the
-//   transpose bit) from the same swizzled tile, Dh/2 f32 accumulators a
-//   thread; the split makes the tensor-core work 1.5 times the bound's.
-//   S of tile t and P·V of tile t - 1 are issued together.  No TMA, warp
-//   specialisation, clusters or persistent blocks yet.
+// * bf16, every Dh the kernel takes (64, 80, 128, 192, 256): the
+//   tensor-core body.  A block is one or two warpgroups (128 threads
+//   each), each owning 64 query rows of one query head; the grid is (H, q
+//   tiles, B) with the head fastest, so the G query heads of a kv head run
+//   together and reread its K/V from L2, and the q tiles are issued last
+//   tile first (the causal tiles with the most keys start first).  Shared
+//   memory holds a Q tile a warpgroup, two stages of 64-key K tiles and
+//   three of V tiles, all in the 128-byte-swizzled layout of hopper.cuh
+//   (64-column atoms), filled by 16-byte cp.async copies that zero-fill
+//   rows past Tq and Tk.  At the top of each key tile the block waits for
+//   that tile's copies (cp.async.wait_group and __syncthreads) and issues
+//   the next tile's, one tile ahead.  S = Q·Kᵀ is Dh/16 wgmma m64n64k16
+//   with K read K-major from shared memory, 32 f32 accumulators a thread.
+//   Thread t of warp w holds rows w*16 + t/4 and +8 of S, columns 8j +
+//   2(t%4) + {0,1}: the row max and sum are shuffles among the 4 lanes of
+//   a row, the scores are scaled by scale * log2(e) for exp2, and masks
+//   are applied only on tiles that cross the diagonal, the window edge,
+//   the row's length or Tk (for the warpgroup's own rows).  P goes to the
+//   tensor cores as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi): P
+//   rounded to bf16 alone is off by up to 2^-9 relative a term, which at
+//   rows with a few keys exceeds the main path's tolerance against the
+//   f32 reference.  The accumulator fragment of two adjacent 8-column
+//   blocks of S is the register A fragment of one k16 step, so O += P·V
+//   is hi and lo for four k-steps, with V read MN-major (the transpose
+//   bit) from the same swizzled tile; the split makes the tensor-core work
+//   1.5 times the bound's.  S of tile t and P·V of tile t - 1 are issued
+//   together.  No TMA, warp specialisation, clusters or persistent blocks
+//   yet.  By head dim (tc::Layout):
 //
-// * f32 (any supported Dh: 64, 80, 128, 192, 256) and bf16 with Dh in
-//   {80, 192, 256}: the CUDA-core body, in f32.  One block of 256
-//   threads per (q tile, kv head, batch row).  The q tile holds 256/TPR rows: BQ = rows/G query positions
-//   times the G query heads of that kv head, so each K/V tile loaded into
-//   shared memory is shared by all G heads.  Each row is owned by TPR
+//   Dh   tile    P·V's N        Q operand   warpgroups  shared memory a block
+//   64   1 atom  64: n64        registers   1           49 KB, 4 blocks/SM
+//   80   2 atoms 128: n128      registers   1           97 KB, 2 blocks/SM
+//   128  2 atoms 128: n128      registers   1           97 KB, 2 blocks/SM
+//   192  3 atoms 192: n128+n64  shared mem  2           169 KB, 1 block/SM
+//   256  4 atoms 256: n128+n128 shared mem  2           225 KB, 1 block/SM
+//
+//   - Dh 80 is 1.25 atoms.  Its tiles take two, columns 80-127 never
+//     written: S's fifth k-step reads columns 64-79 of atom 1, and P·V
+//     runs at N = 128 over both atoms, storing the first 80 columns (the
+//     columns past 80 see only their own unwritten V columns).  The
+//     MN-major 128-byte-swizzled layout repeats over whole 64-column
+//     atoms, so an N of 80 would end inside one; a second layout for the
+//     tail (a 32-byte swizzle at N = 16) would need its own copy path.
+//     The padding makes P·V 1.6 times its work at Dh 80 (all products 1.4
+//     times) and leaves the Dh 128 code as it is.
+//   - N past 128 is issued as an n128 over atoms 0-1 and an n64 (192) or
+//     n128 (256) from atom 2, into O's accumulators from 64 on: each
+//     issue's fragment is O's at its columns, so O is laid out as one
+//     product (hopper.cuh's wgmma_m64n*k16 with an offset).
+//   - Registers at Dh 192 and 256: O alone is 96 or 128 a thread, with S
+//     32 and P's hi and lo 32 more; Q's register fragments (Dh/4) would
+//     pass 255 at Dh 256 (and 208 before any address at 192).  There S
+//     reads Q from its tile through a shared-memory A descriptor (the same
+//     K-major swizzled bytes the register fragments are loaded from).
+//   - Shared memory at Dh 192 and 256 allows one block an SM.  Two
+//     warpgroups over 128 query rows share each K/V stage, so a K/V tile
+//     copied into shared memory serves twice the rows and the SM holds 8
+//     warps instead of 4; the block's key range covers both warpgroups'
+//     rows (each masks its own edge tiles).
+//
+// * f32 (every Dh: 64, 80, 128, 192, 256): the CUDA-core body, in f32.
+//   One block of 256 threads per (q tile, kv head, batch row).  The q
+//   tile holds 256/TPR rows: BQ = rows/G query positions times the G
+//   query heads of that kv head, so each K/V tile loaded into shared
+//   memory is shared by all G heads.  Each row is owned by TPR
 //   consecutive lanes, each holding Dh/TPR dims of q and of the f32
 //   accumulator in registers; a score is a per-lane partial dot product
 //   summed with TPR-lane shuffles, over 32-key tiles read with 16-byte
@@ -67,11 +98,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBK = 32;  // keys per shared-memory tile
 
-template <typename T, int DH, int TPR>
+template <int DH, int TPR>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ lengths,
-                     T* __restrict__ out, int Tq, int Tk, int H, int Hkv,
+flash_prefill_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ lengths,
+                     float* __restrict__ out, int Tq, int Tk, int H, int Hkv,
                      int G, int BQ, int causal, int window,
                      const int* __restrict__ q_offset_ptr, float scale) {
   const int q_offset = q_offset_ptr ? *q_offset_ptr : 0;
@@ -102,8 +135,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       qr[c * 4 + e] =
-          row_ok ? rt::to_f(q[((size_t)(b * Tq + qi) * H + h) * DH + ch * 4 + e])
-                 : 0.f;
+          row_ok ? q[((size_t)(b * Tq + qi) * H + h) * DH + ch * 4 + e] : 0.f;
       acc[c * 4 + e] = 0.f;
     }
   }
@@ -121,13 +153,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t1 = (kend + kBK - 1) / kBK;
 
   const size_t row_stride = (size_t)Hkv * DH;
-  const T* kbase = k + ((size_t)b * Tk * Hkv + kvh) * DH;
-  const T* vbase = v + ((size_t)b * Tk * Hkv + kvh) * DH;
+  const float* kbase = k + ((size_t)b * Tk * Hkv + kvh) * DH;
+  const float* vbase = v + ((size_t)b * Tk * Hkv + kvh) * DH;
 
   // a K/V tile is kBK rows of CPR 16-byte chunks, held in registers by
   // the threads (chunks tid, tid + 256, ...) until stored to shared
   // memory; the next tile's loads are issued before this tile's math
-  constexpr int VEC = rt::kVec<T>;
+  constexpr int VEC = rt::kVec<float>;
   constexpr int CPR = DH / VEC;
   constexpr int NLD = (kBK * CPR + kThreads - 1) / kThreads;
   static_assert(DH % VEC == 0, "rows must be whole 16-byte chunks");
@@ -155,8 +187,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int idx = tid + u * kThreads;
       if (idx < kBK * CPR) {
         const int j = idx / CPR, c = idx - j * CPR;
-        rt::unpack16(kreg[u], Ks + j * DH + c * VEC, T());
-        rt::unpack16(vreg[u], Vs + j * DH + c * VEC, T());
+        rt::unpack16(kreg[u], Ks + j * DH + c * VEC, float());
+        rt::unpack16(vreg[u], Vs + j * DH + c * VEC, float());
       }
     }
     __syncthreads();
@@ -212,18 +244,18 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float lc = fmaxf(l, 1e-30f);
-    T* orow = out + ((size_t)(b * Tq + qi) * H + h) * DH;
+    float* orow = out + ((size_t)(b * Tq + qi) * H + h) * DH;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
       const int ch = lane + c * TPR;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        orow[ch * 4 + e] = rt::from_f<T>(acc[c * 4 + e] / lc);
+        orow[ch * 4 + e] = acc[c * 4 + e] / lc;
     }
   }
 }
 
-template <typename T, int DH, int TPR>
+template <int DH, int TPR>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
            int window, const int* q_offset_ptr, cudaStream_t stream) {
@@ -232,39 +264,38 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const int G = H / Hkv;
   const int BQ = rows / G;
   const size_t smem = 2u * kBK * DH * sizeof(float);
-  auto kern = flash_prefill_kernel<T, DH, TPR>;
+  auto kern = flash_prefill_kernel<DH, TPR>;
   cudaError_t err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, Hkv, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Tq, Tk, H, Hkv, G, BQ, causal, window,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths),
+      static_cast<float*>(out), Tq, Tk, H, Hkv, G, BQ, causal, window,
       q_offset_ptr, 1.0f / sqrtf(static_cast<float>(DH)));
   return cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
              void* out, int B, int Tq, int Tk, int H, int Hkv, int Dh,
              int causal, int window, const int* q_offset_ptr,
              cudaStream_t stream) {
   switch (Dh) {
     case 64:
-      return launch<T, 64, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                              causal, window, q_offset_ptr, stream);
+      return launch<64, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, causal,
+                           window, q_offset_ptr, stream);
     case 80:
-      return launch<T, 80, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                              causal, window, q_offset_ptr, stream);
+      return launch<80, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, causal,
+                           window, q_offset_ptr, stream);
     case 128:
-      return launch<T, 128, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                               causal, window, q_offset_ptr, stream);
+      return launch<128, 4>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, causal,
+                            window, q_offset_ptr, stream);
     case 192:  // 24 dims a lane, six 16-byte loads
-      return launch<T, 192, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                               causal, window, q_offset_ptr, stream);
+      return launch<192, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, causal,
+                            window, q_offset_ptr, stream);
     case 256:
-      return launch<T, 256, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                               causal, window, q_offset_ptr, stream);
+      return launch<256, 8>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, causal,
+                            window, q_offset_ptr, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -276,21 +307,33 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 namespace sm = rt::sm90;
 
-constexpr int kRows = 64;      // query rows a block (the wgmma M)
+constexpr int kRows = 64;      // query rows a warpgroup (the wgmma M)
 constexpr int kKeys = 64;      // keys a tile
-constexpr int kThreads = 128;  // one warpgroup
+constexpr int kWarpgroup = 128;
 constexpr int kAtom = kKeys * 128;  // bytes of one 64-column atom of a tile
 
 constexpr int kKStages = 2;    // K tiles in shared memory
 constexpr int kVStages = 3;    // V tiles: P·V of t - 1 reads one while t + 1
                                // lands in another
 
-// shared memory: the Q tile and the K and V stages, each 64 x DH bf16,
-// plus room to align them to 1024 bytes
+// The layout of one head dim (the source's header says why).  A tile of
+// Q, K or V is 64 rows of whole 64-column atoms; P·V runs over all of
+// them, kPV columns, of which the first DH are stored.  kGroups warpgroups
+// a block each own 64 query rows and share every K/V stage; with
+// kQShared, S = Q·Kᵀ reads Q from its shared-memory tile instead of from
+// registers.  Shared memory: kGroups Q tiles and the stages, plus room to
+// align them to 1024 bytes.
 template <int DH>
-struct Smem {
-  static constexpr int kTile = kKeys * DH * 2;
-  static constexpr int kBytes = (1 + kKStages + kVStages) * kTile + 1024;
+struct Layout {
+  static constexpr int kAtoms = (DH + 63) / 64;
+  static constexpr int kTile = kAtoms * kAtom;
+  static constexpr int kPV = kAtoms * 64;
+  static constexpr int kGroups = DH > 128 ? 2 : 1;
+  static constexpr bool kQShared = DH > 128;
+  static constexpr int kThreads = kGroups * kWarpgroup;
+  static constexpr int kBytes = (kGroups + kKStages + kVStages) * kTile + 1024;
+  static_assert(DH % 16 == 0, "S = Q·Kᵀ takes whole k16 steps");
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
 // Phase profile, compiled in only with -DRT_PREFILL_PHASES (chip_smoke.py
@@ -316,26 +359,69 @@ __device__ unsigned long long g_phase_counts[kPhases + 2];
 #endif
 
 // cp.async of rows [row0, row0 + 64) of a bf16 array with `stride`
-// elements a row into a swizzled tile; rows at or past `nrows` are
-// zero-filled.
-template <int DH>
+// elements a row into a swizzled tile, by NT threads; rows at or past
+// `nrows` are zero-filled.  Columns DH.. of the tile's last atom are not
+// written.  Where NT threads cover a whole number of rows, and that
+// number is a multiple of 8, each thread copies one chunk column in rows
+// STEP apart, whose swizzled chunk is the same in every row: one source
+// pointer stepped by STEP rows and one shared-memory address are all it
+// keeps (with an offset computed for each copy, the Dh 256 instance
+// spilled 48 bytes).
+template <int DH, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           size_t stride, int row0, int nrows,
                                           int tid) {
   constexpr int CPR = DH / 8;                  // 16-byte chunks a row
-  constexpr int N = kKeys * CPR / kThreads;
+  constexpr int N = kKeys * CPR / NT;
+  static_assert(kKeys * CPR % NT == 0, "whole chunks a thread");
+  if constexpr (NT % CPR == 0 && (NT / CPR) % 8 == 0) {
+    constexpr int STEP = NT / CPR;
+    const int r = tid / CPR, c = tid % CPR;
+    const bf16* p = src + (size_t)(row0 + r) * stride + c * 8;
+    const uint32_t d = dst + sm::swizzled(r, c, kKeys);
+    const int left = nrows - row0 - r;         // rows this thread may read
 #pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int idx = tid + u * kThreads;
-    const int r = idx / CPR, c = idx % CPR;
-    const bool ok = row0 + r < nrows;
-    const bf16* p = src + (ok ? (size_t)(row0 + r) * stride : 0) + c * 8;
-    sm::cp_async16(dst + sm::swizzled(r, c, kKeys), p, ok);
+    for (int u = 0; u < N; ++u) {
+      const bool ok = u * STEP < left;
+      sm::cp_async16(d + u * STEP * 128, ok ? p : src, ok);
+      p += STEP * stride;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int idx = tid + u * NT;
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = row0 + r < nrows;
+      const bf16* p = src + (ok ? (size_t)(row0 + r) * stride : 0) + c * 8;
+      sm::cp_async16(dst + sm::swizzled(r, c, kKeys), p, ok);
+    }
+  }
+}
+
+// O += P·V over one k16 step: `a` (16 keys of P) from registers, V
+// MN-major from `base` (the step's first key row in the tile), over NPV
+// columns: one n64 or n128 wgmma, or at NPV 192 and 256 an n128 over
+// atoms 0-1 and an n64 or n128 from atom 2 into o[64..].
+template <int NPV>
+__device__ __forceinline__ void pv_k16(float (&o)[NPV / 2],
+                                       const uint32_t (&a)[4],
+                                       uint32_t base) {
+  static_assert(NPV % 64 == 0 && NPV <= 256, "P·V over whole atoms");
+  if constexpr (NPV == 64) {
+    sm::wgmma_m64n64k16<1>(o, a, sm::desc_sw128(base, kAtom, 1024), 1);
+  } else {
+    sm::wgmma_m64n128k16<1>(o, a, sm::desc_sw128(base, kAtom, 1024), 1);
+    if constexpr (NPV == 192)
+      sm::wgmma_m64n64k16<1, 64>(
+          o, a, sm::desc_sw128(base + 2 * kAtom, kAtom, 1024), 1);
+    if constexpr (NPV == 256)
+      sm::wgmma_m64n128k16<1, 64>(
+          o, a, sm::desc_sw128(base + 2 * kAtom, kAtom, 1024), 1);
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Layout<DH>::kThreads)
 flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
@@ -344,59 +430,74 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
                            int Hkv, int causal, int window,
                            const int* __restrict__ q_offset_ptr,
                            float scale_log2) {
+  using L = Layout<DH>;
   const int q_offset = q_offset_ptr ? *q_offset_ptr : 0;
-  constexpr int NO = DH / 2;       // O accumulators a thread
-  constexpr int T = Smem<DH>::kTile;
+  constexpr int NO = L::kPV / 2;   // O accumulators a thread
+  constexpr int T = L::kTile;
+  constexpr int BR = L::kGroups * kRows;   // query rows a block
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (sm::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + T, sv = sk + kKStages * T;
+  const uint32_t sk = sq + L::kGroups * T, sv = sk + kKStages * T;
 
   const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // last tile first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;   // last tile first
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, lane = tid % 32;
-  const int r0 = (tid / 32) * 16 + lane / 4;   // rows r0 and r0 + 8
+  // a one-warpgroup block's warpgroup is 0 at compile time
+  const int wg = L::kGroups > 1 ? tid / kWarpgroup : 0;
+  const int wtid = L::kGroups > 1 ? tid % kWarpgroup : tid;
+  const int qw = q0 + wg * kRows;              // this warpgroup's rows
+  const uint32_t sqw = sq + wg * T;            // ... and their Q tile
+  const int r0 = (wtid / 32) * 16 + lane / 4;  // rows r0 and r0 + 8
   const int c0 = 2 * (lane % 4);               // columns 8j + c0 + {0, 1}
-  const int qp0 = q_offset + q0 + r0, qp1 = qp0 + 8;
+  const int qp0 = q_offset + qw + r0, qp1 = qp0 + 8;
 
   // block-uniform key range [kstart, kend); per-row masks on edge tiles
   const int len = lengths ? lengths[b] : Tk;
   const int kvalid = min(Tk, len);
   const int q_lo = q_offset + q0;
-  const int q_hi = q_offset + min(q0 + kRows, Tq) - 1;
+  const int q_hi = q_offset + min(q0 + BR, Tq) - 1;
   int kend = kvalid;
   if (causal) kend = min(kend, q_hi + 1);
   const int kstart = window > 0 ? max(0, q_lo - window + 1) : 0;
   const int t0 = kstart / kKeys;
   const int t1 = (kend + kKeys - 1) / kKeys;
+  // the warpgroup's own positions decide which tiles it masks
+  const int w_lo = q_offset + qw;
+  const int w_hi = q_offset + min(qw + kRows, Tq) - 1;
 
   const size_t qs = (size_t)H * DH, ks = (size_t)Hkv * DH;
   const bf16* qb = q + ((size_t)b * Tq * H + h) * DH;
   const bf16* kbase = k + ((size_t)b * Tk * Hkv + kvh) * DH;
   const bf16* vbase = v + ((size_t)b * Tk * Hkv + kvh) * DH;
 
-  // cp.async groups, oldest first: Q; K and V of tile t0; then one a tile
-  // t: K and V of t + 1, issued at the top of t into the K stage S of t - 1
-  // read and the V stage P·V of t - 2 read, both done before that top.
-  load_tile<DH>(sq, qb, qs, q0, Tq, tid);
+  // cp.async groups, oldest first: Q (each warpgroup its own rows); K and
+  // V of tile t0; then one a tile t: K and V of t + 1, issued at the top
+  // of t into the K stage S of t - 1 read and the V stage P·V of t - 2
+  // read, both done before that top.
+  load_tile<DH, kWarpgroup>(sqw, qb, qs, qw, Tq, wtid);
   sm::cp_async_commit();
   if (t0 < t1) {
-    load_tile<DH>(sk, kbase, ks, t0 * kKeys, Tk, tid);
-    load_tile<DH>(sv, vbase, ks, t0 * kKeys, Tk, tid);
+    load_tile<DH, L::kThreads>(sk, kbase, ks, t0 * kKeys, Tk, tid);
+    load_tile<DH, L::kThreads>(sv, vbase, ks, t0 * kKeys, Tk, tid);
   }
   sm::cp_async_commit();
 
-  // Q as the register A fragments of S = Q·Kᵀ's Dh/16 k-steps
-  sm::cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qa[DH / 16][4];
+  // Q as the register A fragments of S = Q·Kᵀ's Dh/16 k-steps; with
+  // kQShared the k-steps read the tile itself, visible to wgmma after the
+  // first tile's wait and fence
+  uint32_t qa[L::kQShared ? 1 : DH / 16][4];
+  if constexpr (!L::kQShared) {
+    sm::cp_async_wait<1>();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      qa[kk][e] = sm::ld_shared32(
-          sq + sm::swizzled(r0 + 8 * (e & 1), 2 * kk + e / 2, kKeys) +
-          2 * c0);
+      for (int e = 0; e < 4; ++e)
+        qa[kk][e] = sm::ld_shared32(
+            sqw + sm::swizzled(r0 + 8 * (e & 1), 2 * kk + e / 2, kKeys) +
+            2 * c0);
+  }
 
   float o[NO];
 #pragma unroll
@@ -410,10 +511,9 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
   auto pv = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv =
-          sm::desc_sw128(sv + stage * T + kk * 16 * 128, kAtom, 1024);
-      sm::wgmma_m64k16<1>(o, ph[kk], dv, 1);
-      sm::wgmma_m64k16<1>(o, pl[kk], dv, 1);
+      const uint32_t base = sv + stage * T + kk * 16 * 128;
+      pv_k16<L::kPV>(o, ph[kk], base);
+      pv_k16<L::kPV>(o, pl[kk], base);
     }
   };
 
@@ -429,15 +529,16 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
   for (int t = t0, vs = 0; t < t1; ++t, vs = vs == kVStages - 1 ? 0 : vs + 1) {
     const int buf = (t - t0) & 1;      // K stage of t; V stage of t is vs
     const int kb = t * kKeys;
-    sm::cp_async_wait<0>();      // K and V of t landed
+    sm::cp_async_wait<0>();      // K and V of t (and Q) landed
     sm::fence_async_shared();
     __syncthreads();             // ... for every thread, which are all past
                                  // S of t - 1 and P·V of t - 2
     RT_PHASE(0);
     if (t + 1 < t1) {
-      load_tile<DH>(sk + (buf ^ 1) * T, kbase, ks, kb + kKeys, Tk, tid);
-      load_tile<DH>(sv + (vs == kVStages - 1 ? 0 : vs + 1) * T, vbase, ks,
-                    kb + kKeys, Tk, tid);
+      load_tile<DH, L::kThreads>(sk + (buf ^ 1) * T, kbase, ks, kb + kKeys,
+                                 Tk, tid);
+      load_tile<DH, L::kThreads>(sv + (vs == kVStages - 1 ? 0 : vs + 1) * T,
+                                 vbase, ks, kb + kKeys, Tk, tid);
     }
     sm::cp_async_commit();
 
@@ -450,9 +551,12 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
-      sm::wgmma_m64k16<0>(s, qa[kk],
-                          sm::desc_sw128(sk + buf * T + off, 16, 1024),
-                          kk > 0);
+      const uint64_t dk = sm::desc_sw128(sk + buf * T + off, 16, 1024);
+      if constexpr (L::kQShared)
+        sm::wgmma_m64n64k16_ss(s, sm::desc_sw128(sqw + off, 16, 1024), dk,
+                               kk > 0);
+      else
+        sm::wgmma_m64n64k16<0>(s, qa[kk], dk, kk > 0);
     }
     sm::wgmma_commit();
     if (t > t0) {
@@ -471,8 +575,8 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
     const bool edge = kb + kKeys > kvalid ||
-                      (causal && kb + kKeys - 1 > q_lo) ||
-                      (window > 0 && q_hi - kb >= window);
+                      (causal && kb + kKeys - 1 > w_lo) ||
+                      (window > 0 && w_hi - kb >= window);
     if (edge) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -547,7 +651,7 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
-  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int row0 = qw + r0, row1 = row0 + 8;
   bf16* o0 = out + ((size_t)(b * Tq + row0) * H + h) * DH + c0;
   bf16* o1 = out + ((size_t)(b * Tq + row1) * H + h) * DH + c0;
 #pragma unroll
@@ -565,18 +669,44 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Tq, int Tk, int H, int Hkv, int causal,
            int window, const int* q_offset_ptr, cudaStream_t stream) {
+  using L = Layout<DH>;
   if (Hkv < 1 || H % Hkv != 0) return cudaErrorInvalidValue;
-  constexpr size_t smem = Smem<DH>::kBytes;
+  constexpr int BR = L::kGroups * kRows;
   auto kern = flash_prefill_wgmma_kernel<DH>;
-  cudaError_t err = rt::allow_smem(kern, smem);
+  cudaError_t err = rt::allow_smem(kern, L::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(H, (Tq + kRows - 1) / kRows, B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  dim3 grid(H, (Tq + BR - 1) / BR, B);
+  kern<<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
       static_cast<bf16*>(out), Tq, Tk, H, Hkv, causal, window, q_offset_ptr,
       1.4426950408889634f / sqrtf(static_cast<float>(DH)));
   return cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* lengths,
+             void* out, int B, int Tq, int Tk, int H, int Hkv, int Dh,
+             int causal, int window, const int* q_offset_ptr,
+             cudaStream_t stream) {
+  switch (Dh) {
+    case 64:
+      return tc::launch<64>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                            causal, window, q_offset_ptr, stream);
+    case 80:
+      return tc::launch<80>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                            causal, window, q_offset_ptr, stream);
+    case 128:
+      return tc::launch<128>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                             causal, window, q_offset_ptr, stream);
+    case 192:
+      return tc::launch<192>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                             causal, window, q_offset_ptr, stream);
+    case 256:
+      return tc::launch<256>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
+                             causal, window, q_offset_ptr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc
@@ -595,10 +725,11 @@ extern "C" int rt_prefill_phases(unsigned long long* counts, int reset) {
 }
 #endif
 
-// Which body takes a call: 1 for the tensor-core body (bf16, Dh 64 or
-// 128), 0 for the CUDA-core body.
+// Which body takes a call: 1 for the tensor-core body (bf16, every Dh
+// the kernel takes), 0 for the CUDA-core body (f32).
 extern "C" int rt_flash_prefill_body(int dtype, int Dh) {
-  return dtype == rt::kBFloat16 && (Dh == 64 || Dh == 128);
+  (void)Dh;
+  return dtype == rt::kBFloat16;
 }
 
 // q: (B,Tq,H,Dh); k, v: (B,Tk,Hkv,Dh); lengths: (B,) int32 or null;
@@ -615,15 +746,10 @@ extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qo = static_cast<const int*>(q_offset_ptr);
   if (dtype == rt::kFloat32)
-    return dispatch<float>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh,
-                           causal, window, qo, s);
+    return dispatch(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh, causal,
+                    window, qo, s);
   if (rt_flash_prefill_body(dtype, Dh))
-    return Dh == 64 ? tc::launch<64>(q, k, v, lengths, out, B, Tq, Tk, H,
-                                     Hkv, causal, window, qo, s)
-                    : tc::launch<128>(q, k, v, lengths, out, B, Tq, Tk, H,
-                                      Hkv, causal, window, qo, s);
-  if (dtype == rt::kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k, v, lengths, out, B, Tq, Tk, H, Hkv,
-                                   Dh, causal, window, qo, s);
+    return tc::dispatch(q, k, v, lengths, out, B, Tq, Tk, H, Hkv, Dh, causal,
+                        window, qo, s);
   return cudaErrorInvalidValue;
 }

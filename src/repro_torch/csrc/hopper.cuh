@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
 // cp.async copies into 128-byte-swizzled shared-memory tiles, wgmma
-// shared-memory descriptors, and the bf16 wgmma instructions with A from
-// registers, in raw PTX.
+// shared-memory descriptors, and the bf16 wgmma instructions (m64n64k16
+// and m64n128k16 with A from registers, m64n64k16 with A from shared
+// memory), in raw PTX.
 //
 // Tile layout.  A bf16 tile of `rows` rows by D columns is stored as
 // D / 64 column atoms, each `rows` rows of 128 bytes.  Inside an atom the
@@ -125,35 +126,40 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 #define RT_F8(d, i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define RT_F32(d) RT_F8(d, 0), RT_F8(d, 8), RT_F8(d, 16), RT_F8(d, 24)
-#define RT_F64(d)                                                        \
-  RT_F32(d), RT_F8(d, 32), RT_F8(d, 40), RT_F8(d, 48), RT_F8(d, 56)
+#define RT_F32(d, i) \
+  RT_F8(d, i), RT_F8(d, i + 8), RT_F8(d, i + 16), RT_F8(d, i + 24)
+#define RT_F64(d, i) RT_F32(d, i), RT_F32(d, i + 32)
 
-// d (64 x N, f32) = A·B (+ d if accumulate): A (64 x 16, bf16) in
-// registers, B (16 x N) in shared memory, K-major (TRANS_B = 0: stored as
-// N rows of the reduction dim) or MN-major (TRANS_B = 1).  Thread t of
-// warp w holds A rows w*16 + t/4 and +8: a[0] = (row, 2(t%4) + {0,1}),
-// a[1] = (row + 8, same), a[2] and a[3] the same 8 columns on; and d[i]
-// at row w*16 + t/4 + 8((i/2)%2), column 8(i/4) + 2(t%4) + i%2.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64k16(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int accumulate) {
+// d[OFF, OFF + N/2) (64 x N, f32) = A·B (+ d if accumulate), N = 64 or
+// 128: A (64 x 16, bf16) in registers, B (16 x N) in shared memory,
+// K-major (TRANS_B = 0: stored as N rows of the reduction dim) or
+// MN-major (TRANS_B = 1).  Thread t of warp w holds A rows w*16 + t/4 and
+// +8: a[0] = (row, 2(t%4) + {0,1}), a[1] = (row + 8, same), a[2] and a[3]
+// the same 8 columns on; and d[OFF + i] at row w*16 + t/4 + 8((i/2)%2),
+// column 8(i/4) + 2(t%4) + i%2 of the product.  So products over
+// neighbouring column ranges of one B, issued into d at OFF = first
+// column / 2, leave d laid out as one product over all of them.
+template <int TRANS_B, int OFF = 0, int ND>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[ND],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  static_assert(OFF + 32 <= ND, "accumulators out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : RT_F32(d)
+      : RT_F32(d, OFF)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64k16(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int accumulate) {
+template <int TRANS_B, int OFF = 0, int ND>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ND],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  static_assert(OFF + 64 <= ND, "accumulators out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -163,9 +169,25 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[64],
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : RT_F64(d)
+      : RT_F64(d, OFF)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 64, f32) = A·B (+ d if accumulate) with both operands in shared
+// memory, K-major: A (64 x 16) at da and B (16 x 64) at db, each stored
+// as 64 rows that hold the reduction dim; d laid out as above.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RT_F32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 #undef RT_F8

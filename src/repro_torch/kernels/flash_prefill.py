@@ -12,10 +12,10 @@ tensor once and serves every offset written into it
 on the card or a Python int, which it writes into a device scalar.  The
 launch, its grid and its body do not depend on the offset.
 
-The source has two bodies, chosen by dtype and head dim before the
-launch (``body``): bf16 at Dh 64 or 128 runs on the tensor cores
-(``wgmma``), everything else on the CUDA cores in f32.  The choice is
-not a fallback: a failed build or launch of either body raises.
+The source has two bodies, chosen by dtype before the launch (``body``):
+bf16 runs on the tensor cores (``wgmma``) at every head dim the kernel
+takes, f32 on the CUDA cores.  The choice is not a fallback: a failed
+build or launch of either body raises.
 """
 from __future__ import annotations
 
@@ -23,15 +23,17 @@ import torch
 
 from . import runtime
 
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+# every head dim the kernel takes; bf16 runs all of them on the tensor
+# cores (csrc/flash_prefill.cu: tc::dispatch)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 128, 192, 256)
 
 
 def body(dtype: torch.dtype, Dh: int) -> str:
     """The body of ``csrc/flash_prefill.cu`` that takes a call, as its C
-    dispatch (``rt_flash_prefill_body``) decides."""
-    if dtype == torch.bfloat16 and Dh in TENSOR_CORE_HEAD_DIMS:
-        return "tensor_core"
-    return "cuda_core"
+    dispatch (``rt_flash_prefill_body``) decides: bf16 at every head dim
+    on the tensor cores, f32 on the CUDA cores (the decode kernels' rule,
+    ``decode_attn.body``)."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def flash_prefill(q, k, v, lengths=None, *, causal: bool = True,

@@ -113,7 +113,7 @@ CHUNK_SHAPES = [
     (2, 96, 256, 4, 1, 80, 37),
     (1, 64, 300, 16, 1, 128, 100),        # qwen3-moe: G = 16 at Dh 128
 ]
-# the tensor-core prefill body (bf16, Dh 64 and 128) off its 64-row,
+# the tensor-core prefill body (bf16, every head dim) off its 64-row,
 # 64-key tile grid: (B, Tq, Tk, H, Hkv, causal, window, q_offset, lengths)
 TENSOR_CORE_CASES = {
     "ragged": (1, 100, 230, 4, 2, True, 0, 130, None),
@@ -124,10 +124,11 @@ TENSOR_CORE_CASES = {
     "noncausal_lengths": (2, 96, 200, 4, 4, False, 0, 0, (200, 75)),
 }
 DTYPES = ["float32", "bfloat16"]
-# nemotron-4-340b's attention: H 96, Hkv 8 (G = 12) at Dh 192, the
-# CUDA-core prefill body and G * Dh 2304 in the decode body; added to
-# the card sweeps (the int8 decode kernels' too), held on the CPU against
-# the reference's oracle by test_dh192_plain_versions_match_oracle
+# nemotron-4-340b's attention: H 96, Hkv 8 (G = 12) at Dh 192, two
+# warpgroups a block in the prefill body and G * Dh 2304 in the decode
+# body; added to the card sweeps (the int8 decode kernels' too), held on
+# the CPU against the reference's oracle by
+# test_dh192_plain_versions_match_oracle
 DH192_PREFILL = [
     # (B, T, H, Hkv, Dh, window, causal)
     (2, 150, 96, 8, 192, 0, True),
@@ -781,16 +782,33 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
     assert all(n == 0 for n in runtime.launch_counts.values())
 
 
-@pytest.mark.parametrize("dtype,Dh,want", [
-    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 80, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 80, "cuda_core"),
-    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "cuda_core")])
+@pytest.mark.parametrize("Dh", (64, 80, 128, 192, 256))
 def test_flash_prefill_body_rule(dtype, Dh, want):
-    """bf16 at Dh 64 or 128 takes the tensor-core body; f32 and the other
-    head dims the CUDA-core body (``csrc/flash_prefill.cu``)."""
+    """bf16 takes the tensor-core body at every head dim the kernel
+    takes, f32 the CUDA-core body (``csrc/flash_prefill.cu``)."""
     assert prefill_kernel.body(dtype, Dh) == want
     assert want in runtime.PREFILL_BODIES
+
+
+def test_flash_prefill_bodies_match_the_source():
+    """The source's body rule is the dtype alone, its tensor-core
+    instances are ``TENSOR_CORE_HEAD_DIMS`` and so are its CUDA-core
+    ones, whose kernel takes f32 alone: no bf16 instance of the
+    CUDA-core body is left."""
+    src = (Path(ref.__file__).parent.parent / "csrc" /
+           "flash_prefill.cu").read_text()
+    rule = re.search(r'extern "C" int rt_flash_prefill_body\(int dtype, '
+                     r'int Dh\) \{(.*?)\n\}', src, re.S)[1]
+    assert re.fullmatch(r"\s*\(void\)Dh;\s*"
+                        r"return dtype == rt::kBFloat16;\s*", rule), rule
+    tc = sorted(int(d) for d in re.findall(r"tc::launch<(\d+)>", src))
+    assert tc == sorted(prefill_kernel.TENSOR_CORE_HEAD_DIMS)
+    cc = sorted(int(d) for d in re.findall(r"launch<(\d+), \d+>\(", src))
+    assert cc == tc
+    assert re.search(r"flash_prefill_kernel\(const float\* __restrict__ q,",
+                     src)
 
 
 # ----------------------------------------------------------- CUDA cases --
