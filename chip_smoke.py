@@ -8,8 +8,9 @@ imports only ``repro_torch`` (never JAX or the reference package) and
 goes through these phases, each printing its own lines:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the four CUDA sources from ``src/repro_torch/csrc`` (six
-   kernels: the two decode sources also hold the int8 variants; nvcc,
+2. build: the five CUDA sources from ``src/repro_torch/csrc`` (seven
+   kernels: the two decode sources also hold the int8 variants, and
+   ``wkv6_bwd.cu`` holds ``wkv6``'s backward; nvcc,
    sm_90a, one process per source in parallel); ``cuobjdump -sass``
    must find HGMMA (wgmma) instructions in the prefill tensor-core body,
    and the wrapper's rule for which prefill body takes a call must be
@@ -32,7 +33,12 @@ goes through these phases, each printing its own lines:
    library built with ``-DRT_PREFILL_PHASES``); ``wkv6`` also at a ragged
    T, bit-identical over two calls at the chunk, with the wrapper's tile
    rule the C launch's, and timed at the plan's tile and the tiles around
-   it (the tile sweep);
+   it (the tile sweep); ``wkv6``'s backward kernel ``wkv6_bwd`` against
+   ``ref.wkv6_bwd_ref`` over the sweep, both decay extremes, dsT given
+   and absent, ragged T (1, 17, 37, 0), s0 zero and padded steps, a
+   ``--model 4`` rank's 10 heads, then at rwkv6-3b's chunk (and at 10
+   heads) bit-identical over two calls and timed beside its bound and
+   the plain versions;
 4. model parity: smoke-size qwen3-14b and rwkv6-3b through the kernels on
    the card and through the plain versions on the CPU, same weights;
    then the graphs at smoke size: the engine with its decode step and
@@ -73,8 +79,12 @@ goes through these phases, each printing its own lines:
    ``paged_flash_decode`` (step) or ``flash_prefill`` (chunk) launch a
    layer; an unfused count of the step on ``cuda`` tensors refused with
    no launch; the kernel scope's host cost, 40 wrapped calls against 40
-   unwrapped; then ``launch/dryrun.py --arch qwen3-14b --all --device cuda``
-   in a subprocess (8 records, no error, each printed as counts);
+   unwrapped; and ``launch/dryrun.py --arch qwen3-14b --all --device
+   cuda`` in a subprocess (8 records, no error, each printed as counts)
+   beside another for rwkv6-3b's two ``train_4k`` pairs (a ``roofline``
+   each, ``wkv6`` and its backward kernel by formula, 64 and 32 calls;
+   the plain count skipped with its reason), both started after the
+   phase's timed work and run side by side;
 6. retention (KV retention in the engine, on the same model): smoke qwen3-14b at f32 on the
    reference tests' shared-prefix and 2-session workloads, cold and with
    retention on the card and with retention on the CPU, token ids equal;
@@ -303,9 +313,10 @@ goes through these phases, each printing its own lines:
    tensor-core body, one decode kernel a layer a step), paged ids ==
    contiguous ids;
 15. training: the kernels under autograd at smoke shapes (f32):
-   ``flash_prefill`` causal, windowed and non-causal with Tq != Tk, and
-   ``wkv6``, each launching its kernel once with its plain version's
-   backward, against autograd through the plain versions; the bf16
+   ``flash_prefill`` causal, windowed and non-causal with Tq != Tk, each
+   launching its kernel once with its plain version's backward, and
+   ``wkv6``, launching its kernel and its backward kernel once each,
+   against autograd through the plain versions; the bf16
    grouped product's backward (``moe.GroupedMM``) at a full-width
    qwen3-moe layer's shapes against autograd through the plain loop,
    timed; ``flash_prefill`` at the training step's attention shape
@@ -319,7 +330,17 @@ goes through these phases, each printing its own lines:
    ``flash_prefill`` launches a step: 8 forward and 8 recomputed, 8
    plain backward passes, peak memory under 75 GB), one step split by
    CUDA events into forward, backward and update, and one profiled
-   (device busy, idle share, the plain attention backward's time);
+   (device busy, idle share, the plain attention backward's time); then
+   rwkv6-3b at every published width and all 32 layers (3.1 B
+   parameters), 5 steps of 2 x 4096 tokens with remat (loss finite and
+   falling; 64 ``wkv6`` and 32 ``wkv6_bwd`` launches a step, no plain
+   backward pass), a step split by CUDA events, one profiled (the
+   backward kernel's share of device time) and one counted by
+   ``launch/op_analysis.py`` on real tensors == on fake ``cuda`` ones,
+   its bound at most 1.05 x its CUDA-event time; then ``wkv6_bwd`` and
+   ``wkv6`` on the operands of the first step's last layer (B 2, T
+   4095, the step's dy, dsT absent) against their plain versions, the
+   backward bit-identical over two calls, both timed;
 16. the kernel table as one JSON line (launches from the serve runs:
    each decode kernel from the run on its own pool, the int8 kernels
    from the int8 runs; the three attention kernels once more at
@@ -327,7 +348,10 @@ goes through these phases, each printing its own lines:
    those runs' launches, at hubert-xlarge's and llama-3.2-vision's
    shapes with the launches of its forward and of its two runs, and
    ``flash_prefill`` at the training shape with the training run's
-   launches, the two contiguous decode kernels with ``lse_out`` at the
+   launches, ``wkv6_bwd`` and ``wkv6`` at the rwkv6-3b training
+   step's shape (timed on one of its steps' operands) with that run's
+   launches and ``wkv6_bwd`` at the chunk shape and at 10 heads (no
+   launches), the two contiguous decode kernels with ``lse_out`` at the
    distribution phase's shape with the sequence-cut mesh runs'
    launches, the three attention kernels at the serve shapes with
    the mesh engine runs' launches, at recurrentgemma-2b's and
@@ -449,7 +473,13 @@ RG_RANGES = ("rec_block_forward", "rec_block_decode", "linear_scan",
              "_rglru_gates", "_conv1d", "rglru_step")
 
 
+_T0 = time.perf_counter()
+SPANS = {}      # a log tag's first and last line, seconds from the start
+
+
 def log(phase: str, msg: str) -> None:
+    now = time.perf_counter() - _T0
+    SPANS.setdefault(phase, [now, now])[1] = now
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -1358,6 +1388,153 @@ def wkv6_tile_sweep(torch, label, args, want_y):
                    f"{time_ms(torch, call, 20 if T > 1 else 100):.4f} ms")
     log("kernels", f"{label} tile sweep (rows x columns a thread), bf16: "
         + "; ".join(res))
+
+
+# wkv6's backward kernel against ref.wkv6_bwd_ref: each gradient within a
+# tolerance relative to its largest magnitude (f32 sums in another order
+# over up to 512 steps; one bf16 rounding of dr, dk, dv in bf16)
+WKV_BWD_REL = {"float32": 1e-4, "bfloat16": 8e-3}
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+# (B, T, H, hs): T = 1, T off the 8-step checkpoint interval, T = 0, and
+# a --model 4 rank's 10 heads
+WKV_BWD_RAGGED = [(2, 1, 4, 64), (2, 17, 4, 64), (2, 37, WKV_RANK_H, 64),
+                  (3, 5, 1, 16), (2, 0, 4, 64)]
+
+
+def wkv6_bwd_check(torch, name, args, dy, dsT):
+    """``ops.wkv6_bwd`` (one launch) against ``ref.wkv6_bwd_ref`` on the
+    same tensors; returns the largest absolute error and the largest
+    error relative to its gradient's largest magnitude."""
+    from repro_torch.kernels import ops, ref, runtime
+    n0 = runtime.launch_counts["wkv6_bwd"]
+    got = ops.wkv6_bwd(*args, dy, dsT)
+    torch.cuda.synchronize()
+    if runtime.launch_counts["wkv6_bwd"] != n0 + 1:
+        raise AssertionError(f"{name}: wkv6_bwd not launched once")
+    want = ref.wkv6_bwd_ref(*args, dy, dsT)
+    worst, worst_abs = 0.0, 0.0
+    for g_name, g, w in zip(WKV_BWD_NAMES, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {g_name}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}, or not finite")
+        if not w.numel():
+            continue
+        scale = float(w.abs().max())
+        err = float((g.double() - w.double()).abs().max())
+        rel = WKV_BWD_REL["bfloat16" if g.dtype == torch.bfloat16
+                          else "float32"]
+        if err > rel * scale + 1e-30:
+            raise AssertionError(f"{name} {g_name}: max abs err {err:.4g} "
+                                 f"over {rel} x max |plain| {scale:.4g}")
+        worst = max(worst, err / scale if scale else 0.0)
+        worst_abs = max(worst_abs, err)
+    return worst_abs, worst
+
+
+def wkv6_bwd_phase(torch):
+    """``wkv6``'s backward kernel (``csrc/wkv6_bwd.cu``) against its plain
+    version ``ref.wkv6_bwd_ref`` on the card: the reference sweep and the
+    two decay extremes in f32 and bf16, with dsT given and absent; T = 1,
+    T off the 8-step checkpoint interval and T = 0, s0 zero and padded
+    steps (k = 0, w = 1), a ``--model 4`` rank's 10 heads; then
+    rwkv6-3b's chunk (B 8, T 512, 40 heads of 64, the model's decay, dsT
+    absent as in training) and the same at 10 heads, bit-identical over
+    two calls, and in bf16 timed beside its bound (``cost.wkv6_bwd``)
+    and the plain versions (``ref.wkv6_bwd_ref``; autograd through
+    ``ref.wkv6_ref``, forward and backward)."""
+    from repro_torch.kernels import cost, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def inputs(B, T, H, hs, dtype, w, s0=True):
+        r, k, v = (rnd((B, T, H, hs)).to(dtype) for _ in range(3))
+        s = rnd((B, H, hs, hs), 0.1) if s0 else \
+            torch.zeros((B, H, hs, hs), device=dev)
+        return r, k, v, w, rnd((H, hs), 0.1), s
+
+    def grads(B, T, H, hs, with_dsT=True):
+        return (rnd((B, T, H, hs)),
+                rnd((B, H, hs, hs)) if with_dsT else None)
+    worst, n = {}, 0
+
+    def note(key, errs):
+        worst[key] = max(worst.get(key, 0.0), errs[1])
+    for dtype in (torch.float32, torch.bfloat16):
+        for with_dsT in (True, False):
+            for B, T, H, hs in WKV_SHAPES:
+                w = torch.sigmoid(rnd((B, T, H, hs)))
+                note(f"sweep {dtype}", wkv6_bwd_check(
+                    torch, f"wkv6_bwd{(B, T, H, hs)} {dtype}",
+                    inputs(B, T, H, hs, dtype, w),
+                    *grads(B, T, H, hs, with_dsT)))
+                n += 1
+            for name, decay in WKV_DECAYS.items():
+                B, T, H, hs = 2, 512, 4, 64
+                w = torch.full((B, T, H, hs), decay, device=dev)
+                note(f"{name} decay {dtype}", wkv6_bwd_check(
+                    torch, f"wkv6_bwd {name} decay {dtype}",
+                    inputs(B, T, H, hs, dtype, w),
+                    *grads(B, T, H, hs, with_dsT)))
+                n += 1
+        for B, T, H, hs in WKV_BWD_RAGGED:
+            for s0 in (True, False):
+                w = torch.sigmoid(rnd((B, T, H, hs)))
+                r, k, v, w, u, s = inputs(B, T, H, hs, dtype, w, s0)
+                if T > 4:                  # padded steps, as models/rwkv.py
+                    k[:, -3:], w[:, -3:] = 0.0, 1.0
+                note(f"ragged {dtype}", wkv6_bwd_check(
+                    torch, f"wkv6_bwd{(B, T, H, hs)} {dtype} s0 {s0}",
+                    (r, k, v, w, u, s), *grads(B, T, H, hs)))
+                n += 1
+    log("kernels", f"wkv6_bwd: {n} cases agree with ref.wkv6_bwd_ref "
+        f"(each gradient within {WKV_BWD_REL['float32']} of its largest "
+        f"magnitude, bf16 dr/dk/dv {WKV_BWD_REL['bfloat16']}); largest "
+        f"relative error: " + "; ".join(f"{k} {v:.3g}"
+                                        for k, v in worst.items()))
+    rows = {}
+    B, T, hs = (WKV_MAIN[k] for k in ("B", "T", "hs"))
+    for H in (WKV_MAIN["H"], WKV_RANK_H):
+        label = f"wkv6_bwd chunk B={B} T={T}" + (
+            f" H={H}" if H != WKV_MAIN["H"] else "")
+        w = torch.exp(-torch.exp(rnd((B, T, H, hs)) - 0.5))
+        args = inputs(B, T, H, hs, torch.bfloat16, w)
+        dy, _ = grads(B, T, H, hs)
+        err, rel = wkv6_bwd_check(torch, label, args, dy, None)
+        one, two = ops.wkv6_bwd(*args, dy), ops.wkv6_bwd(*args, dy)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            raise AssertionError(f"{label}: two calls differ")
+        del one, two
+        req = [a.detach().float().requires_grad_(True) for a in args]
+
+        def plain_autograd():
+            return torch.autograd.grad(ref.wkv6_ref(*req)[0], req, dy)
+        b_ms, b_by = bound_ms(cost.wkv6_bwd(B, T, H, hs, 2,
+                                            state_grad=False), "float32")
+        rows[label] = dict(
+            ms=time_ms(torch, lambda: ops.wkv6_bwd(*args, dy), 10),
+            plain_ms=time_ms(torch, lambda: ref.wkv6_bwd_ref(*args, dy),
+                             1, 0),
+            plain_autograd_ms=time_ms(torch, plain_autograd, 1, 0),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        r = rows[label]
+        log("kernels", f"{label} ({H} heads of {hs}, bf16, dsT absent): "
+            f"kernel "
+            f"{r['ms']:.4f} ms, plain (ref.wkv6_bwd_ref) "
+            f"{r['plain_ms']:.4f} ms, autograd through ref.wkv6_ref "
+            f"(forward and backward) {r['plain_autograd_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library null (no PyTorch call "
+            f"computes this recurrence's gradient); max abs err {err:.3g}, "
+            f"{rel:.3g} of a gradient's largest magnitude; two calls "
+            f"identical")
+        del args, dy, req
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------- parity ---
@@ -3241,6 +3418,10 @@ ANALYSIS_BOUND_SLACK = 1.05         # a count's bound over the measured time
 ANALYSIS_PATH = "qwen3-14b under launch/op_analysis.count"
 DRYRUN_SECONDS = 900
 DRYRUN_JOBS = 8                     # pairs traced at once: one a pair
+# the two rwkv6-3b train pairs (single and multi pod): wkv6 forward and
+# backward by formula; the plain versions' loop over 4096 steps skipped
+RWKV_DRYRUN_PAIRS = ("--arch", "rwkv6-3b", "--shape", "train_4k",
+                     "--both-meshes")
 
 
 def fake_like(torch, tree, device):
@@ -3270,42 +3451,90 @@ def count_diff(a, b) -> list:
     return out
 
 
-def start_dryrun(out: Path):
-    """``launch/dryrun.py --arch qwen3-14b --all --device cuda`` in a
-    subprocess (the distribution phase owns this process's default
-    process group), writing ``out`` afresh."""
+def start_dryrun(out: Path, pairs, jobs: int):
+    """``launch/dryrun.py <pairs> --device cuda`` in a subprocess (the
+    distribution phase owns this process's default process group),
+    writing ``out`` afresh."""
     import os
     if out.exists():
         out.unlink()
     return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-14b", "--all", "--device", "cuda", "--jobs",
-         str(DRYRUN_JOBS), "--out", str(out)],
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *pairs,
+         "--device", "cuda", "--jobs", str(jobs), "--out", str(out)],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def finish_dryrun(proc, out: Path, t0: float) -> dict:
+def dryruns() -> dict:
+    """The analysis phase's two dry-runs on fake ``cuda`` tensors, side by
+    side in subprocesses: ``--arch qwen3-14b --all`` (8 pairs,
+    ``DRYRUN_JOBS`` at a time) and rwkv6-3b's two ``train_4k`` pairs
+    (``RWKV_DRYRUN_PAIRS``: a ``roofline`` each with ``wkv6`` twice a
+    layer, forward and remat, and ``wkv6_bwd`` once, by formula; the
+    plain count skipped with its reason).  Both are checked by
+    ``finish_dryrun``; a subprocess still running when this returns or
+    raises is killed."""
+    from repro_torch.configs import get_config
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    runs = {"dryrun": (build / "dryrun_torch.json",
+                       ("--arch", "qwen3-14b", "--all"), DRYRUN_JOBS, 8),
+            "dryrun_rwkv": (build / "dryrun_torch_rwkv.json",
+                            RWKV_DRYRUN_PAIRS, 2, 2)}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for key, (path, pairs, jobs, _) in runs.items():
+            procs[key] = start_dryrun(path, pairs, jobs)
+        out = {key: finish_dryrun(procs[key], path, t0, " ".join(pairs),
+                                  want)
+               for key, (path, pairs, _, want) in runs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    kernels = {k: r["kernels"]
+               for k, r in out["dryrun_rwkv"]["records"].items()}
+    n = get_config("rwkv6-3b").n_layers
+    if any(k != {"wkv6": 2 * n, "wkv6_bwd": n} for k in kernels.values()):
+        raise AssertionError(f"dryrun rwkv6-3b train_4k: kernels {kernels},"
+                             f" want {2 * n} wkv6 (forward and remat) and "
+                             f"{n} wkv6_bwd a step")
+    return out
+
+
+def finish_dryrun(proc, out: Path, t0: float, label: str,
+                  want: int) -> dict:
     """Wait for ``start_dryrun``'s subprocess (killed past
-    ``DRYRUN_SECONDS``), check its 8 records and print their terms."""
+    ``DRYRUN_SECONDS``), check its ``want`` records (no error, no pair
+    skipped whole, a ``roofline`` each; a ``roofline_plain`` may be
+    skipped with its reason) and print their terms."""
     try:
         text, _ = proc.communicate(timeout=DRYRUN_SECONDS)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError(f"dryrun: not done after {DRYRUN_SECONDS} s")
+        raise AssertionError(f"dryrun {label}: not done after "
+                             f"{DRYRUN_SECONDS} s")
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"dryrun exited {proc.returncode}:\n"
+        raise AssertionError(f"dryrun {label} exited {proc.returncode}:\n"
                              f"{text[-3000:]}")
     recs = json.loads(out.read_text())
-    if len(recs) != 8 or any("error" in r or "skipped" in r
-                             for r in recs.values()):
-        raise AssertionError(f"dryrun: {len(recs)} records, want 8 with no "
-                             f"error or skip")
+    if len(recs) != want or any(
+            "error" in r or "skipped" in r or "skipped" in r["roofline"]
+            for r in recs.values()):
+        raise AssertionError(f"dryrun {label}: {len(recs)} records, want "
+                             f"{want} with no error or skip and a roofline "
+                             f"each")
     for key, r in recs.items():
         for tag in ("roofline", "roofline_plain"):
             t = r[tag]
+            if "skipped" in t:
+                log("analysis", f"dryrun {key} {tag}: skipped: "
+                    f"{t['skipped']}")
+                continue
             log("analysis", f"dryrun {key} {tag} (counts, not times; "
                 f"traced on fake {r['device']} in {r['trace_s']} s): "
                 f"{t['flops_per_device']:.4g} FLOP, "
@@ -3317,8 +3546,8 @@ def finish_dryrun(proc, out: Path, t0: float) -> dict:
                 f"args {r['memory']['argument_bytes'] / 2 ** 30:.2f} GiB, "
                 f"temp {r['memory']['temp_bytes'] / 2 ** 30:.2f} GiB; "
                 f"kernels {r['kernels']}")
-    log("analysis", f"dryrun --arch qwen3-14b --all --device cuda: 8 "
-        f"records, 0 errors, {wall:.1f} s of wall time")
+    log("analysis", f"dryrun {label} --device cuda: {want} records, 0 "
+        f"errors, {wall:.1f} s of wall time")
     return dict(records=recs, wall_s=wall)
 
 
@@ -3403,10 +3632,9 @@ def analysis_phase(torch, cfg, model):
     ``ANALYSIS_BOUND_SLACK`` x that time.  Each count takes the live
     keys a row from the host (``count(..., context=)``).  An unfused
     count on the card's tensors must raise and launch nothing, and the
-    scope's host cost is timed against the entry it wraps.  Then
-    ``launch/dryrun.py
-    --arch qwen3-14b --all --device cuda`` runs in a subprocess, its
-    pairs ``DRYRUN_JOBS`` at a time."""
+    scope's host cost is timed against the entry it wraps.  Then the
+    dry-runs (``dryruns``: ``--arch qwen3-14b --all`` and rwkv6-3b's two
+    ``train_4k`` pairs) join the result."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.core.engine import DecodeGraph
     from repro_torch.kernels import runtime
@@ -3520,16 +3748,7 @@ def analysis_phase(torch, cfg, model):
     del paged, batch_cache
     gc.collect()
     torch.cuda.empty_cache()
-    dry_out = ROOT / "build" / "dryrun_torch.json"
-    dry_out.parent.mkdir(exist_ok=True)
-    t_dry = time.perf_counter()
-    dry = start_dryrun(dry_out)
-    try:
-        out["dryrun"] = finish_dryrun(dry, dry_out, t_dry)
-    finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.communicate()
+    out.update(dryruns())
     return out
 
 
@@ -5489,6 +5708,18 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 10, 2, 1e-4
 TRAIN_PATH = f"{TRAIN_ARCH} training ({TRAIN_LAYERS} of 40 layers)"
 # the training step's attention: the forward sees seq - 1 tokens
 TRAIN_ATTN = dict(B=TRAIN_BATCH, T=TRAIN_SEQ - 1, H=40, Hkv=8, Dh=128)
+# rwkv6-3b at every published width and all 32 layers (3.1 B parameters;
+# weights, gradients and f32 moments ~37 GB), batch 2 x 4096 tokens (the
+# train_4k length; the forward sees 4095), remat on, 5 AdamW steps, a
+# 1-step warm-up to lr 1e-4; its backward through wkv6_bwd
+RWKV_TRAIN_ARCH = "rwkv6-3b"
+WKV6_BWD_BODY = ("cuda_core (one block a head: hs = 64 on 256 threads of "
+                 "2 rows x 8 columns of S and G; the state checkpointed "
+                 "every 8 steps, each chunk's states replayed into shared "
+                 "memory)")
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 2, 4096, 5
+RWKV_TRAIN_PATH = (f"{RWKV_TRAIN_ARCH} training (32 layers, "
+                   f"{RWKV_TRAIN_BATCH} x {RWKV_TRAIN_SEQ})")
 # smoke f32 train steps, card against CPU
 TRAIN_SMOKE_ARCHS = ("qwen3-14b", "rwkv6-3b", "recurrentgemma-2b",
                      MOE_ARCH)
@@ -5513,10 +5744,12 @@ def grads_with(torch, out, inputs, cot):
 
 def autograd_checks(torch):
     """The kernels under autograd at smoke shapes, f32: ``flash_prefill``
-    (causal, windowed, non-causal with Tq != Tk) and ``wkv6`` recorded on
-    the card, each launching its kernel once (counted) with its plain
-    version's backward (one pass counted), output and gradients against
-    autograd through the plain version on the same inputs; then the bf16
+    (causal, windowed, non-causal with Tq != Tk) recorded on the card,
+    launching its kernel once (counted) with its plain version's
+    backward (one pass counted), and ``wkv6``, launching its kernel and
+    its backward kernel ``wkv6_bwd`` once each (no plain pass); outputs
+    and gradients against autograd through the plain versions on the
+    same inputs; then the bf16
     grouped product's backward (``moe.GroupedMM``) at one full-width
     qwen3-moe layer's shapes (512 tokens x top 8) against autograd
     through ``grouped_mm_plain``, timed."""
@@ -5566,10 +5799,11 @@ def autograd_checks(torch):
             torch.randn(sT.shape, generator=gen, device=dev)]
     got = grads_with(torch, (y, sT), args, cots)
     if runtime.launch_counts["wkv6"] != 1 or \
-            runtime.autograd_counts["wkv6"] != 1:
+            runtime.launch_counts["wkv6_bwd"] != 1 or \
+            any(runtime.autograd_counts.values()):
         raise AssertionError(f"wkv6 under autograd: launches "
-                             f"{runtime.launch_counts}, backward "
-                             f"{runtime.autograd_counts}")
+                             f"{runtime.launch_counts}, plain backward "
+                             f"passes {runtime.autograd_counts}")
     want_out = ref.wkv6_ref(*args)
     want = grads_with(torch, want_out, args, cots)
     worst["wkv6"] = max(
@@ -5626,8 +5860,9 @@ def autograd_checks(torch):
         del x, wt, dy, dx, dw, pdx, pdw
         torch.cuda.empty_cache()
     log("train", f"autograd on the card, f32, against autograd through the "
-        f"plain versions (atol 1e-4 rtol 1e-3): each call one kernel "
-        f"launch and one plain backward pass; max abs err: "
+        f"plain versions (atol 1e-4 rtol 1e-3): each flash_prefill call "
+        f"one kernel launch and one plain backward pass, the wkv6 call one "
+        f"wkv6 and one wkv6_bwd launch; max abs err: "
         + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     for proj, g in grouped.items():
         log("train", f"qwen3-moe grouped product {proj}, {rows} rows over "
@@ -5756,19 +5991,59 @@ def train_smoke(torch):
         n_rwkv = sum(b == "rwkv" for pat, reps in cfg.block_groups()
                      for b in pat for _ in range(reps))
         if lg["flash_prefill"] != n_attn or lg["wkv6"] != n_rwkv or \
-                ag["flash_prefill"] != n_attn or ag["wkv6"] != n_rwkv:
+                lg["wkv6_bwd"] != n_rwkv or \
+                ag["flash_prefill"] != n_attn:
             raise AssertionError(f"{arch} smoke train step: launches {lg}, "
-                                 f"backward passes {ag}; want "
-                                 f"{n_attn} flash_prefill, {n_rwkv} wkv6")
+                                 f"plain backward passes {ag}; want "
+                                 f"{n_attn} flash_prefill (and as many "
+                                 f"plain passes), {n_rwkv} wkv6 and "
+                                 f"wkv6_bwd (no plain pass)")
         res.append(f"{arch} loss {mg['loss']:.6f} (CPU {mc['loss']:.6f}), "
                    f"grad_norm {mg['grad_norm']:.6f} ({mc['grad_norm']:.6f}),"
                    f" params max abs {worst:.3g}; flash_prefill "
-                   f"{lg['flash_prefill']}, wkv6 {lg['wkv6']} launches, as "
-                   f"many plain backward passes")
+                   f"{lg['flash_prefill']} launches and as many plain "
+                   f"backward passes, wkv6 {lg['wkv6']} and wkv6_bwd "
+                   f"{lg['wkv6_bwd']} launches")
         del cpu_model, gpu_model
     torch.cuda.empty_cache()
     log("train", "smoke f32 train step, card against CPU: " + "; ".join(res))
     return res
+
+
+def split_step(torch, step_fn, model, state, batch):
+    """One train step split by CUDA events into forward (``lm_loss``),
+    backward (up to ``optimizer.apply``) and the AdamW update: returns
+    (model, state, {part: ms})."""
+    from repro_torch.train import optimizer, train_loop
+    ev = {}
+    saved_loss, saved_apply = train_loop.lm_loss, optimizer.apply
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev[name] = e
+
+    def timed_loss(*a, **kw):
+        mark("start")
+        out = saved_loss(*a, **kw)
+        mark("loss")
+        return out
+
+    def timed_apply(*a, **kw):
+        mark("backward")
+        out = saved_apply(*a, **kw)
+        mark("update")
+        return out
+    try:
+        train_loop.lm_loss, optimizer.apply = timed_loss, timed_apply
+        model, state, _ = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+    finally:
+        train_loop.lm_loss, optimizer.apply = saved_loss, saved_apply
+    return model, state, {
+        "forward": ev["start"].elapsed_time(ev["loss"]),
+        "backward": ev["loss"].elapsed_time(ev["backward"]),
+        "update": ev["backward"].elapsed_time(ev["update"])}
 
 
 def train_full(torch):
@@ -5840,35 +6115,7 @@ def train_full(torch):
     step_ms = sorted(later)[len(later) // 2]
 
     # one step split by CUDA events: forward (the loss), backward, update
-    ev = {}
-    saved_loss, saved_apply = train_loop.lm_loss, optimizer.apply
-
-    def mark(name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        ev[name] = e
-
-    def timed_loss(*a, **kw):
-        mark("start")
-        out = saved_loss(*a, **kw)
-        mark("loss")
-        return out
-
-    def timed_apply(*a, **kw):
-        mark("backward")
-        out = saved_apply(*a, **kw)
-        mark("update")
-        return out
-    batch = next(it)
-    try:
-        train_loop.lm_loss, optimizer.apply = timed_loss, timed_apply
-        model, state, _ = step_fn(model, state, batch)
-        torch.cuda.synchronize()
-    finally:
-        train_loop.lm_loss, optimizer.apply = saved_loss, saved_apply
-    split = {"forward": ev["start"].elapsed_time(ev["loss"]),
-             "backward": ev["loss"].elapsed_time(ev["backward"]),
-             "update": ev["backward"].elapsed_time(ev["update"])}
+    model, state, split = split_step(torch, step_fn, model, state, next(it))
     total = sum(split.values())
 
     # one step under the profiler, the plain attention backward in a range
@@ -5940,10 +6187,264 @@ def train_full(torch):
                 launches=sum(launches))
 
 
+def rwkv_step_count(torch, cfg, step_fn, model, state, batch, smi):
+    """One full-width rwkv6-3b train step counted by
+    ``launch/op_analysis.py`` on the real tensors (the kernels launch and
+    count by their formulas; the step trains) and traced on fake
+    ``cuda`` tensors: FLOPs, bytes, ops and kernel calls equal; the
+    count's bound at the H100 peaks at most ``ANALYSIS_BOUND_SLACK`` x
+    the CUDA-event time of a step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import bridge
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch.input_specs import params_shapes
+    from repro_torch.train import optimizer
+    runtime.reset_launch_counts()
+    real = oa.count(step_fn, model, state, batch)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in runtime.launch_counts.items() if v}
+    model, state = real.result[:2]
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fmodel = params_shapes(cfg, torch.bfloat16, "cuda")
+        fake = oa.count(step_fn, fmodel,
+                        optimizer.init(bridge.leaves(fmodel)),
+                        fake_like(torch, batch, "cuda"))
+    trace_s = time.perf_counter() - t0
+    if not (real.stats == fake.stats and real.ops == fake.ops
+            and real.kernels == fake.kernels):
+        raise AssertionError(f"{RWKV_TRAIN_PATH}: real count {real.stats} "
+                             f"{dict(real.kernels)} != fake cuda "
+                             f"{fake.stats} {dict(fake.kernels)}; ops "
+                             f"{count_diff(real, fake)}")
+    n = cfg.n_layers
+    if dict(real.kernels) != {"wkv6": 2 * n, "wkv6_bwd": n} or \
+            launched != {"wkv6": 2 * n, "wkv6_bwd": n}:
+        raise AssertionError(f"{RWKV_TRAIN_PATH} count: kernel calls "
+                             f"{dict(real.kernels)}, launches {launched}")
+    terms = oa.analyze(real, 1, 6.0 * cfg.active_param_count()
+                       * RWKV_TRAIN_BATCH * (RWKV_TRAIN_SEQ - 1))
+    ms = time_ms(torch, lambda: step_fn(model, state, batch), 1, 0)
+    bound = max(terms.compute_s, terms.memory_s) * 1e3
+    by = "compute" if terms.compute_s >= terms.memory_s else "memory"
+    formulas = {k: (v.flops, v.bytes) for k, v in real.kernel_stats.items()}
+    log("train", f"{RWKV_TRAIN_PATH}, one step under op_analysis.count: "
+        f"real == fake cuda (traced in {trace_s:.1f} s): "
+        f"{real.stats.flops:.6g} FLOP, {real.stats.bytes:.6g} B, "
+        f"{sum(real.ops.values())} ops outside {dict(real.kernels)} kernel "
+        f"calls (their formulas, FLOP and B: {formulas}); bound "
+        f"{bound:.4f} ms ({by}; compute {terms.compute_s * 1e3:.4f}, "
+        f"memory {terms.memory_s * 1e3:.4f} ms) against {ms:.4f} ms a "
+        f"step by CUDA events: share {bound / ms:.4f} on {smi}")
+    if bound > ANALYSIS_BOUND_SLACK * ms:
+        raise AssertionError(f"{RWKV_TRAIN_PATH}: count's bound {bound:.4f}"
+                             f" ms > {ANALYSIS_BOUND_SLACK} x measured "
+                             f"{ms:.4f} ms: the count is wrong")
+    return model, state, dict(
+        flops=real.stats.flops, bytes=real.stats.bytes,
+        compute_s=terms.compute_s, memory_s=terms.memory_s, step_ms=ms,
+        share=bound / ms, launches=launched, trace_s=trace_s,
+        memory=real.memory)
+
+
+def train_rwkv(torch):
+    """rwkv6-3b at every published width and depth (bf16, seeded random
+    weights) trained ``RWKV_TRAIN_STEPS`` steps of ``RWKV_TRAIN_BATCH`` x
+    ``RWKV_TRAIN_SEQ`` tokens with remat: the loss finite at every step
+    and the last below the first; each step ``wkv6`` twice a layer
+    (forward and remat's recompute) and its backward kernel ``wkv6_bwd``
+    once, no plain backward pass; step wall, tok/s, peak
+    ``max_memory_allocated``; one step split by CUDA events, one under
+    ``torch.profiler`` (device busy, idle share, ``wkv6_bwd``'s and
+    ``wkv6``'s device time), and one counted (``rwkv_step_count``).
+    The first step's first ``wkv6`` backward call (its last layer's) is
+    kept, and ``wkv6_train_rows`` checks and times both kernels on its
+    operands once the model is gone."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.kernels import ops, runtime
+    from repro_torch.train import optimizer, train_loop
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    cfg = get_config(RWKV_TRAIN_ARCH)
+    entry, seen = ops._WKV6_GRAD.backward, []
+
+    def keep_first(*operands):
+        if not seen:
+            seen.append([None if t is None else t.detach().clone()
+                         for t in operands])
+        return entry(*operands)
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(torch, RWKV_TRAIN_ARCH, cfg, cfg, phase="train")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = optimizer.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                    total_steps=RWKV_TRAIN_STEPS)
+    state = optimizer.init(bridge.leaves(model))
+    step_fn = train_loop.make_train_step(cfg, opt_cfg, remat=True)
+    it = data_tokens.batches(cfg, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, seed=0,
+                             device=dev)
+    losses, walls, counts = [], [], []
+    for i in range(RWKV_TRAIN_STEPS):
+        batch = next(it)
+        ops._WKV6_GRAD.backward = keep_first if i == 0 else entry
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, state, metrics = step_fn(model, state, batch)
+        loss = float(metrics["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts.append((runtime.launch_counts["wkv6"],
+                       runtime.launch_counts["wkv6_bwd"],
+                       sum(runtime.autograd_counts.values())))
+        losses.append(loss)
+        log("train", f"{RWKV_TRAIN_PATH} step {i}: loss={loss:.4f} "
+            f"lr={float(metrics['lr']):.2e} grad_norm="
+            f"{float(metrics['grad_norm']):.3f}, {walls[-1]:.1f} ms; "
+            f"launches wkv6 {counts[-1][0]}, wkv6_bwd {counts[-1][1]}; "
+            f"plain backward passes {counts[-1][2]}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{RWKV_TRAIN_PATH}: loss {loss} at step "
+                                 f"{i}")
+    ops._WKV6_GRAD.backward = entry
+    peak = torch.cuda.max_memory_allocated()
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"{RWKV_TRAIN_PATH}: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall")
+    if any(c != (2 * n, n, 0) for c in counts):
+        raise AssertionError(f"{RWKV_TRAIN_PATH}: (wkv6, wkv6_bwd, plain "
+                             f"backward) a step {counts}, want "
+                             f"{(2 * n, n, 0)}")
+    tokens = RWKV_TRAIN_BATCH * (RWKV_TRAIN_SEQ - 1)
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    model, state, split = split_step(torch, step_fn, model, state,
+                                     next(it))
+    total = sum(split.values())
+    batch = next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model, state, _ = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    prof_out = {}
+    if kernels:
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+        def named(part):
+            return sum(e.time_range.elapsed_us() for e in kernels
+                       if part in e.name) / 1e3
+        bwd, fwd = named("wkv6_bwd"), named("wkv6_kernel")
+        prof_out = dict(busy_ms=busy, idle_share=1 - busy / step_ms,
+                        wkv6_bwd_ms=bwd, wkv6_bwd_share=bwd / busy,
+                        wkv6_ms=fwd, wkv6_share=fwd / busy,
+                        launches=len(kernels))
+        log("train", f"{RWKV_TRAIN_PATH} profiled step: {busy:.1f} ms "
+            f"device busy (idle share {1 - busy / step_ms:.3f} of the "
+            f"median step), {len(kernels)} kernel launches; wkv6_bwd "
+            f"{bwd:.2f} ms ({bwd / busy:.3f} of busy, {bwd / n:.3f} ms a "
+            f"layer), wkv6 {fwd:.2f} ms ({fwd / busy:.3f}; forward and "
+            f"remat's recompute)")
+    else:
+        log("train", f"{RWKV_TRAIN_PATH}: the profiler saw no device "
+            f"events (device busy, idle share and wkv6_bwd's share not "
+            f"measured)")
+    del prof, kernels
+    model, state, count = rwkv_step_count(torch, cfg, step_fn, model, state,
+                                          next(it), smi)
+    log("train", f"{RWKV_TRAIN_PATH}: {n_params / 1e9:.3f} B parameters, "
+        f"batch {RWKV_TRAIN_BATCH} x {RWKV_TRAIN_SEQ}, remat on; "
+        f"{RWKV_TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (finite at every step); step wall first "
+        f"{walls[0]:.1f} ms, median of the rest {step_ms:.1f} ms "
+        f"({tokens / step_ms * 1e3:.0f} tok/s); peak max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; wkv6 {2 * n} launches a step ({n} forward + "
+        f"{n} remat recompute), wkv6_bwd {n}, 0 plain backward passes; a "
+        f"step split by CUDA events: forward {split['forward']:.1f} ms "
+        f"({split['forward'] / total:.3f}), backward "
+        f"{split['backward']:.1f} ms ({split['backward'] / total:.3f}), "
+        f"AdamW update {split['update']:.1f} ms "
+        f"({split['update'] / total:.3f}); on {smi}")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=walls, median_step_ms=step_ms,
+                tok_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                split_ms=split, profile=prof_out, n_params=n_params,
+                count=count, rows=wkv6_train_rows(torch, *seen[0]),
+                launches={"wkv6": sum(c[0] for c in counts),
+                          "wkv6_bwd": sum(c[1] for c in counts)})
+
+
+def wkv6_train_rows(torch, r, k, v, w, u, s0, dy, dsT):
+    """``wkv6_bwd`` and ``wkv6`` on the operands of a real rwkv6-3b
+    training step (``train_rwkv``'s first backward call: B 2, T 4095, 40
+    heads of 64, bf16 r/k/v, the model's decay, s0 zero, dsT absent since
+    training drops sT, and the step's own dy): each against its plain
+    version (the backward as ``wkv6_bwd_check``, the forward at
+    ``WKV_TOL``), the backward bit-identical over two calls, and both
+    timed beside their bounds and plain versions: the training path's
+    rows of the kernels line, by kernel name."""
+    from repro_torch.kernels import cost, ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    args = (r, k, v, w, u, s0)
+    B, T, H, hs = r.shape
+    esz = r.element_size()
+    if dsT is not None:
+        raise AssertionError(f"{RWKV_TRAIN_PATH}: the backward got a dsT; "
+                             f"training drops sT")
+    label = f"wkv6_bwd train B={B} T={T}"
+    err, rel = wkv6_bwd_check(torch, label, args, dy, None)
+    one, two = ops.wkv6_bwd(*args, dy), ops.wkv6_bwd(*args, dy)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"{label}: two calls differ")
+    del one, two
+    b_ms, b_by = bound_ms(cost.wkv6_bwd(B, T, H, hs, esz, state_grad=False),
+                          "float32")
+    rows = {"wkv6_bwd": dict(
+        ms=time_ms(torch, lambda: ops.wkv6_bwd(*args, dy), 10),
+        plain_ms=time_ms(torch, lambda: ref.wkv6_bwd_ref(*args, dy), 1, 0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)}
+    torch.cuda.empty_cache()
+    row = rows["wkv6_bwd"]
+    log("train", f"{label} ({H} heads of {hs}, {r.dtype}, the operands of "
+        f"a training step's last layer, dsT absent): kernel "
+        f"{row['ms']:.4f} ms, plain (ref.wkv6_bwd_ref) "
+        f"{row['plain_ms']:.4f} ms (autograd through ref.wkv6_ref: the "
+        f"chunk's row), bound {b_ms:.4f} ms ({b_by}), library null (no "
+        f"PyTorch call computes this recurrence's gradient); max abs err "
+        f"{err:.3g}, {rel:.3g} of a gradient's largest magnitude; two calls "
+        f"identical")
+    label = f"wkv6 train B={B} T={T}"
+    y, sT = ops.wkv6(*args)
+    want_y, want_s = ref.wkv6_ref(*args)
+    err = max(assert_close(torch, f"{label} y", y, want_y, WKV_TOL),
+              assert_close(torch, f"{label} sT", sT, want_s, WKV_TOL))
+    del y, sT, want_y, want_s
+    b_ms, b_by = bound_ms(cost.wkv6(B, T, H, hs, esz), "float32")
+    rows["wkv6"] = row = dict(
+        ms=time_ms(torch, lambda: ops.wkv6(*args), 10),
+        plain_ms=time_ms(torch, lambda: ref.wkv6_ref(*args), 1, 0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        plan=wk.plan(B, H, hs, T))
+    log("train", f"{label} (the same operands): kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"library null (no single PyTorch call computes this recurrence), "
+        f"max abs err {err:.3g} (atol 1e-4 rtol 1e-3)")
+    return rows
+
+
 def train_phase(torch):
     """Training on the card: the autograd checks, the attention kernel at
     the training shape, the smoke f32 train steps against the CPU, then
-    full-width Qwen3-14B with its depth cut (``train_full``)."""
+    full-width Qwen3-14B with its depth cut (``train_full``) and
+    full-width, full-depth rwkv6-3b at its 4096-token training length
+    (``train_rwkv``)."""
     t0 = time.perf_counter()
     checks = autograd_checks(torch)
     row = train_attention_row(torch)
@@ -5953,8 +6454,11 @@ def train_phase(torch):
     run = train_full(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    rwkv = train_rwkv(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     log("train", f"done in {time.perf_counter() - t0:.1f} s")
-    return dict(checks=checks, row=row, smoke=smoke, run=run)
+    return dict(checks=checks, row=row, smoke=smoke, run=run, rwkv=rwkv)
 
 
 # ------------------------------------------------------- distribution ---
@@ -6767,6 +7271,7 @@ def main() -> int:
     rows.update(int8_kernel_phase(torch))
     prefill_phase_profile(torch)
     rows.update(wkv6_phase(torch))
+    rows.update(wkv6_bwd_phase(torch))
     parity_phase(torch)
     rwkv_parity_phase(torch)
     graph_smoke(torch)
@@ -6829,7 +7334,7 @@ def main() -> int:
         p = row["plan"]
         return dict(entry(name, source, replaces, row, **kw),
                     body=f"{p.body} (split-KV, n_split {p.n_split}, L {p.L})")
-    def wkv6_entry(row, H=WKV_MAIN["H"], **kw):
+    def wkv6_entry(row, H=WKV_MAIN["H"], B=WKV_MAIN["B"], **kw):
         from repro_torch.kernels import wkv6 as wk
         p = row["plan"]
         hs = WKV_MAIN["hs"]
@@ -6839,7 +7344,7 @@ def main() -> int:
                     body=f"cuda_core (state split: {p.kr} rows x {p.vc} "
                          f"columns a thread, {p.cols} columns a block, "
                          f"{p.threads(hs)} threads, "
-                         f"{p.blocks(WKV_MAIN['B'], H, hs)} blocks; "
+                         f"{p.blocks(B, H, hs)} blocks; "
                          f"cp.async ring of {wk.STAGES} x {wk.TILE_T} "
                          f"steps)")
     table = {"kernels": [
@@ -7121,6 +7626,40 @@ def main() -> int:
              plain_fwd_bwd_ms=train["row"]["plain_fwd_bwd_ms"],
              library_fwd_bwd_ms=train["row"]["sdpa_fwd_bwd_ms"],
              fwd_bwd_bound_ms=train["row"]["fwd_bwd_bound_ms"]),
+        # wkv6's backward kernel (the gradient of the reference's
+        # wkv_scan, which XLA compiles; no Pallas kernel) and the forward
+        # kernel under autograd: the rwkv6-3b training run's launches, at
+        # its shape, timed on the operands of one of its steps
+        dict(entry("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+                   "src/repro/models/rwkv.py:72",
+                   train["rwkv"]["rows"]["wkv6_bwd"],
+                   path=RWKV_TRAIN_PATH,
+                   n=train["rwkv"]["launches"]["wkv6_bwd"]),
+             role="training backward of wkv6 (kernels/autograd.py)",
+             body=WKV6_BWD_BODY),
+        dict(wkv6_entry(train["rwkv"]["rows"]["wkv6"], B=RWKV_TRAIN_BATCH,
+                        path=RWKV_TRAIN_PATH,
+                        n=train["rwkv"]["launches"]["wkv6"]),
+             role="training forward and remat's recompute (backward: "
+                  "wkv6_bwd)"),
+        # the backward at the serve chunk's shape and a --model 4 rank's
+        # heads: checked and timed in the kernel phase, launched by no run
+        dict(entry("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+                   "src/repro/models/rwkv.py:72",
+                   rows[f"wkv6_bwd chunk B={WKV_MAIN['B']} "
+                        f"T={WKV_MAIN['T']}"],
+                   path=RWKV_TRAIN_PATH, n=0),
+             role="rwkv6-3b's chunk shape (B 8, T 512): timed and checked "
+                  "here; no run launches the backward at this shape",
+             body=WKV6_BWD_BODY),
+        dict(entry("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+                   "src/repro/models/rwkv.py:72",
+                   rows[f"wkv6_bwd chunk B={WKV_MAIN['B']} "
+                        f"T={WKV_MAIN['T']} H={WKV_RANK_H}"],
+                   path=RWKV_TRAIN_PATH, n=0),
+             role="a --model 4 rank's heads (10 of 40): timed and checked "
+                  "here; no run on one card launches it at this shape",
+             body=WKV6_BWD_BODY),
         # the analysis phase's counts on real tensors: a decode step and a
         # 512 x 8 chunk, each kernel counted by its formula as it launched
         dict(decode_entry("paged_flash_decode",
@@ -7139,6 +7678,9 @@ def main() -> int:
              role="a 512 x 8 chunk under launch/op_analysis.count",
              body="tensor_core (wgmma; bf16, Dh 128)"),
     ]}
+    log("time", "seconds from the start to each tag's first and last "
+        "line: " + json.dumps({k: [round(a, 1), round(b, 1)]
+                               for k, (a, b) in SPANS.items()}))
     log("serve", f"qwen3-14b paged {paged_stats}; contiguous "
         f"{contig_stats}; rwkv6-3b {rwkv_stats}; rwkv6-3b under the "
         f"(1, 1) mesh {rwkv_mesh}")
@@ -7154,7 +7696,8 @@ def main() -> int:
     log("train", json.dumps(train, default=str))
     log("dist", json.dumps(dist, default=str))
     log("analysis", json.dumps({k: v for k, v in analysis.items()
-                                if k != "dryrun"}, default=str))
+                                if not k.startswith("dryrun")},
+                               default=str))
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,32 +1,40 @@
-"""The hand-written kernels under autograd: the forward on the kernel, the
-backward through the plain version.
+"""The hand-written kernels under autograd.
 
 Training runs the model's ``forward`` with gradients on.  On the card,
-``flash_prefill`` and ``wkv6`` are hand-written CUDA kernels with no
-backward; ``kernels/ops.py`` sends a call whose inputs require a gradient
-(with grad mode on) through a :class:`KernelFunction` instead:
+``flash_prefill`` and ``wkv6`` are hand-written CUDA kernels;
+``kernels/ops.py`` sends a call whose inputs require a gradient (with
+grad mode on) through a :class:`KernelFunction` instead:
 
 * ``forward`` launches the CUDA kernel, the same launch serving makes
   (counted in ``runtime.launch_counts`` by its wrapper), and saves only
   its inputs;
-* ``backward`` re-runs the plain version (``ref.flash_prefill_ref``,
-  ``ref.wkv6_ref``) on those inputs under ``torch.enable_grad()`` and
-  returns ``torch.autograd.grad`` of it, counted in
-  ``runtime.autograd_counts``.
+* with a ``backward`` entry (``wkv6``: ``ops.wkv6_bwd``, the
+  hand-written backward kernel ``csrc/wkv6_bwd.cu`` on the card),
+  ``backward`` calls it on the saved inputs and the incoming gradients
+  of the outputs (None for an output whose gradient is not needed) and
+  returns its gradients, None for an input that needs none; the entry's
+  wrapper counts its launch in ``runtime.launch_counts``;
+* without one (``flash_prefill``), ``backward`` re-runs the plain
+  version (``ref.flash_prefill_ref``) on the saved inputs under
+  ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it,
+  counted in ``runtime.autograd_counts``.
 
 That is the reference's own gradient: it trains through its jnp
 attention and ``wkv_scan`` (its Pallas wrappers are for inference, and
-no backward Pallas kernel exists to port), and the plain versions are
-that math.  The forward on the card stays the hand-written kernel: there
-is no switch and no quiet swap; a failed build or launch raises as in
-serving.  A hand-written backward kernel is later speed work.
+no backward Pallas kernel exists to port); the plain versions are that
+math, and ``wkv6``'s backward kernel is its closed-form reverse
+recurrence (``ref.wkv6_bwd_ref``).  There is no switch and no quiet
+swap; a failed build or launch raises as in serving.  A hand-written
+attention backward is later work.
 
-:class:`KernelFunction` is generic over (forward, plain): a test on the
-CPU builds one with the plain version as its forward.
+:class:`KernelFunction` is generic over its forward and its gradient
+(a ``plain`` version or a ``backward`` entry): a test on the CPU builds
+one with the plain version as its forward, and ``wkv6``'s forward picks
+the kernel or the plain version by the operands' device.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -34,13 +42,22 @@ from . import runtime
 
 
 class KernelFunction:
-    """``forward`` and its ``plain`` version, two functions of the same
+    """``forward`` with one of ``plain``, a function of the same
     positional tensors (None allowed) and keyword options, each returning
-    a tensor or a tuple of tensors.  Calling it runs ``forward`` under
-    autograd with the gradient of ``plain``."""
+    a tensor or a tuple of tensors, or ``backward``, a function of the
+    positional tensors, then one incoming gradient an output (None
+    allowed), returning one gradient a positional tensor (the keyword
+    options are the forward's alone).  Calling it runs ``forward`` under
+    autograd with the gradient of ``plain``, or ``backward``'s."""
 
-    def __init__(self, name: str, forward: Callable, plain: Callable):
+    def __init__(self, name: str, forward: Callable,
+                 plain: Optional[Callable] = None, *,
+                 backward: Optional[Callable] = None):
+        if (plain is None) == (backward is None):
+            raise ValueError(f"{name}: give a plain version or a backward "
+                             f"entry, not both or neither")
         self.name, self.forward, self.plain = name, forward, plain
+        self.backward = backward
 
     def __call__(self, *tensors, **options):
         return _Apply.apply(self, options, *tensors)
@@ -51,6 +68,7 @@ class _Apply(torch.autograd.Function):
     def forward(ctx, fn: KernelFunction, options: dict, *tensors):
         ctx.fn, ctx.options = fn, options
         ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)    # an unused output: None
         out = fn.forward(*tensors, **options)
         ctx.n_out = len(out) if isinstance(out, tuple) else 0
         return out
@@ -59,6 +77,10 @@ class _Apply(torch.autograd.Function):
     def backward(ctx, *grads):
         fn = ctx.fn
         needs = ctx.needs_input_grad[2:]
+        if fn.backward is not None:
+            got = fn.backward(*ctx.saved_tensors, *grads)
+            return (None, None) + tuple(g if need else None
+                                        for g, need in zip(got, needs))
         inputs = [t.detach().requires_grad_(need) if need else t
                   for t, need in zip(ctx.saved_tensors, needs)]
         with torch.enable_grad():

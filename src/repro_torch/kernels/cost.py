@@ -11,25 +11,28 @@ kernel.  Here the kernel's work is a formula:
   the (query, key) pairs the causal mask, the window and the key
   lengths leave, four FLOPs a pair a head a channel (``q.k`` and
   ``p.v``); the grouped product's ``2 M K N`` over its M rows; the
-  RWKV6 recurrence's five a state element (``wkv6``).
+  RWKV6 recurrence's five a state element (``wkv6``) and its
+  gradient's fourteen (``wkv6_bwd``).
 * Bytes: each input read once and each output written once: the keys a
   row's queries reach,
   not the cache's whole span, and only the pages the tables name.
 
 The functions of numbers (``prefill``, ``decode``, ``wkv6``,
-``grouped_mm``, ``moe_ffn``) take what the data decides (key lengths,
-live context, experts hit) where the caller knows it; ``chip_smoke.py``
-prints each kernel's bound from them.  The ``*_call`` functions take a
-kernel entry's arguments and read shapes and host scalars only, never a
-tensor's values: a fake tensor has none, and the count of a step on real
-tensors must equal its count on fake ones.  The live keys a row, which
+``wkv6_bwd``, ``grouped_mm``, ``moe_ffn``) take what the data decides
+(key lengths, live context, experts hit) where the caller knows it;
+``chip_smoke.py`` prints each kernel's bound from them.  The ``*_call``
+functions take a kernel entry's arguments and read shapes and host
+scalars only, never a tensor's values: a fake tensor has none, and the
+count of a step on real tensors must equal its count on fake ones.  The
+live keys a row, which
 sit in device tensors (``lengths``, ``pos``), come from the caller's
 host state as ``context`` (``op_analysis.count(..., context=)``: an int
 for every row or B ints, clamped to the span); without it a call's
 live keys are its whole span (``Tk`` keys, ``s_len`` slots).  A query
 offset held in a device tensor is taken as ``Tk - Tq``, the most keys
-the chunk can reach.  ``wkv6_call`` and ``grouped_mm_call`` take
-``context`` for the common signature and have none to read.
+the chunk can reach.  ``wkv6_call``, ``wkv6_bwd_call`` and
+``grouped_mm_call`` take ``context`` for the common signature and have
+none to read.
 
 ``scope(name, formula, plain, like)`` wraps a kernel entry of
 ``kernels/ops.py`` (and ``models/moe.py:grouped_mm``).  Outside a count
@@ -131,6 +134,26 @@ def wkv6(B: int, T: int, H: int, hs: int, esz: int) -> Cost:
                 + 2 * 4 * B * H * hs * hs)
 
 
+def wkv6_bwd(B: int, T: int, H: int, hs: int, esz: int, *,
+             state_grad: bool = True) -> Cost:
+    """The gradient of the RWKV6 recurrence over (B,T,H,hs)
+    (``wkv6_bwd``).  Bytes: r, k, v read and dr, dk, dv written in
+    ``esz`` bytes; the f32 decay and incoming dy read and dw written; u
+    read and du written; the f32 s0 read, the incoming dsT read (with
+    ``state_grad``) and ds0 written, once each.  FLOPs per (b, t, h) and
+    state element: the state recomputed once, ``w S + k v`` (3); G's
+    update ``w G + r dy^T`` (3); ``S dy``, ``G v``, ``G^T k`` and
+    ``sum_j G S`` (2 each): 14.  The rank-1 terms, 16 a channel: ``v .
+    dy`` (2) and ``r . (u k)`` (3) a step, ``u k (v . dy)`` into dr,
+    ``u r (v . dy)`` into dk and ``r k (v . dy)`` into du (3 each), ``dy
+    (r . (u k))`` into dv (2)."""
+    elems = B * T * H * hs
+    state = 4 * B * H * hs * hs
+    return Cost(14.0 * elems * hs + 16.0 * elems,
+                (6 * esz + 4 + 4 + 4) * elems + 2 * 4 * H * hs
+                + (3 if state_grad else 2) * state)
+
+
 def grouped_mm(M: int, K: int, N: int, E: int, esz: int,
                hit: Optional[int] = None) -> Cost:
     """The grouped product of M rows (K wide) by the (K, N) weights of
@@ -222,6 +245,12 @@ def wkv6_call(r, k, v, w, u, s0, *, state_out=None,
               context: Lengths = None) -> Cost:
     B, T, H, hs = r.shape
     return wkv6(B, T, H, hs, _esz(r))
+
+
+def wkv6_bwd_call(r, k, v, w, u, s0, dy, dsT=None, *,
+                  context: Lengths = None) -> Cost:
+    B, T, H, hs = r.shape
+    return wkv6_bwd(B, T, H, hs, _esz(r), state_grad=dsT is not None)
 
 
 def grouped_mm_call(x, w, offs, *, context: Lengths = None) -> Cost:

@@ -5,9 +5,12 @@ tensor on the card goes to the hand-written kernel, whose wrapper raises
 on what it cannot take.  There is no switch and no fallback: the device
 of the operands decides.  On the card a ``flash_prefill`` or ``wkv6``
 call that autograd records (training) launches the same kernel inside a
-``KernelFunction`` whose backward is the plain version's
-(``kernels/autograd.py``); on the CPU autograd runs through the plain
-version itself.
+``KernelFunction`` (``kernels/autograd.py``): ``flash_prefill``'s
+backward is its plain version's, ``wkv6``'s is ``wkv6_bwd``, its
+hand-written backward kernel.  On the CPU autograd runs through the
+plain ``flash_prefill`` itself, and a recorded ``wkv6`` goes through the
+same ``KernelFunction``, whose forward and ``wkv6_bwd`` are there the
+plain versions (``ref.wkv6_ref``, ``ref.wkv6_bwd_ref``).
 
 Each entry is a scope of ``kernels/cost.py``: outside a count
 (``launch/op_analysis.py``) it runs as above and nothing else; under a
@@ -22,10 +25,37 @@ from . import cost, decode_attn, flash_prefill as _prefill, paged_decode_attn
 from . import ref, wkv6 as _wkv6
 from .autograd import KernelFunction, needs_grad
 
-# the card's kernels with the plain versions' gradients
+
+def _like_wkv6_bwd(r, k, v, w, u, s0, dy, dsT=None):
+    """The empty gradients (dr, dk, dv, dw, du, ds0) of ``wkv6_bwd``'s
+    fake call."""
+    return tuple(x.new_empty(x.shape) for x in (r, k, v, w, u, s0))
+
+
+@cost.scope("wkv6_bwd", cost.wkv6_bwd_call, ref.wkv6_bwd_ref,
+            _like_wkv6_bwd)
+def wkv6_bwd(r, k, v, w, u, s0, dy, dsT=None):
+    """The gradient (dr, dk, dv, dw, du, ds0) of ``wkv6`` for the
+    incoming ``dy`` and ``dsT`` (None: zero), the backward of a recorded
+    ``wkv6`` call."""
+    if r.device.type == "cpu":
+        return ref.wkv6_bwd_ref(r, k, v, w, u, s0, dy, dsT)
+    return _wkv6.wkv6_bwd(r, k, v, w, u, s0, dy, dsT)
+
+
+def _wkv6_forward(r, k, v, w, u, s0):
+    """``wkv6``'s forward under autograd: the kernel on the card, the
+    plain version on the CPU."""
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
+    return _wkv6.wkv6(r, k, v, w, u, s0)
+
+
+# the kernels under autograd: flash_prefill (on the card) with its plain
+# version's gradient, wkv6 with its backward entry
 _PREFILL_GRAD = KernelFunction("flash_prefill", _prefill.flash_prefill,
                                ref.flash_prefill_ref)
-_WKV6_GRAD = KernelFunction("wkv6", _wkv6.wkv6, ref.wkv6_ref)
+_WKV6_GRAD = KernelFunction("wkv6", _wkv6_forward, backward=wkv6_bwd)
 
 
 def _like_q(q, *args, **kwargs):
@@ -42,7 +72,7 @@ def _like_wkv6(r, k, v, w, u, s0, *, state_out=None):
 # the fake calls under a count, recorded as the card's route records them
 _PREFILL_FAKE = KernelFunction("flash_prefill", _like_q,
                                ref.flash_prefill_ref)
-_WKV6_FAKE = KernelFunction("wkv6", _like_wkv6, ref.wkv6_ref)
+_WKV6_FAKE = KernelFunction("wkv6", _like_wkv6, backward=wkv6_bwd)
 
 
 @cost.scope("flash_prefill", cost.prefill_call, ref.flash_prefill_ref,
@@ -121,11 +151,11 @@ def paged_flash_decode_int8(q, k_pool, v_pool, k_scale, v_scale,
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
     """The RWKV6 recurrence of (B,T,H,hs) r/k/v/w from state s0.  A call
     that autograd records writes no ``state_out`` (it returns sT)."""
-    if r.device.type == "cpu":
-        return ref.wkv6_ref(r, k, v, w, u, s0, state_out=state_out)
     if needs_grad(r, k, v, w, u, s0):
         if state_out is not None:
             raise ValueError("wkv6: state_out is written in place, which "
                              "autograd cannot record")
         return _WKV6_GRAD(r, k, v, w, u, s0)
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0, state_out=state_out)
     return _wkv6.wkv6(r, k, v, w, u, s0, state_out=state_out)

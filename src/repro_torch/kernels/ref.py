@@ -219,6 +219,55 @@ def wkv6_ref(r, k, v, w, u, s0, *, state_out=None):
     return y, s
 
 
+def wkv6_bwd_ref(r, k, v, w, u, s0, dy, dsT=None):
+    """The gradient of ``wkv6_ref`` by its closed-form reverse recurrence
+    (not through autograd).  With S_{t-1} the state before step t (S_0 =
+    s0) and G_t = dL/dS_t (G_T = ``dsT``, zero when None; ``dy`` None
+    is zero too):
+
+        dr_t = S_{t-1} dy_t + u * k_t (v_t . dy_t)
+        dk_t = G_t v_t + u * r_t (v_t . dy_t)
+        dv_t = G_t^T k_t + dy_t (r_t . (u * k_t))
+        dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+        du = sum_{b, t} r_t * k_t (v_t . dy_t)
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T,  ds0 = G_0
+
+    Computed in f32, or in f64 when ``s0`` is f64, as ``wkv6_ref``; the
+    states of the forward are kept, one a step.  Returns (dr, dk, dv, dw,
+    du, ds0), each in its input's dtype, as autograd through
+    ``wkv6_ref``'s casts gives them.  For the CPU and the tests: on the
+    card ``kernels/wkv6.py:wkv6_bwd`` computes it."""
+    ct = torch.promote_types(s0.dtype, torch.float32)
+    rf, kf, vf, wf = (x.to(ct) for x in (r, k, v, w))
+    uf = u.to(ct)
+    B, T, H, hs = r.shape
+    dyf = rf.new_zeros(r.shape) if dy is None else dy.to(ct)
+    s = s0.to(ct)
+    states = []
+    for t in range(T):
+        states.append(s)
+        s = wf[:, t, :, :, None] * s + \
+            kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = torch.zeros_like(s) if dsT is None else dsT.to(ct)
+    dr, dk, dv, dw = (rf.new_empty(r.shape) for _ in range(4))
+    for t in reversed(range(T)):
+        st = states[t]
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", st, dyf[:, t])
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vf[:, t])
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", g, kf[:, t])
+        dw[:, t] = torch.einsum("bhij,bhij->bhi", g, st)
+        g = wf[:, t, :, :, None] * g + \
+            rf[:, t, :, :, None] * dyf[:, t, :, None, :]
+    vd = (vf * dyf).sum(-1, keepdim=True)               # (B,T,H,1)
+    c = (rf * uf * kf).sum(-1, keepdim=True)
+    dr = dr + uf * kf * vd
+    dk = dk + uf * rf * vd
+    dv = dv + dyf * c
+    du = (rf * kf * vd).sum((0, 1))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), g.to(s0.dtype))
+
+
 def _fold_halves(x, dim):
     """Sum over ``dim`` (a power of two long) as the kernel's shuffles
     take it: the first half plus the second, repeated."""

@@ -22,9 +22,10 @@ route (``models/moe.py:grouped_mm``: the library's grouped GEMM for
 bf16, the plain masked loop for f32); they are no kernels of the port,
 so they stay out of ``launch_counts``.  ``autograd_counts`` counts the
 backward passes of calls made under autograd (``kernels/autograd.py``:
-the kernels' plain versions re-run; ``models/moe.py``: the bf16 grouped
-product's own backward); the forward launches count in ``launch_counts``
-as in serving.  ``lse_counts`` counts the contiguous decode launches that
+a kernel's plain version re-run, for ``flash_prefill``; ``models/moe.py``:
+the bf16 grouped product's own backward); the forward launches count in
+``launch_counts`` as in serving, and so does ``wkv6``'s backward kernel
+(``wkv6_bwd``).  ``lse_counts`` counts the contiguous decode launches that
 also wrote their log-sum-exp output (``lse_out``, the local body of the
 sequence-sharded decode).  ``reset_launch_counts`` zeroes all six.  ``decode_plans`` holds the grid and body of each decode
 kernel's last launch (``kernels/decode_attn.py:plan``); the reset
@@ -50,7 +51,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_prefill.cu", "decode_attn.cu", "paged_decode_attn.cu",
-           "wkv6.cu")
+           "wkv6.cu", "wkv6_bwd.cu")
 HEADERS = ("common.cuh", "decode_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -60,7 +61,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNELS = ("flash_prefill", "paged_flash_decode", "flash_decode", "wkv6",
-           "paged_flash_decode_int8", "flash_decode_int8")
+           "paged_flash_decode_int8", "flash_decode_int8", "wkv6_bwd")
 # the decode kernels, each with a decode plan
 DECODE_KERNELS = ("flash_decode", "paged_flash_decode", "flash_decode_int8",
                   "paged_flash_decode_int8")
@@ -87,9 +88,10 @@ lse_counts = {"flash_decode": 0, "flash_decode_int8": 0}
 
 
 # backward passes through the plain versions of the kernels launched
-# under autograd (kernels/autograd.py), and of the bf16 grouped product
-# (models/moe.py)
-autograd_counts = {"flash_prefill": 0, "wkv6": 0, "grouped_mm": 0}
+# under autograd (kernels/autograd.py: flash_prefill; wkv6's backward is
+# its own kernel, wkv6_bwd, counted in launch_counts), and of the bf16
+# grouped product (models/moe.py)
+autograd_counts = {"flash_prefill": 0, "grouped_mm": 0}
 
 
 COUNTERS = (launch_counts, prefill_body_counts, prefill_unaligned_counts,
@@ -221,6 +223,9 @@ _SIGNATURES = {
     "rt_wkv6_tile": [_P] * 8 + [_I] * 8 + [_P],
     # B, H, hs, T, out[3] -> the tile rt_wkv6 launches (kr, vc, cols)
     "rt_wkv6_plan": [_I] * 4 + [_P],
+    # r, k, v, w, u, s0, dy, dsT (null: zero), dr, dk, dv, dw, du, ds0,
+    # ckpt, du_part, B, T, H, hs, dtype, stream
+    "rt_wkv6_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 

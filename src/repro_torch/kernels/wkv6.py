@@ -1,11 +1,14 @@
-"""Wrapper of the hand-written CUDA RWKV6 recurrence (``csrc/wkv6.cu``),
-and the rule that splits its state over threads and blocks.
+"""Wrappers of the hand-written CUDA RWKV6 recurrence (``csrc/wkv6.cu``)
+and of its gradient (``csrc/wkv6_bwd.cu``), and the rule that splits the
+forward's state over threads and blocks.
 
 Replaces ``repro/kernels/wkv6.py:wkv6`` (Pallas TPU).  The plain PyTorch
 version is ``kernels/ref.py:wkv6_ref``; the kernel's arithmetic order
 (the hoisted bonus, row-group partials folded halves first) is
 ``ref.wkv6_tiled_ref``.  ``kernels/ops.py`` picks between the kernel and
-``wkv6_ref`` by the tensors' device.
+``wkv6_ref`` by the tensors' device.  ``wkv6_bwd`` is the backward of a
+``wkv6`` call that autograd records (``kernels/autograd.py``); its plain
+version is ``ref.wkv6_bwd_ref``.
 
 A thread of the kernel keeps a ``kr`` x ``vc`` register tile of one
 (b, h)'s state; the ``hs / kr`` threads that share a column are adjacent
@@ -36,6 +39,9 @@ TARGET_BLOCKS = 264
 # the (kr, vc) register tiles the C launch is built for
 TILES = ((4, 8), (4, 2), (8, 8), (8, 4))
 HEAD_SIZES = (16, 32, 64)
+# csrc/wkv6_bwd.cu: kBwdChunk, the steps between the backward's state
+# checkpoints (its workspace holds ceil(T / BWD_CHUNK) states a head)
+BWD_CHUNK = 8
 
 
 class WkvPlan(NamedTuple):
@@ -101,20 +107,8 @@ def wkv6(r, k, v, w, u, s0, *, state_out=None):
     them)."""
     r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
     runtime.check_operands("wkv6", r, k, v, w, u, s0, dtype=r.dtype)
+    _check_wkv6_operands("wkv6", r, k, v, w, u, s0)
     B, T, H, hs = r.shape
-    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
-            or k.dtype != r.dtype or v.dtype != r.dtype):
-        raise ValueError(f"wkv6: r/k/v/w shapes {tuple(r.shape)} "
-                         f"{tuple(k.shape)} {tuple(v.shape)} "
-                         f"{tuple(w.shape)}, dtypes {r.dtype} {k.dtype} "
-                         f"{v.dtype}")
-    if (w.dtype != torch.float32 or u.dtype != torch.float32
-            or s0.dtype != torch.float32 or u.shape != (H, hs)
-            or s0.shape != (B, H, hs, hs)):
-        raise ValueError(f"wkv6: w {w.dtype}, u {tuple(u.shape)} {u.dtype}, "
-                         f"s0 {tuple(s0.shape)} {s0.dtype}; w, u and s0 must "
-                         f"be float32 of shapes (B,T,H,hs), (H,hs), "
-                         f"(B,H,hs,hs)")
     if state_out is None:
         state_out = torch.empty_like(s0)
     else:
@@ -129,3 +123,62 @@ def wkv6(r, k, v, w, u, s0, *, state_out=None):
     runtime.check(err, "wkv6", f"B={B}, T={T}, H={H}, hs={hs}")
     runtime.launch_counts["wkv6"] += 1
     return y, state_out
+
+
+def _check_wkv6_operands(name, r, k, v, w, u, s0):
+    """The shapes and dtypes ``wkv6`` and ``wkv6_bwd`` take (both on one
+    card, contiguous: ``runtime.check_operands``)."""
+    B, T, H, hs = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
+            or k.dtype != r.dtype or v.dtype != r.dtype):
+        raise ValueError(f"{name}: r/k/v/w shapes {tuple(r.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)} "
+                         f"{tuple(w.shape)}, dtypes {r.dtype} {k.dtype} "
+                         f"{v.dtype}")
+    if (w.dtype != torch.float32 or u.dtype != torch.float32
+            or s0.dtype != torch.float32 or u.shape != (H, hs)
+            or s0.shape != (B, H, hs, hs)):
+        raise ValueError(f"{name}: w {w.dtype}, u {tuple(u.shape)} "
+                         f"{u.dtype}, s0 {tuple(s0.shape)} {s0.dtype}; w, u "
+                         f"and s0 must be float32 of shapes (B,T,H,hs), "
+                         f"(H,hs), (B,H,hs,hs)")
+
+
+def wkv6_bwd(r, k, v, w, u, s0, dy, dsT=None):
+    """The gradient of ``wkv6(r, k, v, w, u, s0)`` for the incoming ``dy``
+    (B,T,H,hs) f32 (None: zero) and ``dsT`` (B,H,hs,hs) f32 (None: zero,
+    as when training drops sT), on the card.  Returns (dr, dk, dv in r's
+    dtype, dw (B,T,H,hs), du (H,hs), ds0 (B,H,hs,hs) f32).  Allocates the
+    kernel's workspace: the state every ``BWD_CHUNK`` steps of each
+    (b, h), and per-(b, h) partials of du."""
+    r, k, v, w, u, s0 = (x.contiguous() for x in (r, k, v, w, u, s0))
+    if dy is None:
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    grads = [dy.contiguous()] + ([] if dsT is None else [dsT.contiguous()])
+    runtime.check_operands("wkv6_bwd", r, k, v, w, u, s0, *grads,
+                           dtype=r.dtype)
+    _check_wkv6_operands("wkv6_bwd", r, k, v, w, u, s0)
+    dy, dsT = grads[0], (grads[1] if len(grads) > 1 else None)
+    B, T, H, hs = r.shape
+    if (dy.shape, dy.dtype) != (r.shape, torch.float32) or (
+            dsT is not None and (dsT.shape, dsT.dtype)
+            != (s0.shape, torch.float32)):
+        raise ValueError(f"wkv6_bwd: dy {tuple(dy.shape)} {dy.dtype}, dsT "
+                         f"{None if dsT is None else tuple(dsT.shape)}; dy "
+                         f"and dsT must be float32 of y's and sT's shapes")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(B * H * -(-T // BWD_CHUNK) * hs * hs, **f32)
+    du_part = torch.empty(B * H * hs, **f32)
+    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+    dw = torch.empty(r.shape, **f32)
+    du = torch.empty((H, hs), **f32)
+    ds0 = torch.empty_like(s0)
+    err = runtime.library().rt_wkv6_bwd(
+        *(x.data_ptr() for x in (r, k, v, w, u, s0, dy)),
+        None if dsT is None else dsT.data_ptr(),
+        *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ckpt, du_part)),
+        B, T, H, hs, runtime.DTYPE_CODES[r.dtype],
+        runtime.stream_ptr(r.device))
+    runtime.check(err, "wkv6_bwd", f"B={B}, T={T}, H={H}, hs={hs}")
+    runtime.launch_counts["wkv6_bwd"] += 1
+    return dr, dk, dv, dw, du, ds0

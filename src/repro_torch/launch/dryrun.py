@@ -18,13 +18,13 @@ torch) trace the card's program, fake ``cpu`` tensors the CPU's.
 
 Each record has the reference's fields, with ``trace_s`` for
 ``compile_s`` and the traced ``device``: ``roofline`` is the deployment
-(the kernels and the grouped product by formula, ``fused_kernels=True``),
-``roofline_plain`` the plain versions traced op by op (the reference's
-unfused ``roofline``), skipped with its reason where the plain version
-is the per-step ``wkv6`` loop over more than ``PLAIN_WKV_MAX_T`` steps.
-A train pair of such a model is skipped whole: the card's backward of
-``wkv6`` is that loop (``kernels/autograd.py``).  A pair that fails is
-recorded as ``error``.
+(the kernels and the grouped product by formula, ``fused_kernels=True``;
+a train step's ``wkv6`` backward is its kernel's formula,
+``cost.wkv6_bwd``), ``roofline_plain`` the plain versions traced op by
+op (the reference's unfused ``roofline``), skipped with its reason where
+the plain version is the per-step ``wkv6`` loop (forward, or forward and
+backward in a train step) over more than ``PLAIN_WKV_MAX_T`` steps.  A
+pair that fails is recorded as ``error``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu \\
@@ -124,10 +124,6 @@ def trace_one(arch: str, shape: str, multi_pod: bool, device: str = "cuda",
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg, ok, why, variant = _cfg_for(arch, shape, variant)
     mesh_name = "multi" if multi_pod else "single"
-    if ok and _wkv6_loop(cfg, shape, ("train",)):
-        # the train step's backward is the plain version's on the card
-        ok, why = False, ("training: " + _wkv6_loop(cfg, shape, ("train",))
-                          + " in the backward, kernels/autograd.py")
     if not ok:
         return {"arch": arch, "shape": shape, "mesh": mesh_name,
                 "skipped": why}
@@ -144,7 +140,7 @@ def trace_one(arch: str, shape: str, multi_pod: bool, device: str = "cuda",
             t0 = time.time()
             fused = op_analysis.count(fn, *args, fused_kernels=True, **kw)
             trace_s = time.time() - t0
-            skip = _wkv6_loop(cfg, shape, ("prefill",))
+            skip = _wkv6_loop(cfg, shape, ("prefill", "train"))
             if not skip:
                 fn, args, kw = _step(cfg, shape, model, mesh, device, mi)
                 plain = op_analysis.count(fn, *args, fused_kernels=False,

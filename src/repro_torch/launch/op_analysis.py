@@ -37,11 +37,13 @@ version.  ``fused_kernels=False`` runs the plain versions op by op, as
 the reference's unfused count does; the grouped product counts by
 formula in both.  On real tensors a kernel call under a count is the
 entry's own call: the kernel launches, its ops unseen, and a backward
-that autograd records runs op by op after it.  On fake tensors a call
-that autograd records takes the card's route: the kernel's forward by
-formula and the plain version's backward op by op
-(``kernels/autograd.py``); the grouped product's backward is its two
-grouped products.  An unfused count refuses real tensors on the card,
+that autograd records runs after it: op by op for ``flash_prefill``'s
+plain backward, by its formula for ``wkv6``'s backward kernel
+(``kernels/ops.py:wkv6_bwd``, a scope of its own).  On fake tensors a
+call that autograd records takes the card's route: the kernel's forward
+by formula, then ``flash_prefill``'s plain backward op by op and
+``wkv6``'s backward kernel by formula (``kernels/autograd.py``); the
+grouped product's backward is its two grouped products.  An unfused count refuses real tensors on the card,
 where the plain version would take a kernel's place.
 
 The count also records three memory sizes: the argument bytes (the

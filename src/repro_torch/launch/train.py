@@ -10,7 +10,9 @@ runs the plain PyTorch path); without it the full config, with
 activation checkpointing a block group's repetition (``remat = not
 smoke``, as the reference), on the card (``--device cuda``, the
 default): the attention and ``wkv6`` forwards on the hand-written
-kernels, their backward through the plain versions.  Weights are seeded
+kernels, the attention's backward through its plain version and
+``wkv6``'s through its backward kernel (rwkv6-3b at every width and
+depth: ``--arch rwkv6-3b --batch 2 --seq 4096 --lr 1e-4``).  Weights are seeded
 random (``init_params``); ``--layers`` cuts the depth, which one 80 GB
 card needs at full width (Qwen3-14B: ``--layers 8 --batch 4 --seq 512
 --lr 1e-4``; the default lr 1e-3 is the reference's smoke setting, and

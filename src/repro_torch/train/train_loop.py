@@ -11,8 +11,8 @@ absent, and for audio: "embeds" (B,T,d), "labels" (B,T); for a VLM: +
 "vision_embeds"}.  Float inputs are cast to the model's dtype.
 
 On the card the attention and ``wkv6`` forwards are the hand-written
-kernels and their backward the plain versions'
-(``kernels/autograd.py``); the MoE's bf16 grouped products carry the
+kernels, the attention's backward its plain version's and ``wkv6``'s
+its backward kernel (``kernels/autograd.py``); the MoE's bf16 grouped products carry the
 reference's backward (``models/moe.py:GroupedMM``).  ``moe_impl`` is
 ``"local"``, ``"ref"`` or, under a mesh, the expert-parallel ``"ep"``.
 

@@ -270,7 +270,8 @@ def test_decode_graph_counts_each_replay_as_its_captured_launches():
             assert runtime.launch_counts == {
                 "flash_prefill": 5, "paged_flash_decode": 3 * k,
                 "flash_decode": 0, "wkv6": 2 * k,
-                "paged_flash_decode_int8": 0, "flash_decode_int8": 0}
+                "paged_flash_decode_int8": 0, "flash_decode_int8": 0,
+                "wkv6_bwd": 0}
             assert runtime.prefill_body_counts == {"tensor_core": 5,
                                                    "cuda_core": 0}
             assert runtime.decode_plans == {

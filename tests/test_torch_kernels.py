@@ -1468,6 +1468,113 @@ def test_cuda_wkv6_every_tile(tile, dtype, cuda_exact_f32):
             runtime.CUDA_ERROR_INVALID_VALUE
 
 
+# --------------------------------------------- wkv6's backward kernel --
+def _wkv_bwd_tol(name, dtype):
+    """Relative to a gradient's largest magnitude: f32 sums in another
+    order (and the kernel's fused multiply-adds) over up to 512 steps,
+    and one bf16 rounding of dr, dk, dv in bf16."""
+    return 8e-3 if dtype == "bfloat16" and name in ("dr", "dk", "dv") \
+        else 1e-4
+
+
+def _wkv_bwd_check(args, dy, dsT, dtype, label=""):
+    """``wkv6_bwd`` on the card (one launch counted) against
+    ``ref.wkv6_bwd_ref`` on the same tensors."""
+    n0 = runtime.launch_counts["wkv6_bwd"]
+    got = ops.wkv6_bwd(*args, dy, dsT)
+    torch.cuda.synchronize()
+    assert runtime.launch_counts["wkv6_bwd"] == n0 + 1
+    want = ref.wkv6_bwd_ref(*args, dy, dsT)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+        g, w = _f32(g).astype(np.float64), _f32(w).astype(np.float64)
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        err = float(np.abs(g - w).max()) if w.size else 0.0
+        assert np.isfinite(g).all(), (label, name)
+        assert err <= _wkv_bwd_tol(name, dtype) * scale + 1e-30, \
+            (label, name, err, scale)
+    return got
+
+
+def _wkv_bwd_grads(shape, dev, seed=13, dsT=True):
+    B, T, H, hs = shape
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, T, H, hs)).astype(np.float32)
+    ds = rng.standard_normal((B, H, hs, hs)).astype(np.float32)
+    return (_t(dy, "float32", dev),
+            _t(ds, "float32", dev) if dsT else None)
+
+
+@needs_cuda
+@pytest.mark.parametrize("with_dsT", [True, False])
+@pytest.mark.parametrize("shape,dtype,decay", _wkv_cases() + [
+    ((2, 100, 4, 64), "bfloat16", name) for name in WKV_DECAYS])
+def test_cuda_wkv6_bwd(shape, dtype, decay, with_dsT, cuda_exact_f32):
+    """The backward kernel against its plain version on the card over the
+    ``WKV_SHAPES`` sweep in both dtypes and at both decay extremes, with
+    dsT given and absent."""
+    dev = cuda_exact_f32
+    args = _wkv_cuda(*_wkv_inputs(shape, dtype, decay=WKV_DECAYS.get(decay)),
+                     dtype, dev)
+    _wkv_bwd_check(args, *_wkv_bwd_grads(shape, dev, dsT=with_dsT), dtype,
+                   f"{shape} {dtype} {decay}")
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape", [(2, 1, 4, 64), (2, 17, 4, 64),
+                                   (2, 37, 10, 64), (1, 9, 10, 32),
+                                   (3, 5, 1, 16), (2, 0, 4, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s0", ["random", "zero"])
+def test_cuda_wkv6_bwd_ragged_T_and_heads(shape, dtype, s0, cuda_exact_f32):
+    """T = 1, T off the 8-step checkpoint interval and T = 0, the 10
+    heads of a ``--model 4`` rank, s0 present and zero, and padded
+    steps (k = 0, w = 1, as ``models/rwkv.py`` sets past a row's
+    length)."""
+    dev = cuda_exact_f32
+    r, k, v, w, u, s = _wkv_inputs(shape, dtype)
+    if s0 == "zero":
+        s = np.zeros_like(s)
+    if shape[1] > 4:
+        k[:, -3:], w[:, -3:] = 0.0, 1.0
+    args = _wkv_cuda(r, k, v, w, u, s, dtype, dev)
+    dr, dk, dv, dw, du, ds0 = _wkv_bwd_check(
+        args, *_wkv_bwd_grads(shape, dev), dtype, f"{shape} {dtype} {s0}")
+    if shape[1] == 0:
+        assert not du.any()
+
+
+@needs_cuda
+def test_cuda_wkv6_bwd_main_path_shapes_and_bits(cuda_exact_f32):
+    """rwkv6-3b's chunk (B = 8, T = 512, 40 heads of 64, bf16 r/k/v, the
+    model's decay, dsT None as training drops sT): against the plain
+    version, and bit-identical over two calls."""
+    args = _wkv_main(512, cuda_exact_f32)
+    dy, _ = _wkv_bwd_grads((8, 512, 40, 64), cuda_exact_f32)
+    first = _wkv_bwd_check(args, dy, None, "bfloat16", "main")
+    second = ops.wkv6_bwd(*args, dy, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@needs_cuda
+def test_cuda_wkv6_bwd_unsupported_raises_without_launch(cuda_exact_f32):
+    """A head size the kernel does not take is refused by the C launch
+    before any launch; a bf16 dy is refused by the wrapper."""
+    dev = cuda_exact_f32
+    runtime.reset_launch_counts()
+    B, T, H, hs = 1, 4, 2, 48
+    x = torch.zeros((B, T, H, hs), device=dev)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.wkv6_bwd(x, x, x, x, torch.zeros((H, hs), device=dev),
+                     torch.zeros((B, H, hs, hs), device=dev), x)
+    x = torch.zeros((B, T, H, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv6_bwd(x, x, x, x, torch.zeros((H, 64), device=dev),
+                     torch.zeros((B, H, 64, 64), device=dev), x.bfloat16())
+    assert runtime.launch_counts["wkv6_bwd"] == 0
+
+
 # ------------------------------------------- the kernels under autograd --
 PREFILL_GRAD_CASES = {
     # (B, Tq, Tk, H, Hkv, Dh, causal, window, q_offset, lengths)
@@ -1577,12 +1684,16 @@ def test_cuda_flash_prefill_under_autograd(case):
 
 @needs_cuda
 def test_cuda_wkv6_under_autograd():
+    """On the card a recorded ``wkv6`` launches the forward kernel once
+    and, in the backward, the backward kernel once (no plain backward
+    pass); its gradients are autograd's through the plain version."""
     args = _wkv_grad_inputs(torch.float32, "cuda", B=2, T=37, H=2, hs=64)
     runtime.reset_launch_counts()
     out = ops.wkv6(*args)
     assert runtime.launch_counts["wkv6"] == 1
     got = _grads_of(out, args)
-    assert runtime.autograd_counts["wkv6"] == 1
+    assert runtime.launch_counts["wkv6_bwd"] == 1
+    assert not any(runtime.autograd_counts.values())
     want = _grads_of(ref.wkv6_ref(*args), args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)

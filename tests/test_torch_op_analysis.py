@@ -166,6 +166,53 @@ def test_wkv6_formula_against_the_plain_flops():
         2.5 * plain.stats.flops + 5 * elems
 
 
+@pytest.mark.parametrize("with_dsT", [True, False])
+def test_wkv6_bwd_formula_against_the_plain_flops(with_dsT):
+    """The plain ``wkv6_bwd`` traces four products a step (``S dy``,
+    ``G v``, ``G^T k``, ``sum_j G S``: 8 FLOPs a state element); the
+    formula counts 14 a state element (the state's recompute and G's
+    update besides) and the rank-1 terms' 16 a channel.  Its bytes are
+    each input read and each gradient written once."""
+    B, T, H, hs = 2, 8, 2, 16
+    with FakeTensorMode():
+        r, k, v, w, dy = (torch.empty(B, T, H, hs) for _ in range(5))
+        u, s0 = torch.empty(H, hs), torch.empty(B, H, hs, hs)
+        dsT = torch.empty(B, H, hs, hs) if with_dsT else None
+        args = (r, k, v, w, u, s0, dy, dsT)
+        fused = oa.count(ops.wkv6_bwd, *args)
+        plain = oa.count(ops.wkv6_bwd, *args, fused_kernels=False)
+    elems = B * T * H * hs
+    assert fused.kernels == {"wkv6_bwd": 1} and not plain.kernels
+    assert plain.stats.flops == 8 * elems * hs
+    assert fused.kernel_stats["wkv6_bwd"].flops == \
+        1.75 * plain.stats.flops + 16 * elems
+    state = 4 * B * H * hs * hs
+    assert fused.kernel_stats["wkv6_bwd"].bytes == \
+        (6 * 4 + 3 * 4) * elems + 2 * 4 * H * hs \
+        + (3 if with_dsT else 2) * state        # r k v dr dk dv, w dy dw
+
+
+def test_real_count_equals_fake_count_of_an_rwkv_train_step():
+    """A smoke rwkv6-3b train step counted on real CPU tensors (the plain
+    forward and backward run, unseen, under the kernels' formulas) and
+    traced on fake ones: ``wkv6`` and its backward ``wkv6_bwd`` once a
+    layer each, and the same FLOPs, bytes and ops."""
+    from repro_torch.train import optimizer, train_loop
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-3b"), n_layers=2)
+    step = train_loop.make_train_step(cfg, optimizer.AdamWConfig())
+
+    def counted(model):
+        batch = {"tokens": torch.zeros(B, T, dtype=torch.int32)}
+        return oa.count(step, model, optimizer.init(bridge.leaves(model)),
+                        batch)
+    real = counted(tfm.init_params(cfg, 0, torch.float32, "cpu"))
+    with FakeTensorMode():
+        fake = counted(params_shapes(cfg, torch.float32, "cpu"))
+    assert real.kernels == fake.kernels == {"wkv6": 2, "wkv6_bwd": 2}
+    assert real.ops == fake.ops
+    assert real.stats == fake.stats
+
+
 def test_grouped_mm_formula_is_the_plain_loop_over_the_experts():
     """The plain grouped product multiplies every row by every expert;
     the formula counts each row's own (the reference's ragged_dot count
@@ -316,6 +363,21 @@ def test_real_count_equals_fake_count(step):
 
 
 # ------------------------------------------------------------ the dry-run --
+def test_dryrun_traces_an_rwkv_train_pair():
+    """rwkv6-3b train_4k on the single-pod mesh, traced on fake CPU
+    tensors in this process: the step's ``roofline`` with ``wkv6``
+    forward (and remat's recompute) and its backward kernel by formula
+    a layer; ``roofline_plain``, the per-step loop over 4096 steps
+    forward and backward, skipped with its reason."""
+    rec = dryrun.trace_one("rwkv6-3b", "train_4k", False, "cpu")
+    assert "skipped" not in rec and "error" not in rec
+    n = get_config("rwkv6-3b").n_layers
+    assert rec["kernels"] == {"wkv6": 2 * n, "wkv6_bwd": n}
+    assert 0 < rec["roofline"]["useful_ratio"] <= 1
+    assert "loop over 4096 steps" in rec["roofline_plain"]["skipped"]
+
+
+
 def test_dryrun_pair_records_the_reference_fields(tmp_path):
     """qwen3-14b decode_32k on the single-pod mesh, traced on fake CPU
     tensors in a subprocess: every field, argument bytes equal to this
