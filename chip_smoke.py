@@ -128,9 +128,14 @@ goes through these phases, each printing its own lines:
    main widths also at rows of every length and wrapped rings and over
    two calls; the bf16 main shape timed with its plain version, the
    dequantize + bf16 kernel route, SDPA on the dequantized gathered
-   cache and its bound; a split sweep; a chunk's dequantization of its
-   live prefix timed against the engine's fixed-size one of the whole
-   cache, the chunk's bits the same over both), and smoke qwen3-14b f32
+   cache and its bound; a split sweep; at the serve step's shape (B = 8
+   at context 1024 of 4096: L 512, two live splits) both int8 kernels
+   over caches of every code from -128 to 127 at scales from the 1e-8
+   floor to 1e3, the float kernels' bits over two calls, then timed
+   beside the bf16 kernel over the dequantized cache; a chunk's
+   dequantization of its live prefix timed against the engine's
+   fixed-size one of the whole cache, the chunk's bits the same over
+   both), and smoke qwen3-14b f32
    over int8 caches after the parity phase (card ids == CPU ids, graph ==
    eager == CPU, paged == contiguous, prefix and session hits == cold);
    here full-width Qwen3-14B serves the paged run's 12 requests over an
@@ -917,6 +922,99 @@ def decode_split_sweep(torch, q, kc, vc, L0, scales=()):
         f"S=4096: " + "; ".join(res))
 
 
+def int8_serve_step_rows(torch, gen):
+    """Both int8 kernels at the serve step's shape (Qwen3-14B's widths,
+    bf16, B = 8 at context 1024 of 4096 slots: L 512, two live splits,
+    128 blocks), over caches holding every code from -128 to 127 with
+    scales in three bands from ``quantize_kv``'s 1e-8 floor to 1e3 (q
+    scaled so the scores stay near 1): bit for bit the float kernel over
+    the dequantized cache with the same plan, and over two calls; then,
+    on ``quantize_kv`` codes, each timed beside the bf16 kernel over the
+    dequantized cache, the decode kernel a layer of the profiled int8
+    step.  Returns the timed rows."""
+    from repro_torch.kernels import cost, ops, ref, runtime
+    from repro_torch.models.attention import quantize_kv
+    dev = torch.device("cuda")
+    H, Hkv, Dh = MAIN["H"], MAIN["Hkv"], MAIN["Dh"]
+    B, S, ctx, page = 8, 4096, 1024, 128
+    deq, bf16 = ref.dequantize_kv, torch.bfloat16
+    pos = torch.full((B,), ctx - 1, dtype=torch.int32, device=dev)
+    bt = torch.randperm(B * S // page + 1, generator=gen, device=dev)[
+        :B * S // page].reshape(B, S // page).to(torch.int32)
+
+    def paged(t):
+        pl = t.new_zeros((B * S // page + 1, page) + tuple(t.shape[2:]))
+        pl[bt.reshape(-1).long()] = t.reshape((B * S // page, page)
+                                              + tuple(t.shape[2:]))
+        return pl
+
+    def calls(q, kc, vc, ks, vs):
+        pools = [paged(t) for t in (kc, vc, ks, vs)]
+        kd, vd = deq(kc, ks, bf16), deq(vc, vs, bf16)
+        kpd, vpd = deq(pools[0], pools[2], bf16), deq(pools[1], pools[3],
+                                                       bf16)
+        return {"flash_decode_int8": (
+                    lambda: ops.flash_decode_int8(q, kc, vc, ks, vs, pos),
+                    lambda: ops.flash_decode(q, kd, vd, pos), "flash_decode"),
+                "paged_flash_decode_int8": (
+                    lambda: ops.paged_flash_decode_int8(q, *pools, bt, pos,
+                                                        s_len=S),
+                    lambda: ops.paged_flash_decode(q, kpd, vpd, bt, pos,
+                                                   s_len=S),
+                    "paged_flash_decode")}
+
+    codes = torch.arange(-128, 128, dtype=torch.int8, device=dev).repeat(
+        B * S * Hkv * Dh // 256)
+    for band, (lo, hi) in (("floor", (1e-8, 1e-7)), ("unit", (1e-3, 1e-2)),
+                           ("high", (1e2, 1e3))):
+        def cache():
+            c = codes[torch.randperm(codes.numel(), generator=gen,
+                                     device=dev)].reshape(B, S, Hkv, Dh)
+            u = torch.rand((B, S, Hkv), generator=gen, device=dev)
+            return c, torch.exp(math.log(lo) + u * math.log(hi / lo))
+        q = (torch.randn((B, H, Dh), generator=gen, device=dev)
+             / (74 * hi)).to(bf16)
+        kc, ks = cache()
+        vc, vs = cache()
+        for name, (int8, float_, fname) in calls(q, kc, vc, ks,
+                                                 vs).items():
+            a, a2, want = int8(), int8(), float_()
+            p8, pf = runtime.decode_plans[name], runtime.decode_plans[fname]
+            if not (torch.equal(a, want) and torch.equal(a, a2)
+                    and torch.isfinite(a.float()).all() and p8 == pf
+                    and (p8.L, -(-ctx // p8.L)) == (512, 2)):
+                raise AssertionError(
+                    f"{name} every code, scales {lo:g}-{hi:g}: the float "
+                    f"kernel's bits {torch.equal(a, want)}, two calls "
+                    f"{torch.equal(a, a2)}, plans {p8} / {pf}")
+        del q, kc, vc, ks, vs
+    del codes
+    log("int8", "serve step shape (B=8, context 1024 of 4096, L 512, two "
+        "live splits), every code -128..127, scales in [1e-8, 1e-7], "
+        "[1e-3, 1e-2], [1e2, 1e3]: both int8 kernels give the float "
+        "kernels' bits over the dequantized cache with the same plan, and "
+        "the same bits over two calls")
+
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(bf16)
+    kc, ks = quantize_kv(torch.randn((B, S, Hkv, Dh), generator=gen,
+                                     device=dev))
+    vc, vs = quantize_kv(torch.randn((B, S, Hkv, Dh), generator=gen,
+                                     device=dev))
+    rows = {}
+    for name, (int8, float_, fname) in calls(q, kc, vc, ks, vs).items():
+        b_ms, b_by = bound_ms(cost.decode(
+            B, H, Hkv, Dh, 2, ctx, int8=True,
+            page=page if "paged" in name else 0), "bfloat16")
+        rows[f"{name} serve step B=8 ctx=1024"] = r = dict(
+            ms=time_ms(torch, int8, 50), bf16_ms=time_ms(torch, float_, 50),
+            bound_ms=b_ms, bound_by=b_by, plan=runtime.decode_plans[name])
+        log("int8", f"{name} at the serve step (B=8, context 1024, n_split "
+            f"{r['plan'].n_split}, L {r['plan'].L}): {r['ms']:.4f} ms, the "
+            f"bf16 kernel {fname} over the dequantized cache "
+            f"{r['bf16_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def int8_kernel_phase(torch):
     """The int8 decode kernels on the card: the reference sweeps with
     int8 caches (codes and scales from ``quantize_kv`` of normal data) in
@@ -1090,6 +1188,7 @@ def int8_kernel_phase(torch):
         torch.cuda.empty_cache()
     log("int8", "max abs err: " + "; ".join(f"{k} {v:.3g}"
                                             for k, v in worst.items()))
+    rows.update(int8_serve_step_rows(torch, gen))
 
     # the chunk path: a 512-token chunk at offset 1536 of a 4096-slot int8
     # cache dequantizes its 2048 live slots of K and V in torch, then runs
@@ -1135,7 +1234,7 @@ def int8_kernel_phase(torch):
                                          dequant_full_ms=full_ms,
                                          prefill_ms=pre_ms)
     for name, r in rows.items():
-        if "plan" not in r:
+        if "plain_ms" not in r:
             continue
         p = r["plan"]
         log("int8", f"{name}: kernel {r['ms']:.4f} ms, plain "

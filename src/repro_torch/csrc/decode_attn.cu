@@ -90,6 +90,20 @@ extern "C" int rt_flash_decode_int8(const void* q, const void* kc,
   return cudaErrorInvalidValue;
 }
 
+#ifdef RT_DECODE_PHASES
+// counts: the int8 body's kDecPhases cycle sums, then warp tiles and
+// warps, of this source's kernels; zeroes them if reset
+extern "C" int rt_decode_phases(unsigned long long* counts, int reset) {
+  if (reset) {
+    const unsigned long long zero[rt::kDecPhases + 2] = {};
+    return cudaMemcpyToSymbol(rt::g_decode_phases, zero, sizeof(zero));
+  }
+  return cudaMemcpyFromSymbol(counts, rt::g_decode_phases,
+                              sizeof(unsigned long long) *
+                                  (rt::kDecPhases + 2));
+}
+#endif
+
 // 1 when (dtype, Dh) runs the tensor-core body of both decode kernels
 // (bf16, at every head dim they take), 0 for the CUDA-core body (f32):
 // the dispatch of decode_common.cuh's decode_body overloads, which

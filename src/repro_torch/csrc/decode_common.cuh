@@ -71,24 +71,67 @@
 // reference's int8 KV variant stores K and V as int8 codes with one f32
 // scale per (slot, kv head) and dequantizes in jnp before its decode
 // (repro/models/attention.py, scopes vmem_fused:flash_decode_int8 and
-// vmem_fused:paged_flash_decode_int8).  Here the same body takes KV =
-// int8_t: a block streams the code rows (Dh bytes, still 16-byte
-// cp.async chunks) and the tile's scales, and forms code * scale in f32,
-// rounded to q's type, which is dequantize_kv(codes, scale, q.dtype)
-// bit for bit.  On the tensor cores a warp converts each landed tile into
-// a bf16 tile of its own beside its ring, and the rest of the body runs
-// unchanged on it; on the CUDA cores the products are formed as the rows
-// are read.  So the int8 kernel gives the bits of the bf16 (or f32)
-// kernel run on the dequantized cache with the same plan, and reads about
-// half the bytes: at B = 8, context 2048 and Qwen3-14B's widths 33.5 MB
-// of codes and 1.05 MB of scales.  The split rule is the float kernels'
-// (the plan is keyed on q's dtype and Dh alone).  Measured there
-// (chip_smoke.py, H100 SXM, 700 W) it takes about 2.9x that bound, only
-// 10% less than the bf16 kernel: a warp converts each tile after it lands
-// and before its products, with nothing overlapping the conversion, and
-// at context 1024 in a serve step (two live splits, one block an SM) it
-// is slower than the bf16 kernel.  Converting the next tile while the
-// tensor cores work on this one is the next step.
+// vmem_fused:paged_flash_decode_int8).  Here a block streams the code
+// rows (Dh bytes, 16-byte cp.async chunks) and the tile's scales, and
+// forms bf16(f32(code) * scale), which is dequantize_kv(codes, scale,
+// q.dtype) bit for bit; the split rule is the float kernels' (the plan is
+// keyed on q's dtype and Dh alone).  So the int8 kernel gives the bits of
+// the bf16 (or f32) kernel run on the dequantized cache with the same
+// plan, and reads about half the bytes: at B = 8, context 2048 and
+// Qwen3-14B's widths 33.5 MB of codes and 1.05 MB of scales, 0.0104 ms.
+//
+// The scales are not folded out of the element path (K's onto the score
+// column, V's into P): that would save the multiply but change the bits
+// and the rounding against the reference's dequantize-then-attend.
+//
+// On the tensor cores the conversion is what bounds it: 4096 codes a
+// warp tile against 48 mma.  So no code goes through an integer-to-float
+// conversion (a quarter of the f32 rate on sm_90): a byte permute puts
+// code + 128 into the mantissa of 2^23 and one add takes 2^23 + 128 off
+// (code_f32, exact for all 256 codes), one multiply by the slot's scale
+// and one bf16x2 pack round a pair (dequant2; kernels/ref.py:
+// dequantize_kv_magic is the same route in torch).  A lane builds its
+// mma B fragments in registers straight from the code stage, with no
+// bf16 tile and no second trip through shared memory: K's as ldmatrix
+// gives them, from two 4-byte reads a row and k16 step; V's (ldmatrix.
+// trans's layout) with the columns of each n8 block mapped to head dims
+// so that a lane's codes are whole 16-, 8- or 2-byte units of its four
+// slot rows.  The loop is software-pipelined: one basic block runs tile
+// t's softmax and P·V beside tile t + 1's S = Q·Kᵀ and its K and V
+// conversion, so the compiler interleaves the conversion with both
+// tiles' dependent chains.  Q rides in tile 0's cp.async group.  The ring
+// holds 5 stages of 16-slot code tiles at Dh 64 and 128 (6 at 80) in the
+// float ring's bytes, and 4 at Dh 192, 3 at 256, so two blocks share an
+// SM where the float kernel runs one; code rows are padded to an odd
+// number of 16-byte chunks and the accumulators leave as float4 runs, so
+// no fragment read or merge write has a bank conflict.  ptxas: 96-255
+// registers, no spills, in every int8 instance (kernels/ptxas.py); their
+// SASS holds no I2F on the element path (the three to nine I2F of an
+// instance are the integer divisions of block_range and the merge, as
+// many as in the bf16 instances).
+//
+// Measured (tools/decode_ab.py, parent checkout and this one in one call,
+// H100 80GB HBM3, 700 W): at B = 8, context 2048 of 4096 and Qwen3-14B's
+// widths 0.0250 ms paged and 0.0237 ms contiguous (0.0307 and 0.0290
+// before), 2.3-2.4x the bound and below the bf16 kernels' 0.034; at
+// nemotron-4-340b's Dh 192, G 12, 0.0425 and 0.0408 (0.0748 and 0.0723
+// before); at context 1024 (two live splits, 128 blocks, one an SM)
+// 0.0238 and 0.0228 against the bf16 kernels' 0.0211 and 0.0199.  In a
+// profiled Qwen3-14B step at context 1024 (chip_smoke.py) the 40 paged
+// calls take 0.96 ms, the bf16 kernel's 0.97.  What holds it back (the
+// RT_DECODE_PHASES profile, clock cycles of a warp): at context 2048 a
+// tile takes 2334, about 1000 instructions (the conversion about 530 of
+// them, the rescale of the accumulators 64) from two warps a scheduler,
+// so it is bound by instruction issue; at context 1024 one warp a
+// scheduler takes 1925 a tile, and the block's start (4.0 K) and merge
+// (8.4 K, the split-KV merge the float kernels share) take as long as its
+// 8 tiles.  Two variants with a converter warp beside each compute warp
+// were measured and not kept: a bf16 K and V staging tile between them
+// matched the bf16 kernel at context 1024 (0.0216 ms) but needs 131 KB
+// a block, one block an SM, and took 0.035 ms at context 2048 (0.024
+// with two code stages, two blocks an SM); a bf16 K tile alone (112 KB,
+// two blocks an SM, 128 registers a thread) took 0.0253 and 0.0244 ms.
+// On the CUDA cores the products are formed as the rows are read.
 #pragma once
 
 #include <math.h>
@@ -321,32 +364,54 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A warp's shared memory in the tensor-core body.  Float caches: a ring
-// of kDecStages stages, each a bf16 K tile and a V tile of kTcTile rows
-// padded to RB bytes.  int8 caches: each stage holds the K and V code
-// tiles (kTcTile rows of DH bytes) and their kTcTile + kTcTile f32
-// scales, and after the ring one bf16 K tile and one V tile, which the
-// warp fills from the stage it is about to use.
-template <int DH, bool Q8>
+// A warp's shared memory in the tensor-core body over a float cache: a
+// ring of kDecStages stages, each a bf16 K tile and a V tile of kTcTile
+// rows padded to RB bytes.  The Q rows take the same padded rows.
+template <int DH>
 struct TcLayout {
   static constexpr int RB = DH * 2 + 16;            // padded row bytes
   static constexpr int CH = DH / 8;                 // 16-byte chunks a row
   static constexpr int TILE = kTcTile * RB;         // one K or V tile
-  static constexpr int CTILE = kTcTile * DH;        // one int8 code tile
-  static constexpr int STAGE = Q8 ? 2 * CTILE + 2 * kTcTile * 4 : 2 * TILE;
-  static constexpr int WARP_RING = kDecStages * STAGE + (Q8 ? 2 * TILE : 0);
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int WARP_RING = kDecStages * STAGE;
   static_assert((kTcTile * CH) % 32 == 0, "whole copies a lane");
-  static_assert((2 * kTcTile * (DH / 16)) % 32 == 0, "whole code copies");
+};
+
+// ... over an int8 cache: each stage holds the K and the V code tile
+// (kTcTile rows of DH bytes, padded to RB: an odd number of 16-byte
+// chunks, so that the 8 rows one fragment load reads lie in 8 different
+// bank groups) and their kTcTile + kTcTile f32 scales.  As many stages as
+// fit in the float ring's bytes, which keeps as many bytes in flight as
+// that ring, and no more than let two blocks share an SM (with their Q
+// rows; at one block an SM half the 256 blocks of context 2048 wait for
+// a second wave): 5 at Dh 64 and 128, 6 at Dh 80, 4 at Dh 192 and 3 at
+// Dh 256, where the float ring runs one block an SM.  A lane reads
+// its V codes in units of U bytes (units n, n + 8, ... of a row for lane
+// 4n + q): 16 where DH is a multiple of 128, 8 where of 64, else 2.
+constexpr int kSmemTwoBlocks = 115712;  // (228 KB - 2 x 1 KB) / 2
+template <int DH>
+struct Q8Layout {
+  static constexpr int RB = DH + ((DH / 16) % 2 ? 0 : 16);
+  static constexpr int CTILE = kTcTile * RB;        // one code tile
+  static constexpr int STAGE = 2 * CTILE + 2 * kTcTile * 4;
+  static constexpr int FIT_RING = TcLayout<DH>::WARP_RING / STAGE;
+  static constexpr int FIT_TWO =
+      (kSmemTwoBlocks - 16 * TcLayout<DH>::RB) / (kDecWarps * STAGE);
+  static constexpr int STAGES = FIT_RING < FIT_TWO ? FIT_RING : FIT_TWO;
+  static constexpr int WARP_RING = STAGES * STAGE;
+  static constexpr int U = DH % 128 == 0 ? 16 : DH % 64 == 0 ? 8 : 2;
+  static_assert(STAGES >= 3 && STAGE % 16 == 0, "a ring of whole stages");
+  static_assert((DH / 8) % U == 0, "whole V units a lane");
 };
 
 // dynamic shared memory of the tensor-core body: Q rows, then the warps'
 // rings, which the merge area reuses once the slot loop is done
 template <int DH, bool Q8>
 constexpr size_t tc_smem_bytes(int MT, int G) {
-  using Lay = TcLayout<DH, Q8>;
-  const size_t ring = (size_t)kDecWarps * Lay::WARP_RING;
+  const size_t ring = (size_t)kDecWarps *
+                      (Q8 ? Q8Layout<DH>::WARP_RING : TcLayout<DH>::WARP_RING);
   const size_t merge = sizeof(float) * merge_floats(G, DH);
-  return 16 * MT * (size_t)Lay::RB + (ring > merge ? ring : merge);
+  return 16 * MT * (size_t)TcLayout<DH>::RB + (ring > merge ? ring : merge);
 }
 
 // 4-byte copy to shared memory (the scales), zero-filled when !valid.
@@ -357,12 +422,130 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-template <int DH, int MT, typename KV, typename Slots>
-__device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
-                            Slots slots) {
+// Q rows g < G of the block's kv head into shared memory at the padded
+// row bytes, zero rows up to 16 MT, by cp.async (zero rows zero-filled)
+// in the caller's next commit group; visible to the block after its wait
+// and a __syncthreads.
+template <int DH, int MT>
+__device__ __forceinline__ void stage_q_async(uint32_t qs,
+                                              const __nv_bfloat16* qb,
+                                              int G) {
+  constexpr int RB = TcLayout<DH>::RB, CH = TcLayout<DH>::CH;
+  for (int idx = threadIdx.x; idx < 16 * MT * CH; idx += kDecThreads) {
+    const int row = idx / CH, c = idx - row * CH;
+    const bool ok = row < G;
+    sm90::cp_async16(qs + row * RB + c * 16,
+                     ok ? qb + (size_t)row * DH + c * 8 : qb, ok);
+  }
+}
+
+// One tile's online softmax in log2 units: S scaled, slots at or past end
+// masked (slot s0 is live, so every row's maximum is finite), (m, l)
+// updated, o rescaled, and P left as its A fragments, split into bf16
+// hi + lo.
+template <int MT, int NB>
+__device__ __forceinline__ void tile_softmax(
+    float (&s)[MT][2][4], float (&m_r)[MT][2], float (&l_r)[MT][2],
+    float (&o)[MT][NB][4], uint32_t (&ph)[MT][4], uint32_t (&pl)[MT][4],
+    int s0, int end, float scale_log2, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = s0 + nb * 8 + 2 * (lane & 3) + (e & 1);
+        s[mt][nb][e] = slot < end ? s[mt][nb][e] * scale_log2 : -INFINITY;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(fmaxf(s[mt][0][2 * h], s[mt][0][2 * h + 1]),
+                       fmaxf(s[mt][1][2 * h], s[mt][1][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m_r[mt][h], mx);
+      const float al = sm90::exp2_ftz(m_r[mt][h] - mn);
+      m_r[mt][h] = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[mt][nb][e] = sm90::exp2_ftz(s[mt][nb][e] - mn);
+          ps += s[mt][nb][e];
+        }
+      l_r[mt][h] = l_r[mt][h] * al + ps;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        o[mt][nb][2 * h] *= al;
+        o[mt][nb][2 * h + 1] *= al;
+      }
+    }
+    // the S fragment of the two n8 blocks is P's A fragment
+    sm90::split_bf16(s[mt][0][0], s[mt][0][1], ph[mt][0], pl[mt][0]);
+    sm90::split_bf16(s[mt][0][2], s[mt][0][3], ph[mt][1], pl[mt][1]);
+    sm90::split_bf16(s[mt][1][0], s[mt][1][1], ph[mt][2], pl[mt][2]);
+    sm90::split_bf16(s[mt][1][2], s[mt][1][3], ph[mt][3], pl[mt][3]);
+  }
+}
+
+// After the int8 body's slot loop: the warps' (m, l, acc) into the merge
+// area over the rings, then the block's merge (finish_block).  Column c
+// of the accumulators' n8 block nb is head dim (c + 8 (nb / U)) U +
+// nb % U (q8_v_codes), so lane q holds, for each i, the 2U dims from
+// (2q + 8i) U of a row, and stores them as float4 (a scalar store of one
+// column would put a row's 32 lanes on one bank).
+template <int DH, int U, int MT, int NB, typename KV>
+__device__ __forceinline__ void finish_tc(
+    unsigned char* ring, const DecodeArgs<__nv_bfloat16, KV>& a,
+    const BlockRange& r, const float (&o)[MT][NB][4],
+    const float (&m_r)[MT][2], const float (&l_r)[MT][2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: the merge area
+  float* ws = reinterpret_cast<float*>(ring);
+  const int G = a.G, GD = G * DH;
+  float* Wm = ws + kDecWarps * GD;
+  float* Wl = Wm + kDecWarps * G;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_r[mt][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int g = mt * 16 + h * 8 + lane / 4;
+      if (g < G) {
+        if ((lane & 3) == 0) {
+          Wm[warp * G + g] = m_r[mt][h];
+          Wl[warp * G + g] = l;
+        }
+        float* wa = ws + warp * GD + g * DH;
+        static_assert(U % 2 == 0 && NB % U == 0, "float4 runs");
+#pragma unroll
+        for (int i = 0; i < NB / U; ++i) {
+          float* run = wa + (2 * (lane & 3) + 8 * i) * U;
+#pragma unroll
+          for (int x = 0; x < 2 * U; x += 4) {
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[e] = x + e < U ? o[mt][U * i + x + e][2 * h]
+                               : o[mt][U * i + x + e - U][2 * h + 1];
+            *reinterpret_cast<float4*>(run + x) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      }
+    }
+  finish_block<__nv_bfloat16, DH>(ws, a, r);
+}
+
+// The tensor-core body over a bf16 cache.
+template <int DH, int MT, typename Slots>
+__device__ void decode_body(const DecodeArgs<__nv_bfloat16>& a, Slots slots) {
   using bf16 = __nv_bfloat16;
-  constexpr bool Q8 = kInt8Kv<KV>;
-  using Lay = TcLayout<DH, Q8>;
+  using Lay = TcLayout<DH>;
   constexpr int RB = Lay::RB, CH = Lay::CH, NB = DH / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
@@ -391,8 +574,8 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
   const int nt = span > warp * kTcTile
                      ? (span - warp * kTcTile + STEP - 1) / STEP : 0;
   const size_t hstride = (size_t)a.Hkv * DH;
-  const KV* kbase = a.k + (size_t)r.kvh * DH;
-  const KV* vbase = a.v + (size_t)r.kvh * DH;
+  const bf16* kbase = a.k + (size_t)r.kvh * DH;
+  const bf16* vbase = a.v + (size_t)r.kvh * DH;
 
   auto issue = [&](int t) {
     const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
@@ -400,40 +583,18 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
     const int my_s = s0 + (lane & (kTcTile - 1));
     const unsigned long long my_row =
         my_s < r.end ? (unsigned long long)slots.row(r.b, my_s) : 0ull;
-    if constexpr (Q8) {
-      // K then V codes, 16-byte chunks of DH-byte rows; lanes 0-15 the K
-      // scales of the tile's slots, lanes 16-31 the V scales
-      constexpr int C8 = DH / 16, PER = kTcTile * C8;
+    const uint32_t vdst = kdst + Lay::TILE;
 #pragma unroll
-      for (int i = 0; i < 2 * PER / 32; ++i) {
-        const int idx = lane + 32 * i;
-        const int kv = idx / PER, rem = idx - kv * PER;
-        const int j = rem / C8, c = rem - j * C8;
-        const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
-        const bool ok = s0 + j < r.end;
-        const KV* base = kv ? vbase : kbase;
-        sm90::cp_async16(kdst + kv * Lay::CTILE + j * DH + c * 16,
-                         ok ? base + (size_t)row * hstride + c * 16 : base,
-                         ok);
-      }
-      const bool ok = my_s < r.end;
-      const float* sbase = (lane < kTcTile ? a.k_scale : a.v_scale) + r.kvh;
-      cp_async4(kdst + 2 * Lay::CTILE + lane * 4,
-                ok ? sbase + (size_t)my_row * a.Hkv : sbase, ok);
-    } else {
-      const uint32_t vdst = kdst + Lay::TILE;
-#pragma unroll
-      for (int i = 0; i < kTcTile * CH / 32; ++i) {
-        const int idx = lane + 32 * i;
-        const int j = idx / CH, c = idx - j * CH;
-        const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
-        const bool ok = s0 + j < r.end;
-        const size_t off = (size_t)row * hstride + c * 8;
-        sm90::cp_async16(kdst + j * RB + c * 16, ok ? kbase + off : kbase,
-                         ok);
-        sm90::cp_async16(vdst + j * RB + c * 16, ok ? vbase + off : vbase,
-                         ok);
-      }
+    for (int i = 0; i < kTcTile * CH / 32; ++i) {
+      const int idx = lane + 32 * i;
+      const int j = idx / CH, c = idx - j * CH;
+      const unsigned long long row = __shfl_sync(0xffffffffu, my_row, j);
+      const bool ok = s0 + j < r.end;
+      const size_t off = (size_t)row * hstride + c * 8;
+      sm90::cp_async16(kdst + j * RB + c * 16, ok ? kbase + off : kbase,
+                       ok);
+      sm90::cp_async16(vdst + j * RB + c * 16, ok ? vbase + off : vbase,
+                       ok);
     }
   };
 
@@ -462,41 +623,7 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
     sm90::cp_async_commit();
     sm90::cp_async_wait<kDecStages - 1>();
     __syncwarp();
-    uint32_t ks = ring_s + (t % kDecStages) * Lay::STAGE;
-    if constexpr (Q8) {
-      // dequantize the landed codes into the warp's bf16 tiles:
-      // bf16(code * scale), as dequantize_kv(codes, scale, bf16) rounds
-      constexpr int C8 = DH / 16, PER = kTcTile * C8;
-      const unsigned char* st = wring + (t % kDecStages) * Lay::STAGE;
-      const float* sc = reinterpret_cast<const float*>(st + 2 * Lay::CTILE);
-      unsigned char* cvt = wring + kDecStages * Lay::STAGE;
-#pragma unroll
-      for (int i = 0; i < 2 * PER / 32; ++i) {
-        const int idx = lane + 32 * i;
-        const int kv = idx / PER, rem = idx - kv * PER;
-        const int j = rem / C8, c = rem - j * C8;
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            st + kv * Lay::CTILE + j * DH + c * 16);
-        const float s = sc[kv * kTcTile + j];
-        const unsigned w[4] = {u.x, u.y, u.z, u.w};
-        uint32_t o8[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int b0 = (int)(signed char)(w[e] & 0xff);
-          const int b1 = (int)(signed char)((w[e] >> 8) & 0xff);
-          const int b2 = (int)(signed char)((w[e] >> 16) & 0xff);
-          const int b3 = (int)(signed char)(w[e] >> 24);
-          o8[2 * e] = sm90::pack_bf16((float)b0 * s, (float)b1 * s);
-          o8[2 * e + 1] = sm90::pack_bf16((float)b2 * s, (float)b3 * s);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(cvt + kv * Lay::TILE + j * RB +
-                                              c * 32);
-        dst[0] = make_uint4(o8[0], o8[1], o8[2], o8[3]);
-        dst[1] = make_uint4(o8[4], o8[5], o8[6], o8[7]);
-      }
-      __syncwarp();
-      ks = sm90::smem_addr(cvt);
-    }
+    const uint32_t ks = ring_s + (t % kDecStages) * Lay::STAGE;
     const uint32_t vs = ks + Lay::TILE;
     const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
 
@@ -612,6 +739,311 @@ __device__ void decode_body(const DecodeArgs<__nv_bfloat16, KV>& a,
   finish_block<bf16, DH>(ws, a, r);
 }
 
+
+// Phase profile of the int8 body, compiled in only with
+// -DRT_DECODE_PHASES (tools/decode_ab.py --phases builds such a library
+// beside the real one): lane 0 of each warp adds the clock cycles it
+// spent in each phase to g_decode_phases, with its tile count and 1;
+// rt_decode_phases (decode_attn.cu) reads or zeroes them.  The compiler
+// may move arithmetic across the clock reads, so a phase counts what the
+// compiled code does between two of them.
+#ifdef RT_DECODE_PHASES
+// before the slot loop (the first copies issued, Q staged, tile 0 waited
+// for, its S issued and V converted), a step's copies issued, its wait
+// for tile t + 1, its softmax and P·V with tile t + 1's front, and after
+// the loop (the merge)
+constexpr int kDecPhases = 5;
+namespace {
+__device__ unsigned long long g_decode_phases[kDecPhases + 2];
+}
+#define RT_DPHASE(i)                                                     \
+  do {                                                                   \
+    const long long now_ = clock64();                                    \
+    ph_cyc[i] += now_ - ph_t;                                            \
+    ph_t = now_;                                                         \
+  } while (0)
+#else
+#define RT_DPHASE(i) \
+  do {               \
+  } while (0)
+#endif
+
+// The f32 value of byte i of g, a word of int8 codes each xor 0x80 (so
+// the byte is u = code + 128): u put in the low mantissa bits of 2^23
+// (0x4B000000 | u is 2^23 + u, exact), less 2^23 + 128.  One byte
+// permute and one add, exact for all 256 codes: no integer-to-float
+// conversion, which issues at a quarter of the f32 rate.  i is a
+// constant wherever it is called.
+__device__ __forceinline__ float code_f32(uint32_t g, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(g, 0x4B000000u, 0x7540u | i)),
+                   8388736.f);
+}
+
+// Two codes times their slots' scales, each rounded to f32 and then to
+// bf16 (dequantize_kv's two roundings: f32(code * scale), then q's
+// dtype), as one register of a B fragment, the first in the low half.
+__device__ __forceinline__ uint32_t dequant2(uint32_t g0, int i0, float s0,
+                                             uint32_t g1, int i1, float s1) {
+  return sm90::pack_bf16(__fmul_rn(code_f32(g0, i0), s0),
+                         __fmul_rn(code_f32(g1, i1), s1));
+}
+
+// Whether the int8 body converts a tile's V fragments a step ahead (or,
+// one n8 block at a time, inside P·V): only where the registers beside
+// the accumulators hold two tiles' fragments without spilling.
+__host__ __device__ constexpr bool q8_v_ahead(int DH) { return DH <= 128; }
+
+// The tensor-core body over an int8 cache: the same tiles, warp
+// assignment, products, softmax and merge as the bf16 body, with each
+// lane's mma B fragments built in registers from the code tiles (no bf16
+// tile).  K's fragments are the bf16 body's ldmatrix fragments, element
+// for element.  V's n8 block nb takes, in column c, not head dim 8 nb + c
+// but dim (c + 8 (nb / U)) U + nb % U, so that a lane's codes are whole
+// U-byte units of a row; each output element still sums the same
+// products in the same order, so the bits are the bf16 body's over the
+// dequantized cache.
+template <int DH, int MT, typename Slots>
+__device__ void decode_body(const DecodeArgs<__nv_bfloat16, int8_t>& a,
+                            Slots slots) {
+  using Lay = Q8Layout<DH>;
+  constexpr int RB = Lay::RB, NS = Lay::STAGES, U = Lay::U;
+  constexpr int KB = DH / 16, NB = DH / 8, VW = (NB + 3) / 4;
+  constexpr bool VA = q8_v_ahead(DH);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BlockRange r = block_range(a.pos, a.s_len, a.ring, a.L);
+  if (block_is_empty(a, r, DH)) return;
+#ifdef RT_DECODE_PHASES
+  unsigned long long ph_cyc[kDecPhases] = {};
+  long long ph_t = clock64();
+#endif
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = lane >> 2, q = lane & 3;
+  const int G = a.G;
+
+  unsigned char* ring = smem_raw + 16 * MT * TcLayout<DH>::RB;
+  const uint32_t qs_s = sm90::smem_addr(smem_raw);
+  constexpr int QRB = TcLayout<DH>::RB;
+  unsigned char* wring = ring + warp * Lay::WARP_RING;
+  const uint32_t ring_s = sm90::smem_addr(wring);
+
+  const int span = r.end - r.start;
+  constexpr int STEP = kDecWarps * kTcTile;
+  const int nt = span > warp * kTcTile
+                     ? (span - warp * kTcTile + STEP - 1) / STEP : 0;
+  const size_t hstride = (size_t)a.Hkv * DH;
+  const int8_t* kbase = a.k + (size_t)r.kvh * DH;
+  const int8_t* vbase = a.v + (size_t)r.kvh * DH;
+
+  // K then V codes, 16-byte chunks of DH-byte rows; lanes 0-15 the K
+  // scales of the tile's slots, lanes 16-31 the V scales.  A cache row
+  // index fits 32 bits (2^32 rows of at least 64 code bytes would not
+  // fit the card), so one shuffle hands it to the lanes that copy it; a
+  // slot past the end takes row 0, whose copy is zero-filled unread.
+  auto issue = [&](int t) {
+    const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
+    const uint32_t dst = ring_s + (t % NS) * Lay::STAGE;
+    const int my_s = s0 + (lane & (kTcTile - 1));
+    const uint32_t my_row =
+        my_s < r.end ? (uint32_t)slots.row(r.b, my_s) : 0u;
+    constexpr int C16 = DH / 16, PER = kTcTile * C16;
+#pragma unroll
+    for (int i = 0; i < 2 * PER / 32; ++i) {
+      const int idx = lane + 32 * i;
+      const int kv = idx / PER, rem = idx - kv * PER;
+      const int j = rem / C16, c = rem - j * C16;
+      const uint32_t row = __shfl_sync(0xffffffffu, my_row, j);
+      sm90::cp_async16(dst + kv * Lay::CTILE + j * RB + c * 16,
+                       (kv ? vbase : kbase) + (size_t)row * hstride + c * 16,
+                       s0 + j < r.end);
+    }
+    const float* sbase = (lane < kTcTile ? a.k_scale : a.v_scale) + r.kvh;
+    cp_async4(dst + 2 * Lay::CTILE + lane * 4,
+              sbase + (size_t)my_row * a.Hkv, my_s < r.end);
+  };
+  auto stage = [&](int t) { return wring + (t % NS) * Lay::STAGE; };
+  auto scales = [&](const unsigned char* st) {
+    return reinterpret_cast<const float*>(st + 2 * Lay::CTILE);
+  };
+
+  // K's B fragments of k16 step kk, as ldmatrix gives them from a bf16
+  // tile: slot rows n (f[0], f[1]) and n + 8 (f[2], f[3]), head dims
+  // 16 kk + 2q + {0, 1} (f[0], f[2]) and + 8 (f[1], f[3]).  The lane
+  // reads the two words that hold its four codes of a row and gathers
+  // them with one byte permute.
+  const uint32_t gsel = (q & 1) ? 0x7632u : 0x5410u;
+  auto k_frag = [&](const unsigned char* st, int kk, float s0, float s1,
+                    uint32_t (&f)[4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(
+                              st + (n + 8 * h) * RB + 16 * kk) + (q >> 1);
+      const uint32_t g = __byte_perm(w[0], w[2], gsel) ^ 0x80808080u;
+      const float s = h ? s1 : s0;
+      f[2 * h] = dequant2(g, 0, s, g, 1, s);
+      f[2 * h + 1] = dequant2(g, 2, s, g, 3, s);
+    }
+  };
+  // the lane's V codes, each xor 0x80: slot rows 2q, 2q + 1, 2q + 8,
+  // 2q + 9, and of each its units n, n + 8, ...: byte nb % 4 of word
+  // nb / 4 is the code of n8 block nb's column n
+  auto v_codes = [&](const unsigned char* st, uint32_t (&w)[4][VW]) {
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const unsigned char* p =
+          st + Lay::CTILE + (2 * q + (rr & 1) + 8 * (rr >> 1)) * RB;
+#pragma unroll
+      for (int i = 0; i < VW; ++i) w[rr][i] = 0u;
+#pragma unroll
+      for (int i = 0; i < NB / U; ++i) {
+        const unsigned char* u = p + (n + 8 * i) * U;
+        if constexpr (U == 16) {
+          const uint4 x = *reinterpret_cast<const uint4*>(u);
+          w[rr][4 * i] = x.x;
+          w[rr][4 * i + 1] = x.y;
+          w[rr][4 * i + 2] = x.z;
+          w[rr][4 * i + 3] = x.w;
+        } else if constexpr (U == 8) {
+          const uint2 x = *reinterpret_cast<const uint2*>(u);
+          w[rr][2 * i] = x.x;
+          w[rr][2 * i + 1] = x.y;
+        } else {
+          w[rr][i / 2] |= (uint32_t)*reinterpret_cast<const uint16_t*>(u)
+                          << (16 * (i & 1));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < VW; ++i) w[rr][i] ^= 0x80808080u;
+    }
+  };
+  // V's B fragment of n8 block nb: slots 2q, 2q + 1 (f[0]) and 2q + 8,
+  // 2q + 9 (f[1]) at column n's head dim
+  auto v_frag = [&](const uint32_t (&w)[4][VW], const float (&s)[4], int nb,
+                    uint32_t (&f)[2]) {
+    const int wi = nb / 4, bi = nb % 4;
+    f[0] = dequant2(w[0][wi], bi, s[0], w[1][wi], bi, s[1]);
+    f[1] = dequant2(w[2][wi], bi, s[2], w[3][wi], bi, s[3]);
+  };
+
+  float o[MT][NB][4];
+  float m_r[MT][2], l_r[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nb][e] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_r[mt][h] = -INFINITY;
+      l_r[mt][h] = 0.f;
+    }
+  }
+
+  // S = Q·Kᵀ of the tile at stage st (16 MT rows by its 16 slots, two
+  // n8 blocks), each k16 step's K fragments converted just before its
+  // products; and the tile's V codes and scales, and its V fragments
+  // where they are converted ahead
+  float s[MT][2][4];
+  uint32_t vw[4][VW];
+  float vsc[4];
+  uint32_t vf[VA ? NB : 1][2];
+  auto tile_front = [&](const unsigned char* st) {
+    const float* sc = scales(st);
+    const float k0 = sc[n], k1 = sc[n + 8];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][0][e] = s[mt][1][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      uint32_t kf[4];
+      k_frag(st, kk, k0, k1, kf);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, qs_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                   QRB + (kk * 2 + (lane >> 4)) * 16);
+        mma_bf16(s[mt][0], qa, kf[0], kf[1]);
+        mma_bf16(s[mt][1], qa, kf[2], kf[3]);
+      }
+    }
+    v_codes(st, vw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      vsc[i] = sc[kTcTile + 2 * q + (i & 1) + 8 * (i >> 1)];
+    if constexpr (VA) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) v_frag(vw, vsc, nb, vf[nb]);
+    }
+  };
+
+  // the softmax and P·V of tile t, whose S and V fragments (or codes) its
+  // front left
+  auto tile_back = [&](int t) {
+    uint32_t ph[MT][4], pl[MT][4];
+    const int s0 = r.start + (warp + kDecWarps * t) * kTcTile;
+    tile_softmax(s, m_r, l_r, o, ph, pl, s0, r.end, a.scale_log2, lane);
+    // O += P·V, P as hi + lo
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      uint32_t f[2];
+      if constexpr (VA) {
+        f[0] = vf[nb][0];
+        f[1] = vf[nb][1];
+      } else {
+        v_frag(vw, vsc, nb, f);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(o[mt][nb], ph[mt], f[0], f[1]);
+        mma_bf16(o[mt][nb], pl[mt], f[0], f[1]);
+      }
+    }
+  };
+
+  // The ring runs NS - 1 tiles ahead.  Step t issues tile t + NS - 1,
+  // waits for tile t + 1, then in one basic block runs tile t's back and
+  // tile t + 1's front: the compiler interleaves the two tiles' dependent
+  // chains of products with the softmax and the conversion.  Each output
+  // element still takes its products in the bf16 body's order.
+  stage_q_async<DH, MT>(qs_s,
+                        a.q + ((size_t)r.b * a.H + (size_t)r.kvh * G) * DH,
+                        G);                    // in tile 0's group
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < nt) issue(t);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<NS - 2>();
+  __syncthreads();
+  if (nt > 0) tile_front(stage(0));
+  RT_DPHASE(0);
+  for (int t = 0; t + 1 < nt; ++t) {
+    if (t + NS - 1 < nt) issue(t + NS - 1);
+    sm90::cp_async_commit();
+    RT_DPHASE(1);
+    // tile t + 1 has landed, and every lane is done reading tile t's
+    // stage, which step t + 1 refills
+    sm90::cp_async_wait<NS - 2>();
+    __syncwarp();
+    RT_DPHASE(2);
+    tile_back(t);
+    tile_front(stage(t + 1));
+    RT_DPHASE(3);
+  }
+  if (nt > 0) tile_back(nt - 1);
+  finish_tc<DH, U>(ring, a, r, o, m_r, l_r);
+#ifdef RT_DECODE_PHASES
+  RT_DPHASE(4);
+  if (lane == 0) {
+    for (int i = 0; i < kDecPhases; ++i)
+      atomicAdd(&g_decode_phases[i], ph_cyc[i]);
+    atomicAdd(&g_decode_phases[kDecPhases], (unsigned long long)nt);
+    atomicAdd(&g_decode_phases[kDecPhases + 1], 1ull);
+  }
+#endif
+}
+
 // ------------------------------------------------ CUDA-core body (f32)
 // Four K or V elements of a row as f32: a float4, or four int8 codes
 // times the row's scale (dequantize_kv's product).
@@ -637,8 +1069,9 @@ constexpr size_t cc_smem_bytes(int DH, int G) {
 // Both bodies fit the 227 KB of shared memory a block may opt into at the
 // largest G each head dim takes (the rings do not depend on G; the merge
 // area and the f32 body's Q and P do): 206 KB for the bf16 ring at Dh 256,
-// 172 KB for its int8 ring, 94 KB for the f32 body at G = 16; at Dh 192
-// 156 KB, 130 KB and 74 KB.
+// 181 KB for its int8 ring, 94 KB for the f32 body at G = 16; at Dh 192
+// 156 KB, 139 KB and 74 KB.  An int8 ring never takes more than the bf16
+// ring of its head dim (Q8Layout), so the two run as many blocks an SM.
 constexpr size_t kSmemOptIn = 227 * 1024;
 static_assert(tc_smem_bytes<256, false>(1, 16) <= kSmemOptIn &&
                   tc_smem_bytes<256, true>(1, 16) <= kSmemOptIn &&
@@ -651,6 +1084,10 @@ static_assert(tc_smem_bytes<256, false>(1, 16) <= kSmemOptIn &&
                   cc_smem_bytes(256, 16) <= kSmemOptIn &&
                   cc_smem_bytes(64, 32) <= kSmemOptIn,
               "a decode block's shared memory exceeds the opt-in limit");
+static_assert(tc_smem_bytes<128, true>(1, 16) <= kSmemTwoBlocks &&
+                  tc_smem_bytes<192, true>(1, 16) <= kSmemTwoBlocks &&
+                  tc_smem_bytes<256, true>(1, 16) <= kSmemTwoBlocks,
+              "two int8 blocks no longer share an SM");
 
 template <int DH, int MT, typename KV, typename Slots>
 __device__ void decode_body(const DecodeArgs<float, KV>& a, Slots slots) {

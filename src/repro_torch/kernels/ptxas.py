@@ -1,9 +1,13 @@
 """Registers and spills of every kernel instance, as ``ptxas -v`` reports
 them, for the decode sources of this checkout and optionally of another
-one (a parent commit unpacked beside it), side by side.
+one (a parent commit unpacked beside it), side by side; with ``--sass``,
+also how many SASS instructions of each named opcode every instance
+holds (``cuobjdump -sass``; ``I2F`` counts ``I2F.S8``, ``I2FP.F32.S32``
+and every other opcode that starts with it).
 
     PYTHONPATH=src python -m repro_torch.kernels.ptxas \\
-        [--against OTHER/src/repro_torch/csrc] [--sources decode_attn.cu ...]
+        [--against OTHER/src/repro_torch/csrc] \\
+        [--sources decode_attn.cu ...] [--sass I2F F2FP PRMT ...]
 
 Runs on the machine with ``nvcc`` (one process per source and tree, all
 started together), with the flags of ``runtime.NVCC_FLAGS``.  Prints one
@@ -24,6 +28,9 @@ from . import runtime
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _USED = re.compile(r"Used (\d+) registers")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_FUNCTION = re.compile(r"Function : (\S+)")
+_OPCODE = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
 def parse(text: str) -> dict:
@@ -43,6 +50,22 @@ def parse(text: str) -> dict:
     return out
 
 
+def sass_counts(text: str, ops) -> dict:
+    """{mangled instance: {op: instructions whose opcode starts with op}}
+    from ``cuobjdump -sass`` output"""
+    out, counts = {}, None
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            counts = out[m.group(1)] = dict.fromkeys(ops, 0)
+            continue
+        m = _OPCODE.search(line)
+        if m and counts is not None:
+            for op in ops:
+                counts[op] += m.group(1).startswith(op)
+    return out
+
+
 def _demangle(names):
     text = subprocess.run(["c++filt"], input="\n".join(names),
                           capture_output=True, text=True, check=True).stdout
@@ -50,8 +73,9 @@ def _demangle(names):
             .replace("void ", "") for d in text.splitlines()]
 
 
-def report(csrc: Path, sources) -> dict:
-    """{(source, demangled instance): (registers, stores, loads)}"""
+def report(csrc: Path, sources, ops=()) -> dict:
+    """{(source, demangled instance): (registers, stores, loads)}, each
+    followed by {op: SASS count} when ``ops`` names opcodes"""
     procs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for src in sources:
@@ -67,8 +91,15 @@ def report(csrc: Path, sources) -> dict:
             if p.returncode:
                 raise RuntimeError(f"nvcc {csrc / src} failed:\n{text}")
             found = parse(text)
+            ops_of = {}
+            if ops:
+                ops_of = sass_counts(subprocess.run(
+                    [str(runtime.cuda_tool("cuobjdump")),
+                     "-sass", str(Path(tmp) / (src + ".o"))],
+                    capture_output=True, text=True, check=True).stdout, ops)
             for name, short in zip(found, _demangle(list(found))):
-                out[src, short] = found[name]
+                out[src, short] = found[name] + (
+                    (ops_of.get(name, {}),) if ops else ())
     return out
 
 
@@ -78,16 +109,21 @@ def main(argv=None) -> int:
                     help="another checkout's csrc directory")
     ap.add_argument("--sources", nargs="+",
                     default=["decode_attn.cu", "paged_decode_attn.cu"])
+    ap.add_argument("--sass", nargs="*", default=[],
+                    help="opcodes to count in each instance's SASS")
     args = ap.parse_args(argv)
-    here = report(runtime.CSRC, args.sources)
+    here = report(runtime.CSRC, args.sources, args.sass)
     other = report(args.against, args.sources) if args.against else {}
     changed = 0
     for key in sorted(here):
-        regs, st, ld = here[key]
+        regs, st, ld = here[key][:3]
         line = f"{key[1]}: {regs} registers, spill {st}/{ld} B"
+        if args.sass:
+            line += "; SASS " + ", ".join(f"{op} {c}" for op, c in
+                                          here[key][3].items())
         if other:
             was = other.get(key)
-            if was != here[key]:
+            if was != here[key][:3]:
                 changed += 1
                 line += (f"  [was {was[0]} registers, spill {was[1]}/"
                          f"{was[2]} B]" if was else "  [new]")

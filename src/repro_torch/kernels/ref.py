@@ -171,6 +171,20 @@ def dequantize_kv(codes, scale, dtype=torch.float32):
     return (codes.float() * scale[..., None]).to(dtype)
 
 
+def dequantize_kv_magic(codes, scale, dtype=torch.float32):
+    """``dequantize_kv`` by the route of the int8 decode kernels'
+    tensor-core body (``csrc/decode_common.cuh:code_f32``, ``dequant2``),
+    step by step: each code's byte xor 0x80 (u = code + 128) in the low
+    mantissa bits of 2^23 (the f32 with bits 0x4B000000 | u is 2^23 + u,
+    exactly), 2^23 + 128 subtracted (the code, exactly), the product with
+    the slot's scale rounded to f32, then to ``dtype``.  Nothing on the
+    main path calls it: the tests hold it bit for bit against
+    ``dequantize_kv``."""
+    u = (codes.view(torch.uint8) ^ 0x80).to(torch.int32)
+    code = (u | 0x4B000000).view(torch.float32) - 8388736.0
+    return (code * scale[..., None]).to(dtype)
+
+
 def flash_decode_int8_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *,
                           ring: bool = False, lse_out=None):
     """``flash_decode_ref`` over an int8 cache: codes (B,S,Hkv,Dh) and

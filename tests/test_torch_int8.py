@@ -7,7 +7,10 @@ inputs (f32):
 
 - ``quantize_kv`` gives the reference's codes and scales bit for bit
   (f32 and bf16 inputs, rows of zeros), and the round trip keeps the
-  error bound of ``tests/test_kv_quant.py``;
+  error bound of ``tests/test_kv_quant.py``; the int8 decode kernels'
+  conversion route (``ref.dequantize_kv_magic``) gives
+  ``dequantize_kv``'s bits for all 256 codes over scales from 1e-8 to
+  1e3;
 - the four attention functions with an int8 cache (whole-prompt
   prefill, a prefill chunk, contiguous and paged decode, a ring) match
   the reference's at atol 2e-5 / rtol 2e-4; their caches too, on the
@@ -168,6 +171,36 @@ def test_quant_roundtrip_error_bound(s, h, scale):
     bound = x.abs().amax(-1, keepdim=True) / 127.0 * 0.51
     assert ((back - x).abs() <= bound + 1e-6).all()
     assert q.dtype == torch.int8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dequantize_kv_magic_route_is_bit_exact(dtype):
+    """The int8 decode kernels' conversion route
+    (``ref.dequantize_kv_magic``: the code's byte in the mantissa of
+    2^23, 2^23 + 128 subtracted, the product with the scale rounded to
+    f32 and then to ``dtype``) gives ``ref.dequantize_kv``'s and the
+    reference's ``dequantize_kv``'s bits for all 256 byte values, over
+    scales from ``quantize_kv``'s 1e-8 floor to 1e3: 2048 log-spaced,
+    2048 drawn log-uniform (about 2^-16 of the f32 products fall on a
+    bf16 rounding tie, so some do here) and a few exact powers of two."""
+    rng = np.random.default_rng(34)
+    lo, hi = np.log(1e-8), np.log(1e3)
+    scales = np.concatenate([
+        np.geomspace(1e-8, 1e3, 2048), np.exp(rng.uniform(lo, hi, 2048)),
+        [1e-8, 2.0 ** -20, 1.0, 2.0, 1e3]]).astype(np.float32)
+    codes = np.ascontiguousarray(np.broadcast_to(
+        np.arange(-128, 128, dtype=np.int8), (len(scales), 256)))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    ct, st = torch.from_numpy(codes), torch.from_numpy(scales)
+    got = ref.dequantize_kv_magic(ct, st, tdt)
+    want = ref.dequantize_kv(ct, st, tdt)
+    jwant = np.asarray(jattn.dequantize_kv(jnp.asarray(codes),
+                                           jnp.asarray(scales), jdt))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert got.dtype == tdt
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert np.array_equal(got.view(bits).numpy(),
+                          jwant.view(got.view(bits).numpy().dtype))
 
 
 # ------------------------------------------------- attention functions --

@@ -11,7 +11,8 @@ Tolerances are the reference's (``_tol``, ``_wkv_tol``); only valid
 query rows are compared.  The decode kernels' split-KV algebra
 (``ref.split_kv_decode_ref``: partials over ranges of L slots merged in
 range order) is held against the same references at several L, and the
-host-side split rule (``decode_attn.plan``) against its invariants.
+host-side split rule (``decode_attn.plan``) against its invariants,
+and ``kernels/ptxas.py``'s count of SASS opcodes on a listing.
 Likewise the ``wkv6`` kernel's arithmetic order (``ref.wkv6_tiled_ref``:
 the hoisted bonus, row-group partials folded halves first), also for
 its weak-decay accuracy against float64, and its tile rule
@@ -28,9 +29,12 @@ against autograd through the plain versions.
 CUDA cases (skipped without a card): each hand-written kernel against
 its plain version on the card, at the same sweeps and at the main
 path's widths (decode also at rows of every length, on wrapped rings,
-with more than one split and bit-identical over two calls; ``wkv6``
-also at ragged T, through every built tile, bit-identical over two
-calls, with the C launch's tile rule the wrapper's; the prefill
+with more than one split and bit-identical over two calls; the int8
+decode kernels also over caches of every code from -128 to 127 at scales
+from the 1e-8 floor to 1e3, at each head dim's V unit and the serve
+step's shape, bit for bit the float kernels over the dequantized cache;
+``wkv6`` also at ragged T, through every built tile, bit-identical over
+two calls, with the C launch's tile rule the wrapper's; the prefill
 wrapper's count of launches at a ``q_offset`` off the 64-row tile, which
 a resumed chunk takes).  Run them on the
 H100 with ``python -m pytest tests/test_torch_kernels.py -k cuda``.
@@ -547,6 +551,28 @@ def test_decode_plan_constants_match_source():
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
     assert const("kDecQuantum") == decode_kernel.SPLIT_QUANTUM
     assert const("kDecMaxSplit") == decode_kernel.MAX_SPLITS
+
+
+def test_ptxas_counts_sass_opcodes():
+    """``kernels/ptxas.py:sass_counts`` counts, in each instance of
+    ``cuobjdump -sass``'s listing, the instructions whose opcode starts
+    with each name asked for, predicated ones too: the check that the
+    int8 decode kernels' element path holds no I2F."""
+    from repro_torch.kernels import ptxas
+    text = """
+        code for sm_90a
+                Function : _Z1av
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   I2F.S8 R2, R3 ;
+        /*0020*/               @!P0 PRMT R4, R5, 0x7540, R6 ;
+        /*0030*/                   F2FP.BF16.F32.PACK_AB R7, R8, R9 ;
+                Function : _Z1bv
+        /*0000*/                   I2FP.F32.S32 R2, R3 ;
+        /*0010*/                   FADD R1, R2, -8388736 ;
+    """
+    got = ptxas.sass_counts(text, ("I2F", "PRMT", "F2FP", "FADD"))
+    assert got == {"_Z1av": {"I2F": 1, "PRMT": 1, "F2FP": 1, "FADD": 0},
+                   "_Z1bv": {"I2F": 1, "PRMT": 0, "F2FP": 0, "FADD": 1}}
 
 
 @pytest.mark.parametrize("dtype,Dh,want", [
@@ -1246,6 +1272,82 @@ def test_cuda_decode_int8_main_widths(case, pool, dtype, cuda_exact_f32):
     assert torch.equal(got, same) and torch.equal(got, again)
     assert runtime.decode_plans[kernel] == decode_kernel.plan(
         B, Hkv, S, q.dtype, Dh)
+
+
+# the int8 tensor-core body's conversion at its edges: caches holding
+# every code from -128 to 127 (each in every kind of position), scales in
+# bands from quantize_kv's 1e-8 floor up to 1e3, at each head dim's V unit
+# (16 bytes at Dh 128 and 256, 8 at 64 and 192, 2 at 80), G > 16 (two
+# 16-row tiles of heads) and the serve step's shape (Qwen3-14B's widths,
+# B = 8 at context 1024 of 4096 slots: L 512, two live splits)
+INT8_EDGE_SHAPES = {
+    # (B, S, H, Hkv, Dh, pos)
+    "serve_step": (8, 4096, 40, 8, 128, 1023),
+    "dh64_g32": (2, 256, 64, 2, 64, 255),
+    "dh80": (1, 512, 16, 2, 80, 500),
+    "dh192": (2, 300, 96, 8, 192, 299),
+    "dh256": (2, 256, 10, 1, 256, 200),
+}
+INT8_EDGE_SCALES = {"floor": (1e-8, 1e-7), "unit": (1e-3, 1e-2),
+                    "high": (1e2, 1e3)}
+
+
+@needs_cuda
+@pytest.mark.parametrize("band", sorted(INT8_EDGE_SCALES))
+@pytest.mark.parametrize("shape", sorted(INT8_EDGE_SHAPES))
+@pytest.mark.parametrize("pool", ["contiguous", "paged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_int8_every_code(shape, band, pool, dtype,
+                                     cuda_exact_f32):
+    """Both int8 kernels over caches of every code at scales from the
+    1e-8 floor to 1e3 (q scaled so the scores stay near 1 and every slot
+    counts): finite, bit for bit the float kernel over the dequantized
+    cache with the same plan, and the same bits over two calls."""
+    dev = cuda_exact_f32
+    B, S, H, Hkv, Dh, p = INT8_EDGE_SHAPES[shape]
+    lo, hi = INT8_EDGE_SCALES[band]
+    rng = np.random.default_rng(Dh + len(band))
+
+    def cache(shape):
+        codes = rng.permutation(np.resize(np.arange(-128, 128, dtype=np.int8),
+                                          int(np.prod(shape))))
+        scale = np.exp(rng.uniform(np.log(lo), np.log(hi), shape[:-1]))
+        return (torch.from_numpy(codes.reshape(shape)).to(dev),
+                torch.from_numpy(scale.astype(np.float32)).to(dev))
+    q = _t(_normal(rng, (B, H, Dh), "float32") / (74 * hi), dtype, dev)
+    pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+    deq = ref.dequantize_kv
+    if pool == "contiguous":
+        kc, ks = cache((B, S, Hkv, Dh))
+        vc, vs = cache((B, S, Hkv, Dh))
+
+        def call():
+            return ops.flash_decode_int8(q, kc, vc, ks, vs, pos)
+        same = ops.flash_decode(q, deq(kc, ks, q.dtype), deq(vc, vs, q.dtype),
+                                pos)
+        kernel = "flash_decode_int8"
+    else:
+        page = 128
+        n_p = -(-S // page)
+        kp, ks = cache((B * n_p + 1, page, Hkv, Dh))
+        vp, vs = cache((B * n_p + 1, page, Hkv, Dh))
+        bt = torch.from_numpy(rng.permutation(B * n_p + 1)[:B * n_p]
+                              .reshape(B, n_p).astype(np.int32)).to(dev)
+
+        def call():
+            return ops.paged_flash_decode_int8(q, kp, vp, ks, vs, bt, pos,
+                                               s_len=S)
+        same = ops.paged_flash_decode(q, deq(kp, ks, q.dtype),
+                                      deq(vp, vs, q.dtype), bt, pos, s_len=S)
+        kernel = "paged_flash_decode_int8"
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    used = runtime.decode_plans[kernel]
+    assert used == decode_kernel.plan(B, Hkv, S, q.dtype, Dh)
+    if shape == "serve_step":
+        assert (used.L, -(-(p + 1) // used.L)) == (512, 2)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, same) and torch.equal(got, again)
 
 
 @needs_cuda
