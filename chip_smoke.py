@@ -1532,6 +1532,91 @@ def wkv6_bwd_check(torch, name, args, dy, dsT):
     return worst_abs, worst
 
 
+def check_wkv6_bwd_plan_rule() -> None:
+    """The wrapper's cluster rule (``kernels/wkv6.py:bwd_plan``) is the
+    one the backward's C launch applies (``rt_wkv6_bwd_plan``)."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import wkv6 as wk
+    lib = runtime.library()
+    out = (ctypes.c_int * 2)()
+    for hs in wk.HEAD_SIZES:
+        for B, H in ((1, 1), (2, 40), (8, 10), (8, 40), (1, 263), (1, 264)):
+            for T in (0, 512, 4095):
+                if lib.rt_wkv6_bwd_plan(B, H, hs, T, out) or \
+                        tuple(out) != tuple(wk.bwd_plan(B, H, hs, T)):
+                    raise AssertionError(
+                        f"wkv6_bwd plan of B={B} H={H} hs={hs} T={T}: C "
+                        f"{tuple(out)}, wrapper {wk.bwd_plan(B, H, hs, T)}")
+
+
+def wkv6_bwd_plan_info(torch, B, H, hs, T, nc=None):
+    """The backward's launch at a shape (the plan's cluster size, or
+    ``nc``): cluster size, threads and blocks, shared memory a block,
+    registers a thread, and the blocks an SM holds at once
+    (``cudaOccupancyMaxActiveClusters`` times the cluster size over the
+    SMs), from ``rt_wkv6_bwd_occupancy``."""
+    import ctypes
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import wkv6 as wk
+    nc = wk.bwd_plan(B, H, hs, T).nc if nc is None else nc
+    out = (ctypes.c_int * 4)()
+    err = runtime.library().rt_wkv6_bwd_occupancy(
+        hs, runtime.DTYPE_CODES[torch.bfloat16], nc, out)
+    if err:
+        raise RuntimeError(f"rt_wkv6_bwd_occupancy hs={hs} nc={nc}: {err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(nc=nc, threads=out[0], blocks=B * H * nc, smem_bytes=out[1],
+                registers=out[3], blocks_an_sm=out[2] * nc / sms)
+
+
+def wkv6_bwd_plan_text(p) -> str:
+    return (f"NC {p['nc']} ({p['threads']} threads, {p['blocks']} blocks, "
+            f"{p['smem_bytes']} B shared and {p['registers']} registers a "
+            f"thread, {p['blocks_an_sm']:.2f} blocks an SM)")
+
+
+def wkv6_bwd_body(row) -> str:
+    """The kernels line's body of a ``wkv6_bwd`` row: the design and the
+    row's plan."""
+    return f"{WKV6_BWD_BODY}; {wkv6_bwd_plan_text(row['plan'])}"
+
+
+def wkv6_bwd_plan_sweep(torch, label, args, dy):
+    """Device time of the backward at every cluster size its head size
+    takes (``wkv6.bwd_valid``), each checked against
+    ``ref.wkv6_bwd_ref`` within ``WKV_BWD_REL``.  Launched through the
+    sweep's entry (``wkv6.wkv6_bwd_nc``), so no launch count moves."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    B, T, H, hs = args[0].shape
+    want = ref.wkv6_bwd_ref(*args, dy)
+    p0 = wk.bwd_plan(B, H, hs, T).nc
+    res = []
+    for nc in wk.BWD_CLUSTERS:
+        if not wk.bwd_valid(hs, nc):
+            continue
+        out = wk.wkv6_bwd_nc(*args, dy, None, nc)
+        torch.cuda.synchronize()
+        for g_name, g, want_g in zip(WKV_BWD_NAMES, out, want):
+            scale = float(want_g.abs().max())
+            rel = WKV_BWD_REL["bfloat16" if g.dtype == torch.bfloat16
+                              else "float32"]
+            if not torch.isfinite(g).all() or float(
+                    (g.double() - want_g.double()).abs().max()) > \
+                    rel * scale + 1e-30:
+                raise AssertionError(f"{label} NC {nc} {g_name}: beyond "
+                                     f"{rel} of max |plain| {scale:.4g}")
+        del out
+        ms = time_ms(torch, lambda: wk.wkv6_bwd_nc(*args, dy, None, nc), 10)
+        res.append(f"NC {nc}{' (plan)' if nc == p0 else ''} {ms:.4f} ms, "
+                   + wkv6_bwd_plan_text(wkv6_bwd_plan_info(torch, B, H, hs,
+                                                           T, nc)))
+    log("kernels", f"{label} plan sweep (cluster size), bf16, each against "
+        f"ref.wkv6_bwd_ref: " + "; ".join(res))
+    del want
+
+
 def wkv6_bwd_phase(torch):
     """``wkv6``'s backward kernel (``csrc/wkv6_bwd.cu``) against its plain
     version ``ref.wkv6_bwd_ref`` on the card: the reference sweep and the
@@ -1546,6 +1631,7 @@ def wkv6_bwd_phase(torch):
     from repro_torch.kernels import cost, ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(41)
+    check_wkv6_bwd_plan_rule()
 
     def rnd(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -1620,10 +1706,11 @@ def wkv6_bwd_phase(torch):
             plain_ms=time_ms(torch, lambda: ref.wkv6_bwd_ref(*args, dy),
                              1, 0),
             plain_autograd_ms=time_ms(torch, plain_autograd, 1, 0),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            plan=wkv6_bwd_plan_info(torch, B, H, hs, T))
         r = rows[label]
         log("kernels", f"{label} ({H} heads of {hs}, bf16, dsT absent): "
-            f"kernel "
+            f"kernel {wkv6_bwd_plan_text(r['plan'])} "
             f"{r['ms']:.4f} ms, plain (ref.wkv6_bwd_ref) "
             f"{r['plain_ms']:.4f} ms, autograd through ref.wkv6_ref "
             f"(forward and backward) {r['plain_autograd_ms']:.4f} ms, "
@@ -1631,6 +1718,8 @@ def wkv6_bwd_phase(torch):
             f"computes this recurrence's gradient); max abs err {err:.3g}, "
             f"{rel:.3g} of a gradient's largest magnitude; two calls "
             f"identical")
+        if H == WKV_MAIN["H"]:
+            wkv6_bwd_plan_sweep(torch, label, args, dy)
         del args, dy, req
         torch.cuda.empty_cache()
     return rows
@@ -5812,10 +5901,12 @@ TRAIN_ATTN = dict(B=TRAIN_BATCH, T=TRAIN_SEQ - 1, H=40, Hkv=8, Dh=128)
 # train_4k length; the forward sees 4095), remat on, 5 AdamW steps, a
 # 1-step warm-up to lr 1e-4; its backward through wkv6_bwd
 RWKV_TRAIN_ARCH = "rwkv6-3b"
-WKV6_BWD_BODY = ("cuda_core (one block a head: hs = 64 on 256 threads of "
-                 "2 rows x 8 columns of S and G; the state checkpointed "
-                 "every 8 steps, each chunk's states replayed into shared "
-                 "memory)")
+WKV6_BWD_BODY = ("cuda_core (a head's rows over a thread-block cluster: "
+                 "2 rows x 4 columns of S and G a thread; the state "
+                 "checkpointed every 8 steps, each 8-step chunk replayed "
+                 "into registers and unrolled, its partials folded once a "
+                 "half chunk, dv summed over the cluster through "
+                 "distributed shared memory)")
 RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 2, 4096, 5
 RWKV_TRAIN_PATH = (f"{RWKV_TRAIN_ARCH} training (32 layers, "
                    f"{RWKV_TRAIN_BATCH} x {RWKV_TRAIN_SEQ})")
@@ -6508,17 +6599,21 @@ def wkv6_train_rows(torch, r, k, v, w, u, s0, dy, dsT):
     rows = {"wkv6_bwd": dict(
         ms=time_ms(torch, lambda: ops.wkv6_bwd(*args, dy), 10),
         plain_ms=time_ms(torch, lambda: ref.wkv6_bwd_ref(*args, dy), 1, 0),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)}
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        plan=wkv6_bwd_plan_info(torch, B, H, hs, T))}
     torch.cuda.empty_cache()
     row = rows["wkv6_bwd"]
     log("train", f"{label} ({H} heads of {hs}, {r.dtype}, the operands of "
         f"a training step's last layer, dsT absent): kernel "
+        f"{wkv6_bwd_plan_text(row['plan'])} "
         f"{row['ms']:.4f} ms, plain (ref.wkv6_bwd_ref) "
         f"{row['plain_ms']:.4f} ms (autograd through ref.wkv6_ref: the "
         f"chunk's row), bound {b_ms:.4f} ms ({b_by}), library null (no "
         f"PyTorch call computes this recurrence's gradient); max abs err "
         f"{err:.3g}, {rel:.3g} of a gradient's largest magnitude; two calls "
         f"identical")
+    wkv6_bwd_plan_sweep(torch, label, args, dy)
+    torch.cuda.empty_cache()
     label = f"wkv6 train B={B} T={T}"
     y, sT = ops.wkv6(*args)
     want_y, want_s = ref.wkv6_ref(*args)
@@ -7735,7 +7830,7 @@ def main() -> int:
                    path=RWKV_TRAIN_PATH,
                    n=train["rwkv"]["launches"]["wkv6_bwd"]),
              role="training backward of wkv6 (kernels/autograd.py)",
-             body=WKV6_BWD_BODY),
+             body=wkv6_bwd_body(train["rwkv"]["rows"]["wkv6_bwd"])),
         dict(wkv6_entry(train["rwkv"]["rows"]["wkv6"], B=RWKV_TRAIN_BATCH,
                         path=RWKV_TRAIN_PATH,
                         n=train["rwkv"]["launches"]["wkv6"]),
@@ -7750,7 +7845,8 @@ def main() -> int:
                    path=RWKV_TRAIN_PATH, n=0),
              role="rwkv6-3b's chunk shape (B 8, T 512): timed and checked "
                   "here; no run launches the backward at this shape",
-             body=WKV6_BWD_BODY),
+             body=wkv6_bwd_body(rows[f"wkv6_bwd chunk B={WKV_MAIN['B']} "
+                                     f"T={WKV_MAIN['T']}"])),
         dict(entry("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
                    "src/repro/models/rwkv.py:72",
                    rows[f"wkv6_bwd chunk B={WKV_MAIN['B']} "
@@ -7758,7 +7854,8 @@ def main() -> int:
                    path=RWKV_TRAIN_PATH, n=0),
              role="a --model 4 rank's heads (10 of 40): timed and checked "
                   "here; no run on one card launches it at this shape",
-             body=WKV6_BWD_BODY),
+             body=wkv6_bwd_body(rows[f"wkv6_bwd chunk B={WKV_MAIN['B']} "
+                                     f"T={WKV_MAIN['T']} H={WKV_RANK_H}"])),
         # the analysis phase's counts on real tensors: a decode step and a
         # 512 x 8 chunk, each kernel counted by its formula as it launched
         dict(decode_entry("paged_flash_decode",

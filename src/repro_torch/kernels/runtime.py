@@ -226,6 +226,13 @@ _SIGNATURES = {
     # r, k, v, w, u, s0, dy, dsT (null: zero), dr, dk, dv, dw, du, ds0,
     # ckpt, du_part, B, T, H, hs, dtype, stream
     "rt_wkv6_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    # the same, then nc (a given cluster size), stream
+    "rt_wkv6_bwd_nc": [_P] * 16 + [_I] * 6 + [_P],
+    # B, H, hs, T, out[2] -> the plan rt_wkv6_bwd launches (nc, threads)
+    "rt_wkv6_bwd_plan": [_I] * 4 + [_P],
+    # hs, dtype, nc, out[4] -> threads, shared memory bytes, clusters
+    # resident at once, registers a thread
+    "rt_wkv6_bwd_occupancy": [_I] * 3 + [_P],
 }
 
 

@@ -13,7 +13,10 @@ version is ``ref.wkv6_bwd_ref``.
 A thread of the kernel keeps a ``kr`` x ``vc`` register tile of one
 (b, h)'s state; the ``hs / kr`` threads that share a column are adjacent
 lanes of a warp; a block holds ``cols`` columns of one (b, h).  ``plan``
-picks the tile from the shape alone, as the C launch does.
+picks the tile from the shape alone, as the C launch does.  The backward
+kernel spreads a head's rows over a cluster of ``nc`` blocks, a thread
+holding ``BWD_ROWS`` x ``BWD_COLS`` of S and G; ``bwd_plan`` picks ``nc``
+from the shape alone, as its C launch does.
 """
 from __future__ import annotations
 
@@ -40,8 +43,24 @@ TARGET_BLOCKS = 264
 TILES = ((4, 8), (4, 2), (8, 8), (8, 4))
 HEAD_SIZES = (16, 32, 64)
 # csrc/wkv6_bwd.cu: kBwdChunk, the steps between the backward's state
-# checkpoints (its workspace holds ceil(T / BWD_CHUNK) states a head)
+# checkpoints (its workspace holds ceil(T / BWD_CHUNK) states a head);
+# kBwdRows, kBwdCols, kBwdMaxThreads, kBwdPlanThreads, kBwdTargetBlocks,
+# kBwdClusters
 BWD_CHUNK = 8
+BWD_ROWS = 2
+BWD_COLS = 4
+BWD_MAX_THREADS = 256
+# the plan takes blocks of at most 128 threads: three fit an SM's
+# registers, a block of 256 runs alone (at hs 64 a cluster of 2 is slower
+# than one of 4 at rwkv6-3b's training and serving shapes: chip_smoke.py's
+# plan sweep)
+BWD_PLAN_THREADS = 128
+# blocks the backward's grid aims at, 2 an SM of the 132 (a cluster of 4
+# a head at rwkv6-3b's shapes: 320 blocks at the training step's 80 heads);
+# chip_smoke.py's plan sweep times the other cluster sizes
+BWD_TARGET_BLOCKS = 264
+# the cluster sizes the backward is built for
+BWD_CLUSTERS = (1, 2, 4)
 
 
 class WkvPlan(NamedTuple):
@@ -99,6 +118,41 @@ def plan(B: int, H: int, hs: int, T: int) -> WkvPlan:
     return WkvPlan(kr, vc, cols)
 
 
+class BwdPlan(NamedTuple):
+    nc: int         # blocks a head (a thread-block cluster)
+    threads: int    # threads a block
+
+
+def bwd_threads(hs: int, nc: int) -> int:
+    """Threads a block of the backward: the block's hs / nc rows by hs
+    columns, ``BWD_ROWS`` x ``BWD_COLS`` a thread."""
+    return hs * hs // (BWD_ROWS * BWD_COLS * nc)
+
+
+def bwd_valid(hs: int, nc: int) -> bool:
+    """Whether the backward's C launch takes cluster size ``nc`` at head
+    size ``hs`` (csrc/wkv6_bwd.cu:valid_nc): a built size, whole warps,
+    at most ``BWD_MAX_THREADS`` threads a block."""
+    return (hs in HEAD_SIZES and nc in BWD_CLUSTERS
+            and 32 <= bwd_threads(hs, nc) <= BWD_MAX_THREADS)
+
+
+def bwd_plan(B: int, H: int, hs: int, T: int) -> BwdPlan:
+    """The cluster size a backward call launches: of the valid ones with
+    at most ``BWD_PLAN_THREADS`` threads a block, the least whose grid of
+    B H nc blocks reaches ``BWD_TARGET_BLOCKS``, else the largest."""
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"wkv6_bwd: head size {hs} not supported by the "
+                         f"kernel (16, 32 or 64)")
+    if T < 0 or B < 1 or H < 1:
+        raise ValueError(f"wkv6_bwd: B = {B}, H = {H}, T = {T}")
+    ncs = [nc for nc in BWD_CLUSTERS if bwd_valid(hs, nc)
+           and bwd_threads(hs, nc) <= BWD_PLAN_THREADS]
+    nc = next((nc for nc in ncs if B * H * nc >= BWD_TARGET_BLOCKS),
+              ncs[-1])
+    return BwdPlan(nc, bwd_threads(hs, nc))
+
+
 def wkv6(r, k, v, w, u, s0, *, state_out=None):
     """r, k, v: (B,T,H,hs) f32 or bf16; w: (B,T,H,hs) f32 decay; u: (H,hs)
     f32; s0: (B,H,hs,hs) f32; all on the card.  Returns (y (B,T,H,hs) f32,
@@ -150,7 +204,24 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, dsT=None):
     as when training drops sT), on the card.  Returns (dr, dk, dv in r's
     dtype, dw (B,T,H,hs), du (H,hs), ds0 (B,H,hs,hs) f32).  Allocates the
     kernel's workspace: the state every ``BWD_CHUNK`` steps of each
-    (b, h), and per-(b, h) partials of du."""
+    (b, h), and per-(b, h) partials of du.  The C launch picks the
+    cluster size of ``bwd_plan``."""
+    grads = _bwd_call("rt_wkv6_bwd", r, k, v, w, u, s0, dy, dsT)
+    runtime.launch_counts["wkv6_bwd"] += 1
+    return grads
+
+
+def wkv6_bwd_nc(r, k, v, w, u, s0, dy, dsT, nc):
+    """``wkv6_bwd`` at cluster size ``nc`` (``rt_wkv6_bwd_nc``): the plan
+    sweep's entry, which counts no launch.  An ``nc`` outside
+    ``bwd_valid`` is refused (ValueError) without a launch."""
+    return _bwd_call("rt_wkv6_bwd_nc", r, k, v, w, u, s0, dy, dsT, nc)
+
+
+def _bwd_call(entry, r, k, v, w, u, s0, dy, dsT, *plan):
+    """Checks the operands, allocates the gradients and the workspace, and
+    calls the C entry with ``plan`` (the cluster size, or nothing for the
+    C rule's) before the stream."""
     r, k, v, w, u, s0 = (x.contiguous() for x in (r, k, v, w, u, s0))
     if dy is None:
         dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
@@ -173,12 +244,12 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, dsT=None):
     dw = torch.empty(r.shape, **f32)
     du = torch.empty((H, hs), **f32)
     ds0 = torch.empty_like(s0)
-    err = runtime.library().rt_wkv6_bwd(
+    err = getattr(runtime.library(), entry)(
         *(x.data_ptr() for x in (r, k, v, w, u, s0, dy)),
         None if dsT is None else dsT.data_ptr(),
         *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ckpt, du_part)),
-        B, T, H, hs, runtime.DTYPE_CODES[r.dtype],
+        B, T, H, hs, runtime.DTYPE_CODES[r.dtype], *plan,
         runtime.stream_ptr(r.device))
-    runtime.check(err, "wkv6_bwd", f"B={B}, T={T}, H={H}, hs={hs}")
-    runtime.launch_counts["wkv6_bwd"] += 1
+    runtime.check(err, "wkv6_bwd", f"B={B}, T={T}, H={H}, hs={hs}"
+                  + "".join(f", nc={nc}" for nc in plan))
     return dr, dk, dv, dw, du, ds0

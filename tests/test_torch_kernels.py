@@ -1677,6 +1677,99 @@ def test_cuda_wkv6_bwd_unsupported_raises_without_launch(cuda_exact_f32):
     assert runtime.launch_counts["wkv6_bwd"] == 0
 
 
+def _wkv_bwd_against_ref(args, dy, dsT, got, dtype, label):
+    want = ref.wkv6_bwd_ref(*args, dy, dsT)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, name)
+        g, w = _f32(g).astype(np.float64), _f32(w).astype(np.float64)
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        assert np.isfinite(g).all(), (label, name)
+        assert float(np.abs(g - w).max()) <= \
+            _wkv_bwd_tol(name, dtype) * scale + 1e-30, (label, name)
+
+
+@needs_cuda
+def test_cuda_wkv6_bwd_plan_matches_c(cuda_exact_f32):
+    """The wrapper's cluster rule (``wkv6.bwd_plan``) is the one the C
+    launch applies (``rt_wkv6_bwd_plan``), and the C launch refuses other
+    head sizes."""
+    import ctypes
+    lib = runtime.library()
+    out = (ctypes.c_int * 2)()
+    for hs in wkv6_kernel.HEAD_SIZES:
+        for B, H in ((1, 1), (2, 4), (2, 40), (8, 10), (8, 40), (1, 263),
+                     (1, 264), (64, 40)):
+            for T in (0, 1, 512, 4095):
+                assert lib.rt_wkv6_bwd_plan(B, H, hs, T, out) == 0
+                assert tuple(out) == tuple(
+                    wkv6_kernel.bwd_plan(B, H, hs, T)), (B, H, hs, T)
+    assert lib.rt_wkv6_bwd_plan(8, 40, 48, 512, out) == \
+        runtime.CUDA_ERROR_INVALID_VALUE
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape,nc", [((2, 19, 20, 64), 4),
+                                      ((2, 19, 80, 32), 2),
+                                      ((2, 19, 132, 32), 1),
+                                      ((2, 21, 3, 16), 1)])
+def test_cuda_wkv6_bwd_each_planned_cluster(shape, nc, cuda_exact_f32):
+    """A shape for each cluster size the plan picks, through the
+    wrapper (one launch counted), against the plain version in bf16."""
+    B, T, H, hs = shape
+    assert wkv6_kernel.bwd_plan(B, H, hs, T).nc == nc
+    dev = cuda_exact_f32
+    args = _wkv_cuda(*_wkv_inputs(shape, "bfloat16"), "bfloat16", dev)
+    _wkv_bwd_check(args, *_wkv_bwd_grads(shape, dev), "bfloat16",
+                   f"{shape} nc {nc}")
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape", [(2, 37, 3, 32), (2, 37, 3, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_dsT", [True, False])
+def test_cuda_wkv6_bwd_every_cluster_size(shape, dtype, with_dsT,
+                                          cuda_exact_f32):
+    """Each cluster size the head size takes (1, 2 and 4 at hs 32; 2 and
+    4 at hs 64), forced through the sweep's entry, against the plain
+    version; a cluster size outside ``bwd_valid`` is refused without a
+    launch."""
+    dev = cuda_exact_f32
+    hs = shape[-1]
+    args = _wkv_cuda(*_wkv_inputs(shape, dtype), dtype, dev)
+    dy, dsT = _wkv_bwd_grads(shape, dev, dsT=with_dsT)
+    n0 = dict(runtime.launch_counts)
+    for nc in (1, 2, 3, 4, 8):
+        if not wkv6_kernel.bwd_valid(hs, nc):
+            with pytest.raises(ValueError, match="not supported"):
+                wkv6_kernel.wkv6_bwd_nc(*args, dy, dsT, nc)
+            continue
+        got = wkv6_kernel.wkv6_bwd_nc(*args, dy, dsT, nc)
+        torch.cuda.synchronize()
+        _wkv_bwd_against_ref(args, dy, dsT, got, dtype, f"{shape} nc {nc}")
+    assert runtime.launch_counts == n0
+
+
+@needs_cuda
+def test_cuda_wkv6_bwd_training_shape_and_bits(cuda_exact_f32):
+    """rwkv6-3b's training shape (B 2, T 4095, 40 heads of 64: a
+    cluster of 4 a head) against the plain version, bit-identical over
+    two calls."""
+    rng = np.random.default_rng(17)
+    B, T, H, hs = 2, 4095, 40, 64
+    dev = cuda_exact_f32
+    r, k, v = (_normal(rng, (B, T, H, hs), "bfloat16") for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, T, H, hs)) - 0.5))
+    u = rng.standard_normal((H, hs)) * 0.1
+    args = _wkv_cuda(r, k, v, w.astype(np.float32), u.astype(np.float32),
+                     np.zeros((B, H, hs, hs), np.float32), "bfloat16", dev)
+    dy, _ = _wkv_bwd_grads((B, T, H, hs), dev)
+    assert wkv6_kernel.bwd_plan(B, H, hs, T).nc == 4
+    first = _wkv_bwd_check(args, dy, None, "bfloat16", "training")
+    second = ops.wkv6_bwd(*args, dy, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 # ------------------------------------------- the kernels under autograd --
 PREFILL_GRAD_CASES = {
     # (B, Tq, Tk, H, Hkv, Dh, causal, window, q_offset, lengths)

@@ -16,7 +16,12 @@ CPU's route of ``wkv6`` under autograd.
   autograd's through the plain version, ``gradcheck`` at f64, an unused
   output's gradient passed as None; and the CPU's recorded ``wkv6``
   going through it;
-* the C constant the wrapper mirrors (the checkpoint interval).
+* the C constants the wrapper mirrors (the checkpoint interval, the
+  thread tile, the block limit, the grid target and the cluster sizes),
+  and ``bwd_plan``'s cluster size over a table of shapes: rwkv6-3b's
+  training step, serving chunk and ``--model 4`` rank, one head, head
+  sizes 16 and 32, T = 0; ``wkv6_bwd_nc`` handing its cluster size to
+  the C entry (a stand-in library).
 
 The kernel itself against ``wkv6_bwd_ref`` on the card:
 ``tests/test_torch_kernels.py -k "cuda and wkv6_bwd"``.
@@ -224,10 +229,104 @@ def test_cpu_wkv6_under_autograd_takes_the_backward_entry(monkeypatch):
 
 
 def test_wkv6_bwd_constant_matches_source():
-    """The wrapper's checkpoint interval (its workspace size) is the
+    """The wrapper's checkpoint interval (its workspace size), thread
+    tile, block limit, grid target and cluster sizes (its plan) are the
     kernel's."""
     src = (Path(ref.__file__).parent.parent / "csrc" /
            "wkv6_bwd.cu").read_text()
-    chunk = int(re.search(r"constexpr int kBwdChunk = (\d+);", src)[1])
-    assert chunk == wkv6_kernel.BWD_CHUNK
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    wk = wkv6_kernel
+    assert const("kBwdChunk") == wk.BWD_CHUNK
+    assert const("kBwdRows") == wk.BWD_ROWS
+    assert const("kBwdCols") == wk.BWD_COLS
+    assert const("kBwdMaxThreads") == wk.BWD_MAX_THREADS
+    assert const("kBwdPlanThreads") == wk.BWD_PLAN_THREADS
+    assert const("kBwdTargetBlocks") == wk.BWD_TARGET_BLOCKS
+    clusters = re.search(r"constexpr int kBwdClusters\[\] = \{([\d, ]+)\};",
+                         src)[1]
+    assert tuple(int(x) for x in clusters.split(",")) == wk.BWD_CLUSTERS
     assert "wkv6_bwd.cu" in runtime.SOURCES and "wkv6_bwd" in runtime.KERNELS
+
+
+# (B, H, hs, T) -> (nc, threads): rwkv6-3b's training step, serving chunk
+# and --model 4 rank; one head; head sizes 16 and 32; T = 0; either side
+# of the grid target (at hs 32: at hs 64 only a cluster of 4 has at most
+# BWD_PLAN_THREADS threads a block)
+BWD_PLANS = {
+    "training": ((2, 40, 64, 4095), (4, 128)),
+    "chunk": ((8, 40, 64, 512), (4, 128)),
+    "rank": ((8, 10, 64, 512), (4, 128)),
+    "one head hs 64": ((1, 1, 64, 7), (4, 128)),
+    "one head hs 32": ((1, 1, 32, 7), (4, 32)),
+    "one head hs 16": ((1, 1, 16, 7), (1, 32)),
+    "hs 16 chunk": ((8, 40, 16, 512), (1, 32)),
+    "hs 32 chunk": ((8, 40, 32, 512), (1, 128)),
+    "hs 32 training": ((2, 40, 32, 4095), (4, 32)),
+    "hs 32 middle": ((2, 80, 32, 64), (2, 64)),
+    "T = 0": ((2, 40, 64, 0), (4, 128)),
+    "at the target": ((1, 264, 32, 512), (1, 128)),
+    "below the target": ((1, 263, 32, 512), (2, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_PLANS))
+def test_wkv6_bwd_plan(case):
+    """The backward's cluster size and threads a block from the shape
+    alone: of the valid cluster sizes with at most ``BWD_PLAN_THREADS``
+    threads a block, the least whose grid reaches the target, else the
+    largest; a head's threads hold all its state elements."""
+    (B, H, hs, T), want = BWD_PLANS[case]
+    p = wkv6_kernel.bwd_plan(B, H, hs, T)
+    assert tuple(p) == want
+    assert wkv6_kernel.bwd_valid(hs, p.nc)
+    assert p.nc * p.threads * wkv6_kernel.BWD_ROWS * \
+        wkv6_kernel.BWD_COLS == hs * hs
+
+
+def test_wkv6_bwd_plan_limits():
+    """Which cluster sizes each head size takes (whole warps, at most 256
+    threads a block), and the shapes ``bwd_plan`` refuses."""
+    wk = wkv6_kernel
+    ncs = (1, 2, 3, 4, 8)
+    assert [nc for nc in ncs if wk.bwd_valid(64, nc)] == [2, 4]
+    assert [nc for nc in ncs if wk.bwd_valid(32, nc)] == [1, 2, 4]
+    assert [nc for nc in ncs if wk.bwd_valid(16, nc)] == [1]
+    assert not wk.bwd_valid(48, 1)
+    for bad in ((1, 1, 48, 4), (1, 1, 64, -1), (0, 1, 64, 4)):
+        with pytest.raises(ValueError):
+            wk.bwd_plan(*bad)
+
+
+def test_wkv6_bwd_nc_passes_the_cluster_size(monkeypatch):
+    """``wkv6_bwd_nc`` (the plan sweep's entry) hands its cluster size to
+    ``rt_wkv6_bwd_nc`` just before the stream and counts no launch; the C
+    launch's refusal of a cluster size is a ValueError.  The C entry runs
+    only on the card, so a stand-in library takes the call here."""
+    calls = []
+
+    class Lib:
+        def rt_wkv6_bwd_nc(self, *args):
+            calls.append(args)
+            return runtime.CUDA_ERROR_INVALID_VALUE if args[-2] == 3 else 0
+    monkeypatch.setattr(runtime, "library", Lib)
+    monkeypatch.setattr(runtime, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(runtime, "check_operands", lambda *a, **k: None)
+    B, T, H, hs = 1, 5, 2, 16
+    r, k, v = (torch.zeros((B, T, H, hs), dtype=torch.bfloat16)
+               for _ in range(3))
+    w, dy = torch.ones((B, T, H, hs)), torch.zeros((B, T, H, hs))
+    u, s0 = torch.zeros((H, hs)), torch.zeros((B, H, hs, hs))
+    n0 = dict(runtime.launch_counts)
+    grads = wkv6_kernel.wkv6_bwd_nc(r, k, v, w, u, s0, dy, None, 2)
+    assert calls[-1][16:] == (B, T, H, hs,
+                              runtime.DTYPE_CODES[torch.bfloat16], 2, None)
+    assert calls[-1][7] is None          # dsT absent
+    assert [(g.shape, g.dtype) for g in grads] == [
+        (r.shape, torch.bfloat16)] * 3 + [
+        (r.shape, torch.float32), (u.shape, torch.float32),
+        (s0.shape, torch.float32)]
+    with pytest.raises(ValueError, match="nc=3"):
+        wkv6_kernel.wkv6_bwd_nc(r, k, v, w, u, s0, dy, None, 3)
+    assert runtime.launch_counts == n0
